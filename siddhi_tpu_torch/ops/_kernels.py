@@ -1,0 +1,123 @@
+"""Build and bind the port's CUDA kernels (``siddhi_tpu_torch/csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface, at first use, and loaded with
+``ctypes``.  Libraries land in ``siddhi_tpu_torch/_build/`` named by a
+hash of their source and flags, so an edited source rebuilds and an
+unchanged one is reused within a checkout.  No PyTorch headers are
+involved: a build takes seconds, not minutes.
+
+:func:`build_all` starts one ``nvcc`` per source at once (used by
+``chip_smoke.py``); :func:`load_kernel` builds (if needed) and loads one.
+A build or load failure raises ``RuntimeError``: no caller falls back to
+a plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List, Optional
+
+_HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD = os.path.join(_HERE, "_build")
+
+#: Hopper only; no --use_fast_math (the Kahan lines must not be
+#: re-associated) and no FMA contraction, so the kernels compute the
+#: plain versions' float32 operations one for one.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: C entry points and their argument types, per source file
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "wagg_length": {
+        # values, ok_u8, ring, pos, cnt, runsum, comp, sums, counts,
+        # mins, maxs, P, T, W, want_minmax, stream
+        "wagg_length_step": [_VP] * 11 + [_I, _I, _I, _I, _VP],
+    },
+}
+
+_LOCK = threading.Lock()
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    p = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(p):
+        raise RuntimeError("nvcc not found (CUDA toolkit needed to build "
+                           "siddhi_tpu_torch/csrc kernels)")
+    return p
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(CSRC, name + ".cu")
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _nvcc_cmd(name: str, out: str, verbose: bool) -> List[str]:
+    cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", out,
+                                        os.path.join(CSRC, name + ".cu")]
+    if verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    return cmd
+
+
+def build_all(names: Optional[List[str]] = None,
+              verbose: bool = False) -> Dict[str, str]:
+    """Build every named source (default: all in SIGNATURES) that has no
+    up-to-date library, one ``nvcc`` process per source, all started
+    together.  Returns {name: compiler output} for the sources built."""
+    names = list(SIGNATURES) if names is None else names
+    os.makedirs(BUILD, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs[name] = (subprocess.Popen(
+            _nvcc_cmd(name, tmp, verbose), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out)
+    logs = {}
+    errors = []
+    for name, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        logs[name] = log
+        if p.returncode != 0:
+            errors.append(f"{name}.cu: nvcc exited {p.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return logs
+
+
+def load_kernel(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not os.path.exists(path):
+                build_all([name])
+            lib = ctypes.CDLL(path)
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _LOADED[name] = lib
+    return lib

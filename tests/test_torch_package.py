@@ -1,0 +1,235 @@
+"""Package rules of the torch port.
+
+- ``import siddhi_tpu_torch`` imports no jax (checked in a fresh
+  interpreter), and no source file of the port or ``chip_smoke.py``
+  imports jax or the JAX package;
+- the default device is CUDA: without CUDA, building a keyed
+  length-window runtime raises RuntimeError under 'auto' (no silent CPU
+  run and no silent host run);
+- device paths not yet ported fall back to the host under 'auto' with
+  "not yet ported" in the recorded reason, and raise under 'device'.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import siddhi_tpu_torch
+from siddhi_tpu_torch import SiddhiManager
+from siddhi_tpu_torch.utils.errors import SiddhiAppCreationError
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "siddhi_tpu_torch")
+
+
+def _sources():
+    for d, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module:
+            yield node.module
+
+
+def test_import_pulls_in_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    code = ("import sys, siddhi_tpu_torch\n"
+            "from siddhi_tpu_torch.plan import planner, wagg_compiler\n"
+            "from siddhi_tpu_torch.ops import windowed_agg, _kernels\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'siddhi_tpu' not in sys.modules, 'siddhi_tpu imported'\n")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_no_jax_nor_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib"), f"{path} imports {mod}"
+        assert top != "siddhi_tpu", f"{path} imports {mod}"
+
+
+WAGG_APP = """
+@app:playback
+define stream S (sym string, price float);
+partition with (sym of S) begin
+@info(name='q')
+from S[price > 1.0]#window.length(4)
+select sym, sum(price) as s, count() as n group by sym insert into Out;
+end;
+"""
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert SiddhiManager().siddhi_context.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        SiddhiManager().create_siddhi_app_runtime(WAGG_APP)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SiddhiManager().create_siddhi_app_runtime(
+            "@app:engine('device')\n" + WAGG_APP)
+
+
+def test_host_engine_needs_no_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rt = SiddhiManager().create_siddhi_app_runtime(
+        "@app:engine('host')\n" + WAGG_APP)
+    try:
+        assert not rt.partition_runtimes[0].device_mode
+    finally:
+        rt.shutdown()
+
+
+UNPORTED = {
+    # partitioned shapes: the partition runtime records the reason
+    "partition_pattern": ("""
+        define stream S (sym string, price float);
+        partition with (sym of S) begin
+        from every e1=S[price > 5.0] -> e2=S[price < e1.price]
+        select e1.sym as a, e2.price as p insert into Out; end;""", True),
+    "partition_time_window": ("""
+        define stream S (sym string, price float);
+        partition with (sym of S) begin
+        from S#window.time(1 sec)
+        select sym, sum(price) as s group by sym insert into Out; end;""",
+                              True),
+    # unpartitioned shapes: the query runtime records the reason
+    "filter": ("""
+        define stream S (sym string, price float);
+        from S[price > 5.0] select sym, price insert into Out;""", False),
+    "window_aggregate": ("""
+        define stream S (sym string, price float);
+        from S#window.length(3)
+        select sym, sum(price) as s group by sym insert into Out;""", False),
+    "pattern": ("""
+        define stream S (sym string, price float);
+        from every e1=S[price > 5.0] -> e2=S[price < e1.price]
+        select e1.sym as a insert into Out;""", False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_unported_kind_falls_back_under_auto(name):
+    text, partitioned = UNPORTED[name]
+    rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(text)
+    try:
+        if partitioned:
+            pr = rt.partition_runtimes[0]
+            assert not pr.device_mode
+            reason = pr.fallback_reason
+        else:
+            (qr,) = rt.query_runtimes.values()
+            assert qr.backend == "host"
+            reason = qr.backend_reason
+        assert "not yet ported" in reason
+    finally:
+        rt.shutdown()
+
+
+@pytest.mark.parametrize("name", ["partition_pattern", "filter", "pattern"])
+def test_unported_kind_raises_under_device(name):
+    text, _ = UNPORTED[name]
+    with pytest.raises(SiddhiAppCreationError, match="not yet ported"):
+        SiddhiManager(device="cpu").create_siddhi_app_runtime(
+            "@app:engine('device')\n" + text)
+
+
+STRING_FILTER_APP = WAGG_APP.replace("S[price > 1.0]",
+                                     "S[sym != 'x' and price > 1.0]")
+
+
+def test_expression_rejection_falls_back_under_auto():
+    """A filter over a string attribute (no device lane) is the
+    expression's own rejection (SiddhiAppCreationError): a host run under
+    'auto', a raise under 'device'."""
+    import numpy as np
+    from siddhi_tpu_torch.plan.wagg_compiler import CompiledWindowedAgg
+    cwa = CompiledWindowedAgg("""
+        define stream S (sym string, price float);
+        @info(name='q')
+        from S[sym != 'x' and price > 1.0]#window.length(4)
+        select sym, sum(price) as s group by sym insert into Out;""",
+                              n_partitions=2, device="cpu")
+    block = {"price": np.ones((2, 1), np.float32),
+             "__ts": np.zeros((2, 1), np.int32),
+             "__valid": np.ones((2, 1), bool)}
+    with pytest.raises(SiddhiAppCreationError,
+                       match="expression rejected.*KeyError"):
+        cwa.process_block(block)
+
+    rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(
+        STRING_FILTER_APP)
+    try:
+        assert not rt.partition_runtimes[0].device_mode
+    finally:
+        rt.shutdown()
+    with pytest.raises(SiddhiAppCreationError):
+        SiddhiManager(device="cpu").create_siddhi_app_runtime(
+            "@app:engine('device')\n" + STRING_FILTER_APP)
+
+
+@pytest.mark.parametrize("where", ["to_device", "step", "program_launch"])
+def test_device_failure_is_not_a_fallback(where, monkeypatch):
+    """A failed copy, allocation or launch while the runtime is built
+    propagates under 'auto': it never turns into a host run."""
+    from siddhi_tpu_torch.plan import wagg_compiler
+
+    def fail(*_a, **_k):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (simulated)")
+
+    if where == "to_device":
+        monkeypatch.setattr(wagg_compiler.CompiledWindowedAgg, "to_device",
+                            fail)
+    elif where == "step":
+        monkeypatch.setattr(wagg_compiler, "wagg_step", fail)
+    else:
+        # a launch inside the filter program: its mask combine
+        monkeypatch.setattr(torch.Tensor, "__and__", fail)
+    with pytest.raises(RuntimeError, match="simulated"):
+        SiddhiManager(device="cpu").create_siddhi_app_runtime(WAGG_APP)
+
+
+def test_shard_out_not_yet_ported(monkeypatch):
+    monkeypatch.setenv("SIDDHI_TPU_SHARDS", "2")
+    rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(WAGG_APP)
+    try:
+        pr = rt.partition_runtimes[0]
+        assert not pr.device_mode
+        assert "not yet ported" in pr.fallback_reason
+    finally:
+        rt.shutdown()
+
+
+def test_plan_verify_records_jaxpr_pass_as_skipped():
+    from siddhi_tpu_torch.analysis.plan_verify import attach_plan_analysis
+    rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(WAGG_APP)
+    try:
+        rep = attach_plan_analysis(rt, jaxpr=True)
+        assert rep.skipped and "not run under torch" in rep.skipped[0]
+        assert rt.partition_runtimes[0].device_mode
+    finally:
+        rt.shutdown()
+
+
+def test_public_surface():
+    for name in ("SiddhiManager", "StreamCallback", "ColumnarStreamCallback",
+                 "InMemoryPersistenceStore"):
+        assert hasattr(siddhi_tpu_torch, name)
