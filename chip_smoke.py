@@ -10,8 +10,10 @@ raises, so the script exits non-zero and prints no ``ok`` line:
   1. device line: the card, its power limit, and the build of every
      kernel in siddhi_tpu_torch/csrc (one nvcc per source, in parallel);
   2. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes and others (outputs and carry must be equal),
-     then both timed with CUDA events;
+     main path's shapes and others (T >= W, a ring or block above shared
+     memory, the planner's all-rejected warm block, a +-inf/NaN feed, a
+     partly filled carry; outputs and carry must be equal), then both
+     timed with CUDA events, K1 on its min/max and sum-only paths;
   3. the main path at full width — BASELINE config 2: one app of Q
      partitioned length(1000) filter+groupBy aggregations over 1024
      string keys, fed N chunks of 262,144 events through the public API
@@ -53,6 +55,7 @@ N_KEYS = 1024
 CHUNK = 262_144
 WINDOW = 1000
 TIMED_LAUNCHES = 20
+SLEEP_CYCLES = 2_000_000                  # ~1 ms at the H100's clock
 
 
 def log(*a):
@@ -102,22 +105,41 @@ def _abs_err(a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def check_wagg(shapes, dev, rng):
-    """K1 vs wagg_step_plain over three chained blocks per case."""
+def _feed(rng, P, T, dens, feed, dev):
+    import torch
+    v = rng.uniform(0, 100, (P, T)).astype(np.float32)
+    if feed == "nonfinite":
+        v[rng.random((P, T)) < 0.05] = np.inf
+        v[rng.random((P, T)) < 0.05] = -np.inf
+        v[rng.random((P, T)) < 0.02] = np.nan
+    return (torch.tensor(v, device=dev),
+            torch.tensor(rng.random((P, T)) < dens, device=dev))
+
+
+def check_wagg(cases, dev, rng):
+    """K1 vs wagg_step_plain, both paths, over chained blocks per case:
+    a case is (P, W, T) or a dict with P, W, T and optionally densities,
+    blocks, feed ("uniform" or "nonfinite") and fill (accepted events
+    run through both from a fresh carry first: a partly filled ring)."""
     import torch
     from siddhi_tpu_torch.ops.windowed_agg import (make_wagg_carry,
                                                    wagg_step,
                                                    wagg_step_plain)
     worst = 0.0
-    for (P, W, T) in shapes:
+    for case in cases:
+        if not isinstance(case, dict):
+            case = dict(zip("PWT", case))
+        P, W, T = case["P"], case["W"], case["T"]
+        fill = case.get("fill", 0)
+        feed = case.get("feed", "uniform")
         for minmax in (False, True):
-            for dens in (0.0, 0.6, 1.0):
+            for dens in case.get("densities", (0.0, 0.6, 1.0)):
                 ck = make_wagg_carry(P, W, dev)
                 cp = make_wagg_carry(P, W, dev)
-                for _ in range(3):
-                    v = torch.tensor(rng.uniform(0, 100, (P, T))
-                                     .astype(np.float32), device=dev)
-                    a = torch.tensor(rng.random((P, T)) < dens, device=dev)
+                steps = [(fill, 1.0)] if fill else []
+                steps += [(T, dens)] * case.get("blocks", 3)
+                for t, d in steps:
+                    v, a = _feed(rng, P, t, d, feed, dev)
                     ck, ok_ = wagg_step(ck, v, a, minmax)
                     cp, op_ = wagg_step_plain(cp, v, a, minmax)
                     torch.cuda.synchronize()
@@ -126,13 +148,15 @@ def check_wagg(shapes, dev, rng):
                         if not _equal(x, y):
                             raise AssertionError(
                                 f"wagg_length_step != plain at P={P} W={W} "
-                                f"T={T} minmax={minmax} density={dens}")
+                                f"T={t} minmax={minmax} density={d} "
+                                f"feed={feed} fill={fill}")
                 log(f"  wagg_length_step == plain  P={P} W={W} T={T} "
-                    f"minmax={int(minmax)} density={dens}")
+                    f"minmax={int(minmax)} density={dens} feed={feed} "
+                    f"fill={fill}")
     return worst
 
 
-def time_wagg(P, W, T, dev, rng):
+def time_wagg(P, W, T, dev, rng, minmax):
     """Median ms of TIMED_LAUNCHES launches of the kernel and of the plain
     version, on a carry in steady state (full windows), L2 flushed before
     each launch; plus the bound for that launch's work."""
@@ -154,6 +178,9 @@ def time_wagg(P, W, T, dev, rng):
         times = []
         for _ in range(TIMED_LAUNCHES):
             flush.zero_()
+            # the card waits while the host enqueues the launch, so the
+            # events time the kernel and not the wrapper's host work
+            torch.cuda._sleep(SLEEP_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -164,16 +191,26 @@ def time_wagg(P, W, T, dev, rng):
         return float(np.median(times))
 
     launches0 = wagg_step.launches
-    ms = median_ms(lambda: wagg_step(carry, v, a, True))
-    plain_ms = median_ms(lambda: wagg_step_plain(carry, v, a, True))
+    ms = median_ms(lambda: wagg_step(carry, v, a, minmax))
+    plain_ms = median_ms(lambda: wagg_step_plain(carry, v, a, minmax))
     wagg_step.launches = launches0        # timing launches are not the path
-    # bound: bytes each input read once / output written once (values,
-    # ok, sums, counts, mins, maxs; the ring and the per-lane carry read
-    # and written), and the operations this data needs: per accepted
-    # event the Kahan update and an incremental extremum's amortized
-    # compares for each of min and max (a monotonic deque)
-    nbytes = P * T * (4 + 1 + 4 + 4 + 4 + 4) + 2 * P * W * 4 + 2 * P * 16
-    ops = float(a.sum()) * (KAHAN_OPS + 2 * EXTREMUM_COMPARES)
+    # bound: bytes each input read once / output written once, and the
+    # operations this data needs.  Sum/count: values, ok, sums, counts,
+    # the per-lane carry read and written, and per lane the min(a, W)
+    # ring slots that change (the evicted value read, the new one
+    # written); Kahan update per accepted event.  With min/max also mins,
+    # maxs, the whole ring read (every live slot is in some window) but
+    # only the changed slots written, and an incremental extremum's
+    # amortized compares for each of min and max (a monotonic deque)
+    accepted = float(a.sum())
+    changed = float(a.sum(dim=1).clamp(max=W).sum())
+    if minmax:
+        nbytes = (P * T * (4 + 1 + 4 + 4 + 4 + 4) + P * W * 4 + changed * 4
+                  + 2 * P * 16)
+        ops = accepted * (KAHAN_OPS + 2 * EXTREMUM_COMPARES)
+    else:
+        nbytes = P * T * (4 + 1 + 4 + 4) + changed * 8 + 2 * P * 16
+        ops = accepted * KAHAN_OPS
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return ms, plain_ms, max(t_bytes, t_ops), \
@@ -506,14 +543,29 @@ def main(argv=None) -> int:
     # (ops/pack.pack_blocks)
     t_main = max(int(np.bincount(c[2], minlength=N_KEYS).max())
                  for c in chunks)
-    shapes = [(N_KEYS, WINDOW, 256), (N_KEYS, WINDOW, t_main), (1000, 5, 1),
-              (33, 1, 64)]
-    max_err = check_wagg(shapes, dev, rng)
-    ms, plain_ms, bound_ms, bound_by = time_wagg(N_KEYS, WINDOW, t_main,
-                                                 dev, rng)
-    log(f"  wagg_length_step at P={N_KEYS} W={WINDOW} T={t_main} min/max: "
-        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
-        f"{bound_by}); max abs err {max_err}")
+    cases = [
+        (N_KEYS, WINDOW, 256), (N_KEYS, WINDOW, t_main), (1000, 5, 1),
+        (33, 1, 64),
+        (N_KEYS, 64, t_main),                       # T >= W, a > W
+        dict(P=64, W=65536, T=300),                 # ring above smem
+        dict(P=2, W=4, T=20_000, densities=(0.6,), blocks=2),  # T above
+        dict(P=N_KEYS, W=WINDOW, T=1, densities=(0.0,), blocks=1),  # warm
+        dict(P=N_KEYS, W=WINDOW, T=t_main, densities=(0.6,),
+             feed="nonfinite"),                     # +-inf / NaN feed
+        dict(P=256, W=16, T=40, feed="nonfinite"),
+        dict(P=N_KEYS, W=WINDOW, T=t_main, densities=(0.6, 1.0),
+             fill=WINDOW // 2 + 7),                 # partly filled carry
+    ]
+    max_err = check_wagg(cases, dev, rng)
+    timed = {}
+    for minmax in (True, False):
+        timed[minmax] = time_wagg(N_KEYS, WINDOW, t_main, dev, rng, minmax)
+        ms, plain_ms, bound_ms, bound_by = timed[minmax]
+        log(f"  wagg_length_step at P={N_KEYS} W={WINDOW} T={t_main} "
+            f"{'min/max' if minmax else 'sum-only'}: {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}, "
+            f"{bound_ms / ms * 100:.2f}% of the bound reached); max abs err "
+            f"{max_err}")
 
     log("== phase 3: main path (BASELINE config 2) on the device engine")
     launches, wall = run_main_path(args.queries, names, chunks, dev)
@@ -525,14 +577,21 @@ def main(argv=None) -> int:
     engine_parity(dev, args.seed)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
+    def timing(minmax):
+        ms, plain_ms, bound_ms, bound_by = timed[minmax]
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "shape": {"P": N_KEYS, "W": WINDOW, "T": t_main,
+                          "minmax": minmax}}
+
+    # one kernel (one entry point); the main path runs its min/max path,
+    # and its sum-only path (queries without min/max) is timed beside it
     kernels = [{
         "name": "wagg_length_step", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/wagg_length.cu",
         "replaces": "siddhi_tpu/ops/windowed_agg.py:185",
         "checked": True, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-        "shape": {"P": N_KEYS, "W": WINDOW, "T": t_main, "minmax": True}}]
+        **timing(True), "sum_only": timing(False)}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

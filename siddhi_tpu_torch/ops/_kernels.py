@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_HERE, "csrc")
@@ -34,13 +34,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
-#: C entry points and their argument types, per source file
-SIGNATURES: Dict[str, Dict[str, list]] = {
+#: C entry points, per source file: (return type, argument types)
+SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
     "wagg_length": {
         # values, ok_u8, ring, pos, cnt, runsum, comp, sums, counts,
-        # mins, maxs, P, T, W, want_minmax, stream
-        "wagg_length_step": [_VP] * 11 + [_I, _I, _I, _I, _VP],
+        # mins, maxs, P, T, W, want_minmax, scratch, stream
+        "wagg_length_step": (_I, [_VP] * 11 + [_I, _I, _I, _I, _VP, _VP]),
+        # P, T, W, want_minmax -> bytes of device scratch the step needs
+        "wagg_length_scratch_bytes": (_LL, [_I, _I, _I, _I]),
     },
 }
 
@@ -115,9 +118,9 @@ def load_kernel(name: str) -> ctypes.CDLL:
             if not os.path.exists(path):
                 build_all([name])
             lib = ctypes.CDLL(path)
-            for fn, argtypes in SIGNATURES[name].items():
+            for fn, (restype, argtypes) in SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
-                f.restype = ctypes.c_int
+                f.restype = restype
             _LOADED[name] = lib
     return lib

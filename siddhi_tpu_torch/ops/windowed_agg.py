@@ -51,9 +51,24 @@ CARRY_DTYPES = (torch.float32, torch.int32, torch.int32, torch.float32,
                 torch.float32)
 
 
+def kernel_device(device=None) -> torch.device:
+    """The torch device ``device`` names, ``"cuda"`` when it is None.  A
+    CUDA device with no CUDA present raises ``RuntimeError`` (never a
+    silent CPU run)."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device engine on '{dev}' but torch.cuda.is_available() is "
+            f"False; pass SiddhiManager(device='cpu') to run the plain "
+            f"PyTorch versions, or @app:engine('host')")
+    return dev
+
+
 def make_wagg_carry(n_partitions: int, window: int,
-                    device="cpu") -> WaggCarry:
-    z = dict(device=device)
+                    device=None) -> WaggCarry:
+    """An empty carry on ``device`` (default: the card, see
+    :func:`kernel_device`)."""
+    z = dict(device=kernel_device(device))
     return WaggCarry(
         ring=torch.zeros((n_partitions, window), dtype=torch.float32, **z),
         pos=torch.zeros((n_partitions,), dtype=torch.int32, **z),
@@ -128,7 +143,10 @@ def wagg_step(carry: WaggCarry, values: torch.Tensor,
     ``wagg_length_step`` kernel on the current stream, which updates the
     carry IN PLACE (the JAX package donates it instead) and returns the
     same carry object; a failed build, load or launch raises — there is
-    no fallback to the plain version."""
+    no fallback to the plain version.  Where a lane's working set does
+    not fit in shared memory (large W or T) the kernel works from device
+    scratch allocated here.  The kernel's min/max path takes the carry
+    invariant every step keeps: ``pos == cnt`` while ``cnt < W``."""
     dev = values.device
     if dev.type == "cpu":
         return wagg_step_plain(carry, values, accepted, want_minmax)
@@ -141,6 +159,9 @@ def wagg_step(carry: WaggCarry, values: torch.Tensor,
     for name, leaf, dt in zip(WaggCarry._fields, carry, CARRY_DTYPES):
         _check(name, leaf, dt, (P, W) if name == "ring" else (P,), dev)
     lib = load_kernel("wagg_length")
+    nscratch = lib.wagg_length_scratch_bytes(P, T, W, int(want_minmax))
+    scratch = (torch.empty(nscratch, dtype=torch.uint8, device=dev)
+               if nscratch else None)
     sums = torch.empty((P, T), dtype=torch.float32, device=dev)
     counts = torch.empty((P, T), dtype=torch.int32, device=dev)
     mins: Optional[torch.Tensor] = None
@@ -156,7 +177,8 @@ def wagg_step(carry: WaggCarry, values: torch.Tensor,
         sums.data_ptr(), counts.data_ptr(),
         mins.data_ptr() if want_minmax else None,
         maxs.data_ptr() if want_minmax else None,
-        P, T, W, int(want_minmax), stream)
+        P, T, W, int(want_minmax),
+        scratch.data_ptr() if scratch is not None else None, stream)
     if rc != 0:
         raise RuntimeError(f"wagg_length_step: launch failed with CUDA "
                            f"error {rc}")

@@ -33,8 +33,8 @@ from ..core.stateschema import (CarryTuple, Scalar, Struct,
 from ..query_api.expression import AttributeFunction, Variable
 from ..utils.errors import SiddhiAppCreationError
 from .expr_compiler import EvalCtx, ExprCompiler, Scope, TorchXP
-from ..ops.windowed_agg import (CARRY_DTYPES, WaggCarry, make_wagg_carry,
-                                wagg_step)
+from ..ops.windowed_agg import (CARRY_DTYPES, WaggCarry, kernel_device,
+                                make_wagg_carry, wagg_step)
 
 _AGGS = {"sum", "count", "avg", "min", "max"}
 
@@ -45,22 +45,13 @@ _AGGS = {"sum", "count", "avg", "min", "max"}
 _EXPR_REJECTIONS = (KeyError, TypeError, AttributeError, NotImplementedError)
 
 
-def engine_device(device) -> torch.device:
-    """The torch device a device runtime builds on.  A CUDA device with
-    no CUDA present raises ``RuntimeError`` (never a silent CPU run)."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device engine on '{dev}' but torch.cuda.is_available() is "
-            f"False; pass SiddhiManager(device='cpu') to run the plain "
-            f"PyTorch versions, or @app:engine('host')")
-    return dev
-
-
-def carry_from_reference(state: dict, device="cpu") -> WaggCarry:
+def carry_from_reference(state: dict, device=None) -> WaggCarry:
     """The port's carry from the dict the JAX package's
     ``CompiledWindowedAgg.current_state()`` returns (numpy leaves in
-    WaggCarry order), placed on ``device``."""
+    WaggCarry order), placed on ``device`` (default: the card).  Every
+    carry a step produces has ``pos == cnt`` in a lane whose ring is not
+    yet full (the ring fills from slot 0), and the kernel's min/max path
+    takes it so: a state that breaks it raises ``ValueError``."""
     if state.get("window_kind", "length") != "length":
         raise SiddhiAppCreationError(
             "time-window aggregation state not yet ported to the torch "
@@ -69,7 +60,16 @@ def carry_from_reference(state: dict, device="cpu") -> WaggCarry:
     if len(leaves) != len(WaggCarry._fields):
         raise ValueError(f"length-window carry has {len(WaggCarry._fields)}"
                          f" leaves, got {len(leaves)}")
-    dev = torch.device(device)
+    window = np.asarray(leaves[0]).shape[1]
+    pos, cnt = np.asarray(leaves[1]), np.asarray(leaves[2])
+    bad = np.flatnonzero((cnt < window) & (pos != cnt))
+    if bad.size:
+        p = int(bad[0])
+        raise ValueError(
+            f"length-window carry: lane {p} has cnt {int(cnt[p])} < W "
+            f"{window} but pos {int(pos[p])} != cnt ({bad.size} such "
+            f"lanes); a length window fills its ring from slot 0")
+    dev = kernel_device(device)
     return WaggCarry(*[torch.tensor(np.asarray(a), dtype=dt, device=dev)
                        for a, dt in zip(leaves, CARRY_DTYPES)])
 
@@ -138,7 +138,7 @@ class CompiledWindowedAgg:
                 raise SiddhiAppCreationError(
                     "windowed-agg select supports sum/count/avg/min/max of "
                     "one expression plus key attributes")
-        self.device = engine_device(device)
+        self.device = kernel_device(device)
         xp = TorchXP(self.device)
         self._xp = xp
         scope = Scope()
