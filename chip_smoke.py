@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (siddhi_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--chunks N] [--queries Q] [--seed S]
+    python3 chip_smoke.py [--chunks N] [--queries Q] [--pattern-chunks M]
+                          [--seed S]
 
 Run from the root of a checkout on a machine with a CUDA GPU, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA.  Phases, in order; any failure
@@ -22,7 +23,18 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      query are held against a float64 numpy sliding-window reference;
   4. engine parity on the card: a small app through the device engine on
      CUDA, on the CPU (plain versions) and through the host engine;
-  5. one JSON line per the kernel table, the nvidia-smi line, and the
+  5. the NFA step kernel against its plain version on the card, exactly
+     (every carry leaf and output), at the pattern cell's shape and on a
+     forced-drop ring, K above one warp, a 3-unit chain, a non-every
+     chain, two streams, no `within` and an all-invalid block; both
+     timed; the egress compaction (torch.nonzero_static) against numpy;
+  6. the pattern cell at full width — __graft_entry__.PARTITIONED_APP
+     over 10,000 integer keys (BASELINE config 3's keyed stream, one
+     pattern), M chunks of 262,144 events through the public API on the
+     device engine; the query must run on the NFA kernel, every match
+     row is held against an independent per-key reference;
+  7. engine parity for the pattern app: CUDA kernel, CPU plain, host;
+  8. one JSON line per the kernel table, the nvidia-smi line, and the
      last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the siddhi_tpu_torch package beside this file,
@@ -156,6 +168,27 @@ def check_wagg(cases, dev, rng):
     return worst
 
 
+def median_ms(fn, dev, n=TIMED_LAUNCHES):
+    """Median ms of n runs of fn between CUDA events, the 50 MB L2
+    flushed before each run and the card asleep while the host enqueues
+    it (so the events time the device work, not the wrapper's host
+    work)."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    times = []
+    for _ in range(n):
+        flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
 def time_wagg(P, W, T, dev, rng, minmax):
     """Median ms of TIMED_LAUNCHES launches of the kernel and of the plain
     version, on a carry in steady state (full windows), L2 flushed before
@@ -172,27 +205,9 @@ def time_wagg(P, W, T, dev, rng, minmax):
     v = torch.tensor(rng.uniform(0, 100, (P, T)).astype(np.float32),
                      device=dev)
     a = v > 25.0                          # the density of a mid query
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-
-    def median_ms(fn):
-        times = []
-        for _ in range(TIMED_LAUNCHES):
-            flush.zero_()
-            # the card waits while the host enqueues the launch, so the
-            # events time the kernel and not the wrapper's host work
-            torch.cuda._sleep(SLEEP_CYCLES)
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            torch.cuda.synchronize()
-            times.append(s.elapsed_time(e))
-        return float(np.median(times))
-
     launches0 = wagg_step.launches
-    ms = median_ms(lambda: wagg_step(carry, v, a, minmax))
-    plain_ms = median_ms(lambda: wagg_step_plain(carry, v, a, minmax))
+    ms = median_ms(lambda: wagg_step(carry, v, a, minmax), dev)
+    plain_ms = median_ms(lambda: wagg_step_plain(carry, v, a, minmax), dev)
     wagg_step.launches = launches0        # timing launches are not the path
     # bound: bytes each input read once / output written once, and the
     # operations this data needs.  Sum/count: values, ok, sums, counts,
@@ -504,12 +519,449 @@ def engine_parity(dev, seed):
             f"engine (sum/avg rel <= 1e-5, rest exact)")
 
 
+# ------------------------------------------------------------------ phase 5
+
+#: __graft_entry__.PARTITIONED_APP, verbatim (BASELINE config 1's pattern
+#: on the partitioned stream); tests/test_torch_engine_pattern.py holds the
+#: two texts equal
+PARTITIONED_APP = """
+@app:playback
+define stream S (partition int, price float, kind int);
+partition with (partition of S) begin
+@info(name='q')
+from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 and price > e1.price]
+    within 10 sec
+select e1.price as p1, e2.price as p2
+insert into Out;
+end;
+"""
+
+N_PATTERN_KEYS = 10_000
+PATTERN_LANES = 16_384                    # @app:lanes('10000') rounds up
+PATTERN_SLOTS = 8
+WITHIN_MS = 10_000
+PATTERN_BASE_TS = 1_000_000
+
+#: phase-5 pattern shapes beyond the main path's
+NFA_CASES = {
+    "rare_close": (
+        "define stream S (partition int, price float, kind int);\n"
+        "from every e1=S[kind == 0] -> e2=S[kind == 1 and price > 99.0 "
+        "and price > e1.price] within 10 sec select e1.price as p1, "
+        "e2.price as p2 insert into Out;"),
+    "chain3": (
+        "define stream S (partition int, price float, kind int);\n"
+        "from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 "
+        "and price > e1.price] -> e3=S[kind == 0 and price < e2.price "
+        "and price != e1.price] within 10 sec select e1.price as p1, "
+        "e2.price as p2, e3.price as p3 insert into Out;"),
+    "no_every": (
+        "define stream S (partition int, price float, kind int);\n"
+        "from e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 and "
+        "price > e1.price] within 10 sec select e1.price as p1, "
+        "e2.price as p2 insert into Out;"),
+    "two_streams": (
+        "define stream S (partition int, price float, kind int);\n"
+        "define stream Q (partition int, price float, qty int);\n"
+        "from every e1=S[kind == 0 and price > 50.0] -> e2=Q[price > "
+        "e1.price and qty >= 2] within 10 sec select e1.price as p1, "
+        "e2.qty as q insert into Out;"),
+    "no_within": (
+        "define stream S (partition int, price float, kind int);\n"
+        "from every e1=S[kind == 0 and price > 90.0] -> e2=S[kind == 1 "
+        "and price > e1.price] select e1.price as p1, e2.price as p2 "
+        "insert into Out;"),
+}
+
+
+def pattern_query(app_text: str) -> str:
+    """The pattern query of a partitioned app, as a plain app (the NFA
+    engine's own input)."""
+    head, body = app_text.split("partition with", 1)
+    query = body.split("begin", 1)[1].rsplit("end;", 1)[0]
+    return head.replace("@app:playback", "") + query
+
+
+def make_pattern_chunks(seed: int, n_chunks: int, n_keys=N_PATTERN_KEYS,
+                        chunk=CHUNK):
+    """The pattern cell's feed: per chunk (columns, timestamps) with
+    integer keys drawn uniformly, price uniform in [0, 100), kind
+    uniform in {0, 1}, timestamps 1 ms apart from 1,000,000."""
+    rng = np.random.default_rng(seed + 2)
+    out = []
+    for c in range(n_chunks):
+        out.append(({"partition": rng.integers(0, n_keys, chunk)
+                     .astype(np.int32),
+                     "price": rng.uniform(0, 100, chunk).astype(np.float32),
+                     "kind": rng.integers(0, 2, chunk).astype(np.int32)},
+                    PATTERN_BASE_TS + c * chunk +
+                    np.arange(chunk, dtype=np.int64)))
+    return out
+
+
+def pattern_reference(chunks):
+    """Independent reference of PARTITIONED_APP, per key in numpy/Python:
+    each `kind == 0 and price > 50` event opens a partial (p1, ts1); a
+    later same-key `kind == 1` event with price > p1 closes every such
+    open partial, emitting (p1, p2) in arm order; a partial older than
+    `within` (ts - ts1 > 10000) dies first.  Returns rows (ts, p1, p2)
+    in emission order: by ts, then by arm time."""
+    keys = np.concatenate([c[0]["partition"] for c in chunks])
+    price = np.concatenate([c[0]["price"] for c in chunks])
+    kind = np.concatenate([c[0]["kind"] for c in chunks])
+    ts = np.concatenate([c[1] for c in chunks])
+    order = np.argsort(keys, kind="stable")
+    bounds = np.searchsorted(keys[order], np.arange(keys.max() + 2))
+    rows = []
+    for k in range(len(bounds) - 1):
+        idx = order[bounds[k]:bounds[k + 1]]
+        open_ = []                       # (ts1, p1), in arm order
+        for t, p, kd in zip(ts[idx].tolist(), price[idx].tolist(),
+                            kind[idx].tolist()):
+            open_ = [o for o in open_ if t - o[0] <= WITHIN_MS]
+            if kd == 1 and open_:
+                # float32 values compare exactly as Python floats
+                keep = []
+                for o in open_:
+                    if p > o[1]:
+                        rows.append((t, o[0], o[1], p))
+                    else:
+                        keep.append(o)
+                open_ = keep
+            if kd == 0 and p > 50.0:
+                open_.append((t, p))
+    rows.sort(key=lambda r: (r[0], r[1]))
+    return ([r[0] for r in rows], np.asarray([r[2] for r in rows],
+                                             np.float32),
+            np.asarray([r[3] for r in rows], np.float32))
+
+
+def _nfa_blocks(nfa, P, T, n_blocks, seed, dev, valid=True, gap=1000,
+                nan=False):
+    """n_blocks chained [P, T] blocks of random events on `dev` (T events
+    per lane, every stream of the spec, the kernel's dtypes), `gap` ms
+    apart in each lane; with `nan`, 5% of prices are NaN."""
+    import torch
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(n_blocks):
+        blk = {}
+        for a in nfa.attr_names:
+            if a in ("kind", "qty"):
+                v = rng.integers(0, 3 if a == "qty" else 2, (P, T))
+            else:
+                v = rng.uniform(0, 100, (P, T))
+                if nan:
+                    v[rng.random((P, T)) < 0.05] = np.nan
+            blk[a] = torch.tensor(v.astype(np.float32), device=dev)
+        base = b * T * gap
+        blk["__ts"] = torch.tensor(
+            (base + np.arange(T)[None, :] * gap +
+             rng.integers(0, gap, (P, 1)))
+            .astype(np.int32), device=dev)
+        blk["__stream"] = torch.tensor(
+            rng.integers(0, len(nfa.stream_codes), (P, T)).astype(np.int32),
+            device=dev)
+        vmask = rng.random((P, T)) < 0.9 if valid else np.zeros((P, T), bool)
+        blk["__valid"] = torch.tensor(vmask, device=dev)
+        out.append(blk)
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return bool((a.view(torch.int32) == b.view(torch.int32)).all())
+    return bool((a == b).all())
+
+
+def check_nfa(t_main, dev, seed):
+    """nfa_step vs nfa_block_step_plain on the card, every carry leaf and
+    output bit for bit, over chained blocks per case.  Returns the
+    number of cases and the worst absolute difference (0.0 when
+    equal)."""
+    import torch
+    from siddhi_tpu_torch.ops.nfa import nfa_block_step, nfa_block_step_plain
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
+    main = pattern_query(PARTITIONED_APP)
+    cases = [  # (name, app, P, T, K, blocks, valid, gap ms)
+        ("main", main, PATTERN_LANES, t_main, PATTERN_SLOTS, 2, True, 1000),
+        ("K=1 drops", main, 4096, 64, 1, 2, True, 1000),
+        # rare completions: partials pile up past one warp's 32 slots
+        ("K=40", NFA_CASES["rare_close"], 1024, 200, 40, 2, True, 10),
+        ("warm all-invalid", main, PATTERN_LANES, 1, PATTERN_SLOTS, 1,
+         False, 1000),
+    ] + [(n, a, 2048, 64, 8, 2, True, 1000) for n, a in NFA_CASES.items()
+         if n != "rare_close"]
+    nan_cases = {"chain3"}      # NaN prices through gates and compares
+    worst = 0.0
+    launches0 = nfa_block_step.launches
+    for i, (name, app, P, T, K, n_blocks, valid, gap) in enumerate(cases):
+        nfa = CompiledPatternNFA(app, n_partitions=P, n_slots=K, device=dev)
+        ck = cp = nfa.carry
+        matches = hi = 0
+        for blk in _nfa_blocks(nfa, P, T, n_blocks, seed + i, dev, valid,
+                               gap, nan=name in nan_cases):
+            ck, yk = nfa_block_step(nfa.spec, ck, blk, nfa.kprog)
+            cp, yp = nfa_block_step_plain(nfa.spec, cp, blk)
+            torch.cuda.synchronize()
+            pairs = [(f"carry.{k}", ck[k], cp[k]) for k in cp] + \
+                list(zip(("mask", "caps", "ts", "enter", "seq"), yk, yp))
+            for what, x, y in pairs:
+                if not _same_bits(x, y):
+                    if x.dtype == y.dtype and x.shape == y.shape:
+                        worst = max(worst, float(
+                            (x.double() - y.double()).abs().max()))
+                    raise AssertionError(
+                        f"nfa_step != plain: {name} {what} (P={P} T={T} "
+                        f"K={K})")
+            matches += int(yp[0].sum())
+            hi = max(hi, int((cp["slot_state"] >= 0).sum(dim=1).max()))
+        dropped = int(cp["dropped"].sum())
+        if name == "K=1 drops" and dropped == 0:
+            raise AssertionError("K=1 case dropped nothing")
+        if name == "K=40" and hi <= 32:
+            raise AssertionError(f"K=40 case held at most {hi} partials in "
+                                 f"a lane (needs > 32)")
+        tag = " (NaN prices)" if name in nan_cases else ""
+        log(f"  nfa_step == plain  {name}{tag}: P={P} T={T} K={K} blocks="
+            f"{n_blocks} matches={matches} dropped={dropped} most live "
+            f"in a lane={hi}")
+    nfa_block_step.launches = launches0   # checks are not the main path
+    return len(cases), worst
+
+
+def nfa_bound(P, T, K, spec, kprog, cond_cmps):
+    """(bound ms, bound_by) of one nfa_step launch: the bytes the
+    function must move — the block's inputs read once, the carry read
+    once and written once, the dense outputs written once — over HBM3's
+    rate, against its compares (within check, state, stream, gate and
+    each table compare per event and slot) over the float32 peak."""
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    n_lanes = len(kprog.kern_attrs)
+    n_gates = len(spec.cond_fns)
+    inputs = P * T * (4 * n_lanes + 4 + 4 + 1 + n_gates)
+    carry = P * K * (4 * 4 + 4 * R * C) + P * 4 * (2 + int(spec.arm_once))
+    outputs = P * T * K * (1 + 12 + 4 * R * C)
+    nbytes = inputs + 2 * carry + outputs
+    ops = P * T * K * (4 + cond_cmps)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def time_nfa(t_main, dev, seed):
+    """Median ms of the kernel and of the plain version at the main
+    path's shape on a carry in steady state, plus the launch's bound."""
+    from siddhi_tpu_torch.ops.nfa import nfa_block_step, nfa_block_step_plain
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
+    P, T, K = PATTERN_LANES, t_main, PATTERN_SLOTS
+    nfa = CompiledPatternNFA(pattern_query(PARTITIONED_APP), n_partitions=P,
+                             n_slots=K, device=dev)
+    warm, blk = _nfa_blocks(nfa, P, T, 2, seed, dev)
+    carry, _ = nfa_block_step(nfa.spec, nfa.carry, warm, nfa.kprog)
+    launches0 = nfa_block_step.launches
+    ms = median_ms(lambda: nfa_block_step(nfa.spec, carry, blk, nfa.kprog),
+                   dev)
+    plain_ms = median_ms(lambda: nfa_block_step_plain(nfa.spec, carry, blk),
+                         dev, n=5)
+    nfa_block_step.launches = launches0
+    cmps = max(len(c) for c in nfa.kprog.cmp)
+    bound_ms, bound_by = nfa_bound(P, T, K, nfa.spec, nfa.kprog, cmps)
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def check_compaction(t_main, dev, seed):
+    """The egress compaction on the card (torch.nonzero_static) against a
+    numpy compaction of the same dense outputs."""
+    from siddhi_tpu_torch.ops.nfa import nfa_block_step
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
+    P, T, K = PATTERN_LANES, t_main, PATTERN_SLOTS
+    nfa = CompiledPatternNFA(pattern_query(PARTITIONED_APP), n_partitions=P,
+                             n_slots=K, device=dev)
+    launches0 = nfa_block_step.launches
+    for blk in _nfa_blocks(nfa, P, T, 2, seed, dev):
+        nfa.carry, outs = nfa_block_step(nfa.spec, nfa.carry, blk,
+                                         nfa.kprog)
+    nfa_block_step.launches = launches0
+    mask, caps, ts, enter, seq = [o.cpu().numpy() for o in outs]
+    idx = np.flatnonzero(mask.reshape(-1))
+    R, C = caps.shape[-2], caps.shape[-1]
+    want = np.concatenate([
+        idx.astype(np.int32)[:, None], ts.reshape(-1)[idx][:, None],
+        enter.reshape(-1)[idx][:, None], seq.reshape(-1)[idx][:, None],
+        caps.reshape(-1, R * C)[idx].view(np.int32)], axis=1)
+    for cap in (len(idx) + 7, max(len(idx) // 2, 1)):
+        buf = nfa._egress_pack_fn()(*outs, nfa.carry["dropped"], None, None,
+                                    cap).cpu().numpy()
+        n = min(cap, len(idx))
+        if not (np.array_equal(buf[:n], want[:n]) and
+                (buf[n:cap, 0] == -1).all() and
+                int(buf[-1, 0]) == len(idx)):
+            raise AssertionError(f"egress compaction != numpy (cap {cap})")
+    log(f"  egress compaction (torch.nonzero_static) == numpy: {len(idx)} "
+        f"matched slots of {mask.size}, caps {len(idx) + 7} and "
+        f"{max(len(idx) // 2, 1)}")
+
+
+# ------------------------------------------------------------------ phase 6
+
+def pattern_app() -> str:
+    """The pattern cell's app: PARTITIONED_APP with @app:lanes and the
+    @Async input junction of the config-2 app."""
+    return ("@app:name('pattern')\n"
+            f"@app:lanes('{N_PATTERN_KEYS}')\n" +
+            PARTITIONED_APP.replace(
+                "define stream",
+                f"@Async(buffer.size='64', batch.size.max='{CHUNK}')\n"
+                "define stream", 1))
+
+
+def run_pattern_path(chunks, dev):
+    import torch
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    from siddhi_tpu_torch.ops.nfa import nfa_block_step
+
+    n_chunks = len(chunks)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(pattern_app())
+    log(f"  app built in {time.perf_counter() - t0:.3f} s")
+    pr = rt.partition_runtimes[0]
+    if not pr.device_mode:
+        raise AssertionError(f"partition fell back to host: "
+                             f"{pr.fallback_reason}")
+    runtimes = []
+    for qname, qr in pr.device_query_runtimes.items():
+        if qr.backend != "device" or \
+                type(qr.device_runtime).__name__ != "DevicePatternRuntime":
+            raise AssertionError(f"{qname} is not on the device pattern path")
+        runtimes.append(qr.device_runtime)
+    got = {"ts": [], "p1": [], "p2": []}
+
+    def sink(chunk):
+        got["ts"].append(np.array(chunk.timestamps))
+        got["p1"].append(np.array(chunk.columns["p1"]))
+        got["p2"].append(np.array(chunk.columns["p2"]))
+    rt.add_callback("Out", ColumnarStreamCallback(sink))
+    rt.start()
+    h = rt.get_input_handler("S")
+
+    def drive():
+        t = time.perf_counter()
+        for cols, ts in chunks:
+            h.send_batch(cols, timestamps=ts)
+        rt.flush()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    from siddhi_tpu_torch.core.ledger import ledger
+    stage0 = dict(ledger().snapshot()["stage_seconds"])
+    nfa_block_step.launches = 0           # counts start here
+    wall, per_kernel, dev_us = profile_device(drive)
+    launches = nfa_block_step.launches
+    stage1 = ledger().snapshot()["stage_seconds"]
+    grows = sum(r.slot_grows for r in runtimes)
+    replays = sum(r.replays for r in runtimes)
+    k_final = runtimes[0].nfa.spec.n_slots
+    rt.shutdown()
+    n_events = n_chunks * CHUNK
+    cols = {k: np.concatenate(v) if v else np.zeros(0)
+            for k, v in got.items()}
+    log(f"  pattern path: {n_events} events ({n_chunks} chunks of "
+        f"{CHUNK}), {N_PATTERN_KEYS} keys, {wall:.3f} s wall")
+    log(f"  events/s: {n_events / wall:.1f}; ms per chunk: "
+        f"{wall / n_chunks * 1e3:.3f}; matches: {len(cols['ts'])}")
+    log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
+    log(f"  slot grows {grows}, replays {replays}, final K {k_final}")
+    log("  host stages (s): " + ", ".join(
+        f"{k} {stage1[k] - stage0.get(k, 0.0):.3f}" for k in stage1))
+    nfa_us = None
+    if per_kernel is not None:
+        nfa_us = sum(us for k, us in per_kernel.items() if "nfa_step" in k)
+        log(f"  nfa_step device time {nfa_us / 1e3:.3f} ms over {launches} "
+            f"launches = {nfa_us / 1e6 / wall * 100:.3f}% of wall; all "
+            f"device time {dev_us / 1e3:.3f} ms = "
+            f"{dev_us / 1e6 / wall * 100:.3f}% of wall (idle share "
+            f"{100 - dev_us / 1e6 / wall * 100:.3f}%)")
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        for k, us in top:
+            log(f"    device {us / 1e3:10.3f} ms  {k[:90]}")
+    else:
+        log("  torch.profiler recorded no device time: nfa_step share not "
+            "measured")
+    if launches < n_chunks:
+        raise AssertionError(f"nfa_step launched {launches} times, expected "
+                             f">= {n_chunks}")
+    t_ref = time.perf_counter()
+    rts, rp1, rp2 = pattern_reference(chunks)
+    if len(rts) != len(cols["ts"]):
+        raise AssertionError(f"pattern path: {len(cols['ts'])} rows, "
+                             f"reference {len(rts)}")
+    if not (np.array_equal(cols["ts"], np.asarray(rts, np.int64)) and
+            np.array_equal(cols["p1"].astype(np.float32), rp1) and
+            np.array_equal(cols["p2"].astype(np.float32), rp2)):
+        raise AssertionError("pattern path rows != reference")
+    log(f"  all {len(rts)} match rows == the per-key reference, in order "
+        f"and exactly (reference {time.perf_counter() - t_ref:.1f} s)")
+    return launches, wall
+
+
+# ------------------------------------------------------------------ phase 7
+
+def pattern_parity(dev, seed):
+    """A small feed through the pattern app on CUDA (kernel), on the CPU
+    (plain step) and through the host engine: the same rows."""
+    import torch
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+    from siddhi_tpu_torch.ops.nfa import nfa_block_step
+    feed = make_pattern_chunks(seed + 5, 4, n_keys=16, chunk=500)
+
+    def run(device, engine):
+        text = f"@app:engine('{engine}')\n" + PARTITIONED_APP
+        rt = SiddhiManager(device=device).create_siddhi_app_runtime(text)
+        out = []
+        rt.add_callback("Out", StreamCallback(
+            lambda evs: out.extend([e.timestamp] + list(e.data)
+                                   for e in evs)))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for cols, ts in feed:
+            h.send_batch(cols, timestamps=ts)
+        mode = rt.partition_runtimes[0].device_mode
+        rt.shutdown()
+        return out, mode
+
+    launches0 = nfa_block_step.launches
+    cuda_rows, on_dev = run(dev, "device")
+    if nfa_block_step.launches == launches0:
+        raise AssertionError("pattern parity: the CUDA run launched no "
+                             "nfa_step")
+    nfa_block_step.launches = launches0
+    torch.cuda.synchronize()
+    cpu_rows, _ = run("cpu", "device")
+    host_rows, on_host_dev = run(dev, "host")
+    if not on_dev or on_host_dev:
+        raise AssertionError("engine selection did not hold")
+    if cuda_rows != cpu_rows:
+        raise AssertionError("pattern: CUDA rows != CPU plain rows")
+    if sorted(cuda_rows) != sorted(host_rows):
+        raise AssertionError(f"pattern: device {len(cuda_rows)} rows != host "
+                             f"{len(host_rows)} rows")
+    log(f"  pattern: {len(cuda_rows)} rows; CUDA == CPU plain (in order) == "
+        f"host engine (sorted), exactly")
+
+
 # ------------------------------------------------------------------ main
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunks", type=int, default=16)
     ap.add_argument("--queries", type=int, default=100)
+    ap.add_argument("--pattern-chunks", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -575,6 +1027,31 @@ def main(argv=None) -> int:
 
     log("== phase 4: engine parity on the card")
     engine_parity(dev, args.seed)
+
+    log("== phase 5: NFA step kernel vs plain version on the card")
+    pchunks = make_pattern_chunks(args.seed, args.pattern_chunks)
+    # the pattern cell's widest block: events of the busiest key in a chunk
+    t_pat = max(int(np.bincount(c[0]["partition"],
+                                minlength=N_PATTERN_KEYS).max())
+                for c in pchunks)
+    n_cases, nfa_err = check_nfa(t_pat, dev, args.seed)
+    check_compaction(t_pat, dev, args.seed)
+    nfa_timed = time_nfa(t_pat, dev, args.seed)
+    ms, plain_ms, bound_ms, bound_by = nfa_timed
+    log(f"  nfa_step at P={PATTERN_LANES} T={t_pat} K={PATTERN_SLOTS}: "
+        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by "
+        f"{bound_by}, {bound_ms / ms * 100:.2f}% of the bound reached); "
+        f"{n_cases} cases equal, max abs err {nfa_err}")
+
+    log("== phase 6: pattern cell (PARTITIONED_APP, 10,000 keys) on the "
+        "device engine")
+    nfa_launches, _pwall = run_pattern_path(pchunks, dev)
+    if args.pattern_chunks < 16:
+        log(f"CUT: pattern cell at {args.pattern_chunks} chunks (full size "
+            f"is 16)")
+
+    log("== phase 7: engine parity for the pattern app on the card")
+    pattern_parity(dev, args.seed)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     def timing(minmax):
@@ -591,7 +1068,14 @@ def main(argv=None) -> int:
         "source": "siddhi_tpu_torch/csrc/wagg_length.cu",
         "replaces": "siddhi_tpu/ops/windowed_agg.py:185",
         "checked": True, "launches": launches, "max_abs_err": max_err,
-        **timing(True), "sum_only": timing(False)}]
+        **timing(True), "sum_only": timing(False)}, {
+        "name": "nfa_step", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
+        "replaces": "siddhi_tpu/ops/nfa.py:579",
+        "checked": True, "launches": nfa_launches, "max_abs_err": nfa_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "shape": {"P": PATTERN_LANES, "T": t_pat, "K": PATTERN_SLOTS}}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

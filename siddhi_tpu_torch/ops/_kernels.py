@@ -45,6 +45,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         # P, T, W, want_minmax -> bytes of device scratch the step needs
         "wagg_length_scratch_bytes": (_LL, [_I, _I, _I, _I]),
     },
+    "nfa_step": {
+        # attrs, ts, stream, valid_u8, gates, prog, prog_len,
+        # carry in (st, start, enter, seq, arm_seq, caps, dropped, armed),
+        # carry out (the same eight), mask_u8, mcaps, mts, menter, mseq,
+        # P, T, K, stream
+        "nfa_step": (_I, [_VP] * 6 + [_I] + [_VP] * 21 + [_I] * 3 + [_VP]),
+    },
 }
 
 _LOCK = threading.Lock()

@@ -2,14 +2,16 @@
 the host oracle.
 
 Counterpart of ``siddhi_tpu/plan/planner.py``, carrying what the torch
-port's first slice needs: engine selection, keyed lanes, and the keyed
-length-window aggregation runtime (:class:`DeviceWindowedAggRuntime`).
-The other device runtimes of the JAX package (pattern NFA, grouped
-aggregation, stateless filter program) are later slices: their classes
-here raise ``SiddhiAppCreationError("<kind> not yet ported to the torch
-backend")``, so ``'auto'`` falls back to the host exactly as the JAX
-package's planner does for a query its device path cannot express, and
-``'device'`` raises.
+port's slices so far need: engine selection, keyed lanes, the pattern
+NFA runtime (:class:`DevicePatternRuntime`) and the keyed length-window
+aggregation runtime (:class:`DeviceWindowedAggRuntime`).  The other
+device runtimes of the JAX package (grouped aggregation, stateless filter
+program) are later slices: their classes here raise
+``SiddhiAppCreationError("<kind> not yet ported to the torch backend")``,
+so ``'auto'`` falls back to the host exactly as the JAX package's planner
+does for a query its device path cannot express, and ``'device'`` raises.
+On a CUDA device a pattern outside the NFA kernel's class is refused the
+same way (plan/nfa_compiler.py).
 
 Engine selection:
   - `@app:engine('host'|'device'|'auto')` app annotation, else
@@ -24,11 +26,12 @@ raises RuntimeError under every mode: it is never turned into a host run.
 from __future__ import annotations
 
 import os
+from collections import deque
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from ..query_api import find_annotation
+from ..query_api import StateInputStream, find_annotation
 from ..query_api.definition import Attribute, AttrType, StreamDefinition
 from ..query_api.expression import Variable
 from ..query_api.query import OutputEventsFor
@@ -39,6 +42,7 @@ from ..parallel.shards import build_shards, resolve_shards
 from .pipeline import HostCopy, PipelinedDeviceIngest
 
 ENGINE_ENV = "SIDDHI_TPU_ENGINE"
+DEFAULT_SLOTS = 8
 GROW_START = 8          # initial keyed-lane capacity (doubles on demand)
 
 
@@ -259,8 +263,372 @@ class _NotYetPorted:
             f"{self.kind} not yet ported to the torch backend")
 
 
-class DevicePatternRuntime(_NotYetPorted):
-    kind = "device pattern (NFA) path"
+@persistent_schema(
+    "keyed-pattern", version=1, schema=Keyed("nfa"),
+    doc="per-key NFA lanes: one flat slab keyed by the key→lane map")
+class DevicePatternRuntime:
+    """Pattern query running on the batched NFA step (plan/nfa_compiler
+    → ops/nfa → csrc/nfa_step.cu on CUDA).
+
+    Non-partitioned queries run a single lane (P=1); keyed mode (driven by
+    core/partition.py) maps partition-key values to lanes of a slab that
+    doubles on demand — the device replacement for the reference's per-key
+    runtime clones (partition/PartitionRuntime.java:255-308).  Ingest is
+    pipelined up to ``pipeline_depth`` chunks; a chunk whose slot ring
+    overflowed is replayed from its pre-chunk carry on a doubled ring
+    (grow-and-replay), so drops never lose matches.  Shard-out and the
+    cross-tenant packer are not yet ported."""
+
+    backend = "device"
+
+    def __init__(self, query_runtime, sis: StateInputStream, factory,
+                 key_executors: Optional[Dict[str, Any]] = None,
+                 n_slots: Optional[int] = None):
+        from ..core.event import dtype_for
+        from ..core.query_runtime import ProcessStreamReceiver
+        from .nfa_compiler import CompiledPatternNFA
+        from .pipeline import egress_fuser_for, resolve_depth
+
+        qr = query_runtime
+        app = qr.app_runtime
+        q = qr.query
+        sel = q.selector
+        if sel.group_by or sel.having is not None or sel.order_by or \
+                sel.limit is not None or sel.offset is not None:
+            raise SiddhiAppCreationError(
+                "device pattern path: group-by/having/order-by/limit are "
+                "host-only")
+        self.keyed = key_executors is not None
+        self.key_executors = key_executors or {}
+        telemetry = bool(getattr(app.app_ctx, "telemetry_enabled", False))
+        n_shards = resolve_shards() if self.keyed else 0
+        if n_shards >= 2:
+            build_shards(None, n_shards)          # raises: not yet ported
+        capacity = initial_lanes(app.app) if self.keyed else 1
+        self.nfa = CompiledPatternNFA(
+            app.app, n_partitions=capacity,
+            n_slots=DEFAULT_SLOTS if n_slots is None else n_slots, query=q,
+            telemetry=telemetry, device=app.app_ctx.siddhi_context.device)
+        self.key_lanes: Dict[Any, int] = KeyLanes()
+        self.qr = qr
+        self._dtype_for = dtype_for
+        self._dropped_seen = 0
+        self.slot_grows = 0         # K doublings by grow-and-replay
+        self.replays = 0            # chunks re-run after a slot overflow
+
+        # output definition straight from the capture-decode plan
+        # (encoded string captures decode back to STRING)
+        target = getattr(q.output_stream, "target_id", "") or qr.name
+        attrs = [Attribute(name, self.nfa.output_type(attr))
+                 for (name, _idx, attr, _w) in self.nfa.select_outputs]
+        out_def = StreamDefinition(target, attrs)
+
+        # run the condition programs and the step on an all-invalid block
+        # BEFORE wiring the output tail: an expression the torch program
+        # cannot evaluate rejects here (SiddhiAppCreationError, so the
+        # fallback stays clean), while a copy, allocation or kernel that
+        # fails raises as it is — it never becomes a host run
+        self._warm()
+        self.head = qr._finish_device_chain(out_def, factory)
+        # outputs decoding from maybe-unmatched rows (or-sides, min-0
+        # kleene) can be None → those columns ride object dtype
+        self._nullable_out = {name for (name, row, _a, _w)
+                              in self.nfa.select_outputs
+                              if row in self.nfa.nullable_rows}
+        self._scheduled_deadline = -1
+        self._shutdown = False
+
+        # one receiver per distinct input stream, on the global junctions
+        for stream_id, code in self.nfa.stream_codes.items():
+            recv = ProcessStreamReceiver(
+                _DeviceIngress(self, code, stream_id), qr.lock,
+                app.latency_tracker_for(qr.name), qr.name, app.app_ctx)
+            app.junction_of(stream_id).subscribe(recv)
+            qr.receivers[stream_id] = recv
+
+        # ingest pipelining: keep up to `depth` chunks in flight so the
+        # egress read overlaps later dispatches (plan/pipeline.py shares
+        # the depth contract).  Absent patterns pipeline too: the earliest
+        # pending deadline rides the egress tail
+        self._inflight: "deque" = deque()
+        self.pipeline_depth = resolve_depth(
+            app.app, [app.junction_of(sid)
+                      for sid in self.nfa.stream_codes])
+        # fused per-app egress: the NFA's compacted match buffers ride
+        # the app-wide slab — one D2H per ingest block across runtimes
+        self.app_name = app.name
+        self.nfa.egress_fuser = egress_fuser_for(app)
+        self._junctions = {sid: app.junction_of(sid)
+                           for sid in self.nfa.stream_codes}
+        # on-device telemetry sink (@app:statistics(telemetry='true'))
+        self._telemetry_sink = getattr(app, "device_telemetry", None)
+
+    def _warm(self) -> None:
+        """One all-invalid event per lane through the step (the state is
+        unchanged by it: invalid events move nothing), its outputs
+        discarded.  Only the condition programs' own rejections become
+        SiddhiAppCreationError."""
+        from .wagg_compiler import _EXPR_REJECTIONS
+        nfa = self.nfa
+        P = nfa.n_partitions
+        warm = {a: np.zeros((P, 1), np.float32) for a in nfa.attr_names}
+        warm["__ts"] = np.zeros((P, 1), np.int32)
+        warm["__stream"] = np.zeros((P, 1), np.int32)
+        warm["__valid"] = np.zeros((P, 1), bool)
+        carry = nfa.carry
+        try:
+            nfa.process_block(warm)
+        except _EXPR_REJECTIONS as e:
+            raise SiddhiAppCreationError(
+                f"device pattern path: condition rejected by the torch "
+                f"program ({type(e).__name__}: {e})") from e
+        finally:
+            nfa.carry = carry
+
+    # ------------------------------------------------------------ ingest
+
+    def _lanes_for_keys(self, keys: List[Any]) -> np.ndarray:
+        def grow(cap):
+            # partition-axis growth invalidates the pre-carries held by
+            # in-flight chunks (their P is the old width): retire them
+            # first so grow-and-replay never mixes carry widths
+            self.flush()
+            self.nfa.grow(cap)
+        return map_keys_to_lanes(self.key_lanes, keys,
+                                 self.nfa.n_partitions, grow)
+
+    def _event_cols(self, data, n: int) -> Dict[str, np.ndarray]:
+        """Kernel input columns for a chunk (float32 lanes, raw string
+        columns for dictionary encoding, exact-int companion lanes)."""
+        cols = {}
+        for a in self.nfa.attr_names:
+            if a in self.nfa.derived:
+                # string ORDER lane: computed by dispatch_events from the
+                # raw source column (passed through below)
+                src = self.nfa.derived[a][0]
+                cols[src] = (data.columns.get(src)
+                             if data.columns.get(src) is not None
+                             else np.full(n, None, object))
+                continue
+            if a in self.nfa.int_exact_src:
+                # exact integer companion lane: split from the RAW column
+                # (the base f32 cast below would round above 2^24)
+                src = self.nfa.int_exact_src[a]
+                raw = data.columns.get(src)
+                cols[a] = self.nfa.int_exact_lane(
+                    a, raw if raw is not None else np.zeros(n, np.int64))
+                continue
+            col = data.columns.get(a)
+            if a in self.nfa.encoded_attrs:
+                # raw string column — the NFA dictionary-encodes it
+                cols[a] = (col if col is not None
+                           else np.full(n, None, object))
+            else:
+                cols[a] = (np.asarray(col, np.float32) if col is not None
+                           else np.zeros(n, np.float32))
+        return cols
+
+    def ingest(self, stream_code: int, stream_id: str, chunk) -> None:
+        from ..core.event import CURRENT
+        from ..core.profiling import profiler
+        data = chunk.only(CURRENT)
+        if data.is_empty:
+            return
+        prof = profiler()
+        disp0 = prof.total_dispatches() if prof.enabled else 0
+        ticks0 = prof.total_scan_ticks() if prof.enabled else 0
+        n = len(data)
+        if self.keyed:
+            ex = self.key_executors.get(stream_id)
+            if ex is None:
+                raise SiddhiAppCreationError(
+                    f"device pattern path: stream '{stream_id}' has no "
+                    f"partition key executor")
+            keys = ex.keys(data)
+            keep = np.asarray([k is not None for k in keys], bool)
+            if not keep.all():
+                data = data.mask(keep)
+                keys = [k for k in keys if k is not None]
+                n = len(data)
+                if n == 0:
+                    return
+            pids = self._lanes_for_keys(keys)
+        else:
+            pids = np.zeros(n, np.int64)
+        cols = self._event_cols(data, n)
+        ts_arr = np.asarray(data.timestamps, np.int64)
+        codes = np.full(n, stream_code, np.int32)
+        with _ledger().span("device"):
+            h = self.nfa.dispatch_events(pids, cols, ts_arr,
+                                         stream_codes=codes)
+        self._inflight.append(h)
+        # retire down to the pipeline depth: with depth 0 matches are
+        # delivered before ingest returns; with depth D the egress read of
+        # chunk N overlaps chunks N+1..N+D's dispatch
+        while len(self._inflight) > self.pipeline_depth:
+            with _ledger().span("decode"):
+                self._retire_one()
+        tel = self.nfa.last_telemetry
+        _record_block(self, prof, disp0, ticks0, stream_id, n,
+                      junction=self._junctions.get(stream_id),
+                      telemetry=(tel.sum(axis=0) if tel is not None
+                                 else None))
+
+    def _retire_one(self) -> None:
+        """Block on the oldest in-flight chunk, handle slot-ring overflow
+        (grow-and-replay: restore that chunk's pre-carry, double the ring,
+        replay it and every later in-flight chunk), decode columnar,
+        emit.  Callers hold the ledger's "decode" span; the slab read
+        inside it is "egress_d2h", replayed dispatches "device"."""
+        h = self._inflight.popleft()
+        pids, ts, cols = self.nfa.retire_events(h)
+        if self._telemetry_sink is not None and \
+                self.nfa.last_telemetry is not None:
+            self._telemetry_sink.update_nfa(
+                self.qr.name, self.nfa.last_telemetry,
+                len(self.nfa.spec.units),
+                [u.kind for u in self.nfa.spec.units])
+        dropped = self.nfa.last_dropped_total
+        if dropped > self._dropped_seen and self.nfa.replayable:
+            # slot overflow would LOSE matches (the oracle's pending lists
+            # never drop): every chunk from this one on ran on a dropping
+            # ring — rewind to this chunk's pre-carry, grow, replay all
+            pending = [h] + list(self._inflight)
+            self._inflight.clear()
+            self.nfa.carry = h["pre_carry"]
+            self.nfa.base_ts = h["pre_base"]
+            self.nfa.grow_slots(self.nfa.spec.n_slots * 2)
+            self.slot_grows += 1
+            for e in pending:
+                while True:
+                    pre_carry, pre_base = self.nfa.carry, self.nfa.base_ts
+                    self.replays += 1
+                    with _ledger().span("device"):
+                        r = self.nfa.replay_block(e)
+                    pids, ts, cols = self.nfa.retire_events(r)
+                    if self.nfa.last_dropped_total <= self._dropped_seen:
+                        break
+                    self.nfa.carry = pre_carry
+                    self.nfa.base_ts = pre_base
+                    self.nfa.grow_slots(self.nfa.spec.n_slots * 2)
+                    self.slot_grows += 1
+                self._emit_columns(pids, ts, cols)
+            if self.nfa.has_absent:
+                self._schedule_absent(self.nfa.last_min_deadline)
+            return
+        self._dropped_seen = max(dropped, self._dropped_seen)
+        self._emit_columns(pids, ts, cols)
+        if self.nfa.has_absent:
+            # schedule off the retired chunk's carry — the deadline rode
+            # the egress tail, no extra device read
+            self._schedule_absent(self.nfa.last_min_deadline)
+
+    def flush(self) -> None:
+        """Retire every in-flight chunk (pipelined mode): called on idle/
+        drain by the async junction, and before any state read.  Takes the
+        query lock (re-entrant) — state reads can race the junction
+        worker's ingest."""
+        with self.qr.lock:
+            while self._inflight:
+                with _ledger().span("decode"):
+                    self._retire_one()
+
+    def _emit_columns(self, pids, ts, cols) -> None:
+        from ..core.event import EventChunk
+        from ..core.tracing import trace_span
+        if not len(ts):
+            return
+        names = [o[0] for o in self.nfa.select_outputs]
+        with trace_span("match.scatter", n=int(len(ts))):
+            self.head.process(EventChunk.from_columns(names, ts, cols))
+
+    def _emit(self, matches) -> None:
+        from ..core.event import EventChunk
+        if not matches:
+            return
+        names = [o[0] for o in self.nfa.select_outputs]
+        out_cols: Dict[str, np.ndarray] = {}
+        for (name, _idx, attr, _w) in self.nfa.select_outputs:
+            vals = [m[2][name] for m in matches]
+            dt = self._dtype_for(self.nfa.output_type(attr))
+            if name in self._nullable_out or dt is object:
+                col = np.empty(len(vals), object)
+                col[:] = vals
+            else:
+                col = np.asarray(vals, dt)
+            out_cols[name] = col
+        ts = np.asarray([m[1] for m in matches], np.int64)
+        self.head.process(EventChunk.from_columns(names, ts, out_cols))
+
+    # -------------------------------------------------- absent-state timers
+
+    def _schedule_absent(self, dl: Optional[int] = "read") -> None:
+        """Arm a host TIMER at the earliest pending `not … for t` deadline
+        (≙ AbsentStreamPreStateProcessor scheduling wakeups via
+        util/Scheduler.java).  Retirement passes the egress-borne value;
+        start/restore/timer paths read the live carry."""
+        if dl == "read":
+            dl = self.nfa.min_pending_deadline()
+        if dl is None or dl == self._scheduled_deadline or self._shutdown:
+            return
+        self._scheduled_deadline = dl
+        app_ctx = self.qr.app_runtime.app_ctx
+
+        def fire(now, _dl=dl):
+            if self._shutdown:
+                return
+            with self.qr.lock:
+                self.flush()
+                matches = self.nfa.process_timer(max(now, _dl))
+                self._emit(matches)
+                self._scheduled_deadline = -1
+                self._schedule_absent()
+        app_ctx.scheduler.notify_at(dl, fire)
+
+    # ------------------------------------------------------------ lifecycle
+
+    def start(self) -> None:
+        if self.nfa.spec.lead_absent and not self.keyed:
+            # the leading absent partial waits from ENGINE START
+            # (reference AbsentStreamPreStateProcessor.start).  Keyed
+            # lanes arm on their FIRST event instead (kernel ensure-arm)
+            now = self.qr.app_runtime.app_ctx.timestamp_generator \
+                .current_time()
+            self.nfa.arm_leading(now)
+            self._schedule_absent()
+
+    def shutdown(self) -> None:
+        self.flush()
+        self._shutdown = True
+
+    # ------------------------------------------------------------ snapshot
+
+    def current_state(self) -> dict:
+        """The JAX package's runtime state dict (the engine's numpy state
+        + key→lane map)."""
+        with self.qr.lock:
+            self.flush()
+            return {"nfa": self.nfa.current_state(),
+                    "key_lanes": dict(self.key_lanes)}
+
+    def restore_state(self, state: dict) -> None:
+        """Accepts this runtime's own ``current_state()`` or the JAX
+        package's ``DevicePatternRuntime.current_state()`` unchanged."""
+        with self.qr.lock:
+            self.flush()
+            if state.get("shards") is not None:
+                raise SiddhiAppCreationError(
+                    "sharded pattern state: shard-out not yet ported to "
+                    "the torch backend")
+            self.nfa.restore_state(state["nfa"])
+            # the restored carry's lanes are only meaningful with the
+            # snapshot's key→lane map; dropping it would hand restored
+            # lanes of one key to fresh keys
+            self.key_lanes = KeyLanes(state.get("key_lanes") or {})
+        self._dropped_seen = int(self.nfa.carry["dropped"].sum())
+        if self.nfa.has_absent:
+            self._scheduled_deadline = -1
+            self._schedule_absent()
 
 
 class DeviceGroupedAggRuntime(_NotYetPorted):
@@ -541,7 +909,8 @@ def _plan(query_runtime, build):
 
 
 def plan_state_runtime(query_runtime, sis, factory):
-    """Device pattern build (not yet ported: host under 'auto')."""
+    """Device pattern build (the NFA runtime; a rejection runs the query
+    on the host under 'auto')."""
     return _plan(query_runtime,
                  lambda: DevicePatternRuntime(query_runtime, sis, factory))
 

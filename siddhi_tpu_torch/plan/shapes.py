@@ -33,6 +33,18 @@ def shape_signature(kind: str, dims: Dict[str, Any]) -> str:
     return f"{kind}[{body}]"
 
 
+def nfa_shape_dims(spec, n_partitions: int, batch_b: int,
+                   **extra) -> Dict[str, Any]:
+    """The canonical NFA step dims — S/K/P/B plus capture geometry and
+    telemetry (the JAX package's key, without its donation flag: the
+    port's step never donates its carry)."""
+    d = {"S": len(spec.units), "K": spec.n_slots, "P": n_partitions,
+         "B": max(batch_b, 1), "R": max(spec.n_rows, 1),
+         "C": max(spec.n_caps, 1), "telem": bool(spec.telemetry)}
+    d.update(extra)
+    return d
+
+
 _CACHE_STATE: Dict[str, Any] = {
     "configured": True, "enabled": False, "dir": "", "ephemeral": False,
     "reason": "not applicable under torch (eager execution; kernels are "

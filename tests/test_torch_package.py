@@ -7,7 +7,9 @@
   length-window runtime raises RuntimeError under 'auto' (no silent CPU
   run and no silent host run);
 - device paths not yet ported fall back to the host under 'auto' with
-  "not yet ported" in the recorded reason, and raise under 'device'.
+  "not yet ported" in the recorded reason, and raise under 'device'
+  (for patterns: a pattern outside the CUDA NFA kernel's class, on a
+  CUDA device).
 """
 import ast
 import os
@@ -50,7 +52,8 @@ def test_import_pulls_in_no_jax():
     env["PYTHONPATH"] = ROOT
     code = ("import sys, siddhi_tpu_torch\n"
             "from siddhi_tpu_torch.plan import planner, wagg_compiler\n"
-            "from siddhi_tpu_torch.ops import windowed_agg, _kernels\n"
+            "from siddhi_tpu_torch.plan import nfa_compiler\n"
+            "from siddhi_tpu_torch.ops import windowed_agg, _kernels, nfa\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'siddhi_tpu' not in sys.modules, 'siddhi_tpu imported'\n")
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -99,11 +102,13 @@ def test_host_engine_needs_no_device(monkeypatch):
 
 
 UNPORTED = {
-    # partitioned shapes: the partition runtime records the reason
+    # partitioned shapes: the partition runtime records the reason.  The
+    # pattern shapes are SEQUENCEs, outside the CUDA NFA kernel's class:
+    # refused on a CUDA device (on the CPU the plain step runs them)
     "partition_pattern": ("""
         define stream S (sym string, price float);
         partition with (sym of S) begin
-        from every e1=S[price > 5.0] -> e2=S[price < e1.price]
+        from every e1=S[price > 5.0], e2=S[price < e1.price]
         select e1.sym as a, e2.price as p insert into Out; end;""", True),
     "partition_time_window": ("""
         define stream S (sym string, price float);
@@ -121,15 +126,25 @@ UNPORTED = {
         select sym, sum(price) as s group by sym insert into Out;""", False),
     "pattern": ("""
         define stream S (sym string, price float);
-        from every e1=S[price > 5.0] -> e2=S[price < e1.price]
+        from every e1=S[price > 5.0], e2=S[price < e1.price]
         select e1.sym as a insert into Out;""", False),
 }
 
 
+def _manager(name, monkeypatch):
+    """The pattern shapes build on a CUDA device (torch.cuda reported
+    available: the refusal comes before any device memory is touched);
+    the others on the CPU."""
+    if "pattern" in name:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        return SiddhiManager(device="cuda")
+    return SiddhiManager(device="cpu")
+
+
 @pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_kind_falls_back_under_auto(name):
+def test_unported_kind_falls_back_under_auto(name, monkeypatch):
     text, partitioned = UNPORTED[name]
-    rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(text)
+    rt = _manager(name, monkeypatch).create_siddhi_app_runtime(text)
     try:
         if partitioned:
             pr = rt.partition_runtimes[0]
@@ -145,10 +160,10 @@ def test_unported_kind_falls_back_under_auto(name):
 
 
 @pytest.mark.parametrize("name", ["partition_pattern", "filter", "pattern"])
-def test_unported_kind_raises_under_device(name):
+def test_unported_kind_raises_under_device(name, monkeypatch):
     text, _ = UNPORTED[name]
     with pytest.raises(SiddhiAppCreationError, match="not yet ported"):
-        SiddhiManager(device="cpu").create_siddhi_app_runtime(
+        _manager(name, monkeypatch).create_siddhi_app_runtime(
             "@app:engine('device')\n" + text)
 
 
