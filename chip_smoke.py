@@ -23,16 +23,22 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      query are held against a float64 numpy sliding-window reference;
   4. engine parity on the card: a small app through the device engine on
      CUDA, on the CPU (plain versions) and through the host engine;
-  5. the NFA step kernel against its plain version on the card, exactly
-     (every carry leaf and output), at the pattern cell's shape and on a
-     forced-drop ring, K above one warp, a 3-unit chain, a non-every
-     chain, two streams, no `within` and an all-invalid block; both
-     timed; the egress compaction (torch.nonzero_static) against numpy;
+  5. the fused NFA step (the step kernel, then the compaction kernel)
+     against the plain composition (plain step, then the plain
+     compaction) on the card, exactly (every carry leaf; the egress
+     slab's rows up to the count, column 0 of the padding rows, the tail
+     row), at the pattern cell's shape and on a forced-drop ring, K above
+     one warp, K above the register instances, a 3-unit chain, a non-every chain, two streams, no
+     `within`, an all-invalid block, a forced scratch-segment overflow, a
+     cap below the count and one skewed lane with T = 4096; the
+     compaction kernel against numpy; all timed, with the split between
+     the two kernels;
   6. the pattern cell at full width — __graft_entry__.PARTITIONED_APP
      over 10,000 integer keys (BASELINE config 3's keyed stream, one
      pattern), M chunks of 262,144 events through the public API on the
-     device engine; the query must run on the NFA kernel, every match
-     row is held against an independent per-key reference;
+     device engine; the query must run on the NFA kernels, every match
+     row is held against an independent per-key reference; the cell's own
+     peak device memory;
   7. engine parity for the pattern app: CUDA kernel, CPU plain, host;
   8. one JSON line per the kernel table, the nvidia-smi line, and the
      last line ``{"ok": true, "device": {...}}``.
@@ -168,17 +174,17 @@ def check_wagg(cases, dev, rng):
     return worst
 
 
-def median_ms(fn, dev, n=TIMED_LAUNCHES):
+def median_ms(fn, dev, n=TIMED_LAUNCHES, sleep_cycles=SLEEP_CYCLES):
     """Median ms of n runs of fn between CUDA events, the 50 MB L2
     flushed before each run and the card asleep while the host enqueues
     it (so the events time the device work, not the wrapper's host
-    work)."""
+    work, as long as the enqueue takes less than the sleep)."""
     import torch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     times = []
     for _ in range(n):
         flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep_cycles)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -637,10 +643,11 @@ def pattern_reference(chunks):
 
 
 def _nfa_blocks(nfa, P, T, n_blocks, seed, dev, valid=True, gap=1000,
-                nan=False):
+                nan=False, skew=False):
     """n_blocks chained [P, T] blocks of random events on `dev` (T events
     per lane, every stream of the spec, the kernel's dtypes), `gap` ms
-    apart in each lane; with `nan`, 5% of prices are NaN."""
+    apart in each lane; with `nan`, 5% of prices are NaN; with `skew`,
+    only lane 0 has events past the first 64 (one hot key sets T)."""
     import torch
     rng = np.random.default_rng(seed)
     out = []
@@ -663,6 +670,9 @@ def _nfa_blocks(nfa, P, T, n_blocks, seed, dev, valid=True, gap=1000,
             rng.integers(0, len(nfa.stream_codes), (P, T)).astype(np.int32),
             device=dev)
         vmask = rng.random((P, T)) < 0.9 if valid else np.zeros((P, T), bool)
+        if skew:
+            vmask[1:, 64:] = False
+            vmask[0] = True
         blk["__valid"] = torch.tensor(vmask, device=dev)
         out.append(blk)
     return out
@@ -677,75 +687,153 @@ def _same_bits(a, b) -> bool:
     return bool((a == b).all())
 
 
-def check_nfa(t_main, dev, seed):
-    """nfa_step vs nfa_block_step_plain on the card, every carry leaf and
-    output bit for bit, over chained blocks per case.  Returns the
-    number of cases and the worst absolute difference (0.0 when
-    equal)."""
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _slab_equal(got, want, cap) -> bool:
+    """The egress contract: rows up to the count, column 0 of the padding
+    rows, the tail row (both [cap + 1 (+ status), W] int32)."""
+    count = int(want[cap, 0])
+    n = min(count, cap)
+    return bool(torch_equal(got[:n], want[:n]) and
+                torch_equal(got[n:cap, 0], want[n:cap, 0]) and
+                torch_equal(got[cap], want[cap]))
+
+
+def torch_equal(a, b) -> bool:
     import torch
-    from siddhi_tpu_torch.ops.nfa import nfa_block_step, nfa_block_step_plain
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def check_nfa(t_main, dev, seed):
+    """The fused step (nfa_step_egress on the card: the step kernel, then
+    the compaction kernel) vs the plain composition (nfa_block_step_plain,
+    then egress_pack_plain) on the card, over chained blocks per case:
+    every carry leaf bit for bit and the egress slab by its contract.  A
+    full scratch segment is re-run with segments that fit, and a count
+    above cap re-runs the compaction alone, as the engine does; both are
+    checked.  Returns the number of cases and the worst absolute
+    difference (0.0 when equal)."""
+    import torch
+    from siddhi_tpu_torch.ops.nfa import (egress_pack_plain,
+                                          nfa_block_step_plain, nfa_compact,
+                                          nfa_step_egress)
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
     main = pattern_query(PARTITIONED_APP)
-    cases = [  # (name, app, P, T, K, blocks, valid, gap ms)
-        ("main", main, PATTERN_LANES, t_main, PATTERN_SLOTS, 2, True, 1000),
-        ("K=1 drops", main, 4096, 64, 1, 2, True, 1000),
+    cases = [  # (name, app, P, T, K, blocks, valid, gap ms, options)
+        ("main", main, PATTERN_LANES, t_main, PATTERN_SLOTS, 2, True, 1000,
+         {}),
+        ("K=1 drops", main, 4096, 64, 1, 2, True, 1000, {}),
         # rare completions: partials pile up past one warp's 32 slots
-        ("K=40", NFA_CASES["rare_close"], 1024, 200, 40, 2, True, 10),
+        ("K=40", NFA_CASES["rare_close"], 1024, 200, 40, 2, True, 10, {}),
+        # more than 128 live partials in a lane: the wide-ring instance
+        ("K=160 wide ring", NFA_CASES["rare_close"], 256, 600, 160, 1,
+         True, 10, {"time": True}),
         ("warm all-invalid", main, PATTERN_LANES, 1, PATTERN_SLOTS, 1,
-         False, 1000),
-    ] + [(n, a, 2048, 64, 8, 2, True, 1000) for n, a in NFA_CASES.items()
-         if n != "rare_close"]
+         False, 1000, {}),
+    ] + [(n, a, 2048, 64, 8, 2, True, 1000, {})
+         for n, a in NFA_CASES.items() if n != "rare_close"] + [
+        ("forced scratch overflow", main, PATTERN_LANES, t_main,
+         PATTERN_SLOTS, 2, True, 1000, {"seg": 1}),
+        ("cap below count", main, PATTERN_LANES, t_main, PATTERN_SLOTS, 2,
+         True, 1000, {"cap": "half"}),
+        ("skewed lane", main, 2048, 4096, PATTERN_SLOTS, 1, True, 1,
+         {"skew": True}),
+    ]
     nan_cases = {"chain3"}      # NaN prices through gates and compares
     worst = 0.0
-    launches0 = nfa_block_step.launches
-    for i, (name, app, P, T, K, n_blocks, valid, gap) in enumerate(cases):
+    launches0 = (nfa_step_egress.launches, nfa_compact.launches)
+    for i, (name, app, P, T, K, n_blocks, valid, gap, opt) in \
+            enumerate(cases):
         nfa = CompiledPatternNFA(app, n_partitions=P, n_slots=K, device=dev)
         ck = cp = nfa.carry
-        matches = hi = 0
+        matches = hi = reruns = repacks = hot = 0
         for blk in _nfa_blocks(nfa, P, T, n_blocks, seed + i, dev, valid,
-                               gap, nan=name in nan_cases):
-            ck, yk = nfa_block_step(nfa.spec, ck, blk, nfa.kprog)
-            cp, yp = nfa_block_step_plain(nfa.spec, cp, blk)
+                               gap, nan=name in nan_cases,
+                               skew=opt.get("skew", False)):
+            new_p, outs = nfa_block_step_plain(nfa.spec, cp, blk)
+            count = int(outs[0].sum())
+            cap = max(count // 2, 1) if opt.get("cap") == "half" else 1024
+            new_k, eg = nfa_step_egress(nfa.spec, ck, blk, nfa.kprog, cap,
+                                        opt.get("seg"))
+            buf = eg.buf
+            if int(buf[-1, 0]) > int(buf[-1, 1]):   # a full segment
+                reruns += 1
+                _, eg = nfa_step_egress(nfa.spec, ck, blk, nfa.kprog, cap,
+                                        _next_pow2(int(buf[-1, 0])))
+                buf = eg.buf
             torch.cuda.synchronize()
-            pairs = [(f"carry.{k}", ck[k], cp[k]) for k in cp] + \
-                list(zip(("mask", "caps", "ts", "enter", "seq"), yk, yp))
-            for what, x, y in pairs:
-                if not _same_bits(x, y):
+            for k in new_p:
+                if not _same_bits(new_k[k], new_p[k]):
+                    x, y = new_k[k], new_p[k]
                     if x.dtype == y.dtype and x.shape == y.shape:
                         worst = max(worst, float(
                             (x.double() - y.double()).abs().max()))
                     raise AssertionError(
-                        f"nfa_step != plain: {name} {what} (P={P} T={T} "
+                        f"nfa_step != plain: {name} carry.{k} (P={P} T={T} "
                         f"K={K})")
-            matches += int(yp[0].sum())
-            hi = max(hi, int((cp["slot_state"] >= 0).sum(dim=1).max()))
+            caps = [cap] + ([_next_pow2(count)] if count > cap else [])
+            for c in caps:
+                got = buf if c == cap else eg.repack(c)
+                repacks += c != cap
+                want = egress_pack_plain(nfa.spec, *outs, new_p["dropped"],
+                                         cap=c)
+                if int(got[-2, 0]) != count or not _slab_equal(got, want, c):
+                    raise AssertionError(
+                        f"nfa_step egress != plain: {name} cap {c} (P={P} "
+                        f"T={T} K={K})")
+            matches += count
+            hot += int(outs[0][0].sum())
+            hi = max(hi, int((new_p["slot_state"] >= 0).sum(dim=1).max()))
+            if opt.get("time"):
+                ms = median_ms(lambda: nfa_step_egress(
+                    nfa.spec, ck, blk, nfa.kprog, max(cap, _next_pow2(count)),
+                    _next_pow2(max(int(buf[-1, 0]), 1))), dev,
+                    sleep_cycles=5 * SLEEP_CYCLES)
+                log(f"  fused step, {name}: {ms:.4f} ms at P={P} T={T} "
+                    f"K={K}")
+            ck, cp = new_k, new_p
         dropped = int(cp["dropped"].sum())
         if name == "K=1 drops" and dropped == 0:
             raise AssertionError("K=1 case dropped nothing")
         if name == "K=40" and hi <= 32:
             raise AssertionError(f"K=40 case held at most {hi} partials in "
                                  f"a lane (needs > 32)")
+        if name == "K=160 wide ring" and hi <= 128:
+            raise AssertionError(f"K=160 case held at most {hi} partials in "
+                                 f"a lane (needs > 128)")
+        if name == "forced scratch overflow" and reruns == 0:
+            raise AssertionError("no scratch segment overflowed")
+        if name == "cap below count" and repacks == 0:
+            raise AssertionError("no block's count passed its cap")
+        if name == "skewed lane" and hot < 200:
+            raise AssertionError(f"skewed lane: {hot} matches in lane 0")
         tag = " (NaN prices)" if name in nan_cases else ""
-        log(f"  nfa_step == plain  {name}{tag}: P={P} T={T} K={K} blocks="
-            f"{n_blocks} matches={matches} dropped={dropped} most live "
-            f"in a lane={hi}")
-    nfa_block_step.launches = launches0   # checks are not the main path
+        log(f"  nfa_step+compact == plain  {name}{tag}: P={P} T={T} K={K} "
+            f"blocks={n_blocks} matches={matches} dropped={dropped} most "
+            f"live in a lane={hi} (lane 0: {hot} matches) segment re-runs="
+            f"{reruns} re-packs={repacks}")
+    # checks are not the main path
+    nfa_step_egress.launches, nfa_compact.launches = launches0
     return len(cases), worst
 
 
-def nfa_bound(P, T, K, spec, kprog, cond_cmps):
-    """(bound ms, bound_by) of one nfa_step launch: the bytes the
-    function must move — the block's inputs read once, the carry read
-    once and written once, the dense outputs written once — over HBM3's
-    rate, against its compares (within check, state, stream, gate and
-    each table compare per event and slot) over the float32 peak."""
+def nfa_bound(P, T, K, spec, kprog, cond_cmps, count, cap):
+    """(bound ms, bound_by) of one fused step: the bytes the function must
+    move — the block's inputs read once, the carry read once and written
+    once, the egress slab written once (the matched rows, column 0 of the
+    rows past the count, the tail and status rows) — over HBM3's rate,
+    against its compares (within check, state, stream, gate and each
+    table compare per event and slot) over the float32 peak."""
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    W = 4 + R * C
     n_lanes = len(kprog.kern_attrs)
     n_gates = len(spec.cond_fns)
     inputs = P * T * (4 * n_lanes + 4 + 4 + 1 + n_gates)
     carry = P * K * (4 * 4 + 4 * R * C) + P * 4 * (2 + int(spec.arm_once))
-    outputs = P * T * K * (1 + 12 + 4 * R * C)
-    nbytes = inputs + 2 * carry + outputs
+    slab = min(count, cap) * W * 4 + max(cap - count, 0) * 4 + 2 * W * 4
+    nbytes = inputs + 2 * carry + slab
     ops = P * T * K * (4 + cond_cmps)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
@@ -753,40 +841,120 @@ def nfa_bound(P, T, K, spec, kprog, cond_cmps):
                                  else "operations")
 
 
+def compact_bound(P, n_cta, count, cap, W):
+    """(bound ms, "bytes") of the compaction alone: the lane counts, the
+    dropped column, the CTA fills and the scratch rows (W + 2 words each)
+    read once, the slab written once."""
+    nbytes = (2 * P * 4 + n_cta * 4 + count * (W + 2) * 4 +
+              min(count, cap) * W * 4 + max(cap - count, 0) * 4 + 2 * W * 4)
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def device_split(fn, n=5):
+    """ms of device time per call of fn, by kernel (the step, the
+    compaction, the rest), from torch.profiler over n calls; each sum is
+    divided by the calls the profiler recorded (it may drop the first),
+    counted by the step kernel's launches.  None when the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    except Exception as e:   # noqa: BLE001 — measurement only
+        log(f"  torch.profiler unavailable ({type(e).__name__}: {e})")
+        return None
+    split = {"step_ms": 0.0, "compact_ms": 0.0, "other_ms": 0.0}
+    calls = {"step_ms": 0, "compact_ms": 0}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if not us:
+            continue
+        key = ("step_ms" if "nfa_step_kernel" in ev.key else
+               "compact_ms" if "nfa_compact_kernel" in ev.key else
+               "other_ms")
+        split[key] += us / 1e3
+        if key in calls:
+            calls[key] += ev.count
+    if not any(split.values()):
+        return None
+    rec = calls["step_ms"]
+    for key, c in calls.items():
+        split[key] = split[key] / c if c else None
+    split["other_ms"] = split["other_ms"] / rec if rec else None
+    split["calls_recorded"] = rec
+    return split
+
+
 def time_nfa(t_main, dev, seed):
-    """Median ms of the kernel and of the plain version at the main
-    path's shape on a carry in steady state, plus the launch's bound."""
-    from siddhi_tpu_torch.ops.nfa import nfa_block_step, nfa_block_step_plain
+    """Median ms of the fused step (both launches and the gate word), of
+    the compaction kernel alone, and of the plain composition and the
+    plain compaction alone, at the main path's shape on a carry in steady
+    state, with the cap and segments the engine settles on; each
+    kernel's device time from the profiler; and the bounds."""
+    from siddhi_tpu_torch.ops.nfa import (egress_pack_plain, kernel_geometry,
+                                          nfa_block_step_plain, nfa_compact,
+                                          nfa_step_egress)
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
     P, T, K = PATTERN_LANES, t_main, PATTERN_SLOTS
     nfa = CompiledPatternNFA(pattern_query(PARTITIONED_APP), n_partitions=P,
                              n_slots=K, device=dev)
+    spec, kp = nfa.spec, nfa.kprog
+    launches0 = (nfa_step_egress.launches, nfa_compact.launches)
     warm, blk = _nfa_blocks(nfa, P, T, 2, seed, dev)
-    carry, _ = nfa_block_step(nfa.spec, nfa.carry, warm, nfa.kprog)
-    launches0 = nfa_block_step.launches
-    ms = median_ms(lambda: nfa_block_step(nfa.spec, carry, blk, nfa.kprog),
-                   dev)
-    plain_ms = median_ms(lambda: nfa_block_step_plain(nfa.spec, carry, blk),
-                         dev, n=5)
-    nfa_block_step.launches = launches0
-    cmps = max(len(c) for c in nfa.kprog.cmp)
-    bound_ms, bound_by = nfa_bound(P, T, K, nfa.spec, nfa.kprog, cmps)
-    return ms, plain_ms, bound_ms, bound_by
+    carry, _ = nfa_step_egress(spec, nfa.carry, warm, kp)
+    _, eg = nfa_step_egress(spec, carry, blk, kp)
+    count = int(eg.buf[-2, 0])
+    cap = _next_pow2(count)
+    G, L = kernel_geometry(K)
+    seg = max(eg.seg, _next_pow2(int(eg.buf[-1, 0])))
+    _, eg = nfa_step_egress(spec, carry, blk, kp, cap, seg)
+    # the fused call enqueues a dozen torch ops and two kernels: a longer
+    # sleep keeps its host work off the events' clock
+    ms = median_ms(lambda: nfa_step_egress(spec, carry, blk, kp, cap, seg),
+                   dev, sleep_cycles=5 * SLEEP_CYCLES)
+    compact_ms = median_ms(lambda: eg.repack(cap), dev)
+    _, outs = nfa_block_step_plain(spec, carry, blk)
+    plain_compact_ms = median_ms(
+        lambda: egress_pack_plain(spec, *outs, carry["dropped"], cap=cap),
+        dev)
+    plain_ms = median_ms(lambda: egress_pack_plain(
+        spec, *nfa_block_step_plain(spec, carry, blk)[1], carry["dropped"],
+        cap=cap), dev, n=5)
+    split = device_split(
+        lambda: nfa_step_egress(spec, carry, blk, kp, cap, seg))
+    nfa_step_egress.launches, nfa_compact.launches = launches0
+    cmps = max(len(c) for c in kp.cmp)
+    bound_ms, bound_by = nfa_bound(P, T, K, spec, kp, cmps, count, cap)
+    W = 4 + max(spec.n_rows, 1) * max(spec.n_caps, 1)
+    cb_ms, cb_by = compact_bound(P, -(-P // L), count, cap, W)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "compact_ms": compact_ms,
+            "plain_compact_ms": plain_compact_ms, "compact_bound_ms": cb_ms,
+            "compact_bound_by": cb_by, "split": split, "count": count,
+            "cap": cap, "seg": seg, "G": G, "L": L}
 
 
 def check_compaction(t_main, dev, seed):
-    """The egress compaction on the card (torch.nonzero_static) against a
-    numpy compaction of the same dense outputs."""
-    from siddhi_tpu_torch.ops.nfa import nfa_block_step
+    """The compaction kernel on the card against a numpy compaction of
+    the plain step's dense outputs for the same block, at a cap above the
+    count and one below it."""
+    from siddhi_tpu_torch.ops.nfa import (nfa_block_step_plain, nfa_compact,
+                                          nfa_step_egress)
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
     P, T, K = PATTERN_LANES, t_main, PATTERN_SLOTS
     nfa = CompiledPatternNFA(pattern_query(PARTITIONED_APP), n_partitions=P,
                              n_slots=K, device=dev)
-    launches0 = nfa_block_step.launches
-    for blk in _nfa_blocks(nfa, P, T, 2, seed, dev):
-        nfa.carry, outs = nfa_block_step(nfa.spec, nfa.carry, blk,
-                                         nfa.kprog)
-    nfa_block_step.launches = launches0
+    launches0 = (nfa_step_egress.launches, nfa_compact.launches)
+    warm, blk = _nfa_blocks(nfa, P, T, 2, seed, dev)
+    carry, _ = nfa_step_egress(nfa.spec, nfa.carry, warm, nfa.kprog)
+    new, outs = nfa_block_step_plain(nfa.spec, carry, blk)
+    _, eg = nfa_step_egress(nfa.spec, carry, blk, nfa.kprog,
+                            seg=1 << 16)          # no segment fills up
     mask, caps, ts, enter, seq = [o.cpu().numpy() for o in outs]
     idx = np.flatnonzero(mask.reshape(-1))
     R, C = caps.shape[-2], caps.shape[-1]
@@ -794,17 +962,18 @@ def check_compaction(t_main, dev, seed):
         idx.astype(np.int32)[:, None], ts.reshape(-1)[idx][:, None],
         enter.reshape(-1)[idx][:, None], seq.reshape(-1)[idx][:, None],
         caps.reshape(-1, R * C)[idx].view(np.int32)], axis=1)
+    dropped = int(new["dropped"].sum())
     for cap in (len(idx) + 7, max(len(idx) // 2, 1)):
-        buf = nfa._egress_pack_fn()(*outs, nfa.carry["dropped"], None, None,
-                                    cap).cpu().numpy()
+        buf = eg.repack(cap).cpu().numpy()
         n = min(cap, len(idx))
         if not (np.array_equal(buf[:n], want[:n]) and
                 (buf[n:cap, 0] == -1).all() and
-                int(buf[-1, 0]) == len(idx)):
-            raise AssertionError(f"egress compaction != numpy (cap {cap})")
-    log(f"  egress compaction (torch.nonzero_static) == numpy: {len(idx)} "
-        f"matched slots of {mask.size}, caps {len(idx) + 7} and "
-        f"{max(len(idx) // 2, 1)}")
+                int(buf[cap, 0]) == len(idx) and
+                int(buf[cap, 1]) == dropped):
+            raise AssertionError(f"compaction kernel != numpy (cap {cap})")
+    nfa_step_egress.launches, nfa_compact.launches = launches0
+    log(f"  nfa_compact == numpy: {len(idx)} matched slots of {mask.size}, "
+        f"caps {len(idx) + 7} and {max(len(idx) // 2, 1)}")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -822,10 +991,15 @@ def pattern_app() -> str:
 
 def run_pattern_path(chunks, dev):
     import torch
+    import gc
+
     from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
-    from siddhi_tpu_torch.ops.nfa import nfa_block_step
+    from siddhi_tpu_torch.ops.nfa import nfa_compact, nfa_step_egress
 
     n_chunks = len(chunks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rt = SiddhiManager(device=dev).create_siddhi_app_runtime(pattern_app())
@@ -860,9 +1034,10 @@ def run_pattern_path(chunks, dev):
 
     from siddhi_tpu_torch.core.ledger import ledger
     stage0 = dict(ledger().snapshot()["stage_seconds"])
-    nfa_block_step.launches = 0           # counts start here
+    nfa_step_egress.launches = 0          # counts start here
+    nfa_compact.launches = 0
     wall, per_kernel, dev_us = profile_device(drive)
-    launches = nfa_block_step.launches
+    launches = (nfa_step_egress.launches, nfa_compact.launches)
     stage1 = ledger().snapshot()["stage_seconds"]
     grows = sum(r.slot_grows for r in runtimes)
     replays = sum(r.replays for r in runtimes)
@@ -875,15 +1050,22 @@ def run_pattern_path(chunks, dev):
         f"{CHUNK}), {N_PATTERN_KEYS} keys, {wall:.3f} s wall")
     log(f"  events/s: {n_events / wall:.1f}; ms per chunk: "
         f"{wall / n_chunks * 1e3:.3f}; matches: {len(cols['ts'])}")
-    log(f"  max_memory_allocated: {torch.cuda.max_memory_allocated()} B")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  max_memory_allocated: {peak} B ({peak - mem0} B above the "
+        f"{mem0} B allocated before the cell)")
     log(f"  slot grows {grows}, replays {replays}, final K {k_final}")
     log("  host stages (s): " + ", ".join(
         f"{k} {stage1[k] - stage0.get(k, 0.0):.3f}" for k in stage1))
-    nfa_us = None
     if per_kernel is not None:
-        nfa_us = sum(us for k, us in per_kernel.items() if "nfa_step" in k)
-        log(f"  nfa_step device time {nfa_us / 1e3:.3f} ms over {launches} "
-            f"launches = {nfa_us / 1e6 / wall * 100:.3f}% of wall; all "
+        step_us = sum(us for k, us in per_kernel.items()
+                      if "nfa_step_kernel" in k)
+        comp_us = sum(us for k, us in per_kernel.items()
+                      if "nfa_compact_kernel" in k)
+        nfa_us = step_us + comp_us
+        log(f"  nfa_step device time {step_us / 1e3:.3f} ms over "
+            f"{launches[0]} launches, nfa_compact {comp_us / 1e3:.3f} ms over "
+            f"{launches[1]} launches = {nfa_us / 1e6 / wall * 100:.3f}% of "
+            f"wall; all "
             f"device time {dev_us / 1e3:.3f} ms = "
             f"{dev_us / 1e6 / wall * 100:.3f}% of wall (idle share "
             f"{100 - dev_us / 1e6 / wall * 100:.3f}%)")
@@ -893,9 +1075,9 @@ def run_pattern_path(chunks, dev):
     else:
         log("  torch.profiler recorded no device time: nfa_step share not "
             "measured")
-    if launches < n_chunks:
-        raise AssertionError(f"nfa_step launched {launches} times, expected "
-                             f">= {n_chunks}")
+    if min(launches) < n_chunks:
+        raise AssertionError(f"nfa_step / nfa_compact launched {launches} "
+                             f"times, expected >= {n_chunks} each")
     t_ref = time.perf_counter()
     rts, rp1, rp2 = pattern_reference(chunks)
     if len(rts) != len(cols["ts"]):
@@ -917,7 +1099,7 @@ def pattern_parity(dev, seed):
     (plain step) and through the host engine: the same rows."""
     import torch
     from siddhi_tpu_torch import SiddhiManager, StreamCallback
-    from siddhi_tpu_torch.ops.nfa import nfa_block_step
+    from siddhi_tpu_torch.ops.nfa import nfa_compact, nfa_step_egress
     feed = make_pattern_chunks(seed + 5, 4, n_keys=16, chunk=500)
 
     def run(device, engine):
@@ -935,12 +1117,13 @@ def pattern_parity(dev, seed):
         rt.shutdown()
         return out, mode
 
-    launches0 = nfa_block_step.launches
+    launches0 = (nfa_step_egress.launches, nfa_compact.launches)
     cuda_rows, on_dev = run(dev, "device")
-    if nfa_block_step.launches == launches0:
+    if nfa_step_egress.launches == launches0[0] or \
+            nfa_compact.launches == launches0[1]:
         raise AssertionError("pattern parity: the CUDA run launched no "
-                             "nfa_step")
-    nfa_block_step.launches = launches0
+                             "nfa_step or no nfa_compact")
+    nfa_step_egress.launches, nfa_compact.launches = launches0
     torch.cuda.synchronize()
     cpu_rows, _ = run("cpu", "device")
     host_rows, on_host_dev = run(dev, "host")
@@ -1028,7 +1211,8 @@ def main(argv=None) -> int:
     log("== phase 4: engine parity on the card")
     engine_parity(dev, args.seed)
 
-    log("== phase 5: NFA step kernel vs plain version on the card")
+    log("== phase 5: fused NFA step (step + compaction kernels) vs plain "
+        "composition on the card")
     pchunks = make_pattern_chunks(args.seed, args.pattern_chunks)
     # the pattern cell's widest block: events of the busiest key in a chunk
     t_pat = max(int(np.bincount(c[0]["partition"],
@@ -1036,16 +1220,22 @@ def main(argv=None) -> int:
                 for c in pchunks)
     n_cases, nfa_err = check_nfa(t_pat, dev, args.seed)
     check_compaction(t_pat, dev, args.seed)
-    nfa_timed = time_nfa(t_pat, dev, args.seed)
-    ms, plain_ms, bound_ms, bound_by = nfa_timed
-    log(f"  nfa_step at P={PATTERN_LANES} T={t_pat} K={PATTERN_SLOTS}: "
-        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by "
-        f"{bound_by}, {bound_ms / ms * 100:.2f}% of the bound reached); "
-        f"{n_cases} cases equal, max abs err {nfa_err}")
+    nt = time_nfa(t_pat, dev, args.seed)
+    log(f"  fused step at P={PATTERN_LANES} T={t_pat} K={PATTERN_SLOTS} "
+        f"(G={nt['G']}, {nt['L']} lanes per CTA, {nt['count']} matches, "
+        f"cap {nt['cap']}, seg {nt['seg']}): {nt['ms']:.4f} ms (plain "
+        f"composition {nt['plain_ms']:.4f} ms, bound {nt['bound_ms']:.6f} "
+        f"ms by {nt['bound_by']}, {nt['bound_ms'] / nt['ms'] * 100:.2f}% of "
+        f"the bound reached); {n_cases} cases equal, max abs err {nfa_err}")
+    log(f"  compaction alone: {nt['compact_ms']:.4f} ms (plain "
+        f"{nt['plain_compact_ms']:.4f} ms, bound "
+        f"{nt['compact_bound_ms']:.6f} ms by {nt['compact_bound_by']})")
+    log(f"  device split of the fused call (profiler, ms per call): "
+        f"{nt['split']}")
 
     log("== phase 6: pattern cell (PARTITIONED_APP, 10,000 keys) on the "
         "device engine")
-    nfa_launches, _pwall = run_pattern_path(pchunks, dev)
+    (nfa_launches, compact_launches), _pwall = run_pattern_path(pchunks, dev)
     if args.pattern_chunks < 16:
         log(f"CUT: pattern cell at {args.pattern_chunks} chunks (full size "
             f"is 16)")
@@ -1069,13 +1259,28 @@ def main(argv=None) -> int:
         "replaces": "siddhi_tpu/ops/windowed_agg.py:185",
         "checked": True, "launches": launches, "max_abs_err": max_err,
         **timing(True), "sum_only": timing(False)}, {
+        # the fused call: the step, then the compaction, and their gate
+        # word; its bound is the fused function's
         "name": "nfa_step", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:579",
         "checked": True, "launches": nfa_launches, "max_abs_err": nfa_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-        "shape": {"P": PATTERN_LANES, "T": t_pat, "K": PATTERN_SLOTS}}]
+        "ms": nt["ms"], "plain_ms": nt["plain_ms"],
+        "bound_ms": nt["bound_ms"], "bound_by": nt["bound_by"],
+        "library_ms": None, "split": nt["split"],
+        "shape": {"P": PATTERN_LANES, "T": t_pat, "K": PATTERN_SLOTS,
+                  "matches": nt["count"], "cap": nt["cap"],
+                  "seg": nt["seg"]}}, {
+        "name": "nfa_compact", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
+        "replaces": "siddhi_tpu/plan/nfa_compiler.py:1837",
+        "checked": True, "launches": compact_launches,
+        "max_abs_err": nfa_err, "ms": nt["compact_ms"],
+        "plain_ms": nt["plain_compact_ms"],
+        "bound_ms": nt["compact_bound_ms"],
+        "bound_by": nt["compact_bound_by"], "library_ms": None,
+        "shape": {"P": PATTERN_LANES, "matches": nt["count"],
+                  "cap": nt["cap"]}}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,11 +46,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         "wagg_length_scratch_bytes": (_LL, [_I, _I, _I, _I]),
     },
     "nfa_step": {
-        # attrs, ts, stream, valid_u8, gates, prog, prog_len,
+        # attrs, ts, stream, gates, prog, prog_len,
         # carry in (st, start, enter, seq, arm_seq, caps, dropped, armed),
-        # carry out (the same eight), mask_u8, mcaps, mts, menter, mseq,
-        # P, T, K, stream
-        "nfa_step": (_I, [_VP] * 6 + [_I] + [_VP] * 21 + [_I] * 3 + [_VP]),
+        # carry out (the same eight), rows, lane_count, fill,
+        # P, T, K, G, seg, A, RC, stream
+        "nfa_step": (_I, [_VP] * 5 + [_I] + [_VP] * 19 + [_I] * 7 + [_VP]),
+        # rows, lane_count, fill, dropped, slab, P, L, seg, n_cta, cap, W,
+        # stream
+        "nfa_compact": (_I, [_VP] * 5 + [_I] * 6 + [_VP]),
     },
 }
 

@@ -17,16 +17,22 @@ program.  The port computes the same function two ways:
     axis written out in place of ``vmap``), a Python loop over the
     block's T events.  Every unit kind, SEQUENCE, absent states and
     telemetry.  Used for CPU tensors and by the checks.
-  - the hand-written Hopper kernel ``csrc/nfa_step.cu`` — launched by
-    :func:`nfa_block_step` for CUDA tensors, for the specs of its class
+  - the hand-written Hopper kernels ``csrc/nfa_step.cu`` — the step with
+    the egress compaction fused behind it, launched by
+    :func:`nfa_step_egress` for CUDA tensors, for the specs of its class
     (:func:`kernel_class_reason`): simple units, PATTERN, `every` on the
     leading unit or none, optional `within`, no telemetry.  Its
     conditions arrive as a block-wide capture-free gate per condition
     plus a table of ``<event lane> <cmp> <capture lane>`` compares
-    (:class:`NfaKernelProgram`, built by plan/nfa_compiler.py).
+    (:class:`NfaKernelProgram`, built by plan/nfa_compiler.py).  The
+    dense per-(p, t, slot) outputs never reach device memory: each
+    matched slot becomes one row of the egress slab.
 
-Both are functional: the input carry is never modified, because the
-engine's grow-and-replay re-runs a chunk from the pre-chunk carry.
+:func:`nfa_step_egress` is the engine's entry: on the CPU it runs the
+plain composition (:func:`nfa_block_step_plain`, then
+:func:`egress_pack_plain`), on CUDA the kernels.  Both are functional:
+the input carry is never modified, because the engine's grow-and-replay
+re-runs a chunk from the pre-chunk carry.
 """
 from __future__ import annotations
 
@@ -1128,13 +1134,90 @@ def make_timer_block(n_partitions: int, ts_offset: int,
     return block
 
 
-# ------------------------------------------------------------ the kernel
+# ------------------------------------------------------------ the egress
+
+def egress_pack_plain(spec: NfaSpec, mask, caps, ts, enter, seq, dropped,
+                      dl_st=None, dl=None, cap: int = 1024) -> torch.Tensor:
+    """The match compaction of one block's dense outputs (the JAX
+    package's ``plan/nfa_compiler.py`` ``_egress_pack_fn``): ONE
+    [cap+1, 4+R*C] int32 slab of the MATCHED slots in ascending flat
+    index (index, ts, enter, seq, float32 capture row viewed as int32;
+    rows past the count hold -1 in column 0), plus a tail row (true
+    count, summed dropped, earliest live absent deadline)."""
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    S = len(spec.units)
+    dev = mask.device
+    flat = mask.reshape(-1)
+    idx = torch.nonzero_static(flat, size=cap, fill_value=-1)[:, 0]
+    safe = idx.clamp(min=0)
+
+    def g(a):
+        return a.reshape(-1)[safe][:, None]
+    caps_i = caps.contiguous().view(torch.int32).reshape(-1, R * C)[safe]
+    rows = torch.cat([idx.to(torch.int32)[:, None], g(ts), g(enter),
+                      g(seq), caps_i], dim=1)
+    tail = torch.zeros((1, 4 + R * C), dtype=torch.int32, device=dev)
+    tail[0, 0] = flat.sum()
+    tail[0, 1] = dropped.sum()
+    if dl is not None:
+        # earliest live absent-state deadline rides the egress tail: the
+        # pipelined engine schedules its host TIMER off the retired
+        # chunk's carry with no extra device read
+        absent = torch.tensor([u.kind == "absent" for u in spec.units] +
+                              [False], dtype=torch.bool, device=dev)
+        waiting = absent[dl_st.clamp(0, S).long()] & (dl_st >= 0)
+        tail[0, 2] = torch.where(waiting, dl, 2 ** 31 - 1).min()
+    return torch.cat([rows, tail], dim=0)
+
+
+class NfaEgress(NamedTuple):
+    """One block's egress on the device.
+
+    ``buf`` is [cap + 2, 4 + R*C] int32: the slab (:func:`egress_pack_plain`'s
+    cap + 1 rows, tail last) and then one status row, ``[fullest scratch
+    segment's rows, seg, 0, ...]`` (all zero on the plain path, which has
+    no segments).  The step lost rows to a full segment iff status[0] >
+    status[1]; the count may exceed cap.  ``repack(cap)`` re-runs the
+    compaction alone at another cap and returns a new buf.  ``seg`` is
+    the scratch rows per CTA the step ran with (0: plain)."""
+    buf: torch.Tensor
+    repack: Callable[[int], torch.Tensor]
+    seg: int
+
+
+def _status_row(max_fill: int, seg: int, width: int, dev) -> torch.Tensor:
+    row = torch.zeros((1, width), dtype=torch.int32, device=dev)
+    row[0, 0] = max_fill
+    row[0, 1] = seg
+    return row
+
+
+# ------------------------------------------------------------ the kernels
 
 #: carry leaves the kernel reads and writes, in its argument order
 KERNEL_CARRY = ("slot_state", "slot_start", "slot_enter", "slot_seq",
                 "arm_seq", "captures", "dropped", "armed_total")
 
+#: threads per CTA of csrc/nfa_step.cu's step kernel
+KERNEL_THREADS = 256
+
+#: bit 31 of the kernel's gate word carries the event's __valid
+_VALID_BIT = -(2 ** 31)
+
 _PROG_CACHE: Dict[tuple, torch.Tensor] = {}
+
+
+def kernel_geometry(n_slots: int) -> Tuple[int, int]:
+    """(G, L) of csrc/nfa_step.cu for a ring of K = ``n_slots``: G
+    threads per lane (K rounded up to a power of two, at most 32; thread
+    ``g`` owns slots g, g + G, ...) and L = 256 / G lanes per CTA."""
+    G = min(32, 1 << max(int(n_slots) - 1, 0).bit_length())
+    return G, KERNEL_THREADS // G
+
+
+def default_segment(lanes_per_cta: int) -> int:
+    """Scratch rows per CTA to start with: four matches per lane."""
+    return 4 * lanes_per_cta
 
 
 def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
@@ -1170,42 +1253,83 @@ def _prog_tensor(spec: NfaSpec, kprog: NfaKernelProgram, dev) -> torch.Tensor:
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if t.device != device:
-        raise ValueError(f"nfa_block_step: {name} on {t.device}, expected "
+        raise ValueError(f"nfa_step_egress: {name} on {t.device}, expected "
                          f"{device}")
     if t.dtype != dtype:
-        raise TypeError(f"nfa_block_step: {name} is {t.dtype}, expected "
+        raise TypeError(f"nfa_step_egress: {name} is {t.dtype}, expected "
                         f"{dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"nfa_block_step: {name} has shape "
+        raise ValueError(f"nfa_step_egress: {name} has shape "
                          f"{tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"nfa_block_step: {name} is not contiguous")
+        raise ValueError(f"nfa_step_egress: {name} is not contiguous")
 
 
-def nfa_block_step(spec: NfaSpec, carry: Dict[str, torch.Tensor],
-                   block: Dict[str, torch.Tensor],
-                   kprog: Optional[NfaKernelProgram] = None,
-                   batch_b: Optional[int] = None):
-    """The block step on the tensors' own device.
+def nfa_compact(rows: torch.Tensor, lane_count: torch.Tensor,
+                fill: torch.Tensor, dropped: torch.Tensor, P: int, L: int,
+                seg: int, cap: int, width: int) -> torch.Tensor:
+    """Launch csrc/nfa_step.cu's compaction: one step's scratch rows
+    (``fill`` per CTA, ``lane_count`` per lane) into a new [cap + 2,
+    width] egress buffer (slab, tail, status).  CUDA tensors only."""
+    dev = fill.device
+    buf = torch.empty((cap + 2, width), dtype=torch.int32, device=dev)
+    lib = load_kernel("nfa_step")
+    rc = lib.nfa_compact(rows.data_ptr(), lane_count.data_ptr(),
+                         fill.data_ptr(), dropped.data_ptr(), buf.data_ptr(),
+                         P, L, seg, fill.numel(), cap, width,
+                         torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nfa_compact: launch failed with CUDA error {rc}")
+    nfa_compact.launches += 1
+    return buf
 
-    CPU tensors run :func:`nfa_block_step_plain` (every spec).  CUDA
-    tensors launch the ``nfa_step`` kernel on the current stream, for a
-    spec inside its class (``kprog.reason is None``); anything else, and
-    a failed build, load or launch, raises — there is no fallback to the
-    plain version.  The kernel writes a NEW carry; the input carry
-    survives (grow-and-replay re-runs a chunk from it)."""
+
+#: launches of the compaction kernel since the last reset
+nfa_compact.launches = 0
+
+
+def nfa_step_egress(spec: NfaSpec, carry: Dict[str, torch.Tensor],
+                    block: Dict[str, torch.Tensor],
+                    kprog: Optional[NfaKernelProgram] = None,
+                    cap: int = 1024, seg: Optional[int] = None,
+                    batch_b: Optional[int] = None):
+    """One block step and its match compaction on the tensors' own
+    device: ``(carry, [P, T] block) → (new carry, NfaEgress)``.
+
+    CPU tensors run the plain composition (every spec):
+    :func:`nfa_block_step_plain`, then :func:`egress_pack_plain`.  CUDA
+    tensors launch csrc/nfa_step.cu on the current stream, the step
+    (``seg`` scratch rows per CTA, default :func:`default_segment`) and
+    then the compaction, for a spec inside its class (``kprog.reason is
+    None``); the dense [P, T, K, ...] outputs are never written.
+    Anything else, and a failed build, load or launch, raises — there is
+    no fallback to the plain version.  The input carry survives
+    (grow-and-replay re-runs a chunk from it)."""
     dev = block["__ts"].device
-    if dev.type == "cpu":
-        return nfa_block_step_plain(spec, carry, block, batch_b)
-    if kprog is None or kprog.reason is not None:
-        raise RuntimeError(
-            "nfa_block_step: spec outside the CUDA kernel's class ("
-            f"{'no kernel program' if kprog is None else kprog.reason})")
-    if dev.type != "cuda":
-        raise RuntimeError(f"nfa_block_step: no kernel for device {dev}")
-    P, T = block["__ts"].shape
     K = spec.n_slots
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    width = 4 + R * C
+    if dev.type == "cpu":
+        new, outs = nfa_block_step_plain(spec, carry, block, batch_b)
+        absent = _has(spec, "absent")
+        dl_st = new["slot_state"] if absent else None
+        dl = new.get("deadline") if absent else None
+
+        def repack_plain(c: int) -> torch.Tensor:
+            return torch.cat([
+                egress_pack_plain(spec, *outs, new["dropped"], dl_st, dl, c),
+                _status_row(0, 0, width, dev)])
+        return new, NfaEgress(repack_plain(cap), repack_plain, 0)
+    if kprog is None or kprog.reason is not None:
+        raise RuntimeError(
+            "nfa_step_egress: spec outside the CUDA kernel's class ("
+            f"{'no kernel program' if kprog is None else kprog.reason})")
+    if dev.type != "cuda":
+        raise RuntimeError(f"nfa_step_egress: no kernel for device {dev}")
+    P, T = block["__ts"].shape
+    G, L = kernel_geometry(K)
+    n_cta = -(-P // L)
+    seg = default_segment(L) if seg is None else int(seg)
     _check("__ts", block["__ts"], torch.int32, (P, T), dev)
     _check("__stream", block["__stream"], torch.int32, (P, T), dev)
     _check("__valid", block["__valid"], torch.bool, (P, T), dev)
@@ -1216,39 +1340,47 @@ def nfa_block_step(spec: NfaSpec, carry: Dict[str, torch.Tensor],
                  "captures": (P, K, R, C)}.get(name, (P, K))
         _check(name, carry[name], carry_dtype(name), shape, dev)
     A = len(kprog.kern_attrs)
-    if A:
+    if A == 1:
+        attrs = block[kprog.kern_attrs[0]]
+        _check("attrs", attrs, torch.float32, (P, T), dev)
+    elif A:
         attrs = torch.stack([block[a] for a in kprog.kern_attrs])
         _check("attrs", attrs, torch.float32, (A, P, T), dev)
     else:
         attrs = torch.zeros((1,), dtype=torch.float32, device=dev)
     gates = kernel_gate_word(spec, kprog, block)
+    gates = torch.where(block["__valid"], gates | _VALID_BIT, gates)
     prog = _prog_tensor(spec, kprog, dev)
     new = {k: torch.empty_like(carry[k]) for k in KERNEL_CARRY
            if k in carry}
-    mask = torch.empty((P, T, K), dtype=torch.bool, device=dev)
-    mcaps = torch.empty((P, T, K, R, C), dtype=torch.float32, device=dev)
-    mts = torch.empty((P, T, K), dtype=torch.int32, device=dev)
-    menter = torch.empty_like(mts)
-    mseq = torch.empty_like(mts)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows = torch.empty((max(n_cta * seg * (width + 2), 1),), **i32)
+    lane_count = torch.empty((P,), **i32)
+    fill = torch.empty((n_cta,), **i32)
     lib = load_kernel("nfa_step")
     armed_in = carry.get("armed_total")
     armed_out = new.get("armed_total")
     rc = lib.nfa_step(
         attrs.data_ptr(), block["__ts"].data_ptr(),
-        block["__stream"].data_ptr(), block["__valid"].data_ptr(),
-        gates.data_ptr(), prog.data_ptr(), prog.numel(),
+        block["__stream"].data_ptr(), gates.data_ptr(), prog.data_ptr(),
+        prog.numel(),
         *[carry[k].data_ptr() for k in KERNEL_CARRY[:7]],
         armed_in.data_ptr() if armed_in is not None else None,
         *[new[k].data_ptr() for k in KERNEL_CARRY[:7]],
         armed_out.data_ptr() if armed_out is not None else None,
-        mask.data_ptr(), mcaps.data_ptr(), mts.data_ptr(),
-        menter.data_ptr(), mseq.data_ptr(), P, T, K,
+        rows.data_ptr(), lane_count.data_ptr(), fill.data_ptr(),
+        P, T, K, G, seg, A, R * C,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nfa_step: launch failed with CUDA error {rc}")
-    nfa_block_step.launches += 1
-    return new, (mask, mcaps, mts, menter, mseq)
+    nfa_step_egress.launches += 1
+    dropped = new["dropped"]
+
+    def repack(c: int) -> torch.Tensor:
+        return nfa_compact(rows, lane_count, fill, dropped, P, L, seg, c,
+                           width)
+    return new, NfaEgress(repack(cap), repack, seg)
 
 
-#: launches of the CUDA kernel since the last reset (plain runs excluded)
-nfa_block_step.launches = 0
+#: launches of the step kernel since the last reset (plain runs excluded)
+nfa_step_egress.launches = 0

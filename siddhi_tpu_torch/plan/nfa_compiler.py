@@ -42,7 +42,7 @@ import torch
 from ..compiler import SiddhiCompiler
 from ..ops.nfa import (CMP_OPS, COUNT_INF, NfaKernelProgram, NfaSpec,
                        UnitSpec, carry_dtype, kernel_class_reason,
-                       make_carry, make_timer_block, nfa_block_step,
+                       make_carry, make_timer_block, nfa_step_egress,
                        resolve_batch_b)
 from ..ops.pack import pack_blocks
 from ..ops.windowed_agg import kernel_device
@@ -1000,6 +1000,10 @@ class CompiledPatternNFA:
         self.has_absent = any(u.kind == "absent" for u in self.units)
         self.last_min_deadline: Optional[int] = None
         self.last_telemetry = None   # [P, 3S+1] host int32 after retire
+        # egress sizes that have worked: slab rows, and scratch rows per
+        # CTA of the CUDA step (None: the kernel's default)
+        self._egress_cap = 1024
+        self._egress_seg: Optional[int] = None
         self.n_partitions = n_partitions
         self.carry = self._place_carry(
             make_carry(self.spec, n_partitions, self.device))
@@ -1620,11 +1624,11 @@ class CompiledPatternNFA:
         from .shapes import nfa_shape_dims, shape_registry
         spec, kprog, B = self.spec, self.kprog, self.batch_b
 
-        def step(carry, block):
-            return nfa_block_step(spec, carry, block, kprog, B)
-        batch_of = (lambda carry, block:
+        def step(carry, block, cap, seg):
+            return nfa_step_egress(spec, carry, block, kprog, cap, seg, B)
+        batch_of = (lambda carry, block, *_:
                     int(block["__ts"].numel()) if "__ts" in block else 0)
-        ticks_of = (lambda carry, block:
+        ticks_of = (lambda carry, block, *_:
                     (-(-int(block["__ts"].shape[-1]) // max(B, 1)), B)
                     if "__ts" in block else (0, B))
         rj = shape_registry().jit(
@@ -1746,83 +1750,37 @@ class CompiledPatternNFA:
             out[k] = v.to(self.device, dt, non_blocking=True)
         return out
 
-    def process_block(self, block):
-        """Run one [P, T] packed block (numpy or tensors); returns the raw
-        match buffers as tensors on the engine's device."""
-        self.carry, (mask, caps, ts, enter, seq) = self._step(
-            self.carry, self.to_device(block))
-        return mask, caps, ts, enter, seq
+    def process_block(self, block, carry=None, seg=None):
+        """Run one [P, T] packed block (numpy or tensors) from ``carry``
+        (default: the engine's, which the new carry replaces) through the
+        step and the match compaction — fused on CUDA, the plain
+        composition on the CPU.  Returns the block's NfaEgress on the
+        engine's device; nothing is read back."""
+        own = carry is None
+        new, eg = self._step(self.carry if own else carry,
+                             self.to_device(block), self._egress_cap,
+                             self._egress_seg if seg is None else seg)
+        if own:
+            self.carry = new
+        return eg
 
-    def _egress_pack_fn(self):
-        """The match-compaction program: ONE [cap+1, 4+R*C] int32 buffer
-        of the MATCHED slots (flat index, ts, enter, seq, float32 capture
-        row viewed as int32) plus a tail row (true count, summed
-        dropped, earliest live absent deadline)."""
-        R = max(self.spec.n_rows, 1)
-        C = max(self.spec.n_caps, 1)
-        S = len(self.spec.units)
-        dev = self.device
+    def _dispatch(self, block) -> dict:
+        """process_block + egress_dispatch: one block's step, compaction
+        and the start of its read, with what a re-run needs."""
+        pre = self.carry
+        return self.egress_dispatch(self.process_block(block), pre, block)
 
-        def pack(mask, caps, ts, enter, seq, dropped, dl_st, dl, cap):
-            flat = mask.reshape(-1)
-            idx = torch.nonzero_static(flat, size=cap, fill_value=-1)[:, 0]
-            safe = idx.clamp(min=0)
-
-            def g(a):
-                return a.reshape(-1)[safe][:, None]
-            caps_i = caps.contiguous().view(torch.int32).reshape(
-                -1, R * C)[safe]
-            rows = torch.cat([idx.to(torch.int32)[:, None], g(ts), g(enter),
-                              g(seq), caps_i], dim=1)
-            tail = torch.zeros((1, 4 + R * C), dtype=torch.int32, device=dev)
-            tail[0, 0] = flat.sum()
-            tail[0, 1] = dropped.sum()
-            if dl is not None:
-                # earliest live absent-state deadline rides the egress
-                # tail: the pipelined engine schedules its host TIMER off
-                # the retired chunk's carry with no extra device read
-                absent = torch.tensor(
-                    [u.kind == "absent" for u in self.spec.units] + [False],
-                    dtype=torch.bool, device=dev)
-                waiting = absent[dl_st.clamp(0, S).long()] & (dl_st >= 0)
-                tail[0, 2] = torch.where(waiting, dl, 2 ** 31 - 1).min()
-            return torch.cat([rows, tail], dim=0)
-
-        return pack
-
-    def _egress(self):
-        if not hasattr(self, "_egress_fn"):
-            from ..core.profiling import wrap_kernel
-            from .shapes import shape_registry
-            R = max(self.spec.n_rows, 1)
-            C = max(self.spec.n_caps, 1)
-            self._egress_fn = wrap_kernel(
-                "nfa.egress_pack",
-                shape_registry().jit(
-                    "nfa.egress_pack",
-                    {"R": R, "C": C, "absent": self.has_absent},
-                    self._egress_pack_fn()))
-        return self._egress_fn
-
-    def egress_dispatch(self, outs):
-        """Phase 1 of the compacted egress: run the match compaction for
-        one block's raw outputs on the device and start its device→host
-        copy, WITHOUT blocking.  Returns an opaque handle for
-        egress_retire.  Splitting dispatch from retire lets the engine
-        pipeline chunks (≙ the reference's @Async disruptor junction,
-        stream/StreamJunction.java:280-316)."""
+    def egress_dispatch(self, eg, pre_carry, block) -> dict:
+        """Phase 1 of the compacted egress: start the device→host copy of
+        one block's egress buffer WITHOUT blocking.  Returns an opaque
+        handle for egress_retire, holding the compaction's re-run
+        (``repack``) and the step's inputs (``step_carry``, ``block``)
+        for the overflow paths; no dense outputs.  Splitting dispatch from
+        retire lets the engine pipeline chunks (≙ the reference's @Async
+        disruptor junction, stream/StreamJunction.java:280-316)."""
         from .pipeline import HostCopy
-        mask, caps, ts, enter, seq = outs
-        P, T, K = mask.shape
-        if not hasattr(self, "_egress_cap"):
-            self._egress_cap = 1024
-        dropped = self.carry["dropped"]
-        dl_st = self.carry["slot_state"] if self.has_absent else None
-        dl = self.carry.get("deadline") if self.has_absent else None
-        buf = self._egress()(mask, caps, ts, enter, seq, dropped, dl_st, dl,
-                             self._egress_cap)
         telem = self.carry.get("telem") if self.spec.telemetry else None
-        bufs = [buf] if telem is None else [buf, telem]
+        bufs = [eg.buf] if telem is None else [eg.buf, telem]
         fuser = getattr(self, "egress_fuser", None)
         token, copy = None, None
         if fuser is not None:
@@ -1832,12 +1790,17 @@ class CompiledPatternNFA:
         else:
             copy = HostCopy(bufs)
         return {"fuse": token, "copy": copy, "cap": self._egress_cap,
-                "outs": outs, "dropped": dropped, "dl_st": dl_st, "dl": dl,
-                "dl_base": self.base_ts, "tk": (T, K)}
+                "seg": eg.seg, "repack": eg.repack, "step_carry": pre_carry,
+                "block": block, "dl_base": self.base_ts,
+                "tk": (int(block["__ts"].shape[1]), self.spec.n_slots)}
 
     def egress_retire(self, handle):
-        """Phase 2: wait for the transfer, re-pack at a doubled cap if the
-        match count overflowed (results exact).  Side effect: sets
+        """Phase 2: wait for the transfer and resolve, before any row is
+        decoded, what the device reported in the buffer: a full scratch
+        segment (status row: rows were lost) re-runs the step from the
+        handle's carry and block with segments that fit, its new carry
+        discarded; a count above cap re-runs the compaction alone at a
+        doubled cap.  Results exact.  Side effect: sets
         self.last_dropped_total (drives grow-and-replay without an extra
         sync)."""
         from .pipeline import HostCopy
@@ -1854,31 +1817,29 @@ class CompiledPatternNFA:
         buf = fetched[0]
         if len(fetched) > 1:
             self.last_telemetry = fetched[1]
-        count = int(buf[-1, 0])
-        self.last_dropped_total = int(buf[-1, 1])
+        if int(buf[-1, 0]) > handle["seg"]:
+            seg = 1 << (int(buf[-1, 0]) - 1).bit_length()
+            self._egress_seg = max(self._egress_seg or 0, seg)
+            eg = self.process_block(handle["block"],
+                                    carry=handle["step_carry"], seg=seg)
+            handle.update(repack=eg.repack, seg=eg.seg,
+                          cap=self._egress_cap)
+            buf = HostCopy([eg.buf]).wait()[0]
+        count = int(buf[-2, 0])
         while count > handle["cap"]:
             cap = handle["cap"]
             while cap < count:
                 cap *= 2
             handle["cap"] = cap
             self._egress_cap = max(self._egress_cap, cap)
-            mask, caps, ts, enter, seq = handle["outs"]
-            buf = HostCopy([self._egress()(
-                mask, caps, ts, enter, seq, handle["dropped"],
-                handle["dl_st"], handle["dl"], cap)]).wait()[0]
-            count = int(buf[-1, 0])
-            self.last_dropped_total = int(buf[-1, 1])
+            buf = HostCopy([handle["repack"](cap)]).wait()[0]
+        self.last_dropped_total = int(buf[-2, 1])
         if self.has_absent:
-            dmin = int(buf[-1, 2])
+            dmin = int(buf[-2, 2])
             self.last_min_deadline = (
                 None if dmin == 2 ** 31 - 1
                 else dmin + (handle["dl_base"] or 0))
         return buf[:count], handle["tk"]
-
-    def _compact_egress(self, mask, caps, ts, enter, seq):
-        """Device-side match compaction and its read, in one call."""
-        return self.egress_retire(
-            self.egress_dispatch((mask, caps, ts, enter, seq)))
 
     def _decode_compact(self, rows: np.ndarray, tk) -> list:
         """Compacted egress rows → match list [(partition, ts, {name:
@@ -2030,8 +1991,8 @@ class CompiledPatternNFA:
         self._maybe_rebase(now_ms, now_ms)
         block = make_timer_block(self.n_partitions, now_ms - self.base_ts,
                                  self.attr_names)
-        outs = self.process_block(block)
-        return self._decode_compact(*self._compact_egress(*outs))
+        return self._decode_compact(*self.egress_retire(
+            self._dispatch(block)))
 
     def dispatch_events(self, partition_ids: np.ndarray,
                         columns: Dict[str, np.ndarray],
@@ -2081,9 +2042,8 @@ class CompiledPatternNFA:
                             np.asarray(timestamps), codes,
                             self.n_partitions, base_ts=self.base_ts)
         pre_carry, pre_base = self.carry, self.base_ts
-        outs = self.process_block(block)
-        h = self.egress_dispatch(outs)
-        h.update(block=block, ts_range=ts_range, pre_carry=pre_carry,
+        h = self._dispatch(block)
+        h.update(ts_range=ts_range, pre_carry=pre_carry,
                  pre_base=pre_base, base_ts=self.base_ts)
         return h
 
@@ -2094,9 +2054,8 @@ class CompiledPatternNFA:
             return h
         if h["ts_range"] is not None:
             self._maybe_rebase(*h["ts_range"])
-        outs = self.process_block(h["block"])
-        nh = self.egress_dispatch(outs)
-        nh.update(block=h["block"], ts_range=h["ts_range"],
+        nh = self._dispatch(h["block"])
+        nh.update(ts_range=h["ts_range"],
                   pre_carry=None, pre_base=None, base_ts=self.base_ts)
         return nh
 
@@ -2170,8 +2129,8 @@ class CompiledPatternNFA:
 
     def decode_matches(self, mask, caps, ts, enter=None, seq=None):
         """Dense-buffer decode (host-side arrays) — the engine path uses
-        the compacted form (_compact_egress/_decode_compact); this remains
-        for direct kernel users/tests stepping build_block_step outputs."""
+        the compacted form (egress_retire/_decode_compact); this remains
+        for direct users stepping nfa_block_step_plain's outputs."""
         def host(a):
             return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
                 else np.asarray(a)

@@ -8,7 +8,8 @@ every output (mask, caps, ts, enter, seq) must be BIT-identical: both
 compute the same float32/int32 operations in the same order (compares,
 selects and copies; the only arithmetic is int32 timestamp offsets).
 
-Also: the TIMER block and the egress compaction rows equal the JAX
+Also: the TIMER block, and the plain composition's egress slab (the
+step, then the compaction) on every in-class shape, equal the JAX
 package's; the CPU model of the CUDA kernel's inputs (a block-wide gate
 word plus a compare table, applied by the plain loop) equals the plain
 step on every in-class shape; the kernel-class predicate rejects each
@@ -22,8 +23,8 @@ import torch
 from siddhi_tpu.ops.nfa import build_block_step
 from siddhi_tpu.ops.nfa import make_timer_block as jax_timer_block
 from siddhi_tpu.plan.nfa_compiler import CompiledPatternNFA as JaxNFA
-from siddhi_tpu_torch.ops.nfa import (make_timer_block, nfa_block_step,
-                                      nfa_block_step_plain)
+from siddhi_tpu_torch.ops.nfa import (make_timer_block,
+                                      nfa_block_step_plain, nfa_step_egress)
 from siddhi_tpu_torch.ops.pack import pack_blocks
 from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
 from siddhi_tpu_torch.utils.errors import SiddhiAppCreationError
@@ -215,31 +216,51 @@ def test_timer_block_equals_jax():
         assert np.array_equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("shape", ["every_within", "absent"])
+#: apps whose egress slab is held against the JAX package's
+EGRESS_APPS = {"every_within": STREAM + SHAPES["every_within"],
+               "absent": STREAM + SHAPES["absent"],
+               **{k: v for k, v in IN_CLASS.items() if k != "every_within"}}
+
+
+@pytest.mark.parametrize("shape", sorted(EGRESS_APPS))
 def test_egress_pack_rows_equal_jax(shape):
-    """The compaction program over one block's dense outputs: the same
-    [cap+1, 4+R*C] int32 rows (matched slots in flat order, tail row)."""
-    app = STREAM + SHAPES[shape]
+    """The plain composition (nfa_step_egress on the CPU: the plain step,
+    then the compaction) against the JAX package's build_block_step then
+    _egress_pack_fn, over chained blocks: the same [cap+1, 4+R*C] int32
+    slab (matched slots in flat order, tail row) at a cap below the count
+    and above it, and the same carry."""
+    app = EGRESS_APPS[shape]
     ref = JaxNFA(app, n_partitions=3, n_slots=4, mesh=None)
     nfa = CompiledPatternNFA(app, n_partitions=3, n_slots=4, device="cpu")
-    block = _blocks(ref.spec.attr_names, 3, seed=3, n_blocks=1)[0]
-    jc, jy = jax.jit(build_block_step(ref.spec))(ref.carry, block)
-    jc = {k: np.array(v) for k, v in jc.items()}
-    dl_st = jc["slot_state"] if ref.has_absent else None
-    dl = jc.get("deadline") if ref.has_absent else None
-    for cap in (8, 1024):
-        want = np.asarray(ref._egress_pack_fn()(
-            *[np.asarray(y) for y in jy], jc["dropped"], dl_st, dl, cap))
-        t = [torch.from_numpy(np.array(y)) for y in jy]
-        got = nfa._egress_pack_fn()(
-            *t, torch.from_numpy(jc["dropped"]),
-            None if dl_st is None else torch.from_numpy(dl_st),
-            None if dl is None else torch.from_numpy(dl), cap)
-        if not ref.has_absent:
-            want = want.copy()
-            want[-1, 2] = 0
-        _same(f"{shape} cap={cap} egress rows", got, want)
-        assert int(want[-1, 0]) > 0
+    jstep = jax.jit(build_block_step(ref.spec))
+    jc = ref.carry
+    tc = _torch_carry({k: np.asarray(v) for k, v in jc.items()})
+    blocks = _blocks(ref.spec.attr_names, 3, seed=3, streams=len(
+        nfa.stream_codes), nfa=nfa)
+    if ref.has_absent:
+        blocks.append(jax_timer_block(3, 400_000, ref.spec.attr_names))
+    most = 0
+    for bi, block in enumerate(blocks):
+        jc, jy = jstep(jc, block)
+        jcn = {k: np.array(v) for k, v in jc.items()}
+        tc, eg = nfa_step_egress(nfa.spec, tc, _torch_block(block),
+                                 nfa.kprog, cap=1)
+        for k in jcn:
+            _same(f"{shape} block {bi} carry.{k}", tc[k], jcn[k])
+        dl_st = jcn["slot_state"] if ref.has_absent else None
+        dl = jcn.get("deadline") if ref.has_absent else None
+        for cap in (1, 1024):
+            want = np.asarray(ref._egress_pack_fn()(
+                *[np.asarray(y) for y in jy], jcn["dropped"], dl_st, dl, cap))
+            if not ref.has_absent:
+                want = want.copy()
+                want[-1, 2] = 0
+            got = eg.buf if cap == 1 else eg.repack(cap)
+            assert not got[-1].any()        # no segments on the plain path
+            _same(f"{shape} block {bi} cap={cap} egress rows", got[:-1],
+                  want)
+        most = max(most, int(want[-1, 0]))
+    assert most > 1, f"{shape}: no block's count passes the cap"
 
 
 @pytest.mark.parametrize("feed", ["uniform", "nan"])
@@ -296,7 +317,7 @@ def test_plain_step_keeps_input_carry():
     block = _torch_block(_blocks(nfa.spec.attr_names, 3, seed=2,
                                  n_blocks=1)[0])
     before = {k: v.clone() for k, v in nfa.carry.items()}
-    new, _ = nfa_block_step(nfa.spec, nfa.carry, block, nfa.kprog)
+    new, _ = nfa_step_egress(nfa.spec, nfa.carry, block, nfa.kprog)
     for k, v in before.items():
         assert torch.equal(nfa.carry[k], v), k
     assert not torch.equal(new["arm_seq"], before["arm_seq"])
@@ -323,4 +344,4 @@ def test_cuda_wrapper_refuses_out_of_class_spec():
                                  n_blocks=1)[0])
     block["__ts"] = block["__ts"].to("meta")
     with pytest.raises(RuntimeError, match="outside the CUDA kernel's class"):
-        nfa_block_step(nfa.spec, nfa.carry, block, nfa.kprog)
+        nfa_step_egress(nfa.spec, nfa.carry, block, nfa.kprog)

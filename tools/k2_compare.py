@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Time the pattern path's NFA kernels and the pattern cell in several
+checkouts of the port, one fresh process per checkout, on one GPU.
+
+    python3 tools/k2_compare.py DIR [DIR ...] [--pattern-chunks N]
+                                [--seed S]
+
+Each DIR is the root of a checkout (its ``chip_smoke.py`` and
+``siddhi_tpu_torch/``); list the trees in turns (parent, change, change,
+parent) to compare them on one card.  Per tree, at the pattern cell's
+shape (``chip_smoke.py`` phase 5: P = 16384 lanes, T = the busiest key's
+events in a chunk, K = 8):
+
+  - a tree with the fused step (``ops.nfa.nfa_step_egress``): that
+    tree's ``chip_smoke.time_nfa`` (the fused call, the compaction alone,
+    the device split, the bounds);
+  - a tree with the dense-output step (``ops.nfa.nfa_block_step``): its
+    ``time_nfa`` (the step alone), its egress compaction (``torch.
+    nonzero_static`` and gathers) alone, and the two in sequence;
+
+then the pattern cell alone (``chip_smoke.run_pattern_path``, N chunks
+of 262,144 events, every row held against the reference): wall,
+events/s, ms per chunk and the peak device memory above what the
+process held before it.  Each tree prints one line ``K2COMPARE {json}``.
+Needs CUDA and nvcc; builds each tree's kernels in that tree.
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import subprocess
+import sys
+
+
+def run_tree(tree: str, n_chunks: int, seed: int) -> dict:
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from siddhi_tpu_torch.ops import _kernels
+    from siddhi_tpu_torch.ops import nfa as ops
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
+
+    dev = "cuda"
+    _kernels.build_all()
+    pchunks = cs.make_pattern_chunks(seed, n_chunks)
+    t_pat = max(int(np.bincount(c[0]["partition"],
+                                minlength=cs.N_PATTERN_KEYS).max())
+                for c in pchunks)
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": cs.nvidia_smi_line(), "T": t_pat}
+    if hasattr(ops, "nfa_step_egress"):
+        out["fused"] = cs.time_nfa(t_pat, dev, seed)
+    else:
+        ms, _plain, bound, by = cs.time_nfa(t_pat, dev, seed)
+        P, K = cs.PATTERN_LANES, cs.PATTERN_SLOTS
+        nfa = CompiledPatternNFA(cs.pattern_query(cs.PARTITIONED_APP),
+                                 n_partitions=P, n_slots=K, device=dev)
+        spec, kp = nfa.spec, nfa.kprog
+        warm, blk = cs._nfa_blocks(nfa, P, t_pat, 2, seed, dev)
+        carry, _ = ops.nfa_block_step(spec, nfa.carry, warm, kp)
+        _, outs = ops.nfa_block_step(spec, carry, blk, kp)
+        count = int(outs[0].sum())
+        cap = 1 << max(count - 1, 0).bit_length()
+        pack = nfa._egress_pack_fn()
+        k4_ms = cs.median_ms(
+            lambda: pack(*outs, carry["dropped"], None, None, cap), dev)
+        both_ms = cs.median_ms(lambda: pack(
+            *ops.nfa_block_step(spec, carry, blk, kp)[1], carry["dropped"],
+            None, None, cap), dev)
+        out["dense"] = {"step_ms": ms, "bound_ms": bound, "bound_by": by,
+                        "k4_ms": k4_ms, "step_plus_k4_ms": both_ms,
+                        "count": count, "cap": cap}
+        del nfa, warm, blk, carry, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _launches, wall = cs.run_pattern_path(pchunks, dev)
+    n_events = n_chunks * cs.CHUNK
+    out["pattern"] = {"wall_s": wall, "events_per_s": n_events / wall,
+                      "ms_per_chunk": wall / n_chunks * 1e3,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "held_before_bytes": mem0}
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--pattern-chunks", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        res = run_tree(os.path.abspath(args.trees[0]), args.pattern_chunks,
+                       args.seed)
+        print("K2COMPARE " + json.dumps(res), flush=True)
+        return 0
+    rc = 0
+    for tree in args.trees:
+        tree = os.path.abspath(tree)
+        r = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), tree, "--child",
+             "--pattern-chunks", str(args.pattern_chunks),
+             "--seed", str(args.seed)], cwd=tree)
+        rc = rc or r.returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
