@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (siddhi_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--chunks N] [--queries Q] [--pattern-chunks M]
-                          [--seed S]
+                          [--fleet-blocks B] [--seed S]
 
 Run from the root of a checkout on a machine with a CUDA GPU, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA.  Phases, in order; any failure
@@ -40,7 +40,18 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      row is held against an independent per-key reference; the cell's own
      peak device memory;
   7. engine parity for the pattern app: CUDA kernel, CPU plain, host;
-  8. one JSON line per the kernel table, the nvidia-smi line, and the
+  8. the fleet cell at full size — bench.py's headline bank (BASELINE's
+     "1k patterns x 10k partitions": 1000 threshold patterns, 10,000
+     round-robin lanes, K = 8, T = 64, 5 stacked chunks of 200, ring 32),
+     B pre-staged blocks through CompiledPatternBank.process_block on the
+     two bank kernels, ending with one device-to-host read and the ring
+     decode; every pattern's count is held against an independent numpy
+     reference and every decoded ring row must be one of its matches;
+     then the kernels against the plain bank step bit for bit (the cell's
+     next block in place, a matchy-band block, stacked vs sequential, a
+     replayable bank growing from K = 1, K = 160 in place and not, a
+     one-unit chain, a chain without `every`), and each kernel timed;
+  9. one JSON line per the kernel table, the nvidia-smi line, and the
      last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the siddhi_tpu_torch package beside this file,
@@ -51,6 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -334,6 +346,14 @@ def check_rows(name, got, ref, names):
                                  f"> 1e-5")
     log(f"  {name}: {len(cnt)} rows == float64 reference (counts, keys, "
         f"min/max exact; sum/avg rel <= 1e-5)")
+
+
+def is_kernel(key: str, name: str) -> bool:
+    """True when a profiler key (a demangled kernel signature such as
+    ``void (anonymous namespace)::nfa_step_kernel<1>(...)``) names exactly
+    the kernel ``name``."""
+    return re.search(r"(?<![\w])" + re.escape(name) + r"[<(]", key) \
+        is not None
 
 
 def profile_device(fn):
@@ -874,8 +894,8 @@ def device_split(fn, n=5):
             us = getattr(ev, "cuda_time_total", 0)
         if not us:
             continue
-        key = ("step_ms" if "nfa_step_kernel" in ev.key else
-               "compact_ms" if "nfa_compact_kernel" in ev.key else
+        key = ("step_ms" if is_kernel(ev.key, "nfa_step_kernel") else
+               "compact_ms" if is_kernel(ev.key, "nfa_compact_kernel") else
                "other_ms")
         split[key] += us / 1e3
         if key in calls:
@@ -1058,9 +1078,9 @@ def run_pattern_path(chunks, dev):
         f"{k} {stage1[k] - stage0.get(k, 0.0):.3f}" for k in stage1))
     if per_kernel is not None:
         step_us = sum(us for k, us in per_kernel.items()
-                      if "nfa_step_kernel" in k)
+                      if is_kernel(k, "nfa_step_kernel"))
         comp_us = sum(us for k, us in per_kernel.items()
-                      if "nfa_compact_kernel" in k)
+                      if is_kernel(k, "nfa_compact_kernel"))
         nfa_us = step_us + comp_us
         log(f"  nfa_step device time {step_us / 1e3:.3f} ms over "
             f"{launches[0]} launches, nfa_compact {comp_us / 1e3:.3f} ms over "
@@ -1138,6 +1158,564 @@ def pattern_parity(dev, seed):
         f"host engine (sorted), exactly")
 
 
+# ------------------------------------------------------------------ phase 8
+
+#: bench.py's headline configuration (BASELINE.json metric "events/sec +
+#: p99 match latency (1k patterns x 10k partitions)"), verbatim
+N_BANK = 1000
+BANK_P = 10_000
+BANK_K = 8
+BANK_T = 64
+BANK_CHUNK = 200
+BANK_RING = 32
+BANK_WITHIN_MS = 40_000
+BANK_GAP_MS = BANK_P                      # round-robin: per-lane gap P ms
+BANK_FLOOR = 99.9
+BANK_BASE_TS = 1_000_000
+
+
+def bank_app(thr, floor=BANK_FLOOR, within_ms=BANK_WITHIN_MS) -> str:
+    """bench.py app_for, verbatim."""
+    return f"""
+    define stream S (partition int, price float, kind int);
+    @info(name='q')
+    from every e1=S[kind == 0 and price > {thr}] -> e2=S[kind == 1 and price > e1.price and price > {floor}]
+        within {within_ms} milliseconds
+    select e1.price as p1, e2.price as p2
+    insert into Out;
+    """
+
+
+def bank_blocks(rng, n_blocks, P=BANK_P, T=BANK_T, gap=BANK_GAP_MS):
+    """bench.py gen_flat + gen_block: per block, event (i, j) of lane i at
+    BASE + (block * T + j) * gap + i * (gap // P), price U[0, 100), kind
+    U{0, 1}, packed into [P, T] lanes by the port's pack_blocks."""
+    from siddhi_tpu_torch.ops.pack import pack_blocks
+    out = []
+    for b in range(n_blocks):
+        n = P * T
+        j = np.repeat(np.arange(T, dtype=np.int64), P)
+        i = np.tile(np.arange(P, dtype=np.int64), T)
+        ts = BANK_BASE_TS + (b * T + j) * gap + i * (gap // P)
+        cols = {"partition": i.astype(np.float32),
+                "price": rng.uniform(0.0, 100.0, n).astype(np.float32),
+                "kind": rng.integers(0, 2, n).astype(np.float32)}
+        out.append(pack_blocks(i, cols, ts, np.zeros(n, np.int32), P,
+                               base_ts=BANK_BASE_TS))
+    return out
+
+
+def bank_reference(blocks, thrs, floor=BANK_FLOOR, gap=BANK_GAP_MS,
+                   within_ms=BANK_WITHIN_MS):
+    """Independent reference of the bank over the lane streams: an arm is
+    a `kind == 0` event; it is a match of pattern i when its price is
+    above float32(thr_i) and a later event of its lane within `within`
+    (here the next within // gap events) has kind 1 and a price above
+    both its own and float32(floor).  → (matches per pattern, per-lane
+    price and kind [P, events])."""
+    price = np.concatenate([b["price"] for b in blocks], axis=1)
+    kind = np.concatenate([b["kind"] for b in blocks], axis=1)
+    lo = np.maximum(price, np.float32(floor))
+    hit = np.zeros(price.shape, bool)
+    for d in range(1, within_ms // gap + 1):
+        hit[:, :-d] |= (kind[:, d:] == 1) & (price[:, d:] > lo[:, :-d])
+    p1 = np.sort(price[(kind == 0) & hit])
+    t32 = np.asarray(thrs, np.float32)
+    counts = len(p1) - np.searchsorted(p1, t32, side="right")
+    return counts.astype(np.int64), price, kind
+
+
+def check_ring_rows(dec, price, kind, thrs, floor=BANK_FLOOR,
+                    gap=BANK_GAP_MS, within_ms=BANK_WITHIN_MS) -> int:
+    """Every decoded ring row (pattern, partition, ts, p1, p2) is a match
+    of the reference: its e2 is an event of its lane at ts with kind 1
+    and price p2, and an arm of that pattern precedes it within `within`
+    with price p1 < p2."""
+    lane = dec["partition"].astype(np.int64)
+    j2 = (dec["ts"] - BANK_BASE_TS - lane * (gap // price.shape[0])) // gap
+    p1 = dec["p1"].astype(np.float32)
+    p2 = dec["p2"].astype(np.float32)
+    thr = np.asarray(thrs, np.float32)[dec["pattern"]]
+    ok = (j2 >= 0) & (j2 < price.shape[1])
+    j2c = np.clip(j2, 0, price.shape[1] - 1)
+    ok &= (kind[lane, j2c] == 1) & (price[lane, j2c] == p2)
+    ok &= (p2 > p1) & (p2 > np.float32(floor)) & (p1 > thr)
+    arm = np.zeros(len(lane), bool)
+    for d in range(1, within_ms // gap + 1):
+        j1 = np.clip(j2c - d, 0, None)
+        arm |= (j2c - d >= 0) & (kind[lane, j1] == 0) & \
+            (price[lane, j1] == p1)
+    bad = ~(ok & arm)
+    if bad.any():
+        i = int(np.nonzero(bad)[0][0])
+        raise AssertionError(
+            f"ring row is no match: pattern {dec['pattern'][i]} lane "
+            f"{lane[i]} ts {dec['ts'][i]} p1 {p1[i]} p2 {p2[i]}")
+    return len(lane)
+
+
+def _max_abs_diff(a, b) -> float:
+    """The largest |a - b| over two tensors of one dtype and shape (NaN
+    against NaN and equal infinities count as 0), taken a slice of the
+    leading axis at a time so a 2 GB carry leaf needs no copy of itself."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return float("inf")
+    if a.numel() == 0:
+        return 0.0
+    if a.dim() == 0:
+        return _abs_err(a.reshape(1), b.reshape(1))
+    step = max(1, (1 << 26) // max(a[0].numel(), 1))
+    return max(_abs_err(a[i:i + step], b[i:i + step])
+               for i in range(0, a.shape[0], step))
+
+
+def _bank_outputs_equal(name, got, want, new_k, new_p) -> float:
+    """The six raw outputs (or the counts) and every carry leaf, bit for
+    bit; → the largest absolute difference measured over all of them."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    names = ("counts", "ring_cnt", "ring_pid", "ring_caps", "ring_ts",
+             "ring_ok")
+    worst = 0.0
+    for x, y, n in zip(got, want, names):
+        worst = max(worst, _max_abs_diff(x, y))
+        if not _same_bits(x, y):
+            raise AssertionError(f"bank kernels != plain: {name} {n} (max "
+                                 f"abs diff {worst})")
+    for k in new_p:
+        worst = max(worst, _max_abs_diff(new_k[k], new_p[k]))
+        if not _same_bits(new_k[k], new_p[k]):
+            raise AssertionError(f"bank kernels != plain: {name} carry.{k} "
+                                 f"(max abs diff {worst})")
+    return worst
+
+
+def _bank_plain(bank, carry, block):
+    from siddhi_tpu_torch.ops.nfa import nfa_bank_step_plain
+    params = bank._stack_params if bank.stacked else bank.params[0]
+    return nfa_bank_step_plain(bank.nfa.spec, carry, block, params,
+                               bank.ring)
+
+
+def _snapshot(bank):
+    c = bank._stack_carry if bank.stacked else bank._carries[0]
+    return {k: v.clone() for k, v in c.items()}
+
+
+def _carry(bank):
+    return bank._stack_carry if bank.stacked else bank._carries[0]
+
+
+def check_bank(dev, seed, main_bank, main_block):
+    """The bank kernels (the bank step, then the ring) against the plain
+    bank step on the card, bit for bit: counts, the six raw ring outputs
+    and every carry leaf.  Cases: the fleet cell's own next block (alert
+    band, stacked, carry updated in place); a full-size block in the
+    matchy band (thresholds 5..95, floor 0: rings filled through ties);
+    stacked vs sequential over the matchy blocks; a replayable bank from
+    K = 1 that grows and replays; K = 160 (the wide-ring instance), in
+    place and not.  → (cases, the fleet block's outputs, the largest
+    absolute difference measured between the kernels and the plain step
+    over every output and carry leaf compared)."""
+    import torch
+    from siddhi_tpu_torch.ops.nfa import nfa_bank_ring, nfa_bank_step
+    from siddhi_tpu_torch.plan.nfa_compiler import (CompiledPatternBank,
+                                                    _widen_slots)
+    launches0 = (nfa_bank_step.launches, nfa_bank_ring.launches)
+    cases = 0
+    # (a) the fleet cell's bank on its next block, in place
+    pre = _snapshot(main_bank)
+    got = main_bank.process_block(main_block)
+    new_p, want = _bank_plain(main_bank, pre, main_block)
+    torch.cuda.synchronize()
+    worst = _bank_outputs_equal("alert band (in place)", got, want,
+                                _carry(main_bank), new_p)
+    log(f"  bank == plain  alert band, stacked, in place: "
+        f"{N_BANK} x {BANK_P} x T={BANK_T}, {int(want[0].sum())} matches, "
+        f"{int((want[1] == 0).sum())} zero ring rows")
+    cases += 1
+    main_out = got
+    del pre, new_p, want
+    # (b) the matchy band, full size; (c) stacked vs sequential on it
+    rng = np.random.default_rng(seed + 8)
+    mblocks = bank_blocks(rng, 2)
+    apps = [bank_app(t, floor=0.0) for t in np.linspace(5.0, 95.0, N_BANK)]
+    stk = CompiledPatternBank(apps, n_partitions=BANK_P, n_slots=BANK_K,
+                              pattern_chunk=BANK_CHUNK, ring=BANK_RING,
+                              device=dev)
+    seq = CompiledPatternBank(apps, n_partitions=BANK_P, n_slots=BANK_K,
+                              pattern_chunk=BANK_CHUNK, ring=BANK_RING,
+                              stack=False, device=dev)
+    assert stk.stacked and not seq.stacked and seq.n_chunks == \
+        N_BANK // BANK_CHUNK
+    for b, raw in enumerate(mblocks):
+        blk = stk.nfa.to_device(raw)
+        pre = _snapshot(stk) if b else None
+        got = stk.process_block(blk)
+        got_seq = seq.process_block(blk)
+        torch.cuda.synchronize()
+        for x, y in zip(got, got_seq):
+            if not _same_bits(x, y):
+                raise AssertionError("bank: stacked != sequential outputs")
+        for ci, (cs, cq) in enumerate(zip(stk.carries, seq.carries)):
+            for k in cs:
+                if not _same_bits(cs[k], cq[k]):
+                    raise AssertionError(f"bank: stacked != sequential "
+                                         f"carry.{k} chunk {ci}")
+        if pre is not None:
+            new_p, want = _bank_plain(stk, pre, blk)
+            torch.cuda.synchronize()
+            worst = max(worst, _bank_outputs_equal(
+                "matchy band", got, want, _carry(stk), new_p))
+            rc = want[1]
+            ties = int((rc[:, 1:] == rc[:, :-1]).sum())
+            log(f"  bank == plain  matchy band (5..95, floor 0), stacked: "
+                f"{int(want[0].sum())} matches, ring ties {ties}; stacked "
+                f"== sequential on both blocks")
+            del pre, new_p, want
+    cases += 2
+    del stk, seq
+    # (d) replayable, K = 1: grows and replays (not in place)
+    rp = CompiledPatternBank(apps[::25], n_partitions=2048, n_slots=1,
+                             pattern_chunk=20, ring=BANK_RING,
+                             replayable=True, device=dev)
+    grown = 0
+    for raw in bank_blocks(np.random.default_rng(seed + 9), 3, P=2048,
+                           gap=2048):
+        blk = rp.nfa.to_device(raw)
+        pre = _snapshot(rp)
+        k0 = rp.nfa.spec.n_slots
+        got = rp.process_block_replayed(blk)
+        k1 = rp.nfa.spec.n_slots
+        grown += k1 > k0
+        R, C = max(rp.nfa.spec.n_rows, 1), max(rp.nfa.spec.n_caps, 1)
+        if k1 > k0:
+            pre = _widen_slots(pre, 3 if rp.stacked else 2, k1 - k0, R, C)
+        new_p, want = _bank_plain(rp, pre, blk)
+        torch.cuda.synchronize()
+        worst = max(worst, _bank_outputs_equal(
+            f"replayable K {k0}->{k1}", got, want, _carry(rp), new_p))
+    if not grown or rp.total_dropped():
+        raise AssertionError(f"replay case: grew {grown} times, dropped "
+                             f"{rp.total_dropped()}")
+    log(f"  bank == plain  replayable from K=1: grew to K="
+        f"{rp.nfa.spec.n_slots} over 3 blocks (N=40 P=2048), dropped 0")
+    cases += 1
+    del rp
+    # (e) K = 160: the wide-ring instance, in place and not
+    wide_apps = [bank_app(t) for t in np.linspace(5.0, 50.0, 8)]
+    raw = bank_blocks(np.random.default_rng(seed + 10), 1, P=256, T=600,
+                      gap=10)[0]
+    for replayable in (False, True):
+        wb = CompiledPatternBank(wide_apps, n_partitions=256, n_slots=160,
+                                 pattern_chunk=4, ring=BANK_RING,
+                                 replayable=replayable, device=dev)
+        blk = wb.nfa.to_device(raw)
+        pre = _snapshot(wb)
+        got = wb.process_block(blk)
+        new_p, want = _bank_plain(wb, pre, blk)
+        torch.cuda.synchronize()
+        mode = "not in place" if replayable else "in place"
+        worst = max(worst, _bank_outputs_equal(
+            f"K=160 {mode}", got, want, _carry(wb), new_p))
+        hi = int((new_p["slot_state"] >= 0).sum(dim=-1).max())
+        if hi <= 128:
+            raise AssertionError(f"K=160 case held at most {hi} partials")
+        log(f"  bank == plain  K=160 wide ring, {mode}: P=256 T=600, "
+            f"{int(want[0].sum())} matches, most live in a lane {hi}, "
+            f"dropped {int(new_p['dropped'].sum())}")
+        cases += 1
+    # (f) other shapes of the kernel's class, two chained blocks each: a
+    # one-unit chain (arming completes the match) and a chain without
+    # `every` (single-shot arming)
+    stream = "define stream S (partition int, price float, kind int);\n"
+    shapes = {
+        "one unit": [stream + f"from every e1=S[price > {t} and kind == 0] "
+                     "select e1.price as p1 insert into Out;"
+                     for t in np.linspace(50.0, 99.0, 8)],
+        "no every": [stream + f"from e1=S[kind == 0 and price > {t}] -> "
+                     "e2=S[kind == 1 and price > e1.price] select e1.price "
+                     "as p1, e2.price as p2 insert into Out;"
+                     for t in np.linspace(5.0, 95.0, 8)]}
+    for name, sapps in shapes.items():
+        sb = CompiledPatternBank(sapps, n_partitions=1024, n_slots=BANK_K,
+                                 pattern_chunk=4, ring=BANK_RING, device=dev)
+        matches = 0
+        for raw in bank_blocks(np.random.default_rng(seed + 11), 2, P=1024,
+                               gap=1024):
+            blk = sb.nfa.to_device(raw)
+            pre = _snapshot(sb)
+            got = sb.process_block(blk)
+            new_p, want = _bank_plain(sb, pre, blk)
+            torch.cuda.synchronize()
+            worst = max(worst, _bank_outputs_equal(
+                name, got, want, _carry(sb), new_p))
+            matches += int(want[0].sum())
+        if not matches:
+            raise AssertionError(f"{name} case matched nothing")
+        log(f"  bank == plain  {name}: N=8 P=1024 T=64, {matches} matches")
+        cases += 1
+    nfa_bank_step.launches, nfa_bank_ring.launches = launches0
+    return cases, main_out, worst
+
+
+def bank_step_bound(bank, P, T):
+    """(bound ms, bound_by) of one bank step launch: the block's inputs
+    read once (attribute lanes, ts, stream, valid, a gate byte per
+    condition), the pattern constants read once, the carry read once and
+    written once, count / lmt / lmk written once; against its compares
+    (within, state, stream, gate, each table compare per event and slot)
+    over the float32 peak."""
+    spec, kp = bank.nfa.spec, bank.nfa.kprog
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    K, CN = spec.n_slots, bank.n_patterns
+    inputs = P * T * (4 * len(kp.kern_attrs) + 4 + 4 + 1 +
+                      len(spec.cond_fns))
+    carry = CN * (P * K * (4 * 4 + 4 * R * C) +
+                  P * 4 * (2 + int(spec.arm_once)))
+    nbytes = inputs + CN * len(kp.param_names) * 4 + 2 * carry + \
+        3 * CN * P * 4
+    cmps = max(len(c) + len(q) for c, q in zip(kp.cmp, kp.pcmp))
+    ops = CN * P * T * K * (4 + cmps)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def bank_ring_bound(CN, P, ring, RC):
+    """(bound ms, "bytes") of one ring launch: the lane counts read once,
+    per ring row its lane's lmt, lmk, slot start and captures read once,
+    the totals and the ring rows written once."""
+    nbytes = CN * P * 4 + CN * ring * (12 + RC * 4) + CN * 4 + \
+        CN * ring * (12 + RC * 4 + 1)
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def time_bank(bank, block, dev):
+    """Median ms of each kernel's wrapper (the bank step with its gate
+    word, on the steady-state carry, not in place; the ring on its
+    outputs), of the plain versions, and of torch.sort(stable=True) over
+    the same counts (the ring's nearest library call); and the bounds."""
+    import torch
+    from siddhi_tpu_torch.ops.nfa import (bank_lanes_plain, bank_ring_plain,
+                                          nfa_bank_lanes, nfa_bank_ring,
+                                          nfa_bank_step)
+    spec, kp, prm = bank.nfa.spec, bank.nfa.kprog, bank._stack_params
+    carry = bank._stack_carry
+    launches0 = (nfa_bank_step.launches, nfa_bank_ring.launches)
+    new, cnt, lmt, lmk = nfa_bank_lanes(spec, carry, block, prm, kp)
+    step_ms = median_ms(lambda: nfa_bank_lanes(spec, carry, block, prm, kp),
+                        dev, sleep_cycles=5 * SLEEP_CYCLES)
+    ring_ms = median_ms(lambda: nfa_bank_ring(new, cnt, lmt, lmk,
+                                              bank.ring), dev)
+    lib_ms = median_ms(lambda: torch.sort(cnt, dim=1, descending=True,
+                                          stable=True), dev)
+    step_plain_ms = median_ms(lambda: bank_lanes_plain(spec, carry, block,
+                                                       prm), dev, n=3)
+    ring_plain_ms = median_ms(lambda: bank_ring_plain(new, cnt, lmt, lmk,
+                                                      bank.ring), dev)
+    split = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                nfa_bank_lanes(spec, carry, block, prm, kp)
+                nfa_bank_ring(new, cnt, lmt, lmk, bank.ring)
+            torch.cuda.synchronize()
+        # per call recorded: the profiler may drop the first calls
+        split = {"step_ms": 0.0, "ring_ms": 0.0, "other_ms": 0.0}
+        calls = {"step_ms": 0, "ring_ms": 0}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0)
+            if us:
+                key = ("step_ms"
+                       if is_kernel(ev.key, "nfa_bank_step_kernel") else
+                       "ring_ms"
+                       if is_kernel(ev.key, "nfa_bank_ring_kernel") else
+                       "other_ms")
+                split[key] += us / 1e3
+                if key in calls:
+                    calls[key] += ev.count
+        rec = calls["step_ms"]
+        split = {k: (v / (calls.get(k) or rec) if (calls.get(k) or rec)
+                     else None) for k, v in split.items()}
+        split["calls_recorded"] = rec
+    except Exception as e:   # noqa: BLE001 — measurement only
+        log(f"  torch.profiler unavailable ({type(e).__name__}: {e})")
+    nfa_bank_step.launches, nfa_bank_ring.launches = launches0
+    P, T = (int(x) for x in block["__ts"].shape)
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    sb_ms, sb_by = bank_step_bound(bank, P, T)
+    rb_ms, rb_by = bank_ring_bound(bank.n_patterns, P, bank.ring, R * C)
+    return {"step_ms": step_ms, "step_plain_ms": step_plain_ms,
+            "step_bound_ms": sb_ms, "step_bound_by": sb_by,
+            "ring_ms": ring_ms, "ring_plain_ms": ring_plain_ms,
+            "ring_library_ms": lib_ms, "ring_bound_ms": rb_ms,
+            "ring_bound_by": rb_by, "split": split}
+
+
+def run_fleet_cell(dev, seed, n_blocks):
+    """The fleet cell: bench.py's headline bank (1000 patterns x 10,000
+    partitions, K = 8, T = 64, chunks of 200 stacked, ring 32) through
+    CompiledPatternBank.process_block over pre-staged device blocks; the
+    timed window ends with the one device-to-host read of every block's
+    packed ring and decode_ring, as bench.py's throughput phase does.  The
+    timed window runs without the profiler; a second pass over the same
+    blocks from the same carry runs under it for the device split and the
+    idle share."""
+    import gc
+
+    import torch
+    from siddhi_tpu_torch.ops.nfa import nfa_bank_ring, nfa_bank_step
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    thrs = np.linspace(99.8, 99.997, N_BANK)
+    t0 = time.perf_counter()
+    bank = CompiledPatternBank([bank_app(t) for t in thrs],
+                               n_partitions=BANK_P, n_slots=BANK_K,
+                               pattern_chunk=BANK_CHUNK, ring=BANK_RING,
+                               device=dev)
+    bank.base_ts = BANK_BASE_TS
+    torch.cuda.synchronize()
+    carry_bytes = sum(v.numel() * v.element_size()
+                      for v in bank._stack_carry.values())
+    log(f"  bank built in {time.perf_counter() - t0:.3f} s: C={bank.n_chunks} "
+        f"x {bank.chunk} patterns, stacked={bank.stacked}, carry "
+        f"{carry_bytes} B; kernel class: {bank.nfa.kprog.reason or 'inside'}")
+    t0 = time.perf_counter()
+    # warm-up, the timed blocks, and one block checked against the plain
+    # step after the timed run
+    raw = bank_blocks(np.random.default_rng(seed + 7), n_blocks + 2)
+    staged = [bank.nfa.to_device(b) for b in raw]
+    torch.cuda.synchronize()
+    log(f"  {n_blocks + 2} blocks made and staged in "
+        f"{time.perf_counter() - t0:.3f} s")
+    spec = bank.nfa.spec
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    r = BANK_RING
+    W = 1 + 4 * r + r * R * C
+    out0 = bank.process_block(staged[0])      # warm-up
+    counts_total = out0[0].long().cpu().numpy()
+    buf = torch.zeros((n_blocks, N_BANK, W), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+
+    def drive():
+        payloads = []
+        start = time.perf_counter()
+        for i in range(1, n_blocks + 1):
+            counts, rcnt, rpid, rcaps, rts, rok = bank.process_block(
+                staged[i])
+            buf[i - 1] = torch.cat(
+                [counts[:, None], rcnt, rpid, rts, rok.to(torch.int32),
+                 rcaps.view(torch.int32).reshape(N_BANK, -1)], dim=1)
+        host = buf.cpu().numpy()              # the one D2H, a barrier
+        for b in range(n_blocks):
+            h = host[b]
+            payloads.append(bank.decode_ring(
+                h[:, 1:1 + r], h[:, 1 + r:1 + 2 * r],
+                h[:, 1 + 4 * r:].view(np.float32).reshape(N_BANK, r, R, C),
+                h[:, 1 + 2 * r:1 + 3 * r], h[:, 1 + 3 * r:1 + 4 * r] != 0))
+        return time.perf_counter() - start, host, payloads
+
+    # the timed run goes without the profiler; the profiled pass replays
+    # the same blocks from the same carry (kept on the host, so the cell's
+    # peak device memory holds no copy of it) and must give the same bits
+    assert bank.stacked
+    pre = {k: v.cpu() for k, v in bank._stack_carry.items()}
+    nfa_bank_step.launches = 0                # counts start here
+    nfa_bank_ring.launches = 0
+    wall, host, payloads = drive()
+    launches = (nfa_bank_step.launches, nfa_bank_ring.launches)
+    peak_cell = torch.cuda.max_memory_allocated()
+    post = {k: v.clone() for k, v in bank._stack_carry.items()}
+    for k, v in bank._stack_carry.items():
+        v.copy_(pre[k])
+    (wall_p, host_p, _), per_kernel, dev_us = profile_device(drive)
+    torch.cuda.synchronize()
+    if not np.array_equal(host_p, host) or not all(
+            _same_bits(bank._stack_carry[k], post[k]) for k in post):
+        raise AssertionError("fleet cell: the profiled pass over the same "
+                             "blocks differs from the timed run")
+    del pre, post
+    counts_total += host[:, :, 0].astype(np.int64).sum(axis=0)
+    n_events = n_blocks * BANK_P * BANK_T
+    matches = int(host[:, :, 0].sum())
+    n_payloads = sum(len(d["pattern"]) for d in payloads)
+    log(f"  fleet cell: {N_BANK} patterns x {BANK_P} partitions, "
+        f"{n_blocks} blocks of {BANK_P * BANK_T} events, {wall:.3f} s wall")
+    log(f"  events/s: {n_events / wall:.1f}; ms per block: "
+        f"{wall / n_blocks * 1e3:.3f}; matches {matches}, payloads decoded "
+        f"{n_payloads} (shortfall {matches - n_payloads})")
+    log(f"  profiled pass over the same blocks from the same carry: "
+        f"{wall_p:.3f} s wall ({(wall_p / wall - 1) * 100:.3f}% above the "
+        f"timed run), outputs and carry equal to the timed run's")
+    if per_kernel is not None:
+        step_us = sum(us for k, us in per_kernel.items()
+                      if is_kernel(k, "nfa_bank_step_kernel"))
+        ring_us = sum(us for k, us in per_kernel.items()
+                      if is_kernel(k, "nfa_bank_ring_kernel"))
+        log(f"  nfa_bank_step device time {step_us / 1e3:.3f} ms over "
+            f"{launches[0]} launches, nfa_bank_ring {ring_us / 1e3:.3f} ms "
+            f"over {launches[1]} launches; all device time "
+            f"{dev_us / 1e3:.3f} ms = {dev_us / 1e6 / wall_p * 100:.3f}% "
+            f"of the profiled pass's wall (idle share "
+            f"{100 - dev_us / 1e6 / wall_p * 100:.3f}%)")
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        for k, us in top:
+            log(f"    device {us / 1e3:10.3f} ms  {k[:90]}")
+    else:
+        log("  torch.profiler recorded no device time: idle share not "
+            "measured")
+    if min(launches) < n_blocks:
+        raise AssertionError(f"nfa_bank_step / nfa_bank_ring launched "
+                             f"{launches} times, expected >= {n_blocks} each")
+    # the kernels against the plain bank step, on the next block first
+    n_cases, next_out, bank_err = check_bank(dev, seed, bank,
+                                             staged[n_blocks + 1])
+    counts_total += next_out[0].long().cpu().numpy()
+    if bank.total_dropped() != 0:
+        raise AssertionError(f"fleet cell dropped {bank.total_dropped()} "
+                             f"partials")
+    peak = torch.cuda.max_memory_allocated()
+    t_ref = time.perf_counter()
+    want, price, kind = bank_reference(raw, thrs)
+    if not np.array_equal(counts_total, want):
+        bad = int(np.nonzero(counts_total != want)[0][0])
+        raise AssertionError(f"fleet cell: pattern {bad} counted "
+                             f"{counts_total[bad]}, reference {want[bad]}")
+    rows = sum(check_ring_rows(d, price, kind, thrs) for d in payloads)
+    log(f"  bank kernels == plain bank step on {n_cases} cases, max abs "
+        f"diff over every output and carry leaf {bank_err}")
+    log(f"  every pattern's count over {n_blocks + 2} blocks == the "
+        f"reference ({int(want.sum())} matches); {rows} decoded ring rows "
+        f"are reference matches; total_dropped() == 0 (reference "
+        f"{time.perf_counter() - t_ref:.1f} s)")
+    log(f"  max_memory_allocated: {peak_cell} B over the timed run "
+        f"({peak_cell - mem0} B above the {mem0} B allocated before the "
+        f"cell: the carry, the {n_blocks + 2} staged blocks, the outputs); "
+        f"{peak} B with the checks' plain steps")
+    tb = time_bank(bank, staged[n_blocks], dev)
+    log(f"  nfa_bank_step at N={N_BANK} P={BANK_P} T={BANK_T} K={BANK_K}: "
+        f"{tb['step_ms']:.4f} ms (plain {tb['step_plain_ms']:.4f} ms, bound "
+        f"{tb['step_bound_ms']:.6f} ms by {tb['step_bound_by']}, "
+        f"{tb['step_bound_ms'] / tb['step_ms'] * 100:.2f}% of the bound "
+        f"reached)")
+    log(f"  nfa_bank_ring at ring={BANK_RING}: {tb['ring_ms']:.4f} ms "
+        f"(plain {tb['ring_plain_ms']:.4f} ms, torch.sort stable "
+        f"{tb['ring_library_ms']:.4f} ms, bound {tb['ring_bound_ms']:.6f} "
+        f"ms by {tb['ring_bound_by']})")
+    log(f"  device split per step + ring (profiler, ms): {tb['split']}")
+    return {"launches": launches, "wall": wall, "cases": n_cases,
+            "max_abs_err": bank_err,
+            "events_per_s": n_events / wall, "peak": peak_cell - mem0, **tb}
+
+
 # ------------------------------------------------------------------ main
 
 def main(argv=None) -> int:
@@ -1145,6 +1723,7 @@ def main(argv=None) -> int:
     ap.add_argument("--chunks", type=int, default=16)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--pattern-chunks", type=int, default=16)
+    ap.add_argument("--fleet-blocks", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1242,6 +1821,15 @@ def main(argv=None) -> int:
 
     log("== phase 7: engine parity for the pattern app on the card")
     pattern_parity(dev, args.seed)
+
+    log("== phase 8: fleet cell (bench.py's bank: 1000 patterns x 10,000 "
+        "partitions) on the bank kernels")
+    t8 = time.perf_counter()
+    fc = run_fleet_cell(dev, args.seed, args.fleet_blocks)
+    log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
+    if args.fleet_blocks < 32:
+        log(f"CUT: fleet cell at {args.fleet_blocks} blocks (full size is "
+            f"32)")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     def timing(minmax):
@@ -1280,7 +1868,27 @@ def main(argv=None) -> int:
         "bound_ms": nt["compact_bound_ms"],
         "bound_by": nt["compact_bound_by"], "library_ms": None,
         "shape": {"P": PATTERN_LANES, "matches": nt["count"],
-                  "cap": nt["cap"]}}]
+                  "cap": nt["cap"]}}, {
+        # the bank step with its gate word, not in place
+        "name": "nfa_bank_step", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
+        "replaces": "siddhi_tpu/ops/nfa.py:1167",
+        "checked": True, "launches": fc["launches"][0],
+        "max_abs_err": fc["max_abs_err"],
+        "ms": fc["step_ms"], "plain_ms": fc["step_plain_ms"],
+        "bound_ms": fc["step_bound_ms"], "bound_by": fc["step_bound_by"],
+        "library_ms": None, "split": fc["split"],
+        "shape": {"patterns": N_BANK, "P": BANK_P, "T": BANK_T,
+                  "K": BANK_K, "chunks": N_BANK // BANK_CHUNK}}, {
+        "name": "nfa_bank_ring", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
+        "replaces": "siddhi_tpu/ops/nfa.py:1250",
+        "checked": True, "launches": fc["launches"][1],
+        "max_abs_err": fc["max_abs_err"],
+        "ms": fc["ring_ms"], "plain_ms": fc["ring_plain_ms"],
+        "bound_ms": fc["ring_bound_ms"], "bound_by": fc["ring_bound_by"],
+        "library_ms": fc["ring_library_ms"],
+        "shape": {"patterns": N_BANK, "P": BANK_P, "ring": BANK_RING}}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

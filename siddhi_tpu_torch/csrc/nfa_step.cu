@@ -67,6 +67,33 @@
 //    0 of the rows past the count, and CTA 0 writes the tail (count,
 //    summed dropped) and the status row.  A cap overflow re-runs this
 //    kernel alone, from the same scratch.
+//
+// The pattern bank (siddhi_tpu/ops/nfa.py:1167 build_bank_step and :1266
+// build_super_bank_step: the step above vmapped over C*N patterns that
+// differ only in their constants, per-pattern match counts, and a top-ring
+// payload ring).  Contract: siddhi_tpu_torch/ops/nfa.py bank_lanes_plain
+// then bank_ring_plain.
+//  - nfa_bank_step: the step body above (a template flag, not a copy)
+//    over a grid of (lane tile, pattern), pattern fastest, so the CTAs of
+//    one lane tile run together and read its [L, T] inputs from L2; the
+//    carry has a leading pattern axis and each pattern's constants come
+//    from a [C*N, n_params] float32 table, staged in shared memory.  A
+//    condition is its gate bit (the capture-free, constant-free part,
+//    shared by every pattern) AND its `event lane <op> pattern constant`
+//    compares AND its capture compares.  Per lane it writes the match
+//    count, and at the lane's last event with a match that event's ts and
+//    its lowest matched slot ([C*N, P] int32 each): no rows, no scratch.
+//    The carry may be updated in place (carry in == carry out): every
+//    thread loads its own slots before it writes them, and the lane's
+//    scalars are written after a barrier.  Bound: the carry read and
+//    written once, ~2 GB each way at 1000 patterns x 10,000 lanes x K = 8.
+//  - nfa_bank_ring: one CTA per pattern.  The exact top-ring of the P
+//    lane counts by (count descending, lane ascending), lax.top_k's order:
+//    the ring-th largest count v by bisection over block-wide counts, every
+//    lane above v, then the lowest-index lanes equal to v (an exclusive
+//    scan over contiguous per-thread lane runs), ordered by rank; then the
+//    gathers of the payload (captures and slot start of the lane's last
+//    matched slot in the final carry, its ts) and the pattern's total.
 #include <climits>
 #include <cstdint>
 
@@ -79,17 +106,19 @@ constexpr int kTileBytes = 32 * 1024;   // both tile buffers together: at
                                         // K = 8 five CTAs fit an SM, so
                                         // P = 16384 runs in one wave
 constexpr int kMaxTileEvents = 128;
-constexpr int kHeader = 8;              // S, R, C, has_within, within_ms,
-                                        // arm_once, n_cond, n_cmp
+constexpr int kHeader = 9;              // S, R, C, has_within, within_ms,
+                                        // arm_once, n_cond, n_cmp, n_pcmp
 constexpr unsigned kValidBit = 0x80000000u;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Prog {
-  int S, R, C, has_within, within, arm_once, n_cond, n_cmp;
+  int S, R, C, has_within, within, arm_once, n_cond, n_cmp, n_pcmp;
   const int* units;       // S x (stream, cond, row)
   const int* row_src;     // R*C: attr index, -1 -> 0.0f, -2 -> 1.0f
   const int* cmp_start;   // n_cond + 1
   const int* cmp;         // n_cmp x (attr, row, lane, op)
+  const int* pcmp_start;  // n_cond + 1
+  const int* pcmp;        // n_pcmp x (attr, param, op)
 };
 
 __device__ __forceinline__ Prog parse(const int* p) {
@@ -102,10 +131,13 @@ __device__ __forceinline__ Prog parse(const int* p) {
   g.arm_once = p[5];
   g.n_cond = p[6];
   g.n_cmp = p[7];
+  g.n_pcmp = p[8];
   g.units = p + kHeader;
   g.row_src = g.units + 3 * g.S;
   g.cmp_start = g.row_src + g.R * g.C;
   g.cmp = g.cmp_start + g.n_cond + 1;
+  g.pcmp_start = g.cmp + 4 * g.n_cmp;
+  g.pcmp = g.pcmp_start + g.n_cond + 1;
   return g;
 }
 
@@ -124,7 +156,9 @@ struct StepArgs {
   int* rows;              // [n_cta, seg, 4 + RC + 2]
   int* lane_count;        // [P]
   int* fill;              // [n_cta]
-  int prog_len, P, T, K, G, spt, L, TT, seg, A, RC;
+  const float* params;    // bank: [CN, n_params]
+  int *count, *lmt, *lmk; // bank: [CN, P]
+  int prog_len, P, T, K, G, spt, L, TT, seg, A, RC, CN, n_params;
 };
 
 __device__ __forceinline__ bool compare(int op, float x, float y) {
@@ -220,6 +254,23 @@ __device__ __forceinline__ bool cond_ok(const Prog& g, int i, unsigned gw,
   return true;
 }
 
+// the event's gate word with bit i cleared where one of condition i's
+// `event lane <op> pattern constant` compares fails
+__device__ __forceinline__ unsigned param_gates(const Prog& g, unsigned gw,
+                                                const float* at, int LT,
+                                                const float* prm) {
+  for (int i = 0; i < g.n_cond; ++i) {
+    for (int q = g.pcmp_start[i]; q < g.pcmp_start[i + 1]; ++q) {
+      const int* c = g.pcmp + 3 * q;
+      if (!compare(c[2], at[c[0] * LT], prm[c[1]])) {
+        gw &= ~(1u << i);
+        break;
+      }
+    }
+  }
+  return gw;
+}
+
 // the event's lanes into capture row `row` of slot s
 template <class SL>
 __device__ __forceinline__ void write_row(const Prog& g, int row, SL& sl,
@@ -251,19 +302,30 @@ __device__ __forceinline__ void emit_row(const StepArgs& a, SL& sl, int s,
   r[W + 1] = l;
 }
 
-template <int SPT>
-__global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
+// The step body, shared by the two kernels below.  BANK: blockIdx.x =
+// lane tile * CN + pattern; the pattern's carry, its constants, and
+// per-lane count / last-match outputs instead of rows.
+template <int SPT, bool BANK>
+__device__ __forceinline__ void step_body(const StepArgs& a) {
   extern __shared__ int smem[];
   __shared__ int s_fill;
   const int tid = threadIdx.x;
   const int prog_pad = (a.prog_len + 3) & ~3;
+  const int prm_pad = BANK ? (a.n_params + 3) & ~3 : 0;
   const int LT = a.L * a.TT;
   const int tile_ints = (3 + a.A) * LT;
   int* sprog = smem;
-  int* tiles = smem + prog_pad;
-  const int p0 = blockIdx.x * a.L;
+  float* sprm = reinterpret_cast<float*>(smem + prog_pad);
+  int* tiles = smem + prog_pad + prm_pad;
+  const int pat = BANK ? static_cast<int>(blockIdx.x % a.CN) : 0;
+  const int tile = BANK ? static_cast<int>(blockIdx.x / a.CN) : blockIdx.x;
+  const int p0 = tile * a.L;
 
   for (int i = tid; i < a.prog_len; i += kThreads) sprog[i] = a.prog[i];
+  if constexpr (BANK) {
+    for (int i = tid; i < a.n_params; i += kThreads)
+      sprm[i] = a.params[static_cast<long long>(pat) * a.n_params + i];
+  }
   if (tid == 0) s_fill = 0;
   load_tile(tiles, 0, a, p0);
   cp_async_commit();
@@ -282,7 +344,8 @@ __global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
   const unsigned ltmask = gmask & ((1u << wl) - 1u);
   const int ns = SPT > 0 ? SPT : a.spt;
   const int RC = a.RC;
-  const long long lane_k = static_cast<long long>(p) * a.K;
+  const long long lane = static_cast<long long>(pat) * a.P + p;
+  const long long lane_k = lane * a.K;
 
   Slots<SPT> sl;
   if constexpr (SPT > 0) {
@@ -319,10 +382,11 @@ __global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
       for (int i = 0; i < RC; ++i) a.caps[sk * RC + i] = a.caps_in[sk * RC + i];
     }
   }
-  int arm_seq = lane_ok ? a.armseq_in[p] : 0;
-  int drop = lane_ok ? a.dropped_in[p] : 0;
-  int armed = (lane_ok && g.arm_once) ? a.armed_in[p] : 0;
-  int cnt = 0;                          // rows this lane emitted so far
+  int arm_seq = lane_ok ? a.armseq_in[lane] : 0;
+  int drop = lane_ok ? a.dropped_in[lane] : 0;
+  int armed = (lane_ok && g.arm_once) ? a.armed_in[lane] : 0;
+  int cnt = 0;                          // matches of this lane so far
+  int lmt = 0, lmk = 0;                 // bank: the lane's last match
   const int* u0 = g.units;
 
   const int n_tiles = (a.T + a.TT - 1) / a.TT;
@@ -343,10 +407,14 @@ __global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
       const int t = t0 + j;
       const int tsv = cur[e];
       const int sv = cur[LT + e];
-      const unsigned gw = static_cast<unsigned>(cur[2 * LT + e]);
+      unsigned gw = static_cast<unsigned>(cur[2 * LT + e]);
       const float* at = reinterpret_cast<const float*>(cur + 3 * LT) + e;
+      if constexpr (BANK) {
+        if (g.n_pcmp) gw = param_gates(g, gw, at, LT, sprm);
+      }
       const bool v = lane_ok && (gw & kValidBit);
       int ffree = -1;                   // first free slot of the lane
+      int ev_k = -1;                    // bank: lowest slot matched now
 
       // within expiry, then each slot's one transition (ops/nfa.py
       // _one_event_step: within, main transitions, land)
@@ -379,7 +447,13 @@ __global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
         const unsigned bf = __ballot_sync(kFull, fr) & gmask;
         if (ffree < 0 && bf) ffree = s * G + (__ffs(bf) - 1 - gbase);
         const unsigned bm = __ballot_sync(kFull, m);
-        if (bm) {                       // a row for each matched slot
+        if constexpr (BANK) {
+          const unsigned mine = bm & gmask;
+          if (mine) {
+            cnt += __popc(mine);
+            if (ev_k < 0) ev_k = s * G + (__ffs(mine) - 1 - gbase);
+          }
+        } else if (bm) {                // a row for each matched slot
           const unsigned mine = bm & gmask;
           int base = 0;
           if (mine && gl == 0) base = atomicAdd(&s_fill, __popc(mine));
@@ -399,9 +473,11 @@ __global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
       const bool want = c0 && (!g.arm_once || armed == 0);
       const bool arm_match = want && ffree >= 0 && g.S == 1;
       int abase = 0;
-      if (__ballot_sync(kFull, arm_match)) {
-        if (arm_match && gl == 0) abase = atomicAdd(&s_fill, 1);
-        abase = __shfl_sync(kFull, abase, gbase);
+      if constexpr (!BANK) {
+        if (__ballot_sync(kFull, arm_match)) {
+          if (arm_match && gl == 0) abase = atomicAdd(&s_fill, 1);
+          abase = __shfl_sync(kFull, abase, gbase);
+        }
       }
       if (want) {
         if (ffree >= 0) {
@@ -414,8 +490,9 @@ __global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
             sl.start(s) = tsv;
             if (g.S == 1) {             // a one-unit chain completes as it
                                         // arms; the slot stays empty
-              emit_row(a, sl, s, abase, p, t, ffree, tsv, tsv, arm_seq, cnt,
-                       l);
+              if constexpr (!BANK)
+                emit_row(a, sl, s, abase, p, t, ffree, tsv, tsv, arm_seq,
+                         cnt, l);
             } else {
               sl.st(s) = 1;
               sl.enter(s) = tsv;
@@ -428,10 +505,20 @@ __global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
         }
       }
       cnt += arm_match ? 1 : 0;
+      if constexpr (BANK) {
+        if (arm_match && (ev_k < 0 || ffree < ev_k)) ev_k = ffree;
+        if (ev_k >= 0) {
+          lmt = tsv;
+          lmk = ev_k;
+        }
+      }
     }
     __syncthreads();                    // the tile is free to refill
   }
 
+  // the bank may pass one carry as input and output: every thread of the
+  // lane has read the lane's scalars before any is written
+  if constexpr (BANK) __syncthreads();
   if constexpr (SPT > 0) {
 #pragma unroll
     for (int s = 0; s < SPT; ++s) {
@@ -446,12 +533,33 @@ __global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
     }
   }
   if (lane_ok && gl == 0) {
-    a.armseq[p] = arm_seq;
-    a.dropped[p] = drop;
-    if (g.arm_once) a.armed[p] = armed;
-    a.lane_count[p] = cnt;
+    a.armseq[lane] = arm_seq;
+    a.dropped[lane] = drop;
+    if (g.arm_once) a.armed[lane] = armed;
+    if constexpr (BANK) {
+      a.count[lane] = cnt;
+      a.lmt[lane] = lmt;
+      a.lmk[lane] = lmk;
+    } else {
+      a.lane_count[p] = cnt;
+    }
   }
-  if (tid == 0) a.fill[blockIdx.x] = s_fill;
+  if constexpr (!BANK) {
+    if (tid == 0) a.fill[blockIdx.x] = s_fill;
+  }
+}
+
+// One name per kernel, so a device trace keeps the step and the bank step
+// apart.
+template <int SPT>
+__global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
+  step_body<SPT, false>(a);
+}
+
+template <int SPT>
+__global__ void __launch_bounds__(kThreads)
+    nfa_bank_step_kernel(StepArgs a) {
+  step_body<SPT, true>(a);
 }
 
 // ------------------------------------------------------------ compaction
@@ -559,16 +667,180 @@ __global__ void __launch_bounds__(kThreads) nfa_compact_kernel(PackArgs a) {
   }
 }
 
-template <int SPT>
-int launch_step(const StepArgs& a, size_t smem, int grid, cudaStream_t s) {
+// ------------------------------------------------------------ the bank ring
+
+// block-wide exclusive prefix sum in thread order
+__device__ int block_excl_scan(int v, int* red) {
+  const int wl = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (wl >= o) x += y;
+  }
+  __syncthreads();
+  if (wl == 31) red[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    int y = wl < kThreads / 32 ? red[wl] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int z = __shfl_up_sync(kFull, y, o);
+      if (wl >= o) y += z;
+    }
+    if (wl < kThreads / 32) red[wl] = y;
+  }
+  __syncthreads();
+  return x - v + (w > 0 ? red[w - 1] : 0);
+}
+
+struct RingArgs {
+  const int* count;       // [CN, P]
+  const int* lmt;         // [CN, P]
+  const int* lmk;         // [CN, P]
+  const float* caps;      // [CN, P, K, RC], the final carry
+  const int* start;       // [CN, P, K], the final carry
+  int* total;             // [CN]
+  int* rcnt;              // [CN, ring]
+  int* rpid;              // [CN, ring]
+  float* rcaps;           // [CN, ring, RC]
+  int* rts;               // [CN, ring]
+  unsigned char* rok;     // [CN, ring] (torch.bool)
+  int P, K, RC, ring;
+};
+
+__global__ void __launch_bounds__(kThreads) nfa_bank_ring_kernel(RingArgs a) {
+  extern __shared__ int rsm[];          // the ring's lanes and counts, in
+                                        // lane order
+  __shared__ int red[kThreads / 32];
+  const int n = blockIdx.x, tid = threadIdx.x;
+  const long long base = static_cast<long long>(n) * a.P;
+  const int* c = a.count + base;
+
+  int sum = 0, mx = INT_MIN, mn = INT_MAX;
+  for (int i = tid; i < a.P; i += kThreads) {
+    const int x = c[i];
+    sum += x;
+    mx = max(mx, x);
+    mn = min(mn, x);
+  }
+  sum = block_reduce(sum, 0, red);
+  mx = block_reduce(mx, 1, red);
+  mn = ~block_reduce(~mn, 1, red);      // ~ reverses int order exactly
+  if (tid == 0) a.total[n] = sum;
+  if (a.ring <= 0) return;
+
+  // v: the largest count with #(count >= v) >= ring
+  long long lo = mn, hi = static_cast<long long>(mx) + 1;
+  while (hi - lo > 1) {
+    const long long mid = lo + (hi - lo) / 2;
+    int ge = 0;
+    for (int i = tid; i < a.P; i += kThreads) ge += c[i] >= mid;
+    ge = block_reduce(ge, 0, red);
+    if (ge >= a.ring) lo = mid;
+    else hi = mid;
+  }
+  const int v = static_cast<int>(lo);
+
+  // every lane above v, then the lowest-index lanes equal to v: each
+  // thread takes a contiguous run of lanes, so thread order is lane order
+  const int run = (a.P + kThreads - 1) / kThreads;
+  const int i0 = min(a.P, tid * run), i1 = min(a.P, i0 + run);
+  int above = 0, eq = 0;
+  for (int i = i0; i < i1; ++i) {
+    above += c[i] > v;
+    eq += c[i] == v;
+  }
+  const int need = a.ring - block_reduce(above, 0, red);
+  const int eq_before = block_excl_scan(eq, red);
+  const int take_eq = min(eq, max(need - eq_before, 0));
+  int pos = block_excl_scan(above + take_eq, red);
+  int* spid = rsm;
+  int* scnt = rsm + a.ring;
+  int eq_seen = 0;
+  for (int i = i0; i < i1; ++i) {
+    const int x = c[i];
+    bool in = x > v;
+    if (x == v) in = eq_seen++ < take_eq;
+    if (in) {
+      spid[pos] = i;
+      scnt[pos] = x;
+      ++pos;
+    }
+  }
+  __syncthreads();
+
+  // ring order (count descending, lane ascending), then the payload
+  for (int j = tid; j < a.ring; j += kThreads) {
+    const int x = scnt[j];
+    int r = 0;
+    for (int q = 0; q < a.ring; ++q) {
+      const int y = scnt[q];
+      r += (y > x) || (y == x && q < j);
+    }
+    const int pid = spid[j];
+    const long long ln = base + pid;
+    const int k = a.lmk[ln];
+    const int tsv = a.lmt[ln];
+    const long long sk = ln * a.K + k;
+    const long long o = static_cast<long long>(n) * a.ring + r;
+    a.rcnt[o] = x;
+    a.rpid[o] = pid;
+    a.rts[o] = tsv;
+    a.rok[o] = a.start[sk] <= tsv ? 1 : 0;
+    for (int i = 0; i < a.RC; ++i) a.rcaps[o * a.RC + i] = a.caps[sk * a.RC + i];
+  }
+}
+
+// ------------------------------------------------------------ launches
+
+constexpr size_t kSmemLimit = 227 * 1024;
+
+template <int SPT, bool BANK>
+int launch_step(const StepArgs& a, size_t smem, long long grid,
+                cudaStream_t s) {
+  if (grid <= 0) return 0;
+  if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  void (*const kern)(StepArgs) =
+      BANK ? nfa_bank_step_kernel<SPT> : nfa_step_kernel<SPT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nfa_step_kernel<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  nfa_step_kernel<SPT><<<grid, kThreads, smem, s>>>(a);
+  kern<<<static_cast<unsigned>(grid), kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Tile size, slot instance and shared memory for a, then the launch over
+// ceil(P / L) lane tiles (times CN patterns for the bank).
+template <bool BANK>
+int run_step(StepArgs& a, cudaStream_t s) {
+  a.spt = (a.K + a.G - 1) / a.G;
+  a.L = kThreads / a.G;
+  // events per tile: both buffers within kTileBytes, a power of two
+  int tt = kMaxTileEvents;
+  while (tt > 1 && 2LL * (3 + a.A) * a.L * tt * 4 > kTileBytes) tt >>= 1;
+  a.TT = tt;
+  const int spt = a.spt <= 2 ? a.spt : (a.spt <= 4 ? 4 : 0);
+  const int prm_pad = BANK ? (a.n_params + 3) & ~3 : 0;
+  const size_t base =
+      static_cast<size_t>(((a.prog_len + 3) & ~3) + prm_pad) * 4 +
+      2ull * (3 + a.A) * a.L * a.TT * 4;
+  const size_t caps_smem = static_cast<size_t>(kThreads) * spt * a.RC * 4;
+  const long long grid =
+      static_cast<long long>((a.P + a.L - 1) / a.L) * (BANK ? a.CN : 1);
+  if (spt > 0 && base + caps_smem <= kSmemLimit) {
+    if (spt == 1) return launch_step<1, BANK>(a, base + caps_smem, grid, s);
+    if (spt == 2) return launch_step<2, BANK>(a, base + caps_smem, grid, s);
+    return launch_step<4, BANK>(a, base + caps_smem, grid, s);
+  }
+  if (base > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_step<0, BANK>(a, base, grid, s);
+}
+
+bool bad_geometry(int K, int T, int G, int A, int RC, int prog_len) {
+  return K <= 0 || T < 0 || G <= 0 || G > 32 || (G & (G - 1)) || A < 0 ||
+         RC <= 0 || prog_len < kHeader;
 }
 
 }  // namespace
@@ -590,8 +862,7 @@ extern "C" int nfa_step(const float* attrs, const int* ts, const int* strm,
                         int K, int G, int seg, int A, int RC, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 0) return 0;
-  if (K <= 0 || T < 0 || G <= 0 || G > 32 || (G & (G - 1)) || seg < 0 ||
-      A < 0 || RC <= 0 || prog_len < kHeader)
+  if (bad_geometry(K, T, G, A, RC, prog_len) || seg < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   StepArgs a{attrs, ts, strm, gates, prog, st_in, start_in, enter_in,
              seq_in, armseq_in, caps_in, dropped_in, armed_in, st, start,
@@ -602,28 +873,50 @@ extern "C" int nfa_step(const float* attrs, const int* ts, const int* strm,
   a.T = T;
   a.K = K;
   a.G = G;
-  a.spt = (K + G - 1) / G;
-  a.L = kThreads / G;
   a.seg = seg;
   a.A = A;
   a.RC = RC;
-  // events per tile: both buffers within kTileBytes, a power of two
-  int tt = kMaxTileEvents;
-  while (tt > 1 && 2LL * (3 + A) * a.L * tt * 4 > kTileBytes) tt >>= 1;
-  a.TT = tt;
-  const int spt = a.spt <= 2 ? a.spt : (a.spt <= 4 ? 4 : 0);
-  const size_t base = static_cast<size_t>((prog_len + 3) & ~3) * 4 +
-                      2ull * (3 + A) * a.L * a.TT * 4;
-  const size_t caps_smem = static_cast<size_t>(kThreads) * spt * RC * 4;
-  const size_t limit = 227 * 1024;
-  const int grid = (P + a.L - 1) / a.L;
-  if (spt > 0 && base + caps_smem <= limit) {
-    if (spt == 1) return launch_step<1>(a, base + caps_smem, grid, s);
-    if (spt == 2) return launch_step<2>(a, base + caps_smem, grid, s);
-    return launch_step<4>(a, base + caps_smem, grid, s);
-  }
-  if (base > limit) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_step<0>(a, base, grid, s);
+  a.CN = 1;
+  a.n_params = 0;
+  return run_step<false>(a, s);
+}
+
+// Launch the bank step over CN patterns on `stream`: carry leaves
+// [CN, P, K(, RC)] and [CN, P] (in and out may be the same tensors),
+// params [CN, n_params] float32, outputs count, lmt, lmk [CN, P] int32.
+// Returns cudaGetLastError() after the launch.
+extern "C" int nfa_bank_step(const float* attrs, const int* ts,
+                             const int* strm, const int* gates,
+                             const int* prog, int prog_len,
+                             const float* params, int n_params,
+                             const int* st_in, const int* start_in,
+                             const int* enter_in, const int* seq_in,
+                             const int* armseq_in, const float* caps_in,
+                             const int* dropped_in, const int* armed_in,
+                             int* st, int* start, int* enter, int* seq,
+                             int* armseq_out, float* caps, int* dropped_out,
+                             int* armed_out, int* count, int* lmt, int* lmk,
+                             int CN, int P, int T, int K, int G, int A,
+                             int RC, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P <= 0 || CN <= 0) return 0;
+  if (bad_geometry(K, T, G, A, RC, prog_len) || n_params < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  StepArgs a{attrs, ts, strm, gates, prog, st_in, start_in, enter_in,
+             seq_in, armseq_in, caps_in, dropped_in, armed_in, st, start,
+             enter, seq, armseq_out, caps, dropped_out, armed_out, nullptr,
+             nullptr, nullptr, params, count, lmt, lmk};
+  a.prog_len = prog_len;
+  a.P = P;
+  a.T = T;
+  a.K = K;
+  a.G = G;
+  a.seg = 0;
+  a.A = A;
+  a.RC = RC;
+  a.CN = CN;
+  a.n_params = n_params;
+  return run_step<true>(a, s);
 }
 
 // The compaction of one step's scratch into the slab [cap + 2, W] (rows,
@@ -638,5 +931,31 @@ extern "C" int nfa_compact(const int* rows, const int* lane_count,
     return static_cast<int>(cudaErrorInvalidValue);
   PackArgs a{rows, lane_count, fill, dropped, slab, P, L, seg, n_cta, cap, W};
   nfa_compact_kernel<<<n_cta, kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bank's match ring: per pattern, the total and the top-ring lanes
+// with their payload (ring 0: the totals alone).  ring <= P.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int nfa_bank_ring(const int* count, const int* lmt, const int* lmk,
+                             const float* caps, const int* start, int* total,
+                             int* ring_cnt, int* ring_pid, float* ring_caps,
+                             int* ring_ts, unsigned char* ring_ok, int CN,
+                             int P, int K, int RC, int ring, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (CN <= 0) return 0;
+  if (P <= 0 || K <= 0 || RC <= 0 || ring < 0 || ring > P)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2ull * ring * 4;
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        nfa_bank_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  RingArgs a{count, lmt, lmk, caps, start, total, ring_cnt, ring_pid,
+             ring_caps, ring_ts, ring_ok, P, K, RC, ring};
+  nfa_bank_ring_kernel<<<CN, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,6 +54,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         # rows, lane_count, fill, dropped, slab, P, L, seg, n_cta, cap, W,
         # stream
         "nfa_compact": (_I, [_VP] * 5 + [_I] * 6 + [_VP]),
+        # attrs, ts, stream, gates, prog, prog_len, params, n_params,
+        # carry in (eight), carry out (eight), count, lmt, lmk,
+        # CN, P, T, K, G, A, RC, stream
+        "nfa_bank_step": (_I, [_VP] * 5 + [_I] + [_VP] + [_I] +
+                          [_VP] * 19 + [_I] * 7 + [_VP]),
+        # count, lmt, lmk, caps, slot_start, total, ring_cnt, ring_pid,
+        # ring_caps, ring_ts, ring_ok, CN, P, K, RC, ring, stream
+        "nfa_bank_ring": (_I, [_VP] * 11 + [_I] * 5 + [_VP]),
     },
 }
 

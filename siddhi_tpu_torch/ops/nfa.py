@@ -1,7 +1,8 @@
 """Batched NFA step — the pattern-matching hot path.
 
-Counterpart of ``siddhi_tpu/ops/nfa.py`` (the single-pattern parts; the
-bank steps are a later slice).  The same dense program replaces the
+Counterpart of ``siddhi_tpu/ops/nfa.py``: the single-pattern block step
+and the pattern bank's step (N patterns that differ only in their
+constants, over one shared block).  The same dense program replaces the
 reference's per-event, per-partial-match Java loop
 (query/input/stream/state/StreamPreStateProcessor.java:292-337):
 
@@ -23,8 +24,9 @@ program.  The port computes the same function two ways:
     (:func:`kernel_class_reason`): simple units, PATTERN, `every` on the
     leading unit or none, optional `within`, no telemetry.  Its
     conditions arrive as a block-wide capture-free gate per condition
-    plus a table of ``<event lane> <cmp> <capture lane>`` compares
-    (:class:`NfaKernelProgram`, built by plan/nfa_compiler.py).  The
+    plus a table of ``<event lane> <cmp> <capture lane>`` compares and,
+    in a pattern bank, of ``<event lane> <cmp> <pattern constant>``
+    compares (:class:`NfaKernelProgram`, built by plan/nfa_compiler.py).  The
     dense per-(p, t, slot) outputs never reach device memory: each
     matched slot becomes one row of the egress slab.
 
@@ -33,6 +35,15 @@ plain composition (:func:`nfa_block_step_plain`, then
 :func:`egress_pack_plain`), on CUDA the kernels.  Both are functional:
 the input carry is never modified, because the engine's grow-and-replay
 re-runs a chunk from the pre-chunk carry.
+
+:func:`nfa_bank_step` is the pattern bank's entry (plan/nfa_compiler.py
+``CompiledPatternBank``): a carry with leading pattern axes ([N, P, ...]
+or [C, N, P, ...]), one [P, T] block shared by every pattern, and each
+pattern's constants as float32 parameter lanes.  On the CPU it runs
+:func:`nfa_bank_step_plain` (the pattern axes flattened into the lane axis
+of the plain step); on CUDA two kernels of ``csrc/nfa_step.cu``: the bank
+step (per-lane match count and last match) and the match ring (each
+pattern's top-``ring`` lanes and their payloads).
 """
 from __future__ import annotations
 
@@ -68,6 +79,21 @@ def resolve_batch_b(batch_b: Optional[int] = None) -> int:
         except ValueError:
             return DEFAULT_BATCH_B
     return max(1, int(batch_b))
+
+
+#: Chunk stacking: a bank of C homogeneous-shape pattern chunks steps as
+#: ONE call over a stacked [C, N, ...] carry instead of C calls.
+#: ``=0``/``off`` restores the sequential chunk loop.
+STACK_ENV = "SIDDHI_TPU_NFA_STACK"
+
+
+def resolve_stack(stack: Optional[bool] = None) -> bool:
+    """Effective chunk-stacking switch: explicit argument wins, else the
+    STACK_ENV value (default on; 0/false/off disables)."""
+    if stack is None:
+        raw = os.environ.get(STACK_ENV, "").strip().lower()
+        return raw not in ("0", "false", "off", "no")
+    return bool(stack)
 
 
 class UnitSpec(NamedTuple):
@@ -242,19 +268,24 @@ class NfaKernelProgram(NamedTuple):
     """The CUDA kernel's view of a spec's conditions (built by
     plan/nfa_compiler.py).
 
-    Per condition ``i``: ``gate_fns[i]`` is its capture-free part (the
-    AND of its capture-free conjuncts, or the whole condition), a cond
-    fn evaluated block-wide against zero captures; ``cmp[i]`` lists its
-    remaining conjuncts as ``(attr, row, lane, op)``: event lane
-    ``kern_attrs[attr]`` ``CMP_OPS[op]`` capture lane ``(row, lane)``.
-    ``row_src`` is, per capture lane ``r * C + c``, the kern_attrs index
-    the event writes there (-1: 0.0, -2: 1.0).  ``reason`` names the
-    first feature outside the kernel's class (None: inside)."""
+    Per condition ``i``: ``gate_fns[i]`` is its capture-free, param-free
+    part (the AND of those conjuncts, or the whole condition), a cond fn
+    evaluated block-wide against zero captures; ``cmp[i]`` lists its
+    conjuncts ``(attr, row, lane, op)``: event lane ``kern_attrs[attr]``
+    ``CMP_OPS[op]`` capture lane ``(row, lane)``; ``pcmp[i]`` (pattern
+    banks) its conjuncts ``(attr, param, op)``: event lane
+    ``kern_attrs[attr]`` ``CMP_OPS[op]`` the pattern's float32 constant
+    ``param_names[param]``.  ``row_src`` is, per capture lane
+    ``r * C + c``, the kern_attrs index the event writes there (-1: 0.0,
+    -2: 1.0).  ``reason`` names the first feature outside the kernel's
+    class (None: inside)."""
     gate_fns: Tuple[Callable, ...]
     cmp: Tuple[Tuple[Tuple[int, int, int, int], ...], ...]
     kern_attrs: Tuple[str, ...]
     row_src: Tuple[int, ...]
     reason: Optional[str]
+    pcmp: Tuple[Tuple[Tuple[int, int, int], ...], ...] = ()
+    param_names: Tuple[str, ...] = ()
 
 
 def kernel_class_reason(spec: NfaSpec) -> Optional[str]:
@@ -284,10 +315,14 @@ def kernel_class_reason(spec: NfaSpec) -> Optional[str]:
 
 def _model_cond(kprog: NfaKernelProgram, event, i: int,
                 caps: torch.Tensor) -> torch.Tensor:
-    """Condition i as the kernel computes it: gate bit AND every compare
-    of its table against ``caps`` ([P, K, R, C], or [P, 1, R, C] zeros)
-    → [P, K'] bool."""
+    """Condition i as the kernel computes it: gate bit AND every param
+    compare (the lane's pattern constants ride the event dict by name)
+    AND every capture compare of its table against ``caps`` ([P, K, R,
+    C], or [P, 1, R, C] zeros) → [P, K'] bool."""
     ok = ((event[KGATE] >> i) & 1).bool()[:, None]
+    for attr, prm, op in (kprog.pcmp[i] if kprog.pcmp else ()):
+        ok = ok & _CMP_FNS[op](event[kprog.kern_attrs[attr]],
+                               event[kprog.param_names[prm]])[:, None]
     for attr, row, lane, op in kprog.cmp[i]:
         x = event[kprog.kern_attrs[attr]][:, None]
         ok = ok & _CMP_FNS[op](x, caps[:, :, row, lane])
@@ -1224,21 +1259,27 @@ def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
     """The kernel's static program table (int32), in the layout
     csrc/nfa_step.cu reads:
 
-      S, R, C, has_within, within_ms, arm_once, n_cond, n_cmp,
+      S, R, C, has_within, within_ms, arm_once, n_cond, n_cmp, n_pcmp,
       S × (stream, cond, row), R·C × row_src,
-      (n_cond + 1) × cmp_start, n_cmp × (attr, row, lane, op)"""
+      (n_cond + 1) × cmp_start, n_cmp × (attr, row, lane, op),
+      (n_cond + 1) × pcmp_start, n_pcmp × (attr, param, op)"""
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
-    cmp_start, cmp = [0], []
-    for entries in kprog.cmp:
-        for e in entries:
-            cmp.extend(e)
-        cmp_start.append(cmp_start[-1] + len(entries))
+
+    def table(per_cond):
+        start, flat = [0], []
+        for entries in per_cond:
+            for e in entries:
+                flat.extend(e)
+            start.append(start[-1] + len(entries))
+        return start, flat
+    cmp_start, cmp = table(kprog.cmp)
+    pcmp_start, pcmp = table(kprog.pcmp or [()] * len(kprog.cmp))
     prog = [len(spec.units), R, C, int(spec.within_ms is not None),
             int(spec.within_ms or 0), int(spec.arm_once),
-            len(kprog.cmp), cmp_start[-1]]
+            len(kprog.cmp), cmp_start[-1], pcmp_start[-1]]
     for u in spec.units:
         prog += [u.stream_a, u.cond_a, u.row_a]
-    prog += list(kprog.row_src) + cmp_start + cmp
+    prog += list(kprog.row_src) + cmp_start + cmp + pcmp_start + pcmp
     return prog
 
 
@@ -1251,18 +1292,17 @@ def _prog_tensor(spec: NfaSpec, kprog: NfaKernelProgram, dev) -> torch.Tensor:
     return t
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, dtype, shape, device,
+           who: str = "nfa_step_egress") -> None:
     if t.device != device:
-        raise ValueError(f"nfa_step_egress: {name} on {t.device}, expected "
-                         f"{device}")
+        raise ValueError(f"{who}: {name} on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"nfa_step_egress: {name} is {t.dtype}, expected "
-                        f"{dtype}")
+        raise TypeError(f"{who}: {name} is {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"nfa_step_egress: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"nfa_step_egress: {name} is not contiguous")
+        raise ValueError(f"{who}: {name} is not contiguous")
 
 
 def nfa_compact(rows: torch.Tensor, lane_count: torch.Tensor,
@@ -1324,6 +1364,9 @@ def nfa_step_egress(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         raise RuntimeError(
             "nfa_step_egress: spec outside the CUDA kernel's class ("
             f"{'no kernel program' if kprog is None else kprog.reason})")
+    if any(kprog.pcmp):
+        raise RuntimeError("nfa_step_egress: a parameterized spec steps "
+                           "through the pattern bank (nfa_bank_step)")
     if dev.type != "cuda":
         raise RuntimeError(f"nfa_step_egress: no kernel for device {dev}")
     P, T = block["__ts"].shape
@@ -1384,3 +1427,303 @@ def nfa_step_egress(spec: NfaSpec, carry: Dict[str, torch.Tensor],
 
 #: launches of the step kernel since the last reset (plain runs excluded)
 nfa_step_egress.launches = 0
+
+
+# ------------------------------------------------------------ the pattern bank
+
+def make_bank_carry(spec: NfaSpec, n_patterns: int, n_partitions: int,
+                    device="cpu") -> Dict[str, torch.Tensor]:
+    """An empty bank carry: :func:`make_carry`'s leaves with a leading
+    pattern axis, [n_patterns, P, ...], materialised (the CUDA bank step
+    may update it in place)."""
+    c = make_carry(spec, n_partitions, device)
+    return {k: v[None].expand((n_patterns,) + tuple(v.shape)).contiguous()
+            for k, v in c.items()}
+
+
+def _bank_lead(carry: Dict[str, torch.Tensor]) -> Tuple[int, ...]:
+    """The carry's pattern axes: (N,) or (C, N)."""
+    return tuple(carry["slot_state"].shape[:-2])
+
+
+#: lanes × events the plain bank step holds at once; a larger bank is
+#: stepped in slices of patterns (patterns never interact)
+PLAIN_BANK_BUDGET = 1 << 25
+
+
+def _bank_slice_plain(spec: NfaSpec, carry, block, prm, n: int, B: int,
+                      kprog: Optional[NfaKernelProgram]):
+    """n patterns' lanes ([n * P] carry rows) over the shared [P, T] block,
+    each pattern's constants as per-lane event columns."""
+    P = int(block["__ts"].shape[0])
+    T = int(block["__ts"].shape[1])
+
+    def tile(v):
+        return v.unsqueeze(0).expand((n,) + tuple(v.shape)).reshape(
+            (n * P,) + tuple(v.shape[1:]))
+    events = {k: tile(v) for k, v in block.items()}
+    for name, v in prm.items():
+        events[name] = v[:, None, None].expand(n, P, T).reshape(n * P, T)
+    if kprog is not None:
+        events[KGATE] = tile(kernel_gate_word(spec, kprog, block))
+    elif B > 1:
+        events.update(_hoist_cond_gates(spec, events))
+        events, _T, _ticks = _pad_block_t(events, B)
+    dev = block["__ts"].device
+    i32 = dict(dtype=torch.int32, device=dev)
+    cnt = torch.zeros((n * P,), **i32)
+    lmt = torch.zeros((n * P,), **i32)
+    lmk = torch.zeros((n * P,), **i32)
+    c = carry
+    for t in range(int(events["__ts"].shape[1])):
+        ev = {k: v[:, t] for k, v in events.items()}
+        c, (mm, *_rest) = _one_event_step(spec, c, ev, kprog)
+        hit = mm.any(dim=1)
+        cnt = cnt + _count(mm)
+        # the EVENT's ts, and the lowest matched slot (jnp.argmax)
+        lmt = torch.where(hit, ev["__ts"], lmt)
+        lmk = torch.where(hit, _i32(_first_true(mm)), lmk)
+    return dict(c), cnt, lmt, lmk
+
+
+def bank_lanes_plain(spec: NfaSpec, carry: Dict[str, torch.Tensor],
+                     block: Dict[str, torch.Tensor],
+                     params: Dict[str, torch.Tensor],
+                     batch_b: Optional[int] = None,
+                     kprog: Optional[NfaKernelProgram] = None):
+    """The bank step per lane in plain PyTorch: ``(carry [*lead, P, ...],
+    one [P, T] block shared by every pattern, {param: [*lead] float32})
+    → (new carry, count, lmt, lmk)``, the last three [CN, P] int32 with CN
+    the product of the pattern axes ``lead``: per pattern lane the
+    block's matches, and at the lane's last event with a match that
+    event's ``__ts`` and its lowest matched slot (0 and 0 where none).
+    The JAX package's ``build_bank_step`` ``per_partition`` with the
+    pattern axes flattened into the lane axis of the plain step.
+
+    B > 1 hoists capture-free conditions (the pattern constants ride the
+    events as lane columns); ``kprog`` computes every condition from the
+    kernel's inputs instead (the CPU model of csrc/nfa_step.cu's bank
+    step).  Functional: the input carry is not modified."""
+    B = resolve_batch_b(spec.batch_b or None) if batch_b is None \
+        else resolve_batch_b(batch_b)
+    lead = _bank_lead(carry)
+    CN = int(np.prod(lead)) if lead else 1
+    P, T = (int(x) for x in block["__ts"].shape)
+    flat = {k: v.reshape((CN * P,) + tuple(v.shape[len(lead) + 1:]))
+            for k, v in carry.items()}
+    prm = {k: v.reshape(CN).to(torch.float32) for k, v in params.items()}
+    step = max(1, PLAIN_BANK_BUDGET // max(P * max(T, 1), 1))
+    parts = []
+    for n0 in range(0, CN, step):
+        n1 = min(CN, n0 + step)
+        rows = slice(n0 * P, n1 * P)
+        parts.append(_bank_slice_plain(
+            spec, {k: v[rows] for k, v in flat.items()}, block,
+            {k: v[n0:n1] for k, v in prm.items()}, n1 - n0, B, kprog))
+    new = {k: torch.cat([pt[0][k] for pt in parts]).reshape(carry[k].shape)
+           for k in carry}
+    return (new,) + tuple(torch.cat([pt[i] for pt in parts]).reshape(CN, P)
+                          for i in (1, 2, 3))
+
+
+def bank_ring_plain(carry: Dict[str, torch.Tensor], count: torch.Tensor,
+                    lmt: torch.Tensor, lmk: torch.Tensor, ring: int):
+    """The match ring in plain PyTorch, per pattern (rows of the [CN, P]
+    lane outputs against the final carry): ``(total [CN],)`` when ring is
+    0, else ``(total, ring_cnt, ring_pid, ring_caps [CN, ring, R, C],
+    ring_ts, ring_ok)``.  The ring is the ``ring`` lanes with the most
+    matches, ties to the lower lane (``lax.top_k``'s order: a stable
+    descending sort); each holds the captures of its last matched slot in
+    the final carry, that match's ts, and whether the slot still holds it
+    (not re-armed since: ``slot_start <= ts``)."""
+    CN, P = (int(x) for x in count.shape)
+    total = count.sum(dim=1, dtype=torch.int32)
+    if not ring:
+        return (total,)
+    K = int(carry["slot_state"].shape[-1])
+    caps = carry["captures"]
+    caps = caps.reshape((CN, P, K) + tuple(caps.shape[-2:]))
+    pid = torch.sort(count, dim=1, descending=True,
+                     stable=True).indices[:, :ring]
+    sel_k = lmk.gather(1, pid).long()
+    n_ix = torch.arange(CN, device=count.device)[:, None]
+    ring_ts = lmt.gather(1, pid)
+    ring_ok = carry["slot_start"].reshape(CN, P, K)[n_ix, pid, sel_k] <= \
+        ring_ts
+    return (total, count.gather(1, pid), _i32(pid), caps[n_ix, pid, sel_k],
+            ring_ts, ring_ok)
+
+
+def nfa_bank_step_plain(spec: NfaSpec, carry: Dict[str, torch.Tensor],
+                        block: Dict[str, torch.Tensor],
+                        params: Dict[str, torch.Tensor], ring: int = 0,
+                        batch_b: Optional[int] = None,
+                        kprog: Optional[NfaKernelProgram] = None):
+    """The bank step in plain PyTorch — the JAX package's
+    ``build_bank_step`` ([N, ...] carry) and ``build_super_bank_step``
+    ([C, N, ...]) with the pattern axes flattened: ``(new carry, counts
+    [CN])``, or with ``ring > 0`` ``(new carry, (counts, ring_cnt,
+    ring_pid, ring_caps, ring_ts, ring_ok))``, all [CN, ...]."""
+    new, cnt, lmt, lmk = bank_lanes_plain(spec, carry, block, params,
+                                          batch_b, kprog)
+    res = bank_ring_plain(new, cnt, lmt, lmk, ring)
+    return new, (res if ring else res[0])
+
+
+def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
+                   block: Dict[str, torch.Tensor],
+                   params: Dict[str, torch.Tensor],
+                   kprog: Optional[NfaKernelProgram] = None,
+                   batch_b: Optional[int] = None, inplace: bool = False):
+    """The bank step kernel's function, :func:`bank_lanes_plain`'s
+    contract, on the tensors' own device.  CPU tensors run the plain
+    version.  CUDA tensors launch csrc/nfa_step.cu's bank step on the
+    current stream (counted in ``nfa_bank_step.launches``) for a spec
+    inside its class; with ``inplace`` the new carry IS the input carry,
+    updated in place.  Anything else raises: no fallback."""
+    dev = block["__ts"].device
+    if dev.type == "cpu":
+        return bank_lanes_plain(spec, carry, block, params, batch_b)
+    if kprog is None or kprog.reason is not None:
+        raise RuntimeError(
+            "nfa_bank_step: spec outside the CUDA kernel's class ("
+            f"{'no kernel program' if kprog is None else kprog.reason})")
+    if dev.type != "cuda":
+        raise RuntimeError(f"nfa_bank_step: no kernel for device {dev}")
+    lead = _bank_lead(carry)
+    CN = int(np.prod(lead)) if lead else 1
+    P, T = (int(x) for x in block["__ts"].shape)
+    K = spec.n_slots
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    G, _L = kernel_geometry(K)
+    who = "nfa_bank_step"
+    _check("__ts", block["__ts"], torch.int32, (P, T), dev, who)
+    _check("__stream", block["__stream"], torch.int32, (P, T), dev, who)
+    _check("__valid", block["__valid"], torch.bool, (P, T), dev, who)
+    for name in KERNEL_CARRY:
+        if name == "armed_total" and not spec.arm_once:
+            continue
+        shape = {"arm_seq": (P,), "dropped": (P,), "armed_total": (P,),
+                 "captures": (P, K, R, C)}.get(name, (P, K))
+        _check(name, carry[name], carry_dtype(name), lead + shape, dev, who)
+    for name in kprog.param_names:
+        _check(name, params[name], torch.float32, lead, dev, who)
+    NP = len(kprog.param_names)
+    ptab = (torch.stack([params[n].reshape(CN) for n in kprog.param_names],
+                        dim=1).contiguous() if NP else
+            torch.zeros((1,), dtype=torch.float32, device=dev))
+    A = len(kprog.kern_attrs)
+    if A == 1:
+        attrs = block[kprog.kern_attrs[0]]
+        _check("attrs", attrs, torch.float32, (P, T), dev, who)
+    elif A:
+        attrs = torch.stack([block[a] for a in kprog.kern_attrs])
+        _check("attrs", attrs, torch.float32, (A, P, T), dev, who)
+    else:
+        attrs = torch.zeros((1,), dtype=torch.float32, device=dev)
+    gates = kernel_gate_word(spec, kprog, block)
+    gates = torch.where(block["__valid"], gates | _VALID_BIT, gates)
+    prog = _prog_tensor(spec, kprog, dev)
+    new = dict(carry) if inplace else {
+        k: torch.empty_like(carry[k]) for k in KERNEL_CARRY if k in carry}
+    i32 = dict(dtype=torch.int32, device=dev)
+    count, lmt, lmk = (torch.empty((CN, P), **i32) for _ in range(3))
+    armed_in = carry.get("armed_total")
+    armed_out = new.get("armed_total")
+    lib = load_kernel("nfa_step")
+    rc = lib.nfa_bank_step(
+        attrs.data_ptr(), block["__ts"].data_ptr(),
+        block["__stream"].data_ptr(), gates.data_ptr(), prog.data_ptr(),
+        prog.numel(), ptab.data_ptr(), NP,
+        *[carry[k].data_ptr() for k in KERNEL_CARRY[:7]],
+        armed_in.data_ptr() if armed_in is not None else None,
+        *[new[k].data_ptr() for k in KERNEL_CARRY[:7]],
+        armed_out.data_ptr() if armed_out is not None else None,
+        count.data_ptr(), lmt.data_ptr(), lmk.data_ptr(),
+        CN, P, T, K, G, A, R * C, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nfa_bank_step: launch failed with CUDA error "
+                           f"{rc}")
+    nfa_bank_step.launches += 1
+    return new, count, lmt, lmk
+
+
+def nfa_bank_ring(carry: Dict[str, torch.Tensor], count: torch.Tensor,
+                  lmt: torch.Tensor, lmk: torch.Tensor, ring: int):
+    """The ring kernel's function, :func:`bank_ring_plain`'s contract, on
+    the tensors' own device: the plain version for CPU tensors, else one
+    launch of csrc/nfa_step.cu's ring kernel (one CTA per pattern) on the
+    current stream, or a raise."""
+    dev = count.device
+    if dev.type == "cpu":
+        return bank_ring_plain(carry, count, lmt, lmk, ring)
+    if dev.type != "cuda":
+        raise RuntimeError(f"nfa_bank_ring: no kernel for device {dev}")
+    CN, P = (int(x) for x in count.shape)
+    K = int(carry["slot_state"].shape[-1])
+    R, C = (int(x) for x in carry["captures"].shape[-2:])
+    for name, t in (("count", count), ("lmt", lmt), ("lmk", lmk)):
+        _check(name, t, torch.int32, (CN, P), dev, "nfa_bank_ring")
+    caps, start = carry["captures"], carry["slot_start"]
+    if caps.numel() != CN * P * K * R * C or start.numel() != CN * P * K or \
+            not (caps.is_contiguous() and start.is_contiguous()):
+        raise ValueError("nfa_bank_ring: carry does not match the counts")
+    if ring < 0 or ring > P or 8 * ring > 227 * 1024:
+        raise ValueError(f"nfa_bank_ring: ring {ring} outside [0, "
+                         f"min(P, 29056)]")
+    i32 = dict(dtype=torch.int32, device=dev)
+    total = torch.empty((CN,), **i32)
+    r = max(ring, 1)
+    ring_cnt = torch.empty((CN, r), **i32)
+    ring_pid = torch.empty((CN, r), **i32)
+    ring_caps = torch.empty((CN, r, R, C), dtype=torch.float32, device=dev)
+    ring_ts = torch.empty((CN, r), **i32)
+    ring_ok = torch.empty((CN, r), dtype=torch.bool, device=dev)
+    lib = load_kernel("nfa_step")
+    rc = lib.nfa_bank_ring(
+        count.data_ptr(), lmt.data_ptr(), lmk.data_ptr(), caps.data_ptr(),
+        start.data_ptr(), total.data_ptr(), ring_cnt.data_ptr(),
+        ring_pid.data_ptr(), ring_caps.data_ptr(), ring_ts.data_ptr(),
+        ring_ok.data_ptr(), CN, P, K, R * C, ring,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nfa_bank_ring: launch failed with CUDA error "
+                           f"{rc}")
+    nfa_bank_ring.launches += 1
+    if not ring:
+        return (total,)
+    return total, ring_cnt, ring_pid, ring_caps, ring_ts, ring_ok
+
+
+#: launches of the ring kernel since the last reset (plain runs excluded)
+nfa_bank_ring.launches = 0
+
+
+def nfa_bank_step(spec: NfaSpec, carry: Dict[str, torch.Tensor],
+                  block: Dict[str, torch.Tensor],
+                  params: Dict[str, torch.Tensor], ring: int = 0,
+                  kprog: Optional[NfaKernelProgram] = None,
+                  batch_b: Optional[int] = None, inplace: bool = False):
+    """One bank step on the tensors' own device, :func:`nfa_bank_step_plain`'s
+    contract: ``(new carry, counts [CN])`` or, with ``ring > 0``, ``(new
+    carry, (counts, ring_cnt, ring_pid, ring_caps, ring_ts, ring_ok))``.
+
+    CPU tensors run :func:`nfa_bank_step_plain`.  CUDA tensors launch the
+    two kernels of csrc/nfa_step.cu on the current stream, the bank step
+    (:func:`nfa_bank_lanes`) and then the ring (:func:`nfa_bank_ring`, the
+    per-pattern totals alone when ring is 0), for a spec inside the
+    kernel's class; anything else, and a failed build, load or launch,
+    raises.  With ``inplace`` (CUDA) the carry is updated in place;
+    otherwise the input carry survives."""
+    if block["__ts"].device.type == "cpu":
+        return nfa_bank_step_plain(spec, carry, block, params, ring,
+                                   batch_b)
+    new, cnt, lmt, lmk = nfa_bank_lanes(spec, carry, block, params, kprog,
+                                        batch_b, inplace)
+    res = nfa_bank_ring(new, cnt, lmt, lmk, ring)
+    return new, (res if ring else res[0])
+
+
+#: launches of the bank step kernel since the last reset (plain runs
+#: excluded); the ring kernel counts in ``nfa_bank_ring.launches``
+nfa_bank_step.launches = 0

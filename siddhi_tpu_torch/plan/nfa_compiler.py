@@ -1,8 +1,9 @@
 """Pattern query → batched NFA on the device (the north-star path).
 
-Counterpart of ``siddhi_tpu/plan/nfa_compiler.py`` (``CompiledPatternNFA``
-and the lowering and pruning above it; the pattern bank is a later
-slice).  Takes the same SiddhiQL the host oracle runs and lowers a
+Counterpart of ``siddhi_tpu/plan/nfa_compiler.py``: ``CompiledPatternNFA``,
+the lowering and pruning above it, and ``CompiledPatternBank`` (N
+patterns that differ only in their constants, stepped together over one
+shared block).  Takes the same SiddhiQL the host oracle runs and lowers a
 PATTERN or SEQUENCE state tree into an ops/nfa.py NfaSpec: a chain of
 units (simple / count / logical / absent — reference
 util/parser/StateInputStreamParser.java:76-404), per-side condition
@@ -34,7 +35,7 @@ core/pattern.py with a recorded reason for anything else):
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,8 +43,9 @@ import torch
 from ..compiler import SiddhiCompiler
 from ..ops.nfa import (CMP_OPS, COUNT_INF, NfaKernelProgram, NfaSpec,
                        UnitSpec, carry_dtype, kernel_class_reason,
-                       make_carry, make_timer_block, nfa_step_egress,
-                       resolve_batch_b)
+                       make_bank_carry, make_carry, make_timer_block,
+                       nfa_bank_step, nfa_step_egress, resolve_batch_b,
+                       resolve_stack)
 from ..ops.pack import pack_blocks
 from ..ops.windowed_agg import kernel_device
 from ..query_api import (AbsentStreamStateElement, CountStateElement,
@@ -57,7 +59,8 @@ from ..query_api.expression import (And, Compare, CompareOp, Constant, IsNull,
 from ..core.stateschema import (Carry, ListOf, Scalar, Struct,
                                 persistent_schema)
 from ..utils.errors import SiddhiAppCreationError, SiddhiAppRuntimeException
-from .expr_compiler import EvalCtx, ExprCompiler, Scope, TorchXP
+from .expr_compiler import (CompiledExpr, EvalCtx, ExprCompiler, Scope,
+                            TorchXP)
 
 
 _NUMERIC = (AttrType.INT, AttrType.LONG, AttrType.FLOAT, AttrType.DOUBLE)
@@ -298,6 +301,32 @@ def _contains_guarded_null_ref(e, nullable_refs, count_refs=(),
                                                count_refs, inside):
                 return True
     return False
+
+
+def _walk_filter_constants(units: List[_UnitDesc]) -> List:
+    """Deterministic walk over all numeric Constant/TimeConstant nodes in
+    the chain's filters (the per-pattern parameters of a pattern bank)."""
+    found: List = []
+
+    def rec(e):
+        if isinstance(e, (Constant, TimeConstant)) and \
+                isinstance(getattr(e, "value", None), (int, float)) and \
+                not isinstance(e.value, bool):
+            found.append(e)
+            return
+        for f in getattr(e, "__dataclass_fields__", {}):
+            v = getattr(e, f)
+            if isinstance(v, list):
+                for x in v:
+                    if hasattr(x, "__dataclass_fields__"):
+                        rec(x)
+            elif hasattr(v, "__dataclass_fields__"):
+                rec(v)
+    for u in units:
+        for side in u.sides:
+            for fe in side.filters:
+                rec(fe)
+    return found
 
 
 def _fold_const(e):
@@ -560,6 +589,33 @@ def _prune_chain(low: _Lowering, query) -> Dict[str, Any]:
 PRUNE_ENV = "SIDDHI_TPU_NFA_PRUNE"
 
 
+def _widen_slots(c: Dict[str, torch.Tensor], axis: int, pad: int, R: int,
+                 C: int) -> Dict[str, torch.Tensor]:
+    """``pad`` empty slots appended on the slot axis of every per-slot
+    carry leaf (the fills of a fresh carry)."""
+    c = dict(c)
+    lead = tuple(c["slot_state"].shape[:axis])
+
+    def cat(key, fill, extra=()):
+        v = c[key]
+        c[key] = torch.cat([v, torch.full(lead + (pad,) + extra, fill,
+                                          dtype=v.dtype, device=v.device)],
+                           dim=axis)
+    cat("slot_state", -1)
+    cat("slot_start", 0)
+    cat("slot_enter", 0)
+    cat("slot_seq", 0)
+    cat("captures", 0, (R, C))
+    if "cnt_cur" in c:
+        cat("cnt_cur", 0)
+        cat("cnt_prev", -1)
+    if "lmask" in c:
+        cat("lmask", 0)
+    if "deadline" in c:
+        cat("deadline", 0)
+    return c
+
+
 @persistent_schema(
     "nfa-engine", version=1,
     schema=Struct(carry=Carry(), base_ts=Scalar("opt_int"),
@@ -577,13 +633,19 @@ class CompiledPatternNFA:
                  query: Optional[Query] = None, mesh: Any = "auto",
                  prune: Optional[bool] = None,
                  batch_b: Optional[int] = None, telemetry: bool = False,
-                 device=None):
+                 device=None, parameterize: bool = False):
         """mesh: None or "auto", both one device (a multi-device mesh is
         not yet ported).
 
         prune: liveness pruning over the unit chain (on by default; env
         SIDDHI_TPU_NFA_PRUNE=0 disables globally — the unpruned baseline
-        the equivalence tests diff against).
+        the equivalence tests diff against).  Pattern-bank mode
+        (parameterize=True) always compiles unpruned: folding constants
+        out of filters would desync the per-pattern parameter lanes.
+
+        parameterize: pattern-bank mode — every numeric filter constant
+        becomes a per-pattern float32 lane ``__param_<j>`` read from the
+        event dict (CompiledPatternBank feeds them).
 
         batch_b: events per tick of the plain step (default resolves
         SIDDHI_TPU_NFA_BATCH; B > 1 hoists capture-free conditions).
@@ -612,7 +674,8 @@ class CompiledPatternNFA:
         low = _Lowering(sis, app)
         if prune is None:
             prune = os.environ.get(PRUNE_ENV, "1") != "0"
-        self.prune_enabled = bool(prune)
+        self.prune_enabled = bool(prune) and not parameterize
+        self._parameterize = bool(parameterize)
         if self.prune_enabled:
             self.prune_report = _prune_chain(low, query)
         else:
@@ -939,6 +1002,20 @@ class CompiledPatternNFA:
             cap_cols.append(tuple(cols))
         C = max((len(c) for c in cap_cols), default=0)
 
+        # optional pattern-bank parameterization: numeric filter constants
+        # become per-pattern lanes fed through the event dict
+        self._param_map: Dict[int, str] = {}
+        self.param_names: List[str] = []
+        if parameterize and any(w[0] in "im"
+                                for (_n, _r, _a, w) in self.select_outputs):
+            _reject("indexed kleene selects ride extra capture banks the "
+                    "bank ring decode does not gate — not parameterizable")
+        if parameterize:
+            for j, c in enumerate(_walk_filter_constants(self.units)):
+                name = f"__param_{j}"
+                self._param_map[id(c)] = name
+                self.param_names.append(name)
+
         # ---- compile per-side condition programs against the torch
         # namespace, and their split into the kernel's inputs
         self.device = kernel_device(device)
@@ -1005,9 +1082,11 @@ class CompiledPatternNFA:
         self._egress_cap = 1024
         self._egress_seg: Optional[int] = None
         self.n_partitions = n_partitions
-        self.carry = self._place_carry(
+        # a parameterized compile is a bank's template: the bank holds the
+        # [N, P, ...] carries and builds its own step
+        self.carry = None if parameterize else self._place_carry(
             make_carry(self.spec, n_partitions, self.device))
-        self._step = self._build_step()
+        self._step = None if parameterize else self._build_step()
         self.base_ts: Optional[int] = None
 
         # Select-side INT/LONG payloads are exact (companion lanes).
@@ -1136,6 +1215,10 @@ class CompiledPatternNFA:
             for v in variables_of(oa.expr):
                 if is_str_var(v):
                     self.encoded_attrs.add(v.attribute)
+
+        if (self.encoded_attrs or self.derived) and self._parameterize:
+            _reject("string conditions are not parameterizable "
+                    "(pattern-bank mode lowers constants to float lanes)")
 
         for a in sorted(self.encoded_attrs):
             self.attr_names.append(a)
@@ -1424,6 +1507,9 @@ class CompiledPatternNFA:
                 if cols_l:
                     qualified[(other.ref, -1)] = cols_l
             cols_now = {a: event[a] for a in self.attr_names}
+            for pn in self.param_names:
+                if pn in event:
+                    cols_now[pn] = event[pn]
             for r in cnts:
                 cols_now[f"__cnt_{r}"] = lane(r, self._n_lane[r])
             ctx = EvalCtx(cols_now, event["__ts"], n, qualified=qualified)
@@ -1453,7 +1539,7 @@ class CompiledPatternNFA:
             def true_fn(event, captures, _dev=self.device):
                 return torch.ones((event["__ts"].shape[0],),
                                   dtype=torch.bool, device=_dev)
-            return true_fn, True, (true_fn, ())
+            return true_fn, True, (true_fn, (), ())
         expr, cnt_rows = self._condition_expr(side)
 
         # rows this condition references → validity gates for nullable rows
@@ -1478,24 +1564,49 @@ class CompiledPatternNFA:
         _scan_vars(expr, note_free)
 
         scope = self._condition_scope(side, cnt_rows)
-        compiler = ExprCompiler(scope, self._xp)
+        if self._param_map:
+            compiler = _ParamExprCompiler(scope, self._xp, self._param_map)
+        else:
+            compiler = ExprCompiler(scope, self._xp)
         fn = self._cond_fn(compiler.compile(expr), side, gate_rows,
                            cnt_rows)
-        if free_flag[0]:
-            return fn, True, (fn, ())
+        if free_flag[0] and not self._reads_params(expr):
+            return fn, True, (fn, (), ())
         if gate_rows or cnt_rows:
-            return fn, False, "nullable-state and kleene-length guards in " \
-                "a condition"
+            return fn, free_flag[0], "nullable-state and kleene-length " \
+                "guards in a condition"
         kc = self._kernel_split(side, expr, compiler)
-        return fn, False, kc
+        return fn, free_flag[0], kc
+
+    def _param_of(self, e) -> Optional[str]:
+        """The parameter lane a filter node compiles to (a numeric,
+        non-duration constant of a bank compile), or None."""
+        if isinstance(e, Constant) and not isinstance(e, TimeConstant):
+            return self._param_map.get(id(e))
+        return None
+
+    def _reads_params(self, e) -> bool:
+        """True when expression ``e`` reads a parameter lane."""
+        if self._param_of(e) is not None:
+            return True
+        for f in getattr(e, "__dataclass_fields__", {}):
+            v = getattr(e, f)
+            for x in (v if isinstance(v, list) else [v]):
+                if hasattr(x, "__dataclass_fields__") and \
+                        self._reads_params(x):
+                    return True
+        return False
 
     def _kernel_split(self, side: _Side, expr, compiler):
-        """A capture-reading condition as the kernel takes it: its AND
-        conjuncts that read only the event fold into one gate program,
-        and each other conjunct must be ``<event attr> <cmp> <first-bank
-        capture attr>`` (either side first) → (gate fn, ((attr, row,
-        lane, op), ...)) with attr an attribute name; or the reason it
-        is outside the kernel's class."""
+        """A condition reading captures or pattern constants as the kernel
+        takes it: its AND conjuncts that read only the event fold into one
+        gate program (shared by every pattern of a bank), each conjunct
+        reading a constant lane must be ``<event attr> <cmp> <constant>``
+        and each other one ``<event attr> <cmp> <first-bank capture
+        attr>`` (either side first) → (gate fn, ((attr, row, lane, op),
+        ...), ((attr, param, op), ...)) with attr an attribute name and
+        param a parameter lane name; or the reason it is outside the
+        kernel's class."""
         conj: List[Any] = []
 
         def flat(e):
@@ -1509,11 +1620,27 @@ class CompiledPatternNFA:
                CompareOp.GTE: ">=", CompareOp.EQ: "==", CompareOp.NEQ: "!="}
         mirror = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "==": "==",
                   "!=": "!="}
-        free, cmps = [], []
+        free, cmps, pcmps = [], [], []
         for c in conj:
             srcs: List[str] = []
             _scan_vars(c, lambda v, _acc=srcs:
                        _acc.append(self._var_source(side, v)[0]))
+            if self._reads_params(c):
+                pform = "a pattern constant outside `<attr> <cmp> " \
+                    "<constant>` (arithmetic, functions, or, not) in a " \
+                    "condition"
+                if not (isinstance(c, Compare) and c.op in ops):
+                    return pform
+                op = ops[c.op]
+                ev, prm = c.left, self._param_of(c.right)
+                if prm is None:
+                    ev, prm, op = c.right, self._param_of(c.left), mirror[op]
+                if prm is None or not isinstance(ev, Variable) or \
+                        self._var_source(side, ev)[0] != "event" or \
+                        ev.attribute not in self.attr_names:
+                    return pform
+                pcmps.append((ev.attribute, prm, CMP_OPS.index(op)))
+                continue
             if all(k == "event" for k in srcs):
                 free.append(c)
                 continue
@@ -1547,7 +1674,7 @@ class CompiledPatternNFA:
             def gate(event, captures, _dev=self.device):
                 return torch.ones((event["__ts"].shape[0],),
                                   dtype=torch.bool, device=_dev)
-        return gate, tuple(cmps)
+        return gate, tuple(cmps), tuple(pcmps)
 
     def _kernel_program(self, kern_conds) -> NfaKernelProgram:
         """The spec as the CUDA kernel takes it (ops/nfa
@@ -1578,19 +1705,40 @@ class CompiledPatternNFA:
                     row_src.append(attr_ix(cols[c]))
                 else:
                     row_src.append(-2)       # __matched / __n default 1.0
-        gate_fns, cmp = [], []
+        gate_fns, cmp, pcmp = [], [], []
         for kc in kern_conds:
             if isinstance(kc, str):
                 gate_fns.append(None)
                 cmp.append(())
+                pcmp.append(())
                 continue
             gate_fns.append(kc[0])
             cmp.append(tuple((attr_ix(a), r, ln, op)
                              for (a, r, ln, op) in kc[1]))
+            pcmp.append(tuple((attr_ix(a), self.param_names.index(pn), op)
+                              for (a, pn, op) in kc[2]))
         return NfaKernelProgram(
             gate_fns=tuple(gate_fns), cmp=tuple(cmp),
             kern_attrs=tuple(kern_attrs), row_src=tuple(row_src),
-            reason=reason)
+            reason=reason, pcmp=tuple(pcmp),
+            param_names=tuple(self.param_names))
+
+    def extract_params(self, app_string: str,
+                       query_name: Optional[str] = None) -> Dict[str, float]:
+        """Constant values of a structurally-identical app, keyed by the
+        param lanes of this (parameterized) compile."""
+        app = SiddhiCompiler.parse(app_string)
+        query = self._pick_query(app, query_name)
+        low = _Lowering(query.input_stream, app)
+        if len(low.units) != len(self.units):
+            raise SiddhiAppCreationError(
+                "pattern bank: app has a different chain length")
+        consts = _walk_filter_constants(low.units)
+        if len(consts) != len(self.param_names):
+            raise SiddhiAppCreationError(
+                "pattern bank: app has a different constant count")
+        return {name: float(c.value)
+                for name, c in zip(self.param_names, consts)}
 
     # ------------------------------------------------------------ execution
 
@@ -1644,6 +1792,10 @@ class CompiledPatternNFA:
         existing lane state is preserved, new lanes start empty."""
         if n_partitions <= self.n_partitions:
             return
+        if self._parameterize:
+            raise SiddhiAppCreationError(
+                "a parameterized compile holds no carry to grow: a "
+                "CompiledPatternBank's partition count is fixed")
         fresh = make_carry(self.spec, n_partitions - self.n_partitions,
                            self.device)
         self.carry = self._place_carry(
@@ -1658,30 +1810,13 @@ class CompiledPatternNFA:
         when a pattern has no `within` bound."""
         if n_slots <= self.spec.n_slots:
             return
-        pad = n_slots - self.spec.n_slots
-        c = dict(self.carry)
-        P = self.n_partitions
-        R, C = max(self.spec.n_rows, 1), max(self.spec.n_caps, 1)
-
-        def cat(key, fill, shape):
-            c[key] = torch.cat(
-                [c[key], torch.full(shape, fill, dtype=c[key].dtype,
-                                    device=self.device)], dim=1)
-        cat("slot_state", -1, (P, pad))
-        cat("slot_start", 0, (P, pad))
-        cat("slot_enter", 0, (P, pad))
-        cat("slot_seq", 0, (P, pad))
-        cat("captures", 0, (P, pad, R, C))
-        if "cnt_cur" in c:
-            cat("cnt_cur", 0, (P, pad))
-            cat("cnt_prev", -1, (P, pad))
-        if "lmask" in c:
-            cat("lmask", 0, (P, pad))
-        if "deadline" in c:
-            cat("deadline", 0, (P, pad))
-        self.carry = self._place_carry(c)
+        if not self._parameterize:
+            R, C = max(self.spec.n_rows, 1), max(self.spec.n_caps, 1)
+            self.carry = self._place_carry(_widen_slots(
+                self.carry, 1, n_slots - self.spec.n_slots, R, C))
         self.spec = self.spec._replace(n_slots=n_slots)
-        self._step = self._build_step(trigger="grow")
+        if not self._parameterize:
+            self._step = self._build_step(trigger="grow")
 
     def max_active_slots(self) -> int:
         """Device reduction: the fullest partition's live-partial count."""
@@ -2154,3 +2289,269 @@ class CompiledPatternNFA:
             zip(order, out), key=lambda x: (x[1][1], x[0][0], x[0][1]))]
         return out
 
+
+class _ParamExprCompiler(ExprCompiler):
+    """Expression compiler that lowers marked Constant nodes to per-pattern
+    parameter lanes read from the event dict (pattern-bank mode)."""
+
+    def __init__(self, scope: Scope, xp, param_map: Dict[int, str]):
+        super().__init__(scope, xp)
+        self._param_map = param_map
+
+    def _compile_constant(self, c):
+        name = self._param_map.get(id(c))
+        if name is None:
+            return super()._compile_constant(c)
+
+        def fn(ctx, _n=name):
+            return ctx.columns[_n]
+        return CompiledExpr(fn, AttrType.DOUBLE)
+
+
+class CompiledPatternBank:
+    """N structurally-identical pattern queries (constants differ) stepped
+    together: carry [N, P, ...], one shared event block per step, match
+    counts per pattern (BASELINE config: 1k NFAs × 10k partitions).
+
+    On CUDA a block is two kernels of csrc/nfa_step.cu per dispatch (the
+    bank step, then the match ring; ops/nfa.nfa_bank_step), for the specs
+    of the NFA kernel's class with each pattern constant in an ``<attr>
+    <cmp> <constant>`` conjunct; anything else raises
+    ``SiddhiAppCreationError`` when the bank is built, before any device
+    memory is touched (the bank has no host engine to fall back to).  On
+    the CPU the plain bank step runs every spec the JAX package's bank
+    compiles."""
+
+    def __init__(self, apps: Sequence[str], n_partitions: int,
+                 n_slots: int = 8, pattern_chunk: Optional[int] = None,
+                 ring: int = 0, batch_b: Optional[int] = None,
+                 stack: Optional[bool] = None, replayable: bool = False,
+                 telemetry: bool = False, device=None):
+        """stack: run all homogeneous pattern chunks as ONE dispatch over
+        a stacked [C, N, ...] carry instead of C sequential dispatches.
+        Default resolves SIDDHI_TPU_NFA_STACK (on; =0 restores the
+        chunk loop).  Chunks are homogeneous by construction (same
+        NfaSpec geometry, constants live in parameter lanes).
+
+        replayable: keep the pre-block carry (the step writes a new
+        carry) so process_block_replayed can rewind, grow the slot ring
+        and replay a whole block after an overflow, at dispatch
+        granularity.  Default False: the CUDA step updates the carry in
+        place and overflowing partials count into ``dropped``.
+
+        device: the torch device of the carries and the step (default
+        "cuda", see ops/windowed_agg.kernel_device)."""
+        self.nfa = CompiledPatternNFA(apps[0], n_partitions=n_partitions,
+                                      n_slots=n_slots, parameterize=True,
+                                      mesh=None, batch_b=batch_b,
+                                      telemetry=telemetry, device=device)
+        self.device = self.nfa.device
+        self.n_patterns = len(apps)
+        self.n_partitions = n_partitions
+        # top-k over the per-partition counts caps the ring at P
+        self.ring = min(ring, n_partitions)
+        lanes: Dict[str, List[float]] = {n: [] for n in
+                                         self.nfa.param_names}
+        for a in apps:
+            for k, v in self.nfa.extract_params(a).items():
+                lanes[k].append(v)
+        if pattern_chunk is None:
+            pattern_chunk = self._default_chunk(n_partitions, n_slots)
+        self.chunk = min(pattern_chunk, self.n_patterns)
+        if self.n_patterns % self.chunk:
+            raise SiddhiAppCreationError(
+                f"n_patterns ({self.n_patterns}) must be a multiple of "
+                f"pattern_chunk ({self.chunk})")
+        self.n_chunks = self.n_patterns // self.chunk
+        self.params = []
+        for ci in range(self.n_chunks):
+            sl = slice(ci * self.chunk, (ci + 1) * self.chunk)
+            self.params.append({k: torch.tensor(v[sl], dtype=torch.float32,
+                                                device=self.device)
+                                for k, v in lanes.items()})
+        # stacking only changes shapes with more than one chunk
+        self.stacked = resolve_stack(stack) and self.n_chunks > 1
+        self.replayable = bool(replayable)
+        spec = self.nfa.spec
+        if self.stacked:
+            # ONE [C, N, ...] tensor per leaf, element-identical to the C
+            # separate chunk carries
+            flat = make_bank_carry(spec, self.n_patterns, n_partitions,
+                                   self.device)
+            self._stack_carry = {
+                k: v.reshape((self.n_chunks, self.chunk) + tuple(v.shape[1:]))
+                for k, v in flat.items()}
+            self._stack_params = {
+                k: torch.stack([p[k] for p in self.params])
+                for k in self.params[0]}
+            self._carries = None
+        else:
+            self._stack_carry = self._stack_params = None
+            self._carries = [make_bank_carry(spec, self.chunk, n_partitions,
+                                             self.device)
+                             for _ in range(self.n_chunks)]
+        self.nfa._stacked = self.stacked
+        self.nfa._dispatches_per_block = 1 if self.stacked else self.n_chunks
+        self._set_live_bytes()
+        self._build_step()
+        self.base_ts: Optional[int] = None
+
+    @property
+    def carries(self):
+        """Per-chunk carry dicts ([N, P, ...] leaves).  Stacked banks
+        serve views into the [C, N, ...] carry; mutate through
+        process_block / grow_slots, not through these."""
+        if self.stacked:
+            return [{k: v[ci] for k, v in self._stack_carry.items()}
+                    for ci in range(self.n_chunks)]
+        return self._carries
+
+    def _set_live_bytes(self):
+        from ..core.profiling import profiler
+        if not profiler().enabled:
+            return
+        leaves = (self._stack_carry.values() if self.stacked else
+                  [v for c in self._carries for v in c.values()])
+        profiler().set_live_bytes(
+            "nfa.bank_step", sum(int(v.numel() * v.element_size())
+                                 for v in leaves))
+
+    def _build_step(self):
+        from ..core.profiling import wrap_kernel
+        from .shapes import nfa_shape_dims, shape_registry
+        spec, kprog, ring = self.nfa.spec, self.nfa.kprog, self.ring
+        B = max(self.nfa.batch_b, 1)
+        # a replayable bank rewinds to the pre-block carry after a slot
+        # overflow, so its step must leave the input carry alone
+        inplace = not self.replayable
+
+        def step(carry, block, params):
+            return nfa_bank_step(spec, carry, block, params, ring, kprog,
+                                 self.nfa.batch_b, inplace)
+        dims = nfa_shape_dims(spec, self.nfa.n_partitions,
+                              self.nfa.batch_b, ring=self.ring,
+                              chunks=self.n_chunks, stacked=self.stacked)
+        self._step = wrap_kernel(
+            "nfa.bank_step",
+            shape_registry().jit("nfa.bank_step", dims, step),
+            batch_of=lambda carry, block, params:
+                int(block["__ts"].numel()) if "__ts" in block else 0,
+            ticks_of=lambda carry, block, params:
+                (-(-int(block["__ts"].shape[-1]) // B), B)
+                if "__ts" in block else (0, B))
+
+    def _default_chunk(self, n_partitions: int, n_slots: int) -> int:
+        from ..analysis.cost_model import default_pattern_chunk
+        spec = self.nfa.spec
+        return default_pattern_chunk(
+            self.n_patterns, n_partitions, n_slots, spec.n_rows,
+            spec.n_caps, batch_b=max(self.nfa.batch_b, 1),
+            ring=bool(self.ring))
+
+    def process_block(self, block):
+        """ring == 0 → per-pattern match counts for this block ([N] int32).
+
+        ring > 0 → (counts [N], ring_cnt [N, ring], ring_pid [N, ring],
+        ring_caps [N, ring, R, C], ring_ts [N, ring], ring_ok [N, ring]) —
+        the bounded match payload buffer (see ops/nfa.bank_ring_plain),
+        as tensors on the bank's device; nothing is read back.
+
+        Stacked banks pay ONE dispatch here; the sequential path one per
+        chunk."""
+        block = self.nfa.to_device(block)
+        if self.stacked:
+            self._stack_carry, res = self._step(self._stack_carry, block,
+                                                self._stack_params)
+            return res
+        outs = []
+        for ci in range(self.n_chunks):
+            self._carries[ci], res = self._step(self._carries[ci], block,
+                                                self.params[ci])
+            outs.append(res)
+        if not self.ring:
+            return torch.cat(outs)
+        return tuple(torch.cat([o[i] for o in outs]) for i in range(6))
+
+    def total_dropped(self) -> int:
+        """Cumulative slot-ring evictions over all patterns (syncs)."""
+        if self.stacked:
+            return int(self._stack_carry["dropped"].sum())
+        return sum(int(c["dropped"].sum()) for c in self._carries)
+
+    def grow_slots(self, n_slots: int) -> None:
+        """Widen the K (concurrent-partials) axis of every chunk carry
+        and rebuild the step — the bank analogue of
+        CompiledPatternNFA.grow_slots."""
+        if n_slots <= self.nfa.spec.n_slots:
+            return
+        pad = n_slots - self.nfa.spec.n_slots
+        R = max(self.nfa.spec.n_rows, 1)
+        C = max(self.nfa.spec.n_caps, 1)
+        if self.stacked:
+            # slot axis of the [C, N, P, K, ...] carry
+            self._stack_carry = _widen_slots(self._stack_carry, 3, pad, R, C)
+        else:
+            self._carries = [_widen_slots(c, 2, pad, R, C)
+                             for c in self._carries]
+        # the inner (parameterized) NFA owns the spec the bank steps
+        self.nfa.grow_slots(n_slots)
+        self._set_live_bytes()
+        self._build_step()
+
+    def process_block_replayed(self, block):
+        """process_block with grow-and-replay at dispatch granularity:
+        keep the pre-block carry, step the whole bank as one unit, and if
+        the slot ring evicted partials, rewind the ENTIRE bank to it,
+        double K, and replay the same block.  Requires replayable=True
+        (the step leaves its input carry alone)."""
+        if not self.replayable:
+            raise SiddhiAppCreationError(
+                "process_block_replayed needs a CompiledPatternBank "
+                "built with replayable=True")
+        block = self.nfa.to_device(block)
+        for _ in range(16):         # 2^16 x slots: far past any real feed
+            if self.stacked:
+                pre = dict(self._stack_carry)
+            else:
+                pre = [dict(c) for c in self._carries]
+            before = self.total_dropped()
+            res = self.process_block(block)
+            if self.total_dropped() == before:
+                return res
+            if self.stacked:
+                self._stack_carry = pre
+            else:
+                self._carries = pre
+            self.grow_slots(self.nfa.spec.n_slots * 2)
+        raise SiddhiAppRuntimeException(
+            "pattern bank slot ring failed to stabilise after 16 growths")
+
+    def decode_ring(self, ring_cnt, ring_pid, ring_caps, ring_ts, ring_ok):
+        """Vectorised host decode of a block's match-ring payloads.
+
+        → dict of columnar arrays over the M decoded matches:
+        {"pattern": [M], "partition": [M], "ts": [M], <out_name>: [M], ...}
+        (the columnar analogue of the reference's per-match QueryCallback
+        payload).  Entries whose slot was re-armed after the match
+        (ring_ok False) are excluded — overwritten payloads, still counted
+        in `ring_cnt`."""
+        def host(a):
+            return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+                else np.asarray(a)
+        cnt = host(ring_cnt)
+        pid = host(ring_pid)
+        caps = host(ring_caps)               # [N, ring, R, C]
+        ts = host(ring_ts)
+        ok = host(ring_ok)
+        pat, slot = np.nonzero((cnt > 0) & ok)
+        out = {"pattern": pat, "partition": pid[pat, slot],
+               "ts": ts[pat, slot].astype(np.int64) + (self.base_ts or 0)}
+        nfa = self.nfa
+        for name, row, attr, which in nfa.select_outputs:
+            lane = nfa.cap_lane[(row, attr, which)]
+            v = caps[pat, slot, row, lane]
+            at = nfa.attr_types.get(attr)
+            if at in (AttrType.INT, AttrType.LONG):
+                v = np.round(v).astype(np.int64)
+            out[name] = v
+        return out

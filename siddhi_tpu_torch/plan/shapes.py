@@ -37,7 +37,8 @@ def nfa_shape_dims(spec, n_partitions: int, batch_b: int,
                    **extra) -> Dict[str, Any]:
     """The canonical NFA step dims — S/K/P/B plus capture geometry and
     telemetry (the JAX package's key, without its donation flag: the
-    port's step never donates its carry)."""
+    pattern step writes a new carry, the bank step updates its carry in
+    place unless the bank is replayable, and neither changes a shape)."""
     d = {"S": len(spec.units), "K": spec.n_slots, "P": n_partitions,
          "B": max(batch_b, 1), "R": max(spec.n_rows, 1),
          "C": max(spec.n_caps, 1), "telem": bool(spec.telemetry)}
