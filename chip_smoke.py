@@ -1172,6 +1172,10 @@ BANK_WITHIN_MS = 40_000
 BANK_GAP_MS = BANK_P                      # round-robin: per-lane gap P ms
 BANK_FLOOR = 99.9
 BANK_BASE_TS = 1_000_000
+#: the fleet cell's timed window is repeated this many times from the same
+#: carry (over 1 s of wall at ≈ 1.5 ms a block on an H100, 700 W): median
+#: and spread
+FLEET_REPEATS = 24
 
 
 def bank_app(thr, floor=BANK_FLOOR, within_ms=BANK_WITHIN_MS) -> str:
@@ -1186,13 +1190,15 @@ def bank_app(thr, floor=BANK_FLOOR, within_ms=BANK_WITHIN_MS) -> str:
     """
 
 
-def bank_blocks(rng, n_blocks, P=BANK_P, T=BANK_T, gap=BANK_GAP_MS):
-    """bench.py gen_flat + gen_block: per block, event (i, j) of lane i at
-    BASE + (block * T + j) * gap + i * (gap // P), price U[0, 100), kind
-    U{0, 1}, packed into [P, T] lanes by the port's pack_blocks."""
+def bank_blocks(rng, n_blocks, P=BANK_P, T=BANK_T, gap=BANK_GAP_MS,
+                first=0):
+    """bench.py gen_flat + gen_block: per block b (counted from `first`),
+    event (i, j) of lane i at BASE + (b * T + j) * gap + i * (gap // P),
+    price U[0, 100), kind U{0, 1}, packed into [P, T] lanes by the port's
+    pack_blocks."""
     from siddhi_tpu_torch.ops.pack import pack_blocks
     out = []
-    for b in range(n_blocks):
+    for b in range(first, first + n_blocks):
         n = P * T
         j = np.repeat(np.arange(T, dtype=np.int64), P)
         i = np.tile(np.arange(P, dtype=np.int64), T)
@@ -1205,24 +1211,41 @@ def bank_blocks(rng, n_blocks, P=BANK_P, T=BANK_T, gap=BANK_GAP_MS):
     return out
 
 
-def bank_reference(blocks, thrs, floor=BANK_FLOOR, gap=BANK_GAP_MS,
-                   within_ms=BANK_WITHIN_MS):
-    """Independent reference of the bank over the lane streams: an arm is
-    a `kind == 0` event; it is a match of pattern i when its price is
-    above float32(thr_i) and a later event of its lane within `within`
-    (here the next within // gap events) has kind 1 and a price above
-    both its own and float32(floor).  → (matches per pattern, per-lane
-    price and kind [P, events])."""
+def bank_block_reference(blocks, thrs, floor=BANK_FLOOR, gap=BANK_GAP_MS,
+                         within_ms=BANK_WITHIN_MS):
+    """Independent reference of the bank over the lane streams, per
+    block: an arm is a `kind == 0` event; it is a match of pattern i when
+    its price is above float32(thr_i) and a later event of its lane
+    within `within` (here the next within // gap events) has kind 1 and
+    a price above both its own and float32(floor); the match lands in
+    the block of the first such event.  → (matches [blocks, patterns],
+    per-lane price and kind [P, events])."""
     price = np.concatenate([b["price"] for b in blocks], axis=1)
     kind = np.concatenate([b["kind"] for b in blocks], axis=1)
+    T = blocks[0]["price"].shape[1]
     lo = np.maximum(price, np.float32(floor))
-    hit = np.zeros(price.shape, bool)
+    done = np.full(price.shape, -1, np.int64)   # the completing event
     for d in range(1, within_ms // gap + 1):
-        hit[:, :-d] |= (kind[:, d:] == 1) & (price[:, d:] > lo[:, :-d])
-    p1 = np.sort(price[(kind == 0) & hit])
+        hit = (kind[:, d:] == 1) & (price[:, d:] > lo[:, :-d])
+        first = hit & (done[:, :-d] < 0)
+        done[:, :-d][first] = np.nonzero(first)[1] + d
+    arm = (kind == 0) & (done >= 0)
+    p1, blk = price[arm], done[arm] // T
     t32 = np.asarray(thrs, np.float32)
-    counts = len(p1) - np.searchsorted(p1, t32, side="right")
-    return counts.astype(np.int64), price, kind
+    counts = np.zeros((len(blocks), len(t32)), np.int64)
+    for b in range(len(blocks)):
+        x = np.sort(p1[blk == b])
+        counts[b] = len(x) - np.searchsorted(x, t32, side="right")
+    return counts, price, kind
+
+
+def bank_reference(blocks, thrs, floor=BANK_FLOOR, gap=BANK_GAP_MS,
+                   within_ms=BANK_WITHIN_MS):
+    """:func:`bank_block_reference` summed over the blocks → (matches per
+    pattern, per-lane price and kind [P, events])."""
+    counts, price, kind = bank_block_reference(blocks, thrs, floor, gap,
+                                               within_ms)
+    return counts.sum(axis=0), price, kind
 
 
 def check_ring_rows(dec, price, kind, thrs, floor=BANK_FLOOR,
@@ -1306,6 +1329,20 @@ def _carry(bank):
     return bank._stack_carry if bank.stacked else bank._carries[0]
 
 
+def bank_launches():
+    """(bank step launches, of them the thread instance's and the group
+    instance's, ring launches) since the counters' last reset."""
+    from siddhi_tpu_torch.ops.nfa import nfa_bank_ring, nfa_bank_step
+    return (nfa_bank_step.launches, nfa_bank_step.thread_launches,
+            nfa_bank_step.group_launches, nfa_bank_ring.launches)
+
+
+def set_bank_launches(v=(0, 0, 0, 0)):
+    from siddhi_tpu_torch.ops.nfa import nfa_bank_ring, nfa_bank_step
+    (nfa_bank_step.launches, nfa_bank_step.thread_launches,
+     nfa_bank_step.group_launches, nfa_bank_ring.launches) = v
+
+
 def check_bank(dev, seed, main_bank, main_block):
     """The bank kernels (the bank step, then the ring) against the plain
     bank step on the card, bit for bit: counts, the six raw ring outputs
@@ -1313,15 +1350,16 @@ def check_bank(dev, seed, main_bank, main_block):
     band, stacked, carry updated in place); a full-size block in the
     matchy band (thresholds 5..95, floor 0: rings filled through ties);
     stacked vs sequential over the matchy blocks; a replayable bank from
-    K = 1 that grows and replays; K = 160 (the wide-ring instance), in
-    place and not.  → (cases, the fleet block's outputs, the largest
-    absolute difference measured between the kernels and the plain step
-    over every output and carry leaf compared)."""
+    K = 1 that grows and replays (the thread instance up to K = 16, the
+    group instance above); K = 160 (the wide-ring instance), in place and
+    not; a one-unit chain; a chain without `every`.  → (cases, the fleet
+    block's outputs, the largest absolute difference measured between the
+    kernels and the plain step over every output and carry leaf compared,
+    the stacked matchy bank and its last block, for timing)."""
     import torch
-    from siddhi_tpu_torch.ops.nfa import nfa_bank_ring, nfa_bank_step
     from siddhi_tpu_torch.plan.nfa_compiler import (CompiledPatternBank,
                                                     _widen_slots)
-    launches0 = (nfa_bank_step.launches, nfa_bank_ring.launches)
+    launches0 = bank_launches()
     cases = 0
     # (a) the fleet cell's bank on its next block, in place
     pre = _snapshot(main_bank)
@@ -1374,7 +1412,8 @@ def check_bank(dev, seed, main_bank, main_block):
                 f"== sequential on both blocks")
             del pre, new_p, want
     cases += 2
-    del stk, seq
+    del seq
+    mblk = blk
     # (d) replayable, K = 1: grows and replays (not in place)
     rp = CompiledPatternBank(apps[::25], n_partitions=2048, n_slots=1,
                              pattern_chunk=20, ring=BANK_RING,
@@ -1455,8 +1494,13 @@ def check_bank(dev, seed, main_bank, main_block):
             raise AssertionError(f"{name} case matched nothing")
         log(f"  bank == plain  {name}: N=8 P=1024 T=64, {matches} matches")
         cases += 1
-    nfa_bank_step.launches, nfa_bank_ring.launches = launches0
-    return cases, main_out, worst
+    used = bank_launches()
+    log(f"  bank step launches in the checks: thread instance "
+        f"{used[1] - launches0[1]}, group instance {used[2] - launches0[2]}")
+    if used[1] == launches0[1] or used[2] == launches0[2]:
+        raise AssertionError("bank checks did not run both instances")
+    set_bank_launches(launches0)
+    return cases, main_out, worst, stk, mblk
 
 
 def bank_step_bound(bank, P, T):
@@ -1469,18 +1513,65 @@ def bank_step_bound(bank, P, T):
     spec, kp = bank.nfa.spec, bank.nfa.kprog
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
     K, CN = spec.n_slots, bank.n_patterns
-    inputs = P * T * (4 * len(kp.kern_attrs) + 4 + 4 + 1 +
-                      len(spec.cond_fns))
     carry = CN * (P * K * (4 * 4 + 4 * R * C) +
                   P * 4 * (2 + int(spec.arm_once)))
-    nbytes = inputs + CN * len(kp.param_names) * 4 + 2 * carry + \
-        3 * CN * P * 4
+    nbytes = _bank_input_bytes(bank, P, T) + 2 * carry + 3 * CN * P * 4
     cmps = max(len(c) + len(q) for c, q in zip(kp.cmp, kp.pcmp))
     ops = CN * P * T * K * (4 + cmps)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def _bank_input_bytes(bank, P, T):
+    """Bytes of one bank step's inputs, each read once: the block's
+    attribute lanes, ts, stream, valid and a gate byte per condition, and
+    the pattern constants."""
+    spec, kp = bank.nfa.spec, bank.nfa.kprog
+    return P * T * (4 * len(kp.kern_attrs) + 4 + 4 + 1 +
+                    len(spec.cond_fns)) + \
+        bank.n_patterns * len(kp.param_names) * 4
+
+
+def bank_inplace_bound(bank, pre, post, block):
+    """(bound ms, "bytes") of one in-place bank step launch over `block`
+    that took the carry from `pre` to `post`, counting what each lane
+    needs at least: the inputs read once; every slot state read (it
+    decides expiry); the starts of each lane that held a partial (the
+    `within` check); per slot armed or advanced here (its start, enter,
+    seq or captures changed) its state, start, enter, seq and captures
+    written, and its captures read if it held a partial (a capture
+    compare reads them); per slot whose state alone changed (expired or
+    completed) its state written; each lane scalar (arm_seq, dropped,
+    armed_total) that changed read and written; count / lmt / lmk
+    written.  A lane that armed from empty reads none of its cold words;
+    one that only expired writes only its states."""
+    import torch
+    spec = bank.nfa.spec
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    K, CN = spec.n_slots, bank.n_patterns
+    P, T = (int(x) for x in block["__ts"].shape)
+    lanes = CN * P
+
+    def diff(k, words):
+        a, b = pre[k], post[k]
+        if a.dtype == torch.float32:          # bits, not values (NaN)
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return (a != b).reshape(lanes * words, -1).any(dim=1).reshape(
+            lanes, words)
+    live = (pre["slot_state"] >= 1).reshape(lanes, K)
+    rewritten = diff("slot_start", K) | diff("slot_enter", K) | \
+        diff("slot_seq", K) | diff("captures", K)
+    expired = diff("slot_state", K) & ~rewritten
+    scalars = sum(int(diff(k, 1).sum()) for k in
+                  ("arm_seq", "dropped", "armed_total") if k in pre)
+    nbytes = _bank_input_bytes(bank, P, T) + lanes * K * 4 + \
+        int(live.any(dim=1).sum()) * K * 4 + \
+        int(rewritten.sum()) * (4 * 4 + 4 * R * C) + \
+        int((rewritten & live).sum()) * 4 * R * C + \
+        int(expired.sum()) * 4 + scalars * 8 + 3 * lanes * 4
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
 def bank_ring_bound(CN, P, ring, RC):
@@ -1492,69 +1583,110 @@ def bank_ring_bound(CN, P, ring, RC):
     return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
-def time_bank(bank, block, dev):
-    """Median ms of each kernel's wrapper (the bank step with its gate
-    word, on the steady-state carry, not in place; the ring on its
-    outputs), of the plain versions, and of torch.sort(stable=True) over
-    the same counts (the ring's nearest library call); and the bounds."""
+def _step_split(fn, n=3):
+    """ms of device time per call of fn by kernel (the bank step's two
+    instances, the ring, the rest), from torch.profiler over n calls, each
+    sum divided by the calls it recorded (it may drop the first); None
+    when the profiler records no device time."""
     import torch
-    from siddhi_tpu_torch.ops.nfa import (bank_lanes_plain, bank_ring_plain,
-                                          nfa_bank_lanes, nfa_bank_ring,
-                                          nfa_bank_step)
-    spec, kp, prm = bank.nfa.spec, bank.nfa.kprog, bank._stack_params
-    carry = bank._stack_carry
-    launches0 = (nfa_bank_step.launches, nfa_bank_ring.launches)
-    new, cnt, lmt, lmk = nfa_bank_lanes(spec, carry, block, prm, kp)
-    step_ms = median_ms(lambda: nfa_bank_lanes(spec, carry, block, prm, kp),
-                        dev, sleep_cycles=5 * SLEEP_CYCLES)
-    ring_ms = median_ms(lambda: nfa_bank_ring(new, cnt, lmt, lmk,
-                                              bank.ring), dev)
-    lib_ms = median_ms(lambda: torch.sort(cnt, dim=1, descending=True,
-                                          stable=True), dev)
-    step_plain_ms = median_ms(lambda: bank_lanes_plain(spec, carry, block,
-                                                       prm), dev, n=3)
-    ring_plain_ms = median_ms(lambda: bank_ring_plain(new, cnt, lmt, lmk,
-                                                      bank.ring), dev)
-    split = None
     try:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                nfa_bank_lanes(spec, carry, block, prm, kp)
-                nfa_bank_ring(new, cnt, lmt, lmk, bank.ring)
+            for _ in range(n):
+                fn()
             torch.cuda.synchronize()
-        # per call recorded: the profiler may drop the first calls
-        split = {"step_ms": 0.0, "ring_ms": 0.0, "other_ms": 0.0}
-        calls = {"step_ms": 0, "ring_ms": 0}
-        for ev in prof.key_averages():
-            us = getattr(ev, "device_time_total", None)
-            if us is None:
-                us = getattr(ev, "cuda_time_total", 0)
-            if us:
-                key = ("step_ms"
-                       if is_kernel(ev.key, "nfa_bank_step_kernel") else
-                       "ring_ms"
-                       if is_kernel(ev.key, "nfa_bank_ring_kernel") else
-                       "other_ms")
-                split[key] += us / 1e3
-                if key in calls:
-                    calls[key] += ev.count
-        rec = calls["step_ms"]
-        split = {k: (v / (calls.get(k) or rec) if (calls.get(k) or rec)
-                     else None) for k, v in split.items()}
-        split["calls_recorded"] = rec
     except Exception as e:   # noqa: BLE001 — measurement only
         log(f"  torch.profiler unavailable ({type(e).__name__}: {e})")
-    nfa_bank_step.launches, nfa_bank_ring.launches = launches0
-    P, T = (int(x) for x in block["__ts"].shape)
+        return None
+    names = {"thread_ms": "nfa_bank_thread_kernel",
+             "group_ms": "nfa_bank_step_kernel",
+             "ring_ms": "nfa_bank_ring_kernel"}
+    split = dict.fromkeys(list(names) + ["other_ms"], 0.0)
+    calls = dict.fromkeys(names, 0)
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if not us:
+            continue
+        key = next((k for k, nm in names.items() if is_kernel(ev.key, nm)),
+                   "other_ms")
+        split[key] += us / 1e3
+        if key in calls:
+            calls[key] += ev.count
+    if not any(split.values()):
+        return None
+    rec = max(calls.values())
+    split = {k: (v / (calls.get(k) or rec) if (calls.get(k) or rec)
+                 else None) for k, v in split.items()}
+    split["calls_recorded"] = rec
+    return split
+
+
+def time_bank(bank, block, dev, matchy, fresh, fresh4):
+    """Median ms of each kernel's wrapper at the fleet shape: the bank
+    step with its gate word on the steady-state carry and the next block
+    of its stream, not in place (the kernel line's time); in place on a
+    copy of that carry over the fresh blocks that continue its stream,
+    one a launch (the fleet path), at
+    T = 64 and at T = 4 (bench.py's latency shape); on the matchy bank's
+    block; the ring on its outputs; the plain versions; torch.sort(stable=True) over the same
+    counts (the ring's nearest library call); the device split by kernel;
+    and the bounds (in place: what the first fresh block's launch
+    needed)."""
+    import torch
+    from siddhi_tpu_torch.ops.nfa import (bank_lanes_plain, bank_ring_plain,
+                                          nfa_bank_lanes, nfa_bank_ring)
+    spec, kp, prm = bank.nfa.spec, bank.nfa.kprog, bank._stack_params
+    carry = bank._stack_carry
+    launches0 = bank_launches()
+
+    def step(c=carry, b=block, **kw):
+        return nfa_bank_lanes(spec, c, b, prm, kp, **kw)
+
+    def timed(fn, n=TIMED_LAUNCHES):
+        return median_ms(fn, dev, n=n, sleep_cycles=5 * SLEEP_CYCLES)
+    new, cnt, lmt, lmk = step()
+    mb = matchy[0]
+    mspec, mkp, mprm = mb.nfa.spec, mb.nfa.kprog, mb._stack_params
+    mcarry, mblock = mb._stack_carry, matchy[1]
+    res = {"step_ms": timed(step)}
+    P = int(block["__ts"].shape[0])
+    work = {k: v.clone() for k, v in carry.items()}
+    pre = {k: v.clone() for k, v in carry.items()}
+    step(c=work, b=fresh[0], inplace=True)
+    res["step_inplace_bound_ms"], _by = bank_inplace_bound(bank, pre, work,
+                                                           fresh[0])
+    del pre
+    for name, blocks in (("step_inplace_ms", fresh[1:]),
+                         ("step_t4_inplace_ms", fresh4)):
+        it = iter(blocks)
+        res[name] = timed(lambda: step(c=work, b=next(it), inplace=True),
+                          n=len(blocks))
+    del work
+    res["step_matchy_ms"] = timed(lambda: nfa_bank_lanes(
+        mspec, mcarry, mblock, mprm, mkp))
+    res["step_t4_ms"] = timed(lambda: step(b=fresh4[0]))
+    res["ring_ms"] = median_ms(lambda: nfa_bank_ring(new, cnt, lmt, lmk,
+                                                     bank.ring), dev)
+    res["ring_library_ms"] = median_ms(lambda: torch.sort(
+        cnt, dim=1, descending=True, stable=True), dev)
+    res["step_plain_ms"] = median_ms(lambda: bank_lanes_plain(
+        spec, carry, block, prm), dev, n=3)
+    res["ring_plain_ms"] = median_ms(lambda: bank_ring_plain(
+        new, cnt, lmt, lmk, bank.ring), dev)
+    res["split"] = _step_split(lambda: (step(), nfa_bank_ring(
+        new, cnt, lmt, lmk, bank.ring)))
+    res["split_matchy"] = _step_split(lambda: nfa_bank_lanes(
+        mspec, mcarry, mblock, mprm, mkp))
+    set_bank_launches(launches0)
+    T = int(block["__ts"].shape[1])
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
-    sb_ms, sb_by = bank_step_bound(bank, P, T)
-    rb_ms, rb_by = bank_ring_bound(bank.n_patterns, P, bank.ring, R * C)
-    return {"step_ms": step_ms, "step_plain_ms": step_plain_ms,
-            "step_bound_ms": sb_ms, "step_bound_by": sb_by,
-            "ring_ms": ring_ms, "ring_plain_ms": ring_plain_ms,
-            "ring_library_ms": lib_ms, "ring_bound_ms": rb_ms,
-            "ring_bound_by": rb_by, "split": split}
+    res["step_bound_ms"], res["step_bound_by"] = bank_step_bound(bank, P, T)
+    res["step_t4_bound_ms"], _by = bank_step_bound(bank, P, 4)
+    res["ring_bound_ms"], res["ring_bound_by"] = bank_ring_bound(
+        bank.n_patterns, P, bank.ring, R * C)
+    return res
 
 
 def run_fleet_cell(dev, seed, n_blocks):
@@ -1563,13 +1695,14 @@ def run_fleet_cell(dev, seed, n_blocks):
     CompiledPatternBank.process_block over pre-staged device blocks; the
     timed window ends with the one device-to-host read of every block's
     packed ring and decode_ring, as bench.py's throughput phase does.  The
-    timed window runs without the profiler; a second pass over the same
-    blocks from the same carry runs under it for the device split and the
-    idle share."""
+    timed window runs FLEET_REPEATS times without the profiler, each
+    from the same carry and each equal to the first bit for bit (events/s
+    from the median wall; the launch counts from the first); one more
+    pass over the same blocks runs under the profiler for the device
+    split, and the idle share is given against both walls."""
     import gc
 
     import torch
-    from siddhi_tpu_torch.ops.nfa import nfa_bank_ring, nfa_bank_step
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
     gc.collect()
     torch.cuda.empty_cache()
@@ -1623,61 +1756,84 @@ def run_fleet_cell(dev, seed, n_blocks):
                 h[:, 1 + 2 * r:1 + 3 * r], h[:, 1 + 3 * r:1 + 4 * r] != 0))
         return time.perf_counter() - start, host, payloads
 
-    # the timed run goes without the profiler; the profiled pass replays
-    # the same blocks from the same carry (kept on the host, so the cell's
-    # peak device memory holds no copy of it) and must give the same bits
+    # the timed runs go without the profiler; each repeat and the
+    # profiled pass replay the same blocks from the same carry (kept on
+    # the host, so the cell's peak device memory holds no copy of it) and
+    # must give the same bits
     assert bank.stacked
-    pre = {k: v.cpu() for k, v in bank._stack_carry.items()}
-    nfa_bank_step.launches = 0                # counts start here
-    nfa_bank_ring.launches = 0
+    pre = {k: v.cpu().pin_memory() for k, v in bank._stack_carry.items()}
+
+    def replay(fn, what):
+        for k, v in bank._stack_carry.items():
+            v.copy_(pre[k])
+        torch.cuda.synchronize()
+        res = fn()
+        torch.cuda.synchronize()
+        got = res[0] if isinstance(res[0], tuple) else res
+        if not np.array_equal(got[1], host) or not all(
+                _same_bits(bank._stack_carry[k], post[k]) for k in post):
+            raise AssertionError(f"fleet cell: {what} over the same blocks "
+                                 f"differs from the first timed run")
+        return res
+    set_bank_launches()                       # counts start here
     wall, host, payloads = drive()
-    launches = (nfa_bank_step.launches, nfa_bank_ring.launches)
+    launches = bank_launches()
     peak_cell = torch.cuda.max_memory_allocated()
     post = {k: v.clone() for k, v in bank._stack_carry.items()}
-    for k, v in bank._stack_carry.items():
-        v.copy_(pre[k])
-    (wall_p, host_p, _), per_kernel, dev_us = profile_device(drive)
-    torch.cuda.synchronize()
-    if not np.array_equal(host_p, host) or not all(
-            _same_bits(bank._stack_carry[k], post[k]) for k in post):
-        raise AssertionError("fleet cell: the profiled pass over the same "
-                             "blocks differs from the timed run")
+    walls = [wall] + [replay(drive, f"timed run {i + 2}")[0]
+                      for i in range(FLEET_REPEATS - 1)]
+    (wall_p, _, _), per_kernel, dev_us = replay(
+        lambda: profile_device(drive), "the profiled pass")
     del pre, post
+    wall = float(np.median(walls))
     counts_total += host[:, :, 0].astype(np.int64).sum(axis=0)
     n_events = n_blocks * BANK_P * BANK_T
     matches = int(host[:, :, 0].sum())
     n_payloads = sum(len(d["pattern"]) for d in payloads)
     log(f"  fleet cell: {N_BANK} patterns x {BANK_P} partitions, "
-        f"{n_blocks} blocks of {BANK_P * BANK_T} events, {wall:.3f} s wall")
-    log(f"  events/s: {n_events / wall:.1f}; ms per block: "
-        f"{wall / n_blocks * 1e3:.3f}; matches {matches}, payloads decoded "
-        f"{n_payloads} (shortfall {matches - n_payloads})")
+        f"{n_blocks} blocks of {BANK_P * BANK_T} events, timed "
+        f"{FLEET_REPEATS} times from the same carry: median wall "
+        f"{wall:.6f} s, min {min(walls):.6f} s, max {max(walls):.6f} s "
+        f"(sum {sum(walls):.3f} s); every repeat's outputs and carry equal "
+        f"to the first's")
+    log(f"  events/s: {n_events / wall:.1f} (median; "
+        f"{n_events / max(walls):.1f} to {n_events / min(walls):.1f}); ms "
+        f"per block: {wall / n_blocks * 1e3:.3f}; matches {matches}, "
+        f"payloads decoded {n_payloads} (shortfall {matches - n_payloads})")
     log(f"  profiled pass over the same blocks from the same carry: "
-        f"{wall_p:.3f} s wall ({(wall_p / wall - 1) * 100:.3f}% above the "
-        f"timed run), outputs and carry equal to the timed run's")
+        f"{wall_p:.6f} s wall ({(wall_p / wall - 1) * 100:.3f}% above the "
+        f"median timed run), outputs and carry equal to the timed run's")
     if per_kernel is not None:
-        step_us = sum(us for k, us in per_kernel.items()
-                      if is_kernel(k, "nfa_bank_step_kernel"))
-        ring_us = sum(us for k, us in per_kernel.items()
-                      if is_kernel(k, "nfa_bank_ring_kernel"))
-        log(f"  nfa_bank_step device time {step_us / 1e3:.3f} ms over "
-            f"{launches[0]} launches, nfa_bank_ring {ring_us / 1e3:.3f} ms "
-            f"over {launches[1]} launches; all device time "
+        def kern_us(name):
+            return sum(us for k, us in per_kernel.items()
+                       if is_kernel(k, name))
+        thread_us = kern_us("nfa_bank_thread_kernel")
+        group_us = kern_us("nfa_bank_step_kernel")
+        ring_us = kern_us("nfa_bank_ring_kernel")
+        log(f"  nfa_bank_step device time: thread instance "
+            f"{thread_us / 1e3:.3f} ms over {launches[1]} launches, group "
+            f"instance {group_us / 1e3:.3f} ms over {launches[2]} launches; "
+            f"nfa_bank_ring {ring_us / 1e3:.3f} ms over {launches[3]} "
+            f"launches; all device time "
             f"{dev_us / 1e3:.3f} ms = {dev_us / 1e6 / wall_p * 100:.3f}% "
             f"of the profiled pass's wall (idle share "
-            f"{100 - dev_us / 1e6 / wall_p * 100:.3f}%)")
+            f"{100 - dev_us / 1e6 / wall_p * 100:.3f}%), "
+            f"{dev_us / 1e6 / wall * 100:.3f}% of the median timed wall "
+            f"(idle share {100 - dev_us / 1e6 / wall * 100:.3f}%)")
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
         for k, us in top:
             log(f"    device {us / 1e3:10.3f} ms  {k[:90]}")
     else:
         log("  torch.profiler recorded no device time: idle share not "
             "measured")
-    if min(launches) < n_blocks:
-        raise AssertionError(f"nfa_bank_step / nfa_bank_ring launched "
-                             f"{launches} times, expected >= {n_blocks} each")
+    if launches[1] < n_blocks or launches[3] < n_blocks:
+        raise AssertionError(f"bank launches (step, thread instance, group "
+                             f"instance, ring) {launches}: expected >= "
+                             f"{n_blocks} of the thread instance and the "
+                             f"ring")
     # the kernels against the plain bank step, on the next block first
-    n_cases, next_out, bank_err = check_bank(dev, seed, bank,
-                                             staged[n_blocks + 1])
+    n_cases, next_out, bank_err, matchy_bank, matchy_block = check_bank(
+        dev, seed, bank, staged[n_blocks + 1])
     counts_total += next_out[0].long().cpu().numpy()
     if bank.total_dropped() != 0:
         raise AssertionError(f"fleet cell dropped {bank.total_dropped()} "
@@ -1700,20 +1856,138 @@ def run_fleet_cell(dev, seed, n_blocks):
         f"({peak_cell - mem0} B above the {mem0} B allocated before the "
         f"cell: the carry, the {n_blocks + 2} staged blocks, the outputs); "
         f"{peak} B with the checks' plain steps")
-    tb = time_bank(bank, staged[n_blocks], dev)
-    log(f"  nfa_bank_step at N={N_BANK} P={BANK_P} T={BANK_T} K={BANK_K}: "
+    # blocks continuing the stream after the cell's: T = 64, then T = 4
+    del staged
+    fresh = [bank.nfa.to_device(b) for b in bank_blocks(
+        np.random.default_rng(seed + 12), TIMED_LAUNCHES + 1,
+        first=n_blocks + 2)]
+    fresh4 = [bank.nfa.to_device(b) for b in bank_blocks(
+        np.random.default_rng(seed + 13), TIMED_LAUNCHES, T=4,
+        first=(n_blocks + 3 + TIMED_LAUNCHES) * BANK_T // 4)]
+    tb = time_bank(bank, fresh[0], dev, (matchy_bank, matchy_block), fresh,
+                   fresh4)
+    del matchy_bank, matchy_block, fresh, fresh4
+    log(f"  nfa_bank_step at N={N_BANK} P={BANK_P} T={BANK_T} K={BANK_K} "
+        f"(thread instance, a warp over 32 lanes of one pattern): "
         f"{tb['step_ms']:.4f} ms (plain {tb['step_plain_ms']:.4f} ms, bound "
         f"{tb['step_bound_ms']:.6f} ms by {tb['step_bound_by']}, "
         f"{tb['step_bound_ms'] / tb['step_ms'] * 100:.2f}% of the bound "
-        f"reached)")
+        f"reached); in place over fresh blocks {tb['step_inplace_ms']:.4f} "
+        f"ms (in-place bound "
+        f"{tb['step_inplace_bound_ms']:.6f} ms, "
+        f"{tb['step_inplace_bound_ms'] / tb['step_inplace_ms'] * 100:.2f}%)")
+    log(f"  nfa_bank_step on the matchy block (5..95, floor 0): "
+        f"{tb['step_matchy_ms']:.4f} ms; split "
+        f"{tb['split_matchy']}")
+    log(f"  nfa_bank_step at T=4: {tb['step_t4_ms']:.4f} ms (bound "
+        f"{tb['step_t4_bound_ms']:.6f} ms, "
+        f"{tb['step_t4_bound_ms'] / tb['step_t4_ms'] * 100:.2f}% of it); in "
+        f"place over fresh blocks {tb['step_t4_inplace_ms']:.4f} ms")
     log(f"  nfa_bank_ring at ring={BANK_RING}: {tb['ring_ms']:.4f} ms "
         f"(plain {tb['ring_plain_ms']:.4f} ms, torch.sort stable "
         f"{tb['ring_library_ms']:.4f} ms, bound {tb['ring_bound_ms']:.6f} "
         f"ms by {tb['ring_bound_by']})")
     log(f"  device split per step + ring (profiler, ms): {tb['split']}")
-    return {"launches": launches, "wall": wall, "cases": n_cases,
+    return {"launches": launches, "wall": wall, "walls": walls,
+            "cases": n_cases,
             "max_abs_err": bank_err,
             "events_per_s": n_events / wall, "peak": peak_cell - mem0, **tb}
+
+
+# ------------------------------------------------------------------ phase 9
+
+#: bench.py's latency phase (bench_lat): T_LAT_BLOCK events a lane a
+#: block, LAT_BLOCKS per-block synchronous blocks, trains of PIPE_DEPTH
+LAT_T = 4
+LAT_BLOCKS = 200
+LAT_TRAINS = 40
+LAT_DEPTH = 8
+
+
+def run_latency_cell(dev, seed, n_blocks=LAT_BLOCKS):
+    """bench.py bench_lat on the port: the fleet cell's bank (1000
+    patterns x 10,000 lanes, K = 8, ring 32, from an empty carry) fed
+    blocks of T = 4 events a lane, continuing one stream.  Each of
+    n_blocks blocks after a warm-up block is timed alone: its clock runs
+    from process_block to the device-to-host read of its per-pattern
+    counts; p50 and p99 over them.  Then the compute-only estimate:
+    trains of 8 blocks ending in one read of the last block's counts, the
+    per-block mean of each train, median and MAD over 40 trains.  Every
+    block's counts (a train's after its clock stops) must equal the
+    per-block numpy reference, and the bank kernels must have run."""
+    import gc
+
+    import torch
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    gc.collect()
+    torch.cuda.empty_cache()
+    thrs = np.linspace(99.8, 99.997, N_BANK)
+    bank = CompiledPatternBank([bank_app(t) for t in thrs],
+                               n_partitions=BANK_P, n_slots=BANK_K,
+                               pattern_chunk=BANK_CHUNK, ring=BANK_RING,
+                               device=dev)
+    bank.base_ts = BANK_BASE_TS
+    n_train = LAT_TRAINS * LAT_DEPTH
+    t0 = time.perf_counter()
+    raw = bank_blocks(np.random.default_rng(seed + 13),
+                      1 + n_blocks + n_train, T=LAT_T)
+    staged = [bank.nfa.to_device(b) for b in raw]
+    torch.cuda.synchronize()
+    want, _price, _kind = bank_block_reference(raw, thrs)
+    log(f"  {len(raw)} blocks of T={LAT_T} ({BANK_P * LAT_T} events each) "
+        f"made, staged and referenced in {time.perf_counter() - t0:.3f} s")
+    got = np.zeros_like(want)
+    got[0] = bank.process_block(staged[0])[0].cpu().numpy()   # warm-up
+    set_bank_launches()                       # counts start here
+    times = []
+    for i in range(1, n_blocks + 1):
+        t1 = time.perf_counter()
+        counts = bank.process_block(staged[i])[0].cpu()   # reaches the host
+        times.append(time.perf_counter() - t1)
+        got[i] = counts.numpy()
+    trains = []
+    for tr in range(LAT_TRAINS):
+        first = 1 + n_blocks + tr * LAT_DEPTH
+        outs = []
+        t1 = time.perf_counter()
+        for i in range(first, first + LAT_DEPTH):
+            outs.append(bank.process_block(staged[i])[0])
+        outs[-1].cpu()                        # one closing barrier
+        trains.append((time.perf_counter() - t1) / LAT_DEPTH)
+        got[first:first + LAT_DEPTH] = torch.stack(outs).cpu().numpy()
+    launches = bank_launches()
+    n_run = n_blocks + n_train
+    if launches[1] < n_run or launches[3] < n_run:
+        raise AssertionError(f"latency cell: bank launches (step, thread "
+                             f"instance, group instance, ring) {launches}, "
+                             f"expected >= {n_run} of the thread instance "
+                             f"and the ring")
+    bad = np.nonzero((got != want).any(axis=1))[0]
+    if len(bad):
+        b = int(bad[0])
+        n = int(np.nonzero(got[b] != want[b])[0][0])
+        raise AssertionError(f"latency cell: block {b} pattern {n} counted "
+                             f"{got[b, n]}, reference {want[b, n]}")
+    if bank.total_dropped() != 0:
+        raise AssertionError(f"latency cell dropped {bank.total_dropped()}")
+    bt = np.asarray(times) * 1e3
+    tm = np.asarray(trains) * 1e3
+    med = float(np.median(tm))
+    res = {"p50_ms": float(np.percentile(bt, 50)),
+           "p99_ms": float(np.percentile(bt, 99)),
+           "compute_only_median_ms": med,
+           "compute_only_mad_ms": float(np.median(np.abs(tm - med))),
+           "blocks": n_blocks, "trains": LAT_TRAINS, "depth": LAT_DEPTH,
+           "matches": int(want.sum()), "launches": launches}
+    log(f"  per-block synchronous, {n_blocks} blocks of T={LAT_T}: p50 "
+        f"{res['p50_ms']:.4f} ms, p99 {res['p99_ms']:.4f} ms (max "
+        f"{bt.max():.4f} ms); compute-only (trains of {LAT_DEPTH}, one read "
+        f"each): median {med:.4f} ms, MAD {res['compute_only_mad_ms']:.4f} "
+        f"ms over {LAT_TRAINS} trains")
+    log(f"  every block's counts == the per-block reference ({len(raw)} "
+        f"blocks, {res['matches']} matches); dropped 0; launches (step, "
+        f"thread instance, group instance, ring) {launches}")
+    return res
 
 
 # ------------------------------------------------------------------ main
@@ -1724,6 +1998,7 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--pattern-chunks", type=int, default=16)
     ap.add_argument("--fleet-blocks", type=int, default=32)
+    ap.add_argument("--latency-blocks", type=int, default=LAT_BLOCKS)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1830,6 +2105,15 @@ def main(argv=None) -> int:
     if args.fleet_blocks < 32:
         log(f"CUT: fleet cell at {args.fleet_blocks} blocks (full size is "
             f"32)")
+
+    log("== phase 9: fleet latency (bench.py's bench_lat: the same bank, "
+        f"T={LAT_T} blocks, per-block synchronous)")
+    t9 = time.perf_counter()
+    lat = run_latency_cell(dev, args.seed, args.latency_blocks)
+    log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+    if args.latency_blocks < LAT_BLOCKS:
+        log(f"CUT: latency cell at {args.latency_blocks} blocks (full size "
+            f"is {LAT_BLOCKS})")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     def timing(minmax):
@@ -1869,21 +2153,34 @@ def main(argv=None) -> int:
         "bound_by": nt["compact_bound_by"], "library_ms": None,
         "shape": {"P": PATTERN_LANES, "matches": nt["count"],
                   "cap": nt["cap"]}}, {
-        # the bank step with its gate word, not in place
+        # the bank step with its gate word, not in place: the thread
+        # instance (nfa_bank_thread_kernel) on the fleet path; the group
+        # instance (nfa_bank_step_kernel, K > 16) is held bit for bit in
+        # phase 8's checks
         "name": "nfa_bank_step", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:1167",
         "checked": True, "launches": fc["launches"][0],
+        "launches_by_instance": {"thread": fc["launches"][1],
+                                 "group": fc["launches"][2]},
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["step_ms"], "plain_ms": fc["step_plain_ms"],
         "bound_ms": fc["step_bound_ms"], "bound_by": fc["step_bound_by"],
         "library_ms": None, "split": fc["split"],
+        "inplace_ms": fc["step_inplace_ms"],
+        "inplace_bound_ms": fc["step_inplace_bound_ms"],
+        "matchy_ms": fc["step_matchy_ms"],
+        "t4_ms": fc["step_t4_ms"], "t4_bound_ms": fc["step_t4_bound_ms"],
+        "t4_inplace_ms": fc["step_t4_inplace_ms"],
+        "latency": {k: lat[k] for k in (
+            "p50_ms", "p99_ms", "compute_only_median_ms",
+            "compute_only_mad_ms", "launches")},
         "shape": {"patterns": N_BANK, "P": BANK_P, "T": BANK_T,
                   "K": BANK_K, "chunks": N_BANK // BANK_CHUNK}}, {
         "name": "nfa_bank_ring", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:1250",
-        "checked": True, "launches": fc["launches"][1],
+        "checked": True, "launches": fc["launches"][3],
         "max_abs_err": fc["max_abs_err"],
         "ms": fc["ring_ms"], "plain_ms": fc["ring_plain_ms"],
         "bound_ms": fc["ring_bound_ms"], "bound_by": fc["ring_bound_by"],

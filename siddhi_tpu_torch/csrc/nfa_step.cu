@@ -72,21 +72,84 @@
 // build_super_bank_step: the step above vmapped over C*N patterns that
 // differ only in their constants, per-pattern match counts, and a top-ring
 // payload ring).  Contract: siddhi_tpu_torch/ops/nfa.py bank_lanes_plain
-// then bank_ring_plain.
-//  - nfa_bank_step: the step body above (a template flag, not a copy)
-//    over a grid of (lane tile, pattern), pattern fastest, so the CTAs of
-//    one lane tile run together and read its [L, T] inputs from L2; the
-//    carry has a leading pattern axis and each pattern's constants come
-//    from a [C*N, n_params] float32 table, staged in shared memory.  A
-//    condition is its gate bit (the capture-free, constant-free part,
-//    shared by every pattern) AND its `event lane <op> pattern constant`
-//    compares AND its capture compares.  Per lane it writes the match
-//    count, and at the lane's last event with a match that event's ts and
-//    its lowest matched slot ([C*N, P] int32 each): no rows, no scratch.
-//    The carry may be updated in place (carry in == carry out): every
-//    thread loads its own slots before it writes them, and the lane's
-//    scalars are written after a barrier.  Bound: the carry read and
-//    written once, ~2 GB each way at 1000 patterns x 10,000 lanes x K = 8.
+// then bank_ring_plain.  A condition is its gate bit (the capture-free,
+// constant-free part, shared by every pattern) AND its `event lane <op>
+// pattern constant` compares AND its capture compares.  Per (pattern,
+// lane) the step writes the match count, and at the lane's last event
+// with a match that event's ts and its lowest matched slot ([C*N, P]
+// int32 each): no rows, no scratch.  The carry has a leading pattern axis
+// and may be updated in place (carry in == carry out).
+//
+// What bounds the bank step: a new carry, the carry read once and
+// written once, 2.0 GB each way at the fleet shape (1000 patterns x
+// 10,000 lanes x K = 8: 8 slots x (4 int32 + 2 capture floats) + 2 lane
+// words = 200 B a (pattern, lane)), 1.23 ms at 3.35 TB/s; the [P, T]
+// block is 12.8 MB.  In place, what the data needs: every slot state
+// read (0.32 GB), the starts of lanes that hold a partial, the slots that
+// change written, the per-lane outputs written.
+//
+// Two instances, chosen per launch by ops/nfa.bank_geometry:
+//  - nfa_bank_thread (K <= 16, at most 8 constant compares, shared
+//    memory within the limit): one thread per (pattern, lane).  It
+//    replaces the group instance below on the fleet path, which lost its
+//    time to instruction throughput, not bytes (47.26 ms a launch, 2.6%
+//    of the bound): (1) 8 threads did one (pattern, lane)'s event work,
+//    each decoding every event, running the constant compares through a
+//    switch over ops in shared memory and taking two ballots per slot and
+//    event; (2) each of the 313,000 CTAs staged its own copy of a lane
+//    tile shared with 999 others, one 4-byte cp.async and one integer
+//    division per word (12.8 GB through L2 a launch); (3) in the alert
+//    band >= 99.85% of (pattern, lane, event) triples leave the constant
+//    compares with no condition bit, yet ran the whole per-slot body.
+//    What the design does about each:
+//    (1) a thread holds its lane's K slots' state and start in registers
+//        and their enter, seq and capture words in its own shared-memory
+//        column; the first free and the lowest matched slot come from a
+//        loop in slot order (jnp.argmax's order), no ballot; each
+//        constant compare is an interval, `x <op> c` == (lo <= x <= hi)
+//        != inv, exact on IEEE float32, computed once per pattern;
+//    (2) a CTA is 8 warps over one tile of lanes, a warp = 32
+//        consecutive lanes of one pattern: 8 patterns at a time share
+//        one staged [32, TT] tile of ts, stream, gate word and attribute
+//        lanes (the other mapping, a warp = 32 patterns of one lane, is
+//        slower on the alert band and at T = 4, faster where most events
+//        are live; tools/bank_probe.py times it from a build with
+//        kBankLanes = 8).  When
+//        one tile holds the whole block (T <= 64 at the fleet's two
+//        attribute lanes), the CTA stages it, marks its candidates and
+//        sets up its program once, then walks 4 groups of patterns over
+//        it (32 patterns a CTA, 10,016 CTAs at the fleet shape); a longer
+//        block is tiled over T, double buffered, one group a CTA (any T:
+//        1, 4, thousands).  A lane row's TT words are a contiguous run in
+//        each [P, T] array: 16-byte cp.async copies when T % 4 == 0 (else
+//        4-byte), indices by shifts; rows padded to a stride of 4 (mod 8)
+//        words.  The program, the CTA's constants and the carry's
+//        columns arrive by cp.async too, so a CTA waits once on the
+//        device's latency before its first event;
+//    (3) the CTA takes the union of its patterns' intervals per compare
+//        and marks, per lane, the tile's candidate events: valid, with a
+//        condition bit that the union leaves (shared-memory atomics, rare
+//        in the alert band).  Every other event is dead for every pattern
+//        of the CTA: a thread walks its lane's candidate bits only,
+//        applies its pattern's own intervals to them, and between two
+//        live events only expires live slots (a live-slot bitmask; none
+//        live: nothing), event by event.  Live events run the full
+//        per-slot body in the plain step's order.
+//    Carry traffic: a thread's K = 8 slot words are 32 contiguous bytes
+//    per leaf and its captures 64 B, loaded and stored with 16-byte
+//    accesses (a warp reads 1 KB contiguous per leaf).  In place (the
+//    fleet path) a thread reads its slot states and lane scalars, the
+//    rest of its lane only if the lane holds a partial (a slot armed here
+//    is written before it is read), and writes back only what changed:
+//    in the alert band most of the 2.0 GB is neither read nor written.
+//    In place needs no barrier: every thread reads its own carry words,
+//    and only those, before it writes them.
+//  - nfa_bank_step (larger K, more compares): the step body above (a
+//    template flag, not a copy) over a grid of (lane tile, pattern),
+//    pattern fastest; each pattern's constants come from a [C*N,
+//    n_params] float32 table staged in shared memory; the lane's scalars
+//    are read by every thread of its group, so they are written after a
+//    barrier.
 //  - nfa_bank_ring: one CTA per pattern.  The exact top-ring of the P
 //    lane counts by (count descending, lane ascending), lax.top_k's order:
 //    the ring-th largest count v by bisection over block-wide counts, every
@@ -790,6 +853,547 @@ __global__ void __launch_bounds__(kThreads) nfa_bank_ring_kernel(RingArgs a) {
   }
 }
 
+// ------------------------------------- the bank step, a thread per lane
+
+constexpr int kBankMaxPcmp = 8;         // constant compares a pattern
+constexpr int kMaskWords = 4;           // candidate bits a lane: TT <= 128
+// the thread instance's lanes a tile: a warp is 32 consecutive lanes of one
+// pattern, 8 patterns over one tile of 32 lanes a CTA (8: a warp is 32
+// patterns of one lane, 32 patterns over 8 lanes)
+constexpr int kBankLanes = 32;
+
+struct BankArgs {
+  const float* attrs;     // [A, P, T]
+  const int* ts;          // [P, T]
+  const int* strm;        // [P, T]
+  const int* gates;       // [P, T], bit 31 = __valid
+  const int* prog;
+  const float* params;    // [CN, n_params]
+  const int *st_in, *start_in, *enter_in, *seq_in, *armseq_in;
+  const float* caps_in;
+  const int *dropped_in, *armed_in;
+  int *st, *start, *enter, *seq, *armseq;
+  float* caps;
+  int *dropped, *armed;
+  int *count, *lmt, *lmk; // [CN, P]
+  int prog_len, n_params, CN, P, T, K, TT, A, RC;
+  int stride;             // words between two lane rows of a staged array
+  int arr;                // words of one staged array (tile lanes x stride)
+  int vec_in, vec_slots, vec_caps;  // 16-byte aligned: inputs (and T % 4
+                                    // == 0), slot leaves, captures
+  int inplace;            // every carry leaf out is its leaf in
+  int groups;             // pattern groups a CTA walks over its tile
+};
+
+// The thread instance's shared memory, in words from its base: the
+// program; the CTA's patterns' constants [NG, n_params]; per constant
+// compare each pattern's interval and the CTA's union (float4); the tile's
+// candidate masks; one tile of (3 + A) staged arrays, two when T is tiled;
+// each thread's column of capture, enter and seq words.  Every region
+// starts on 16 bytes.  ops/nfa.bank_geometry sizes this layout to pick the
+// instance and passes the size in; the launch checks it against `end`.
+struct BankLayout {
+  int prm, pc, mask, tiles, col, end;
+};
+
+__host__ __device__ inline BankLayout bank_layout(const BankArgs& a) {
+  const int NG = kThreads / kBankLanes * a.groups;
+  BankLayout b;
+  b.prm = (a.prog_len + 3) & ~3;
+  b.pc = b.prm + ((NG * a.n_params + 3) & ~3);
+  b.mask = b.pc + 4 * kBankMaxPcmp * (NG + 1);
+  b.tiles = b.mask + kBankLanes * kMaskWords;
+  b.col = b.tiles + (a.T > a.TT ? 2 : 1) * (3 + a.A) * a.arr;
+  b.end = b.col + kThreads * a.K * (a.RC + 2);
+  return b;
+}
+
+// K <= KM slot words (one carry leaf of a lane) to and from registers
+template <int KM>
+__device__ __forceinline__ void load_words(int (&r)[KM], const int* src,
+                                           int K, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < KM / 4; ++q) {
+      if (4 * q >= K) break;
+      const int4 x = reinterpret_cast<const int4*>(src)[q];
+      r[4 * q] = x.x;
+      r[4 * q + 1] = x.y;
+      r[4 * q + 2] = x.z;
+      r[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < KM; ++s) {
+      if (s >= K) break;
+      r[s] = src[s];
+    }
+  }
+}
+
+template <int KM>
+__device__ __forceinline__ void store_words(const int (&r)[KM], int* dst,
+                                            int K, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < KM / 4; ++q) {
+      if (4 * q >= K) break;
+      reinterpret_cast<int4*>(dst)[q] =
+          make_int4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < KM; ++s) {
+      if (s >= K) break;
+      dst[s] = r[s];
+    }
+  }
+}
+
+// n words of a lane's carry into this thread's shared column (cp.async:
+// in by the next wait on the thread's copies) and out of it
+__device__ __forceinline__ void load_col(float* col, const void* src,
+                                         int n) {
+  const float* f = static_cast<const float*>(src);
+  for (int q = 0; q < n; ++q) cp_async4(col + q * kThreads, f + q);
+}
+
+__device__ __forceinline__ void store_col(const float* col, void* dst, int n,
+                                          bool vec) {
+  float* f = static_cast<float*>(dst);
+  if (vec) {
+    for (int q = 0; q < n / 4; ++q)
+      reinterpret_cast<float4*>(f)[q] = make_float4(
+          col[(4 * q) * kThreads], col[(4 * q + 1) * kThreads],
+          col[(4 * q + 2) * kThreads], col[(4 * q + 3) * kThreads]);
+  } else {
+    for (int q = 0; q < n; ++q) f[q] = col[q * kThreads];
+  }
+}
+
+// `x <op> c` as x in [lo, hi], the answer inverted when inv (op `!=`):
+// exact on IEEE float32 (a NaN x is in no interval; a NaN c gives the
+// empty one, so only `!=` holds)
+__device__ __forceinline__ void pcmp_bounds(int op, float c, float& lo,
+                                            float& hi, bool& inv) {
+  const float inf = __int_as_float(0x7f800000);
+  lo = -inf;
+  hi = inf;
+  inv = false;
+  switch (op) {
+    case 0:                             // <
+      if (c == -inf) {
+        lo = inf;
+        hi = -inf;
+      } else {
+        hi = nextafterf(c, -inf);
+      }
+      break;
+    case 1: hi = c; break;              // <=
+    case 2:                             // >
+      if (c == inf) {
+        lo = inf;
+        hi = -inf;
+      } else {
+        lo = nextafterf(c, inf);
+      }
+      break;
+    case 3: lo = c; break;              // >=
+    case 4: lo = hi = c; break;         // ==
+    default:                            // !=
+      lo = hi = c;
+      inv = true;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Stage events [t0, t0 + TT) of the tile's LT lanes: array x (ts, stream,
+// gate word, attribute lanes) of lane l at buf + x * arr + l * stride, a
+// run of TT words per lane row; indices by shifts (TT, LT powers of two).
+template <int LT>
+__device__ __forceinline__ void bank_stage(int* buf, int t0,
+                                           const BankArgs& a, int p0) {
+  const int NA = 3 + a.A;
+  const long long PT = static_cast<long long>(a.P) * a.T;
+  const int* at = reinterpret_cast<const int*>(a.attrs);
+  const int vw = a.vec_in ? 4 : 1;      // words a copy
+  const int sh = __ffs(a.TT / vw) - 1;  // log2 of copies per row
+  const int n = (NA * LT) << sh;
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const int c = idx & ((1 << sh) - 1);
+    const int r = idx >> sh;
+    const int l = r & (LT - 1);
+    const int x = r / LT;
+    const int p = p0 + l;
+    const int t = t0 + c * vw;
+    if (p >= a.P || t >= a.T) continue;
+    const long long e = static_cast<long long>(p) * a.T + t;
+    const int* src = x == 0 ? a.ts + e
+                   : x == 1 ? a.strm + e
+                   : x == 2 ? a.gates + e
+                            : at + (x - 3) * PT + e;
+    int* dst = buf + x * a.arr + l * a.stride + c * vw;
+    if (a.vec_in) cp_async16(dst, src);
+    else cp_async4(dst, src);
+  }
+}
+
+// this thread's capture words in its shared-memory column
+struct BankCaps {
+  float* cap;
+  int RC;
+  __device__ __forceinline__ float& c(int s, int i) {
+    return cap[(s * RC + i) * kThreads];
+  }
+};
+
+// One thread per (pattern, lane), its K <= KM slots' state and start in
+// registers, their enter, seq and capture words in its shared-memory
+// column; kBankLanes maps the threads.
+template <int KM>
+__global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
+    nfa_bank_thread_kernel(BankArgs a) {
+  constexpr int LT = kBankLanes;                  // lanes of the tile
+  constexpr int NPC = kThreads / LT;              // patterns of a group
+  extern __shared__ int smem[];
+  const int tid = threadIdx.x, wl = tid & 31, w = tid >> 5;
+  const int l = LT == 32 ? wl : w;
+  const int pi = LT == 32 ? w : wl;               // pattern in a group
+  const int NG = NPC * a.groups;                  // patterns of the CTA
+  const int pat0 = blockIdx.y * NG;
+  const int p0 = blockIdx.x * LT;
+  const int p = p0 + l;
+  const int NA = 3 + a.A;
+  const int RC = a.RC, K = a.K;
+  const BankLayout lay = bank_layout(a);
+  int* sprog = smem;
+  // the CTA's patterns' constants, [NG, n_params]
+  float* sprm = reinterpret_cast<float*>(smem + lay.prm);
+  // per compare q: each pattern's entry (q * NG + n) and the CTA's union
+  // (kBankMaxPcmp * NG + q): lo, hi, attribute offset, bits
+  float4* spc = reinterpret_cast<float4*>(smem + lay.pc);
+  int* tiles = smem + lay.tiles;
+  float* col = reinterpret_cast<float*>(smem + lay.col) + tid;
+  BankCaps sl;
+  sl.cap = col;
+  sl.RC = RC;
+  float* scol = col + K * RC * kThreads;          // enter, then seq
+#define ENTER(s) scol[(s) * kThreads]
+#define SEQ(s) scol[(K + (s)) * kThreads]
+
+  // the program and the constants, then the first tile, in flight with
+  // the carry's loads: one wait on the device's latency
+  for (int i = tid; i < a.prog_len; i += kThreads)
+    cp_async4(sprog + i, a.prog + i);
+  for (int i = tid; i < NG * a.n_params; i += kThreads) {
+    const int n = pat0 + i / a.n_params;
+    if (n < a.CN)
+      cp_async4(sprm + i, a.params + static_cast<long long>(n) *
+                                         a.n_params + i % a.n_params);
+  }
+  cp_async_commit();
+  bank_stage<LT>(tiles, 0, a, p0);
+  cp_async_commit();
+
+  // a group's carry: the slot states and the lane's scalars; the rest
+  // (start, enter, seq, captures) not in place, or in place for a lane
+  // that holds a partial: a slot armed here is written before it is
+  // read, so an empty lane needs none of its cold words.  cold: every
+  // slot's start, enter, seq and captures are in; else only those of the
+  // slots in dmask (armed or advanced here); dirty: the lane changed
+  const bool inplace = a.inplace;
+  int st[KM], start[KM];
+  int pat = 0, arm_seq = 0, drop = 0, armed = 0;
+  long long lane = 0, lk = 0;
+  bool on = false, cold = false, dirty = false;
+  unsigned dmask = 0;
+  auto load_group = [&](int r) {
+    pat = pat0 + r * NPC + pi;
+    on = p < a.P && pat < a.CN;
+    lane = static_cast<long long>(pat) * a.P + p;
+    lk = lane * K;
+    cold = dirty = false;
+    dmask = 0;
+#pragma unroll
+    for (int s = 0; s < KM; ++s) {
+      st[s] = -1;
+      start[s] = 0;
+    }
+    if (!on) return;
+    load_words<KM>(st, a.st_in + lk, K, a.vec_slots);
+    arm_seq = a.armseq_in[lane];
+    drop = a.dropped_in[lane];
+    if (a.armed_in) armed = a.armed_in[lane];
+    cold = !inplace;
+#pragma unroll
+    for (int s = 0; s < KM; ++s) cold |= st[s] >= 0;
+    if (cold) {
+      load_words<KM>(start, a.start_in + lk, K, a.vec_slots);
+      load_col(&ENTER(0), a.enter_in + lk, K);
+      load_col(&SEQ(0), a.seq_in + lk, K);
+      load_col(col, a.caps_in + lk * RC, K * RC);
+    }
+  };
+  load_group(0);                        // while the first tile lands
+  cp_async_commit();                    // waited with the first tile
+  cp_async_wait<2>();
+  __syncthreads();                      // the program is in shared memory
+
+  const Prog g = parse(sprog);
+  if (g.n_pcmp > kBankMaxPcmp) __trap();  // the caller picks the instance
+  const int npc = g.n_pcmp;
+  // each pattern's constant compares as intervals (a pattern past CN:
+  // the empty one), with the attribute lane's offset in a staged tile and
+  // the condition's bit (bit 31: inverted)
+  for (int i = tid; i < npc * NG; i += kThreads) {
+    const int q = i / NG, n = i - q * NG;
+    int c0 = 0;
+    while (g.pcmp_start[c0 + 1] <= q) ++c0;
+    const int* c = g.pcmp + 3 * q;
+    float lo = __int_as_float(0x7f800000), hi = -lo;
+    bool iv = false;
+    if (pat0 + n < a.CN)
+      pcmp_bounds(c[2], sprm[n * a.n_params + c[1]], lo, hi, iv);
+    spc[i] = make_float4(
+        lo, hi, __int_as_float((3 + c[0]) * a.arr),
+        __uint_as_float((1u << c0) | (static_cast<unsigned>(iv) << 31)));
+  }
+  __syncthreads();
+  // the CTA's union of each compare's intervals: an event outside it
+  // fails the compare for every pattern of the CTA (`!=` compares are
+  // left out: bits 0)
+  if (tid < npc) {
+    float4 u = spc[tid * NG];
+    const unsigned bits = __float_as_uint(u.w);
+    for (int n = 1; n < NG; ++n) {
+      const float4 e = spc[tid * NG + n];
+      u.x = fminf(u.x, e.x);
+      u.y = fmaxf(u.y, e.y);
+    }
+    u.w = __uint_as_float(bits >> 31 ? 0u : bits);
+    spc[kBankMaxPcmp * NG + tid] = u;
+  }
+
+  const unsigned cmask = (1u << g.n_cond) - 1u;
+  const int* u0 = g.units;
+  const int tt_sh = __ffs(a.TT) - 1;
+  int* smask = smem + lay.mask;                 // per lane: its candidates
+
+  // this pattern's gate word of event j of the staged row: condition
+  // bits cleared where one of its constant compares fails
+  auto gate = [&](const int* row, int j, int n) {
+    unsigned gw = static_cast<unsigned>(row[2 * a.arr + j]);
+    for (int q = 0; q < npc; ++q) {
+      const float4 e = spc[q * NG + n];
+      const float x = __int_as_float(row[__float_as_int(e.z) + j]);
+      const unsigned bits = __float_as_uint(e.w);
+      if ((x >= e.x && x <= e.y) == static_cast<bool>(bits >> 31))
+        gw &= ~(bits & ~kValidBit);
+    }
+    return gw;
+  };
+
+  const int n_tiles = (a.T + a.TT - 1) / a.TT;
+  for (int r = 0; r < a.groups; ++r) {  // groups > 1: one tile, staged once
+    if (r > 0) {
+      load_group(r);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    unsigned live = 0;                    // bit s: slot s holds a partial
+#pragma unroll
+    for (int s = 0; s < KM; ++s)
+      if (st[s] >= 1) live |= 1u << s;
+    int cnt = 0, lmt = 0, lmk = 0;
+    const int n = r * NPC + pi;           // this pattern in the CTA
+    for (int it = 0; it < n_tiles; ++it) {
+      const int* cur = tiles + (it & 1) * NA * a.arr;
+      const int tn = min(a.TT, a.T - it * a.TT);
+      if (r == 0) {
+        if (it + 1 < n_tiles) {
+          bank_stage<LT>(tiles + ((it + 1) & 1) * NA * a.arr, (it + 1) * a.TT,
+                         a, p0);
+          cp_async_commit();
+        }
+        for (int i = tid; i < LT * kMaskWords; i += kThreads) smask[i] = 0;
+        if (it + 1 < n_tiles) cp_async_wait<1>();
+        else cp_async_wait<0>();
+        __syncthreads();
+        // the candidates: valid events with a condition bit that the CTA's
+        // union of constant intervals leaves; every other event of the tile
+        // is dead for every pattern of the CTA
+        for (int idx = tid; idx < (LT << tt_sh); idx += kThreads) {
+          const int ll = idx >> tt_sh, j = idx & (a.TT - 1);
+          if (j >= tn || p0 + ll >= a.P) continue;
+          const int* rw = cur + ll * a.stride;
+          unsigned gw = static_cast<unsigned>(rw[2 * a.arr + j]);
+          if (!(gw & kValidBit) || !(gw & cmask)) continue;
+          for (int q = 0; q < npc; ++q) {
+            const float4 e = spc[kBankMaxPcmp * NG + q];
+            const float x = __int_as_float(rw[__float_as_int(e.z) + j]);
+            if (!(x >= e.x && x <= e.y)) gw &= ~__float_as_uint(e.w);
+          }
+          if (gw & cmask)
+            atomicOr(reinterpret_cast<unsigned*>(smask) + ll * kMaskWords +
+                         (j >> 5),
+                     1u << (j & 31));
+        }
+        __syncthreads();
+      }
+      const int* row = cur + l * a.stride;
+      for (int wd = 0; on && wd < ((tn + 31) >> 5); ++wd) {
+        const int jb = wd << 5, je = min(tn, jb + 32);
+        const unsigned cand = static_cast<unsigned>(smask[l * kMaskWords + wd]);
+        if (!cand && !(g.has_within && live)) continue;
+        // this pattern's live events among the candidates
+        unsigned al = 0;
+        for (unsigned m = cand; m; m &= m - 1) {
+          const int j = jb + __ffs(m) - 1;
+          if (gate(row, j, n) & cmask) al |= 1u << (j - jb);
+        }
+        // in event order: each dead event expires live slots (`within`), a
+        // live event takes the plain step's order — within, each slot's one
+        // transition, then arming
+        for (int j = jb;;) {
+          const int jn = al ? jb + __ffs(al) - 1 : je;
+          for (; g.has_within && live && j < jn; ++j) {
+            const int tsv = row[j];
+#pragma unroll
+            for (int s = 0; s < KM; ++s) {
+              if (((live >> s) & 1u) &&
+                  static_cast<int>(static_cast<unsigned>(tsv) -
+                                   static_cast<unsigned>(start[s])) >
+                      g.within) {
+                st[s] = -1;
+                live &= ~(1u << s);
+                dirty = true;
+              }
+            }
+          }
+          if (jn >= je) break;
+          al &= al - 1;
+          j = jn + 1;
+          dirty = true;
+          const unsigned gw = gate(row, jn, n);
+          const int tsv = row[jn];
+          const int sv = row[a.arr + jn];
+          const float* at =
+              reinterpret_cast<const float*>(row + 3 * a.arr + jn);
+          int ffree = -1;                 // first free slot
+          int ev_k = -1;                  // lowest slot matched now
+#pragma unroll
+          for (int s = 0; s < KM; ++s) {
+            if (s >= K) break;
+            int sts = st[s];
+            bool m = false;
+            if (g.has_within && sts >= 1 &&
+                static_cast<int>(static_cast<unsigned>(tsv) -
+                                 static_cast<unsigned>(start[s])) > g.within)
+              sts = -1;
+            if (sts >= 0 && sts < g.S) {
+              const int* u = g.units + 3 * sts;
+              if (sv == u[0] && cond_ok(g, u[1], gw, sl, s, at, a.arr)) {
+                if (u[2] >= 0) write_row(g, u[2], sl, s, at, a.arr);
+                if (sts + 1 >= g.S) {
+                  m = true;
+                  sts = -1;
+                } else {
+                  sts += 1;
+                  ENTER(s) = __int_as_float(tsv);
+                }
+                dmask |= 1u << s;
+              }
+            }
+            st[s] = sts;
+            if (ffree < 0 && sts < 0 && !m) ffree = s;
+            if (m) {
+              ++cnt;
+              if (ev_k < 0) ev_k = s;
+            }
+          }
+          // arming at unit 0: the first free slot, free meaning empty and
+          // not completed by this event
+          const bool want = sv == u0[0] && ((gw >> u0[1]) & 1u) &&
+                            (!g.arm_once || armed == 0);
+          if (want) {
+            if (ffree >= 0) {
+              if (g.arm_once) armed += 1;
+              for (int i = 0; i < RC; ++i) sl.c(ffree, i) = 0.0f;
+              if (u0[2] >= 0) write_row(g, u0[2], sl, ffree, at, a.arr);
+#pragma unroll
+              for (int s = 0; s < KM; ++s) {
+                if (s != ffree) continue;
+                start[s] = tsv;
+                if (g.S > 1) st[s] = 1;
+              }
+              if (g.S > 1) {
+                ENTER(ffree) = __int_as_float(tsv);
+                SEQ(ffree) = __int_as_float(arm_seq);
+              }
+              dmask |= 1u << ffree;
+              arm_seq += 1;
+              if (g.S == 1) {             // completes as it arms; the slot
+                                          // stays empty
+                ++cnt;
+                if (ev_k < 0 || ffree < ev_k) ev_k = ffree;
+              }
+            } else {
+              drop += 1;
+            }
+          }
+          if (ev_k >= 0) {
+            lmt = tsv;
+            lmk = ev_k;
+          }
+          live = 0;
+#pragma unroll
+          for (int s = 0; s < KM; ++s)
+            if (st[s] >= 1) live |= 1u << s;
+        }
+      }
+      if (n_tiles > 1) __syncthreads();   // the tile is free to refill
+    }
+
+    if (!on) continue;
+    // in place needs no barrier: these words were read by this thread alone;
+    // in place, words that did not change are not written
+    if (!inplace || dirty) {
+      store_words<KM>(st, a.st + lk, K, a.vec_slots);
+      a.armseq[lane] = arm_seq;
+      a.dropped[lane] = drop;
+      if (g.arm_once) a.armed[lane] = armed;
+    }
+    if (cold) {
+      store_words<KM>(start, a.start + lk, K, a.vec_slots);
+      store_col(&ENTER(0), a.enter + lk, K, a.vec_slots);
+      store_col(&SEQ(0), a.seq + lk, K, a.vec_slots);
+      store_col(col, a.caps + lk * RC, K * RC, a.vec_caps);
+    } else {
+#pragma unroll
+      for (int s = 0; s < KM; ++s) {
+        if (!((dmask >> s) & 1u)) continue;
+        a.start[lk + s] = start[s];
+        if (g.S > 1) {                    // a one-unit arm sets neither
+          a.enter[lk + s] = __float_as_int(ENTER(s));
+          a.seq[lk + s] = __float_as_int(SEQ(s));
+        }
+        for (int i = 0; i < RC; ++i)
+          a.caps[(lk + s) * RC + i] = sl.c(s, i);
+      }
+    }
+    a.count[lane] = cnt;
+    a.lmt[lane] = lmt;
+    a.lmk[lane] = lmk;
+  }
+#undef ENTER
+#undef SEQ
+}
+
 // ------------------------------------------------------------ launches
 
 constexpr size_t kSmemLimit = 227 * 1024;
@@ -841,6 +1445,29 @@ int run_step(StepArgs& a, cudaStream_t s) {
 bool bad_geometry(int K, int T, int G, int A, int RC, int prog_len) {
   return K <= 0 || T < 0 || G <= 0 || G > 32 || (G & (G - 1)) || A < 0 ||
          RC <= 0 || prog_len < kHeader;
+}
+
+template <int KM>
+int launch_bank_thread(const BankArgs& a, size_t smem, cudaStream_t s) {
+  constexpr int NPC = kThreads / kBankLanes;
+  const long long gx = (a.P + kBankLanes - 1) / kBankLanes;
+  const long long gy = (a.CN + NPC * a.groups - 1) / (NPC * a.groups);
+  if (gx > INT_MAX || gy > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*const kern)(BankArgs) = nfa_bank_thread_kernel<KM>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kern<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
+         kThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -917,6 +1544,68 @@ extern "C" int nfa_bank_step(const float* attrs, const int* ts,
   a.CN = CN;
   a.n_params = n_params;
   return run_step<true>(a, s);
+}
+
+// Launch the bank step's thread instance (one thread per (pattern, lane),
+// K <= 16, at most 8 constant compares) over CN patterns on `stream`:
+// the arguments of nfa_bank_step, with TT (events a staged tile: a power
+// of two >= 4) for G, smem (the CTA's shared memory in bytes, at least
+// bank_layout's) and groups (the pattern groups a CTA walks over its
+// staged tile; above 1 only when one tile holds T), all three from
+// ops/nfa.bank_geometry.  Returns cudaGetLastError() after the launch.
+extern "C" int nfa_bank_thread(const float* attrs, const int* ts,
+                               const int* strm, const int* gates,
+                               const int* prog, int prog_len,
+                               const float* params, int n_params,
+                               const int* st_in, const int* start_in,
+                               const int* enter_in, const int* seq_in,
+                               const int* armseq_in, const float* caps_in,
+                               const int* dropped_in, const int* armed_in,
+                               int* st, int* start, int* enter, int* seq,
+                               int* armseq_out, float* caps, int* dropped_out,
+                               int* armed_out, int* count, int* lmt, int* lmk,
+                               int CN, int P, int T, int K, int TT, int A,
+                               int RC, int smem, int groups,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P <= 0 || CN <= 0) return 0;
+  if (K <= 0 || K > 16 || T < 0 || TT < 4 || TT > 32 * kMaskWords ||
+      (TT & (TT - 1)) || A < 0 || groups < 1 || (groups > 1 && T > TT) ||
+      RC <= 0 || prog_len < kHeader || n_params < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BankArgs a{attrs, ts, strm, gates, prog, params, st_in, start_in,
+             enter_in, seq_in, armseq_in, caps_in, dropped_in, armed_in, st,
+             start, enter, seq, armseq_out, caps, dropped_out, armed_out,
+             count, lmt, lmk};
+  a.prog_len = prog_len;
+  a.n_params = n_params;
+  a.CN = CN;
+  a.P = P;
+  a.T = T;
+  a.K = K;
+  a.TT = TT;
+  a.A = A;
+  a.RC = RC;
+  a.groups = groups;
+  // a stride of 4 (mod 8) words: a warp's 16-byte loads of 32 lane rows
+  // fall in distinct bank groups
+  a.stride = ((TT >> 2) & 1) ? TT : TT + 4;
+  a.arr = kBankLanes * a.stride;
+  a.vec_in = (T & 3) == 0 && aligned16(attrs) && aligned16(ts) &&
+             aligned16(strm) && aligned16(gates);
+  a.vec_slots = (K & 3) == 0 && aligned16(st_in) && aligned16(start_in) &&
+                aligned16(enter_in) && aligned16(seq_in) && aligned16(st) &&
+                aligned16(start) && aligned16(enter) && aligned16(seq);
+  a.vec_caps = ((K * RC) & 3) == 0 && aligned16(caps_in) && aligned16(caps);
+  a.inplace = st == st_in && start == start_in && enter == enter_in &&
+              seq == seq_in && armseq_out == armseq_in && caps == caps_in &&
+              dropped_out == dropped_in && armed_out == armed_in;
+  if (static_cast<size_t>(smem) > kSmemLimit ||
+      static_cast<long long>(bank_layout(a).end) * 4 > smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (K <= 4) return launch_bank_thread<4>(a, smem, s);
+  if (K <= 8) return launch_bank_thread<8>(a, smem, s);
+  return launch_bank_thread<16>(a, smem, s);
 }
 
 // The compaction of one step's scratch into the slab [cap + 2, W] (rows,

@@ -1526,6 +1526,268 @@ def bank_lanes_plain(spec: NfaSpec, carry: Dict[str, torch.Tensor],
                           for i in (1, 2, 3))
 
 
+#: csrc/nfa_step.cu's bank thread instance takes K up to this many slots
+#: (in registers) and this many constant compares (in registers)
+BANK_THREAD_MAX_K = 16
+BANK_THREAD_MAX_PCMP = 8
+#: its lanes a tile (csrc's kBankLanes): a warp is 32 lanes of one pattern
+BANK_LANES = 32
+#: a block of up to BANK_BLOCK_BYTES a CTA's lanes is staged whole, and
+#: the CTA walks BANK_GROUPS groups of patterns over it; a longer one is
+#: tiled over T in two buffers of BANK_TILE_BYTES together, one group a
+#: CTA; and the shared memory a CTA may have on Hopper
+BANK_BLOCK_BYTES = 48 * 1024
+BANK_GROUPS = 4
+BANK_TILE_BYTES = 32 * 1024
+SMEM_LIMIT = 227 * 1024
+
+
+class BankGeometry(NamedTuple):
+    """The bank step's instance for a launch: ``"thread"`` (one thread
+    per (pattern, lane), ``nfa_bank_thread_kernel``) with its tile of TT
+    events, the pattern groups a CTA walks over it and its shared memory
+    in bytes, or ``"group"`` (a group of G threads per lane,
+    ``nfa_bank_step_kernel``; the rest 0)."""
+    instance: str
+    TT: int
+    smem: int
+    groups: int = 0
+
+
+def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
+                  n_params: int, prog_len: int) -> BankGeometry:
+    """The instance csrc/nfa_step.cu's bank step runs for K slots, T
+    events a lane, A attribute lanes, R·C capture words a slot, n_pcmp
+    constant compares over n_params constants a pattern and a program
+    of prog_len words: the thread instance when K and the compares fit
+    its registers and its shared memory (the program; the CTA's
+    patterns' constants; each compare's interval per pattern of the CTA
+    and their union; 128 candidate bits a lane; one tile of TT events of
+    ts, stream, gate word and attribute lanes for the CTA's lanes — two
+    when T is tiled; each thread's column of capture, enter and seq
+    words) fits the CTA's; else the group instance.  TT: a power of two
+    from 4 to 128, the smallest that holds T; where that tile exceeds
+    BANK_BLOCK_BYTES, cut to BANK_TILE_BYTES.  The layout is csrc's
+    ``bank_layout``; the launch refuses a size below it."""
+    if K > BANK_THREAD_MAX_K or n_pcmp > BANK_THREAD_MAX_PCMP:
+        return BankGeometry("group", 0, 0)
+    lanes = BANK_LANES
+
+    def tile_bytes(tt):
+        stride = tt if (tt >> 2) & 1 else tt + 4
+        return (2 if T > tt else 1) * (3 + A) * lanes * stride * 4
+    tt = 4
+    while tt < T and tt < 128:
+        tt *= 2
+    groups = BANK_GROUPS
+    if T > tt or tile_bytes(tt) > BANK_BLOCK_BYTES:
+        groups = 1
+        while tt > 4 and tile_bytes(tt) > BANK_TILE_BYTES:
+            tt //= 2
+    patterns = KERNEL_THREADS // lanes * groups
+    smem = ((prog_len + 3) & ~3) * 4 + \
+        ((patterns * n_params + 3) & ~3) * 4 + \
+        BANK_THREAD_MAX_PCMP * (patterns + 1) * 16 + lanes * 4 * 4 + \
+        tile_bytes(tt) + KERNEL_THREADS * K * (RC + 2) * 4
+    if smem > SMEM_LIMIT:
+        return BankGeometry("group", 0, 0)
+    return BankGeometry("thread", tt, smem, groups)
+
+
+def pcmp_bounds(op: int, c: torch.Tensor):
+    """csrc/nfa_step.cu's ``pcmp_bounds``: ``x CMP_OPS[op] c`` for float32
+    constants c as ``(lo, hi, inv)`` with ``x op c == ((lo <= x) & (x <=
+    hi)) != inv`` for every float32 x (a NaN x is in no interval; a NaN c
+    gives the empty one)."""
+    c = c.to(torch.float32)
+    inf = torch.full_like(c, float("inf"))
+    lo, hi = -inf, inf
+    if op == 0:
+        empty = c == -inf
+        lo = torch.where(empty, inf, lo)
+        hi = torch.where(empty, -inf, torch.nextafter(c, -inf))
+    elif op == 1:
+        hi = c
+    elif op == 2:
+        empty = c == inf
+        lo = torch.where(empty, inf, torch.nextafter(c, inf))
+        hi = torch.where(empty, -inf, hi)
+    elif op == 3:
+        lo = c
+    else:
+        lo = hi = c
+    return lo, hi, op == 5
+
+
+def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
+                      block: Dict[str, torch.Tensor],
+                      params: Dict[str, torch.Tensor],
+                      kprog: NfaKernelProgram,
+                      cta_patterns: int = 8 * BANK_GROUPS):
+    """The CPU model of csrc/nfa_step.cu's bank thread instance, with
+    :func:`bank_lanes_plain`'s contract: each (pattern, lane) row is one
+    thread, ``cta_patterns`` consecutive patterns share a CTA.  Per row
+    an event is a candidate of the CTA when it is ``__valid`` and keeps
+    a condition bit after the CTA's union of each constant compare's
+    :func:`pcmp_bounds` intervals (`!=` left out); a candidate is live
+    for the row when a condition bit survives its pattern's own
+    compares; every other event is dead.  Events run in order: a dead
+    one only expires the row's live slots (state >= 1) whose `within`
+    it fails; a live one takes the plain step's order: each slot in slot
+    order (within, its one transition), the first free and the lowest
+    matched slot taken in that order, then arming.  Functional: the
+    input carry is not modified."""
+    lead = _bank_lead(carry)
+    CN = int(np.prod(lead)) if lead else 1
+    P, T = (int(x) for x in block["__ts"].shape)
+    K = spec.n_slots
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    rows = CN * P
+    S = len(spec.units)
+    within = spec.within_ms
+    dev = block["__ts"].device
+    flat = {k: v.reshape((rows,) + tuple(v.shape[len(lead) + 1:])).clone()
+            for k, v in carry.items()}
+    st, start = flat["slot_state"], flat["slot_start"]
+    enter, seq = flat["slot_enter"], flat["slot_seq"]
+    caps = flat["captures"].reshape(rows, K, R * C)
+    arm_seq, drop = flat["arm_seq"], flat["dropped"]
+    armed = flat.get("armed_total")
+
+    def lanes(v):                      # [P, T] → one row per thread
+        return v.repeat(CN, 1)
+    ts, sv = lanes(block["__ts"]), lanes(block["__stream"])
+    gates = kernel_gate_word(spec, kprog, block)
+    gw_all = lanes(torch.where(block["__valid"], gates | _VALID_BIT, gates))
+    attrs = [lanes(block[a].to(torch.float32)) for a in kprog.kern_attrs]
+    bounds, union = [], []
+    pad = -CN % cta_patterns
+    for i, entries in enumerate(kprog.pcmp):
+        for attr, prm, op in entries:
+            lo, hi, inv = pcmp_bounds(
+                op, params[kprog.param_names[prm]].reshape(CN))
+            bounds.append((1 << i, attr, lo.repeat_interleave(P),
+                           hi.repeat_interleave(P), inv))
+            if inv:
+                continue
+            # a NaN bound is an empty interval (fminf / fmaxf skip it)
+            ulo = torch.nn.functional.pad(
+                torch.where(lo.isnan(), float("inf"), lo), (0, pad),
+                value=float("inf")).reshape(-1, cta_patterns).amin(dim=1)
+            uhi = torch.nn.functional.pad(
+                torch.where(hi.isnan(), -float("inf"), hi), (0, pad),
+                value=-float("inf")).reshape(-1, cta_patterns).amax(dim=1)
+            union.append((1 << i, attr,
+                          ulo.repeat_interleave(cta_patterns)[:CN]
+                          .repeat_interleave(P),
+                          uhi.repeat_interleave(cta_patterns)[:CN]
+                          .repeat_interleave(P)))
+    cmask = (1 << len(kprog.cmp)) - 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    cnt, lmt, lmk = (torch.zeros((rows,), **i32) for _ in range(3))
+    slot = torch.arange(K, device=dev)
+
+    def expire(mask, tsv):             # live slots of masked rows
+        return torch.where(mask[:, None] & (st >= 1) &
+                           (tsv[:, None] - start > within), -1, st)
+
+    def event_row(r, ev):              # [rows, C] the event writes to row r
+        out = []
+        for c in range(C):
+            src = kprog.row_src[r * C + c]
+            out.append(ev[src] if src >= 0 else torch.full(
+                (rows,), 1.0 if src == -2 else 0.0, dtype=torch.float32))
+        return torch.stack(out, dim=1)
+
+    def cond_ok(i, gw, ev, s):
+        ok = ((gw >> i) & 1) != 0
+        for attr, r, lane, op in kprog.cmp[i]:
+            ok = ok & _CMP_FNS[op](ev[attr], caps[:, s, r * C + lane])
+        return ok
+
+    for j in range(T):
+        gw, tsv = gw_all[:, j], ts[:, j]
+        cand = (gw & _VALID_BIT) != 0
+        for bit, attr, lo, hi in union:
+            x = attrs[attr][:, j]
+            gw = torch.where((x >= lo) & (x <= hi), gw, gw & ~bit)
+        cand = cand & ((gw & cmask) != 0)
+        gw = gw_all[:, j]
+        for bit, attr, lo, hi, inv in bounds:
+            x = attrs[attr][:, j]
+            ok = ((x >= lo) & (x <= hi)) != inv
+            gw = torch.where(ok, gw, gw & ~bit)
+        full = cand & ((gw & cmask) != 0)
+        if within is not None:         # a dead event: expiry only
+            st = expire(~full, tsv)
+        if not bool(full.any()):
+            continue
+        svv = sv[:, j]
+        ev = [a[:, j] for a in attrs]
+        ffree = torch.full((rows,), -1, **i32)
+        evk = torch.full((rows,), -1, **i32)
+        for s in range(K):
+            sts = st[:, s]
+            if within is not None:
+                sts = torch.where((sts >= 1) & (tsv - start[:, s] > within),
+                                  -1, sts)
+            nst, m = sts, torch.zeros((rows,), dtype=torch.bool,
+                                      device=dev)
+            for ui, u in enumerate(spec.units):
+                hit_u = full & (sts == ui) & (svv == u.stream_a) & \
+                    cond_ok(u.cond_a, gw, ev, s)
+                if u.row_a >= 0:
+                    cols = slice(u.row_a * C, (u.row_a + 1) * C)
+                    caps[:, s, cols] = torch.where(
+                        hit_u[:, None], event_row(u.row_a, ev),
+                        caps[:, s, cols])
+                if ui + 1 >= S:
+                    m = m | hit_u
+                    nst = torch.where(hit_u, -1, nst)
+                else:
+                    nst = torch.where(hit_u, ui + 1, nst)
+                    enter[:, s] = torch.where(hit_u, tsv, enter[:, s])
+            st[:, s] = torch.where(full, nst, st[:, s])
+            ffree = torch.where((ffree < 0) & full & (nst < 0) & ~m, s,
+                                ffree)
+            evk = torch.where((evk < 0) & m, s, evk)
+            cnt = cnt + _i32(m)
+        u0 = spec.units[0]
+        want = full & (svv == u0.stream_a) & (((gw >> u0.cond_a) & 1) != 0)
+        if spec.arm_once:
+            want = want & (armed == 0)
+        arm = want & (ffree >= 0)
+        drop = drop + _i32(want & (ffree < 0))
+        if spec.arm_once:
+            armed = armed + _i32(arm)
+        sel = arm[:, None] & (slot[None, :] == ffree[:, None])
+        caps = torch.where(sel[:, :, None], 0.0, caps)
+        if u0.row_a >= 0:
+            cols = slice(u0.row_a * C, (u0.row_a + 1) * C)
+            caps[:, :, cols] = torch.where(
+                sel[:, :, None], event_row(u0.row_a, ev)[:, None, :],
+                caps[:, :, cols])
+        start = torch.where(sel, tsv[:, None], start)
+        if S > 1:
+            st = torch.where(sel, 1, st)
+            enter = torch.where(sel, tsv[:, None], enter)
+            seq = torch.where(sel, arm_seq[:, None], seq)
+        arm_seq = arm_seq + _i32(arm)
+        if S == 1:                 # completes as it arms
+            cnt = cnt + _i32(arm)
+            evk = torch.where(arm & ((evk < 0) | (ffree < evk)), ffree,
+                              evk)
+        lmt = torch.where(evk >= 0, tsv, lmt)
+        lmk = torch.where(evk >= 0, evk, lmk)
+    new = {"slot_state": st, "slot_start": start, "slot_enter": enter,
+           "slot_seq": seq, "arm_seq": arm_seq,
+           "captures": caps.reshape(rows, K, R, C), "dropped": drop}
+    if armed is not None:
+        new["armed_total"] = armed
+    new = {k: new.get(k, flat[k]).reshape(carry[k].shape) for k in carry}
+    return (new,) + tuple(x.reshape(CN, P) for x in (cnt, lmt, lmk))
+
+
 def bank_ring_plain(carry: Dict[str, torch.Tensor], count: torch.Tensor,
                     lmt: torch.Tensor, lmk: torch.Tensor, ring: int):
     """The match ring in plain PyTorch, per pattern (rows of the [CN, P]
@@ -1578,8 +1840,11 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     """The bank step kernel's function, :func:`bank_lanes_plain`'s
     contract, on the tensors' own device.  CPU tensors run the plain
     version.  CUDA tensors launch csrc/nfa_step.cu's bank step on the
-    current stream (counted in ``nfa_bank_step.launches``) for a spec
-    inside its class; with ``inplace`` the new carry IS the input carry,
+    current stream for a spec inside its class, in the instance
+    :func:`bank_geometry` picks: the thread instance (K <= 16; counted
+    in ``nfa_bank_step.thread_launches``) or the group instance
+    (``nfa_bank_step.group_launches``); ``nfa_bank_step.launches``
+    counts both.  With ``inplace`` the new carry IS the input carry,
     updated in place.  Anything else raises: no fallback."""
     dev = block["__ts"].device
     if dev.type == "cpu":
@@ -1630,8 +1895,10 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     count, lmt, lmk = (torch.empty((CN, P), **i32) for _ in range(3))
     armed_in = carry.get("armed_total")
     armed_out = new.get("armed_total")
+    geo = bank_geometry(K, T, A, R * C, sum(len(q) for q in kprog.pcmp),
+                        NP, prog.numel())
     lib = load_kernel("nfa_step")
-    rc = lib.nfa_bank_step(
+    args = (
         attrs.data_ptr(), block["__ts"].data_ptr(),
         block["__stream"].data_ptr(), gates.data_ptr(), prog.data_ptr(),
         prog.numel(), ptab.data_ptr(), NP,
@@ -1639,12 +1906,21 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         armed_in.data_ptr() if armed_in is not None else None,
         *[new[k].data_ptr() for k in KERNEL_CARRY[:7]],
         armed_out.data_ptr() if armed_out is not None else None,
-        count.data_ptr(), lmt.data_ptr(), lmk.data_ptr(),
-        CN, P, T, K, G, A, R * C, torch.cuda.current_stream(dev).cuda_stream)
+        count.data_ptr(), lmt.data_ptr(), lmk.data_ptr(), CN, P, T, K)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if geo.instance == "thread":
+        rc = lib.nfa_bank_thread(*args, geo.TT, A, R * C, geo.smem,
+                                 geo.groups, stream)
+    else:
+        rc = lib.nfa_bank_step(*args, G, A, R * C, stream)
     if rc != 0:
         raise RuntimeError(f"nfa_bank_step: launch failed with CUDA error "
-                           f"{rc}")
+                           f"{rc} ({geo.instance} instance)")
     nfa_bank_step.launches += 1
+    if geo.instance == "thread":
+        nfa_bank_step.thread_launches += 1
+    else:
+        nfa_bank_step.group_launches += 1
     return new, count, lmt, lmk
 
 
@@ -1724,6 +2000,10 @@ def nfa_bank_step(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     return new, (res if ring else res[0])
 
 
-#: launches of the bank step kernel since the last reset (plain runs
-#: excluded); the ring kernel counts in ``nfa_bank_ring.launches``
+#: launches of the bank step since the last reset (plain runs excluded),
+#: both instances; of them, the thread instance's (nfa_bank_thread_kernel)
+#: and the group instance's (nfa_bank_step_kernel); the ring kernel
+#: counts in ``nfa_bank_ring.launches``
 nfa_bank_step.launches = 0
+nfa_bank_step.thread_launches = 0
+nfa_bank_step.group_launches = 0

@@ -290,6 +290,26 @@ def test_chip_smoke_bank_reference_equals_jax_bank():
     assert counts.tolist() == want.tolist() and want.sum() > 0 and rows > 0
 
 
+@pytest.mark.parametrize("T_", [1, 4, 7])
+def test_chip_smoke_block_reference_equals_jax_bank(T_):
+    """chip_smoke.py's latency-phase reference (each match in the block of
+    its completing event) equals the JAX bank's counts block by block on
+    short blocks (T = 4 is bench.py's latency shape), matches crossing
+    block edges included."""
+    thrs = np.linspace(5.0, 95.0, 8)
+    apps = [chip_smoke.bank_app(t, floor=20.0, within_ms=4 * GAP)
+            for t in thrs]
+    jb = JaxBank(apps, n_partitions=P, n_slots=8)
+    jb.base_ts = chip_smoke.BANK_BASE_TS
+    raw = chip_smoke.bank_blocks(np.random.default_rng(T_), 24 // T_ + 2,
+                                 P=P, T=T_, gap=GAP)
+    want, _price, _kind = chip_smoke.bank_block_reference(
+        raw, thrs, floor=20.0, gap=GAP, within_ms=4 * GAP)
+    got = np.stack([np.asarray(jb.process_block(b), np.int64) for b in raw])
+    assert got.tolist() == want.tolist()
+    assert want[1:].sum() > 0 and jb.total_dropped() == 0
+
+
 def test_bank_template_holds_no_carry():
     """The bank's parameterized compile is a template: the bank holds the
     carries and builds its own step, so the template allocates neither,
@@ -318,6 +338,10 @@ SIG = "(anonymous namespace)::StepArgs)"
      "::RingArgs)", "nfa_bank_ring_kernel", True),
     ("(anonymous namespace)::nfa_compact_kernel((anonymous namespace)"
      "::PackArgs)", "nfa_step_kernel", False),
+    ("void (anonymous namespace)::nfa_bank_thread_kernel<8, true>("
+     "(anonymous namespace)::BankArgs)", "nfa_bank_thread_kernel", True),
+    ("void (anonymous namespace)::nfa_bank_thread_kernel<8, true>("
+     "(anonymous namespace)::BankArgs)", "nfa_bank_step_kernel", False),
 ])
 def test_chip_smoke_splits_device_time_by_exact_kernel_name(key, name, want):
     """chip_smoke.py's device splits keep the pattern step and the bank
@@ -342,3 +366,53 @@ def test_chip_smoke_max_abs_diff():
     assert chip_smoke._max_abs_diff(m, m) == 0.0
     assert chip_smoke._max_abs_diff(m, ~m) == 1.0
     assert chip_smoke._max_abs_diff(i, i.float()) == float("inf")
+
+
+def test_chip_smoke_inplace_bound_counts_what_each_lane_needs():
+    """chip_smoke.py's in-place bound counts, per lane, only what the data
+    needs: every slot state read; the starts of lanes that held a partial;
+    a slot armed here (from empty) written whole with none of its cold
+    words read; a partial's slot that a match rewrote written whole with
+    its captures read; an expired slot's state alone written; a changed
+    lane scalar read and written; a lane that did not change nothing
+    more."""
+    from types import SimpleNamespace
+    spec = SimpleNamespace(n_rows=1, n_caps=2, n_slots=4, arm_once=False,
+                           cond_fns=(None, None))
+    kp = SimpleNamespace(kern_attrs=("price",), param_names=("a", "b"))
+    bank = SimpleNamespace(nfa=SimpleNamespace(spec=spec, kprog=kp),
+                           n_patterns=2)
+    CN, P, K, T = 2, 3, 4, 5
+    i32 = dict(dtype=torch.int32)
+    pre = {"slot_state": torch.full((CN, P, K), -1, **i32),
+           "slot_start": torch.zeros((CN, P, K), **i32),
+           "slot_enter": torch.zeros((CN, P, K), **i32),
+           "slot_seq": torch.zeros((CN, P, K), **i32),
+           "arm_seq": torch.zeros((CN, P), **i32),
+           "dropped": torch.zeros((CN, P), **i32),
+           "captures": torch.zeros((CN, P, K, 1, 2), dtype=torch.float32)}
+    pre["slot_state"][0, 1, 2] = 1            # lane (0, 1) holds a partial
+    pre["slot_state"][1, 2, 0] = 1            # and lane (1, 2)
+    post = {k: v.clone() for k, v in pre.items()}
+    post["slot_state"][0, 0, 0] = 1           # (0, 0) arms slot 0
+    post["slot_start"][0, 0, 0] = 5
+    post["slot_seq"][0, 0, 0] = 7
+    post["captures"][0, 0, 0, 0, 0] = 1.5
+    post["arm_seq"][0, 0] = 1
+    post["slot_state"][0, 1, 2] = -1          # (0, 1) completes slot 2
+    post["captures"][0, 1, 2, 0, 1] = 2.5
+    post["slot_state"][1, 2, 0] = -1          # (1, 2) expires slot 0
+    post["dropped"][1, 1] = 1                 # (1, 1) drops an arm
+    block = {"__ts": torch.zeros((P, T), **i32)}
+    ms, by = chip_smoke.bank_inplace_bound(bank, pre, post, block)
+    inputs = P * T * (4 + 4 + 4 + 1 + 2) + CN * 2 * 4
+    want = (inputs + CN * P * K * 4 + 2 * K * 4 + 2 * (4 * 4 + 4 * 2) +
+            1 * 4 * 2 + 1 * 4 + 2 * 8 + 3 * CN * P * 4)
+    assert by == "bytes"
+    assert ms == pytest.approx(want / chip_smoke.PEAK_BYTES_PER_S * 1e3,
+                               rel=1e-12)
+    # nothing changed: the states, the partials' starts, the outputs
+    ms0, _ = chip_smoke.bank_inplace_bound(bank, pre, pre, block)
+    want0 = inputs + CN * P * K * 4 + 2 * K * 4 + 3 * CN * P * 4
+    assert ms0 == pytest.approx(want0 / chip_smoke.PEAK_BYTES_PER_S * 1e3,
+                                rel=1e-12)

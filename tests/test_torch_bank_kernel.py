@@ -13,6 +13,19 @@ arithmetic:
 - a numpy model of the ring kernel's selection (the ring-th largest count
   by bisection, every lane above it, the lowest-index lanes equal to it,
   ordered by rank) equals the stable descending sort on tie-heavy counts;
+- the CPU model of the bank step's thread instance (ops/nfa.
+  bank_thread_model: one thread per (pattern, lane), events four at a
+  time, dead events doing only `within` on the live slots, the first
+  free and the lowest matched slot in slot order, the constant compares
+  as intervals) equals the plain bank step bit for bit, carry and
+  per-lane outputs, on every spec at K = 1, 5, 8 and 16, and on blocks
+  whose timestamps go backwards in a lane, whose padded events would
+  expire or match, whose offsets wrap int32 across `within`, whose
+  events are all dead while partials live, and whose T is ragged; the
+  JAX bank agrees with it on those blocks;
+- the intervals equal the six compares on IEEE special values;
+- the instance choice and shared-memory sizing stay under the CTA's
+  227 KB wherever they pick the thread instance;
 - a bank outside the kernel's class is refused on CUDA before any device
   memory is touched, naming the feature;
 - ``import siddhi_tpu_torch`` and the bank leave jax out.
@@ -27,9 +40,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from siddhi_tpu_torch.ops.nfa import (CMP_OPS, bank_lanes_plain,  # noqa: E402
-                                      bank_ring_plain, kernel_prog,
-                                      nfa_bank_step, nfa_bank_step_plain)
+from siddhi_tpu.plan.nfa_compiler import \
+    CompiledPatternBank as JaxBank  # noqa: E402
+from siddhi_tpu_torch.ops.nfa import (BANK_GROUPS, CMP_OPS,  # noqa: E402
+                                      SMEM_LIMIT, bank_geometry,
+                                      bank_lanes_plain,
+                                      bank_ring_plain, bank_thread_model,
+                                      kernel_prog, nfa_bank_step,
+                                      nfa_bank_step_plain, pcmp_bounds)
 from siddhi_tpu_torch.ops.pack import pack_blocks  # noqa: E402
 from siddhi_tpu_torch.plan.nfa_compiler import \
     CompiledPatternBank  # noqa: E402
@@ -110,6 +128,219 @@ def test_kernel_model_equals_plain(name):
         c_plain, c_model = want[0], got[0]
         total += int(want[1].sum())
     assert total > 0
+
+
+def _kbank(name, K, **kw):
+    text, vals = SPECS[name]
+    apps = [text.format(a=a, b=b) for a, b in vals]
+    return CompiledPatternBank(apps, n_partitions=P, n_slots=K,
+                               pattern_chunk=len(apps) // 2, device="cpu",
+                               **kw)
+
+
+def _model_vs_plain(bank, blocks, cta_patterns=8):
+    """The thread model and the plain bank step over chained blocks,
+    equal bit for bit after each: every carry leaf, count, lmt, lmk.
+    → (final carry, per-block lane counts)."""
+    spec, kp, prm = bank.nfa.spec, bank.nfa.kprog, bank._stack_params
+    assert kp.reason is None, kp.reason
+    c_plain = c_model = bank._stack_carry
+    counts = []
+    for b, raw in enumerate(blocks):
+        block = bank.nfa.to_device(raw)
+        want = bank_lanes_plain(spec, c_plain, block, prm)
+        got = bank_thread_model(spec, c_model, block, prm, kp,
+                                cta_patterns)
+        for k in want[0]:
+            assert torch.equal(got[0][k], want[0][k]), (b, k)
+        for x, y in zip(got[1:], want[1:]):
+            assert torch.equal(x, y), b
+        c_plain, c_model = want[0], got[0]
+        counts.append(got[1])
+    return c_model, counts
+
+
+@pytest.mark.parametrize("K", [1, 5, 8, 16])
+@pytest.mark.parametrize("name", sorted(SPECS))
+def test_thread_model_equals_plain(name, K):
+    """The thread instance's loop equals the plain bank step over three
+    chained random blocks (K = 1 and 5 drop partials, K = 16 is the
+    largest register instance), with CTAs of 32 patterns (4 groups of 8,
+    the fleet's) at K = 8 and of 8 else: the CTA's union of constant
+    intervals loses no event."""
+    rng = np.random.default_rng(7)
+    bank = _kbank(name, K)
+    _c, counts = _model_vs_plain(
+        bank, [_block(rng, BASE + b * T * GAP) for b in range(3)],
+        32 if K == 8 else 8)
+    assert sum(int(c.sum()) for c in counts) > 0
+
+
+def _raw_block(ts, price, kind, valid):
+    """A [P, T'] block straight from its lanes (offsets already int32)."""
+    return {"partition": np.broadcast_to(
+                np.arange(ts.shape[0], dtype=np.float32)[:, None],
+                ts.shape).copy(),
+            "price": price.astype(np.float32),
+            "kind": kind.astype(np.float32),
+            "__ts": ts.astype(np.int64).astype(np.int32),
+            "__stream": np.zeros(ts.shape, np.int32),
+            "__valid": valid.astype(bool)}
+
+
+def _special_blocks(case, rng):
+    """Chained blocks of one special case (offsets from BASE)."""
+    def lanes(t0, T_, gap=GAP):
+        j = np.arange(T_, dtype=np.int64)[None, :]
+        p = np.arange(P, dtype=np.int64)[:, None]
+        return t0 + j * gap + p * (gap // P)
+
+    def feed(T_):
+        return (rng.uniform(0, 100, (P, T_)), rng.integers(0, 2, (P, T_)),
+                np.ones((P, T_), bool))
+    out = []
+    if case == "backwards":            # each lane's events out of order
+        for b in range(3):
+            ts = lanes(b * T * GAP, T)
+            ts = np.take_along_axis(ts, rng.permuted(
+                np.tile(np.arange(T), (P, 1)), axis=1), axis=1)
+            out.append(_raw_block(ts, *feed(T)))
+    elif case == "padded":             # invalid events that would expire
+        for b in range(3):             # or match if they were valid
+            price, kind, _v = feed(T)
+            n = rng.integers(0, T + 1, P)
+            valid = np.arange(T)[None, :] < n[:, None]
+            ts = lanes(b * T * GAP, T)
+            ts = np.where(valid, ts, ts + rng.integers(0, 40_000, (P, T)))
+            price = np.where(valid, price, 99.0)
+            out.append(_raw_block(ts, price, kind, valid))
+    elif case == "wrap":               # offsets cross 2**31 mid-block
+        t0 = 2 ** 31 - 20 * GAP
+        for b in range(3):
+            out.append(_raw_block(lanes(t0 + b * T * GAP, T), *feed(T)))
+    elif case == "all_dead":           # partials live, every event dead:
+        out.append(_raw_block(lanes(0, T), *feed(T)))    # only expiry
+        ts = lanes(T * GAP, T, gap=2 * GAP)
+        out.append(_raw_block(ts, np.full((P, T), np.nan),
+                              np.zeros((P, T)), np.ones((P, T), bool)))
+    elif case == "ragged":             # T of 7, then 1, then 5
+        t0 = 0
+        for T_ in (7, 1, 5):
+            out.append(_raw_block(lanes(t0, T_), *feed(T_)))
+            t0 += T_ * GAP
+    return out
+
+
+SPECIAL = ["backwards", "padded", "wrap", "all_dead", "ragged"]
+
+
+@pytest.mark.parametrize("case", SPECIAL)
+@pytest.mark.parametrize("name", ["alert", "chain3", "no_every"])
+def test_thread_model_special_blocks(name, case):
+    """Blocks that the dead-event fast path must get right: expiry at
+    every event (dead ones and padded ones included) in event order."""
+    rng = np.random.default_rng(SPECIAL.index(case))
+    bank = _kbank(name, 8)
+    blocks = _special_blocks(case, rng)
+    c0 = bank._stack_carry
+    carry, counts = _model_vs_plain(bank, blocks)
+    if case == "all_dead":
+        # the first block leaves partials, the second only expires them
+        live0 = _model_vs_plain(bank, blocks[:1])[0]["slot_state"] >= 1
+        assert int(live0.sum()) > 0 or name == "no_every"
+        assert int(counts[1].sum()) == 0
+        assert int((carry["slot_state"] >= 1).sum()) < int(live0.sum()) \
+            or name == "no_every"
+    if case == "wrap":
+        assert any((b["__ts"] < 0).any() and (b["__ts"] > 0).any()
+                   for b in blocks)
+    assert not torch.equal(carry["slot_start"], c0["slot_start"])
+
+
+@pytest.mark.parametrize("case", ["backwards", "padded", "wrap", "all_dead"])
+def test_thread_model_equals_jax_bank(case):
+    """The JAX bank on the same special blocks: per-pattern counts after
+    every block and the final carry equal the thread model's."""
+    rng = np.random.default_rng(SPECIAL.index(case))
+    tb = _kbank("alert", 8)
+    text, vals = SPECS["alert"]
+    jb = JaxBank([text.format(a=a, b=b) for a, b in vals], n_partitions=P,
+                 n_slots=8, pattern_chunk=len(vals) // 2)
+    assert jb.stacked and tb.stacked
+    carry, counts = _model_vs_plain(tb, _special_blocks(case, rng))
+    for b, raw in enumerate(_special_blocks(case,
+                                            np.random.default_rng(
+                                                SPECIAL.index(case)))):
+        jc = np.asarray(jb.process_block(raw))
+        assert jc.tolist() == counts[b].sum(dim=1).tolist(), b
+    for ci, jcar in enumerate(jb.carries):
+        for k in jcar:
+            x = np.asarray(jcar[k])
+            y = carry[k][ci].numpy()
+            assert x.dtype == y.dtype and np.array_equal(
+                x.view(np.int32), y.view(np.int32)), (ci, k)
+
+
+SPECIALS = np.array([0.0, -0.0, 1.0, -1.0, 99.9, 1e-45, -1e-45, 1e-38,
+                     3.4028235e38, -3.4028235e38, np.inf, -np.inf, np.nan],
+                    np.float32)
+
+
+@pytest.mark.parametrize("op", range(len(CMP_OPS)))
+def test_pcmp_bounds_equal_compares(op):
+    """``x op c`` == ``(lo <= x <= hi) != inv`` over IEEE special values
+    (signed zeros, subnormals, the largest finites, infinities, NaN) and
+    random floats, as constants and as event values."""
+    rng = np.random.default_rng(op)
+    vals = np.concatenate([SPECIALS, rng.normal(0, 50, 64).astype(
+        np.float32)])
+    with np.errstate(over="ignore"):
+        vals = np.concatenate([vals, np.nextafter(vals, np.float32(np.inf)),
+                               np.nextafter(vals, np.float32(-np.inf))])
+    x = torch.from_numpy(vals)[:, None]
+    c = torch.from_numpy(vals)
+    lo, hi, inv = pcmp_bounds(op, c)
+    want = [torch.lt, torch.le, torch.gt, torch.ge, torch.eq,
+            torch.ne][op](x, c[None, :])
+    got = ((x >= lo[None, :]) & (x <= hi[None, :])) != inv
+    assert torch.equal(got, want), CMP_OPS[op]
+
+
+@pytest.mark.parametrize("T_", [1, 4, 64, 4096])
+@pytest.mark.parametrize("K", [1, 8, 16])
+def test_bank_geometry_fits_shared_memory(K, T_, monkeypatch):
+    """At the fleet's A = 2, R·C = 2 (4 constant compares) the thread
+    instance runs at K = 1, 8 and 16 for every T, with a power-of-two
+    tile of at least 4 events and at most 227 KB of shared memory, also
+    sized for the other thread mapping (8 lanes a tile, the build
+    tools/bank_probe.py times); a block that one tile holds is staged
+    whole and walked by several pattern groups (the fleet shape: two
+    CTAs an SM), a longer one tiled over T with one group a CTA."""
+    from siddhi_tpu_torch.ops import nfa as ops
+    bank = _kbank("alert", K)
+    prog_len = len(kernel_prog(bank.nfa.spec, bank.nfa.kprog))
+    for lanes in (32, 8):
+        monkeypatch.setattr(ops, "BANK_LANES", lanes)
+        g = bank_geometry(K, T_, 2, 2, 4, 4, prog_len)
+        assert g.instance == "thread"
+        assert g.TT >= 4 and g.TT & (g.TT - 1) == 0
+        assert 0 < g.smem <= SMEM_LIMIT == 227 * 1024
+        assert g.TT >= min(T_, 16)
+        assert g.groups == (BANK_GROUPS if T_ <= g.TT else 1)
+    monkeypatch.setattr(ops, "BANK_LANES", 32)
+    fleet = bank_geometry(8, 64, 2, 2, 4, 4, prog_len)
+    assert (fleet.TT, fleet.groups) == (64, BANK_GROUPS)
+    assert fleet.smem <= SMEM_LIMIT // 2
+
+
+@pytest.mark.parametrize("K,n_pcmp,RC", [(17, 4, 2), (32, 4, 2),
+                                         (160, 4, 2), (8, 9, 2),
+                                         (16, 4, 64)])
+def test_bank_geometry_falls_to_group_instance(K, n_pcmp, RC):
+    """More slots or compares than the thread instance's registers hold,
+    or captures beyond its shared memory: the group instance."""
+    g = bank_geometry(K, 64, 2, RC, n_pcmp, n_pcmp, 40)
+    assert g.instance == "group" and g.TT == 0
 
 
 def test_kernel_program_layout():

@@ -1,0 +1,232 @@
+#!/usr/bin/env python3
+"""Probe the pattern bank's step kernel on one GPU: hold it against the
+plain bank step on small shapes, then split its time at the fleet shape.
+
+    python3 tools/bank_probe.py [--seed S]
+
+Run from the root of a checkout on a machine with a CUDA GPU and nvcc.
+
+1. Checks: banks of 16 patterns over 1000 lanes (K = 1, 5, 8, 16 and 32,
+   the last on the group instance; T = 1, 3, 4, 7 and 300; a one-unit
+   chain, a chain without `every`, a 3-unit chain with `<=`, `>=`, `!=`
+   and a constant on the left), two chained blocks each through
+   ``CompiledPatternBank.process_block`` (in place), every output and
+   carry leaf equal to the plain bank step's bit for bit.
+2. Times at the fleet shape (``chip_smoke.py`` phase 8's bank: 1000
+   patterns x 10,000 lanes, K = 8, T = 64, alert band), median of 20
+   launches, L2 flushed: the bank step not in place, and in the group
+   instance (forced; the kernel the fleet path ran before the thread
+   instance); in place over fresh blocks that
+   continue the stream, at T = 64 and T = 4, also with one pattern group
+   a CTA over tiles of 16 events (forced; the walk over several groups
+   is the default when one tile holds the block); the same on the
+   matchy band (5..95, floor 0).  Then two builds of the same source:
+   with the other thread mapping (``kBankLanes = 8``: a warp over 32
+   patterns of one lane), not in place at T = 64 and T = 4, its outputs
+   equal to the default's bit for bit; and without the thread instance's
+   event walk (every event left undone: the results are wrong, the time
+   is that of everything else — staging, the CTA's candidate marks, the
+   carry), in place at T = 64 and T = 4.
+
+Prints one line ``BANKPROBE {json}`` with the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the thread instance's walk over its lane's events, as the source has it
+EVENT_WALK = "for (int wd = 0; on && wd < ((tn + 31) >> 5); ++wd) {"
+#: the thread instance's mapping: lanes a tile (ops/nfa.BANK_LANES)
+BANK_LANES = "constexpr int kBankLanes = 32;"
+
+
+def build_variant(kernels, tag, old, new) -> ctypes.CDLL:
+    """csrc/nfa_step.cu with its one line `old` made `new`, built into
+    the checkout's build directory and bound like the real one."""
+    src = open(os.path.join(kernels.CSRC, "nfa_step.cu")).read()
+    if src.count(old) != 1:
+        raise RuntimeError(f"nfa_step.cu: {old!r} is not where this probe "
+                           f"expects it")
+    os.makedirs(kernels.BUILD, exist_ok=True)
+    cu = os.path.join(kernels.BUILD, f"nfa_step_{tag}.cu")
+    so = os.path.join(kernels.BUILD, f"nfa_step_{tag}.so")
+    with open(cu, "w") as f:
+        f.write(src.replace(old, new))
+    subprocess.run([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
+                   ["-o", so, cu], check=True)
+    lib = ctypes.CDLL(so)
+    for fn, (restype, argtypes) in kernels.SIGNATURES["nfa_step"].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib
+
+
+def check(cs, bank, blocks) -> int:
+    """Blocks through the bank (in place), each against the plain bank
+    step from the same carry, bit for bit → matches."""
+    import torch
+    matches = 0
+    for raw in blocks:
+        blk = bank.nfa.to_device(raw)
+        pre = cs._snapshot(bank)
+        got = bank.process_block(blk)
+        new_p, want = cs._bank_plain(bank, pre, blk)
+        torch.cuda.synchronize()
+        cs._bank_outputs_equal("probe", got, want, cs._carry(bank), new_p)
+        matches += int(want[0].sum())
+    return matches
+
+
+def run_checks(cs, dev, seed) -> dict:
+    import numpy as np
+    from siddhi_tpu_torch.ops.nfa import nfa_bank_step
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    stream = "define stream S (partition int, price float, kind int);\n"
+    cases = {}
+    matchy = [cs.bank_app(t, floor=0.0) for t in np.linspace(5.0, 95.0, 16)]
+    for K in (1, 5, 8, 16, 32):
+        b = CompiledPatternBank(matchy, n_partitions=1000, n_slots=K,
+                                pattern_chunk=8, ring=8, device=dev)
+        cases[f"K={K}"] = check(cs, b, cs.bank_blocks(
+            np.random.default_rng(seed + K), 2, P=1000, gap=1000))
+    short = [cs.bank_app(t, floor=0.0, within_ms=4000)
+             for t in np.linspace(5.0, 95.0, 16)]
+    for T in (1, 3, 4, 7, 300):
+        b = CompiledPatternBank(short, n_partitions=1000, n_slots=8,
+                                pattern_chunk=8, ring=8, device=dev)
+        cases[f"T={T}"] = check(cs, b, cs.bank_blocks(
+            np.random.default_rng(seed + T), 2, P=1000, T=T, gap=1000))
+    shapes = {
+        "one unit": [stream + f"from every e1=S[price > {t} and kind == 0] "
+                     "select e1.price as p1 insert into Out;"
+                     for t in np.linspace(50.0, 99.0, 8)],
+        "no every": [stream + f"from e1=S[kind == 0 and price > {t}] -> "
+                     "e2=S[kind == 1 and price > e1.price] select e1.price "
+                     "as p1, e2.price as p2 insert into Out;"
+                     for t in np.linspace(5.0, 95.0, 8)],
+        "chain3": [stream + f"from every e1=S[{t} <= price and kind != 1] -> "
+                   "e2=S[kind == 1 and price >= e1.price] -> e3=S[price < "
+                   f"{80 - t / 2} and price < e2.price] within 9 sec select "
+                   "e1.price as p1, e3.price as p3 insert into Out;"
+                   for t in np.linspace(10, 60, 8)]}
+    for name, apps in shapes.items():
+        for K in (3, 8):
+            b = CompiledPatternBank(apps, n_partitions=1024, n_slots=K,
+                                    pattern_chunk=4, ring=8, device=dev)
+            cases[f"{name} K={K}"] = check(cs, b, cs.bank_blocks(
+                np.random.default_rng(seed + 11), 2, P=1024, gap=1024))
+    return {"matches": cases, "thread_launches": nfa_bank_step.thread_launches,
+            "group_launches": nfa_bank_step.group_launches}
+
+
+def time_band(cs, ops, dev, seed, floor, thrs, variants) -> dict:
+    """The bank step's times on one band at the fleet shape."""
+    import numpy as np
+    import torch
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    n = cs.TIMED_LAUNCHES
+    bank = CompiledPatternBank([cs.bank_app(t, floor=floor) for t in thrs],
+                               n_partitions=cs.BANK_P, n_slots=cs.BANK_K,
+                               pattern_chunk=cs.BANK_CHUNK,
+                               ring=cs.BANK_RING, device=dev)
+    rng = np.random.default_rng(seed)
+    first = [bank.nfa.to_device(b) for b in cs.bank_blocks(rng, 2 + n)]
+    fresh4 = [bank.nfa.to_device(b) for b in cs.bank_blocks(
+        rng, n, T=4, first=(2 + n) * cs.BANK_T // 4)]
+    bank.process_block(first[0])
+    spec, kp, prm = bank.nfa.spec, bank.nfa.kprog, bank._stack_params
+    carry, block = bank._stack_carry, first[1]
+    geometry, load = ops.bank_geometry, ops.load_kernel
+
+    def timed(fn):
+        return cs.median_ms(fn, dev, n=n, sleep_cycles=5 * cs.SLEEP_CYCLES)
+
+    def step(c=carry, b=block, **kw):
+        return ops.nfa_bank_lanes(spec, c, b, prm, kp, **kw)
+
+    def in_place(blocks):
+        work = {k: v.clone() for k, v in carry.items()}
+        it = iter(blocks)
+        ms = timed(lambda: step(c=work, b=next(it), inplace=True))
+        del work
+        return ms
+    res = {"thread_ms": timed(step),
+           "t4_ms": timed(lambda: step(b=fresh4[0])),
+           "inplace_ms": in_place(first[2:]),
+           "t4_inplace_ms": in_place(fresh4)}
+    want = [step(), step(b=fresh4[0])]
+    try:
+        ops.load_kernel = lambda name: variants["patterns"]
+        ops.BANK_LANES = 8
+        got = [step(), step(b=fresh4[0])]
+        torch.cuda.synchronize()
+        for w, g in zip(want, got):
+            for k in w[0]:
+                if not cs._same_bits(w[0][k], g[0][k]):
+                    raise AssertionError(f"thread mappings differ: carry.{k}")
+            if not all(cs._same_bits(x, y) for x, y in zip(w[1:], g[1:])):
+                raise AssertionError("thread mappings differ: outputs")
+        del want, got
+        res["warp_patterns_ms"] = timed(step)
+        res["warp_patterns_t4_ms"] = timed(lambda: step(b=fresh4[0]))
+        ops.BANK_LANES = 32
+        ops.load_kernel = lambda name: variants["nowalk"]
+        res["nowalk_inplace_ms"] = in_place(first[2:])
+        res["nowalk_t4_inplace_ms"] = in_place(fresh4)
+        ops.load_kernel = load
+        ops.bank_geometry = lambda *a, **k: geometry(*a, **k)._replace(
+            TT=min(geometry(*a, **k).TT, 16), groups=1)
+        res["one_group_inplace_ms"] = in_place(first[2:])
+        res["one_group_t4_inplace_ms"] = in_place(fresh4)
+        ops.bank_geometry = lambda *a, **k: ops.BankGeometry("group", 0, 0)
+        res["group_ms"] = cs.median_ms(step, dev, n=5,
+                                       sleep_cycles=5 * cs.SLEEP_CYCLES)
+    finally:
+        ops.bank_geometry, ops.load_kernel = geometry, load
+        ops.BANK_LANES = 32
+    del bank, carry, block, first, fresh4
+    torch.cuda.empty_cache()
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("bank_probe: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from siddhi_tpu_torch.ops import _kernels
+    from siddhi_tpu_torch.ops import nfa as ops
+    dev = "cuda"
+    _kernels.build_all()
+    variants = {
+        "nowalk": build_variant(_kernels, "nowalk", EVENT_WALK, EVENT_WALK.
+                                replace("on &&", "false && on &&")),
+        "patterns": build_variant(_kernels, "patterns", BANK_LANES,
+                                  BANK_LANES.replace("32", "8"))}
+    out = {"device": torch.cuda.get_device_name(0),
+           "nvidia_smi": cs.nvidia_smi_line(),
+           "checks": run_checks(cs, dev, args.seed)}
+    out["alert"] = time_band(cs, ops, dev, args.seed + 7, cs.BANK_FLOOR,
+                             np.linspace(99.8, 99.997, cs.N_BANK), variants)
+    out["matchy"] = time_band(cs, ops, dev, args.seed + 8, 0.0,
+                              np.linspace(5.0, 95.0, cs.N_BANK), variants)
+    print("BANKPROBE " + json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the pattern path's NFA kernels and the pattern cell in several
-checkouts of the port, one fresh process per checkout, on one GPU.
+"""Time the pattern path's NFA kernels, the pattern cell, the pattern
+bank's step and the fleet cell in several checkouts of the port, one
+fresh process per checkout, on one GPU.
 
     python3 tools/k2_compare.py DIR [DIR ...] [--pattern-chunks N]
+                                [--fleet-blocks B] [--no-pattern]
                                 [--seed S]
 
 Each DIR is the root of a checkout (its ``chip_smoke.py`` and
@@ -21,8 +23,16 @@ events in a chunk, K = 8):
 then the pattern cell alone (``chip_smoke.run_pattern_path``, N chunks
 of 262,144 events, every row held against the reference): wall,
 events/s, ms per chunk and the peak device memory above what the
-process held before it.  Each tree prints one line ``K2COMPARE {json}``.
-Needs CUDA and nvcc; builds each tree's kernels in that tree.
+process held before it (``--no-pattern`` leaves these out).
+
+Per tree with the pattern bank (``ops.nfa.nfa_bank_lanes``), at the fleet
+shape (1000 patterns x 10,000 lanes, T = 64, K = 8, 5 stacked chunks of
+200): the bank step's median ms over 20 launches (not in place, after a
+warm-up block) on an alert-band block (``chip_smoke.py`` phase 8's
+thresholds) and on a matchy-band block (5..95, floor 0); then the fleet
+cell (``chip_smoke.run_fleet_cell``, B blocks, its checks included):
+events/s and ms per block.  Each tree prints one line ``K2COMPARE
+{json}``.  Needs CUDA and nvcc; builds each tree's kernels in that tree.
 """
 from __future__ import annotations
 
@@ -34,7 +44,32 @@ import subprocess
 import sys
 
 
-def run_tree(tree: str, n_chunks: int, seed: int) -> dict:
+def time_bank_step(cs, ops, floor, thrs, seed, dev) -> dict:
+    """Median ms of the tree's bank step (its wrapper, not in place) at the
+    fleet shape on the second of two blocks of the given band."""
+    import numpy as np
+    import torch
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    bank = CompiledPatternBank([cs.bank_app(t, floor=floor) for t in thrs],
+                               n_partitions=cs.BANK_P, n_slots=cs.BANK_K,
+                               pattern_chunk=cs.BANK_CHUNK,
+                               ring=cs.BANK_RING, device=dev)
+    raw = cs.bank_blocks(np.random.default_rng(seed), 2)
+    bank.process_block(bank.nfa.to_device(raw[0]))
+    block = bank.nfa.to_device(raw[1])
+    spec, kp = bank.nfa.spec, bank.nfa.kprog
+    carry, prm = bank._stack_carry, bank._stack_params
+    ms = cs.median_ms(lambda: ops.nfa_bank_lanes(spec, carry, block, prm,
+                                                 kp),
+                      dev, sleep_cycles=5 * cs.SLEEP_CYCLES)
+    del bank, carry, block
+    torch.cuda.empty_cache()
+    return {"ms": ms, "band": [float(thrs[0]), float(thrs[-1])],
+            "floor": floor}
+
+
+def run_tree(tree: str, n_chunks: int, seed: int, fleet_blocks: int,
+             pattern: bool) -> dict:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -46,12 +81,29 @@ def run_tree(tree: str, n_chunks: int, seed: int) -> dict:
 
     dev = "cuda"
     _kernels.build_all()
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": cs.nvidia_smi_line()}
+    if hasattr(ops, "nfa_bank_lanes"):
+        out["bank_alert"] = time_bank_step(
+            cs, ops, cs.BANK_FLOOR, np.linspace(99.8, 99.997, cs.N_BANK),
+            seed + 7, dev)
+        out["bank_matchy"] = time_bank_step(
+            cs, ops, 0.0, np.linspace(5.0, 95.0, cs.N_BANK), seed + 8, dev)
+        fc = cs.run_fleet_cell(dev, seed, fleet_blocks)
+        out["fleet"] = {"events_per_s": fc["events_per_s"],
+                        "ms_per_block": fc["wall"] / fleet_blocks * 1e3,
+                        "wall_s": fc["wall"], "walls_s": fc.get("walls"),
+                        "blocks": fleet_blocks,
+                        "step_ms": fc["step_ms"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not pattern:
+        return out
     pchunks = cs.make_pattern_chunks(seed, n_chunks)
     t_pat = max(int(np.bincount(c[0]["partition"],
                                 minlength=cs.N_PATTERN_KEYS).max())
                 for c in pchunks)
-    out = {"tree": tree, "device": torch.cuda.get_device_name(0),
-           "nvidia_smi": cs.nvidia_smi_line(), "T": t_pat}
+    out["T"] = t_pat
     if hasattr(ops, "nfa_step_egress"):
         out["fused"] = cs.time_nfa(t_pat, dev, seed)
     else:
@@ -92,12 +144,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--pattern-chunks", type=int, default=16)
+    ap.add_argument("--fleet-blocks", type=int, default=32)
+    ap.add_argument("--no-pattern", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
         res = run_tree(os.path.abspath(args.trees[0]), args.pattern_chunks,
-                       args.seed)
+                       args.seed, args.fleet_blocks, not args.no_pattern)
         print("K2COMPARE " + json.dumps(res), flush=True)
         return 0
     rc = 0
@@ -106,7 +160,9 @@ def main(argv=None) -> int:
         r = subprocess.run(
             [sys.executable, os.path.abspath(__file__), tree, "--child",
              "--pattern-chunks", str(args.pattern_chunks),
-             "--seed", str(args.seed)], cwd=tree)
+             "--fleet-blocks", str(args.fleet_blocks),
+             "--seed", str(args.seed)] +
+            (["--no-pattern"] if args.no_pattern else []), cwd=tree)
         rc = rc or r.returncode
     return rc
 
