@@ -50,7 +50,13 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      then the kernels against the plain bank step bit for bit (the cell's
      next block in place, a matchy-band block, stacked vs sequential, a
      replayable bank growing from K = 1, K = 160 in place and not, a
-     one-unit chain, a chain without `every`), and each kernel timed;
+     one-unit chain, a chain without `every`), the ring kernel alone
+     against the plain ring bit for bit on synthetic counts (ties
+     straddling the ring-th count, ring 0, ring = P, rows not a multiple
+     of 32, int32 extremes, counts to 1,000,000, rows longer than one
+     shared-memory tile), and
+     each kernel timed (the ring on the alert and matchy blocks and at
+     T = 4); then the host's enqueue of one process_block split by part;
   9. one JSON line per the kernel table, the nvidia-smi line, and the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -109,7 +115,8 @@ def build_kernels():
     secs = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or \
+                    "entry function" in line:
                 log(f"  [{name}.cu] {line.strip()}")
     return secs
 
@@ -1583,6 +1590,81 @@ def bank_ring_bound(CN, P, ring, RC):
     return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
+#: the ring-only checks on the card: (name, patterns, lanes, ring, counts
+#: generator over (rng, shape)); the fleet's CN x P unless named, and two
+#: rows above the single-tile size (csrc walks them in tiles)
+RING_CASES = [
+    ("alert-like (v = 0, ties)", N_BANK, BANK_P, BANK_RING,
+     lambda r, s: (r.random(s) < 0.003) * r.integers(1, 4, s)),
+    ("counts to 512, ties straddling v", N_BANK, BANK_P, BANK_RING,
+     lambda r, s: r.integers(0, 513, s)),
+    ("narrow band, heavy ties", N_BANK, BANK_P, BANK_RING,
+     lambda r, s: r.integers(200, 204, s)),
+    ("all zero", N_BANK, BANK_P, BANK_RING, lambda r, s: np.zeros(s)),
+    ("ring = P", N_BANK, BANK_P, BANK_P, lambda r, s: r.integers(0, 64, s)),
+    ("ring = 0", N_BANK, BANK_P, 0, lambda r, s: r.integers(0, 513, s)),
+    ("P not a multiple of 32 (rows not 16-byte aligned)", N_BANK,
+     BANK_P - 1, BANK_RING, lambda r, s: r.integers(0, 513, s)),
+    ("int32 extremes", N_BANK, BANK_P, BANK_RING, lambda r, s: r.choice(
+        np.array([-2**31, -7, 0, 1, 2**31 - 1]), s) + r.integers(0, 2, s)
+     * (r.integers(-2**31, 2**31 - 1, s) // 2)),
+    ("counts to 1,000,000 (20 bisection steps)", N_BANK, BANK_P,
+     BANK_RING, lambda r, s: r.integers(0, 1_000_000, s)),
+    ("tiled: P = 60,000", 16, 60_000, BANK_RING,
+     lambda r, s: r.integers(0, 513, s)),
+    ("tiled: P = 150,001, ring 1000", 8, 150_001, 1000,
+     lambda r, s: r.integers(0, 64, s)),
+]
+
+
+def check_ring(dev, seed):
+    """The ring kernel alone against the plain ring on the card, bit for
+    bit, on synthetic counts and final carries (K = 8, R x C = 2 x 1,
+    lmk any slot, slot starts around each lane's ts): RING_CASES.  → (cases,
+    the largest absolute difference measured over every output)."""
+    import torch
+    from siddhi_tpu_torch.ops.nfa import (bank_ring_plain, nfa_bank_ring,
+                                          ring_geometry)
+    launches0 = bank_launches()
+    rng = np.random.default_rng(seed + 14)
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    worst = 0.0
+    names = ("total", "ring_cnt", "ring_pid", "ring_caps", "ring_ts",
+             "ring_ok")
+    carries = {}
+    for name, CN, P, ring, counts in RING_CASES:
+        if (CN, P) not in carries:
+            carries.clear()
+            torch.cuda.empty_cache()
+            i32 = dict(dtype=torch.int32, device=dev)
+            lmt = torch.randint(0, 1 << 20, (CN, P), generator=gen, **i32)
+            carries[CN, P] = (
+                {"slot_state": torch.zeros((CN, P, BANK_K), **i32),
+                 "slot_start": lmt[:, :, None] + torch.randint(
+                     -4, 4, (CN, P, BANK_K), generator=gen, **i32),
+                 "captures": torch.randn((CN, P, BANK_K, 2, 1),
+                                         generator=gen, device=dev)},
+                lmt, torch.randint(0, BANK_K, (CN, P), generator=gen, **i32))
+        carry, lmt, lmk = carries[CN, P]
+        cnt = torch.from_numpy(counts(rng, (CN, P)).astype(np.int32)).to(dev)
+        got = nfa_bank_ring(carry, cnt, lmt, lmk, ring)
+        want = bank_ring_plain(carry, cnt, lmt, lmk, ring)
+        torch.cuda.synchronize()
+        for x, y, nm in zip(got, want, names):
+            worst = max(worst, _max_abs_diff(x, y))
+            if not _same_bits(x, y):
+                raise AssertionError(f"nfa_bank_ring != plain: {name} {nm} "
+                                     f"(max abs diff {worst})")
+        tile = ring_geometry(P, ring).tile
+        if name.startswith("tiled") and tile >= P:
+            raise AssertionError(f"{name}: one tile of {tile} lanes")
+        log(f"  nfa_bank_ring == plain  {name}: {CN} x {P}, ring {ring}, "
+            f"{-(-P // tile)} tile(s) of {tile} lanes")
+    del carries
+    set_bank_launches(launches0)
+    return len(RING_CASES), worst
+
+
 def _step_split(fn, n=3):
     """ms of device time per call of fn by kernel (the bank step's two
     instances, the ring, the rest), from torch.profiler over n calls, each
@@ -1669,6 +1751,17 @@ def time_bank(bank, block, dev, matchy, fresh, fresh4):
     res["step_t4_ms"] = timed(lambda: step(b=fresh4[0]))
     res["ring_ms"] = median_ms(lambda: nfa_bank_ring(new, cnt, lmt, lmk,
                                                      bank.ring), dev)
+    # ring 0 (the totals alone): the staging and the tile's sum, max, min
+    res["ring_totals_ms"] = median_ms(lambda: nfa_bank_ring(
+        new, cnt, lmt, lmk, 0), dev)
+    for name, out in (("matchy", nfa_bank_lanes(mspec, mcarry, mblock, mprm,
+                                                mkp)),
+                      ("t4", step(b=fresh4[0]))):
+        res[f"ring_{name}_ms"] = median_ms(
+            lambda: nfa_bank_ring(*out, bank.ring), dev)
+        res[f"ring_{name}_max_count"] = int(out[1].max())
+        del out
+    res["ring_alert_max_count"] = int(cnt.max())
     res["ring_library_ms"] = median_ms(lambda: torch.sort(
         cnt, dim=1, descending=True, stable=True), dev)
     res["step_plain_ms"] = median_ms(lambda: bank_lanes_plain(
@@ -1687,6 +1780,80 @@ def time_bank(bank, block, dev, matchy, fresh, fresh4):
     res["ring_bound_ms"], res["ring_bound_by"] = bank_ring_bound(
         bank.n_patterns, P, bank.ring, R * C)
     return res
+
+
+#: the host split: rounds of calls per part, each round enqueued while the
+#: card sleeps (~20 ms at the H100's clock, longer than a round's enqueue)
+SPLIT_ROUNDS = 10
+SPLIT_CALLS = 20
+SPLIT_SLEEP_CYCLES = 20 * SLEEP_CYCLES
+
+
+def host_split(bank, block, dev):
+    """Host time to enqueue one fleet ``process_block``, by part, in us a
+    call (median over SPLIT_ROUNDS rounds of SPLIT_CALLS calls): the gate
+    word and its ``where``; the bank step's wrapper and launch (the gate
+    word included, in place, as the fleet path runs it); the ring's
+    wrapper and launch; the fleet cell's packing of one block's ring
+    (``run_fleet_cell``'s ``torch.cat`` into the read buffer); the whole
+    ``process_block`` (with the bank's dispatch wrappers).  Each round is
+    enqueued while the card sleeps, so no part waits on the device; an
+    event recorded after each round must still be pending when the
+    round's clock stops, or the split raises.  Moves the bank's carry."""
+    import torch
+    from siddhi_tpu_torch.ops.nfa import (_VALID_BIT, kernel_gate_word,
+                                          nfa_bank_lanes, nfa_bank_ring)
+    spec, kp, prm = bank.nfa.spec, bank.nfa.kprog, bank._stack_params
+    carry = bank._stack_carry
+    new, cnt, lmt, lmk = nfa_bank_lanes(spec, carry, block, prm, kp)
+    counts, rcnt, rpid, rcaps, rts, rok = nfa_bank_ring(new, cnt, lmt, lmk,
+                                                        bank.ring)
+    buf = torch.zeros((2, bank.n_patterns, 1 + 4 * bank.ring + rcaps[0]
+                       .numel()), dtype=torch.int32, device=dev)
+
+    def gate():
+        g = kernel_gate_word(spec, kp, block)
+        return torch.where(block["__valid"], g | _VALID_BIT, g)
+
+    def pack():
+        buf[1] = torch.cat(
+            [counts[:, None], rcnt, rpid, rts, rok.to(torch.int32),
+             rcaps.view(torch.int32).reshape(bank.n_patterns, -1)], dim=1)
+    parts = {
+        "gate_word_and_where": gate,
+        "step_wrapper_and_launch": lambda: nfa_bank_lanes(
+            spec, carry, block, prm, kp, inplace=True),
+        "ring_wrapper_and_launch": lambda: nfa_bank_ring(
+            new, cnt, lmt, lmk, bank.ring),
+        "ring_packing": pack,
+        "process_block": lambda: bank.process_block(block)}
+    out = {}
+    for name, fn in parts.items():
+        fn()                                  # warm
+        torch.cuda.synchronize()
+        us = []
+        for _ in range(SPLIT_ROUNDS):
+            torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(SPLIT_CALLS):
+                fn()
+            t1 = time.perf_counter()
+            done = torch.cuda.Event()
+            done.record()
+            if done.query():
+                raise AssertionError(f"host split: the card finished before "
+                                     f"{name}'s round was enqueued")
+            torch.cuda.synchronize()
+            us.append((t1 - t0) / SPLIT_CALLS * 1e6)
+        out[name] = float(np.median(us))
+    out["step_without_gate_word"] = out["step_wrapper_and_launch"] - \
+        out["gate_word_and_where"]
+    out["bank_dispatch"] = out["process_block"] - \
+        out["step_wrapper_and_launch"] - out["ring_wrapper_and_launch"]
+    out["process_block_and_packing"] = out["process_block"] + \
+        out["ring_packing"]
+    del new, cnt, lmt, lmk, buf
+    return out
 
 
 def run_fleet_cell(dev, seed, n_blocks):
@@ -1866,6 +2033,7 @@ def run_fleet_cell(dev, seed, n_blocks):
         first=(n_blocks + 3 + TIMED_LAUNCHES) * BANK_T // 4)]
     tb = time_bank(bank, fresh[0], dev, (matchy_bank, matchy_block), fresh,
                    fresh4)
+    split_block = fresh[1]
     del matchy_bank, matchy_block, fresh, fresh4
     log(f"  nfa_bank_step at N={N_BANK} P={BANK_P} T={BANK_T} K={BANK_K} "
         f"(thread instance, a warp over 32 lanes of one pattern): "
@@ -1887,8 +2055,22 @@ def run_fleet_cell(dev, seed, n_blocks):
         f"(plain {tb['ring_plain_ms']:.4f} ms, torch.sort stable "
         f"{tb['ring_library_ms']:.4f} ms, bound {tb['ring_bound_ms']:.6f} "
         f"ms by {tb['ring_bound_by']})")
+    log(f"  nfa_bank_ring on the matchy block: {tb['ring_matchy_ms']:.4f} "
+        f"ms (max count {tb['ring_matchy_max_count']}); at T=4: "
+        f"{tb['ring_t4_ms']:.4f} ms (max count {tb['ring_t4_max_count']}); "
+        f"alert block max count {tb['ring_alert_max_count']}; ring 0 (the "
+        f"totals: staging and the tile's sum, max, min) "
+        f"{tb['ring_totals_ms']:.4f} ms; "
+        f"{tb['ring_bound_ms'] / tb['ring_ms'] * 100:.2f}% of the bound "
+        f"reached on the alert block")
     log(f"  device split per step + ring (profiler, ms): {tb['split']}")
-    return {"launches": launches, "wall": wall, "walls": walls,
+    split = host_split(bank, split_block, dev)
+    log(f"  host enqueue of one fleet process_block by part, us a call "
+        f"(median of {SPLIT_ROUNDS} rounds of {SPLIT_CALLS}, the card "
+        f"asleep throughout): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in split.items()))
+    return {"host_split": split, "launches": launches, "wall": wall,
+            "walls": walls,
             "cases": n_cases,
             "max_abs_err": bank_err,
             "events_per_s": n_events / wall, "peak": peak_cell - mem0, **tb}
@@ -2100,6 +2282,7 @@ def main(argv=None) -> int:
     log("== phase 8: fleet cell (bench.py's bank: 1000 patterns x 10,000 "
         "partitions) on the bank kernels")
     t8 = time.perf_counter()
+    ring_cases, ring_err = check_ring(dev, args.seed)
     fc = run_fleet_cell(dev, args.seed, args.fleet_blocks)
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
     if args.fleet_blocks < 32:
@@ -2181,10 +2364,13 @@ def main(argv=None) -> int:
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:1250",
         "checked": True, "launches": fc["launches"][3],
-        "max_abs_err": fc["max_abs_err"],
+        "max_abs_err": max(fc["max_abs_err"], ring_err),
+        "ring_only_cases": ring_cases,
         "ms": fc["ring_ms"], "plain_ms": fc["ring_plain_ms"],
         "bound_ms": fc["ring_bound_ms"], "bound_by": fc["ring_bound_by"],
         "library_ms": fc["ring_library_ms"],
+        "matchy_ms": fc["ring_matchy_ms"], "t4_ms": fc["ring_t4_ms"],
+        "totals_only_ms": fc["ring_totals_ms"],
         "shape": {"patterns": N_BANK, "P": BANK_P, "ring": BANK_RING}}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

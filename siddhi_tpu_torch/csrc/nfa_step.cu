@@ -151,12 +151,16 @@
 //    are read by every thread of its group, so they are written after a
 //    barrier.
 //  - nfa_bank_ring: one CTA per pattern.  The exact top-ring of the P
-//    lane counts by (count descending, lane ascending), lax.top_k's order:
-//    the ring-th largest count v by bisection over block-wide counts, every
-//    lane above v, then the lowest-index lanes equal to v (an exclusive
-//    scan over contiguous per-thread lane runs), ordered by rank; then the
-//    gathers of the payload (captures and slot start of the lane's last
-//    matched slot in the final carry, its ts) and the pattern's total.
+//    lane counts by (count descending, lane ascending), lax.top_k's order,
+//    and the pattern's total.  Bound by the bytes of the count rows (one
+//    read of 4 P bytes a pattern), so each row is read from device memory
+//    once: staged into shared memory by coalesced 16-byte cp.async copies
+//    (a row too long for shared memory is walked in tiles, each tile read
+//    once), and the sum, the bisection for the ring-th count and the
+//    ballot compaction in lane order all read the staged tile; tiles'
+//    lists merge in shared memory; then the gathers of the payload
+//    (captures and slot start of the lane's last matched slot in the
+//    final carry, its ts).
 #include <climits>
 #include <cstdint>
 
@@ -238,6 +242,12 @@ __device__ __forceinline__ bool compare(int op, float x, float y) {
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem));
 }
 
@@ -732,27 +742,25 @@ __global__ void __launch_bounds__(kThreads) nfa_compact_kernel(PackArgs a) {
 
 // ------------------------------------------------------------ the bank ring
 
-// block-wide exclusive prefix sum in thread order
-__device__ int block_excl_scan(int v, int* red) {
-  const int wl = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (wl >= o) x += y;
-  }
-  __syncthreads();
-  if (wl == 31) red[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    int y = wl < kThreads / 32 ? red[wl] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int z = __shfl_up_sync(kFull, y, o);
-      if (wl >= o) y += z;
-    }
-    if (wl < kThreads / 32) red[wl] = y;
-  }
-  __syncthreads();
-  return x - v + (w > 0 ? red[w - 1] : 0);
+constexpr int kRingThreads = 256;
+constexpr int kRingWarps = kRingThreads / 32;
+constexpr int kRingRed = 2 * kRingWarps * 3;  // two reduction buffers
+
+// The ring's dynamic shared memory in ints for a row of P lanes walked in
+// tiles of `tile`: the reduction buffers; the tile (whole int4s; once the
+// tile's selection is made, the merge's output list, so at least 2 ring);
+// the tile's selection list (ring lanes and counts); and, when the row
+// takes more than one tile, the running list of the tiles before it.
+// ops/nfa.ring_geometry sizes it; the launch refuses a size below it.
+__host__ __device__ inline long long ring_region_ints(int ring, int tile) {
+  const long long whole = (static_cast<long long>(tile) + 3) / 4 * 4;
+  return whole > 2LL * ring ? whole : 2LL * ring;
+}
+
+__host__ __device__ inline long long ring_layout_ints(int P, int ring,
+                                                      int tile) {
+  return kRingRed + ring_region_ints(ring, tile) +
+         2LL * ring * (P > tile ? 2 : 1);
 }
 
 struct RingArgs {
@@ -767,85 +775,267 @@ struct RingArgs {
   float* rcaps;           // [CN, ring, RC]
   int* rts;               // [CN, ring]
   unsigned char* rok;     // [CN, ring] (torch.bool)
-  int P, K, RC, ring;
+  int P, K, RC, ring, tile;
 };
 
-__global__ void __launch_bounds__(kThreads) nfa_bank_ring_kernel(RingArgs a) {
-  extern __shared__ int rsm[];          // the ring's lanes and counts, in
-                                        // lane order
-  __shared__ int red[kThreads / 32];
-  const int n = blockIdx.x, tid = threadIdx.x;
-  const long long base = static_cast<long long>(n) * a.P;
-  const int* c = a.count + base;
+__device__ __forceinline__ int lane4(const int4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
 
-  int sum = 0, mx = INT_MIN, mn = INT_MAX;
-  for (int i = tid; i < a.P; i += kThreads) {
-    const int x = c[i];
-    sum += x;
-    mx = max(mx, x);
-    mn = min(mn, x);
+// One CTA per pattern.  The row is walked in tiles (one tile, the whole
+// row, whenever it fits in shared memory: the fleet's 10,000 lanes are
+// 40 KB); each tile is read from device memory once, by coalesced 16-byte
+// cp.async copies all in flight at once, into shared memory, and
+// everything after reads it there:
+//  1. the tile's sum, max and min (each thread over the words it copied,
+//     warp reductions, one barrier);
+//  2. the tile's k-th largest count v (k = min(ring, lanes)), exactly, by
+//     bisection over [min, max]: a step is one pass over the staged tile
+//     by 16-byte reads and one barrier.  Each warp owns a contiguous
+//     range of the tile and keeps its own count at the final bounds, so
+//     the step that settles v also gives every warp its lanes above v
+//     and equal to v;
+//  3. the selection in lane order: each warp walks its range in segments
+//     of 32 int4 (128 lanes); four ballots per class (above v, equal to
+//     v) give each lane's position, the warps' counts place the warps;
+//     every lane above v is taken, then the lowest-index lanes equal to
+//     v; a warp stops once it holds no more lanes above v and the lanes
+//     equal to v are all placed;
+//  4. the tile's list ordered (count descending, lane ascending) and
+//     merged with the list of the tiles before it (every earlier lane
+//     is lower, so it wins a tie): the top ring of a row is the top ring
+//     of its tiles' top rings.
+// Then the payload of the ring's lanes is gathered from the final carry.
+__global__ void __launch_bounds__(kRingThreads, 5)
+    nfa_bank_ring_kernel(RingArgs a) {
+  extern __shared__ int4 rsm4[];
+  int* red = reinterpret_cast<int*>(rsm4);              // [2][warps][3]
+  int* tl = red + kRingRed;                             // the tile
+  const int4* tl4 = reinterpret_cast<const int4*>(tl);
+  int* lpid = tl + ring_region_ints(a.ring, a.tile);    // the tile's list
+  int* lcnt = lpid + a.ring;
+  int* rpid = lcnt + a.ring;                            // the running list
+  int* rcnt = rpid + a.ring;
+  int* opid = tl;                                       // the merged list
+  int* ocnt = tl + a.ring;
+  const int n = blockIdx.x, tid = threadIdx.x;
+  const int wl = tid & 31, w = tid >> 5;
+  const unsigned lt = (1u << wl) - 1u;
+  const long long base = static_cast<long long>(n) * a.P;
+  int par = 0;                                          // red buffer
+  unsigned total = 0;
+  int n_run = 0;                                        // running list
+
+  for (int t0 = 0; t0 < a.P; t0 += a.tile) {
+    const int nl = min(a.tile, a.P - t0);
+    const int nch = (nl + 3) >> 2;
+    const int* g = a.count + base + t0;
+    const bool vec = (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+
+    // 1. stage the tile, every copy in flight at once (16 bytes where the
+    // tile starts 16-byte aligned, else 4); each thread's sum, max and min
+    // over the words it copied, once its own copies have landed
+    for (int c = tid; c < nch; c += kRingThreads) {
+      if (vec && 4 * c + 3 < nl) {
+        cp_async16(tl + 4 * c, g + 4 * c);
+      } else {
+        for (int e = 0; e < 4 && 4 * c + e < nl; ++e)
+          cp_async4(tl + 4 * c + e, g + 4 * c + e);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    unsigned sum = 0;
+    int mx = INT_MIN, mn = INT_MAX;
+    for (int c = tid; c < nch; c += kRingThreads) {
+      const int4 v = tl4[c];
+      const int m = nl - 4 * c;         // lanes of this int4 in the tile
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e >= m) break;
+        const int x = lane4(v, e);
+        sum += static_cast<unsigned>(x);
+        mx = max(mx, x);
+        mn = min(mn, x);
+      }
+    }
+    sum = __reduce_add_sync(kFull, sum);
+    mx = __reduce_max_sync(kFull, mx);
+    mn = __reduce_min_sync(kFull, mn);
+    int* rb = red + par * kRingWarps * 3;
+    if (wl == 0) {
+      rb[3 * w] = static_cast<int>(sum);
+      rb[3 * w + 1] = mx;
+      rb[3 * w + 2] = mn;
+    }
+    __syncthreads();                    // the tile and the stats are in
+    sum = 0;
+#pragma unroll
+    for (int i = 0; i < kRingWarps; ++i) {
+      sum += static_cast<unsigned>(rb[3 * i]);
+      mx = max(mx, rb[3 * i + 1]);
+      mn = min(mn, rb[3 * i + 2]);
+    }
+    par ^= 1;
+    total += sum;
+    if (a.ring <= 0) {
+      __syncthreads();                  // the next tile overwrites this one
+      continue;
+    }
+
+    // 2. v: the largest count with #(count >= v) >= k, by bisection over
+    // the staged tile; this warp's range of int4s [c_lo, c_hi) and its
+    // counts at lo and hi
+    const int k = min(a.ring, nl);
+    const int cpw = (nch + kRingWarps - 1) / kRingWarps;
+    const int c_lo = min(nch, w * cpw), c_hi = min(nch, c_lo + cpw);
+    int g_lo = max(0, min(4 * c_hi, nl) - 4 * c_lo), g_hi = 0;
+    long long lo = mn, hi = static_cast<long long>(mx) + 1;
+    while (hi - lo > 1) {
+      const int mid = static_cast<int>(lo + (hi - lo) / 2);
+      int ge = 0;
+      for (int c = c_lo + wl; c < c_hi; c += 32) {
+        const int4 v = tl4[c];
+        const int m = nl - 4 * c;       // lanes of this int4 in the tile
+        ge += (v.x >= mid) + (m > 1 && v.y >= mid) + (m > 2 && v.z >= mid) +
+              (m > 3 && v.w >= mid);
+      }
+      ge = __reduce_add_sync(kFull, ge);
+      rb = red + par * kRingWarps * 3;
+      if (wl == 0) rb[3 * w] = ge;
+      __syncthreads();
+      int tot = 0;
+#pragma unroll
+      for (int i = 0; i < kRingWarps; ++i) tot += rb[3 * i];
+      par ^= 1;
+      if (tot >= k) {
+        lo = mid;
+        g_lo = ge;
+      } else {
+        hi = mid;
+        g_hi = ge;
+      }
+    }
+    const int v = static_cast<int>(lo);
+    rb = red + par * kRingWarps * 3;
+    if (wl == 0) {
+      rb[3 * w] = g_hi;                 // lanes above v
+      rb[3 * w + 1] = g_lo - g_hi;      // lanes equal to v
+    }
+    __syncthreads();
+    int above = 0, ab = 0, eb = 0;
+#pragma unroll
+    for (int i = 0; i < kRingWarps; ++i) {
+      above += rb[3 * i];
+      if (i < w) {
+        ab += rb[3 * i];
+        eb += rb[3 * i + 1];
+      }
+    }
+    par ^= 1;
+    const int need = k - above;         // lanes equal to v taken, >= 1
+
+    // 3. the selection, in lane order: above v at [0, above), then the
+    // first `need` lanes equal to v
+    int a_left = g_hi;
+    for (int c0 = c_lo; c0 < c_hi && (a_left > 0 || eb < need); c0 += 32) {
+      const int c = c0 + wl;
+      const int4 v4 = c < c_hi ? tl4[c] : make_int4(0, 0, 0, 0);
+      const int m = c < c_hi ? nl - 4 * c : 0;
+      unsigned ba[4], bq[4];
+      int pa = ab, pq = eb;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = lane4(v4, e);
+        ba[e] = __ballot_sync(kFull, m > e && x > v);
+        bq[e] = __ballot_sync(kFull, m > e && x == v);
+        pa += __popc(ba[e] & lt);
+        pq += __popc(bq[e] & lt);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lane = t0 + 4 * c + e;
+        if ((ba[e] >> wl) & 1u) {
+          lpid[pa] = lane;
+          lcnt[pa] = lane4(v4, e);
+          ++pa;
+        }
+        if ((bq[e] >> wl) & 1u) {
+          if (pq < need) {
+            lpid[above + pq] = lane;
+            lcnt[above + pq] = v;
+          }
+          ++pq;
+        }
+      }
+      int na = 0, nq = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        na += __popc(ba[e]);
+        nq += __popc(bq[e]);
+      }
+      ab += na;
+      a_left -= na;
+      eb += nq;
+    }
+    __syncthreads();                    // the list is in; the tile is free
+
+    // 4. order the tile's list and merge it with the running one into
+    // the tile's space
+    for (int j = tid; j < k; j += kRingThreads) {
+      const int x = lcnt[j];
+      int r = j;
+      if (j < above) {
+        r = 0;
+        for (int i = 0; i < above; ++i) {
+          const int y = lcnt[i];
+          r += (y > x) || (y == x && i < j);
+        }
+      }
+      int l = 0, h = n_run;             // running lanes with count >= x
+      while (l < h) {
+        const int md = (l + h) >> 1;
+        if (rcnt[md] >= x) l = md + 1;
+        else h = md;
+      }
+      r += l;
+      if (r < a.ring) {
+        opid[r] = lpid[j];
+        ocnt[r] = x;
+      }
+    }
+    for (int i = tid; i < n_run; i += kRingThreads) {
+      const int x = rcnt[i];
+      int r = i + (v > x ? k - above : 0);
+      for (int q = 0; q < above; ++q) r += lcnt[q] > x;
+      if (r < a.ring) {
+        opid[r] = rpid[i];
+        ocnt[r] = x;
+      }
+    }
+    n_run = min(a.ring, n_run + k);
+    __syncthreads();
+    if (t0 + a.tile < a.P) {
+      for (int i = tid; i < n_run; i += kRingThreads) {
+        rpid[i] = opid[i];
+        rcnt[i] = ocnt[i];
+      }
+      __syncthreads();                  // the next tile overwrites opid
+    }
   }
-  sum = block_reduce(sum, 0, red);
-  mx = block_reduce(mx, 1, red);
-  mn = ~block_reduce(~mn, 1, red);      // ~ reverses int order exactly
-  if (tid == 0) a.total[n] = sum;
+  if (tid == 0) a.total[n] = static_cast<int>(total);
   if (a.ring <= 0) return;
 
-  // v: the largest count with #(count >= v) >= ring
-  long long lo = mn, hi = static_cast<long long>(mx) + 1;
-  while (hi - lo > 1) {
-    const long long mid = lo + (hi - lo) / 2;
-    int ge = 0;
-    for (int i = tid; i < a.P; i += kThreads) ge += c[i] >= mid;
-    ge = block_reduce(ge, 0, red);
-    if (ge >= a.ring) lo = mid;
-    else hi = mid;
-  }
-  const int v = static_cast<int>(lo);
-
-  // every lane above v, then the lowest-index lanes equal to v: each
-  // thread takes a contiguous run of lanes, so thread order is lane order
-  const int run = (a.P + kThreads - 1) / kThreads;
-  const int i0 = min(a.P, tid * run), i1 = min(a.P, i0 + run);
-  int above = 0, eq = 0;
-  for (int i = i0; i < i1; ++i) {
-    above += c[i] > v;
-    eq += c[i] == v;
-  }
-  const int need = a.ring - block_reduce(above, 0, red);
-  const int eq_before = block_excl_scan(eq, red);
-  const int take_eq = min(eq, max(need - eq_before, 0));
-  int pos = block_excl_scan(above + take_eq, red);
-  int* spid = rsm;
-  int* scnt = rsm + a.ring;
-  int eq_seen = 0;
-  for (int i = i0; i < i1; ++i) {
-    const int x = c[i];
-    bool in = x > v;
-    if (x == v) in = eq_seen++ < take_eq;
-    if (in) {
-      spid[pos] = i;
-      scnt[pos] = x;
-      ++pos;
-    }
-  }
-  __syncthreads();
-
-  // ring order (count descending, lane ascending), then the payload
-  for (int j = tid; j < a.ring; j += kThreads) {
-    const int x = scnt[j];
-    int r = 0;
-    for (int q = 0; q < a.ring; ++q) {
-      const int y = scnt[q];
-      r += (y > x) || (y == x && q < j);
-    }
-    const int pid = spid[j];
+  // the payload: the captures and slot start of each ring lane's last
+  // matched slot in the final carry, and that match's ts
+  for (int j = tid; j < a.ring; j += kRingThreads) {
+    const int pid = opid[j];
     const long long ln = base + pid;
-    const int k = a.lmk[ln];
+    const int kk = a.lmk[ln];
     const int tsv = a.lmt[ln];
-    const long long sk = ln * a.K + k;
-    const long long o = static_cast<long long>(n) * a.ring + r;
-    a.rcnt[o] = x;
+    const long long sk = ln * a.K + kk;
+    const long long o = static_cast<long long>(n) * a.ring + j;
+    a.rcnt[o] = ocnt[j];
     a.rpid[o] = pid;
     a.rts[o] = tsv;
     a.rok[o] = a.start[sk] <= tsv ? 1 : 0;
@@ -1004,12 +1194,6 @@ __device__ __forceinline__ void pcmp_bounds(int op, float c, float& lo,
       lo = hi = c;
       inv = true;
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
 }
 
 // Stage events [t0, t0 + TT) of the tile's LT lanes: array x (ts, stream,
@@ -1624,27 +1808,30 @@ extern "C" int nfa_compact(const int* rows, const int* lane_count,
 }
 
 // The bank's match ring: per pattern, the total and the top-ring lanes
-// with their payload (ring 0: the totals alone).  ring <= P.  Returns
-// cudaGetLastError() after the launch.
+// with their payload (ring 0: the totals alone).  ring <= P; the row is
+// walked in tiles of `tile` lanes in `smem` bytes of dynamic shared
+// memory (ops/nfa.ring_geometry), checked here against the kernel's
+// layout.  Returns cudaGetLastError() after the launch.
 extern "C" int nfa_bank_ring(const int* count, const int* lmt, const int* lmk,
                              const float* caps, const int* start, int* total,
                              int* ring_cnt, int* ring_pid, float* ring_caps,
                              int* ring_ts, unsigned char* ring_ok, int CN,
-                             int P, int K, int RC, int ring, void* stream) {
+                             int P, int K, int RC, int ring, int tile,
+                             int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (CN <= 0) return 0;
-  if (P <= 0 || K <= 0 || RC <= 0 || ring < 0 || ring > P)
+  if (P <= 0 || K <= 0 || RC <= 0 || ring < 0 || ring > P || tile <= 0 ||
+      smem < 0 || static_cast<size_t>(smem) > kSmemLimit ||
+      ring_layout_ints(P, ring, tile) * 4 > smem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2ull * ring * 4;
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         nfa_bank_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   RingArgs a{count, lmt, lmk, caps, start, total, ring_cnt, ring_pid,
-             ring_caps, ring_ts, ring_ok, P, K, RC, ring};
-  nfa_bank_ring_kernel<<<CN, kThreads, smem, s>>>(a);
+             ring_caps, ring_ts, ring_ok, P, K, RC, ring, tile};
+  nfa_bank_ring_kernel<<<CN, kRingThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -63,8 +63,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         "nfa_bank_thread": (_I, [_VP] * 5 + [_I] + [_VP] + [_I] +
                             [_VP] * 19 + [_I] * 9 + [_VP]),
         # count, lmt, lmk, caps, slot_start, total, ring_cnt, ring_pid,
-        # ring_caps, ring_ts, ring_ok, CN, P, K, RC, ring, stream
-        "nfa_bank_ring": (_I, [_VP] * 11 + [_I] * 5 + [_VP]),
+        # ring_caps, ring_ts, ring_ok, CN, P, K, RC, ring, tile, smem,
+        # stream
+        "nfa_bank_ring": (_I, [_VP] * 11 + [_I] * 7 + [_VP]),
     },
 }
 

@@ -1798,22 +1798,162 @@ def bank_ring_plain(carry: Dict[str, torch.Tensor], count: torch.Tensor,
     descending sort); each holds the captures of its last matched slot in
     the final carry, that match's ts, and whether the slot still holds it
     (not re-armed since: ``slot_start <= ts``)."""
-    CN, P = (int(x) for x in count.shape)
     total = count.sum(dim=1, dtype=torch.int32)
     if not ring:
         return (total,)
+    pid = torch.sort(count, dim=1, descending=True,
+                     stable=True).indices[:, :ring]
+    return (total,) + _ring_payload(carry, count, lmt, lmk, pid)
+
+
+#: csrc/nfa_step.cu's ring kernel: warps a CTA, the int32 words of its two
+#: reduction buffers, and the lane multiple of a tile when a row is tiled
+RING_WARPS = 8
+RING_RED_INTS = 2 * RING_WARPS * 3
+RING_TILE_ALIGN = 128
+
+
+class RingGeometry(NamedTuple):
+    """The ring kernel's launch: lanes a tile (the whole row when it
+    fits) and its dynamic shared memory in bytes."""
+    tile: int
+    smem: int
+
+
+def ring_layout_ints(P: int, ring: int, tile: int) -> int:
+    """csrc's ``ring_layout_ints``: int32 words of the ring kernel's
+    shared memory for rows of P lanes in tiles of ``tile``: the
+    reduction buffers; the tile in whole int4s, and at least 2·ring
+    words (the merged list reuses it); the tile's list (ring lanes and
+    counts); the running list of earlier tiles when P > tile."""
+    region = max(-(-tile // 4) * 4, 2 * ring)
+    return RING_RED_INTS + region + 2 * ring * (2 if P > tile else 1)
+
+
+def ring_geometry(P: int, ring: int) -> RingGeometry:
+    """The ring kernel's tile and shared memory for rows of P lanes: the
+    whole row in one tile when it fits SMEM_LIMIT, else the longest tile
+    (a multiple of RING_TILE_ALIGN lanes) that fits beside both lists.
+    The one place the ring's limit is decided: a ring that leaves no
+    such tile raises ValueError."""
+    words = SMEM_LIMIT // 4
+    if ring_layout_ints(P, ring, P) <= words:
+        return RingGeometry(P, 4 * ring_layout_ints(P, ring, P))
+    tile = (words - RING_RED_INTS - 4 * ring) // RING_TILE_ALIGN * \
+        RING_TILE_ALIGN
+    if tile < max(2 * ring, RING_TILE_ALIGN):
+        raise ValueError(f"nfa_bank_ring: ring {ring} leaves no tile of the "
+                         f"{P} lanes in {SMEM_LIMIT} bytes of shared memory")
+    return RingGeometry(tile, 4 * ring_layout_ints(P, ring, tile))
+
+
+def _ring_payload(carry, count, lmt, lmk, pid):
+    """The ring rows of lanes ``pid`` [CN, ring]: count, lane, captures
+    and ts of the lane's last match, and ``slot_start <= ts``."""
+    CN, P = (int(x) for x in count.shape)
     K = int(carry["slot_state"].shape[-1])
     caps = carry["captures"]
     caps = caps.reshape((CN, P, K) + tuple(caps.shape[-2:]))
-    pid = torch.sort(count, dim=1, descending=True,
-                     stable=True).indices[:, :ring]
     sel_k = lmk.gather(1, pid).long()
     n_ix = torch.arange(CN, device=count.device)[:, None]
     ring_ts = lmt.gather(1, pid)
     ring_ok = carry["slot_start"].reshape(CN, P, K)[n_ix, pid, sel_k] <= \
         ring_ts
-    return (total, count.gather(1, pid), _i32(pid), caps[n_ix, pid, sel_k],
+    return (count.gather(1, pid), _i32(pid), caps[n_ix, pid, sel_k],
             ring_ts, ring_ok)
+
+
+def bank_ring_model(carry: Dict[str, torch.Tensor], count: torch.Tensor,
+                    lmt: torch.Tensor, lmk: torch.Tensor, ring: int,
+                    tile: Optional[int] = None):
+    """The CPU model of csrc/nfa_step.cu's ring kernel, with
+    :func:`bank_ring_plain`'s contract.  Per pattern the row is walked in
+    tiles of ``tile`` lanes (default :func:`ring_geometry`'s: the whole
+    row when it fits shared memory).  Per tile: its sum (the total adds
+    them modulo 2^32); k = min(ring, lanes); the k-th largest count v by
+    bisection over [min, max], each step counting per warp over
+    RING_WARPS contiguous ranges of int4s, the counts at the final bounds
+    giving each warp its lanes above v and equal to v; the selection, each
+    warp walking its range in 128-lane segments, a lane placed at its
+    warp's offset plus the selected lanes before it in the segment (the
+    kernel's ballots): every lane above v in lane order, then the first
+    k - above lanes equal to v; the tile's list ordered (count
+    descending, lane ascending) and merged with the list of the tiles
+    before it (their lanes are lower: they win ties).  Then the payload
+    of the ring's lanes."""
+    CN, P = (int(x) for x in count.shape)
+    cnt = count.cpu().numpy().astype(np.int64)
+    total = (cnt.sum(axis=1) + (1 << 31)) % (1 << 32) - (1 << 31)
+    total = torch.from_numpy(total.astype(np.int32)).to(count.device)
+    if not ring:
+        return (total,)
+    tile = ring_geometry(P, ring).tile if tile is None else tile
+    pid = np.empty((CN, ring), np.int64)
+    for n in range(CN):
+        run_pid = run_cnt = np.zeros(0, np.int64)
+        for t0 in range(0, P, tile):
+            x = cnt[n, t0:t0 + tile]
+            nl = len(x)
+            k = min(ring, nl)
+            nch = -(-nl // 4)
+            cpw = -(-nch // RING_WARPS)
+            edges = np.array([min(nl, 4 * min(nch, w * cpw))
+                              for w in range(RING_WARPS + 1)])
+
+            def per_warp(mask):
+                c = np.concatenate([[0], np.cumsum(mask)])
+                return c[edges[1:]] - c[edges[:-1]]
+            lo, hi = int(x.min()), int(x.max()) + 1
+            g_lo, g_hi = np.diff(edges), np.zeros(RING_WARPS, np.int64)
+            while hi - lo > 1:
+                mid = lo + (hi - lo) // 2
+                ge = per_warp(x >= mid)
+                if ge.sum() >= k:
+                    lo, g_lo = mid, ge
+                else:
+                    hi, g_hi = mid, ge
+            v = lo
+            above = int(g_hi.sum())
+            need = k - above
+            lp = np.full(k, -1, np.int64)
+            lc = np.zeros(k, np.int64)
+            g_eq = g_lo - g_hi
+            for w in range(RING_WARPS):
+                ab, eb = int(g_hi[:w].sum()), int(g_eq[:w].sum())
+                a_left = int(g_hi[w])
+                s = int(edges[w])
+                while s < edges[w + 1] and (a_left > 0 or eb < need):
+                    seg = x[s:min(s + 128, int(edges[w + 1]))]
+                    lane = t0 + s + np.arange(len(seg))
+                    a, q = seg > v, seg == v
+                    pa = ab + np.cumsum(a) - a
+                    pq = eb + np.cumsum(q) - q
+                    lp[pa[a]], lc[pa[a]] = lane[a], seg[a]
+                    tq = q & (pq < need)
+                    lp[above + pq[tq]], lc[above + pq[tq]] = lane[tq], v
+                    ab, a_left = ab + int(a.sum()), a_left - int(a.sum())
+                    eb += int(q.sum())
+                    s += 128
+            # the tile's ranks; the running lanes with count >= c precede a
+            # tile lane (a binary search in the kernel)
+            ac = lc[:above]
+            r_t = np.arange(k)
+            r_t[:above] = (ac[None, :] > ac[:, None]).sum(axis=1) + np.tril(
+                ac[None, :] == ac[:, None], -1).sum(axis=1)
+            r_t += np.searchsorted(-run_cnt, -lc, side="right")
+            r_r = np.arange(len(run_cnt)) + np.where(
+                v > run_cnt, k - above, 0) + \
+                (ac[None, :] > run_cnt[:, None]).sum(axis=1)
+            n_out = min(ring, len(run_cnt) + k)
+            out_pid = np.full(n_out, -1, np.int64)
+            out_cnt = np.zeros(n_out, np.int64)
+            for r, p_, c_ in ((r_t, lp, lc), (r_r, run_pid, run_cnt)):
+                m = r < ring
+                out_pid[r[m]], out_cnt[r[m]] = p_[m], c_[m]
+            run_pid, run_cnt = out_pid, out_cnt
+        pid[n] = run_pid
+    pid = torch.from_numpy(pid).to(count.device)
+    return (total,) + _ring_payload(carry, count, lmt, lmk, pid)
 
 
 def nfa_bank_step_plain(spec: NfaSpec, carry: Dict[str, torch.Tensor],
@@ -1928,8 +2068,9 @@ def nfa_bank_ring(carry: Dict[str, torch.Tensor], count: torch.Tensor,
                   lmt: torch.Tensor, lmk: torch.Tensor, ring: int):
     """The ring kernel's function, :func:`bank_ring_plain`'s contract, on
     the tensors' own device: the plain version for CPU tensors, else one
-    launch of csrc/nfa_step.cu's ring kernel (one CTA per pattern) on the
-    current stream, or a raise."""
+    launch of csrc/nfa_step.cu's ring kernel (one CTA per pattern, the
+    row in the tiles :func:`ring_geometry` sizes; its CPU model is
+    :func:`bank_ring_model`) on the current stream, or a raise."""
     dev = count.device
     if dev.type == "cpu":
         return bank_ring_plain(carry, count, lmt, lmk, ring)
@@ -1944,9 +2085,9 @@ def nfa_bank_ring(carry: Dict[str, torch.Tensor], count: torch.Tensor,
     if caps.numel() != CN * P * K * R * C or start.numel() != CN * P * K or \
             not (caps.is_contiguous() and start.is_contiguous()):
         raise ValueError("nfa_bank_ring: carry does not match the counts")
-    if ring < 0 or ring > P or 8 * ring > 227 * 1024:
-        raise ValueError(f"nfa_bank_ring: ring {ring} outside [0, "
-                         f"min(P, 29056)]")
+    if ring < 0 or ring > P:
+        raise ValueError(f"nfa_bank_ring: ring {ring} outside [0, P = {P}]")
+    geo = ring_geometry(P, ring)
     i32 = dict(dtype=torch.int32, device=dev)
     total = torch.empty((CN,), **i32)
     r = max(ring, 1)
@@ -1960,7 +2101,7 @@ def nfa_bank_ring(carry: Dict[str, torch.Tensor], count: torch.Tensor,
         count.data_ptr(), lmt.data_ptr(), lmk.data_ptr(), caps.data_ptr(),
         start.data_ptr(), total.data_ptr(), ring_cnt.data_ptr(),
         ring_pid.data_ptr(), ring_caps.data_ptr(), ring_ts.data_ptr(),
-        ring_ok.data_ptr(), CN, P, K, R * C, ring,
+        ring_ok.data_ptr(), CN, P, K, R * C, ring, geo.tile, geo.smem,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nfa_bank_ring: launch failed with CUDA error "

@@ -10,9 +10,13 @@ arithmetic:
   compares AND its ``<event lane> <cmp> <capture lane>`` compares) equals
   the plain bank step, carry and per-lane outputs, on in-class specs;
 - the program table the kernel parses recovers both compare tables;
-- a numpy model of the ring kernel's selection (the ring-th largest count
-  by bisection, every lane above it, the lowest-index lanes equal to it,
-  ordered by rank) equals the stable descending sort on tie-heavy counts;
+- the CPU model of the ring kernel (ops/nfa.bank_ring_model: the row in
+  shared-memory tiles, the ring-th largest count by bisection with
+  per-warp counts, ballot compaction in lane order, the tiles' lists
+  merged) selects the lanes of the stable descending sort on tie-heavy
+  counts, rows that are not a multiple of 32, rows tiled, ring 0 and
+  ring = P; it equals the plain ring and the JAX package's lax.top_k ring
+  bit for bit; its shared-memory sizing stays under 227 KB;
 - the CPU model of the bank step's thread instance (ops/nfa.
   bank_thread_model: one thread per (pattern, lane), events four at a
   time, dead events doing only `within` on the live slots, the first
@@ -34,6 +38,8 @@ import os
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -44,10 +50,11 @@ from siddhi_tpu.plan.nfa_compiler import \
     CompiledPatternBank as JaxBank  # noqa: E402
 from siddhi_tpu_torch.ops.nfa import (BANK_GROUPS, CMP_OPS,  # noqa: E402
                                       SMEM_LIMIT, bank_geometry,
-                                      bank_lanes_plain,
+                                      bank_lanes_plain, bank_ring_model,
                                       bank_ring_plain, bank_thread_model,
                                       kernel_prog, nfa_bank_step,
-                                      nfa_bank_step_plain, pcmp_bounds)
+                                      nfa_bank_step_plain, pcmp_bounds,
+                                      ring_geometry, ring_layout_ints)
 from siddhi_tpu_torch.ops.pack import pack_blocks  # noqa: E402
 from siddhi_tpu_torch.plan.nfa_compiler import \
     CompiledPatternBank  # noqa: E402
@@ -378,71 +385,138 @@ def test_kernel_program_layout():
                            CMP_OPS.index("!=")))
 
 
-def _ring_model(count: np.ndarray, ring: int) -> np.ndarray:
-    """csrc/nfa_step.cu's ring selection for one pattern → ring lanes."""
-    P = len(count)
-    threads = 256
-    lo, hi = int(count.min()), int(count.max()) + 1
-    while hi - lo > 1:
-        mid = lo + (hi - lo) // 2
-        if int((count >= mid).sum()) >= ring:
-            lo = mid
-        else:
-            hi = mid
-    v = lo
-    run = -(-P // threads)
-    need = ring - int((count > v).sum())
-    sel = []
-    eq_before = 0
-    for t in range(threads):           # contiguous lane runs, in order
-        i0, i1 = min(P, t * run), min(P, t * run + run)
-        seg = count[i0:i1]
-        eq = int((seg == v).sum())
-        take = min(eq, max(need - eq_before, 0))
-        eq_before += eq
-        seen = 0
-        for i in range(i0, i1):
-            if count[i] > v:
-                sel.append(i)
-            elif count[i] == v:
-                if seen < take:
-                    sel.append(i)
-                seen += 1
-    assert len(sel) == ring
-    cnt = count[sel]
-    rank = [int((cnt > x).sum() + (cnt[:j] == x).sum())
-            for j, x in enumerate(cnt)]
-    out = np.empty(ring, np.int64)
-    out[rank] = sel
-    return out
+def _ring_inputs(rng, CN, P_, K, counts):
+    """Counts, lmt, lmk and a final carry for the ring, from numpy."""
+    i32 = np.int32
+    lmt = rng.integers(0, 1 << 20, (CN, P_)).astype(i32)
+    carry = {"slot_state": torch.zeros((CN, P_, K), dtype=torch.int32),
+             "slot_start": torch.from_numpy(
+                 (lmt[:, :, None] + rng.integers(-4, 4, (CN, P_, K)))
+                 .astype(i32)),
+             "captures": torch.from_numpy(rng.standard_normal(
+                 (CN, P_, K, 2, 1)).astype(np.float32))}
+    return (carry, torch.from_numpy(np.asarray(counts).astype(i32)),
+            torch.from_numpy(lmt),
+            torch.from_numpy(rng.integers(0, K, (CN, P_)).astype(i32)))
 
 
-RING_CASES = ["few_values", "all_equal", "all_zero", "ring_is_P", "ring_1",
-              "sparse", "wide_P"]
+#: {case: (P, ring, tile or None for ring_geometry's, counts over (rng, P))}
+RING_CASES = {
+    "few_values": (300, 32, None, lambda r, n: r.integers(0, 3, n)),
+    "all_equal": (300, 32, None, lambda r, n: np.full(n, 5)),
+    "all_zero": (300, 32, None, lambda r, n: np.zeros(n, np.int64)),
+    "ring_is_P": (300, 300, None, lambda r, n: r.integers(0, 3, n)),
+    "ring_1": (300, 1, None, lambda r, n: r.integers(0, 3, n)),
+    "sparse": (300, 32, None, lambda r, n: (r.random(n) < 0.02) *
+               r.integers(1, 4, n)),
+    "wide_P": (10_000, 32, None, lambda r, n: r.integers(0, 2, n)),
+    "P_not_multiple_of_32": (1001, 32, None,
+                             lambda r, n: r.integers(0, 40, n)),
+    "to_512_ties_straddle_v": (2000, 32, None,
+                               lambda r, n: r.integers(0, 513, n)),
+    "tiled_smem": (60_000, 32, None, lambda r, n: r.integers(0, 513, n)),
+    "small_tiles": (1000, 32, 128, lambda r, n: r.integers(0, 9, n)),
+    "small_tiles_ring_above_tile": (1000, 300, 128,
+                                    lambda r, n: r.integers(0, 40, n)),
+    "ring_0": (300, 0, None, lambda r, n: r.integers(0, 513, n)),
+    "ring_is_P_tiled": (1000, 1000, 256, lambda r, n: r.integers(0, 5, n)),
+    "int32_extremes": (1000, 32, 128, lambda r, n: r.choice(
+        np.array([-2**31, -7, 0, 1, 2**31 - 1]), n)),
+    "wide_range_20_steps": (1000, 32, None,
+                          lambda r, n: r.integers(0, 1_000_000, n)),
+}
 
 
-@pytest.mark.parametrize("case", RING_CASES)
+@pytest.mark.parametrize("case", list(RING_CASES))
 def test_ring_selection_model_equals_stable_sort(case):
-    rng = np.random.default_rng(RING_CASES.index(case))
-    P_, ring = 300, 32
-    count = rng.integers(0, 3, P_)
-    if case == "all_equal":
-        count[:] = 5
-    elif case == "all_zero":
-        count[:] = 0
-    elif case == "ring_is_P":
-        ring = P_
-    elif case == "ring_1":
-        ring = 1
-    elif case == "sparse":
-        count = (rng.random(P_) < 0.02).astype(np.int64) * \
-            rng.integers(1, 4, P_)
-    elif case == "wide_P":
-        P_ = 10_000
-        count = rng.integers(0, 2, P_)
-    want = torch.sort(torch.from_numpy(count.astype(np.int32)),
-                      descending=True, stable=True).indices[:ring].numpy()
-    assert np.array_equal(_ring_model(count, ring), want)
+    """ops/nfa.bank_ring_model, the ring kernel's CPU model (tiles, the
+    bisection with per-warp counts, ballot compaction in 128-lane
+    segments, the merge of the tiles' lists), selects the lanes of the
+    stable descending sort, and totals the row modulo 2^32."""
+    P_, ring, tile, counts = RING_CASES[case]
+    rng = np.random.default_rng(list(RING_CASES).index(case))
+    if tile is None and case == "tiled_smem":
+        assert ring_geometry(P_, ring).tile < P_
+    count = counts(rng, P_).astype(np.int64)
+    carry, cnt, lmt, lmk = _ring_inputs(rng, 1, P_, 2, count[None])
+    out = bank_ring_model(carry, cnt, lmt, lmk, ring, tile)
+    assert out[0].tolist() == [int(np.int64(count.sum()).astype(np.int32))]
+    if not ring:
+        assert len(out) == 1
+        return
+    want = torch.sort(cnt[0], descending=True, stable=True).indices[:ring]
+    assert torch.equal(out[2][0].long(), want)
+    assert torch.equal(out[1][0], cnt[0][want])
+
+
+def _jax_ring(carry, count, lmt, lmk, ring):
+    """siddhi_tpu/ops/nfa.py's ring (``pattern_step``'s lines after the
+    lane step: ``jnp.sum`` and ``jax.lax.top_k`` and the payload gathers),
+    per pattern under ``jax.vmap``, on numpy inputs."""
+    def one(c, counts, lmt, lmk):
+        total = jnp.sum(counts)
+        if not ring:
+            return (total,)
+        ring_cnt, ring_pid = jax.lax.top_k(counts, ring)
+        sel_k = lmk[ring_pid]
+        ring_caps = c["captures"][ring_pid, sel_k]
+        ring_ts = lmt[ring_pid]
+        ring_ok = c["slot_start"][ring_pid, sel_k] <= ring_ts
+        return total, ring_cnt, ring_pid, ring_caps, ring_ts, ring_ok
+    c = {k: jnp.asarray(carry[k].numpy())
+         for k in ("captures", "slot_start")}
+    return tuple(np.asarray(x) for x in jax.vmap(one)(
+        c, jnp.asarray(count.numpy()), jnp.asarray(lmt.numpy()),
+        jnp.asarray(lmk.numpy())))
+
+
+@pytest.mark.parametrize("case", ["sparse", "to_512_ties_straddle_v",
+                                  "small_tiles", "ring_is_P_tiled", "ring_0",
+                                  "tiled_smem", "wide_range_20_steps"])
+def test_ring_model_plain_and_jax_top_k_agree(case):
+    """The CPU model, bank_ring_plain and the JAX package's lax.top_k ring
+    on the same numpy-seeded counts and carry (3 patterns, K = 4): all six
+    outputs equal bit for bit."""
+    P_, ring, tile, counts = RING_CASES[case]
+    rng = np.random.default_rng(100 + list(RING_CASES).index(case))
+    CN = 1 if P_ > 10_000 else 3
+    carry, cnt, lmt, lmk = _ring_inputs(
+        rng, CN, P_, 4, np.stack([counts(rng, P_) for _ in range(CN)]))
+    model = bank_ring_model(carry, cnt, lmt, lmk, ring, tile)
+    plain = bank_ring_plain(carry, cnt, lmt, lmk, ring)
+    ref = _jax_ring(carry, cnt, lmt, lmk, ring)
+    assert len(model) == len(plain) == len(ref) == (6 if ring else 1)
+    for m, p_, j in zip(model, plain, ref):
+        assert m.dtype == p_.dtype and torch.equal(m, p_)
+        mj = m.numpy()
+        assert mj.shape == j.shape and mj.view(np.uint8).tobytes() == \
+            j.astype(mj.dtype).view(np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("P_,ring", [(10_000, 32), (9_999, 32),
+                                     (10_000, 10_000), (58_000, 32),
+                                     (60_000, 32), (150_001, 1000),
+                                     (1, 1), (300, 0)])
+def test_ring_geometry_fits_shared_memory(P_, ring):
+    """One tile (the whole row) wherever the layout fits the CTA's 227 KB;
+    else tiles of a multiple of 128 lanes that hold the merged list; the
+    size is the layout's, under the limit.  The fleet's row is one tile
+    of 40 KB: five CTAs fit an SM."""
+    geo = ring_geometry(P_, ring)
+    assert geo.smem == 4 * ring_layout_ints(P_, ring, geo.tile) <= SMEM_LIMIT
+    if 4 * ring_layout_ints(P_, ring, P_) <= SMEM_LIMIT:
+        assert geo.tile == P_
+    else:
+        assert geo.tile < P_ and geo.tile % 128 == 0
+        assert geo.tile >= 2 * ring
+    if (P_, ring) == (10_000, 32):
+        assert geo.smem == 40_448 and 5 * (geo.smem + 1024) <= 228 * 1024
+
+
+def test_ring_geometry_refuses_a_ring_without_a_tile():
+    assert ring_geometry(14_000, 14_000).tile == 14_000
+    with pytest.raises(ValueError, match="leaves no tile"):
+        ring_geometry(20_000, 20_000)
 
 
 def test_ring_plain_zero_rows_and_payload():

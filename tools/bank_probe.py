@@ -27,6 +27,12 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc.
    event walk (every event left undone: the results are wrong, the time
    is that of everything else — staging, the CTA's candidate marks, the
    carry), in place at T = 64 and T = 4.
+3. The match ring on each band's step outputs (T = 64 and T = 4): ring
+   32, ring 0 (staging and stats alone), ``torch.sum`` over the same
+   counts (each also with the L2 flushed by a read), and builds that
+   find the ring-th count from per-warp histograms of 16 and 128 bins
+   before bisection (RING_HISTOGRAM), held bit for bit against the
+   default.
 
 Prints one line ``BANKPROBE {json}`` with the card's name and power limit.
 """
@@ -44,20 +50,132 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVENT_WALK = "for (int wd = 0; on && wd < ((tn + 31) >> 5); ++wd) {"
 #: the thread instance's mapping: lanes a tile (ops/nfa.BANK_LANES)
 BANK_LANES = "constexpr int kBankLanes = 32;"
+#: the ring kernel's threshold search by a histogram before bisection:
+#: each warp bins max - count for its range over BINS bins (counts at the
+#: row's min held in a register), every warp scans the summed bins for
+#: the ring-th count, and bisection runs only where it lies BINS or more
+#: below the max.  Edits to csrc/nfa_step.cu: the bins' shared memory,
+#: then the search.
+RING_BISECTION_START = """\
+    int g_lo = max(0, min(4 * c_hi, nl) - 4 * c_lo), g_hi = 0;
+    long long lo = mn, hi = static_cast<long long>(mx) + 1;
+"""
+RING_HISTOGRAM = [
+    ("constexpr int kRingRed = 2 * kRingWarps * 3;  // two reduction "
+     "buffers\n",
+     "constexpr int kRingRed = 2 * kRingWarps * 3;\n"
+     "constexpr int kRingBins = BINS;\n"),
+    ("  return kRingRed + ring_region_ints(ring, tile) +",
+     "  return kRingRed + kRingWarps * kRingBins + "
+     "ring_region_ints(ring, tile) +"),
+    ("  int* tl = red + kRingRed;                             // the tile",
+     "  int* hist = red + kRingRed;\n"
+     "  int* tl = hist + kRingWarps * kRingBins;"),
+    (RING_BISECTION_START, """\
+    int* hw = hist + w * kRingBins;
+    for (int i = wl; i < kRingBins; i += 32) hw[i] = 0;
+    __syncwarp();
+    int at_min = 0;
+    for (int c = c_lo + wl; c < c_hi; c += 32) {
+      const int4 v4 = tl4[c];
+      const int m = nl - 4 * c;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = lane4(v4, e);
+        if (e >= m) break;
+        if (x == mn) {
+          ++at_min;
+        } else {
+          const unsigned d =
+              static_cast<unsigned>(mx) - static_cast<unsigned>(x);
+          if (d < kRingBins) atomicAdd(hw + d, 1);
+        }
+      }
+    }
+    at_min = __reduce_add_sync(kFull, at_min);
+    const unsigned span =
+        static_cast<unsigned>(mx) - static_cast<unsigned>(mn);
+    __syncwarp();
+    if (wl == 0 && span < kRingBins) hw[span] += at_min;
+    __syncthreads();                    // every warp's histogram is in
+    // every warp finds d*: lane l holds bins [4l, 4l + 4) of the row
+    constexpr int kLaneBins = (kRingBins + 31) / 32;
+    int bin[kLaneBins] = {};
+    int mine = 0, all = 0;              // this warp's, every warp's
+#pragma unroll
+    for (int j = 0; j < kLaneBins; ++j) {
+#pragma unroll
+      for (int i = 0; i < kRingWarps; ++i)
+        bin[j] += kLaneBins * wl + j < kRingBins
+                      ? hist[i * kRingBins + kLaneBins * wl + j] : 0;
+      all += bin[j];
+    }
+    int cum = all;                      // inclusive scan over the lanes
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, cum, o);
+      if (wl >= o) cum += y;
+    }
+    const unsigned hit = __ballot_sync(kFull, cum >= k);
+    int dstar = kRingBins;              // none: bisection below
+    if (hit) {
+      const int src = __ffs(static_cast<int>(hit)) - 1;
+      int c = cum - all, d = kLaneBins * wl + kLaneBins - 1;
+      bool done = false;
+#pragma unroll
+      for (int j = 0; j < kLaneBins; ++j) {
+        c += bin[j];
+        if (!done && c >= k) {
+          d = kLaneBins * wl + j;
+          done = true;
+        }
+      }
+      dstar = __shfl_sync(kFull, d, src);
+    }
+    // this warp's counts above max - d*, and at it
+    int at = 0;
+#pragma unroll
+    for (int j = 0; j < kLaneBins; ++j) {
+      const int dd = kLaneBins * wl + j;
+      const int y = dd < kRingBins ? hw[dd] : 0;
+      mine += dd < dstar ? y : 0;
+      at += dd == dstar ? y : 0;
+    }
+    int g_hi = __reduce_add_sync(kFull, mine);
+    int g_lo = g_hi + __reduce_add_sync(kFull, at);
+    long long lo, hi;
+    if (hit) {
+      lo = static_cast<long long>(mx) - dstar;
+      hi = lo + 1;
+    } else {
+      lo = mn;
+      hi = static_cast<long long>(mx) - kRingBins + 1;
+      g_lo = max(0, min(4 * c_hi, nl) - 4 * c_lo);
+    }
+""")]
 
 
-def build_variant(kernels, tag, old, new) -> ctypes.CDLL:
-    """csrc/nfa_step.cu with its one line `old` made `new`, built into
-    the checkout's build directory and bound like the real one."""
+def ring_histogram(bins):
+    """RING_HISTOGRAM's edits with `bins` bins a warp, and the shared
+    memory they add a CTA."""
+    return [(old, new.replace("BINS", str(bins)))
+            for old, new in RING_HISTOGRAM], 8 * bins * 4
+
+
+def build_variant(kernels, tag, edits) -> ctypes.CDLL:
+    """csrc/nfa_step.cu with each text `old` of the (old, new) edits made
+    `new`, built into the checkout's build directory and bound like the
+    real one."""
     src = open(os.path.join(kernels.CSRC, "nfa_step.cu")).read()
-    if src.count(old) != 1:
-        raise RuntimeError(f"nfa_step.cu: {old!r} is not where this probe "
-                           f"expects it")
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"nfa_step.cu: {old!r} is not where this "
+                               f"probe expects it")
+        src = src.replace(old, new)
     os.makedirs(kernels.BUILD, exist_ok=True)
     cu = os.path.join(kernels.BUILD, f"nfa_step_{tag}.cu")
     so = os.path.join(kernels.BUILD, f"nfa_step_{tag}.so")
     with open(cu, "w") as f:
-        f.write(src.replace(old, new))
+        f.write(src)
     subprocess.run([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
                    ["-o", so, cu], check=True)
     lib = ctypes.CDLL(so)
@@ -161,6 +279,8 @@ def time_band(cs, ops, dev, seed, floor, thrs, variants) -> dict:
            "t4_ms": timed(lambda: step(b=fresh4[0])),
            "inplace_ms": in_place(first[2:]),
            "t4_inplace_ms": in_place(fresh4)}
+    res["ring"] = time_ring(cs, ops, dev, step(), step(b=fresh4[0]),
+                            variants)
     want = [step(), step(b=fresh4[0])]
     try:
         ops.load_kernel = lambda name: variants["patterns"]
@@ -196,6 +316,67 @@ def time_band(cs, ops, dev, seed, floor, thrs, variants) -> dict:
     return res
 
 
+def median_read_flushed(cs, fn, dev, n=20):
+    """cs.median_ms with the L2 flushed by a read of 64 MB instead of a
+    write (no dirty lines left for the timed launch to write back)."""
+    import numpy as np
+    import torch
+    flush = torch.ones(16 << 20, dtype=torch.int32, device=dev)
+    times = []
+    for _ in range(n):
+        flush.sum()
+        torch.cuda._sleep(cs.SLEEP_CYCLES)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def time_ring(cs, ops, dev, out, out4, variants) -> dict:
+    """The ring kernel on one band's step outputs at the fleet shape,
+    median of 20 launches, L2 flushed: ring 32 (T = 64 and T = 4), ring 0
+    (the totals: staging and the tile's stats alone), the same counts
+    summed per pattern by ``torch.sum`` (a library read of the same
+    bytes), the first three again with the L2 flushed by a read, and
+    the builds that find the ring-th count from per-warp histograms of
+    16 and of 128 bins before bisection (RING_HISTOGRAM), their outputs
+    equal to the default's bit for bit."""
+    import torch
+    ring, load, geometry = cs.BANK_RING, ops.load_kernel, ops.ring_geometry
+
+    def ring_of(o, r=ring):
+        return lambda: ops.nfa_bank_ring(*o, r)
+    total = lambda: out[1].sum(dim=1, dtype=torch.int32)  # noqa: E731
+    res = {"max_count": int(out[1].max()),
+           "ms": cs.median_ms(ring_of(out), dev),
+           "t4_ms": cs.median_ms(ring_of(out4), dev),
+           "totals_ms": cs.median_ms(ring_of(out, 0), dev),
+           "torch_sum_ms": cs.median_ms(total, dev),
+           "read_flushed_ms": median_read_flushed(cs, ring_of(out), dev),
+           "read_flushed_totals_ms": median_read_flushed(
+               cs, ring_of(out, 0), dev),
+           "read_flushed_torch_sum_ms": median_read_flushed(cs, total, dev)}
+    want = ops.nfa_bank_ring(*out, ring)
+    try:
+        for bins in (16, 128):
+            ops.load_kernel = lambda name, b=bins: variants[f"histogram{b}"]
+            ops.ring_geometry = lambda *a, b=bins: geometry(*a)._replace(
+                smem=geometry(*a).smem + ring_histogram(b)[1])
+            got = ops.nfa_bank_ring(*out, ring)
+            torch.cuda.synchronize()
+            if not all(cs._same_bits(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"ring: histogram {bins} differs")
+            res[f"histogram{bins}_ms"] = cs.median_ms(ring_of(out), dev)
+            res[f"histogram{bins}_t4_ms"] = cs.median_ms(ring_of(out4), dev)
+    finally:
+        ops.load_kernel, ops.ring_geometry = load, geometry
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -213,10 +394,14 @@ def main(argv=None) -> int:
     dev = "cuda"
     _kernels.build_all()
     variants = {
-        "nowalk": build_variant(_kernels, "nowalk", EVENT_WALK, EVENT_WALK.
-                                replace("on &&", "false && on &&")),
-        "patterns": build_variant(_kernels, "patterns", BANK_LANES,
-                                  BANK_LANES.replace("32", "8"))}
+        "nowalk": build_variant(_kernels, "nowalk", [(EVENT_WALK, EVENT_WALK.
+                                replace("on &&", "false && on &&"))]),
+        "patterns": build_variant(_kernels, "patterns", [(
+            BANK_LANES, BANK_LANES.replace("32", "8"))]),
+        "histogram16": build_variant(_kernels, "histogram16",
+                                     ring_histogram(16)[0]),
+        "histogram128": build_variant(_kernels, "histogram128",
+                                      ring_histogram(128)[0])}
     out = {"device": torch.cuda.get_device_name(0),
            "nvidia_smi": cs.nvidia_smi_line(),
            "checks": run_checks(cs, dev, args.seed)}

@@ -29,10 +29,13 @@ Per tree with the pattern bank (``ops.nfa.nfa_bank_lanes``), at the fleet
 shape (1000 patterns x 10,000 lanes, T = 64, K = 8, 5 stacked chunks of
 200): the bank step's median ms over 20 launches (not in place, after a
 warm-up block) on an alert-band block (``chip_smoke.py`` phase 8's
-thresholds) and on a matchy-band block (5..95, floor 0); then the fleet
-cell (``chip_smoke.run_fleet_cell``, B blocks, its checks included):
-events/s and ms per block.  Each tree prints one line ``K2COMPARE
-{json}``.  Needs CUDA and nvcc; builds each tree's kernels in that tree.
+thresholds) and on a matchy-band block (5..95, floor 0), and the match
+ring's (``ops.nfa.nfa_bank_ring``, ring 32) on each block's outputs;
+then the fleet cell (``chip_smoke.run_fleet_cell``, B blocks, its
+checks included): events/s and ms per block; then the latency cell
+(``chip_smoke.run_latency_cell``, T = 4): p50, p99, compute-only.
+Each tree prints one line ``K2COMPARE {json}``.  Needs CUDA and nvcc;
+builds each tree's kernels in that tree.
 """
 from __future__ import annotations
 
@@ -62,10 +65,13 @@ def time_bank_step(cs, ops, floor, thrs, seed, dev) -> dict:
     ms = cs.median_ms(lambda: ops.nfa_bank_lanes(spec, carry, block, prm,
                                                  kp),
                       dev, sleep_cycles=5 * cs.SLEEP_CYCLES)
-    del bank, carry, block
+    out = ops.nfa_bank_lanes(spec, carry, block, prm, kp)
+    ring_ms = cs.median_ms(lambda: ops.nfa_bank_ring(*out, cs.BANK_RING),
+                           dev)
+    del bank, carry, block, out
     torch.cuda.empty_cache()
-    return {"ms": ms, "band": [float(thrs[0]), float(thrs[-1])],
-            "floor": floor}
+    return {"ms": ms, "ring_ms": ring_ms,
+            "band": [float(thrs[0]), float(thrs[-1])], "floor": floor}
 
 
 def run_tree(tree: str, n_chunks: int, seed: int, fleet_blocks: int,
@@ -94,7 +100,14 @@ def run_tree(tree: str, n_chunks: int, seed: int, fleet_blocks: int,
                         "ms_per_block": fc["wall"] / fleet_blocks * 1e3,
                         "wall_s": fc["wall"], "walls_s": fc.get("walls"),
                         "blocks": fleet_blocks,
-                        "step_ms": fc["step_ms"]}
+                        "step_ms": fc["step_ms"], "ring_ms": fc["ring_ms"]}
+        del fc
+        gc.collect()
+        torch.cuda.empty_cache()
+        lat = cs.run_latency_cell(dev, seed)
+        out["latency"] = {k: lat[k] for k in (
+            "p50_ms", "p99_ms", "compute_only_median_ms",
+            "compute_only_mad_ms")}
         gc.collect()
         torch.cuda.empty_cache()
     if not pattern:
