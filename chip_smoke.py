@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (siddhi_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--chunks N] [--queries Q] [--pattern-chunks M]
-                          [--fleet-blocks B] [--seed S]
+                          [--fleet-blocks B] [--latency-blocks L]
+                          [--count-chunks C] [--absent-blocks A] [--seed S]
 
 Run from the root of a checkout on a machine with a CUDA GPU, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA.  Phases, in order; any failure
@@ -27,10 +28,16 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      against the plain composition (plain step, then the plain
      compaction) on the card, exactly (every carry leaf; the egress
      slab's rows up to the count, column 0 of the padding rows, the tail
-     row), at the pattern cell's shape and on a forced-drop ring, K above
-     one warp, K above the register instances, a 3-unit chain, a non-every chain, two streams, no
-     `within`, an all-invalid block, a forced scratch-segment overflow, a
-     cap below the count and one skewed lane with T = 4096; the
+     row, its earliest absent deadline included), at the pattern cell's
+     shape and on a forced-drop ring, K above one warp, K above the
+     register instances, a 3-unit chain, a non-every chain, two streams,
+     no `within`, an all-invalid block, a forced scratch-segment overflow,
+     a cap below the count and one skewed lane with T = 4096, and on the
+     widened class (WIDE_CASES: kleene counts mid-chain and leading, e[k]
+     and e[last-j] banks, min == max, an unbounded max, trailing, min-0
+     after a unit; absent units mid-chain, trailing, chained, with
+     `within`; TIMER blocks between blocks; 2 and 4 slots a thread and
+     the wide ring; P = 2047; a cap below the count; a full segment); the
      compaction kernel against numpy; all timed, with the split between
      the two kernels;
   6. the pattern cell at full width — __graft_entry__.PARTITIONED_APP
@@ -39,7 +46,9 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      device engine; the query must run on the NFA kernels, every match
      row is held against an independent per-key reference; the cell's own
      peak device memory;
-  7. engine parity for the pattern app: CUDA kernel, CPU plain, host;
+  7. engine parity for the pattern apps: CUDA kernel, CPU plain, host
+     (PARTITIONED_APP, BASELINE config 4's count app; config 3's absent
+     app, whose engine TIMER rows run on the card, CUDA against CPU);
   8. the fleet cell at full size — bench.py's headline bank (BASELINE's
      "1k patterns x 10k partitions": 1000 threshold patterns, 10,000
      round-robin lanes, K = 8, T = 64, 5 stacked chunks of 200, ring 32),
@@ -54,11 +63,25 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      against the plain ring bit for bit on synthetic counts (ties
      straddling the ring-th count, ring 0, ring = P, rows not a multiple
      of 32, int32 extremes, counts to 1,000,000, rows longer than one
-     shared-memory tile), and
+     shared-memory tile), the widened banks (absent units on the thread
+     instance, alert and matchy bands, T = 64 and 4, in place and not;
+     count banks on the group instance), and
      each kernel timed (the ring on the alert and matchy blocks and at
      T = 4); then the host's enqueue of one process_block split by part;
-  9. one JSON line per the kernel table, the nvidia-smi line, and the
-     last line ``{"ok": true, "device": {...}}``.
+  9. the fleet latency cell (bench.py's bench_lat: T = 4 blocks);
+ 10. the count cell — BASELINE config 4 (`every e1=S[kind == 0]<3:10> ->
+     e2=S[kind == 1 and price > e1[last].price] within 10 sec`) over
+     100,000 string keys, C chunks of 262,144 events through the public
+     API on the NFA kernels; every row against an independent per-key
+     reference, the CPU plain composition and (the first 1,000 keys) the
+     host engine;
+ 11. the absent fleet cell — BASELINE config 3: phase 8's bank with a
+     trailing `not S[kind == 0 and price > e2.price] for 3 sec`, A blocks
+     on the bank step's thread instance and the ring; every pattern's
+     count per block against an independent reference, one block against
+     the plain bank bit for bit, every ring row a reference match;
+  then one JSON line per the kernel table, the nvidia-smi line, and the
+  last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the siddhi_tpu_torch package beside this file,
 it exits with code 2 and prints no result.  Imports nothing of JAX.
@@ -607,6 +630,81 @@ NFA_CASES = {
 }
 
 
+_S3 = "define stream S (partition int, price float, kind int);\n"
+
+#: phase-5 shapes of the widened class: kleene counts <m:n> and absent
+#: units `not ... for t` (BASELINE configs 3 and 4 among them)
+WIDE_CASES = {
+    "count mid-chain": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 "
+        "and price > e1.price]<1:3> -> e3=S[kind == 0 and price < "
+        "e2[last].price] within 10 sec select e1.price as p1, e2[0].price "
+        "as f2, e2[last].price as l2, e3.price as p3 insert into Out;"),
+    "count leading (config 4)": (
+        _S3 + "from every e1=S[kind == 0]<3:10> -> e2=S[kind == 1 and price "
+        "> e1[last].price] within 10 sec select e1[0].price as p0, "
+        "e1[last].price as pl, e2.price as p2 insert into Out;"),
+    "count leading, min 1": (
+        _S3 + "from e1=S[kind == 0 and price > 30.0]<1:4> -> e2=S[kind == 1 "
+        "and price > e1[last].price] within 10 sec select e1[0].price as "
+        "p0, e1[last].price as pl, e2.price as p2 insert into Out;"),
+    "count e[k] and e[last-j] banks": (
+        _S3 + "from every e1=S[kind == 0 and price > 60.0] -> e2=S[kind == 1]"
+        "<2:5> -> e3=S[kind == 0 and price > e2[last].price] within 10 sec "
+        "select e2[0].price as f, e2[1].price as i1, e2[last].price as l, "
+        "e2[last-1].price as m1, e3.price as p3 insert into Out;"),
+    "count min == max": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1]"
+        "<2:2> -> e3=S[kind == 0] within 10 sec select e1.price as p1, "
+        "e2[last].price as l2, e3.price as p3 insert into Out;"),
+    "count max COUNT_INF": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1]"
+        "<2:> -> e3=S[kind == 0 and price > 90.0] within 10 sec select "
+        "e1.price as p1, e2[last].price as l2 insert into Out;"),
+    "count trailing": (
+        _S3 + "from every e1=S[kind == 0 and price > 70.0] -> e2=S[kind == 1 "
+        "and price > e1.price]<2:3> within 10 sec select e1.price as p1, "
+        "e2[last].price as l2 insert into Out;"),
+    "min-0 count after a unit": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 "
+        "and price < 30.0]<0:3> -> e3=S[kind == 1 and price > 80.0] within "
+        "10 sec select e1.price as p1, e2.price as p2, e3.price as p3 "
+        "insert into Out;"),
+    "min-0 count after an absent": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> not S[kind == 1 "
+        "and price > 90.0] for 2 sec -> e2=S[kind == 0 and price < 30.0]"
+        "<0:2> -> e3=S[kind == 1 and price > 60.0] within 10 sec select "
+        "e1.price as p1, e3.price as p3 insert into Out;"),
+    "absent mid-chain": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> not S[kind == 1 "
+        "and price > e1.price] for 2 sec -> e3=S[kind == 0 and price < "
+        "e1.price] within 10 sec select e1.price as p1, e3.price as p3 "
+        "insert into Out;"),
+    "absent trailing (config 3)": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 "
+        "and price > e1.price and price > 60.0] -> not S[kind == 0 and price "
+        "> e2.price] for 3 sec within 40000 milliseconds select e1.price as "
+        "p1, e2.price as p2 insert into Out;"),
+    "absent chain": (
+        _S3 + "from every e1=S[kind == 0 and price > 70.0] -> not S[kind == 1 "
+        "and price > 80.0] for 1500 milliseconds -> not S[kind == 0 and "
+        "price < 10.0] for 1 sec select e1.price as p1 insert into Out;"),
+    "absent + within": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 "
+        "and price > e1.price] -> not S[kind == 0 and price > 95.0] for "
+        "3 sec within 4 sec select e1.price as p1, e2.price as p2 insert "
+        "into Out;"),
+    # rare completions: partials pile up past 32, 64 and 128 a lane
+    "count, rare": (
+        _S3 + "from every e1=S[kind == 0] -> e2=S[kind == 1 and price > 99.0 "
+        "and price > e1.price]<2:3> within 10 sec select e1.price as p1, "
+        "e2[0].price as f2, e2[last].price as l2 insert into Out;"),
+    "absent, rare": (
+        _S3 + "from every e1=S[kind == 0] -> not S[kind == 1 and price > 99.5]"
+        " for 5 sec within 10 sec select e1.price as p1 insert into Out;"),
+}
+
+
 def pattern_query(app_text: str) -> str:
     """The pattern query of a partitioned app, as a plain app (the NFA
     engine's own input)."""
@@ -744,10 +842,12 @@ def check_nfa(t_main, dev, seed):
     difference (0.0 when equal)."""
     import torch
     from siddhi_tpu_torch.ops.nfa import (egress_pack_plain,
+                                          make_timer_block,
                                           nfa_block_step_plain, nfa_compact,
                                           nfa_step_egress)
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
     main = pattern_query(PARTITIONED_APP)
+    wide = WIDE_CASES
     cases = [  # (name, app, P, T, K, blocks, valid, gap ms, options)
         ("main", main, PATTERN_LANES, t_main, PATTERN_SLOTS, 2, True, 1000,
          {}),
@@ -767,8 +867,35 @@ def check_nfa(t_main, dev, seed):
          True, 1000, {"cap": "half"}),
         ("skewed lane", main, 2048, 4096, PATTERN_SLOTS, 1, True, 1,
          {"skew": True}),
+    ] + [(n, a, 2048, 64, 8, 2, True, 1000, {"timer": True})
+         for n, a in wide.items() if "rare" not in n] + [
+        # the widened kinds in every slot instance: 2 and 4 slots a
+        # thread, and the wide ring (K > 128)
+        ("count, rare K=40", wide["count, rare"], 1024, 200, 40, 2, True,
+         10, {"live": 32}),
+        ("absent, rare K=100", wide["absent, rare"], 512, 300, 100, 2, True,
+         10, {"timer": True, "live": 64}),
+        ("count, rare K=160 wide ring", wide["count, rare"], 256, 600, 160,
+         1, True, 10, {"live": 128}),
+        ("absent, rare K=160 wide ring", wide["absent, rare"], 256, 900, 160,
+         1, True, 10, {"timer": True, "live": 128}),
+        ("absent trailing K=160 wide ring", wide["absent trailing (config 3)"],
+         256, 600, 160, 1, True, 10, {"timer": True}),
+        ("count banks K=40", wide["count e[k] and e[last-j] banks"], 1024,
+         200, 40, 2, True, 10, {}),
+        # P not a multiple of a CTA's lanes; a cap below the count (the
+        # compaction re-run, the tail's deadline with it); a full scratch
+        # segment; the TIMER block alone
+        ("absent trailing P=2047, cap below count",
+         wide["absent trailing (config 3)"], 2047, 64, 8, 2, True, 1000,
+         {"cap": "half", "timer": True}),
+        ("count leading P=2047, scratch overflow",
+         wide["count leading (config 4)"], 2047, 64, 8, 2, True, 1000,
+         {"seg": 1}),
+        ("absent mid-chain, matchy (gap 300 ms)", wide["absent mid-chain"],
+         2048, 128, 16, 2, True, 300, {"timer": True}),
     ]
-    nan_cases = {"chain3"}      # NaN prices through gates and compares
+    nan_cases = {"chain3", "count mid-chain", "absent mid-chain"}
     worst = 0.0
     launches0 = (nfa_step_egress.launches, nfa_compact.launches)
     for i, (name, app, P, T, K, n_blocks, valid, gap, opt) in \
@@ -776,9 +903,18 @@ def check_nfa(t_main, dev, seed):
         nfa = CompiledPatternNFA(app, n_partitions=P, n_slots=K, device=dev)
         ck = cp = nfa.carry
         matches = hi = reruns = repacks = hot = 0
-        for blk in _nfa_blocks(nfa, P, T, n_blocks, seed + i, dev, valid,
-                               gap, nan=name in nan_cases,
-                               skew=opt.get("skew", False)):
+        feed = []
+        for b, blk in enumerate(_nfa_blocks(nfa, P, T, n_blocks, seed + i,
+                                            dev, valid, gap,
+                                            nan=name in nan_cases,
+                                            skew=opt.get("skew", False))):
+            feed.append(blk)
+            if opt.get("timer"):        # a TIMER row a lane (T = 1)
+                tb = make_timer_block(P, (b + 1) * T * gap - 1,
+                                      nfa.attr_names)
+                feed.append(nfa.to_device(tb))
+        absent = "deadline" in nfa.carry
+        for blk in feed:
             new_p, outs = nfa_block_step_plain(nfa.spec, cp, blk)
             count = int(outs[0].sum())
             cap = max(count // 2, 1) if opt.get("cap") == "half" else 1024
@@ -804,8 +940,10 @@ def check_nfa(t_main, dev, seed):
             for c in caps:
                 got = buf if c == cap else eg.repack(c)
                 repacks += c != cap
-                want = egress_pack_plain(nfa.spec, *outs, new_p["dropped"],
-                                         cap=c)
+                want = egress_pack_plain(
+                    nfa.spec, *outs, new_p["dropped"],
+                    new_p["slot_state"] if absent else None,
+                    new_p["deadline"] if absent else None, cap=c)
                 if int(got[-2, 0]) != count or not _slab_equal(got, want, c):
                     raise AssertionError(
                         f"nfa_step egress != plain: {name} cap {c} (P={P} "
@@ -836,7 +974,13 @@ def check_nfa(t_main, dev, seed):
             raise AssertionError("no block's count passed its cap")
         if name == "skewed lane" and hot < 200:
             raise AssertionError(f"skewed lane: {hot} matches in lane 0")
+        if hi <= opt.get("live", -1):
+            raise AssertionError(f"{name}: at most {hi} partials in a lane "
+                                 f"(needs > {opt['live']})")
+        if name in wide and matches == 0:
+            raise AssertionError(f"{name}: no match")
         tag = " (NaN prices)" if name in nan_cases else ""
+        tag += " (+ TIMER blocks)" if opt.get("timer") else ""
         log(f"  nfa_step+compact == plain  {name}{tag}: P={P} T={T} K={K} "
             f"blocks={n_blocks} matches={matches} dropped={dropped} most "
             f"live in a lane={hi} (lane 0: {hot} matches) segment re-runs="
@@ -846,20 +990,34 @@ def check_nfa(t_main, dev, seed):
     return len(cases), worst
 
 
+def slot_words(spec) -> int:
+    """int32 words of one slot's carry besides its captures: state,
+    start, enter, seq, and cnt_cur and cnt_prev with count units and the
+    deadline with absent units."""
+    kinds = {u.kind for u in spec.units}
+    return 4 + 2 * ("count" in kinds) + ("absent" in kinds)
+
+
 def nfa_bound(P, T, K, spec, kprog, cond_cmps, count, cap):
     """(bound ms, bound_by) of one fused step: the bytes the function must
     move — the block's inputs read once, the carry read once and written
-    once, the egress slab written once (the matched rows, column 0 of the
-    rows past the count, the tail and status rows) — over HBM3's rate,
-    against its compares (within check, state, stream, gate and each
-    table compare per event and slot) over the float32 peak."""
+    once (every leaf: count and deadline words included), the egress slab
+    written once (the matched rows, column 0 of the rows past the count,
+    the tail and status rows) and, with absent units, the tail's earliest
+    deadline reduced through one word a CTA written and read — over
+    HBM3's rate, against its compares (within check, state, stream, gate
+    and each table compare per event and slot) over the float32 peak."""
+    from siddhi_tpu_torch.ops.nfa import kernel_geometry
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
     W = 4 + R * C
     n_lanes = len(kprog.kern_attrs)
     n_gates = len(spec.cond_fns)
     inputs = P * T * (4 * n_lanes + 4 + 4 + 1 + n_gates)
-    carry = P * K * (4 * 4 + 4 * R * C) + P * 4 * (2 + int(spec.arm_once))
+    carry = P * K * 4 * (slot_words(spec) + R * C) + \
+        P * 4 * (2 + int(spec.arm_once))
     slab = min(count, cap) * W * 4 + max(cap - count, 0) * 4 + 2 * W * 4
+    if any(u.kind == "absent" for u in spec.units):
+        slab += 2 * 4 * -(-P // kernel_geometry(K)[1])
     nbytes = inputs + 2 * carry + slab
     ops = P * T * K * (4 + cond_cmps)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1121,16 +1279,49 @@ def run_pattern_path(chunks, dev):
 
 # ------------------------------------------------------------------ phase 7
 
+#: phase 7's absent app: config 3's pattern as one partitioned query (the
+#: engine's TIMER rows complete what no later event of a key does)
+ABSENT_PARITY_APP = """
+@app:playback
+define stream S (partition int, price float, kind int);
+partition with (partition of S) begin
+@info(name='q')
+from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 and price > e1.price and price > 60.0]
+    -> not S[kind == 0 and price > e2.price] for 3 sec
+    within 40000 milliseconds
+select e1.price as p1, e2.price as p2
+insert into Out;
+end;
+"""
+
+
 def pattern_parity(dev, seed):
-    """A small feed through the pattern app on CUDA (kernel), on the CPU
-    (plain step) and through the host engine: the same rows."""
+    """Small feeds through the pattern apps on CUDA (kernels), on the CPU
+    (plain step) and through the host engine: PARTITIONED_APP and
+    BASELINE config 4's count app give the same rows on all three; config
+    3's absent app (whose matches the engine's TIMER rows complete on the
+    card) the same rows on CUDA and the CPU, in order.  (The reference's
+    host engine is no oracle for absent units: the JAX package's host and
+    device engines disagree on them.)"""
     import torch
     from siddhi_tpu_torch import SiddhiManager, StreamCallback
     from siddhi_tpu_torch.ops.nfa import nfa_compact, nfa_step_egress
-    feed = make_pattern_chunks(seed + 5, 4, n_keys=16, chunk=500)
+    rng = np.random.default_rng(seed + 6)
+    spaced = []
+    for c in range(4):                    # 97 ms apart: the waits elapse
+        spaced.append(({"partition": rng.integers(0, 16, 500).astype(np.int32),
+                        "price": rng.uniform(0, 100, 500).astype(np.float32),
+                        "kind": rng.integers(0, 2, 500).astype(np.int32)},
+                       PATTERN_BASE_TS + (c * 500 + np.arange(500)) * 97))
+    apps = [("pattern", PARTITIONED_APP,
+             make_pattern_chunks(seed + 5, 4, n_keys=16, chunk=500), True),
+            ("count (config 4)", COUNT_APP,
+             [c[:2] for c in make_count_chunks(seed + 5, 4, n_keys=16,
+                                               chunk=500)], True),
+            ("absent (config 3)", ABSENT_PARITY_APP, spaced, False)]
 
-    def run(device, engine):
-        text = f"@app:engine('{engine}')\n" + PARTITIONED_APP
+    def run(text, feed, device, engine):
+        text = f"@app:engine('{engine}')\n" + text
         rt = SiddhiManager(device=device).create_siddhi_app_runtime(text)
         out = []
         rt.add_callback("Out", StreamCallback(
@@ -1140,29 +1331,38 @@ def pattern_parity(dev, seed):
         h = rt.get_input_handler("S")
         for cols, ts in feed:
             h.send_batch(cols, timestamps=ts)
-        mode = rt.partition_runtimes[0].device_mode
+        pr = rt.partition_runtimes[0]
+        on_dev = pr.device_mode and all(
+            q.backend == "device" for q in pr.device_query_runtimes.values())
         rt.shutdown()
-        return out, mode
+        return out, on_dev
 
-    launches0 = (nfa_step_egress.launches, nfa_compact.launches)
-    cuda_rows, on_dev = run(dev, "device")
-    if nfa_step_egress.launches == launches0[0] or \
-            nfa_compact.launches == launches0[1]:
-        raise AssertionError("pattern parity: the CUDA run launched no "
-                             "nfa_step or no nfa_compact")
-    nfa_step_egress.launches, nfa_compact.launches = launches0
-    torch.cuda.synchronize()
-    cpu_rows, _ = run("cpu", "device")
-    host_rows, on_host_dev = run(dev, "host")
-    if not on_dev or on_host_dev:
-        raise AssertionError("engine selection did not hold")
-    if cuda_rows != cpu_rows:
-        raise AssertionError("pattern: CUDA rows != CPU plain rows")
-    if sorted(cuda_rows) != sorted(host_rows):
-        raise AssertionError(f"pattern: device {len(cuda_rows)} rows != host "
-                             f"{len(host_rows)} rows")
-    log(f"  pattern: {len(cuda_rows)} rows; CUDA == CPU plain (in order) == "
-        f"host engine (sorted), exactly")
+    for name, text, feed, with_host in apps:
+        launches0 = (nfa_step_egress.launches, nfa_compact.launches)
+        cuda_rows, on_dev = run(text, feed, dev, "device")
+        if nfa_step_egress.launches == launches0[0] or \
+                nfa_compact.launches == launches0[1]:
+            raise AssertionError(f"{name} parity: the CUDA run launched no "
+                                 f"nfa_step or no nfa_compact")
+        nfa_step_egress.launches, nfa_compact.launches = launches0
+        torch.cuda.synchronize()
+        cpu_rows, _ = run(text, feed, "cpu", "device")
+        if not on_dev:
+            raise AssertionError(f"{name}: not on the device engine")
+        if cuda_rows != cpu_rows or not cuda_rows:
+            raise AssertionError(f"{name}: CUDA {len(cuda_rows)} rows != "
+                                 f"CPU plain {len(cpu_rows)} rows")
+        tail = "in order"
+        if with_host:
+            host_rows, on_host_dev = run(text, feed, dev, "host")
+            if on_host_dev:
+                raise AssertionError("engine selection did not hold")
+            if sorted(cuda_rows) != sorted(host_rows):
+                raise AssertionError(f"{name}: device {len(cuda_rows)} rows "
+                                     f"!= host {len(host_rows)} rows")
+            tail += " == host engine (sorted)"
+        log(f"  {name}: {len(cuda_rows)} rows; CUDA == CPU plain ({tail}), "
+            f"exactly")
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1193,6 +1393,42 @@ def bank_app(thr, floor=BANK_FLOOR, within_ms=BANK_WITHIN_MS) -> str:
     from every e1=S[kind == 0 and price > {thr}] -> e2=S[kind == 1 and price > e1.price and price > {floor}]
         within {within_ms} milliseconds
     select e1.price as p1, e2.price as p2
+    insert into Out;
+    """
+
+
+#: BASELINE.json config 3 ("1k compiled `every A -> B -> not C within t`
+#: NFAs, shared 10k-key partitioned stream"): bench.py's bank pattern with a
+#: trailing absent unit, its wait bench.py's engine absent row's
+#: (bench_engine_absent, `for 3 sec`)
+ABSENT_WAIT_MS = 3_000
+
+
+def absent_bank_app(thr, floor=BANK_FLOOR, within_ms=BANK_WITHIN_MS,
+                    wait_ms=ABSENT_WAIT_MS) -> str:
+    """bench.py app_for with config 3's trailing `not C for t`."""
+    return f"""
+    define stream S (partition int, price float, kind int);
+    @info(name='q')
+    from every e1=S[kind == 0 and price > {thr}] -> e2=S[kind == 1 and price > e1.price and price > {floor}]
+        -> not S[kind == 0 and price > e2.price] for {wait_ms} milliseconds
+        within {within_ms} milliseconds
+    select e1.price as p1, e2.price as p2
+    insert into Out;
+    """
+
+
+def count_bank_app(thr, within_ms=BANK_WITHIN_MS) -> str:
+    """A kleene count bank (the group instance's class): bench.py's
+    pattern with e2 a count of 2..3 events reading e1's capture, and e3
+    its [last] bank."""
+    return f"""
+    define stream S (partition int, price float, kind int);
+    @info(name='q')
+    from every e1=S[kind == 0 and price > {thr}] -> e2=S[kind == 1 and price > e1.price]<2:3>
+        -> e3=S[kind == 0 and price < e2[last].price]
+        within {within_ms} milliseconds
+    select e1.price as p1, e2[last].price as p2
     insert into Out;
     """
 
@@ -1244,6 +1480,54 @@ def bank_block_reference(blocks, thrs, floor=BANK_FLOOR, gap=BANK_GAP_MS,
         x = np.sort(p1[blk == b])
         counts[b] = len(x) - np.searchsorted(x, t32, side="right")
     return counts, price, kind
+
+
+def absent_block_reference(blocks, thrs, floor=BANK_FLOOR, gap=BANK_GAP_MS,
+                           within_ms=BANK_WITHIN_MS,
+                           wait_ms=ABSENT_WAIT_MS):
+    """Independent reference of the absent bank (:func:`absent_bank_app`)
+    over the lane streams, per block: an arm (a `kind == 0` event) takes
+    the first later event of its lane within `within` with kind 1 and a
+    price above both its own and float32(floor) as its e2, as in
+    :func:`bank_block_reference`; it then waits `wait` from e2's ts.  An
+    event of the lane before the wait ends, or the first one at or after
+    it, with kind 0 and a price above e2's kills it; the first event at or
+    after the wait completes it (the match lands in that event's block)
+    unless it is more than `within` after the arm or kills it.  A match
+    of pattern i when the arm's price is above float32(thr_i).  → (matches
+    [blocks, patterns], per-lane price and kind [P, events], the
+    completing event of each arm [P, events] (-1: none))."""
+    price = np.concatenate([b["price"] for b in blocks], axis=1)
+    kind = np.concatenate([b["kind"] for b in blocks], axis=1)
+    T = blocks[0]["price"].shape[1]
+    n = price.shape[1]
+    lo = np.maximum(price, np.float32(floor))
+    e2 = np.full(price.shape, -1, np.int64)     # each arm's e2
+    for d in range(1, within_ms // gap + 1):
+        hit = (kind[:, d:] == 1) & (price[:, d:] > lo[:, :-d])
+        first = hit & (e2[:, :-d] < 0)
+        e2[:, :-d][first] = np.nonzero(first)[1] + d
+    done = np.full(price.shape, -1, np.int64)   # the completing event
+    arm = (kind == 0) & (e2 >= 0)
+    lane, j1 = np.nonzero(arm)
+    j2 = e2[lane, j1]
+    wait_ev = -(-wait_ms // gap)                # events until the wait ends
+    alive = np.ones(len(lane), bool)
+    for d in range(1, wait_ev + 1):
+        e = j2 + d
+        ok = e < n
+        ec = np.minimum(e, n - 1)
+        alive &= ok & ((ec - j1) * gap <= within_ms)
+        alive &= ~((kind[lane, ec] == 0) &
+                   (price[lane, ec] > price[lane, j2]))
+    done[lane[alive], j1[alive]] = (j2 + wait_ev)[alive]
+    p1, blk = price[done >= 0], done[done >= 0] // T
+    t32 = np.asarray(thrs, np.float32)
+    counts = np.zeros((len(blocks), len(t32)), np.int64)
+    for b in range(len(blocks)):
+        x = np.sort(p1[blk == b])
+        counts[b] = len(x) - np.searchsorted(x, t32, side="right")
+    return counts, price, kind, done
 
 
 def bank_reference(blocks, thrs, floor=BANK_FLOOR, gap=BANK_GAP_MS,
@@ -1506,8 +1790,88 @@ def check_bank(dev, seed, main_bank, main_block):
         f"{used[1] - launches0[1]}, group instance {used[2] - launches0[2]}")
     if used[1] == launches0[1] or used[2] == launches0[2]:
         raise AssertionError("bank checks did not run both instances")
+    n, w = check_widened_banks(dev, seed)
     set_bank_launches(launches0)
-    return cases, main_out, worst, stk, mblk
+    return cases + n, main_out, max(worst, w), stk, mblk
+
+
+def check_widened_banks(dev, seed):
+    """The bank kernels against the plain bank step bit for bit on the
+    widened class: the absent bank (absent_bank_app) on the thread
+    instance, alert and matchy bands, T = 64 and T = 4, in place and not;
+    count banks (count_bank_app, and config 4's leading count) on the
+    group instance.  Each instance's launch counter must rise.  → (cases,
+    the largest absolute difference measured)."""
+    import torch
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    worst, cases = 0.0, 0
+    P = 2048
+    before = bank_launches()
+    for band, lo, hi, floor in (("alert", 99.8, 99.997, BANK_FLOOR),
+                                ("matchy", 5.0, 95.0, 0.0)):
+        apps = [absent_bank_app(t, floor=floor)
+                for t in np.linspace(lo, hi, 40)]
+        for replayable in (False, True):
+            for T_, n_blocks in ((BANK_T, 3), (4, 12)):
+                ab = CompiledPatternBank(apps, n_partitions=P,
+                                         n_slots=BANK_K, pattern_chunk=20,
+                                         ring=BANK_RING,
+                                         replayable=replayable, device=dev)
+                rng = np.random.default_rng(seed + 30 + T_)
+                matches = 0
+                for raw in bank_blocks(rng, n_blocks, P=P, T=T_, gap=P):
+                    blk = ab.nfa.to_device(raw)
+                    pre = _snapshot(ab)
+                    got = ab.process_block(blk)
+                    new_p, want = _bank_plain(ab, pre, blk)
+                    torch.cuda.synchronize()
+                    worst = max(worst, _bank_outputs_equal(
+                        f"absent {band} T={T_}", got, want, _carry(ab),
+                        new_p))
+                    matches += int(want[0].sum())
+                mode = "not in place" if replayable else "in place"
+                log(f"  bank == plain  absent units, {band} band, T={T_}, "
+                    f"{mode}: N=40 P={P} x {n_blocks} blocks, {matches} "
+                    f"matches, dropped {ab.total_dropped()}")
+                if band == "matchy" and not matches:
+                    raise AssertionError("absent matchy bank matched nothing")
+                cases += 1
+    mid = bank_launches()
+    count_apps = {
+        "count mid-chain": [count_bank_app(t)
+                            for t in np.linspace(5.0, 95.0, 8)],
+        "count leading (config 4)": [
+            _S3 + f"from every e1=S[kind == 0 and price > {t}]<3:10> -> "
+            "e2=S[kind == 1 and price > e1[last].price] within 10 sec "
+            "select e1[0].price as p0, e1[last].price as pl, e2.price as p2 "
+            "insert into Out;" for t in np.linspace(5.0, 60.0, 8)]}
+    for name, apps in count_apps.items():
+        cb = CompiledPatternBank(apps, n_partitions=1024, n_slots=BANK_K,
+                                 pattern_chunk=4, ring=BANK_RING, device=dev)
+        matches = 0
+        for raw in bank_blocks(np.random.default_rng(seed + 40), 3, P=1024,
+                               gap=1024):
+            blk = cb.nfa.to_device(raw)
+            pre = _snapshot(cb)
+            got = cb.process_block(blk)
+            new_p, want = _bank_plain(cb, pre, blk)
+            torch.cuda.synchronize()
+            worst = max(worst, _bank_outputs_equal(
+                name, got, want, _carry(cb), new_p))
+            matches += int(want[0].sum())
+        if not matches:
+            raise AssertionError(f"{name} bank matched nothing")
+        log(f"  bank == plain  {name} (group instance): N=8 P=1024 T=64 x 3 "
+            f"blocks, {matches} matches")
+        cases += 1
+    end = bank_launches()
+    if mid[1] == before[1] or mid[2] != before[2] or end[2] == mid[2] or \
+            end[1] != mid[1]:
+        raise AssertionError(f"widened bank checks: thread instance "
+                             f"{mid[1] - before[1]} launches for absent, "
+                             f"group {end[2] - mid[2]} for counts (each > 0, "
+                             f"the other 0)")
+    return cases, worst
 
 
 def bank_step_bound(bank, P, T):
@@ -1520,7 +1884,7 @@ def bank_step_bound(bank, P, T):
     spec, kp = bank.nfa.spec, bank.nfa.kprog
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
     K, CN = spec.n_slots, bank.n_patterns
-    carry = CN * (P * K * (4 * 4 + 4 * R * C) +
+    carry = CN * (P * K * 4 * (slot_words(spec) + R * C) +
                   P * 4 * (2 + int(spec.arm_once)))
     nbytes = _bank_input_bytes(bank, P, T) + 2 * carry + 3 * CN * P * 4
     cmps = max(len(c) + len(q) for c, q in zip(kp.cmp, kp.pcmp))
@@ -1553,7 +1917,9 @@ def bank_inplace_bound(bank, pre, post, block):
     completed) its state written; each lane scalar (arm_seq, dropped,
     armed_total) that changed read and written; count / lmt / lmk
     written.  A lane that armed from empty reads none of its cold words;
-    one that only expired writes only its states."""
+    one that only expired writes only its states.  With absent units,
+    every slot waiting at one reads its deadline (the deadline pass), and
+    every deadline set here is written."""
     import torch
     spec = bank.nfa.spec
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
@@ -1578,6 +1944,15 @@ def bank_inplace_bound(bank, pre, post, block):
         int(rewritten.sum()) * (4 * 4 + 4 * R * C) + \
         int((rewritten & live).sum()) * 4 * R * C + \
         int(expired.sum()) * 4 + scalars * 8 + 3 * lanes * 4
+    for k in ("cnt_cur", "cnt_prev", "deadline"):
+        if k in pre:
+            nbytes += int(diff(k, K).sum()) * 4
+    if "deadline" in pre:
+        absent = torch.tensor([u.kind == "absent" for u in spec.units] +
+                              [False], device=pre["slot_state"].device)
+        st = pre["slot_state"]
+        nbytes += int((absent[st.clamp(0, len(spec.units)).long()] &
+                       (st >= 0)).sum()) * 4
     return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -1856,6 +2231,79 @@ def host_split(bank, block, dev):
     return out
 
 
+def fleet_window(bank, staged, n_blocks, repeats):
+    """A fleet cell's timed window over ``staged`` blocks 1..n_blocks (0
+    is the warm-up, already run): each block through
+    CompiledPatternBank.process_block, its ring packed into one buffer,
+    then the one device-to-host read of every block's packed ring and
+    decode_ring, as bench.py's throughput phase does.  The window runs
+    ``repeats`` times without the profiler, each from the same carry and
+    each equal to the first bit for bit (the launch counts from the
+    first), then once under the profiler.  → {walls, host (the packed
+    rings read), payloads (decoded), launches, peak (device memory of
+    the first run), wall_p, per_kernel, dev_us (the profiled pass)}."""
+    import torch
+    spec = bank.nfa.spec
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    r = bank.ring
+    N = bank.n_patterns
+    W = 1 + 4 * r + r * R * C
+    buf = torch.zeros((n_blocks, N, W), dtype=torch.int32,
+                      device=staged[0]["__ts"].device)
+    torch.cuda.synchronize()
+
+    def drive():
+        payloads = []
+        start = time.perf_counter()
+        for i in range(1, n_blocks + 1):
+            counts, rcnt, rpid, rcaps, rts, rok = bank.process_block(
+                staged[i])
+            buf[i - 1] = torch.cat(
+                [counts[:, None], rcnt, rpid, rts, rok.to(torch.int32),
+                 rcaps.view(torch.int32).reshape(N, -1)], dim=1)
+        host = buf.cpu().numpy()              # the one D2H, a barrier
+        for b in range(n_blocks):
+            h = host[b]
+            payloads.append(bank.decode_ring(
+                h[:, 1:1 + r], h[:, 1 + r:1 + 2 * r],
+                h[:, 1 + 4 * r:].view(np.float32).reshape(N, r, R, C),
+                h[:, 1 + 2 * r:1 + 3 * r], h[:, 1 + 3 * r:1 + 4 * r] != 0))
+        return time.perf_counter() - start, host, payloads
+
+    # the timed runs go without the profiler; each repeat and the
+    # profiled pass replay the same blocks from the same carry (kept on
+    # the host, so the cell's peak device memory holds no copy of it) and
+    # must give the same bits
+    assert bank.stacked
+    pre = {k: v.cpu().pin_memory() for k, v in bank._stack_carry.items()}
+
+    def replay(fn, what):
+        for k, v in bank._stack_carry.items():
+            v.copy_(pre[k])
+        torch.cuda.synchronize()
+        res = fn()
+        torch.cuda.synchronize()
+        got = res[0] if isinstance(res[0], tuple) else res
+        if not np.array_equal(got[1], host) or not all(
+                _same_bits(bank._stack_carry[k], post[k]) for k in post):
+            raise AssertionError(f"fleet cell: {what} over the same blocks "
+                                 f"differs from the first timed run")
+        return res
+    set_bank_launches()                       # counts start here
+    wall, host, payloads = drive()
+    launches = bank_launches()
+    peak = torch.cuda.max_memory_allocated()
+    post = {k: v.clone() for k, v in bank._stack_carry.items()}
+    walls = [wall] + [replay(drive, f"timed run {i + 2}")[0]
+                      for i in range(repeats - 1)]
+    (wall_p, _, _), per_kernel, dev_us = replay(
+        lambda: profile_device(drive), "the profiled pass")
+    del pre, post, buf
+    return {"walls": walls, "host": host, "payloads": payloads,
+            "launches": launches, "peak": peak, "wall_p": wall_p,
+            "per_kernel": per_kernel, "dev_us": dev_us}
+
+
 def run_fleet_cell(dev, seed, n_blocks):
     """The fleet cell: bench.py's headline bank (1000 patterns x 10,000
     partitions, K = 8, T = 64, chunks of 200 stacked, ring 32) through
@@ -1896,62 +2344,12 @@ def run_fleet_cell(dev, seed, n_blocks):
     torch.cuda.synchronize()
     log(f"  {n_blocks + 2} blocks made and staged in "
         f"{time.perf_counter() - t0:.3f} s")
-    spec = bank.nfa.spec
-    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
-    r = BANK_RING
-    W = 1 + 4 * r + r * R * C
     out0 = bank.process_block(staged[0])      # warm-up
     counts_total = out0[0].long().cpu().numpy()
-    buf = torch.zeros((n_blocks, N_BANK, W), dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-
-    def drive():
-        payloads = []
-        start = time.perf_counter()
-        for i in range(1, n_blocks + 1):
-            counts, rcnt, rpid, rcaps, rts, rok = bank.process_block(
-                staged[i])
-            buf[i - 1] = torch.cat(
-                [counts[:, None], rcnt, rpid, rts, rok.to(torch.int32),
-                 rcaps.view(torch.int32).reshape(N_BANK, -1)], dim=1)
-        host = buf.cpu().numpy()              # the one D2H, a barrier
-        for b in range(n_blocks):
-            h = host[b]
-            payloads.append(bank.decode_ring(
-                h[:, 1:1 + r], h[:, 1 + r:1 + 2 * r],
-                h[:, 1 + 4 * r:].view(np.float32).reshape(N_BANK, r, R, C),
-                h[:, 1 + 2 * r:1 + 3 * r], h[:, 1 + 3 * r:1 + 4 * r] != 0))
-        return time.perf_counter() - start, host, payloads
-
-    # the timed runs go without the profiler; each repeat and the
-    # profiled pass replay the same blocks from the same carry (kept on
-    # the host, so the cell's peak device memory holds no copy of it) and
-    # must give the same bits
-    assert bank.stacked
-    pre = {k: v.cpu().pin_memory() for k, v in bank._stack_carry.items()}
-
-    def replay(fn, what):
-        for k, v in bank._stack_carry.items():
-            v.copy_(pre[k])
-        torch.cuda.synchronize()
-        res = fn()
-        torch.cuda.synchronize()
-        got = res[0] if isinstance(res[0], tuple) else res
-        if not np.array_equal(got[1], host) or not all(
-                _same_bits(bank._stack_carry[k], post[k]) for k in post):
-            raise AssertionError(f"fleet cell: {what} over the same blocks "
-                                 f"differs from the first timed run")
-        return res
-    set_bank_launches()                       # counts start here
-    wall, host, payloads = drive()
-    launches = bank_launches()
-    peak_cell = torch.cuda.max_memory_allocated()
-    post = {k: v.clone() for k, v in bank._stack_carry.items()}
-    walls = [wall] + [replay(drive, f"timed run {i + 2}")[0]
-                      for i in range(FLEET_REPEATS - 1)]
-    (wall_p, _, _), per_kernel, dev_us = replay(
-        lambda: profile_device(drive), "the profiled pass")
-    del pre, post
+    fw = fleet_window(bank, staged, n_blocks, FLEET_REPEATS)
+    walls, host, payloads = fw["walls"], fw["host"], fw["payloads"]
+    launches, peak_cell = fw["launches"], fw["peak"]
+    wall_p, per_kernel, dev_us = fw["wall_p"], fw["per_kernel"], fw["dev_us"]
     wall = float(np.median(walls))
     counts_total += host[:, :, 0].astype(np.int64).sum(axis=0)
     n_events = n_blocks * BANK_P * BANK_T
@@ -2172,15 +2570,550 @@ def run_latency_cell(dev, seed, n_blocks=LAT_BLOCKS):
     return res
 
 
+# ------------------------------------------------------------------ phase 10
+
+#: BASELINE.json config 4 ("Kleene-closure pattern `A[3:10] -> B` with
+#: per-partition counter state, 100k keys") as a partitioned app
+COUNT_APP = """
+@app:playback
+define stream S (sym string, price float, kind int);
+partition with (sym of S) begin
+@info(name='q')
+from every e1=S[kind == 0]<3:10> -> e2=S[kind == 1 and price > e1[last].price] within 10 sec
+select e1[0].price as p0, e1[last].price as pl, e2.price as p2 insert into Out;
+end;
+"""
+N_COUNT_KEYS = 100_000
+COUNT_MIN, COUNT_MAX, COUNT_WITHIN_MS = 3, 10, 10_000
+#: the count cell's stream: 100 events a ms (100,000 events/s), so each
+#: of the 100,000 keys sees about an event a second and a chain of 3..10
+#: A and a B fits in `within 10 sec` (1 ms apart, a key's events would be
+#: 100 s apart and every chain would expire)
+COUNT_EVENTS_PER_MS = 100
+#: keys whose rows are held against the host engine
+COUNT_HOST_KEYS = 1_000
+
+
+def count_app(app_text=COUNT_APP) -> str:
+    """The count cell's app: COUNT_APP with @app:lanes and the @Async
+    input junction of the pattern cell."""
+    return ("@app:name('count')\n"
+            f"@app:lanes('{N_COUNT_KEYS}')\n" +
+            app_text.replace(
+                "define stream",
+                f"@Async(buffer.size='64', batch.size.max='{CHUNK}')\n"
+                "define stream", 1))
+
+
+def make_count_chunks(seed: int, n_chunks: int, n_keys=N_COUNT_KEYS,
+                      chunk=CHUNK):
+    """The count cell's feed, the pattern cell's shape: per chunk
+    (columns, timestamps, key index) with string keys drawn uniformly
+    from n_keys, price uniform in [0, 100), kind uniform in {0, 1},
+    COUNT_EVENTS_PER_MS events a ms from 1,000,000."""
+    rng = np.random.default_rng(seed + 20)
+    names = np.asarray([f"k{i:06d}" for i in range(n_keys)], object)
+    out = []
+    for c in range(n_chunks):
+        ki = rng.integers(0, n_keys, chunk)
+        out.append(({"sym": names[ki],
+                     "price": rng.uniform(0, 100, chunk).astype(np.float32),
+                     "kind": rng.integers(0, 2, chunk).astype(np.int32)},
+                    PATTERN_BASE_TS + (c * chunk + np.arange(
+                        chunk, dtype=np.int64)) // COUNT_EVENTS_PER_MS, ki))
+    return out
+
+
+def count_reference(chunks, lo=COUNT_MIN, hi=COUNT_MAX,
+                    within_ms=COUNT_WITHIN_MS):
+    """Independent reference of COUNT_APP, per key in Python: the key's
+    first `kind == 0` event arms its one chain (a leading `every` count
+    arms once a partition); each later `kind == 0` event appends until
+    `lo` events, when the chain waits for B with the count forwarded; while
+    it waits, a `kind == 0` event appends up to `hi` events (the last
+    price moves), and the first `kind == 1` event with a price above the
+    last appended price completes it — unless it comes more than `within`
+    after the arm, which ends the chain.  → rows (ts, p0, pl, p2), one at
+    most a key, sorted."""
+    keys = np.concatenate([c[2] for c in chunks])
+    price = np.concatenate([c[0]["price"] for c in chunks])
+    kind = np.concatenate([c[0]["kind"] for c in chunks])
+    ts = np.concatenate([c[1] for c in chunks])
+    order = np.argsort(keys, kind="stable")
+    bounds = np.searchsorted(keys[order], np.arange(keys.max() + 2))
+    rows = []
+    for k in range(len(bounds) - 1):
+        idx = order[bounds[k]:bounds[k + 1]]
+        n = t0 = first = last = None
+        for t, p, kd in zip(ts[idx].tolist(), price[idx].tolist(),
+                            kind[idx].tolist()):
+            if n is None:                   # not armed yet
+                if kd == 0:
+                    n, t0, first, last = 1, t, p, p
+                continue
+            if n < lo:                      # accumulating: no `within`
+                if kd == 0:
+                    n, last = n + 1, p
+                continue
+            if t - t0 > within_ms:          # expired while waiting for B
+                break
+            if kd == 1 and p > last:
+                rows.append((t, first, last, p))
+                break
+            if kd == 0 and n < hi:
+                n, last = n + 1, p
+    return sorted(rows)
+
+
+def _rows_of(got, names=("p0", "pl", "p2")):
+    """Collected (ts, p0, pl, p2) rows, sorted (float32 values)."""
+    cols = {k: np.concatenate(v) if v else np.zeros(0)
+            for k, v in got.items()}
+    return sorted(zip(cols["ts"].astype(np.int64).tolist(),
+                      *[cols[n].astype(np.float32).astype(float).tolist()
+                        for n in names]))
+
+
+def run_count_app(text, chunks, device, engine="device"):
+    """One run of a count app through the public API on ``device``: →
+    (rows sorted, the runtime's device query runtimes' dropped total or
+    None on the host)."""
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    text = f"@app:engine('{engine}')\n" + text
+    rt = SiddhiManager(device=device).create_siddhi_app_runtime(text)
+    got = {"ts": [], "p0": [], "pl": [], "p2": []}
+
+    def sink(chunk):
+        got["ts"].append(np.array(chunk.timestamps))
+        for k in ("p0", "pl", "p2"):
+            got[k].append(np.array(chunk.columns[k]))
+    rt.add_callback("Out", ColumnarStreamCallback(sink))
+    rt.start()
+    h = rt.get_input_handler("S")
+    for cols, ts, _ki in chunks:
+        h.send_batch(cols, timestamps=ts)
+    rt.flush()
+    pr = rt.partition_runtimes[0]
+    dropped = None
+    if pr.device_mode:
+        dropped = sum(int(q.device_runtime.nfa.carry["dropped"].sum())
+                      for q in pr.device_query_runtimes.values())
+    rt.shutdown()
+    return _rows_of(got), dropped
+
+
+def run_count_path(chunks, dev):
+    """Phase 10: BASELINE config 4 on the card through the public API —
+    the count app over 100,000 string keys, the chunks through the @Async
+    junction and the device engine (K2 + K4 with kleene count units).
+    The query must run on the NFA kernels; events/s, ms per chunk, the
+    device split by exact kernel name, the idle share and the cell's
+    peak.  Its rows must equal, as multisets, the independent per-key
+    reference, the same chunks through SiddhiManager(device="cpu") (the
+    plain composition), and for the first COUNT_HOST_KEYS keys the
+    port's host engine; nothing dropped."""
+    import gc
+
+    import torch
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    from siddhi_tpu_torch.ops.nfa import nfa_compact, nfa_step_egress
+
+    n_chunks = len(chunks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(count_app())
+    log(f"  app built in {time.perf_counter() - t0:.3f} s")
+    pr = rt.partition_runtimes[0]
+    if not pr.device_mode:
+        raise AssertionError(f"partition fell back to host: "
+                             f"{pr.fallback_reason}")
+    runtimes = []
+    for qname, qr in pr.device_query_runtimes.items():
+        if qr.backend != "device" or \
+                type(qr.device_runtime).__name__ != "DevicePatternRuntime":
+            raise AssertionError(f"{qname} is not on the device pattern path")
+        runtimes.append(qr.device_runtime)
+    got = {"ts": [], "p0": [], "pl": [], "p2": []}
+
+    def sink(chunk):
+        got["ts"].append(np.array(chunk.timestamps))
+        for k in ("p0", "pl", "p2"):
+            got[k].append(np.array(chunk.columns[k]))
+    rt.add_callback("Out", ColumnarStreamCallback(sink))
+    rt.start()
+    h = rt.get_input_handler("S")
+
+    def drive():
+        t = time.perf_counter()
+        for cols, ts, _ki in chunks:
+            h.send_batch(cols, timestamps=ts)
+        rt.flush()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    from siddhi_tpu_torch.core.ledger import ledger
+    stage0 = dict(ledger().snapshot()["stage_seconds"])
+    nfa_step_egress.launches = 0          # counts start here
+    nfa_compact.launches = 0
+    wall, per_kernel, dev_us = profile_device(drive)
+    launches = (nfa_step_egress.launches, nfa_compact.launches)
+    stage1 = ledger().snapshot()["stage_seconds"]
+    nfa = runtimes[0].nfa
+    lanes, k_final = nfa.n_partitions, nfa.spec.n_slots
+    carry_bytes = sum(v.numel() * v.element_size()
+                      for v in nfa.carry.values())
+    dropped = sum(int(r.nfa.carry["dropped"].sum()) for r in runtimes)
+    grows = sum(r.slot_grows for r in runtimes)
+    rt.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    n_events = sum(len(c[1]) for c in chunks)
+    rows = _rows_of(got)
+    res = {"wall": wall, "events_per_s": n_events / wall,
+           "ms_per_chunk": wall / n_chunks * 1e3, "launches": launches,
+           "rows": len(rows), "peak": peak - mem0, "lanes": lanes}
+    log(f"  count path: {n_events} events ({n_chunks} chunks), "
+        f"{N_COUNT_KEYS} keys on {lanes} lanes, K={k_final}, carry "
+        f"{carry_bytes} B; {wall:.3f} s wall")
+    log(f"  events/s: {res['events_per_s']:.1f}; ms per chunk: "
+        f"{res['ms_per_chunk']:.3f}; matches: {len(rows)}")
+    log(f"  max_memory_allocated: {peak} B ({peak - mem0} B above the "
+        f"{mem0} B allocated before the cell); slot grows {grows}, "
+        f"dropped {dropped}")
+    log("  host stages (s): " + ", ".join(
+        f"{k} {stage1[k] - stage0.get(k, 0.0):.3f}" for k in stage1))
+    if per_kernel is not None:
+        step_us = sum(us for k, us in per_kernel.items()
+                      if is_kernel(k, "nfa_step_kernel"))
+        comp_us = sum(us for k, us in per_kernel.items()
+                      if is_kernel(k, "nfa_compact_kernel"))
+        res.update(step_ms=step_us / 1e3, compact_ms=comp_us / 1e3,
+                   device_ms=dev_us / 1e3,
+                   idle_share=100 - dev_us / 1e6 / wall * 100)
+        log(f"  nfa_step device time {step_us / 1e3:.3f} ms over "
+            f"{launches[0]} launches, nfa_compact {comp_us / 1e3:.3f} ms over "
+            f"{launches[1]} launches; all device time {dev_us / 1e3:.3f} ms = "
+            f"{dev_us / 1e6 / wall * 100:.3f}% of wall (idle share "
+            f"{res['idle_share']:.3f}%)")
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        for k, us in top:
+            log(f"    device {us / 1e3:10.3f} ms  {k[:90]}")
+    else:
+        log("  torch.profiler recorded no device time: nfa_step share not "
+            "measured")
+    if min(launches) < n_chunks:
+        raise AssertionError(f"nfa_step / nfa_compact launched {launches} "
+                             f"times, expected >= {n_chunks} each")
+    if dropped:
+        raise AssertionError(f"count path dropped {dropped} partials")
+    t1 = time.perf_counter()
+    want = count_reference(chunks)
+    if rows != want:
+        raise AssertionError(f"count path: {len(rows)} rows, reference "
+                             f"{len(want)} (or values differ)")
+    log(f"  all {len(rows)} rows == the per-key reference, as multisets "
+        f"and exactly ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    plain, _d = run_count_app(count_app(), chunks, "cpu")
+    if plain != rows:
+        raise AssertionError(f"count path: {len(rows)} rows, the plain "
+                             f"composition (CPU) {len(plain)}")
+    log(f"  == SiddhiManager(device='cpu') (plain step and compaction), as "
+        f"multisets ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    few = []
+    for cols, ts, ki in chunks:
+        m = ki < COUNT_HOST_KEYS
+        few.append(({k: v[m] for k, v in cols.items()}, ts[m], ki[m]))
+    host, _d = run_count_app(COUNT_APP, few, dev, engine="host")
+    first = set(f"k{i:06d}" for i in range(COUNT_HOST_KEYS))
+    mine = sorted(r for r, key in zip(
+        rows, _row_keys(rows, chunks)) if key in first)
+    if host != mine:
+        raise AssertionError(f"count path: the first {COUNT_HOST_KEYS} keys "
+                             f"gave {len(mine)} rows, the host engine "
+                             f"{len(host)}")
+    log(f"  the first {COUNT_HOST_KEYS} keys' {len(host)} rows == the host "
+        f"engine's, as multisets ({time.perf_counter() - t1:.1f} s)")
+    return res
+
+
+def _row_keys(rows, chunks):
+    """The key of each row: its e2 event's, the event at the row's ts
+    with kind 1 and the row's price p2."""
+    ts = np.concatenate([c[1] for c in chunks])
+    syms = np.concatenate([c[0]["sym"] for c in chunks])
+    price = np.concatenate([c[0]["price"] for c in chunks])
+    kind = np.concatenate([c[0]["kind"] for c in chunks])
+    out = []
+    for r in rows:
+        lo, hi = np.searchsorted(ts, [r[0], r[0] + 1])
+        at = lo + np.nonzero((kind[lo:hi] == 1) &
+                             (price[lo:hi] == np.float32(r[3])))[0]
+        if len(at) != 1:
+            raise AssertionError(f"count path: row {r} has {len(at)} "
+                                 f"candidate e2 events")
+        out.append(syms[at[0]])
+    return out
+
+
+# ------------------------------------------------------------------ phase 11
+
+#: repeats of phase 11's timed window (phase 8's: FLEET_REPEATS)
+ABSENT_REPEATS = 8
+
+
+def check_absent_ring_rows(dec, price, kind, done, thrs, gap=BANK_GAP_MS,
+                           wait_ms=ABSENT_WAIT_MS) -> int:
+    """Every decoded ring row (pattern, partition, ts, p1, p2) of the
+    absent bank is a match of the reference: ts is the completing event's
+    (the JAX bank's rule: the triggering event, not the deadline), an arm
+    of its lane with price p1 above the pattern's threshold completes
+    there, and its e2 (the event the wait started at) has price p2."""
+    lane = dec["partition"].astype(np.int64)
+    j = (dec["ts"] - BANK_BASE_TS - lane * (gap // price.shape[0])) // gap
+    p1 = dec["p1"].astype(np.float32)
+    p2 = dec["p2"].astype(np.float32)
+    thr = np.asarray(thrs, np.float32)[dec["pattern"]]
+    jc = np.clip(j, 0, price.shape[1] - 1)
+    ok = (j >= 0) & (j < price.shape[1]) & (p1 > thr)
+    j2 = np.clip(jc - -(-wait_ms // gap), 0, None)
+    ok &= (kind[lane, j2] == 1) & (price[lane, j2] == p2)
+    arm = np.zeros(len(lane), bool)
+    for d in range(1, BANK_WITHIN_MS // gap + 1):
+        j1 = np.clip(j2 - d, 0, None)
+        arm |= (j2 - d >= 0) & (done[lane, j1] == jc) & \
+            (price[lane, j1] == p1)
+    bad = ~(ok & arm)
+    if bad.any():
+        i = int(np.nonzero(bad)[0][0])
+        raise AssertionError(
+            f"absent ring row is no match: pattern {dec['pattern'][i]} lane "
+            f"{lane[i]} ts {dec['ts'][i]} p1 {p1[i]} p2 {p2[i]}")
+    return len(lane)
+
+
+def run_absent_fleet_cell(dev, seed, n_blocks):
+    """Phase 11: BASELINE config 3 on the card — the fleet cell's bank
+    (1000 patterns x 10,000 lanes, T = 64, K = 8, chunks of 200, ring 32,
+    the alert thresholds, phase 8's blocks) with the trailing `not S[kind
+    == 0 and price > e2.price] for 3 sec`, on the bank step's thread
+    instance and the ring.  The window of phase 8 (fleet_window),
+    ABSENT_REPEATS times; events/s, ms per block, the device split and
+    the idle share.  Checks: every pattern's count per block equals the
+    independent reference (absent_block_reference) over every pattern;
+    one block in place equals the plain bank bit for bit; every decoded
+    ring row is a reference match; total_dropped() == 0; the thread
+    instance ran every launch.  Then the bank step timed (not in place,
+    in place over fresh blocks) with its bounds."""
+    import gc
+
+    import torch
+    from siddhi_tpu_torch.ops.nfa import bank_lanes_plain, nfa_bank_lanes
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    thrs = np.linspace(99.8, 99.997, N_BANK)
+    t0 = time.perf_counter()
+    bank = CompiledPatternBank([absent_bank_app(t) for t in thrs],
+                               n_partitions=BANK_P, n_slots=BANK_K,
+                               pattern_chunk=BANK_CHUNK, ring=BANK_RING,
+                               device=dev)
+    bank.base_ts = BANK_BASE_TS
+    torch.cuda.synchronize()
+    carry_bytes = sum(v.numel() * v.element_size()
+                      for v in bank._stack_carry.values())
+    log(f"  bank built in {time.perf_counter() - t0:.3f} s: C={bank.n_chunks} "
+        f"x {bank.chunk} patterns, carry {carry_bytes} B (deadline leaf "
+        f"{bank._stack_carry['deadline'].numel() * 4} B); kernel class: "
+        f"{bank.nfa.kprog.reason or 'inside'}")
+    raw = bank_blocks(np.random.default_rng(seed + 7), n_blocks + 2)
+    staged = [bank.nfa.to_device(b) for b in raw]
+    out0 = bank.process_block(staged[0])      # warm-up
+    per_block = [out0[0].long().cpu().numpy()]
+    fw = fleet_window(bank, staged, n_blocks, ABSENT_REPEATS)
+    host, launches = fw["host"], fw["launches"]
+    walls = fw["walls"]
+    wall = float(np.median(walls))
+    per_block += [host[b, :, 0].astype(np.int64) for b in range(n_blocks)]
+    n_events = n_blocks * BANK_P * BANK_T
+    n_payloads = sum(len(d["pattern"]) for d in fw["payloads"])
+    res = {"wall": wall, "walls": walls, "events_per_s": n_events / wall,
+           "ms_per_block": wall / n_blocks * 1e3, "launches": launches,
+           "peak": fw["peak"] - mem0, "repeats": ABSENT_REPEATS}
+    log(f"  absent fleet cell: {N_BANK} patterns x {BANK_P} partitions, "
+        f"{n_blocks} blocks of {BANK_P * BANK_T} events, timed "
+        f"{ABSENT_REPEATS} times from the same carry: median wall "
+        f"{wall:.6f} s (min {min(walls):.6f}, max {max(walls):.6f})")
+    log(f"  events/s: {n_events / wall:.1f} (median; "
+        f"{n_events / max(walls):.1f} to {n_events / min(walls):.1f}); ms "
+        f"per block: {res['ms_per_block']:.3f}; matches "
+        f"{int(host[:, :, 0].sum())}, payloads decoded {n_payloads}")
+    per_kernel, dev_us, wall_p = fw["per_kernel"], fw["dev_us"], fw["wall_p"]
+    if per_kernel is not None:
+        def kern_us(name):
+            return sum(us for k, us in per_kernel.items()
+                       if is_kernel(k, name))
+        res.update(thread_ms=kern_us("nfa_bank_thread_kernel") / 1e3,
+                   ring_ms_total=kern_us("nfa_bank_ring_kernel") / 1e3,
+                   device_ms=dev_us / 1e3,
+                   idle_share=100 - dev_us / 1e6 / wall * 100,
+                   idle_share_profiled=100 - dev_us / 1e6 / wall_p * 100)
+        log(f"  nfa_bank_step device time: thread instance "
+            f"{res['thread_ms']:.3f} ms over {launches[1]} launches, group "
+            f"instance over {launches[2]}; nfa_bank_ring "
+            f"{res['ring_ms_total']:.3f} ms over {launches[3]}; all device "
+            f"time {dev_us / 1e3:.3f} ms (idle share "
+            f"{res['idle_share_profiled']:.3f}% of the profiled pass's wall "
+            f"{wall_p:.6f} s, {res['idle_share']:.3f}% of the median timed "
+            f"wall)")
+    else:
+        log("  torch.profiler recorded no device time: idle share not "
+            "measured")
+    if launches[1] < n_blocks or launches[2] or launches[3] < n_blocks:
+        raise AssertionError(f"absent bank launches (step, thread instance, "
+                             f"group instance, ring) {launches}: expected "
+                             f">= {n_blocks} of the thread instance and the "
+                             f"ring, none of the group instance")
+    # one block in place against the plain bank
+    pre = _snapshot(bank)
+    got = bank.process_block(staged[n_blocks + 1])
+    new_p, want = _bank_plain(bank, pre, staged[n_blocks + 1])
+    torch.cuda.synchronize()
+    res["max_abs_err"] = _bank_outputs_equal(
+        "absent bank (in place)", got, want, _carry(bank), new_p)
+    per_block.append(got[0].long().cpu().numpy())
+    del pre, new_p, want
+    if bank.total_dropped() != 0:
+        raise AssertionError(f"absent fleet cell dropped "
+                             f"{bank.total_dropped()}")
+    t1 = time.perf_counter()
+    ref, price, kind, done = absent_block_reference(raw, thrs)
+    got_counts = np.stack(per_block)
+    if not np.array_equal(got_counts, ref):
+        b, n = (int(x[0]) for x in np.nonzero(got_counts != ref))
+        raise AssertionError(f"absent fleet cell: block {b} pattern {n} "
+                             f"counted {got_counts[b, n]}, reference "
+                             f"{ref[b, n]}")
+    rows = sum(check_absent_ring_rows(d, price, kind, done, thrs)
+               for d in fw["payloads"])
+    log(f"  every pattern's count in each of {n_blocks + 2} blocks == the "
+        f"reference ({int(ref.sum())} matches); the next block in place == "
+        f"the plain bank bit for bit (max abs diff {res['max_abs_err']}); "
+        f"{rows} decoded ring rows are reference matches; dropped 0 "
+        f"(reference {time.perf_counter() - t1:.1f} s)")
+    # the bank step alone: not in place on the steady carry, in place over
+    # fresh blocks, and the bounds
+    spec, kp, prm = bank.nfa.spec, bank.nfa.kprog, bank._stack_params
+    carry = bank._stack_carry
+    fresh = [bank.nfa.to_device(b) for b in bank_blocks(
+        np.random.default_rng(seed + 12), TIMED_LAUNCHES + 1,
+        first=n_blocks + 2)]
+    launches0 = bank_launches()
+    res["step_ms"] = median_ms(lambda: nfa_bank_lanes(
+        spec, carry, fresh[0], prm, kp), dev, sleep_cycles=5 * SLEEP_CYCLES)
+    work = {k: v.clone() for k, v in carry.items()}
+    pre = {k: v.clone() for k, v in carry.items()}
+    nfa_bank_lanes(spec, work, fresh[0], prm, kp, inplace=True)
+    res["step_inplace_bound_ms"], _by = bank_inplace_bound(bank, pre, work,
+                                                           fresh[0])
+    del pre
+    it = iter(fresh[1:])
+    res["step_inplace_ms"] = median_ms(lambda: nfa_bank_lanes(
+        spec, work, next(it), prm, kp, inplace=True), dev,
+        n=TIMED_LAUNCHES, sleep_cycles=5 * SLEEP_CYCLES)
+    del work
+    res["step_plain_ms"] = median_ms(lambda: bank_lanes_plain(
+        spec, carry, fresh[0], prm), dev, n=1)
+    set_bank_launches(launches0)
+    res["step_bound_ms"], res["step_bound_by"] = bank_step_bound(
+        bank, BANK_P, BANK_T)
+    log(f"  nfa_bank_step (thread instance, absent units) at N={N_BANK} "
+        f"P={BANK_P} T={BANK_T} K={BANK_K}: {res['step_ms']:.4f} ms (plain "
+        f"{res['step_plain_ms']:.4f} ms, bound {res['step_bound_ms']:.6f} ms "
+        f"by {res['step_bound_by']}, "
+        f"{res['step_bound_ms'] / res['step_ms'] * 100:.2f}% of the bound); "
+        f"in place over fresh blocks {res['step_inplace_ms']:.4f} ms "
+        f"(in-place bound {res['step_inplace_bound_ms']:.6f} ms)")
+    del fresh, staged, bank
+    res["count_bank"] = run_count_bank(dev, seed)
+    res["max_abs_err"] = max(res["max_abs_err"],
+                             res["count_bank"]["max_abs_err"])
+    return res
+
+
+#: phase 11's count bank: config 4's pattern as a bank of this many
+#: patterns over the fleet's lanes, on the group instance
+COUNT_BANK_N = 100
+COUNT_BANK_BLOCKS = 3
+
+
+def run_count_bank(dev, seed):
+    """Config 4's kleene count as a bank (COUNT_BANK_N patterns `every
+    e1=S[kind == 0 and price > thr]<3:10> -> e2=S[kind == 1 and price >
+    e1[last].price] within 10 sec` over the fleet's 10,000 lanes, 20
+    patterns a chunk), which the bank runs on its group instance: every
+    block in place against the plain bank bit for bit, the group
+    instance's launch counter rising, and its ms a block.  → {ms a
+    block, max_abs_err, launches, matches}."""
+    import torch
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    apps = [_S3 + f"from every e1=S[kind == 0 and price > {t}]<3:10> -> "
+            "e2=S[kind == 1 and price > e1[last].price] within 10 sec "
+            "select e1[0].price as p0, e1[last].price as pl, e2.price as "
+            "p2 insert into Out;" for t in np.linspace(0.0, 99.0, COUNT_BANK_N)]
+    cb = CompiledPatternBank(apps, n_partitions=BANK_P, n_slots=BANK_K,
+                             pattern_chunk=20, ring=BANK_RING, device=dev)
+    blocks = [cb.nfa.to_device(b) for b in bank_blocks(
+        np.random.default_rng(seed + 50), COUNT_BANK_BLOCKS, gap=1_000)]
+    set_bank_launches()                       # counts start here
+    worst, matches, times = 0.0, 0, []
+    for blk in blocks:
+        pre = _snapshot(cb)
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        got = cb.process_block(blk)
+        s1.record()
+        new_p, want = _bank_plain(cb, pre, blk)
+        torch.cuda.synchronize()
+        times.append(s0.elapsed_time(s1))
+        worst = max(worst, _bank_outputs_equal(
+            "count bank (group instance)", got, want, _carry(cb), new_p))
+        matches += int(want[0].sum())
+        del pre, new_p, want
+    launches = bank_launches()
+    if launches[2] < len(blocks) or launches[1]:
+        raise AssertionError(f"count bank launches (step, thread instance, "
+                             f"group instance, ring) {launches}: expected "
+                             f"the group instance every block")
+    if not matches or cb.total_dropped():
+        raise AssertionError(f"count bank: {matches} matches, dropped "
+                             f"{cb.total_dropped()}")
+    res = {"ms_per_block": float(np.median(times)), "max_abs_err": worst,
+           "launches": launches, "matches": matches}
+    log(f"  count bank (config 4 as {COUNT_BANK_N} patterns x {BANK_P} lanes, "
+        f"group instance): {len(blocks)} blocks in place == the plain bank "
+        f"bit for bit, {matches} matches, dropped 0; "
+        f"{res['ms_per_block']:.3f} ms a block (step and ring, median)")
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--chunks", type=int, default=16)
+    ap.add_argument("--chunks", type=int, default=8)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--pattern-chunks", type=int, default=16)
     ap.add_argument("--fleet-blocks", type=int, default=32)
     ap.add_argument("--latency-blocks", type=int, default=LAT_BLOCKS)
+    ap.add_argument("--count-chunks", type=int, default=16)
+    ap.add_argument("--absent-blocks", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -2240,9 +3173,9 @@ def main(argv=None) -> int:
 
     log("== phase 3: main path (BASELINE config 2) on the device engine")
     launches, wall = run_main_path(args.queries, names, chunks, dev)
-    if args.chunks < 16 or args.queries < 100:
-        log(f"CUT: {args.queries} queries x {args.chunks} chunks (full "
-            f"size is 100 x 16)")
+    if args.chunks < 8 or args.queries < 100:
+        log(f"CUT: {args.queries} queries x {args.chunks} chunks (the "
+            f"default is 100 x 8)")
 
     log("== phase 4: engine parity on the card")
     engine_parity(dev, args.seed)
@@ -2297,6 +3230,25 @@ def main(argv=None) -> int:
     if args.latency_blocks < LAT_BLOCKS:
         log(f"CUT: latency cell at {args.latency_blocks} blocks (full size "
             f"is {LAT_BLOCKS})")
+
+    log("== phase 10: count cell (BASELINE config 4: A[3:10] -> B, 100,000 "
+        "keys) on the device engine")
+    t10 = time.perf_counter()
+    cc = run_count_path(make_count_chunks(args.seed, args.count_chunks), dev)
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+    if args.count_chunks < 16:
+        log(f"CUT: count cell at {args.count_chunks} chunks (full size is "
+            f"16)")
+
+    log("== phase 11: absent fleet cell (BASELINE config 3: 1000 `every A "
+        "-> B -> not C for 3 sec within 40 sec` x 10,000 lanes) on the bank "
+        "kernels")
+    t11 = time.perf_counter()
+    ac = run_absent_fleet_cell(dev, args.seed, args.absent_blocks)
+    log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+    if args.absent_blocks < 32:
+        log(f"CUT: absent fleet cell at {args.absent_blocks} blocks (full "
+            f"size is 32)")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     def timing(minmax):
@@ -2320,6 +3272,11 @@ def main(argv=None) -> int:
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:579",
         "checked": True, "launches": nfa_launches, "max_abs_err": nfa_err,
+        "launches_by_path": {"pattern_cell": nfa_launches,
+                             "count_cell": cc["launches"][0]},
+        "count_cell": {k: cc.get(k) for k in (
+            "events_per_s", "ms_per_chunk", "step_ms", "compact_ms",
+            "device_ms", "idle_share", "peak", "rows", "lanes")},
         "ms": nt["ms"], "plain_ms": nt["plain_ms"],
         "bound_ms": nt["bound_ms"], "bound_by": nt["bound_by"],
         "library_ms": None, "split": nt["split"],
@@ -2330,6 +3287,8 @@ def main(argv=None) -> int:
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/plan/nfa_compiler.py:1837",
         "checked": True, "launches": compact_launches,
+        "launches_by_path": {"pattern_cell": compact_launches,
+                             "count_cell": cc["launches"][1]},
         "max_abs_err": nfa_err, "ms": nt["compact_ms"],
         "plain_ms": nt["plain_compact_ms"],
         "bound_ms": nt["compact_bound_ms"],
@@ -2346,7 +3305,16 @@ def main(argv=None) -> int:
         "checked": True, "launches": fc["launches"][0],
         "launches_by_instance": {"thread": fc["launches"][1],
                                  "group": fc["launches"][2]},
-        "max_abs_err": fc["max_abs_err"],
+        "launches_by_path": {"fleet_cell": fc["launches"][0],
+                             "absent_fleet_cell": ac["launches"][0],
+                             "count_bank": ac["count_bank"]["launches"][0]},
+        "count_bank": ac["count_bank"],
+        "max_abs_err": max(fc["max_abs_err"], ac["max_abs_err"]),
+        "absent_cell": {k: ac.get(k) for k in (
+            "events_per_s", "ms_per_block", "thread_ms", "device_ms",
+            "idle_share", "idle_share_profiled", "step_ms", "step_plain_ms",
+            "step_bound_ms", "step_bound_by", "step_inplace_ms",
+            "step_inplace_bound_ms", "peak", "repeats", "launches")},
         "ms": fc["step_ms"], "plain_ms": fc["step_plain_ms"],
         "bound_ms": fc["step_bound_ms"], "bound_by": fc["step_bound_by"],
         "library_ms": None, "split": fc["split"],
@@ -2364,7 +3332,9 @@ def main(argv=None) -> int:
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:1250",
         "checked": True, "launches": fc["launches"][3],
-        "max_abs_err": max(fc["max_abs_err"], ring_err),
+        "launches_by_path": {"fleet_cell": fc["launches"][3],
+                             "absent_fleet_cell": ac["launches"][3]},
+        "max_abs_err": max(fc["max_abs_err"], ac["max_abs_err"], ring_err),
         "ring_only_cases": ring_cases,
         "ms": fc["ring_ms"], "plain_ms": fc["ring_plain_ms"],
         "bound_ms": fc["ring_bound_ms"], "bound_by": fc["ring_bound_by"],

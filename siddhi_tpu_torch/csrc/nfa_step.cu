@@ -8,32 +8,44 @@
 // gathers).  Contract (siddhi_tpu_torch/ops/nfa.py, nfa_block_step_plain
 // then egress_pack_plain): per lane p, for each event t in order, within
 // expiry of live partials, one transition per slot waiting at a unit whose
-// condition holds (capture row written, advance or complete), then arming
-// of a fresh partial at unit 0 in the first free slot; a NEW carry (the
-// input carry is only read: grow-and-replay re-runs a chunk from it) and
-// the egress slab [cap + 1, 4 + R*C] int32 of the matched slots in
-// ascending flat index (p*T + t)*K + k: index, ts, enter, seq, capture row
-// bitcast; rows past the count hold -1 in column 0; the tail row holds the
-// true count and the summed `dropped`.  One status row follows the tail:
+// condition holds (capture row written, advance or complete; a kleene count
+// appends; an absent unit's arrival kills), the live append of forwarded
+// counts, then arming of a fresh partial at unit 0 in the first free slot,
+// then the absent deadline pass; a NEW carry (the input carry is only
+// read: grow-and-replay re-runs a chunk from it) and the egress slab
+// [cap + 1, 4 + R*C] int32 of the matched slots in ascending flat index
+// (p*T + t)*K + k: index, ts, enter, seq, capture row bitcast; rows past the
+// count hold -1 in column 0; the tail row holds the true count, the summed
+// `dropped` and, with absent units, the earliest deadline of the slots
+// waiting at one (2^31 - 1: none).  One status row follows the tail:
 // the fullest scratch segment's row count and the segment size (the
 // caller re-runs the step with larger segments when the first exceeds the
 // second).  The dense [P, T, K, ...] outputs never reach device memory.
 //
 // The kernels' class (ops/nfa.kernel_class_reason and the compiler's
-// condition split): every unit simple; PATTERN; `every` on the leading
-// unit or none (arm_once); optional `within`; no telemetry.  Condition i
-// is bit i of a block-wide gate word (its capture-free part, computed by
-// the torch condition program) AND a table of `event lane <op> capture
-// lane` compares; bit 31 of the word is the event's __valid.
+// condition split): simple units, kleene counts <m:n> (any position but a
+// leading min-0 one; min == max and an unbounded max included) and absent
+// units `not X for t` (any position but the start); PATTERN; `every` on
+// the leading unit or none (arm_once; a leading `every` count arms once);
+// optional `within`; no telemetry.  Condition i is bit i of a block-wide
+// gate word (its capture-free part, computed by the torch condition
+// program) AND a table of `event lane <op> capture lane` compares (a
+// capture lane: another unit's first bank, or an earlier count's [last]
+// bank); bit 31 of the word is the event's __valid.  A count's capture row
+// holds its first bank, its last bank, its e[k] banks, its e[last-j] banks
+// and its __n lane; the program gives each count row's layout.
 //
 // Arithmetic is exact: the only float work is the IEEE compares of the
-// table (a NaN operand makes < <= > >= == false and != true, as torch's)
-// and copies; int32 timestamp offsets subtract with two's-complement wrap.
+// table (a NaN operand makes < <= > >= == false and != true, as torch's),
+// copies and a count's __n lane (an int converted to float, as torch
+// converts it); int32 timestamp offsets add and subtract with
+// two's-complement wrap, and `deadline <= ts` is a signed compare.
 //
 // What bounds it on this card.  The function reads the block's inputs
 // once, P*T*(4*n_lanes + 4 ts + 4 stream + 1 valid + n_gates) bytes, reads
-// and writes the carry once (P*K*(16 + 4*R*C) + P*12 each way), and writes
-// the slab, (4 + R*C)*4 bytes per matched slot.  At the main path's shape
+// and writes the carry once (P*K*(16 + 4*R*C) + P*12 each way; 8 more
+// bytes a slot with count units, 4 with absent units), and writes the
+// slab, (4 + R*C)*4 bytes per matched slot.  At the main path's shape
 // (P = 16384, T ~ 50, K = 8, R*C = 2, ~7,600 matches) that is ~19 MB
 // against ~10^8 integer compares and selects: bound by bytes, ~6 us on
 // HBM3 (chip_smoke.py computes it per launch).
@@ -61,12 +73,18 @@
 //    buffer at a place taken from a shared-memory counter, tagged with its
 //    flat index, lane and rank.  Each lane's count goes to a [P] array and
 //    the CTA's true fill (which may exceed the segment) to a [n_cta] array.
+//  - An event takes two passes over a lane's slots (see step_body): the
+//    transitions first, against the captures as they stand before the
+//    event; then, once the first free slot is known, arming, the deadline
+//    pass and the rows, in slot order.  A slot's count words (cnt_cur,
+//    cnt_prev) and deadline live where its state lives.
 //  - nfa_compact: one CTA per step CTA; it sums the fills of the CTAs
 //    before it, scans its lanes' counts, scatters each scratch row to
 //    slab[offset(p) + rank] when that is below cap, writes -1 into column
 //    0 of the rows past the count, and CTA 0 writes the tail (count,
-//    summed dropped) and the status row.  A cap overflow re-runs this
-//    kernel alone, from the same scratch.
+//    summed dropped, the least of the step's per-CTA earliest deadlines)
+//    and the status row.  A cap overflow re-runs this kernel alone, from
+//    the same scratch, and gives the same tail.
 //
 // The pattern bank (siddhi_tpu/ops/nfa.py:1167 build_bank_step and :1266
 // build_super_bank_step: the step above vmapped over C*N patterns that
@@ -89,8 +107,8 @@
 // change written, the per-lane outputs written.
 //
 // Two instances, chosen per launch by ops/nfa.bank_geometry:
-//  - nfa_bank_thread (K <= 16, at most 8 constant compares, shared
-//    memory within the limit): one thread per (pattern, lane).  It
+//  - nfa_bank_thread (no count unit, K <= 16, at most 8 constant compares,
+//    shared memory within the limit): one thread per (pattern, lane).  It
 //    replaces the group instance below on the fleet path, which lost its
 //    time to instruction throughput, not bytes (47.26 ms a launch, 2.6%
 //    of the bound): (1) 8 threads did one (pattern, lane)'s event work,
@@ -127,14 +145,26 @@
 //        columns arrive by cp.async too, so a CTA waits once on the
 //        device's latency before its first event;
 //    (3) the CTA takes the union of its patterns' intervals per compare
-//        and marks, per lane, the tile's candidate events: valid, with a
-//        condition bit that the union leaves (shared-memory atomics, rare
-//        in the alert band).  Every other event is dead for every pattern
-//        of the CTA: a thread walks its lane's candidate bits only,
-//        applies its pattern's own intervals to them, and between two
-//        live events only expires live slots (a live-slot bitmask; none
-//        live: nothing), event by event.  Live events run the full
-//        per-slot body in the plain step's order.
+//        and marks, per lane and condition, the tile's candidate events:
+//        valid, with the condition's bit left by the union (shared-memory
+//        atomics, rare in the alert band).  An event that is no candidate
+//        of a condition fails it for every pattern of the CTA: a thread
+//        walks its lane's candidate bits of the conditions it can pass
+//        only, applies its pattern's own intervals to them, and between
+//        two live events only expires live slots (a live-slot bitmask;
+//        none live: nothing), event by event.  Live events run the full
+//        per-slot body in the plain step's order.  With absent units (a
+//        template instance of its own) a slot's deadline sits in its
+//        column, an arrival that passes the absent unit's condition kills
+//        the partial, and the deadline pass runs after every live event
+//        and, while a slot waits at an absent unit, at every valid dead
+//        event too: a deadline fires on any event at or after it.  There
+//        the conditions a thread can pass are unit 0's and those of the
+//        units its slots wait at: config 3's kill condition (`kind == 0
+//        and price > e2.price`) passes half the events, and walking them
+//        for every thread made the step 11.69 ms a launch in place at
+//        the fleet shape, against 1.25 when only a waiting slot reads it
+//        (chip_smoke.py phase 11 on an NVIDIA H100 80GB HBM3, 700 W).
 //    Carry traffic: a thread's K = 8 slot words are 32 contiguous bytes
 //    per leaf and its captures 64 B, loaded and stored with 16-byte
 //    accesses (a warp reads 1 KB contiguous per leaf).  In place (the
@@ -144,8 +174,8 @@
 //    in the alert band most of the 2.0 GB is neither read nor written.
 //    In place needs no barrier: every thread reads its own carry words,
 //    and only those, before it writes them.
-//  - nfa_bank_step (larger K, more compares): the step body above (a
-//    template flag, not a copy) over a grid of (lane tile, pattern),
+//  - nfa_bank_step (kleene counts, larger K, more compares): the step body
+//    above (a template flag, not a copy) over a grid of (lane tile, pattern),
 //    pattern fastest; each pattern's constants come from a [C*N,
 //    n_params] float32 table staged in shared memory; the lane's scalars
 //    are read by every thread of its group, so they are written after a
@@ -173,15 +203,36 @@ constexpr int kTileBytes = 32 * 1024;   // both tile buffers together: at
                                         // K = 8 five CTAs fit an SM, so
                                         // P = 16384 runs in one wave
 constexpr int kMaxTileEvents = 128;
-constexpr int kHeader = 9;              // S, R, C, has_within, within_ms,
-                                        // arm_once, n_cond, n_cmp, n_pcmp
+constexpr int kHeader = 12;             // S, R, C, has_within, within_ms,
+                                        // arm_once, n_cond, n_cmp, n_pcmp,
+                                        // has_count, has_absent, occ_hi
 constexpr unsigned kValidBit = 0x80000000u;
 constexpr unsigned kFull = 0xffffffffu;
 
+// A unit's words in the program (ops/nfa.kernel_prog): kind, stream,
+// condition, capture row, count min and max, absent wait, where a slot
+// advancing out of it lands (>= S: the chain completes) and whether that
+// landing skipped a min-0 count (live0), and the count units whose
+// forwarded count keeps appending while a slot waits here (-1: none).
+constexpr int kUnit = 11;
+enum UnitWord {
+  uKind, uStream, uCond, uRow, uMin, uMax, uWait, uLand, uLive0, uApp0, uApp1
+};
+enum UnitKind { kSimple = 0, kCount = 1, kAbsent = 2 };
+// a slot's state while an event is stepped: it completed a match in the
+// unit loop (no state of the class is this value)
+constexpr int kMatched = INT_MIN;
+
 struct Prog {
   int S, R, C, has_within, within, arm_once, n_cond, n_cmp, n_pcmp;
-  const int* units;       // S x (stream, cond, row)
+  int has_count, has_absent;
+  int occ_hi;             // arming waits while a slot sits at 0..occ_hi
+  const int* units;       // S x kUnit
   const int* row_src;     // R*C: attr index, -1 -> 0.0f, -2 -> 1.0f
+  const int* rowx_start;  // R + 1: each count row's layout in rowx
+  const int* rowx;        // per count row: n_first, n_last, n lane,
+                          // n_idx, n_lastk, L, n_idx x (k, start, len),
+                          // n_lastk bank starts, L last-bank lanes
   const int* cmp_start;   // n_cond + 1
   const int* cmp;         // n_cmp x (attr, row, lane, op)
   const int* pcmp_start;  // n_cond + 1
@@ -199,13 +250,59 @@ __device__ __forceinline__ Prog parse(const int* p) {
   g.n_cond = p[6];
   g.n_cmp = p[7];
   g.n_pcmp = p[8];
+  g.has_count = p[9];
+  g.has_absent = p[10];
+  g.occ_hi = p[11];
   g.units = p + kHeader;
-  g.row_src = g.units + 3 * g.S;
-  g.cmp_start = g.row_src + g.R * g.C;
+  g.row_src = g.units + kUnit * g.S;
+  g.rowx_start = g.row_src + g.R * g.C;
+  g.rowx = g.rowx_start + g.R + 1;
+  g.cmp_start = g.rowx + g.rowx_start[g.R];
   g.cmp = g.cmp_start + g.n_cond + 1;
   g.pcmp_start = g.cmp + 4 * g.n_cmp;
   g.pcmp = g.pcmp_start + g.n_cond + 1;
   return g;
+}
+
+__device__ __forceinline__ const int* unit(const Prog& g, int j) {
+  return g.units + kUnit * j;
+}
+
+// int32 timestamp offsets add and subtract with two's-complement wrap
+__device__ __forceinline__ int add32(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) +
+                          static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int sub32(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) -
+                          static_cast<unsigned>(b));
+}
+
+// What arming does at unit 0 (ops/nfa.py _one_event_step, arming): the
+// armed slot's state, count words and whether it completes at once.
+struct Arm {
+  int state, cnt_cur, cnt_prev;
+  bool match, deadline;   // deadline: the state is an absent unit
+};
+
+__device__ __forceinline__ Arm arm_of(const Prog& g) {
+  const int* u0 = unit(g, 0);
+  Arm r{0, 0, -1, false, false};
+  if (u0[uKind] == kCount && u0[uMin] >= 2) {
+    r.cnt_cur = 1;                      // accumulates at unit 0
+    return r;
+  }
+  const int t = u0[uLand];
+  if (t >= g.S) {
+    r.match = true;
+    return r;
+  }
+  r.state = t;
+  r.cnt_prev = u0[uKind] == kCount ? (u0[uMax] == 1 ? -1 : 1)
+                                   : (u0[uLive0] ? 0 : -1);
+  r.deadline = unit(g, t)[uKind] == kAbsent;
+  return r;
 }
 
 struct StepArgs {
@@ -217,12 +314,15 @@ struct StepArgs {
   const int *st_in, *start_in, *enter_in, *seq_in, *armseq_in;
   const float* caps_in;
   const int *dropped_in, *armed_in;
+  const int *cc_in, *cp_in, *dl_in;     // cnt_cur, cnt_prev, deadline
   int *st, *start, *enter, *seq, *armseq;
   float* caps;
   int *dropped, *armed;
+  int *cc, *cp, *dl;
   int* rows;              // [n_cta, seg, 4 + RC + 2]
   int* lane_count;        // [P]
   int* fill;              // [n_cta]
+  int* dl_min;            // [n_cta]: the earliest absent deadline
   const float* params;    // bank: [CN, n_params]
   int *count, *lmt, *lmk; // bank: [CN, P]
   int prog_len, P, T, K, G, spt, L, TT, seg, A, RC, CN, n_params;
@@ -280,34 +380,42 @@ __device__ __forceinline__ void load_tile(int* buf, int t0, const StepArgs& a,
   }
 }
 
-// Slot storage.  SPT > 0: this thread's SPT slots in registers, their
-// capture rows in its own column of shared memory (stride kThreads, so a
-// warp's accesses never share a bank).
+// Slot storage.  SPT > 0: this thread's SPT slots in registers (state,
+// start, enter, seq, and the count and deadline words), their capture
+// rows in its own column of shared memory (stride kThreads, so a warp's
+// accesses never share a bank).
 template <int SPT>
 struct Slots {
   int st_[SPT], start_[SPT], enter_[SPT], seq_[SPT];
+  int cc_[SPT], cp_[SPT], dl_[SPT];
   float* cap;
   int RC;
   __device__ __forceinline__ int& st(int s) { return st_[s]; }
   __device__ __forceinline__ int& start(int s) { return start_[s]; }
   __device__ __forceinline__ int& enter(int s) { return enter_[s]; }
   __device__ __forceinline__ int& seq(int s) { return seq_[s]; }
+  __device__ __forceinline__ int& cc(int s) { return cc_[s]; }
+  __device__ __forceinline__ int& cp(int s) { return cp_[s]; }
+  __device__ __forceinline__ int& dl(int s) { return dl_[s]; }
   __device__ __forceinline__ float& c(int s, int i) {
     return cap[(s * RC + i) * kThreads];
   }
 };
 
 // The wide-ring instance: the slots live in the new carry, slot s of this
-// thread at k = gl + s*G.
+// thread at k = gl + s*G (cc, cp, dl: only where the spec has the leaf).
 template <>
 struct Slots<0> {
-  int *st_, *start_, *enter_, *seq_;
+  int *st_, *start_, *enter_, *seq_, *cc_, *cp_, *dl_;
   float* cap;
   int G, RC;
   __device__ __forceinline__ int& st(int s) { return st_[s * G]; }
   __device__ __forceinline__ int& start(int s) { return start_[s * G]; }
   __device__ __forceinline__ int& enter(int s) { return enter_[s * G]; }
   __device__ __forceinline__ int& seq(int s) { return seq_[s * G]; }
+  __device__ __forceinline__ int& cc(int s) { return cc_[s * G]; }
+  __device__ __forceinline__ int& cp(int s) { return cp_[s * G]; }
+  __device__ __forceinline__ int& dl(int s) { return dl_[s * G]; }
   __device__ __forceinline__ float& c(int s, int i) {
     return cap[static_cast<long long>(s) * G * RC + i];
   }
@@ -344,15 +452,94 @@ __device__ __forceinline__ unsigned param_gates(const Prog& g, unsigned gw,
   return gw;
 }
 
+// what the event writes into lane c of capture row `row`
+__device__ __forceinline__ float event_lane(const Prog& g, int row, int c,
+                                            const float* at, int LT) {
+  const int src = g.row_src[row * g.C + c];
+  return src >= 0 ? at[src * LT] : (src == -2 ? 1.0f : 0.0f);
+}
+
 // the event's lanes into capture row `row` of slot s
 template <class SL>
 __device__ __forceinline__ void write_row(const Prog& g, int row, SL& sl,
                                           int s, const float* at, int LT) {
-  for (int c = 0; c < g.C; ++c) {
-    const int src = g.row_src[row * g.C + c];
-    sl.c(s, row * g.C + c) =
-        src >= 0 ? at[src * LT] : (src == -2 ? 1.0f : 0.0f);
+  for (int c = 0; c < g.C; ++c)
+    sl.c(s, row * g.C + c) = event_lane(g, row, c, at, LT);
+}
+
+// A kleene count's append of the event to its row (ops/nfa.py
+// _StepState.write_count): the e[last-j] banks shift behind the last bank,
+// deepest first, before the new value lands; the first bank on the first
+// append; the last bank; the e[k] bank whose k + 1 is the new count n;
+// the __n lane = n.
+template <class SL>
+__device__ __forceinline__ void write_count(const Prog& g, int row, SL& sl,
+                                            int s, const float* at, int LT,
+                                            bool first, int n) {
+  const int* x = g.rowx + g.rowx_start[row];
+  const int nf = x[0], nl = x[1], nlane = x[2], ni = x[3], nm = x[4];
+  const int L = x[5];
+  const int* ib = x + 6;
+  const int* mb = ib + 3 * ni;
+  const int* src = mb + nm;
+  const int base = row * g.C;
+  for (int j = nm; j >= 1; --j) {
+    const int from = j == 1 ? -1 : mb[j - 2];
+    for (int i = 0; i < L; ++i)
+      sl.c(s, base + mb[j - 1] + i) =
+          sl.c(s, base + (from < 0 ? src[i] : from + i));
   }
+  if (first)
+    for (int c = 0; c < nf; ++c)
+      sl.c(s, base + c) = event_lane(g, row, c, at, LT);
+  for (int c = nf; c < nf + nl; ++c)
+    if (c != nlane) sl.c(s, base + c) = event_lane(g, row, c, at, LT);
+  for (int q = 0; q < ni; ++q) {
+    if (n != ib[3 * q] + 1) continue;
+    for (int c = ib[3 * q + 1]; c < ib[3 * q + 1] + ib[3 * q + 2]; ++c)
+      sl.c(s, base + c) = event_lane(g, row, c, at, LT);
+  }
+  if (nlane >= 0) sl.c(s, base + nlane) = static_cast<float>(n);
+}
+
+// Slot s, waiting at unit j with state `st`, advances at time `base` (the
+// event's ts, or its deadline): land where unit j says, entering at base,
+// with the count words reset (cnt_prev: the forwarded count, dead at max,
+// or 0 past a skipped min-0 count), and a deadline when the new unit is
+// absent.  True: the chain completes (state -1).
+template <class SL>
+__device__ __forceinline__ bool land(const Prog& g, SL& sl, int s, int& st,
+                                     int j, int base, bool fwd, int fwd_cnt,
+                                     bool dead) {
+  const int* u = unit(g, j);
+  const int t = u[uLand];
+  if (t >= g.S) {
+    st = -1;
+    return true;
+  }
+  st = t;
+  sl.enter(s) = base;
+  if (g.has_count) {
+    sl.cp(s) = fwd ? (dead ? -1 : fwd_cnt) : (u[uLive0] ? 0 : -1);
+    sl.cc(s) = 0;
+  }
+  if (g.has_absent && unit(g, t)[uKind] == kAbsent)
+    sl.dl(s) = add32(base, unit(g, t)[uWait]);
+  return false;
+}
+
+// Slot s, waiting at unit t with a forwarded count, appends the event to
+// count unit j's row when j's condition held (ok); it freezes at max.
+template <class SL>
+__device__ __forceinline__ void live_append(const Prog& g, SL& sl, int s,
+                                            int j, bool ok, const float* at,
+                                            int LT) {
+  if (j < 0 || !ok) return;
+  const int* w = unit(g, j);
+  const int cp = sl.cp(s);
+  if (cp < 0 || cp >= w[uMax]) return;
+  if (w[uRow] >= 0) write_count(g, w[uRow], sl, s, at, LT, cp == 0, cp + 1);
+  sl.cp(s) = cp + 1 == w[uMax] ? -1 : cp + 1;
 }
 
 // one matched slot's scratch row: flat index, ts, enter, seq, captures,
@@ -378,10 +565,24 @@ __device__ __forceinline__ void emit_row(const StepArgs& a, SL& sl, int s,
 // The step body, shared by the two kernels below.  BANK: blockIdx.x =
 // lane tile * CN + pattern; the pattern's carry, its constants, and
 // per-lane count / last-match outputs instead of rows.
-template <int SPT, bool BANK>
+//
+// Each event of a lane takes ops/nfa.py _one_event_step's order in two
+// passes over the lane's slots.  Pass A, per slot: `within` expiry; the
+// slot's conditions against its captures as they stand before the event
+// (the unit's own, and those of the count units that append while it
+// waits there); its one transition (a simple unit advances or completes,
+// a count unit appends and advances at min, an absent unit's arrival
+// kills); the live append of a forwarded count.  A slot completed here
+// holds kMatched until pass B.  Between the passes the lane's first free
+// slot and the occupancy gate decide arming.  Pass B, per slot: the match
+// of pass A; arming into the first free slot; the absent deadline pass
+// (`deadline <= ts` lands the slot at its deadline, cascading through
+// absent units); then the slot's row, if it matched, in slot order.
+template <int SPT, bool BANK, bool EXT>
 __device__ __forceinline__ void step_body(const StepArgs& a) {
   extern __shared__ int smem[];
   __shared__ int s_fill;
+  __shared__ int s_dl;
   const int tid = threadIdx.x;
   const int prog_pad = (a.prog_len + 3) & ~3;
   const int prm_pad = BANK ? (a.n_params + 3) & ~3 : 0;
@@ -399,12 +600,23 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     for (int i = tid; i < a.n_params; i += kThreads)
       sprm[i] = a.params[static_cast<long long>(pat) * a.n_params + i];
   }
-  if (tid == 0) s_fill = 0;
+  if (tid == 0) {
+    s_fill = 0;
+    s_dl = INT_MAX;
+  }
   load_tile(tiles, 0, a, p0);
   cp_async_commit();
   __syncthreads();
 
-  const Prog g = parse(sprog);
+  Prog g = parse(sprog);
+  if constexpr (!EXT) {
+    // the instance for simple units alone: the count, deadline and
+    // occupancy code compiles away (and with it their registers)
+    if (g.has_count || g.has_absent) __trap();  // the caller picks EXT
+    g.has_count = g.has_absent = 0;
+    g.occ_hi = -1;
+  }
+  const Arm arm = arm_of(g);
   const int G = a.G;
   const int gl = tid & (G - 1);
   const int l = tid / G;
@@ -433,6 +645,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       sl.start(s) = on ? a.start_in[sk] : 0;
       sl.enter(s) = on ? a.enter_in[sk] : 0;
       sl.seq(s) = on ? a.seq_in[sk] : 0;
+      sl.cc(s) = on && g.has_count ? a.cc_in[sk] : 0;
+      sl.cp(s) = on && g.has_count ? a.cp_in[sk] : -1;
+      sl.dl(s) = on && g.has_absent ? a.dl_in[sk] : 0;
       for (int i = 0; i < RC; ++i)
         sl.c(s, i) = on ? a.caps_in[sk * RC + i] : 0.0f;
     }
@@ -441,6 +656,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     sl.start_ = a.start + lane_k + gl;
     sl.enter_ = a.enter + lane_k + gl;
     sl.seq_ = a.seq + lane_k + gl;
+    sl.cc_ = g.has_count ? a.cc + lane_k + gl : nullptr;
+    sl.cp_ = g.has_count ? a.cp + lane_k + gl : nullptr;
+    sl.dl_ = g.has_absent ? a.dl + lane_k + gl : nullptr;
     sl.cap = a.caps + (lane_k + gl) * RC;
     sl.G = G;
     sl.RC = RC;
@@ -452,6 +670,11 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       a.start[sk] = a.start_in[sk];
       a.enter[sk] = a.enter_in[sk];
       a.seq[sk] = a.seq_in[sk];
+      if (g.has_count) {
+        a.cc[sk] = a.cc_in[sk];
+        a.cp[sk] = a.cp_in[sk];
+      }
+      if (g.has_absent) a.dl[sk] = a.dl_in[sk];
       for (int i = 0; i < RC; ++i) a.caps[sk * RC + i] = a.caps_in[sk * RC + i];
     }
   }
@@ -460,7 +683,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   int armed = (lane_ok && g.arm_once) ? a.armed_in[lane] : 0;
   int cnt = 0;                          // matches of this lane so far
   int lmt = 0, lmk = 0;                 // bank: the lane's last match
-  const int* u0 = g.units;
+  const int* u0 = unit(g, 0);
 
   const int n_tiles = (a.T + a.TT - 1) / a.TT;
   for (int it = 0; it < n_tiles; ++it) {
@@ -487,38 +710,141 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
       }
       const bool v = lane_ok && (gw & kValidBit);
       int ffree = -1;                   // first free slot of the lane
-      int ev_k = -1;                    // bank: lowest slot matched now
+      bool occ = false;                 // a slot sits at units 0..occ_hi
 
-      // within expiry, then each slot's one transition (ops/nfa.py
-      // _one_event_step: within, main transitions, land)
+      // pass A: within expiry, each slot's one transition, live appends
 #pragma unroll
       for (int s = 0; s < ns; ++s) {
         const int k = gl + s * G;
-        bool m = false, fr = false;
+        bool fr = false, oc = false;
         if (lane_ok && k < a.K) {
           int st = sl.st(s);
           if (g.has_within && st >= 1 &&
-              static_cast<int>(static_cast<unsigned>(tsv) -
-                               static_cast<unsigned>(sl.start(s))) > g.within)
+              sub32(tsv, sl.start(s)) > g.within)
             st = -1;
+          oc = st >= 0 && st <= g.occ_hi;
+          bool m = false;
           if (v && st >= 0 && st < g.S) {
-            const int* u = g.units + 3 * st;
-            if (sv == u[0] && cond_ok(g, u[1], gw, sl, s, at, LT)) {
-              if (u[2] >= 0) write_row(g, u[2], sl, s, at, LT);
-              if (st + 1 >= g.S) {
-                m = true;
-                st = -1;
+            const int* u = unit(g, st);
+            const bool ok = sv == u[uStream] &&
+                            cond_ok(g, u[uCond], gw, sl, s, at, LT);
+            int a0 = -1, a1 = -1;
+            bool ok0 = false, ok1 = false;
+            if (g.has_count) {          // before any write of this event
+              a0 = u[uApp0];
+              a1 = u[uApp1];
+              if (a0 >= 0)
+                ok0 = sv == unit(g, a0)[uStream] &&
+                      cond_ok(g, unit(g, a0)[uCond], gw, sl, s, at, LT);
+              if (a1 >= 0)
+                ok1 = sv == unit(g, a1)[uStream] &&
+                      cond_ok(g, unit(g, a1)[uCond], gw, sl, s, at, LT);
+            }
+            bool adv = false;
+            if (ok) {
+              const int from = st;
+              if (u[uKind] == kSimple) {
+                if (u[uRow] >= 0) write_row(g, u[uRow], sl, s, at, LT);
+                m = land(g, sl, s, st, from, tsv, false, 0, false);
+                adv = true;
+              } else if (u[uKind] == kCount) {
+                const int c2 = sl.cc(s) + 1;
+                if (u[uRow] >= 0)
+                  write_count(g, u[uRow], sl, s, at, LT, c2 == 1, c2);
+                sl.cc(s) = c2;
+                if (c2 == u[uMin]) {
+                  m = land(g, sl, s, st, from, tsv, true, c2,
+                           c2 == u[uMax]);
+                  adv = true;
+                }
               } else {
-                st += 1;
-                sl.enter(s) = tsv;
+                st = -1;                // an absent unit's arrival kills
               }
             }
+            if (!adv) {
+              live_append(g, sl, s, a0, ok0, at, LT);
+              live_append(g, sl, s, a1, ok1, at, LT);
+            }
           }
-          sl.st(s) = st;
+          sl.st(s) = m ? kMatched : st;
           fr = st < 0 && !m;
         }
         const unsigned bf = __ballot_sync(kFull, fr) & gmask;
         if (ffree < 0 && bf) ffree = s * G + (__ffs(bf) - 1 - gbase);
+        if (g.occ_hi >= 0 && (__ballot_sync(kFull, oc) & gmask)) occ = true;
+      }
+
+      // arming at unit 0: the first free slot, free meaning empty and not
+      // completed by this event, unless a slot occupies 0..occ_hi
+      const bool c0 = v && sv == u0[uStream] && ((gw >> u0[uCond]) & 1u);
+      const bool want = c0 && !occ && (!g.arm_once || armed == 0);
+      const bool do_arm = want && ffree >= 0;
+      const int aseq = arm_seq;
+      if (want) {
+        if (do_arm) {
+          if (g.arm_once) armed += 1;
+          arm_seq += 1;
+        } else {
+          drop += 1;
+        }
+      }
+
+      // pass B: arming, the deadline pass, and each matched slot's row
+      int ev_k = -1;                    // bank: lowest slot matched now
+#pragma unroll
+      for (int s = 0; s < ns; ++s) {
+        const int k = gl + s * G;
+        bool m = false;
+        int mts = tsv, ment = 0, mseq = 0;
+        if (lane_ok && k < a.K) {
+          int st = sl.st(s);
+          if (st == kMatched) {
+            m = true;
+            st = -1;
+            ment = sl.enter(s);
+            mseq = sl.seq(s);
+          }
+          if (do_arm && k == ffree) {
+            for (int i = 0; i < RC; ++i) sl.c(s, i) = 0.0f;
+            if (u0[uRow] >= 0) {
+              if (u0[uKind] == kCount)
+                write_count(g, u0[uRow], sl, s, at, LT, true, 1);
+              else
+                write_row(g, u0[uRow], sl, s, at, LT);
+            }
+            sl.start(s) = tsv;
+            if (arm.match) {            // the chain completes as it arms;
+              m = true;                 // the slot stays empty
+              ment = tsv;
+              mseq = aseq;
+            } else {
+              st = arm.state;
+              sl.enter(s) = tsv;
+              sl.seq(s) = aseq;
+              if (g.has_count) {
+                sl.cc(s) = arm.cnt_cur;
+                sl.cp(s) = arm.cnt_prev;
+              }
+              if (g.has_absent && arm.deadline)
+                sl.dl(s) = add32(tsv, unit(g, st)[uWait]);
+            }
+          }
+          if (g.has_absent && v) {
+            // due `not ... for t` units land at their deadline, in
+            // ascending unit order (a chain of absences in one pass)
+            while (st >= 0 && unit(g, st)[uKind] == kAbsent &&
+                   sl.dl(s) <= tsv) {
+              const int base = sl.dl(s);
+              if (land(g, sl, s, st, st, base, false, 0, false)) {
+                m = true;
+                mts = base;
+                ment = sl.enter(s);
+                mseq = sl.seq(s);
+              }
+            }
+          }
+          sl.st(s) = st;
+        }
         const unsigned bm = __ballot_sync(kFull, m);
         if constexpr (BANK) {
           const unsigned mine = bm & gmask;
@@ -533,53 +859,13 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
           base = __shfl_sync(kFull, base, gbase);
           if (m) {
             const int off = __popc(mine & ltmask);
-            emit_row(a, sl, s, base + off, p, t, k, tsv, sl.enter(s),
-                     sl.seq(s), cnt + off, l);
+            emit_row(a, sl, s, base + off, p, t, k, mts, ment, mseq,
+                     cnt + off, l);
           }
           cnt += __popc(mine);
         }
       }
-
-      // arming at unit 0: the first free slot, free meaning empty and not
-      // completed by this event
-      const bool c0 = v && sv == u0[0] && ((gw >> u0[1]) & 1u);
-      const bool want = c0 && (!g.arm_once || armed == 0);
-      const bool arm_match = want && ffree >= 0 && g.S == 1;
-      int abase = 0;
-      if constexpr (!BANK) {
-        if (__ballot_sync(kFull, arm_match)) {
-          if (arm_match && gl == 0) abase = atomicAdd(&s_fill, 1);
-          abase = __shfl_sync(kFull, abase, gbase);
-        }
-      }
-      if (want) {
-        if (ffree >= 0) {
-          if (g.arm_once) armed += 1;
-#pragma unroll
-          for (int s = 0; s < ns; ++s) {
-            if (gl + s * G != ffree) continue;
-            for (int i = 0; i < RC; ++i) sl.c(s, i) = 0.0f;
-            if (u0[2] >= 0) write_row(g, u0[2], sl, s, at, LT);
-            sl.start(s) = tsv;
-            if (g.S == 1) {             // a one-unit chain completes as it
-                                        // arms; the slot stays empty
-              if constexpr (!BANK)
-                emit_row(a, sl, s, abase, p, t, ffree, tsv, tsv, arm_seq,
-                         cnt, l);
-            } else {
-              sl.st(s) = 1;
-              sl.enter(s) = tsv;
-              sl.seq(s) = arm_seq;
-            }
-          }
-          arm_seq += 1;
-        } else {
-          drop += 1;
-        }
-      }
-      cnt += arm_match ? 1 : 0;
       if constexpr (BANK) {
-        if (arm_match && (ev_k < 0 || ffree < ev_k)) ev_k = ffree;
         if (ev_k >= 0) {
           lmt = tsv;
           lmk = ev_k;
@@ -592,17 +878,27 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
   // the bank may pass one carry as input and output: every thread of the
   // lane has read the lane's scalars before any is written
   if constexpr (BANK) __syncthreads();
-  if constexpr (SPT > 0) {
+  int dmin = INT_MAX;                   // this thread's earliest deadline
 #pragma unroll
-    for (int s = 0; s < SPT; ++s) {
-      const int k = gl + s * G;
-      if (!(lane_ok && k < a.K)) continue;
+  for (int s = 0; s < ns; ++s) {
+    const int k = gl + s * G;
+    if (!(lane_ok && k < a.K)) continue;
+    if constexpr (SPT > 0) {
       const long long sk = lane_k + k;
       a.st[sk] = sl.st(s);
       a.start[sk] = sl.start(s);
       a.enter[sk] = sl.enter(s);
       a.seq[sk] = sl.seq(s);
+      if (g.has_count) {
+        a.cc[sk] = sl.cc(s);
+        a.cp[sk] = sl.cp(s);
+      }
+      if (g.has_absent) a.dl[sk] = sl.dl(s);
       for (int i = 0; i < RC; ++i) a.caps[sk * RC + i] = sl.c(s, i);
+    }
+    if (!BANK && g.has_absent) {
+      const int st = sl.st(s);
+      if (st >= 0 && unit(g, st)[uKind] == kAbsent) dmin = min(dmin, sl.dl(s));
     }
   }
   if (lane_ok && gl == 0) {
@@ -618,21 +914,29 @@ __device__ __forceinline__ void step_body(const StepArgs& a) {
     }
   }
   if constexpr (!BANK) {
+    if (g.has_absent) {                 // the CTA's earliest live deadline
+      for (int o = 16; o > 0; o >>= 1)
+        dmin = min(dmin, __shfl_xor_sync(kFull, dmin, o));
+      if (wl == 0) atomicMin(&s_dl, dmin);
+      __syncthreads();
+      if (tid == 0) a.dl_min[blockIdx.x] = s_dl;
+    }
     if (tid == 0) a.fill[blockIdx.x] = s_fill;
   }
 }
 
 // One name per kernel, so a device trace keeps the step and the bank step
-// apart.
-template <int SPT>
+// apart.  EXT: the program has count or absent units (their carry words
+// are passed); the other instance is the simple units' own.
+template <int SPT, bool EXT>
 __global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
-  step_body<SPT, false>(a);
+  step_body<SPT, false, EXT>(a);
 }
 
-template <int SPT>
+template <int SPT, bool EXT>
 __global__ void __launch_bounds__(kThreads)
     nfa_bank_step_kernel(StepArgs a) {
-  step_body<SPT, true>(a);
+  step_body<SPT, true, EXT>(a);
 }
 
 // ------------------------------------------------------------ compaction
@@ -647,16 +951,26 @@ __device__ __forceinline__ int warp_max(int x) {
   return x;
 }
 
-// block-wide sum (op 0) or max (op 1); every thread gets the result
+__device__ __forceinline__ int warp_min(int x) {
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ int warp_op(int x, int op) {
+  return op == 0 ? warp_sum(x) : op == 1 ? warp_max(x) : warp_min(x);
+}
+
+// block-wide sum (op 0), max (op 1) or min (op 2); every thread gets the
+// result
 __device__ int block_reduce(int x, int op, int* red) {
   const int wl = threadIdx.x & 31, w = threadIdx.x >> 5;
-  x = op ? warp_max(x) : warp_sum(x);
+  x = warp_op(x, op);
   __syncthreads();
   if (wl == 0) red[w] = x;
   __syncthreads();
-  int y = wl < kThreads / 32 ? red[wl] : (op ? INT_MIN : 0);
-  y = op ? warp_max(y) : warp_sum(y);
-  return y;
+  int y = wl < kThreads / 32 ? red[wl]
+                             : (op == 0 ? 0 : op == 1 ? INT_MIN : INT_MAX);
+  return warp_op(y, op);
 }
 
 struct PackArgs {
@@ -664,6 +978,7 @@ struct PackArgs {
   const int* lane_count;
   const int* fill;
   const int* dropped;
+  const int* dl_min;      // [n_cta], or null: no absent unit
   int* slab;              // [cap + 2, W]
   int P, L, seg, n_cta, cap, W;
 };
@@ -674,17 +989,20 @@ __global__ void __launch_bounds__(kThreads) nfa_compact_kernel(PackArgs a) {
   const int c = blockIdx.x, tid = threadIdx.x;
   const int wl = tid & 31, w = tid >> 5;
 
-  // rows of the CTAs before this one, rows in all, the fullest segment
-  int before = 0, total = 0, mx = 0;
+  // rows of the CTAs before this one, rows in all, the fullest segment,
+  // and (CTA 0) the earliest live absent deadline of the step's CTAs
+  int before = 0, total = 0, mx = 0, dl = INT_MAX;
   for (int i = tid; i < a.n_cta; i += kThreads) {
     const int f = a.fill[i];
     total += f;
     if (i < c) before += f;
     mx = max(mx, f);
+    if (c == 0 && a.dl_min) dl = min(dl, a.dl_min[i]);
   }
   before = block_reduce(before, 0, red);
   total = block_reduce(total, 0, red);
   mx = block_reduce(mx, 1, red);
+  if (c == 0 && a.dl_min) dl = block_reduce(dl, 2, red);
 
   // exclusive scan of this CTA's lane counts
   const int p = c * a.L + tid;
@@ -733,6 +1051,7 @@ __global__ void __launch_bounds__(kThreads) nfa_compact_kernel(PackArgs a) {
       int val = 0;
       if (i == 0) val = total;
       else if (i == 1) val = d;
+      else if (i == 2 && a.dl_min) val = dl;
       else if (i == a.W) val = mx;            // status row
       else if (i == a.W + 1) val = a.seg;
       tail[i] = val;
@@ -1062,11 +1381,15 @@ struct BankArgs {
   const int *st_in, *start_in, *enter_in, *seq_in, *armseq_in;
   const float* caps_in;
   const int *dropped_in, *armed_in;
+  const int* dl_in;       // absent units: the deadlines
   int *st, *start, *enter, *seq, *armseq;
   float* caps;
   int *dropped, *armed;
+  int* dl;
   int *count, *lmt, *lmk; // [CN, P]
   int prog_len, n_params, CN, P, T, K, TT, A, RC;
+  int absent;             // the spec has absent units: a deadline column
+  int n_cond;             // conditions: one candidate mask each
   int stride;             // words between two lane rows of a staged array
   int arr;                // words of one staged array (tile lanes x stride)
   int vec_in, vec_slots, vec_caps;  // 16-byte aligned: inputs (and T % 4
@@ -1078,9 +1401,10 @@ struct BankArgs {
 // The thread instance's shared memory, in words from its base: the
 // program; the CTA's patterns' constants [NG, n_params]; per constant
 // compare each pattern's interval and the CTA's union (float4); the tile's
-// candidate masks; one tile of (3 + A) staged arrays, two when T is tiled;
-// each thread's column of capture, enter and seq words.  Every region
-// starts on 16 bytes.  ops/nfa.bank_geometry sizes this layout to pick the
+// candidate masks, one per condition; one tile of (3 + A) staged arrays,
+// two when T is tiled;
+// each thread's column of capture, enter and seq words, and of deadlines
+// when the spec has absent units.  Every region starts on 16 bytes.  ops/nfa.bank_geometry sizes this layout to pick the
 // instance and passes the size in; the launch checks it against `end`.
 struct BankLayout {
   int prm, pc, mask, tiles, col, end;
@@ -1092,9 +1416,9 @@ __host__ __device__ inline BankLayout bank_layout(const BankArgs& a) {
   b.prm = (a.prog_len + 3) & ~3;
   b.pc = b.prm + ((NG * a.n_params + 3) & ~3);
   b.mask = b.pc + 4 * kBankMaxPcmp * (NG + 1);
-  b.tiles = b.mask + kBankLanes * kMaskWords;
+  b.tiles = b.mask + ((a.n_cond * kBankLanes * kMaskWords + 3) & ~3);
   b.col = b.tiles + (a.T > a.TT ? 2 : 1) * (3 + a.A) * a.arr;
-  b.end = b.col + kThreads * a.K * (a.RC + 2);
+  b.end = b.col + kThreads * a.K * (a.RC + 2 + a.absent);
   return b;
 }
 
@@ -1237,9 +1561,10 @@ struct BankCaps {
 };
 
 // One thread per (pattern, lane), its K <= KM slots' state and start in
-// registers, their enter, seq and capture words in its shared-memory
-// column; kBankLanes maps the threads.
-template <int KM>
+// registers, their enter, seq and capture words (ABS: and deadlines) in its
+// shared-memory column; kBankLanes maps the threads.  ABS: the spec has
+// absent units (kills, deadlines, the deadline pass).
+template <int KM, bool ABS>
 __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
     nfa_bank_thread_kernel(BankArgs a) {
   constexpr int LT = kBankLanes;                  // lanes of the tile
@@ -1266,9 +1591,10 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
   BankCaps sl;
   sl.cap = col;
   sl.RC = RC;
-  float* scol = col + K * RC * kThreads;          // enter, then seq
+  float* scol = col + K * RC * kThreads;          // enter, seq, deadline
 #define ENTER(s) scol[(s) * kThreads]
 #define SEQ(s) scol[(K + (s)) * kThreads]
+#define DL(s) scol[(2 * K + (s)) * kThreads]
 
   // the program and the constants, then the first tile, in flight with
   // the carry's loads: one wait on the device's latency
@@ -1285,24 +1611,25 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
   cp_async_commit();
 
   // a group's carry: the slot states and the lane's scalars; the rest
-  // (start, enter, seq, captures) not in place, or in place for a lane
-  // that holds a partial: a slot armed here is written before it is
-  // read, so an empty lane needs none of its cold words.  cold: every
-  // slot's start, enter, seq and captures are in; else only those of the
-  // slots in dmask (armed or advanced here); dirty: the lane changed
+  // (start, enter, seq, captures, deadlines) not in place, or in place
+  // for a lane that holds a partial: a slot armed here is written before
+  // it is read, so an empty lane needs none of its cold words.  cold:
+  // every slot's cold words are in; else only those of the slots in dmask
+  // (armed or advanced here) and the deadlines in dlmask (set here);
+  // dirty: the lane changed
   const bool inplace = a.inplace;
   int st[KM], start[KM];
   int pat = 0, arm_seq = 0, drop = 0, armed = 0;
   long long lane = 0, lk = 0;
   bool on = false, cold = false, dirty = false;
-  unsigned dmask = 0;
+  unsigned dmask = 0, dlmask = 0;
   auto load_group = [&](int r) {
     pat = pat0 + r * NPC + pi;
     on = p < a.P && pat < a.CN;
     lane = static_cast<long long>(pat) * a.P + p;
     lk = lane * K;
     cold = dirty = false;
-    dmask = 0;
+    dmask = dlmask = 0;
 #pragma unroll
     for (int s = 0; s < KM; ++s) {
       st[s] = -1;
@@ -1320,6 +1647,7 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
       load_words<KM>(start, a.start_in + lk, K, a.vec_slots);
       load_col(&ENTER(0), a.enter_in + lk, K);
       load_col(&SEQ(0), a.seq_in + lk, K);
+      if (ABS) load_col(&DL(0), a.dl_in + lk, K);
       load_col(col, a.caps_in + lk * RC, K * RC);
     }
   };
@@ -1364,9 +1692,11 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
   }
 
   const unsigned cmask = (1u << g.n_cond) - 1u;
-  const int* u0 = g.units;
+  const int* u0 = unit(g, 0);
   const int tt_sh = __ffs(a.TT) - 1;
-  int* smask = smem + lay.mask;                 // per lane: its candidates
+  // per condition and lane: the tile's events that may pass it
+  int* smask = smem + lay.mask;
+  const int mstride = LT * kMaskWords;          // words a condition
 
   // this pattern's gate word of event j of the staged row: condition
   // bits cleared where one of its constant compares fails
@@ -1381,6 +1711,80 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
     }
     return gw;
   };
+  auto is_absent = [&](int j) { return unit(g, j)[uKind] == kAbsent; };
+  // bit s: slot s holds a partial (live), waits at an absent unit (wait)
+  unsigned live = 0, wait = 0;
+  auto masks = [&]() {
+    live = wait = 0;
+#pragma unroll
+    for (int s = 0; s < KM; ++s) {
+      if (st[s] >= 1) live |= 1u << s;
+      if (ABS && st[s] >= 1 && is_absent(st[s])) wait |= 1u << s;
+    }
+  };
+  int cnt = 0, lmt = 0, lmk = 0;
+  // the deadline pass at a valid event at tsv: each slot waiting at an
+  // absent unit whose deadline is at or before tsv lands at its
+  // deadline, cascading through absent units; a trailing one completes
+  auto deadlines = [&](int tsv, int& ev_k) {
+#pragma unroll
+    for (int s = 0; s < KM; ++s) {
+      if (!((wait >> s) & 1u)) continue;
+      int sts = st[s];
+      while (sts >= 1 && is_absent(sts) &&
+             __float_as_int(DL(s)) <= tsv) {
+        const int base = __float_as_int(DL(s));
+        const int t = unit(g, sts)[uLand];
+        dmask |= 1u << s;
+        dirty = true;
+        if (t >= g.S) {
+          sts = -1;
+          ++cnt;
+          if (ev_k < 0 || s < ev_k) ev_k = s;
+        } else {
+          sts = t;
+          ENTER(s) = __int_as_float(base);
+          if (is_absent(t)) {
+            DL(s) = __int_as_float(add32(base, unit(g, t)[uWait]));
+            dlmask |= 1u << s;
+          }
+        }
+      }
+      st[s] = sts;
+    }
+  };
+
+  // the conditions a thread can pass now: with absent units, those of
+  // unit 0 and of the units its slots wait at (an absent unit's kill
+  // condition passes most events, and only a slot waiting there reads
+  // it); else every condition, as simple units' conditions rarely pass
+  auto needs = [&]() {
+    if (!ABS) return cmask;
+    unsigned r = 1u << u0[uCond];
+#pragma unroll
+    for (int s = 0; s < KM; ++s)
+      if (st[s] >= 0) r |= 1u << unit(g, st[s])[uCond];
+    return r;
+  };
+  // word wd's events from event `from` on that pass one of the conditions
+  // in `need` for pattern n: its candidates of those conditions, then the
+  // pattern's own constant compares
+  auto live_from = [&](const int* row, int wd, int from, unsigned need,
+                       int n) {
+    const int jb = wd << 5;
+    if (from - jb >= 32) return 0u;
+    unsigned c = 0;
+    for (unsigned b = need; b; b &= b - 1)
+      c |= static_cast<unsigned>(
+          smask[(__ffs(b) - 1) * mstride + l * kMaskWords + wd]);
+    c &= ~0u << (from - jb);
+    unsigned al = 0;
+    for (unsigned m = c; m; m &= m - 1) {
+      const int j = jb + __ffs(m) - 1;
+      if (gate(row, j, n) & need) al |= 1u << (j - jb);
+    }
+    return al;
+  };
 
   const int n_tiles = (a.T + a.TT - 1) / a.TT;
   for (int r = 0; r < a.groups; ++r) {  // groups > 1: one tile, staged once
@@ -1389,11 +1793,8 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
       cp_async_commit();
       cp_async_wait<0>();
     }
-    unsigned live = 0;                    // bit s: slot s holds a partial
-#pragma unroll
-    for (int s = 0; s < KM; ++s)
-      if (st[s] >= 1) live |= 1u << s;
-    int cnt = 0, lmt = 0, lmk = 0;
+    masks();
+    cnt = lmt = lmk = 0;
     const int n = r * NPC + pi;           // this pattern in the CTA
     for (int it = 0; it < n_tiles; ++it) {
       const int* cur = tiles + (it & 1) * NA * a.arr;
@@ -1404,13 +1805,14 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
                          a, p0);
           cp_async_commit();
         }
-        for (int i = tid; i < LT * kMaskWords; i += kThreads) smask[i] = 0;
+        for (int i = tid; i < g.n_cond * mstride; i += kThreads)
+          smask[i] = 0;
         if (it + 1 < n_tiles) cp_async_wait<1>();
         else cp_async_wait<0>();
         __syncthreads();
-        // the candidates: valid events with a condition bit that the CTA's
-        // union of constant intervals leaves; every other event of the tile
-        // is dead for every pattern of the CTA
+        // the candidates of condition i: valid events whose bit i the
+        // CTA's union of constant intervals leaves; an event that is no
+        // candidate of a condition fails it for every pattern of the CTA
         for (int idx = tid; idx < (LT << tt_sh); idx += kThreads) {
           const int ll = idx >> tt_sh, j = idx & (a.TT - 1);
           if (j >= tn || p0 + ll >= a.P) continue;
@@ -1422,9 +1824,9 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
             const float x = __int_as_float(rw[__float_as_int(e.z) + j]);
             if (!(x >= e.x && x <= e.y)) gw &= ~__float_as_uint(e.w);
           }
-          if (gw & cmask)
-            atomicOr(reinterpret_cast<unsigned*>(smask) + ll * kMaskWords +
-                         (j >> 5),
+          for (unsigned b = gw & cmask; b; b &= b - 1)
+            atomicOr(reinterpret_cast<unsigned*>(smask) +
+                         (__ffs(b) - 1) * mstride + ll * kMaskWords + (j >> 5),
                      1u << (j & 31));
         }
         __syncthreads();
@@ -1432,32 +1834,51 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
       const int* row = cur + l * a.stride;
       for (int wd = 0; on && wd < ((tn + 31) >> 5); ++wd) {
         const int jb = wd << 5, je = min(tn, jb + 32);
-        const unsigned cand = static_cast<unsigned>(smask[l * kMaskWords + wd]);
-        if (!cand && !(g.has_within && live)) continue;
-        // this pattern's live events among the candidates
-        unsigned al = 0;
-        for (unsigned m = cand; m; m &= m - 1) {
-          const int j = jb + __ffs(m) - 1;
-          if (gate(row, j, n) & cmask) al |= 1u << (j - jb);
-        }
-        // in event order: each dead event expires live slots (`within`), a
-        // live event takes the plain step's order — within, each slot's one
-        // transition, then arming
+        // the conditions this thread can pass now: unit 0's (arming) and
+        // those of the units its slots wait at; an event that passes none
+        // of them is dead for it.  need only grows inside a word: when a
+        // slot reaches a unit whose condition it lacks, the word's live
+        // events from there on are found again
+        unsigned need = needs();
+        unsigned al = live_from(row, wd, jb, need, n);
+        if (!al && !(g.has_within && live) && !wait) continue;
+        // in event order: each dead event expires live slots (`within`)
+        // and, when valid, runs the deadline pass; a live event takes the
+        // plain step's order — within, each slot's one transition, then
+        // arming, then the deadline pass
         for (int j = jb;;) {
           const int jn = al ? jb + __ffs(al) - 1 : je;
-          for (; g.has_within && live && j < jn; ++j) {
+          bool grew = false;
+          for (; !grew && ((g.has_within && live) || wait) && j < jn; ++j) {
             const int tsv = row[j];
+            if (g.has_within) {
 #pragma unroll
-            for (int s = 0; s < KM; ++s) {
-              if (((live >> s) & 1u) &&
-                  static_cast<int>(static_cast<unsigned>(tsv) -
-                                   static_cast<unsigned>(start[s])) >
-                      g.within) {
-                st[s] = -1;
-                live &= ~(1u << s);
-                dirty = true;
+              for (int s = 0; s < KM; ++s) {
+                if (((live >> s) & 1u) &&
+                    sub32(tsv, start[s]) > g.within) {
+                  st[s] = -1;
+                  live &= ~(1u << s);
+                  wait &= ~(1u << s);
+                  dirty = true;
+                }
               }
             }
+            if (ABS && wait && (row[2 * a.arr + j] & kValidBit)) {
+              int ev_k = -1;
+              deadlines(tsv, ev_k);
+              if (ev_k >= 0) {
+                lmt = tsv;
+                lmk = ev_k;
+              }
+              masks();
+              const unsigned nn = needs();
+              grew = (nn & ~need) != 0;
+              need |= nn;
+            }
+          }
+          if (grew) {
+            al = live_from(row, wd, j, need, n);
+            continue;
           }
           if (jn >= je) break;
           al &= al - 1;
@@ -1475,22 +1896,30 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
             if (s >= K) break;
             int sts = st[s];
             bool m = false;
-            if (g.has_within && sts >= 1 &&
-                static_cast<int>(static_cast<unsigned>(tsv) -
-                                 static_cast<unsigned>(start[s])) > g.within)
+            if (g.has_within && sts >= 1 && sub32(tsv, start[s]) > g.within)
               sts = -1;
             if (sts >= 0 && sts < g.S) {
-              const int* u = g.units + 3 * sts;
-              if (sv == u[0] && cond_ok(g, u[1], gw, sl, s, at, a.arr)) {
-                if (u[2] >= 0) write_row(g, u[2], sl, s, at, a.arr);
-                if (sts + 1 >= g.S) {
-                  m = true;
-                  sts = -1;
+              const int* u = unit(g, sts);
+              if (sv == u[uStream] && cond_ok(g, u[uCond], gw, sl, s, at,
+                                              a.arr)) {
+                if (ABS && u[uKind] == kAbsent) {
+                  sts = -1;               // the arrival kills the partial
                 } else {
-                  sts += 1;
-                  ENTER(s) = __int_as_float(tsv);
+                  if (u[uRow] >= 0) write_row(g, u[uRow], sl, s, at, a.arr);
+                  const int t = u[uLand];
+                  if (t >= g.S) {
+                    m = true;
+                    sts = -1;
+                  } else {
+                    sts = t;
+                    ENTER(s) = __int_as_float(tsv);
+                    if (ABS && is_absent(t)) {
+                      DL(s) = __int_as_float(add32(tsv, unit(g, t)[uWait]));
+                      dlmask |= 1u << s;
+                    }
+                  }
+                  dmask |= 1u << s;
                 }
-                dmask |= 1u << s;
               }
             }
             st[s] = sts;
@@ -1502,13 +1931,13 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
           }
           // arming at unit 0: the first free slot, free meaning empty and
           // not completed by this event
-          const bool want = sv == u0[0] && ((gw >> u0[1]) & 1u) &&
+          const bool want = sv == u0[uStream] && ((gw >> u0[uCond]) & 1u) &&
                             (!g.arm_once || armed == 0);
           if (want) {
             if (ffree >= 0) {
               if (g.arm_once) armed += 1;
               for (int i = 0; i < RC; ++i) sl.c(ffree, i) = 0.0f;
-              if (u0[2] >= 0) write_row(g, u0[2], sl, ffree, at, a.arr);
+              if (u0[uRow] >= 0) write_row(g, u0[uRow], sl, ffree, at, a.arr);
 #pragma unroll
               for (int s = 0; s < KM; ++s) {
                 if (s != ffree) continue;
@@ -1518,6 +1947,10 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
               if (g.S > 1) {
                 ENTER(ffree) = __int_as_float(tsv);
                 SEQ(ffree) = __int_as_float(arm_seq);
+                if (ABS && is_absent(1)) {
+                  DL(ffree) = __int_as_float(add32(tsv, unit(g, 1)[uWait]));
+                  dlmask |= 1u << ffree;
+                }
               }
               dmask |= 1u << ffree;
               arm_seq += 1;
@@ -1530,14 +1963,22 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
               drop += 1;
             }
           }
+          masks();
+          if (ABS && wait) {
+            deadlines(tsv, ev_k);
+            masks();
+          }
           if (ev_k >= 0) {
             lmt = tsv;
             lmk = ev_k;
           }
-          live = 0;
-#pragma unroll
-          for (int s = 0; s < KM; ++s)
-            if (st[s] >= 1) live |= 1u << s;
+          if constexpr (ABS) {
+            const unsigned nn = needs();
+            if (nn & ~need) {
+              need |= nn;
+              al = live_from(row, wd, j, need, n);
+            }
+          }
         }
       }
       if (n_tiles > 1) __syncthreads();   // the tile is free to refill
@@ -1556,10 +1997,13 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
       store_words<KM>(start, a.start + lk, K, a.vec_slots);
       store_col(&ENTER(0), a.enter + lk, K, a.vec_slots);
       store_col(&SEQ(0), a.seq + lk, K, a.vec_slots);
+      if (ABS) store_col(&DL(0), a.dl + lk, K, a.vec_slots);
       store_col(col, a.caps + lk * RC, K * RC, a.vec_caps);
     } else {
 #pragma unroll
       for (int s = 0; s < KM; ++s) {
+        if (ABS && ((dlmask >> s) & 1u))
+          a.dl[lk + s] = __float_as_int(DL(s));
         if (!((dmask >> s) & 1u)) continue;
         a.start[lk + s] = start[s];
         if (g.S > 1) {                    // a one-unit arm sets neither
@@ -1576,19 +2020,20 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
   }
 #undef ENTER
 #undef SEQ
+#undef DL
 }
 
 // ------------------------------------------------------------ launches
 
 constexpr size_t kSmemLimit = 227 * 1024;
 
-template <int SPT, bool BANK>
+template <int SPT, bool BANK, bool EXT>
 int launch_step(const StepArgs& a, size_t smem, long long grid,
                 cudaStream_t s) {
   if (grid <= 0) return 0;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   void (*const kern)(StepArgs) =
-      BANK ? nfa_bank_step_kernel<SPT> : nfa_step_kernel<SPT>;
+      BANK ? nfa_bank_step_kernel<SPT, EXT> : nfa_step_kernel<SPT, EXT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1601,8 +2046,8 @@ int launch_step(const StepArgs& a, size_t smem, long long grid,
 
 // Tile size, slot instance and shared memory for a, then the launch over
 // ceil(P / L) lane tiles (times CN patterns for the bank).
-template <bool BANK>
-int run_step(StepArgs& a, cudaStream_t s) {
+template <bool BANK, bool EXT>
+int run_step_as(StepArgs& a, cudaStream_t s) {
   a.spt = (a.K + a.G - 1) / a.G;
   a.L = kThreads / a.G;
   // events per tile: both buffers within kTileBytes, a power of two
@@ -1617,13 +2062,21 @@ int run_step(StepArgs& a, cudaStream_t s) {
   const size_t caps_smem = static_cast<size_t>(kThreads) * spt * a.RC * 4;
   const long long grid =
       static_cast<long long>((a.P + a.L - 1) / a.L) * (BANK ? a.CN : 1);
-  if (spt > 0 && base + caps_smem <= kSmemLimit) {
-    if (spt == 1) return launch_step<1, BANK>(a, base + caps_smem, grid, s);
-    if (spt == 2) return launch_step<2, BANK>(a, base + caps_smem, grid, s);
-    return launch_step<4, BANK>(a, base + caps_smem, grid, s);
+  const size_t smem = base + caps_smem;
+  if (spt > 0 && smem <= kSmemLimit) {
+    if (spt == 1) return launch_step<1, BANK, EXT>(a, smem, grid, s);
+    if (spt == 2) return launch_step<2, BANK, EXT>(a, smem, grid, s);
+    return launch_step<4, BANK, EXT>(a, smem, grid, s);
   }
   if (base > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_step<0, BANK>(a, base, grid, s);
+  return launch_step<0, BANK, EXT>(a, base, grid, s);
+}
+
+// the instance for the carry: count or deadline words passed, or not
+template <bool BANK>
+int run_step(StepArgs& a, cudaStream_t s) {
+  return a.cc_in || a.dl_in ? run_step_as<BANK, true>(a, s)
+                            : run_step_as<BANK, false>(a, s);
 }
 
 bool bad_geometry(int K, int T, int G, int A, int RC, int prog_len) {
@@ -1631,14 +2084,14 @@ bool bad_geometry(int K, int T, int G, int A, int RC, int prog_len) {
          RC <= 0 || prog_len < kHeader;
 }
 
-template <int KM>
+template <int KM, bool ABS>
 int launch_bank_thread(const BankArgs& a, size_t smem, cudaStream_t s) {
   constexpr int NPC = kThreads / kBankLanes;
   const long long gx = (a.P + kBankLanes - 1) / kBankLanes;
   const long long gy = (a.CN + NPC * a.groups - 1) / (NPC * a.groups);
   if (gx > INT_MAX || gy > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  void (*const kern)(BankArgs) = nfa_bank_thread_kernel<KM>;
+  void (*const kern)(BankArgs) = nfa_bank_thread_kernel<KM, ABS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1654,31 +2107,105 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// The carry pointers of the C entries: 11 leaves in, 11 out, in
+// ops/nfa.KERNEL_CARRY's order (slot_state, slot_start, slot_enter,
+// slot_seq, arm_seq, captures, dropped, armed_total, cnt_cur, cnt_prev,
+// deadline; null where the spec's carry has no such leaf).
+struct CarryPtrs {
+  const int *st, *start, *enter, *seq, *armseq;
+  const float* caps;
+  const int *dropped, *armed, *cc, *cp, *dl;
+};
+
+struct CarryOut {
+  int *st, *start, *enter, *seq, *armseq;
+  float* caps;
+  int *dropped, *armed, *cc, *cp, *dl;
+};
+
+void set_carry(StepArgs& a, const CarryPtrs& i, const CarryOut& o) {
+  a.st_in = i.st;
+  a.start_in = i.start;
+  a.enter_in = i.enter;
+  a.seq_in = i.seq;
+  a.armseq_in = i.armseq;
+  a.caps_in = i.caps;
+  a.dropped_in = i.dropped;
+  a.armed_in = i.armed;
+  a.cc_in = i.cc;
+  a.cp_in = i.cp;
+  a.dl_in = i.dl;
+  a.st = o.st;
+  a.start = o.start;
+  a.enter = o.enter;
+  a.seq = o.seq;
+  a.armseq = o.armseq;
+  a.caps = o.caps;
+  a.dropped = o.dropped;
+  a.armed = o.armed;
+  a.cc = o.cc;
+  a.cp = o.cp;
+  a.dl = o.dl;
+}
+
+// a leaf every spec's carry has is null (the optional leaves are the
+// caller's to match to the program: ops/nfa._check_carry)
+bool missing_leaves(const CarryPtrs& i, const CarryOut& o) {
+  return !i.st || !i.start || !i.enter || !i.seq || !i.armseq || !i.caps ||
+         !i.dropped || !o.st || !o.start || !o.enter || !o.seq ||
+         !o.armseq || !o.caps || !o.dropped;
+}
+
 }  // namespace
+
+#define CARRY_PARAMS                                                        \
+  const int *st_in, const int *start_in, const int *enter_in,              \
+      const int *seq_in, const int *armseq_in, const float *caps_in,       \
+      const int *dropped_in, const int *armed_in, const int *cc_in,        \
+      const int *cp_in, const int *dl_in, int *st, int *start, int *enter, \
+      int *seq, int *armseq_out, float *caps, int *dropped_out,            \
+      int *armed_out, int *cc, int *cp, int *dl
+#define CARRY_IN                                                          \
+  CarryPtrs {                                                             \
+    st_in, start_in, enter_in, seq_in, armseq_in, caps_in, dropped_in,    \
+        armed_in, cc_in, cp_in, dl_in                                     \
+  }
+#define CARRY_OUT                                                         \
+  CarryOut {                                                              \
+    st, start, enter, seq, armseq_out, caps, dropped_out, armed_out, cc, \
+        cp, dl                                                            \
+  }
 
 // Launch one block step on `stream`.  G (threads per lane: K rounded up
 // to a power of two, at most 32) and seg (scratch rows per CTA) come from
 // the caller, which sizes rows as ceil(P / (256 / G)) * seg * (6 + RC)
-// int32.  Returns cudaGetLastError() after the launch (0 = cudaSuccess);
+// int32, and fill and dl_min (null without absent units) as one int32 a
+// CTA.  Returns cudaGetLastError() after the launch (0 = cudaSuccess);
 // the caller raises on anything else.
 extern "C" int nfa_step(const float* attrs, const int* ts, const int* strm,
                         const int* gates, const int* prog, int prog_len,
-                        const int* st_in, const int* start_in,
-                        const int* enter_in, const int* seq_in,
-                        const int* armseq_in, const float* caps_in,
-                        const int* dropped_in, const int* armed_in, int* st,
-                        int* start, int* enter, int* seq, int* armseq_out,
-                        float* caps, int* dropped_out, int* armed_out,
-                        int* rows, int* lane_count, int* fill, int P, int T,
-                        int K, int G, int seg, int A, int RC, void* stream) {
+                        CARRY_PARAMS, int* rows, int* lane_count, int* fill,
+                        int* dl_min, int P, int T, int K, int G, int seg,
+                        int A, int RC, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 0) return 0;
-  if (bad_geometry(K, T, G, A, RC, prog_len) || seg < 0)
+  const CarryPtrs in = CARRY_IN;
+  const CarryOut out = CARRY_OUT;
+  if (bad_geometry(K, T, G, A, RC, prog_len) || seg < 0 ||
+      missing_leaves(in, out) || ((in.dl != nullptr) !=
+                                                   (dl_min != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  StepArgs a{attrs, ts, strm, gates, prog, st_in, start_in, enter_in,
-             seq_in, armseq_in, caps_in, dropped_in, armed_in, st, start,
-             enter, seq, armseq_out, caps, dropped_out, armed_out, rows,
-             lane_count, fill};
+  StepArgs a{};
+  a.attrs = attrs;
+  a.ts = ts;
+  a.strm = strm;
+  a.gates = gates;
+  a.prog = prog;
+  set_carry(a, in, out);
+  a.rows = rows;
+  a.lane_count = lane_count;
+  a.fill = fill;
+  a.dl_min = dl_min;
   a.prog_len = prog_len;
   a.P = P;
   a.T = T;
@@ -1699,24 +2226,28 @@ extern "C" int nfa_step(const float* attrs, const int* ts, const int* strm,
 extern "C" int nfa_bank_step(const float* attrs, const int* ts,
                              const int* strm, const int* gates,
                              const int* prog, int prog_len,
-                             const float* params, int n_params,
-                             const int* st_in, const int* start_in,
-                             const int* enter_in, const int* seq_in,
-                             const int* armseq_in, const float* caps_in,
-                             const int* dropped_in, const int* armed_in,
-                             int* st, int* start, int* enter, int* seq,
-                             int* armseq_out, float* caps, int* dropped_out,
-                             int* armed_out, int* count, int* lmt, int* lmk,
-                             int CN, int P, int T, int K, int G, int A,
-                             int RC, void* stream) {
+                             const float* params, int n_params, CARRY_PARAMS,
+                             int* count, int* lmt, int* lmk, int CN, int P,
+                             int T, int K, int G, int A, int RC,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 0 || CN <= 0) return 0;
-  if (bad_geometry(K, T, G, A, RC, prog_len) || n_params < 0)
+  const CarryPtrs in = CARRY_IN;
+  const CarryOut out = CARRY_OUT;
+  if (bad_geometry(K, T, G, A, RC, prog_len) || n_params < 0 ||
+      missing_leaves(in, out))
     return static_cast<int>(cudaErrorInvalidValue);
-  StepArgs a{attrs, ts, strm, gates, prog, st_in, start_in, enter_in,
-             seq_in, armseq_in, caps_in, dropped_in, armed_in, st, start,
-             enter, seq, armseq_out, caps, dropped_out, armed_out, nullptr,
-             nullptr, nullptr, params, count, lmt, lmk};
+  StepArgs a{};
+  a.attrs = attrs;
+  a.ts = ts;
+  a.strm = strm;
+  a.gates = gates;
+  a.prog = prog;
+  set_carry(a, in, out);
+  a.params = params;
+  a.count = count;
+  a.lmt = lmt;
+  a.lmk = lmk;
   a.prog_len = prog_len;
   a.P = P;
   a.T = T;
@@ -1731,36 +2262,37 @@ extern "C" int nfa_bank_step(const float* attrs, const int* ts,
 }
 
 // Launch the bank step's thread instance (one thread per (pattern, lane),
-// K <= 16, at most 8 constant compares) over CN patterns on `stream`:
-// the arguments of nfa_bank_step, with TT (events a staged tile: a power
-// of two >= 4) for G, smem (the CTA's shared memory in bytes, at least
-// bank_layout's) and groups (the pattern groups a CTA walks over its
-// staged tile; above 1 only when one tile holds T), all three from
-// ops/nfa.bank_geometry.  Returns cudaGetLastError() after the launch.
+// K <= 16, at most 8 constant compares, no count unit) over CN patterns
+// on `stream`: the arguments of nfa_bank_step, with TT (events a staged
+// tile: a power of two >= 4) for G, smem (the CTA's shared memory in
+// bytes, at least bank_layout's) and groups (the pattern groups a CTA
+// walks over its staged tile; above 1 only when one tile holds T), all
+// three from ops/nfa.bank_geometry, and n_cond (the program's conditions:
+// one candidate mask each in shared memory).  A deadline leaf (dl_in)
+// selects the instance with absent units.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int nfa_bank_thread(const float* attrs, const int* ts,
                                const int* strm, const int* gates,
                                const int* prog, int prog_len,
                                const float* params, int n_params,
-                               const int* st_in, const int* start_in,
-                               const int* enter_in, const int* seq_in,
-                               const int* armseq_in, const float* caps_in,
-                               const int* dropped_in, const int* armed_in,
-                               int* st, int* start, int* enter, int* seq,
-                               int* armseq_out, float* caps, int* dropped_out,
-                               int* armed_out, int* count, int* lmt, int* lmk,
+                               CARRY_PARAMS, int* count, int* lmt, int* lmk,
                                int CN, int P, int T, int K, int TT, int A,
-                               int RC, int smem, int groups,
+                               int RC, int smem, int groups, int n_cond,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 0 || CN <= 0) return 0;
+  const CarryPtrs in = CARRY_IN;
+  const CarryOut out = CARRY_OUT;
   if (K <= 0 || K > 16 || T < 0 || TT < 4 || TT > 32 * kMaskWords ||
       (TT & (TT - 1)) || A < 0 || groups < 1 || (groups > 1 && T > TT) ||
-      RC <= 0 || prog_len < kHeader || n_params < 0)
+      RC <= 0 || prog_len < kHeader || n_params < 0 || n_cond < 1 ||
+      n_cond > 31 || missing_leaves(in, out) || cc_in || cp_in ||
+      ((dl_in != nullptr) != (dl != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   BankArgs a{attrs, ts, strm, gates, prog, params, st_in, start_in,
-             enter_in, seq_in, armseq_in, caps_in, dropped_in, armed_in, st,
-             start, enter, seq, armseq_out, caps, dropped_out, armed_out,
-             count, lmt, lmk};
+             enter_in, seq_in, armseq_in, caps_in, dropped_in, armed_in,
+             dl_in, st, start, enter, seq, armseq_out, caps, dropped_out,
+             armed_out, dl, count, lmt, lmk};
   a.prog_len = prog_len;
   a.n_params = n_params;
   a.CN = CN;
@@ -1770,6 +2302,8 @@ extern "C" int nfa_bank_thread(const float* attrs, const int* ts,
   a.TT = TT;
   a.A = A;
   a.RC = RC;
+  a.absent = dl_in != nullptr;
+  a.n_cond = n_cond;
   a.groups = groups;
   // a stride of 4 (mod 8) words: a warp's 16-byte loads of 32 lane rows
   // fall in distinct bank groups
@@ -1779,30 +2313,41 @@ extern "C" int nfa_bank_thread(const float* attrs, const int* ts,
              aligned16(strm) && aligned16(gates);
   a.vec_slots = (K & 3) == 0 && aligned16(st_in) && aligned16(start_in) &&
                 aligned16(enter_in) && aligned16(seq_in) && aligned16(st) &&
-                aligned16(start) && aligned16(enter) && aligned16(seq);
+                aligned16(start) && aligned16(enter) && aligned16(seq) &&
+                (!a.absent || (aligned16(dl_in) && aligned16(dl)));
   a.vec_caps = ((K * RC) & 3) == 0 && aligned16(caps_in) && aligned16(caps);
   a.inplace = st == st_in && start == start_in && enter == enter_in &&
               seq == seq_in && armseq_out == armseq_in && caps == caps_in &&
-              dropped_out == dropped_in && armed_out == armed_in;
+              dropped_out == dropped_in && armed_out == armed_in &&
+              dl == dl_in;
   if (static_cast<size_t>(smem) > kSmemLimit ||
       static_cast<long long>(bank_layout(a).end) * 4 > smem)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (K <= 4) return launch_bank_thread<4>(a, smem, s);
-  if (K <= 8) return launch_bank_thread<8>(a, smem, s);
-  return launch_bank_thread<16>(a, smem, s);
+  if (a.absent) {
+    if (K <= 4) return launch_bank_thread<4, true>(a, smem, s);
+    if (K <= 8) return launch_bank_thread<8, true>(a, smem, s);
+    return launch_bank_thread<16, true>(a, smem, s);
+  }
+  if (K <= 4) return launch_bank_thread<4, false>(a, smem, s);
+  if (K <= 8) return launch_bank_thread<8, false>(a, smem, s);
+  return launch_bank_thread<16, false>(a, smem, s);
 }
 
 // The compaction of one step's scratch into the slab [cap + 2, W] (rows,
-// tail, status).  Returns cudaGetLastError() after the launch.
+// tail, status); dl_min (the step's per-CTA earliest absent deadlines, or
+// null) gives the tail's column 2.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int nfa_compact(const int* rows, const int* lane_count,
-                           const int* fill, const int* dropped, int* slab,
-                           int P, int L, int seg, int n_cta, int cap, int W,
+                           const int* fill, const int* dropped,
+                           const int* dl_min, int* slab, int P, int L,
+                           int seg, int n_cta, int cap, int W,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 0 || n_cta <= 0 || L <= 0 || L > kThreads || cap < 0 || W < 5 ||
       seg < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  PackArgs a{rows, lane_count, fill, dropped, slab, P, L, seg, n_cta, cap, W};
+  PackArgs a{rows, lane_count, fill, dropped, dl_min, slab,
+             P, L, seg, n_cta, cap, W};
   nfa_compact_kernel<<<n_cta, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

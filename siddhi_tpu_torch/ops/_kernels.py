@@ -47,21 +47,22 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
     },
     "nfa_step": {
         # attrs, ts, stream, gates, prog, prog_len,
-        # carry in (st, start, enter, seq, arm_seq, caps, dropped, armed),
-        # carry out (the same eight), rows, lane_count, fill,
+        # carry in (ops/nfa.KERNEL_CARRY: st, start, enter, seq, arm_seq,
+        # caps, dropped, armed, cnt_cur, cnt_prev, deadline), carry out
+        # (the same eleven), rows, lane_count, fill, dl_min,
         # P, T, K, G, seg, A, RC, stream
-        "nfa_step": (_I, [_VP] * 5 + [_I] + [_VP] * 19 + [_I] * 7 + [_VP]),
-        # rows, lane_count, fill, dropped, slab, P, L, seg, n_cta, cap, W,
-        # stream
-        "nfa_compact": (_I, [_VP] * 5 + [_I] * 6 + [_VP]),
+        "nfa_step": (_I, [_VP] * 5 + [_I] + [_VP] * 26 + [_I] * 7 + [_VP]),
+        # rows, lane_count, fill, dropped, dl_min, slab, P, L, seg, n_cta,
+        # cap, W, stream
+        "nfa_compact": (_I, [_VP] * 6 + [_I] * 6 + [_VP]),
         # attrs, ts, stream, gates, prog, prog_len, params, n_params,
-        # carry in (eight), carry out (eight), count, lmt, lmk,
+        # carry in (eleven), carry out (eleven), count, lmt, lmk,
         # CN, P, T, K, G, A, RC, stream
         "nfa_bank_step": (_I, [_VP] * 5 + [_I] + [_VP] + [_I] +
-                          [_VP] * 19 + [_I] * 7 + [_VP]),
-        # the same, with TT for G, and smem and groups after RC
+                          [_VP] * 25 + [_I] * 7 + [_VP]),
+        # the same, with TT for G, and smem, groups and n_cond after RC
         "nfa_bank_thread": (_I, [_VP] * 5 + [_I] + [_VP] + [_I] +
-                            [_VP] * 19 + [_I] * 9 + [_VP]),
+                            [_VP] * 25 + [_I] * 10 + [_VP]),
         # count, lmt, lmk, caps, slot_start, total, ring_cnt, ring_pid,
         # ring_caps, ring_ts, ring_ok, CN, P, K, RC, ring, tile, smem,
         # stream

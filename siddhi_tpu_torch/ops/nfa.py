@@ -21,10 +21,12 @@ program.  The port computes the same function two ways:
   - the hand-written Hopper kernels ``csrc/nfa_step.cu`` — the step with
     the egress compaction fused behind it, launched by
     :func:`nfa_step_egress` for CUDA tensors, for the specs of its class
-    (:func:`kernel_class_reason`): simple units, PATTERN, `every` on the
-    leading unit or none, optional `within`, no telemetry.  Its
-    conditions arrive as a block-wide capture-free gate per condition
-    plus a table of ``<event lane> <cmp> <capture lane>`` compares and,
+    (:func:`kernel_class_reason`): simple units, kleene counts (not a
+    leading min-0 one) and absent units (not at the start), PATTERN,
+    `every` on the leading unit or none, optional `within`, no
+    telemetry.  Its conditions arrive as a block-wide capture-free gate
+    per condition plus a table of ``<event lane> <cmp> <capture lane>``
+    compares and,
     in a pattern bank, of ``<event lane> <cmp> <pattern constant>``
     compares (:class:`NfaKernelProgram`, built by plan/nfa_compiler.py).  The
     dense per-(p, t, slot) outputs never reach device memory: each
@@ -290,14 +292,18 @@ class NfaKernelProgram(NamedTuple):
 
 def kernel_class_reason(spec: NfaSpec) -> Optional[str]:
     """The first structural feature of ``spec`` outside the CUDA kernel's
-    class, or None.  The condition forms are checked by the compiler
-    (NfaKernelProgram.reason)."""
+    class, or None.  The class: simple units, kleene counts ``<m:n>``
+    (anywhere but a leading min-0 one) and absent units ``not … for t``
+    (anywhere but the start), under PATTERN semantics.  The condition
+    forms are checked by the compiler (NfaKernelProgram.reason)."""
     for u in spec.units:
-        if u.kind != "simple":
-            return {"count": "kleene count (<m:n>) states",
-                    "logical": "logical and/or states",
-                    "absent": "absent (`not ... for`) states"}.get(
-                        u.kind, f"{u.kind} states")
+        if u.kind not in ("simple", "count", "absent"):
+            return {"logical": "logical and/or states"}.get(
+                u.kind, f"{u.kind} states")
+    if spec.eps_start:
+        return "a leading min-0 kleene count (<0:n>) state"
+    if spec.lead_absent:
+        return "a leading absent (`not ... for`) state"
     if spec.is_sequence:
         return "SEQUENCE semantics"
     if spec.is_every and spec.every_group_end > 0:
@@ -1229,9 +1235,24 @@ def _status_row(max_fill: int, seg: int, width: int, dev) -> torch.Tensor:
 
 # ------------------------------------------------------------ the kernels
 
-#: carry leaves the kernel reads and writes, in its argument order
+#: carry leaves the kernel reads and writes, in its argument order (a
+#: spec's carry holds the last four only with arm_once, count units and
+#: absent units: the kernel gets null pointers for the others)
 KERNEL_CARRY = ("slot_state", "slot_start", "slot_enter", "slot_seq",
-                "arm_seq", "captures", "dropped", "armed_total")
+                "arm_seq", "captures", "dropped", "armed_total", "cnt_cur",
+                "cnt_prev", "deadline")
+
+
+def _leaf_shape(name: str, K: int, R: int, C: int) -> Tuple[int, ...]:
+    """A kernel carry leaf's shape after the lane axis."""
+    return {"arm_seq": (), "dropped": (), "armed_total": (),
+            "captures": (K, R, C)}.get(name, (K,))
+
+
+def _carry_ptrs(carry: Dict[str, torch.Tensor]) -> List[Optional[int]]:
+    """KERNEL_CARRY's data pointers, None for a leaf the carry lacks."""
+    return [carry[k].data_ptr() if k in carry else None
+            for k in KERNEL_CARRY]
 
 #: threads per CTA of csrc/nfa_step.cu's step kernel
 KERNEL_THREADS = 256
@@ -1239,7 +1260,7 @@ KERNEL_THREADS = 256
 #: bit 31 of the kernel's gate word carries the event's __valid
 _VALID_BIT = -(2 ** 31)
 
-_PROG_CACHE: Dict[tuple, torch.Tensor] = {}
+_PROG_CACHE: Dict[tuple, tuple] = {}
 
 
 def kernel_geometry(n_slots: int) -> Tuple[int, int]:
@@ -1255,15 +1276,61 @@ def default_segment(lanes_per_cta: int) -> int:
     return 4 * lanes_per_cta
 
 
+#: unit kinds as csrc/nfa_step.cu numbers them
+UNIT_KINDS = ("simple", "count", "absent")
+#: words of csrc/nfa_step.cu's program header and of one unit's entry
+PROG_HEADER = 12
+UNIT_WORDS = 11
+
+
+def _count_row_words(spec: NfaSpec, row: int) -> List[int]:
+    """A count row's layout as csrc/nfa_step.cu's ``write_count`` reads
+    it: n_first, n_last, the __n lane (-1: none), the e[k] banks, the
+    e[last-j] banks and the width of each; then each e[k] bank as (k,
+    start, len), each e[last-j] bank's start (j = 1, 2, ...), and the
+    last-bank lanes they shift from."""
+    ib = spec.idx_banks[row] if spec.idx_banks else ()
+    mb = sorted(spec.lastk_banks[row]) if spec.lastk_banks else []
+    src = tuple(spec.m_src[row]) if spec.m_src else ()
+    if [j for j, _s in mb] != list(range(1, len(mb) + 1)):
+        raise ValueError(f"row {row}: e[last-j] banks are not j = 1..n")
+    out = [spec.n_first[row], spec.n_last[row] if spec.n_last else 0,
+           spec.n_lane[row], len(ib), len(mb), len(src) if mb else 0]
+    for k, start, ln in ib:
+        out += [k, start, ln]
+    return out + [s for _j, s in mb] + (list(src) if mb else [])
+
+
+def _occ_hi(spec: NfaSpec) -> int:
+    """The last unit of the occupancy gate on arming (``_one_event_step``:
+    no slot may sit at units 0..every_group_end), or -1 without one."""
+    if (spec.is_every and spec.every_group_end > 0) or \
+            spec.units[0].kind in ("count", "logical"):
+        return spec.every_group_end
+    return -1
+
+
 def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
     """The kernel's static program table (int32), in the layout
     csrc/nfa_step.cu reads:
 
       S, R, C, has_within, within_ms, arm_once, n_cond, n_cmp, n_pcmp,
-      S × (stream, cond, row), R·C × row_src,
+      has_count, has_absent, occ_hi,
+      S × (kind, stream, cond, row, min, max, waiting_ms, land, live0,
+           app0, app1),
+      R·C × row_src, (R + 1) × rowx_start, the count rows' layouts
+      (:func:`_count_row_words`; other rows none),
       (n_cond + 1) × cmp_start, n_cmp × (attr, row, lane, op),
-      (n_cond + 1) × pcmp_start, n_pcmp × (attr, param, op)"""
+      (n_cond + 1) × pcmp_start, n_pcmp × (attr, param, op)
+
+    ``occ_hi``: arming waits while a slot of the lane sits at units
+    0..occ_hi (-1: never).  Per unit j: ``kind`` a UNIT_KINDS index; ``land`` and ``live0``
+    where a slot advancing out of j goes (:func:`_land_static`; land >=
+    S: the chain completes); ``app0``, ``app1`` the count units, in
+    ascending order, whose forwarded count keeps appending while a slot
+    waits at j (-1: none)."""
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    S = len(spec.units)
 
     def table(per_cond):
         start, flat = [0], []
@@ -1274,22 +1341,45 @@ def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
         return start, flat
     cmp_start, cmp = table(kprog.cmp)
     pcmp_start, pcmp = table(kprog.pcmp or [()] * len(kprog.cmp))
-    prog = [len(spec.units), R, C, int(spec.within_ms is not None),
+    prog = [S, R, C, int(spec.within_ms is not None),
             int(spec.within_ms or 0), int(spec.arm_once),
-            len(kprog.cmp), cmp_start[-1], pcmp_start[-1]]
-    for u in spec.units:
-        prog += [u.stream_a, u.cond_a, u.row_a]
-    prog += list(kprog.row_src) + cmp_start + cmp + pcmp_start + pcmp
+            len(kprog.cmp), cmp_start[-1], pcmp_start[-1],
+            int(_has(spec, "count")), int(_has(spec, "absent")),
+            _occ_hi(spec)]
+    apps: Dict[int, List[int]] = {}
+    for j, u in enumerate(spec.units):
+        t, _live0, completed = _land_static(spec, j)
+        if u.kind == "count" and not completed:
+            apps.setdefault(t, []).append(j)
+    for j, u in enumerate(spec.units):
+        t, live0, _c = _land_static(spec, j)
+        app = apps.get(j, []) + [-1, -1]
+        if len(app) > 4:
+            raise ValueError(f"unit {j}: more than two counts append")
+        prog += [UNIT_KINDS.index(u.kind), u.stream_a, u.cond_a, u.row_a,
+                 u.min_count, u.max_count, u.waiting_ms, t, int(live0),
+                 app[0], app[1]]
+    count_rows = {u.row_a for u in spec.units
+                  if u.kind == "count" and u.row_a >= 0}
+    rowx_start, rowx = [0], []
+    for r in range(R):
+        if r in count_rows:
+            rowx += _count_row_words(spec, r)
+        rowx_start.append(len(rowx))
+    prog += list(kprog.row_src) + rowx_start + rowx + cmp_start + cmp + \
+        pcmp_start + pcmp
     return prog
 
 
 def _prog_tensor(spec: NfaSpec, kprog: NfaKernelProgram, dev) -> torch.Tensor:
-    key = (tuple(kernel_prog(spec, kprog)), str(dev))
-    t = _PROG_CACHE.get(key)
-    if t is None:
-        t = _PROG_CACHE[key] = torch.tensor(list(key[0]), dtype=torch.int32,
-                                            device=dev)
-    return t
+    """The program table on ``dev``, built once per (spec, kernel
+    program) pair: a wrapper call only looks it up."""
+    key = (id(spec), id(kprog), str(dev))
+    hit = _PROG_CACHE.get(key)
+    if hit is None or hit[0] is not spec or hit[1] is not kprog:
+        hit = _PROG_CACHE[key] = (spec, kprog, torch.tensor(
+            kernel_prog(spec, kprog), dtype=torch.int32, device=dev))
+    return hit[2]
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device,
@@ -1305,18 +1395,41 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device,
         raise ValueError(f"{who}: {name} is not contiguous")
 
 
+def _check_carry(spec: NfaSpec, carry: Dict[str, torch.Tensor],
+                 lead: Tuple[int, ...], dev, who: str) -> None:
+    """Every kernel carry leaf the spec's carry has (:func:`make_carry`),
+    on ``dev`` with its dtype, ``lead`` axes and the spec's shape."""
+    K = spec.n_slots
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    want = {"armed_total": spec.arm_once, "cnt_cur": _has(spec, "count"),
+            "cnt_prev": _has(spec, "count"),
+            "deadline": _has(spec, "absent")}
+    for name in KERNEL_CARRY:
+        if not want.get(name, True):
+            continue
+        if name not in carry:
+            raise ValueError(f"{who}: the carry has no {name}")
+        _check(name, carry[name], carry_dtype(name),
+               tuple(lead) + _leaf_shape(name, K, R, C), dev, who)
+
+
 def nfa_compact(rows: torch.Tensor, lane_count: torch.Tensor,
-                fill: torch.Tensor, dropped: torch.Tensor, P: int, L: int,
-                seg: int, cap: int, width: int) -> torch.Tensor:
+                fill: torch.Tensor, dropped: torch.Tensor,
+                dl_min: Optional[torch.Tensor], P: int, L: int, seg: int,
+                cap: int, width: int) -> torch.Tensor:
     """Launch csrc/nfa_step.cu's compaction: one step's scratch rows
     (``fill`` per CTA, ``lane_count`` per lane) into a new [cap + 2,
-    width] egress buffer (slab, tail, status).  CUDA tensors only."""
+    width] egress buffer (slab, tail, status); the tail's column 2 is the
+    least of the step's per-CTA earliest absent deadlines ``dl_min`` (None:
+    the spec has no absent unit, and the column is 0).  CUDA tensors
+    only."""
     dev = fill.device
     buf = torch.empty((cap + 2, width), dtype=torch.int32, device=dev)
     lib = load_kernel("nfa_step")
     rc = lib.nfa_compact(rows.data_ptr(), lane_count.data_ptr(),
-                         fill.data_ptr(), dropped.data_ptr(), buf.data_ptr(),
-                         P, L, seg, fill.numel(), cap, width,
+                         fill.data_ptr(), dropped.data_ptr(),
+                         None if dl_min is None else dl_min.data_ptr(),
+                         buf.data_ptr(), P, L, seg, fill.numel(), cap, width,
                          torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nfa_compact: launch failed with CUDA error {rc}")
@@ -1376,12 +1489,7 @@ def nfa_step_egress(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     _check("__ts", block["__ts"], torch.int32, (P, T), dev)
     _check("__stream", block["__stream"], torch.int32, (P, T), dev)
     _check("__valid", block["__valid"], torch.bool, (P, T), dev)
-    for name in KERNEL_CARRY:
-        if name == "armed_total" and not spec.arm_once:
-            continue
-        shape = {"arm_seq": (P,), "dropped": (P,), "armed_total": (P,),
-                 "captures": (P, K, R, C)}.get(name, (P, K))
-        _check(name, carry[name], carry_dtype(name), shape, dev)
+    _check_carry(spec, carry, (P,), dev, "nfa_step_egress")
     A = len(kprog.kern_attrs)
     if A == 1:
         attrs = block[kprog.kern_attrs[0]]
@@ -1400,18 +1508,14 @@ def nfa_step_egress(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     rows = torch.empty((max(n_cta * seg * (width + 2), 1),), **i32)
     lane_count = torch.empty((P,), **i32)
     fill = torch.empty((n_cta,), **i32)
+    dl_min = torch.empty((n_cta,), **i32) if "deadline" in carry else None
     lib = load_kernel("nfa_step")
-    armed_in = carry.get("armed_total")
-    armed_out = new.get("armed_total")
     rc = lib.nfa_step(
         attrs.data_ptr(), block["__ts"].data_ptr(),
         block["__stream"].data_ptr(), gates.data_ptr(), prog.data_ptr(),
-        prog.numel(),
-        *[carry[k].data_ptr() for k in KERNEL_CARRY[:7]],
-        armed_in.data_ptr() if armed_in is not None else None,
-        *[new[k].data_ptr() for k in KERNEL_CARRY[:7]],
-        armed_out.data_ptr() if armed_out is not None else None,
+        prog.numel(), *_carry_ptrs(carry), *_carry_ptrs(new),
         rows.data_ptr(), lane_count.data_ptr(), fill.data_ptr(),
+        None if dl_min is None else dl_min.data_ptr(),
         P, T, K, G, seg, A, R * C,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -1420,8 +1524,8 @@ def nfa_step_egress(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     dropped = new["dropped"]
 
     def repack(c: int) -> torch.Tensor:
-        return nfa_compact(rows, lane_count, fill, dropped, P, L, seg, c,
-                           width)
+        return nfa_compact(rows, lane_count, fill, dropped, dl_min, P, L,
+                           seg, c, width)
     return new, NfaEgress(repack(cap), repack, seg)
 
 
@@ -1555,21 +1659,26 @@ class BankGeometry(NamedTuple):
 
 
 def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
-                  n_params: int, prog_len: int) -> BankGeometry:
+                  n_params: int, prog_len: int, count: bool = False,
+                  absent: bool = False, n_cond: int = 1) -> BankGeometry:
     """The instance csrc/nfa_step.cu's bank step runs for K slots, T
     events a lane, A attribute lanes, R·C capture words a slot, n_pcmp
     constant compares over n_params constants a pattern and a program
-    of prog_len words: the thread instance when K and the compares fit
-    its registers and its shared memory (the program; the CTA's
-    patterns' constants; each compare's interval per pattern of the CTA
-    and their union; 128 candidate bits a lane; one tile of TT events of
-    ts, stream, gate word and attribute lanes for the CTA's lanes — two
-    when T is tiled; each thread's column of capture, enter and seq
-    words) fits the CTA's; else the group instance.  TT: a power of two
-    from 4 to 128, the smallest that holds T; where that tile exceeds
+    of prog_len words, for a spec of n_cond conditions with kleene count
+    units (``count``) and absent units (``absent``): the thread instance
+    when the spec has no count unit, and K and the compares fit its
+    registers and its shared memory (the program; the CTA's patterns'
+    constants; each compare's interval per pattern of the CTA and their
+    union; 128 candidate bits a lane and condition; one tile of TT
+    events of ts, stream, gate word
+    and attribute lanes for the CTA's lanes — two when T is tiled; each
+    thread's column of capture, enter and seq words, and of deadlines
+    with absent units) fits the CTA's; else the group instance, which
+    takes every unit kind of the class.  TT: a power of two from 4 to
+    128, the smallest that holds T; where that tile exceeds
     BANK_BLOCK_BYTES, cut to BANK_TILE_BYTES.  The layout is csrc's
     ``bank_layout``; the launch refuses a size below it."""
-    if K > BANK_THREAD_MAX_K or n_pcmp > BANK_THREAD_MAX_PCMP:
+    if count or K > BANK_THREAD_MAX_K or n_pcmp > BANK_THREAD_MAX_PCMP:
         return BankGeometry("group", 0, 0)
     lanes = BANK_LANES
 
@@ -1587,8 +1696,9 @@ def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
     patterns = KERNEL_THREADS // lanes * groups
     smem = ((prog_len + 3) & ~3) * 4 + \
         ((patterns * n_params + 3) & ~3) * 4 + \
-        BANK_THREAD_MAX_PCMP * (patterns + 1) * 16 + lanes * 4 * 4 + \
-        tile_bytes(tt) + KERNEL_THREADS * K * (RC + 2) * 4
+        BANK_THREAD_MAX_PCMP * (patterns + 1) * 16 + \
+        ((n_cond * lanes * 4 + 3) & ~3) * 4 + \
+        tile_bytes(tt) + KERNEL_THREADS * K * (RC + 2 + int(absent)) * 4
     if smem > SMEM_LIMIT:
         return BankGeometry("group", 0, 0)
     return BankGeometry("thread", tt, smem, groups)
@@ -1631,12 +1741,20 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     a condition bit after the CTA's union of each constant compare's
     :func:`pcmp_bounds` intervals (`!=` left out); a candidate is live
     for the row when a condition bit survives its pattern's own
-    compares; every other event is dead.  Events run in order: a dead
-    one only expires the row's live slots (state >= 1) whose `within`
-    it fails; a live one takes the plain step's order: each slot in slot
-    order (within, its one transition), the first free and the lowest
-    matched slot taken in that order, then arming.  Functional: the
-    input carry is not modified."""
+    compares; every other event is dead.  (The kernel also treats as
+    dead an event that passes only conditions of units none of the
+    row's slots waits at, unit 0's aside: the same function, since
+    such an event moves no slot.)  Events run in order: a dead
+    one expires the row's live slots (state >= 1) whose `within` it
+    fails and, when it is ``__valid``, runs the deadline pass; a live one
+    takes the plain step's order: each slot in slot order (within, its
+    one transition: an absent unit's condition kills the partial, a
+    landing on an absent unit sets its deadline), the first free and the
+    lowest matched slot taken in that order, then arming, then the
+    deadline pass: each slot waiting at an absent unit whose deadline is
+    at or before the event's ts lands (with the deadline as its ts; a
+    trailing absent completes), cascading through absent units in
+    ascending order.  Functional: the input carry is not modified."""
     lead = _bank_lead(carry)
     CN = int(np.prod(lead)) if lead else 1
     P, T = (int(x) for x in block["__ts"].shape)
@@ -1653,6 +1771,8 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     caps = flat["captures"].reshape(rows, K, R * C)
     arm_seq, drop = flat["arm_seq"], flat["dropped"]
     armed = flat.get("armed_total")
+    dl = flat.get("deadline")
+    absent = [u.kind == "absent" for u in spec.units] + [False]
 
     def lanes(v):                      # [P, T] → one row per thread
         return v.repeat(CN, 1)
@@ -1705,23 +1825,31 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
             ok = ok & _CMP_FNS[op](ev[attr], caps[:, s, r * C + lane])
         return ok
 
-    for j in range(T):
-        gw, tsv = gw_all[:, j], ts[:, j]
-        cand = (gw & _VALID_BIT) != 0
-        for bit, attr, lo, hi in union:
-            x = attrs[attr][:, j]
-            gw = torch.where((x >= lo) & (x <= hi), gw, gw & ~bit)
-        cand = cand & ((gw & cmask) != 0)
-        gw = gw_all[:, j]
-        for bit, attr, lo, hi, inv in bounds:
-            x = attrs[attr][:, j]
-            ok = ((x >= lo) & (x <= hi)) != inv
-            gw = torch.where(ok, gw, gw & ~bit)
-        full = cand & ((gw & cmask) != 0)
-        if within is not None:         # a dead event: expiry only
-            st = expire(~full, tsv)
-        if not bool(full.any()):
-            continue
+    def deadline_pass(valid, tsv, evk):
+        """Due absent deadlines land, ascending units; → (matches, evk)."""
+        n = torch.zeros((rows,), **i32)
+        for s in range(K):
+            for j in range(S):
+                if not absent[j]:
+                    continue
+                fire = valid & (st[:, s] == j) & (dl[:, s] <= tsv)
+                if j + 1 >= S:
+                    n = n + _i32(fire)
+                    evk = torch.where(fire & ((evk < 0) | (evk > s)), s, evk)
+                    st[:, s] = torch.where(fire, -1, st[:, s])
+                    continue
+                st[:, s] = torch.where(fire, j + 1, st[:, s])
+                enter[:, s] = torch.where(fire, dl[:, s], enter[:, s])
+                if absent[j + 1]:
+                    dl[:, s] = torch.where(
+                        fire, dl[:, s] + spec.units[j + 1].waiting_ms,
+                        dl[:, s])
+        return n, evk
+
+    def live_event(j, gw, tsv, full):
+        """A live event's slot loop and arming; → the lowest matched
+        slot (-1: none)."""
+        nonlocal st, start, enter, seq, caps, arm_seq, drop, armed, cnt
         svv = sv[:, j]
         ev = [a[:, j] for a in attrs]
         ffree = torch.full((rows,), -1, **i32)
@@ -1736,6 +1864,9 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
             for ui, u in enumerate(spec.units):
                 hit_u = full & (sts == ui) & (svv == u.stream_a) & \
                     cond_ok(u.cond_a, gw, ev, s)
+                if u.kind == "absent":      # the arrival kills the partial
+                    nst = torch.where(hit_u, -1, nst)
+                    continue
                 if u.row_a >= 0:
                     cols = slice(u.row_a * C, (u.row_a + 1) * C)
                     caps[:, s, cols] = torch.where(
@@ -1744,9 +1875,12 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
                 if ui + 1 >= S:
                     m = m | hit_u
                     nst = torch.where(hit_u, -1, nst)
-                else:
-                    nst = torch.where(hit_u, ui + 1, nst)
-                    enter[:, s] = torch.where(hit_u, tsv, enter[:, s])
+                    continue
+                nst = torch.where(hit_u, ui + 1, nst)
+                enter[:, s] = torch.where(hit_u, tsv, enter[:, s])
+                if absent[ui + 1]:
+                    dl[:, s] = torch.where(
+                        hit_u, tsv + spec.units[ui + 1].waiting_ms, dl[:, s])
             st[:, s] = torch.where(full, nst, st[:, s])
             ffree = torch.where((ffree < 0) & full & (nst < 0) & ~m, s,
                                 ffree)
@@ -1772,11 +1906,38 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
             st = torch.where(sel, 1, st)
             enter = torch.where(sel, tsv[:, None], enter)
             seq = torch.where(sel, arm_seq[:, None], seq)
+            if absent[1]:
+                dl[:] = torch.where(
+                    sel, tsv[:, None] + spec.units[1].waiting_ms, dl)
         arm_seq = arm_seq + _i32(arm)
         if S == 1:                 # completes as it arms
             cnt = cnt + _i32(arm)
             evk = torch.where(arm & ((evk < 0) | (ffree < evk)), ffree,
                               evk)
+        return evk
+
+    for j in range(T):
+        gw, tsv = gw_all[:, j], ts[:, j]
+        cand = (gw & _VALID_BIT) != 0
+        for bit, attr, lo, hi in union:
+            x = attrs[attr][:, j]
+            gw = torch.where((x >= lo) & (x <= hi), gw, gw & ~bit)
+        cand = cand & ((gw & cmask) != 0)
+        gw = gw_all[:, j]
+        for bit, attr, lo, hi, inv in bounds:
+            x = attrs[attr][:, j]
+            ok = ((x >= lo) & (x <= hi)) != inv
+            gw = torch.where(ok, gw, gw & ~bit)
+        full = cand & ((gw & cmask) != 0)
+        if within is not None:         # a dead row's expiry
+            st = expire(~full, tsv)
+        evk = torch.full((rows,), -1, **i32)
+        if bool(full.any()):
+            evk = live_event(j, gw, tsv, full)
+        if dl is not None:
+            n, evk = deadline_pass((gw_all[:, j] & _VALID_BIT) != 0, tsv,
+                                   evk)
+            cnt = cnt + n
         lmt = torch.where(evk >= 0, tsv, lmt)
         lmk = torch.where(evk >= 0, evk, lmk)
     new = {"slot_state": st, "slot_start": start, "slot_enter": enter,
@@ -1784,6 +1945,8 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
            "captures": caps.reshape(rows, K, R, C), "dropped": drop}
     if armed is not None:
         new["armed_total"] = armed
+    if dl is not None:
+        new["deadline"] = dl
     new = {k: new.get(k, flat[k]).reshape(carry[k].shape) for k in carry}
     return (new,) + tuple(x.reshape(CN, P) for x in (cnt, lmt, lmk))
 
@@ -1981,9 +2144,9 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     contract, on the tensors' own device.  CPU tensors run the plain
     version.  CUDA tensors launch csrc/nfa_step.cu's bank step on the
     current stream for a spec inside its class, in the instance
-    :func:`bank_geometry` picks: the thread instance (K <= 16; counted
-    in ``nfa_bank_step.thread_launches``) or the group instance
-    (``nfa_bank_step.group_launches``); ``nfa_bank_step.launches``
+    :func:`bank_geometry` picks: the thread instance (no count unit, K
+    <= 16; counted in ``nfa_bank_step.thread_launches``) or the group
+    instance (``nfa_bank_step.group_launches``); ``nfa_bank_step.launches``
     counts both.  With ``inplace`` the new carry IS the input carry,
     updated in place.  Anything else raises: no fallback."""
     dev = block["__ts"].device
@@ -2005,12 +2168,7 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     _check("__ts", block["__ts"], torch.int32, (P, T), dev, who)
     _check("__stream", block["__stream"], torch.int32, (P, T), dev, who)
     _check("__valid", block["__valid"], torch.bool, (P, T), dev, who)
-    for name in KERNEL_CARRY:
-        if name == "armed_total" and not spec.arm_once:
-            continue
-        shape = {"arm_seq": (P,), "dropped": (P,), "armed_total": (P,),
-                 "captures": (P, K, R, C)}.get(name, (P, K))
-        _check(name, carry[name], carry_dtype(name), lead + shape, dev, who)
+    _check_carry(spec, carry, lead + (P,), dev, who)
     for name in kprog.param_names:
         _check(name, params[name], torch.float32, lead, dev, who)
     NP = len(kprog.param_names)
@@ -2033,24 +2191,20 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         k: torch.empty_like(carry[k]) for k in KERNEL_CARRY if k in carry}
     i32 = dict(dtype=torch.int32, device=dev)
     count, lmt, lmk = (torch.empty((CN, P), **i32) for _ in range(3))
-    armed_in = carry.get("armed_total")
-    armed_out = new.get("armed_total")
     geo = bank_geometry(K, T, A, R * C, sum(len(q) for q in kprog.pcmp),
-                        NP, prog.numel())
+                        NP, prog.numel(), count=_has(spec, "count"),
+                        absent=_has(spec, "absent"), n_cond=len(kprog.cmp))
     lib = load_kernel("nfa_step")
     args = (
         attrs.data_ptr(), block["__ts"].data_ptr(),
         block["__stream"].data_ptr(), gates.data_ptr(), prog.data_ptr(),
-        prog.numel(), ptab.data_ptr(), NP,
-        *[carry[k].data_ptr() for k in KERNEL_CARRY[:7]],
-        armed_in.data_ptr() if armed_in is not None else None,
-        *[new[k].data_ptr() for k in KERNEL_CARRY[:7]],
-        armed_out.data_ptr() if armed_out is not None else None,
-        count.data_ptr(), lmt.data_ptr(), lmk.data_ptr(), CN, P, T, K)
+        prog.numel(), ptab.data_ptr(), NP, *_carry_ptrs(carry),
+        *_carry_ptrs(new), count.data_ptr(), lmt.data_ptr(), lmk.data_ptr(),
+        CN, P, T, K)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if geo.instance == "thread":
         rc = lib.nfa_bank_thread(*args, geo.TT, A, R * C, geo.smem,
-                                 geo.groups, stream)
+                                 geo.groups, len(kprog.cmp), stream)
     else:
         rc = lib.nfa_bank_step(*args, G, A, R * C, stream)
     if rc != 0:

@@ -1572,11 +1572,28 @@ class CompiledPatternNFA:
                            cnt_rows)
         if free_flag[0] and not self._reads_params(expr):
             return fn, True, (fn, (), ())
-        if gate_rows or cnt_rows:
+        if gate_rows or any(not self._guard_holds(side, r)
+                            for r in cnt_rows):
             return fn, free_flag[0], "nullable-state and kleene-length " \
                 "guards in a condition"
-        kc = self._kernel_split(side, expr, compiler)
+        # every [last] guard holds wherever the condition is read: the
+        # kernel takes the condition without them
+        raw = side.filters[0]
+        for fe in side.filters[1:]:
+            raw = And(raw, fe)
+        kc = self._kernel_split(side, raw, compiler)
         return fn, free_flag[0], kc
+
+    def _guard_holds(self, side: _Side, row: int) -> bool:
+        """True when the ``__cnt >= 1`` guard of a ``[last]`` reference
+        to capture row ``row`` holds wherever ``side``'s condition is
+        read: the row is a kleene count's with min >= 1 before the side's
+        unit, so every slot that reads the condition has passed that
+        count with at least min elements (its __n lane >= 1)."""
+        unit = self.row_unit[row]
+        u = self.units[unit]
+        return side is not self.rows[row] and u.kind == "count" and \
+            u.min_count >= 1 and unit < self.ref_to_unit[side.ref]
 
     def _param_of(self, e) -> Optional[str]:
         """The parameter lane a filter node compiles to (a numeric,
@@ -1602,8 +1619,9 @@ class CompiledPatternNFA:
         takes it: its AND conjuncts that read only the event fold into one
         gate program (shared by every pattern of a bank), each conjunct
         reading a constant lane must be ``<event attr> <cmp> <constant>``
-        and each other one ``<event attr> <cmp> <first-bank capture
-        attr>`` (either side first) → (gate fn, ((attr, row, lane, op),
+        and each other one ``<event attr> <cmp> <capture attr>`` (either
+        side first; a capture of another unit's first bank, or of an
+        earlier kleene count's ``[last]`` bank) → (gate fn, ((attr, row, lane, op),
         ...), ((attr, param, op), ...)) with attr an attribute name and
         param a parameter lane name; or the reason it is outside the
         kernel's class."""
@@ -1660,9 +1678,13 @@ class CompiledPatternNFA:
             if lk == "cap":
                 ev, cap, op = c.right, c.left, mirror[op]
             other = ls if lk == "cap" else rs
-            lane = self.cap_lane.get((other.row, cap.attribute, "f"))
-            if cap.stream_index not in (None, 0) or lane is None or \
-                    other.row < 0 or ev.attribute not in self.attr_names:
+            # a count row's first bank (index 0 or none) or last bank
+            which = "l" if cap.stream_index == -1 else "f"
+            lane = self.cap_lane.get((other.row, cap.attribute, which))
+            if cap.stream_index not in (None, 0, -1) or lane is None or \
+                    other.row < 0 or ev.attribute not in self.attr_names or \
+                    (which == "l" and self.units[self.row_unit[other.row]]
+                     .kind != "count"):
                 return form
             cmps.append((ev.attribute, other.row, lane, CMP_OPS.index(op)))
         if free:

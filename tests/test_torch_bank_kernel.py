@@ -49,7 +49,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from siddhi_tpu.plan.nfa_compiler import \
     CompiledPatternBank as JaxBank  # noqa: E402
 from siddhi_tpu_torch.ops.nfa import (BANK_GROUPS, CMP_OPS,  # noqa: E402
-                                      SMEM_LIMIT, bank_geometry,
+                                      PROG_HEADER, SMEM_LIMIT, UNIT_WORDS,
+                                      bank_geometry,
                                       bank_lanes_plain, bank_ring_model,
                                       bank_ring_plain, bank_thread_model,
                                       kernel_prog, nfa_bank_step,
@@ -87,6 +88,20 @@ SPECS = {
     "one_unit": (STREAM + "from every e1=S[price > {a} and kind == {b}] "
                  "select e1.price as p1 insert into Out;",
                  [(t, k) for t in (30.0, 70.0) for k in (0, 1)]),
+    # a trailing absent unit reading a capture (BASELINE config 3's
+    # pattern): kills, deadlines, the deadline pass on dead events
+    "absent": (STREAM + "from every e1=S[kind == 0 and price > {a}] -> "
+               "e2=S[kind == 1 and price > e1.price and price > {b}] -> "
+               "not S[kind == 0 and price > e2.price] for 3 sec within "
+               "9000 milliseconds select e1.price as p1, e2.price as p2 "
+               "insert into Out;",
+               [(t, 20.0) for t in np.linspace(5, 95, 6)]),
+    # a mid-chain absent unit, armed into straight from unit 0
+    "absent_mid": (STREAM + "from every e1=S[kind == 0 and price > {a}] -> "
+                   "not S[kind == 1 and price < {b}] for 2 sec -> "
+                   "e3=S[kind == 1 and price > e1.price] within 9 sec "
+                   "select e1.price as p1, e3.price as p3 insert into Out;",
+                   [(t, 50.0 - t / 4) for t in np.linspace(10, 80, 4)]),
 }
 
 
@@ -350,21 +365,35 @@ def test_bank_geometry_falls_to_group_instance(K, n_pcmp, RC):
     assert g.instance == "group" and g.TT == 0
 
 
-def test_kernel_program_layout():
-    """kernel_prog's table, parsed as csrc/nfa_step.cu parses it, gives
-    back the units, both compare tables and the capture sources."""
-    bank = _bank("chain3")
-    spec, kp = bank.nfa.spec, bank.nfa.kprog
-    prog = kernel_prog(spec, kp)
-    S, R, C, has_within, within, arm_once, n_cond, n_cmp, n_pcmp = prog[:9]
-    assert (S, has_within, within, arm_once) == (3, 1, 9000, 0)
-    assert n_cond == len(spec.cond_fns) == len(kp.cmp) == len(kp.pcmp)
-    pos = 9
-    units = [tuple(prog[pos + 3 * i:pos + 3 * i + 3]) for i in range(S)]
-    assert units == [(u.stream_a, u.cond_a, u.row_a) for u in spec.units]
-    pos += 3 * S
-    assert tuple(prog[pos:pos + R * C]) == kp.row_src
+def parse_prog(prog):
+    """csrc/nfa_step.cu's ``parse`` of a program table, in Python: every
+    field by the offsets the C code computes them from."""
+    h = dict(zip(("S", "R", "C", "has_within", "within", "arm_once",
+                  "n_cond", "n_cmp", "n_pcmp", "has_count", "has_absent",
+                  "occ_hi"), prog[:PROG_HEADER]))
+    S, R, C, n_cond = h["S"], h["R"], h["C"], h["n_cond"]
+    pos = PROG_HEADER
+    h["units"] = [tuple(prog[pos + UNIT_WORDS * j:pos + UNIT_WORDS * (j + 1)])
+                  for j in range(S)]
+    pos += UNIT_WORDS * S
+    h["row_src"] = tuple(prog[pos:pos + R * C])
     pos += R * C
+    rowx_start = prog[pos:pos + R + 1]
+    pos += R + 1
+    rowx = prog[pos:pos + rowx_start[R]]
+    pos += rowx_start[R]
+    h["rows"] = []
+    for r in range(R):
+        x = rowx[rowx_start[r]:rowx_start[r + 1]]
+        if not x:
+            h["rows"].append(None)
+            continue
+        nf, nl, nlane, ni, nm, L = x[:6]
+        ib = tuple(tuple(x[6 + 3 * q:9 + 3 * q]) for q in range(ni))
+        mb = tuple(x[6 + 3 * ni:6 + 3 * ni + nm])
+        src = tuple(x[6 + 3 * ni + nm:6 + 3 * ni + nm + L])
+        assert len(x) == 6 + 3 * ni + nm + L
+        h["rows"].append((nf, nl, nlane, ib, mb, src))
 
     def table(width, n):
         nonlocal pos
@@ -375,9 +404,31 @@ def test_kernel_program_layout():
         return tuple(tuple(tuple(flat[width * q:width * q + width])
                            for q in range(start[i], start[i + 1]))
                      for i in range(n_cond))
-    assert table(4, n_cmp) == kp.cmp
-    assert table(3, n_pcmp) == kp.pcmp
+    h["cmp"] = table(4, h["n_cmp"])
+    h["pcmp"] = table(3, h["n_pcmp"])
     assert pos == len(prog)
+    return h
+
+
+def test_kernel_program_layout():
+    """kernel_prog's table, parsed as csrc/nfa_step.cu parses it, gives
+    back the units, both compare tables and the capture sources."""
+    bank = _bank("chain3")
+    spec, kp = bank.nfa.spec, bank.nfa.kprog
+    h = parse_prog(kernel_prog(spec, kp))
+    assert (h["S"], h["has_within"], h["within"], h["arm_once"]) == \
+        (3, 1, 9000, 0)
+    assert (h["has_count"], h["has_absent"], h["occ_hi"]) == (0, 0, -1)
+    assert h["n_cond"] == len(spec.cond_fns) == len(kp.cmp) == len(kp.pcmp)
+    assert [u[1:4] for u in h["units"]] == \
+        [(u.stream_a, u.cond_a, u.row_a) for u in spec.units]
+    # simple units land on the next unit; the last one completes
+    assert [(u[0], u[7], u[8], u[9], u[10]) for u in h["units"]] == \
+        [(0, 1, 0, -1, -1), (0, 2, 0, -1, -1), (0, 3, 0, -1, -1)]
+    assert h["row_src"] == kp.row_src
+    assert h["rows"] == [None] * h["R"]
+    assert h["cmp"] == kp.cmp
+    assert h["pcmp"] == kp.pcmp
     # e1: `{a} <= price` mirrored to `price >= {a}`, and `kind != 1`
     assert kp.pcmp[0] == ((kp.kern_attrs.index("price"), 0,
                            CMP_OPS.index(">=")),
@@ -563,9 +614,12 @@ def test_bank_step_cpu_is_plain():
 
 
 OUT_OF_CLASS = {
-    "count unit": (STREAM + "from every e1=S[kind == 0 and price > {t}]<2:3>"
-                   " -> e2=S[kind == 1 and price > e1[last].price] select "
-                   "e2.price as p2 insert into Out;", "kleene count"),
+    # a kleene count whose own condition reads its [last] bank (the
+    # empty-chain guard); counts otherwise run on the group instance
+    "count unit": (STREAM + "from every e1=S[kind == 0 and price > {t} and "
+                   "price > e1[last].price]<2:3> -> e2=S[kind == 1 and "
+                   "price > e1[last].price] select e2.price as p2 insert "
+                   "into Out;", "kleene-length"),
     "arithmetic on a constant": (
         STREAM + "from every e1=S[kind == 0 and price * 2 > {t}] -> "
         "e2=S[kind == 1 and price > e1.price] select e1.price as p1 "

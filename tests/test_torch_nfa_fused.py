@@ -38,10 +38,13 @@ RARE_CLOSE = (STREAM + "from every e1=S[kind == 0] -> e2=S[kind == 1 and "
 UNWRITTEN = 0x5EED       # slab cells the kernels leave as torch.empty has them
 
 
-def kernel_model(outs, dropped, K, seg, cap, rng):
+def kernel_model(outs, dropped, K, seg, cap, rng, waiting=None):
     """The two kernels' decomposition in numpy, from the plain step's dense
     outputs ``outs`` (mask, caps, ts, enter, seq) and the new carry's
-    ``dropped``: the [cap + 2, 4 + R*C] egress buffer they write."""
+    ``dropped``: the [cap + 2, 4 + R*C] egress buffer they write.  With
+    absent units, ``waiting`` is the new carry's deadline of each slot
+    waiting at one ([P, K] int64, 2^31 - 1 elsewhere): the step reduces it
+    per CTA, the compaction over the CTAs into the tail's column 2."""
     mask, caps, ts, enter, seq = [np.asarray(o) for o in outs]
     P, T, _ = mask.shape
     RC = caps.shape[-2] * caps.shape[-1]
@@ -79,6 +82,10 @@ def kernel_model(outs, dropped, K, seg, cap, rng):
     slab[total:cap, 0] = -1
     slab[cap] = 0
     slab[cap, :2] = (total, int(np.asarray(dropped).sum()))
+    if waiting is not None:
+        per_cta = [int(np.asarray(waiting)[c * L:(c + 1) * L].min())
+                   for c in range(n_cta)]
+        slab[cap, 2] = min(per_cta)
     slab[cap + 1] = 0
     slab[cap + 1, :2] = (int(fill.max()) if n_cta else 0, seg)
     return slab
@@ -124,6 +131,18 @@ def _bits(t):
     return a.view(np.int32) if a.dtype == np.float32 else a
 
 
+def _waiting(spec, carry):
+    """Each slot's deadline where it waits at an absent unit, 2^31 - 1
+    elsewhere; None for a spec without absent units."""
+    if "deadline" not in carry:
+        return None
+    absent = np.array([u.kind == "absent" for u in spec.units] + [False])
+    st = carry["slot_state"].numpy()
+    at = absent[np.clip(st, 0, len(spec.units))] & (st >= 0)
+    return np.where(at, carry["deadline"].numpy().astype(np.int64),
+                    2 ** 31 - 1)
+
+
 def _run(app, K, parts, seed, nan=False, seg=None, gap=20):
     """Chained blocks through the plain composition and the model; returns
     (matches, dropped, most live in a lane, segment overflows seen)."""
@@ -143,13 +162,15 @@ def _run(app, K, parts, seed, nan=False, seg=None, gap=20):
         s = seg if seg is not None else 4 * L
         for cap in (3, count + 5):
             want = eg.buf if cap == 3 else eg.repack(cap)
-            got = kernel_model(outs, new["dropped"], K, s, cap, rng)
+            waiting = _waiting(nfa.spec, new)
+            got = kernel_model(outs, new["dropped"], K, s, cap, rng, waiting)
             if got[-1, 0] > got[-1, 1]:
                 # a full segment lost rows: the engine re-runs the step
                 # with segments that fit (next power of two)
                 overflows += 1
                 s2 = 1 << (int(got[-1, 0]) - 1).bit_length()
-                got = kernel_model(outs, new["dropped"], K, s2, cap, rng)
+                got = kernel_model(outs, new["dropped"], K, s2, cap, rng,
+                                   waiting)
             assert_slab_equal(got, want, cap, f"block {bi} cap {cap}")
         matches += count
         most = max(most, int((new["slot_state"] >= 0).sum(dim=1).max()))
@@ -209,7 +230,8 @@ def _model_step(calls):
 
         def repack(c):
             return torch.from_numpy(kernel_model(
-                outs, new["dropped"], spec.n_slots, s, c, rng))
+                outs, new["dropped"], spec.n_slots, s, c, rng,
+                _waiting(spec, new)))
         return new, NfaEgress(repack(cap), repack, s)
     return step
 

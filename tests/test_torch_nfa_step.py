@@ -12,8 +12,10 @@ Also: the TIMER block, and the plain composition's egress slab (the
 step, then the compaction) on every in-class shape, equal the JAX
 package's; the CPU model of the CUDA kernel's inputs (a block-wide gate
 word plus a compare table, applied by the plain loop) equals the plain
-step on every in-class shape; the kernel-class predicate rejects each
-out-of-class family, and on a CUDA device the compiler refuses them.
+step on every in-class shape (kleene counts and absent units among
+them; tests/test_torch_nfa_widened.py holds more of both against JAX);
+the kernel-class predicate rejects each out-of-class family, and on a
+CUDA device the compiler refuses them.
 """
 import jax
 import numpy as np
@@ -84,14 +86,35 @@ IN_CLASS = {
     "one_unit":
         STREAM + "from every e1=S[price > 90.0] select e1.price as p "
         "insert into Out;",
+    # kleene counts: mid-chain against the first unit's capture, with a
+    # later unit reading its [last] bank; a min-0 count after a unit
+    "count":
+        STREAM + "from every e1=S[kind == 0] -> e2=S[kind == 1 and price > "
+        "e1.price]<1:3> -> e3=S[kind == 0 and price < e2[last].price] "
+        "within 4 sec select e1.price as p1, e2[0].price as f2, "
+        "e2[last].price as l2, e3.price as p3 insert into Out;",
+    "kleene0_within": STREAM + SHAPES["kleene0_within"],
+    # absent units: trailing, against the first unit's capture
+    "absent": STREAM + SHAPES["absent"],
 }
 
-#: out-of-class families and a word of the reason each must give
+#: out-of-class families and a word of the reason each must give: a
+#: kleene count whose own condition reads its [last] bank (the empty-chain
+#: guard), a leading min-0 count, a leading absent unit, SEQUENCE (with an
+#: absent unit too), ...
 OUT_OF_CLASS = {
     "count": (STREAM + SHAPES["count"], "kleene"),
-    "kleene0": (STREAM + SHAPES["kleene0_within"], "kleene"),
-    "absent": (STREAM + SHAPES["absent"], "absent"),
+    "kleene0":
+        (STREAM + "from e2=S[kind == 2]<0:3> -> e3=S[kind == 1] within 4 "
+         "sec select e2.price as p2, e3.price as p3 insert into Out;",
+         "kleene"),
+    "absent":
+        (STREAM + "from not S[kind == 1] for 2 sec -> e2=S[kind == 0] "
+         "select e2.price as p2 insert into Out;", "absent"),
     "sequence": (STREAM + SHAPES["sequence"], "SEQUENCE"),
+    "sequence_absent":
+        (STREAM + "from every e1=S[kind == 0], not S[kind == 1] for 2 sec "
+         "select e1.price as p1 insert into Out;", "SEQUENCE"),
     "logical":
         (STREAM + "from every e1=S[kind == 0] -> (e2=S[kind == 1] and "
          "e3=S[kind == 2]) select e1.price as p insert into Out;",
