@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--chunks N] [--queries Q] [--pattern-chunks M]
                           [--fleet-blocks B] [--latency-blocks L]
-                          [--count-chunks C] [--absent-blocks A] [--seed S]
+                          [--count-chunks C] [--absent-blocks A]
+                          [--seed S]
 
 Run from the root of a checkout on a machine with a CUDA GPU, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA.  Phases, in order; any failure
@@ -80,6 +81,31 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      on the bank step's thread instance and the ring; every pattern's
      count per block against an independent reference, one block against
      the plain bank bit for bit, every ring row a reference match;
+ 12. the grouped-aggregation kernels (csrc/grouped_agg.cu: K7a gagg_step,
+     K7b gagg_time_step) against their plain twins, bit for bit on every
+     output plane and carry leaf (NaN payloads aside), over chained
+     blocks: the cells' shapes (the plain twin at a cut T), T >= W,
+     group growth, evictions in the arriving group, a +-inf/NaN/-0.0
+     feed, ints near 2^31, a ring overflow, partly filled carries,
+     rejected rows, P = 1 and 1,024, numguard, rings above shared memory,
+     short and long group lists in one lane, timestamps out of order;
+     then both timed at the cells' shapes with their bounds;
+ 13. the grouped cell: config 2's queries (GQ of its 100) as an
+     unpartitioned group-by — one global length(1000) window, 1,024
+     string keys as groups, P = 1 — GC chunks of 262,144 events through
+     the public API on DeviceGroupedAggRuntime; the first and last
+     query's rows against a float64 reference;
+ 14. the keyed cell: the same queries inside `partition with (sym of S)`
+     grouped by sym, kind (K1 refuses it): P = 1,024 lanes, 4 groups a
+     lane; same reference rule;
+ 15. the time cell: `#window.time(1 sec)` with `having t > 20.0 order by
+     t desc` and an exact long sum, TC chunks 1 ms apart (the ring grows
+     64 -> 1,024 by replay), on K7b and the selection step; every row,
+     its order and its exact sum against a reference;
+ 16. the filter cell: `S[price > 50.0 and sym != key]` with a projection,
+     8 chunks, the string compare on code lanes; rows against numpy;
+ 17. small apps of the JAX suites' shapes through CUDA, the CPU plain
+     steps and the host engine;
   then one JSON line per the kernel table, the nvidia-smi line, and the
   last line ``{"ok": true, "device": {...}}``.
 
@@ -3103,6 +3129,875 @@ def run_count_bank(dev, seed):
     return res
 
 
+# ------------------------------------------------------------------ phase 12
+
+#: phase 12's K7 cases: kernel == plain twin bit for bit on every output
+#: plane and carry leaf, over chained blocks.  kind "length" (K7a; W = 0 is
+#: the running mode) or "time" (K7b; W is the ring's capacity, ms its
+#: window); T of each block; fill: accepted events run through both first
+#: (a partly filled carry); grow: the group slabs widened to this G before
+#: the last block (new gids up to it); dens: accepted share per block;
+#: gids "skew": half the events in group 0; ts "jitter": out of order
+GAGG_CASES = [
+    # the grouped cell's shape, T cut for the plain twin (a Python loop)
+    dict(kind="length", P=1, W=1000, G=1024, VF=1, VI=0, T=(4096, 2048),
+         minmax=True, inplace=True),
+    # the keyed cell's shape: 1,024 lanes, G = 4, T >= W after the fill
+    dict(kind="length", P=1024, W=1000, G=4, VF=1, VI=0, T=(1024, 512),
+         minmax=True, inplace=True),
+    dict(kind="length", P=16, W=8, G=3, VF=2, VI=2, T=(64, 40),
+         minmax=True, forever=True),                        # T >= W
+    dict(kind="length", P=7, W=5, G=1, VF=1, VI=1, T=(32, 32),
+         minmax=True),                      # every eviction its own group
+    dict(kind="length", P=9, W=6, G=4, VF=2, VI=1, T=(48, 48), grow=16,
+         minmax=True, forever=True),                   # group growth
+    dict(kind="length", P=33, W=16, G=5, VF=2, VI=0, T=(64, 64),
+         minmax=True, forever=True, feed="nonfinite"),  # +-inf, NaN, -0.0
+    dict(kind="length", P=12, W=4, G=3, VF=1, VI=2, T=(40, 40),
+         minmax=True, feed="int_edges"),               # ints near 2^31
+    dict(kind="length", P=64, W=1000, G=8, VF=1, VI=1, T=(300, 300),
+         fill=507, minmax=True),                       # partly filled
+    dict(kind="length", P=64, W=0, G=6, VF=2, VI=2, T=(64, 64),
+         minmax=True, forever=True),                   # running mode
+    dict(kind="length", P=64, W=0, G=6, VF=1, VI=1, T=(64, 64),
+         forever=True, feed="nonfinite"),
+    dict(kind="length", P=20, W=10, G=4, VF=1, VI=1, T=(32, 32),
+         numguard=True, feed="int_edges"),             # numguard on
+    dict(kind="length", P=1024, W=32, G=4, VF=1, VI=0, T=(64, 1),
+         dens=(0.6, 0.0), minmax=True, inplace=True),  # all rejected
+    dict(kind="length", P=3, W=40000, G=2, VF=2, VI=1, T=(64, 64),
+         minmax=True),                                 # ring above smem
+    # K7b: the time cell's shape, T cut for the plain twin
+    dict(kind="time", P=1, W=1024, ms=1000, G=1024, VF=1, VI=1,
+         T=(4096, 2048)),
+    dict(kind="time", P=16, W=8, ms=6, G=3, VF=2, VI=2, T=(64, 40),
+         forever=True),
+    dict(kind="time", P=8, W=8, ms=1000, G=3, VF=1, VI=1,
+         T=(32, 32)),                                  # ring overflow
+    dict(kind="time", P=33, W=16, ms=12, G=5, VF=2, VI=1, T=(64, 64),
+         forever=True, feed="nonfinite"),
+    dict(kind="time", P=12, W=4, ms=5, G=2, VF=1, VI=2, T=(40, 40),
+         feed="int_edges"),
+    dict(kind="time", P=1024, W=64, ms=40, G=4, VF=1, VI=1, T=(128, 64),
+         fill=37, grow=8, forever=True),               # partly filled
+    dict(kind="time", P=2, W=32768, ms=100000, G=2, VF=1, VI=1,
+         T=(300, 1), dens=(1.0, 0.0)),                 # ring above smem
+    dict(kind="time", P=5, W=1, ms=3, G=2, VF=1, VI=1, T=(16, 16)),
+    # group lists short and long in one lane (half the events in group
+    # 0): the list walk and the pass over the ring side by side
+    dict(kind="length", P=8, W=256, G=64, VF=2, VI=1, T=(512, 300),
+         minmax=True, forever=True, feed="nonfinite", gids="skew"),
+    dict(kind="time", P=8, W=256, ms=200, G=64, VF=2, VI=2, T=(512, 300),
+         forever=True, feed="nonfinite", gids="skew"),
+    # timestamps out of order within a lane
+    dict(kind="time", P=16, W=64, ms=30, G=40, VF=1, VI=1, T=(128, 128),
+         feed="nonfinite", ts="jitter"),
+]
+
+
+def _gagg_feed(rng, case, T, dens, t0):
+    """One block of the case: (vals_f, vals_i, gids, ts, accepted) numpy
+    planes, ts 0-3 ms apart from t0 (time cases)."""
+    P, G, VF, VI = case["P"], case["G"], case["VF"], case["VI"]
+    vf = rng.uniform(-100, 100, (P, T, VF)).astype(np.float32)
+    vi = rng.integers(-5000, 5000, (P, T, VI)).astype(np.int32)
+    feed = case.get("feed", "uniform")
+    if feed == "nonfinite":
+        r = rng.random((P, T, VF))
+        vf[r < 0.05] = np.inf
+        vf[(r >= 0.05) & (r < 0.1)] = -np.inf
+        vf[(r >= 0.1) & (r < 0.13)] = np.nan
+        vf[(r >= 0.13) & (r < 0.25)] = -0.0
+        vf[(r >= 0.25) & (r < 0.35)] = 0.0
+    if feed == "int_edges":
+        r = rng.random((P, T, VI))
+        vi[r < 0.3] = (1 << 31) - 1
+        vi[r > 0.7] = -((1 << 31) - 1)
+    gids = rng.integers(0, G, (P, T)).astype(np.int32)
+    if case.get("gids") == "skew":
+        gids[rng.random((P, T)) < 0.5] = 0
+    ts = (t0 + np.cumsum(rng.integers(0, 4, (P, T)), axis=1)).astype(
+        np.int32)
+    if case.get("ts") == "jitter":
+        ts = (ts + rng.integers(0, 20, (P, T))).astype(np.int32)
+    ok = rng.random((P, T)) < dens
+    return vf, vi, gids, ts, ok
+
+
+def _nan_equal(a, b) -> bool:
+    """Bit equality, every NaN equal to every NaN (payloads are not part
+    of the contract: the card's arithmetic makes its own)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return bool(torch.equal(na, nb) and
+                    (a.view(torch.int32)[~na] ==
+                     b.view(torch.int32)[~nb]).all())
+    return bool(torch.equal(a, b))
+
+
+def _gagg_grow(carry, G2, dev):
+    """The group slabs widened to G2, as plan/gagg_compiler._grow_groups
+    does (fresh sentinel slabs appended on the group axis)."""
+    import torch
+    from siddhi_tpu_torch.ops import grouped_agg as ga
+    P, W = carry.ring_gid.shape
+    VF, VI = carry.ring_f.shape[2], carry.ring_i.shape[2]
+    G = carry.fmin_f.shape[1]
+    time = isinstance(carry, ga.GroupedTimeCarry)
+    pad = (ga.make_grouped_time_carry if time else ga.make_grouped_carry)(
+        P, W, G2 - G, VF, VI, dev)
+    fields = ("fmin_f", "fmax_f", "fmin_i", "fmax_i")
+    if not time:
+        fields += ("fsum_hi", "fsum_lo", "isum_hi", "isum_lo", "gcnt")
+    return carry._replace(**{
+        f: torch.cat([getattr(carry, f), getattr(pad, f)], dim=1)
+        .contiguous() for f in fields})
+
+
+def _gagg_steps(case, G):
+    """(kernel step, plain step, carry maker) of a case at G groups."""
+    from siddhi_tpu_torch.ops import grouped_agg as ga
+    if case["kind"] == "time":
+        args = (case["ms"], case["W"], case.get("forever", False))
+        return (ga.grouped_time_step(*args), ga.grouped_time_step_plain(*args),
+                lambda dev: ga.make_grouped_time_carry(
+                    case["P"], case["W"], G, case["VF"], case["VI"], dev))
+    args = (case["W"], case.get("minmax", False), case.get("forever", False),
+            case.get("numguard", False))
+    return (ga.grouped_step(*args, inplace=case.get("inplace", False)),
+            ga.grouped_step_plain(*args),
+            lambda dev: ga.make_grouped_carry(
+                case["P"], case["W"], G, case["VF"], case["VI"], dev))
+
+
+def check_gagg(dev, seed):
+    """K7a and K7b against their plain twins on the card, bit for bit on
+    every output plane and every carry leaf (NaN payloads aside), over
+    the chained blocks of GAGG_CASES.  Returns {kind: {"cases": n,
+    "max_abs_err": x}} for kind "length" (K7a) and "time" (K7b)."""
+    import torch
+    from siddhi_tpu_torch.ops import grouped_agg as ga
+    rng = np.random.default_rng(seed + 12)
+    res = {k: {"cases": 0, "max_abs_err": 0.0} for k in ("length", "time")}
+    n0 = (ga.grouped_step.launches, ga.grouped_time_step.launches)
+    for ci, case in enumerate(GAGG_CASES):
+        G = case["G"]
+        kstep, pstep, make = _gagg_steps(case, G)
+        ck = make(dev)
+        cp = make(dev)
+        dens = case.get("dens", (0.7,) * len(case["T"]))
+        blocks = list(zip(case["T"], dens))
+        if case.get("fill"):
+            blocks.insert(0, (case["fill"], 1.0))
+        t0 = 0
+        for bi, (T, d) in enumerate(blocks):
+            if case.get("grow") and bi == len(blocks) - 1:
+                G = case["grow"]
+                ck, cp = _gagg_grow(ck, G, dev), _gagg_grow(cp, G, dev)
+                kstep, pstep, _ = _gagg_steps(case, G)
+                case = dict(case, G=G)
+            vf, vi, gids, ts, ok = _gagg_feed(rng, case, T, d, t0)
+            t0 = int(ts.max()) + 1
+            ev = [torch.tensor(a, device=dev) for a in (vf, vi, gids)]
+            okt = torch.tensor(ok, device=dev)
+            if case["kind"] == "time":
+                tst = torch.tensor(ts, device=dev)
+                old, pre = ck, [a.clone() for a in ck]
+                ck, ok_ = kstep(ck, *ev, tst, okt)
+                cp, op_ = pstep(cp, *ev, tst, okt)
+                if not all(_nan_equal(a, b) for a, b in zip(old, pre)):
+                    raise AssertionError(
+                        f"K7b changed its input carry in case {ci}")
+            else:
+                old = ck
+                pre = (None if case.get("inplace") else
+                       [a.clone() for a in old])
+                ck, ok_ = kstep(ck, *ev, okt)
+                cp, op_ = pstep(cp, *ev, okt)
+                if pre is not None and not all(
+                        _nan_equal(a, b) for a, b in zip(old, pre)):
+                    raise AssertionError(
+                        f"K7a changed its input carry in case {ci}")
+            torch.cuda.synchronize()
+            kres = res[case["kind"]]
+            for x, y in list(zip(ok_, op_)) + list(zip(ck, cp)):
+                kres["max_abs_err"] = max(
+                    kres["max_abs_err"], _abs_err(x, y) if x.numel() else 0.0)
+                if not _nan_equal(x, y):
+                    raise AssertionError(
+                        f"K7 {case['kind']} kernel != plain in case {ci} "
+                        f"({case}), block {bi} (T={T}, density {d})")
+        res[case["kind"]]["cases"] += 1
+        log(f"  K7 {case['kind']:6s} == plain  case {ci}: P={case['P']} "
+            f"W={case['W']} G={G} VF={case['VF']} VI={case['VI']} T="
+            f"{'/'.join(str(b[0]) for b in blocks)} "
+            f"feed={case.get('feed', 'uniform')}"
+            + (f" overflow lanes {int(ck.overflow.sum())}"
+               if case["kind"] == "time" else ""))
+    launched = (ga.grouped_step.launches - n0[0],
+                ga.grouped_time_step.launches - n0[1])
+    ga.grouped_step.launches, ga.grouped_time_step.launches = n0
+    if min(launched) == 0:
+        raise AssertionError(f"K7 checks launched {launched} kernels")
+    return res
+
+
+def _gagg_launches():
+    from siddhi_tpu_torch.ops import grouped_agg as ga
+    return ga.grouped_step.launches, ga.grouped_time_step.launches
+
+
+def _set_gagg_launches(v=(0, 0)):
+    from siddhi_tpu_torch.ops import grouped_agg as ga
+    ga.grouped_step.launches, ga.grouped_time_step.launches = v
+
+
+def gagg_bound(P, T, W, G, VF, VI, accepted, minmax, time_window):
+    """(bound ms, "bytes" or "operations") of one K7 launch: each input
+    byte read once (values, gids, accepted flags, ts; the carry) and each
+    output byte written once (the 13 planes; the carry), against the
+    operations these events need: a two-float add (10 float ops) for the
+    arriving and for the leaving entry of each float lane, 4 int ops for
+    each int lane, and with min/max an incremental extremum's amortized
+    compares for each of min and max (a monotonic deque)."""
+    ev_in = 4 * VF + 4 * VI + 4 + 1 + (4 if time_window else 0)
+    ev_out = 4 * (6 * VF + 6 * VI) + 4
+    ring = W * (4 * VF + 4 * VI + 4 + (4 if time_window else 0))
+    groups = G * (4 * (2 * VF + 2 * VI) if time_window else
+                  4 * (4 * VF + 4 * VI + 1))
+    nbytes = P * T * (ev_in + ev_out) + 2 * P * (ring + groups + 12)
+    ops = accepted * (20 * VF + 4 * VI +
+                      (2 * EXTREMUM_COMPARES * (VF + VI) if minmax else 0))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+#: phase 12's timed shapes: the three cells' steps (kind, P, T, W, G, VF,
+#: VI, window ms); T_PLAIN is the cut T the plain twin (a Python loop over
+#: events) is timed at, the kernel timed there too
+GAGG_TIMED = {
+    "grouped_cell": ("length", 1, CHUNK, WINDOW, N_KEYS, 1, 0, 0),
+    "keyed_cell": ("length", N_KEYS, 512, WINDOW, 8, 1, 0, 0),
+    "time_cell": ("time", 1, CHUNK, 1024, N_KEYS, 1, 1, 1000),
+}
+T_PLAIN = 4096
+
+
+def time_gagg(dev, seed, sleep_cycles=SLEEP_CYCLES):
+    """K7a and K7b timed with CUDA events at each cell's shape (median
+    of runs, L2 flushed; a carry in steady state: a full window first),
+    the plain twin at the keyed cell's full shape and at T = T_PLAIN
+    for the unkeyed ones (the kernel timed there too), and each launch's
+    bound.  Returns {cell: dict}."""
+    import torch
+    from siddhi_tpu_torch.ops import grouped_agg as ga
+    rng = np.random.default_rng(seed + 13)
+    res = {}
+    n0 = _gagg_launches()
+    for name, (kind, P, T, W, G, VF, VI, ms) in GAGG_TIMED.items():
+        case = dict(kind=kind, P=P, W=W, G=G, VF=VF, VI=VI, ms=ms,
+                    minmax=True, inplace=(kind == "length"))
+        kstep, pstep, make = _gagg_steps(case, G)
+
+        def feed(t, t0):
+            vf, vi, g, ts, ok = _gagg_feed(rng, case, t, 0.75, t0)
+            ts = (t0 + np.arange(t, dtype=np.int32))[None, :].repeat(P, 0)
+            args = [torch.tensor(a, device=dev) for a in (vf, vi, g)]
+            if kind == "time":
+                args.append(torch.tensor(ts, device=dev))
+            return args + [torch.tensor(ok, device=dev)], int(ok.sum())
+
+        carry = make(dev)
+        warm, _ = feed(max(W, 1) + 7, 0)
+        carry, _ = kstep(carry, *warm)
+        args, acc = feed(T, W + 7)
+        cut, acc_cut = feed(min(T, T_PLAIN), W + 7)
+        runs = 3 if T > 4096 else TIMED_LAUNCHES
+        # K7a updates in place (the cell's donated carry): each timed
+        # launch steps the same carry on; K7b writes a fresh one
+        ms_k = median_ms(lambda: kstep(carry, *args), dev, n=runs,
+                         sleep_cycles=sleep_cycles)
+        ms_cut = median_ms(lambda: kstep(carry, *cut), dev, n=runs,
+                           sleep_cycles=sleep_cycles)
+        plain_args = args if T <= T_PLAIN else cut
+        ms_plain = median_ms(lambda: pstep(carry, *plain_args), dev, n=1,
+                             sleep_cycles=sleep_cycles)
+        bound, by = gagg_bound(P, T, W, G, VF, VI, acc, True,
+                               kind == "time")
+        res[name] = {"kind": kind, "ms": ms_k, "ms_at_plain_T": ms_cut,
+                     "plain_ms": ms_plain, "bound_ms": bound, "bound_by": by,
+                     "shape": {"P": P, "T": T, "W": W, "G": G, "VF": VF,
+                               "VI": VI, "window_ms": ms},
+                     "plain_T": min(T, T_PLAIN)}
+        log(f"  K7{'b' if kind == 'time' else 'a'} {name} P={P} T={T} W={W} "
+            f"G={G}: {ms_k:.4f} ms (median of {runs}; {ms_k / T * 1e3:.4f} "
+            f"us an event a lane), at T={min(T, T_PLAIN)} {ms_cut:.4f} ms "
+            f"vs plain {ms_plain:.4f} ms; bound {bound:.6f} ms by {by}")
+    _set_gagg_launches(n0)                # timing launches are not a path
+    return res
+
+
+# ------------------------------------------------------------------ phase 13
+
+#: queries of the grouped cells (phase 13 unkeyed, phase 14 keyed): config
+#: 2's threshold ladder, the first GAGG_QUERIES of it (config 2 has 100)
+GAGG_QUERIES = 4
+GAGG_CHUNKS = 4
+
+
+def gagg_app(n_queries, keyed):
+    """BASELINE config 2's queries as Siddhi writes a group-by without a
+    partition block (keyed=False: one global length(1000) window, groups
+    by sym), or inside `partition with (sym of S)` grouped by sym, kind
+    (keyed=True: a window per key, groups per (key, kind))."""
+    group = "sym, kind" if keyed else "sym"
+    qs = "\n".join(
+        f"@info(name='q{i}')\n"
+        f"from S[price > {0.5 * i}]#window.length({WINDOW})\n"
+        f"select sym, sum(price) as s, count() as n, avg(price) as a, "
+        f"min(price) as lo, max(price) as hi\n"
+        f"group by {group} insert into Out_{i};"
+        for i in range(n_queries))
+    if keyed:
+        qs = f"partition with (sym of S) begin\n{qs}\nend;"
+    return (f"@app:name('{'keyed' if keyed else 'grouped'}')\n"
+            f"@app:playback\n@app:lanes('{N_KEYS}')\n"
+            f"@Async(buffer.size='64', batch.size.max='{CHUNK}')\n"
+            f"define stream S (sym string, price float, kind int);\n{qs}\n")
+
+
+def _range_extreme(x, start, end, fn):
+    """fn over x[start[i] .. end[i]] (inclusive) for every i, by a sparse
+    table (levels up to the longest range)."""
+    n = len(x)
+    if n == 0:
+        return x.copy()
+    L = end - start + 1
+    levels = [x]
+    while (1 << len(levels)) <= int(L.max()):
+        prev, h = levels[-1], 1 << (len(levels) - 1)
+        nxt = prev.copy()
+        nxt[:n - h] = fn(prev[:n - h], prev[h:])
+        levels.append(nxt)
+    k = np.floor(np.log2(L)).astype(np.int64)
+    out = np.empty(n, x.dtype)
+    for lv in range(len(levels)):
+        m = k == lv
+        if m.any():
+            out[m] = fn(levels[lv][start[m]],
+                        levels[lv][end[m] - (1 << lv) + 1])
+    return out
+
+
+def window_group_reference(wkey, gkey, x, window):
+    """float64 reference of a grouped length window, per event in arrival
+    order: the window is the last `window` events of the event's window
+    partition (wkey), the aggregate its events of the same group (gkey).
+    Returns (sum, count, min, max)."""
+    n = len(x)
+    order_w = np.argsort(wkey, kind="stable")
+    pos_w = np.empty(n, np.int64)
+    wk_sorted = wkey[order_w]
+    first = np.searchsorted(wk_sorted, wk_sorted, side="left")
+    pos_w[order_w] = np.arange(n) - first
+    order = np.lexsort((np.arange(n), gkey))       # by group, then arrival
+    g_sorted = gkey[order].astype(np.int64)
+    key = g_sorted * (1 << 32) + pos_w[order]
+    start = np.searchsorted(key, key - window + 1, side="left")
+    xs = x[order].astype(np.float64)
+    c = np.concatenate([[0.0], np.cumsum(xs)])
+    idx = np.arange(n)
+    s = np.empty(n)
+    cnt = np.empty(n, np.int64)
+    lo = np.empty(n, np.float32)
+    hi = np.empty(n, np.float32)
+    s[order] = c[idx + 1] - c[start]
+    cnt[order] = idx + 1 - start
+    lo[order] = _range_extreme(x[order], start, idx, np.minimum)
+    hi[order] = _range_extreme(x[order], start, idx, np.maximum)
+    return s, cnt, lo, hi
+
+
+def check_gagg_rows(name, got, chunks, threshold, keyed, names):
+    """A grouped cell's rows (arrival order) against the float64
+    reference: keys, counts, min and max exact; sum and avg rel <= 1e-5."""
+    ki = np.concatenate([c[2] for c in chunks])
+    price = np.concatenate([c[0]["price"] for c in chunks])
+    kind = np.concatenate([c[0]["kind"] for c in chunks])
+    acc = price > np.float32(threshold)
+    ki, price, kind = ki[acc], price[acc], kind[acc]
+    wkey = ki if keyed else np.zeros_like(ki)
+    gkey = ki * 4 + kind if keyed else ki
+    s, cnt, lo, hi = window_group_reference(wkey, gkey, price, WINDOW)
+    cols = {k: np.concatenate([g[k] for g in got]) for k in got[0]}
+    if keyed:
+        # partitions emit per block in lane order: compare keyed by ts
+        order = np.argsort(cols["ts"], kind="stable")
+        cols = {k: v[order] for k, v in cols.items()}
+        ts = np.concatenate([c[1] for c in chunks])[acc]
+        if not (cols["ts"] == ts).all():
+            raise AssertionError(f"{name}: row timestamps differ")
+    if len(cols["n"]) != len(cnt):
+        raise AssertionError(f"{name}: {len(cols['n'])} rows, reference "
+                             f"{len(cnt)}")
+    if not (cols["sym"] == names[ki]).all():
+        raise AssertionError(f"{name}: key column differs")
+    if not (cols["n"] == cnt).all():
+        raise AssertionError(f"{name}: counts differ")
+    if not ((cols["lo"] == lo).all() and (cols["hi"] == hi).all()):
+        raise AssertionError(f"{name}: min/max differ")
+    for col, want in (("s", s), ("a", s / cnt)):
+        err = np.abs(cols[col] - want) / np.maximum(np.abs(want), 1e-30)
+        if not (err <= 1e-5).all():
+            raise AssertionError(f"{name}: {col} rel err {err.max():.3g} "
+                                 f"> 1e-5")
+    log(f"  {name}: {len(cnt)} rows == float64 reference (keys, counts, "
+        f"min/max exact; sum/avg rel <= 1e-5)")
+
+
+def _drive_cell(rt, stream, chunks, launches_of):
+    """Send every chunk through the public API, flush, synchronize, under
+    torch.profiler: (wall s, per-kernel device us, device us, ledger
+    stage seconds of the run, launches in the run).  The launch counts
+    are set to 0 just before and read just after."""
+    import torch
+    from siddhi_tpu_torch.core.ledger import ledger
+    h = rt.get_input_handler(stream)
+
+    def drive():
+        t = time.perf_counter()
+        for cols, ts in chunks:
+            h.send_batch(cols, timestamps=ts)
+        rt.flush()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    stage0 = dict(ledger().snapshot()["stage_seconds"])
+    _set_gagg_launches()                  # counts start here
+    wall, per_kernel, dev_us = profile_device(drive)
+    launches = launches_of()
+    stage1 = ledger().snapshot()["stage_seconds"]
+    stages = {k: stage1[k] - stage0.get(k, 0.0) for k in stage1}
+    return wall, per_kernel, dev_us, stages, launches
+
+
+def _cell_report(name, n_events, n_chunks, wall, per_kernel, dev_us, stages,
+                 launches, kernels):
+    res = {"wall": wall, "events_per_s": n_events / wall,
+           "ms_per_chunk": wall / n_chunks * 1e3, "launches": launches,
+           "dispatch_s": stages.get("dispatch"),
+           "device_s": stages.get("device"), "decode_s": stages.get("decode"),
+           "stages": stages}
+    log(f"  {name}: {n_events} events ({n_chunks} chunks), {wall:.3f} s "
+        f"wall; events/s {res['events_per_s']:.1f}; ms per chunk "
+        f"{res['ms_per_chunk']:.3f}; launches {launches}")
+    log("  host stages (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    if per_kernel is not None:
+        k_us = {kn: sum(us for k, us in per_kernel.items()
+                        if is_kernel(k, kn)) for kn in kernels}
+        res.update(device_ms=dev_us / 1e3,
+                   idle_share=100 - dev_us / 1e6 / wall * 100,
+                   kernel_ms={kn: us / 1e3 for kn, us in k_us.items()})
+        log(f"  device time {dev_us / 1e3:.3f} ms = "
+            f"{dev_us / 1e6 / wall * 100:.3f}% of wall (idle share "
+            f"{res['idle_share']:.3f}%); " + ", ".join(
+                f"{kn} {us / 1e3:.3f} ms" for kn, us in k_us.items()))
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        for k, us in top:
+            log(f"    device {us / 1e3:10.3f} ms  {k[:90]}")
+    else:
+        log("  torch.profiler recorded no device time: device share not "
+            "measured")
+    return res
+
+
+def _device_queries(rt, runtime, partitioned):
+    if partitioned:
+        pr = rt.partition_runtimes[0]
+        if not pr.device_mode:
+            raise AssertionError(f"partition fell back to host: "
+                                 f"{pr.fallback_reason}")
+        qrs = pr.device_query_runtimes
+    else:
+        qrs = rt.query_runtimes
+    for qname, qr in qrs.items():
+        if qr.backend != "device" or \
+                type(qr.device_runtime).__name__ != runtime:
+            raise AssertionError(f"{qname}: backend {qr.backend}, "
+                                 f"{type(qr.device_runtime).__name__} "
+                                 f"({qr.backend_reason}), not {runtime}")
+    return qrs
+
+
+def run_gagg_cell(names, chunks, dev, n_queries, keyed):
+    """Phase 13 (keyed=False) and 14 (keyed=True): config 2's queries on
+    the grouped-aggregation runtime through the public API; every query
+    on DeviceGroupedAggRuntime, K7a launched; the first and last query's
+    rows against the float64 reference."""
+    import gc
+
+    import torch
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+        gagg_app(n_queries, keyed))
+    log(f"  app built in {time.perf_counter() - t0:.3f} s")
+    qrs = _device_queries(rt, "DeviceGroupedAggRuntime", keyed)
+    keep = {0, n_queries - 1}
+    kept = {i: [] for i in keep}
+
+    def sink(i):
+        def fn(chunk):
+            kept[i].append({k: np.array(chunk.columns[k])
+                            for k in ("sym", "s", "n", "a", "lo", "hi")}
+                           | {"ts": np.array(chunk.timestamps)})
+        return fn
+
+    for i in keep:
+        rt.add_callback(f"Out_{i}", ColumnarStreamCallback(sink(i)))
+    rt.start()
+    feed = [(cols, ts) for cols, ts, _ki in chunks]
+    wall, per_kernel, dev_us, stages, launches = _drive_cell(
+        rt, "S", feed, _gagg_launches)
+    cga = next(iter(qrs.values())).device_runtime.cga
+    lanes, groups = cga.n_lanes, cga.n_groups
+    rt.shutdown()
+    name = "keyed cell" if keyed else "grouped cell"
+    res = _cell_report(name, len(chunks) * CHUNK, len(chunks),
+                       wall, per_kernel, dev_us, stages, launches,
+                       ["gagg_step_kernel"])
+    res.update(lanes=lanes, groups=groups, queries=n_queries,
+               query_events_per_s=res["events_per_s"] * n_queries,
+               peak=torch.cuda.max_memory_allocated() - mem0)
+    log(f"  {n_queries} queries (every query sees every event): "
+        f"query-events/s {res['query_events_per_s']:.1f}; P = {lanes} "
+        f"lanes, G = {groups} group slots a lane; peak {res['peak']} B "
+        f"above the {mem0} B allocated before the cell")
+    if launches[0] < n_queries * len(chunks):
+        raise AssertionError(f"K7a launched {launches[0]} times, expected "
+                             f">= {n_queries * len(chunks)}")
+    for i in sorted(keep):
+        check_gagg_rows(f"{name} Out_{i}", kept[i], chunks, 0.5 * i, keyed,
+                        names)
+    return res
+
+
+# ------------------------------------------------------------------ phase 15
+
+TIME_APP = f"""
+@app:name('timecell')
+@app:playback
+@app:pipeline('2')
+define stream T (sym string, price float, vol long);
+@info(name='t')
+from T#window.time(1 sec)
+select sym, sum(price) as t, sum(vol) as sv, count() as n
+group by sym having t > 20.0 order by t desc insert into TOut;
+"""
+TIME_CHUNKS = 4
+
+
+def make_time_chunks(chunks, seed):
+    """The time cell's stream T: phase 3's keys, prices and 1 ms spaced
+    timestamps, with a long volume in [0, 10^6) made from the seed."""
+    rng = np.random.default_rng(seed + 15)
+    return [({"sym": cols["sym"], "price": cols["price"],
+              "vol": rng.integers(0, 1_000_000, CHUNK).astype(np.int64)},
+             ts, ki) for cols, ts, ki in chunks]
+
+
+def time_reference(tchunks):
+    """Per chunk, the time cell's rows in emission order: every event's
+    group in the window (ts - 1000, ts] (float64 price sum, exact int64
+    vol sum, count), kept where t > 20.0, ordered by t descending as the
+    selection does it (a stable ascending sort, reversed)."""
+    ki = np.concatenate([c[2] for c in tchunks])
+    ts = np.concatenate([c[1] for c in tchunks])
+    price = np.concatenate([c[0]["price"] for c in tchunks]).astype(
+        np.float64)
+    vol = np.concatenate([c[0]["vol"] for c in tchunks])
+    n = len(ki)
+    order = np.lexsort((np.arange(n), ki))
+    ks, tss = ki[order], ts[order]
+    start = np.searchsorted(ks.astype(np.int64) * (1 << 40) + tss,
+                            ks.astype(np.int64) * (1 << 40) + tss - 999,
+                            side="left")
+    idx = np.arange(n)
+    L = idx - start + 1
+    t = np.zeros(n)
+    sv = np.zeros(n, np.int64)
+    ps, vs = price[order], vol[order]
+    for d in range(int(L.max())):           # windows hold a few events
+        m = d < L
+        t[m] += ps[idx[m] - d]
+        sv[m] += vs[idx[m] - d]
+    T_ = np.empty(n)
+    SV = np.empty(n, np.int64)
+    N = np.empty(n, np.int64)
+    T_[order], SV[order], N[order] = t, sv, L
+    out = []
+    off = 0
+    for cols, _ts, _ki in tchunks:
+        m = len(_ts)
+        tc, keep = T_[off:off + m], T_[off:off + m] > 20.0
+        perm = np.argsort(tc, kind="stable")[::-1]
+        perm = perm[keep[perm]]
+        out.append((perm + off, tc[perm], SV[off:off + m][perm],
+                    N[off:off + m][perm]))
+        off += m
+    return out
+
+
+def time_select(cga, n, dev):
+    """K8 (ops/select.py, torch ops) alone at the time cell's shape: the
+    cell's own compiled selection over 13 planes of one lane and n rows
+    (sums and counts from a seeded generator, three quarters of the rows
+    accepted), median ms of TIMED_LAUNCHES runs, L2 flushed; its bound:
+    the rows' 13 plane values and gather vectors read once, the
+    permutation, meta and gathered rows written once (the sorts' compares,
+    a few per row and pass, bound nothing at 67 TFLOP/s)."""
+    import torch
+    from siddhi_tpu_torch.ops.select import build_select_step
+    VF, VI = cga._n_float, cga._n_int
+    g = torch.Generator(device=dev).manual_seed(15)
+
+    def f(*shape):
+        return torch.rand(*shape, generator=g, device=dev) * 100.0
+
+    def i(*shape):
+        return torch.randint(0, 1000, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    planes = (f(1, n, VF), f(1, n, VF) * 1e-9, i(1, n, VI), i(1, n, VI),
+              i(1, n), f(1, n, VF), f(1, n, VF), i(1, n, VI), i(1, n, VI),
+              f(1, n, VF), f(1, n, VF), i(1, n, VI), i(1, n, VI))
+    lanes = torch.zeros(n, dtype=torch.int32, device=dev)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    okm = torch.rand(n, generator=g, device=dev) < 0.75
+    step = build_select_step(cga.selection)
+    ms = median_ms(lambda: step(*planes, lanes, rows, okm), dev)
+    row_bytes = (6 * VF + 6 * VI + 1) * 4
+    nbytes = n * (row_bytes + 4 + 4 + 1) + n * (4 + row_bytes) + 8
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"  K8 selection step alone at n = {n} rows (VF={VF}, VI={VI}): "
+        f"{ms:.4f} ms (median of {TIMED_LAUNCHES}; bound {bound:.6f} ms "
+        f"by bytes)")
+    return {"ms": ms, "bound_ms": bound, "bound_by": "bytes", "rows": n}
+
+
+def run_time_cell(names, tchunks, dev):
+    """Phase 15: the time window with a selection tail and an exact long
+    sum through the public API: DeviceGroupedAggRuntime with the
+    selection on the device; K7b launched (the ring grows from 64 by
+    rewind-and-replay); rows against time_reference."""
+    import torch
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(TIME_APP)
+    qrs = _device_queries(rt, "DeviceGroupedAggRuntime", False)
+    route = qrs["t"].selection_route
+    if not route or route.get("backend") != "device":
+        raise AssertionError(f"time cell: selection route {route}")
+    got = []
+    rt.add_callback("TOut", ColumnarStreamCallback(
+        lambda c: got.append({k: np.array(c.columns[k])
+                              for k in ("sym", "t", "sv", "n")} |
+                             {"ts": np.array(c.timestamps)})))
+    rt.start()
+    feed = [(cols, ts) for cols, ts, _ki in tchunks]
+    wall, per_kernel, dev_us, stages, launches = _drive_cell(
+        rt, "T", feed, _gagg_launches)
+    cga = qrs["t"].device_runtime.cga
+    capacity = cga.window
+    sel = time_select(cga, CHUNK, dev)
+    rt.shutdown()
+    res = _cell_report("time cell", len(tchunks) * CHUNK, len(tchunks),
+                       wall, per_kernel, dev_us, stages, launches,
+                       ["gagg_time_kernel"])
+    res.update(capacity=capacity, route=route, select=sel)
+    log(f"  ring capacity {capacity} after growth; selection route {route}")
+    if launches[1] < len(tchunks):
+        raise AssertionError(f"K7b launched {launches[1]} times")
+    ref = time_reference(tchunks)
+    ts_all = np.concatenate([c[1] for c in tchunks])
+    ki_all = np.concatenate([c[2] for c in tchunks])
+    if len(got) != len(ref):
+        raise AssertionError(f"time cell: {len(got)} emissions, reference "
+                             f"{len(ref)}")
+    rows = 0
+    for g, (rows_i, t, sv, n) in zip(got, ref):
+        if not ((g["ts"] == ts_all[rows_i]).all() and
+                (g["sym"] == names[ki_all[rows_i]]).all() and
+                (g["sv"] == sv).all() and (g["n"] == n).all()):
+            raise AssertionError("time cell: rows, order, keys, sv or "
+                                 "counts differ from the reference")
+        err = np.abs(g["t"] - t) / np.maximum(np.abs(t), 1e-30)
+        if not (err <= 1e-5).all():
+            raise AssertionError(f"time cell: t rel err {err.max():.3g}")
+        rows += len(t)
+    log(f"  time cell: {rows} rows == reference in emission order (keys, "
+        f"order, sv and counts exact; t rel <= 1e-5)")
+    res["rows"] = rows
+    return res
+
+
+# ------------------------------------------------------------------ phase 16
+
+def filter_app(key):
+    return (f"@app:name('filtercell')\n@app:playback\n"
+            f"@Async(buffer.size='64', batch.size.max='{CHUNK}')\n"
+            f"define stream S (sym string, price float, kind int);\n"
+            f"@info(name='f')\n"
+            f"from S[price > 50.0 and sym != '{key}']\n"
+            f"select sym, price, price * 2.0 as p2 insert into FOut;\n")
+
+
+def run_filter_cell(names, chunks, dev):
+    """Phase 16: a stateless filter with a string compare on the code
+    lanes through the public API (DeviceFilterRuntime, torch programs on
+    the card); rows against numpy."""
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    key = names[0]
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+        filter_app(key))
+    qrs = _device_queries(rt, "DeviceFilterRuntime", False)
+    if qrs["f"].device_runtime.device.type != "cuda":
+        raise AssertionError("filter cell: program not on the card")
+    got = []
+    rt.add_callback("FOut", ColumnarStreamCallback(
+        lambda c: got.append({k: np.array(c.columns[k])
+                              for k in ("sym", "price", "p2")})))
+    rt.start()
+    feed = [(cols, ts) for cols, ts, _ki in chunks]
+    wall, per_kernel, dev_us, stages, launches = _drive_cell(
+        rt, "S", feed, _gagg_launches)
+    rt.shutdown()
+    res = _cell_report("filter cell", len(chunks) * CHUNK, len(chunks), wall,
+                       per_kernel, dev_us, stages, launches, [])
+    if dev_us is not None and dev_us <= 0:
+        raise AssertionError("filter cell: no device time")
+    cols = {k: np.concatenate([g[k] for g in got]) for k in got[0]}
+    sym = np.concatenate([c[0]["sym"] for c in chunks])
+    price = np.concatenate([c[0]["price"] for c in chunks])
+    m = (price > np.float32(50.0)) & (sym != key)
+    if not ((cols["sym"] == sym[m]).all() and
+            (cols["price"] == price[m]).all() and
+            (cols["p2"] == (price[m] * np.float32(2.0)).astype(
+                np.float64)).all()):
+        raise AssertionError("filter cell: rows differ from numpy")
+    log(f"  filter cell: {int(m.sum())} rows == numpy exactly")
+    res["rows"] = int(m.sum())
+    return res
+
+
+# ------------------------------------------------------------------ phase 17
+
+GAGG_PARITY_STREAM = ("define stream S (sym string, user string, price "
+                      "float, volume long);\n")
+#: small apps of the JAX suites' shapes (tests/test_device_grouped_agg.py,
+#: tests/test_select_device.py, filters); True: held against the host
+#: engine too (the time window's host batches expire per chunk, not per
+#: event, in both packages)
+GAGG_PARITY_APPS = {
+    "length_groupby": ("""
+        @info(name='q') from S[price > 20.0]#window.length(5)
+        select sym, sum(price) as s, count() as n, avg(price) as a,
+               min(price) as lo, max(price) as hi, sum(volume) as sv
+        group by sym insert into Out;""", True),
+    "running_having_order_limit": ("""
+        @info(name='q') from S
+        select sym, user, sum(price) as t, count() as n, max(price) as hi,
+               min(volume) as lo
+        group by sym, user having n >= 2 order by n asc, t desc
+        limit 3 offset 1 insert into Out;""", True),
+    "windowed_having_order": ("""
+        @info(name='q') from S#window.length(4)
+        select sym, sum(price) as t, max(price) as hi, count() as n
+        group by sym having not (t < 10.0)
+        order by hi desc, t asc insert into Out;""", True),
+    "partition_finer_groupby": ("""
+        partition with (sym of S) begin
+        @info(name='q') from S#window.length(3)
+        select sym, user, sum(price) as s, count() as n, max(volume) as mv,
+               minForever(price) as mf
+        group by sym, user insert into Out; end;""", True),
+    "time_having_order": ("""
+        @info(name='q') from S#window.time(1 sec)
+        select sym, sum(price) as t, sum(volume) as sv, count() as n
+        group by sym having t > 20.0 order by t desc insert into Out;""",
+                          False),
+    "filter_string_lanes": ("""
+        @info(name='q') from S[price > 50.0 and sym != 's1']
+        select sym, price, price * 2.0 as p2, volume + 1 as v1
+        insert into Out;""", True),
+}
+
+
+def gagg_parity(dev, seed):
+    """Phase 17: each app through the device engine on the card, on the
+    CPU (the plain steps) and through the host engine: CUDA == CPU
+    exactly; == host as sorted payloads with floats through float32
+    (the JAX suites' convention)."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+    rng = np.random.default_rng(seed + 17)
+    batches, t0, v0 = [], 1_000_000, 0
+    for _ in range(4):
+        n = 400
+        vol = v0 + np.cumsum(rng.integers(0, 9, n))
+        batches.append(({
+            "sym": np.asarray([f"s{i}" for i in rng.integers(0, 3, n)],
+                              object),
+            "user": np.asarray([f"u{i}" for i in rng.integers(0, 4, n)],
+                               object),
+            "price": rng.integers(1, 100, n).astype(np.float32),
+            "volume": vol.astype(np.int64)},
+            t0 + np.cumsum(rng.integers(10, 90, n))))
+        v0, t0 = int(vol[-1]), int(batches[-1][1][-1])
+    n0 = _gagg_launches()
+
+    def run(text, device, engine):
+        rt = SiddhiManager(device=device).create_siddhi_app_runtime(
+            f"@app:playback\n@app:engine('{engine}')\n" + GAGG_PARITY_STREAM
+            + text)
+        rows = []
+        rt.add_callback("Out", StreamCallback(lambda evs: rows.extend(
+            (e.timestamp,) + tuple(e.data) for e in evs)))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for cols, ts in batches:
+            h.send_batch(cols, timestamps=ts)
+        rt.shutdown()
+        return rows
+
+    def f32(rows):
+        return sorted((tuple(float(np.float32(v)) if isinstance(
+            v, (float, np.floating)) else v for v in r) for r in rows),
+            key=repr)
+
+    for name, (text, with_host) in GAGG_PARITY_APPS.items():
+        cuda_rows = run(text, dev, "device")
+        cpu_rows = run(text, "cpu", "device")
+        if cuda_rows != cpu_rows:
+            raise AssertionError(f"{name}: CUDA rows != CPU plain rows")
+        msg = f"  {name}: {len(cuda_rows)} rows; CUDA == CPU plain exactly"
+        if with_host:
+            host = run(text, dev, "host")
+            if f32(host) != f32(cuda_rows):
+                raise AssertionError(f"{name}: host rows != device rows")
+            msg += "; == host engine (sorted, floats through float32)"
+        log(msg)
+    if _gagg_launches() == n0:
+        raise AssertionError("phase 17 launched no K7 kernel")
+
+
 # ------------------------------------------------------------------ main
 
 def main(argv=None) -> int:
@@ -3249,6 +4144,47 @@ def main(argv=None) -> int:
     if args.absent_blocks < 32:
         log(f"CUT: absent fleet cell at {args.absent_blocks} blocks (full "
             f"size is 32)")
+
+    log("== phase 12: K7 kernels (grouped_agg.cu) vs plain twins on the card")
+    t12 = time.perf_counter()
+    gchk = check_gagg(dev, args.seed)
+    gt = time_gagg(dev, args.seed)
+    log(f"  phase 12 took {time.perf_counter() - t12:.1f} s; bit for bit: "
+        + "; ".join(f"{k} {v['cases']} cases, max abs err {v['max_abs_err']}"
+                    for k, v in gchk.items()))
+
+    log("== phase 13: grouped cell (config 2's queries unpartitioned, "
+        "group by sym: one global length(1000) window) on K7a")
+    t13 = time.perf_counter()
+    gc13 = run_gagg_cell(names, chunks[:GAGG_CHUNKS], dev, GAGG_QUERIES,
+                         keyed=False)
+    log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+    log(f"CUT: grouped cells at {GAGG_QUERIES} of config 2's 100 queries x "
+        f"{min(GAGG_CHUNKS, len(chunks))} chunks")
+
+    log("== phase 14: keyed cell (the same queries inside partition with "
+        "(sym of S), group by sym, kind) on K7a")
+    t14 = time.perf_counter()
+    kc14 = run_gagg_cell(names, chunks[:GAGG_CHUNKS], dev, GAGG_QUERIES,
+                         keyed=True)
+    log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    log("== phase 15: time cell (#window.time(1 sec), having, order by, an "
+        "exact long sum) on K7b and the selection step")
+    t15 = time.perf_counter()
+    tc15 = run_time_cell(names, make_time_chunks(chunks[:TIME_CHUNKS],
+                                                 args.seed), dev)
+    log(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+
+    log("== phase 16: filter cell (a string compare on code lanes) on the "
+        "torch programs")
+    t16 = time.perf_counter()
+    fc16 = run_filter_cell(names, chunks, dev)
+    log(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
+
+    log("== phase 17: engine parity for grouped aggregation, selection "
+        "tails and filters on the card")
+    gagg_parity(dev, args.seed)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     def timing(minmax):
@@ -3342,7 +4278,45 @@ def main(argv=None) -> int:
         "matchy_ms": fc["ring_matchy_ms"], "t4_ms": fc["ring_t4_ms"],
         "totals_only_ms": fc["ring_totals_ms"],
         "shape": {"patterns": N_BANK, "P": BANK_P, "ring": BANK_RING}}]
-    print(json.dumps({"kernels": kernels}), flush=True)
+
+    def cell(c, kernel):
+        return {k: c.get(k) for k in (
+            "events_per_s", "query_events_per_s", "ms_per_chunk",
+            "dispatch_s", "device_s", "decode_s", "device_ms", "idle_share",
+            "launches")} | {
+            "kernel_ms": (c.get("kernel_ms") or {}).get(kernel)}
+
+    def k7(timed):
+        return {k: timed[k] for k in (
+            "ms", "plain_ms", "plain_T", "ms_at_plain_T", "bound_ms",
+            "bound_by", "shape")}
+
+    kernels += [{
+        # K7a: the grouped cell (phase 13) is its main path; the keyed
+        # cell (phase 14) runs it at P = 1,024
+        "name": "gagg_step", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/grouped_agg.cu",
+        "replaces": "siddhi_tpu/ops/grouped_agg.py:119",
+        "checked": True, "launches": gc13["launches"][0],
+        "launches_by_path": {"grouped_cell": gc13["launches"][0],
+                             "keyed_cell": kc14["launches"][0]},
+        **gchk["length"], **k7(gt["grouped_cell"]), "library_ms": None,
+        "keyed_shape": k7(gt["keyed_cell"]),
+        "grouped_cell": cell(gc13, "gagg_step_kernel"),
+        "keyed_cell": cell(kc14, "gagg_step_kernel")}, {
+        "name": "gagg_time_step", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/grouped_agg.cu",
+        "replaces": "siddhi_tpu/ops/grouped_agg.py:283",
+        "checked": True, "launches": tc15["launches"][1],
+        **gchk["time"], **k7(gt["time_cell"]), "library_ms": None,
+        "time_cell": cell(tc15, "gagg_time_kernel") | {
+            "capacity": tc15["capacity"], "rows": tc15["rows"],
+            "select_step": tc15["select"]}}]
+    # the filter cell runs no hand kernel (torch programs): a cell of the
+    # line of its own
+    print(json.dumps({"kernels": kernels,
+                      "cells": {"filter_cell": cell(fc16, None)}}),
+          flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -171,12 +171,14 @@ class QueryRuntime:
         if isinstance(q.input_stream, SingleInputStream):
             if self._device_key_executors is not None:
                 # keyed (partition) mode: device or raise, as below.
-                # The specialized window-ring path (group == partition
-                # key) is tried first — MEASURED 4.6x faster than the
-                # grouped-agg slabs on the shape both support (keyed
-                # length-window f32 sum, 10k lanes x W=64, r4 benchmark
-                # in docs/perf_notes.md); the grouped-agg kernel covers
-                # finer group-bys, running aggregates and INT/LONG values
+                # The specialized window-ring path (K1: a length window,
+                # group == partition key, float values) is tried first,
+                # as in the JAX package; the grouped-agg step (K7) takes
+                # the rest: finer group-bys, running aggregates, INT/LONG
+                # values, time windows (the port's wagg refuses them, so
+                # a time window grouped by the partition key runs on K7b
+                # here where the JAX package runs its K6) and selection
+                # tails
                 from ..plan.planner import (DeviceGroupedAggRuntime,
                                             DeviceWindowedAggRuntime)
                 try:

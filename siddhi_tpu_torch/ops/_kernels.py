@@ -45,6 +45,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         # P, T, W, want_minmax -> bytes of device scratch the step needs
         "wagg_length_scratch_bytes": (_LL, [_I, _I, _I, _I]),
     },
+    "grouped_agg": {
+        # pointers (events, carry in, carry out, 13 output planes, in
+        # ops/grouped_agg._launch order), dims, stream
+        "gagg_step": (_I, [_VP, _VP, _VP]),
+        "gagg_time_step": (_I, [_VP, _VP, _VP]),
+    },
     "nfa_step": {
         # attrs, ts, stream, gates, prog, prog_len,
         # carry in (ops/nfa.KERNEL_CARRY: st, start, enter, seq, arm_seq,

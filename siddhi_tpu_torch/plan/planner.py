@@ -3,11 +3,13 @@ the host oracle.
 
 Counterpart of ``siddhi_tpu/plan/planner.py``, carrying what the torch
 port's slices so far need: engine selection, keyed lanes, the pattern
-NFA runtime (:class:`DevicePatternRuntime`) and the keyed length-window
-aggregation runtime (:class:`DeviceWindowedAggRuntime`).  The other
-device runtimes of the JAX package (grouped aggregation, stateless filter
-program) are later slices: their classes here raise
-``SiddhiAppCreationError("<kind> not yet ported to the torch backend")``,
+NFA runtime (:class:`DevicePatternRuntime`), the keyed length-window
+aggregation runtime (:class:`DeviceWindowedAggRuntime`), the grouped /
+running / time-window aggregation runtime with its selection tail
+(:class:`DeviceGroupedAggRuntime`) and the stateless filter/project
+program (:class:`DeviceFilterRuntime`).  A device path the port has not
+reached (device windows, incremental aggregation, the join probe,
+shard-out) raises ``SiddhiAppCreationError`` naming it "not yet ported",
 so ``'auto'`` falls back to the host exactly as the JAX package's planner
 does for a query its device path cannot express, and ``'device'`` raises.
 On a CUDA device a pattern outside the NFA kernel's class is refused the
@@ -247,20 +249,6 @@ class _DeviceIngress:
         f = getattr(self.runtime, "flush", None)
         if f is not None:
             f()
-
-
-class _NotYetPorted:
-    """A device runtime of the JAX package that the torch port has not
-    reached yet: building it raises SiddhiAppCreationError, which the
-    planner and the partition runtime turn into a host run under 'auto'
-    (with the reason in ``backend_reason``) and re-raise under 'device'."""
-
-    kind = "device runtime"
-    backend = "device"
-
-    def __init__(self, *args, **kwargs):
-        raise SiddhiAppCreationError(
-            f"{self.kind} not yet ported to the torch backend")
 
 
 @persistent_schema(
@@ -631,12 +619,529 @@ class DevicePatternRuntime:
             self._schedule_absent()
 
 
-class DeviceGroupedAggRuntime(_NotYetPorted):
-    kind = "device grouped-aggregation path"
+@persistent_schema(
+    "keyed-grouped-agg", version=1, schema=Keyed("cga"))
+class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
+    """Aggregation query on the grouped/running step (plan/gagg_compiler
+    .CompiledGroupedAgg → ops/grouped_agg → csrc/grouped_agg.cu on CUDA):
+    group-by keys finer than (or different from) the partition key,
+    no-window running aggregates, minForever/maxForever, exact INT/LONG
+    sums, time windows and an expressible selection tail (ops/select.py).
+    Keyed mode maps partition keys to lanes (like DevicePatternRuntime);
+    unkeyed mode runs one lane.  Ingest is pipelined (plan/pipeline.py):
+    each chunk's step dispatches at once, its decode retires up to
+    ``pipeline_depth`` chunks later.  Shard-out is not yet ported."""
+
+    backend = "device"
+
+    def __init__(self, query_runtime, sis, factory,
+                 key_executors: Optional[Dict[str, Any]] = None):
+        from ..core.event import dtype_for
+        from ..core.query_runtime import ProcessStreamReceiver
+        from .gagg_compiler import CompiledGroupedAgg
+        from .pipeline import egress_fuser_for
+
+        qr = query_runtime
+        app = qr.app_runtime
+        q = qr.query
+        sel = q.selector
+        # having/order-by/limit lower into the selection step when
+        # expressible (plan/select_compiler.py); the compiler rejects,
+        # with the blocking reason, only what the host QuerySelector keeps
+        if getattr(q.output_stream, "events_for",
+                   OutputEventsFor.CURRENT) != OutputEventsFor.CURRENT:
+            raise SiddhiAppCreationError(
+                "device grouped-agg path: expired-event output is "
+                "host-only")
+        if any(_scan_fns(e, _is_time_fn)
+               for e in [oa.expr for oa in sel.attributes] +
+               [h.expr for h in sis.handlers
+                if hasattr(h, "expr")]):
+            raise SiddhiAppCreationError(
+                "device grouped-agg path: timestamp functions need int64 "
+                "host evaluation")
+        if app.has_named_window(sis.stream_id):
+            raise SiddhiAppCreationError(
+                "device grouped-agg path: named-window input is host-only")
+        self.keyed = key_executors is not None
+        n_shards = resolve_shards() if self.keyed else 0
+        if n_shards >= 2:
+            build_shards(None, n_shards)          # raises: not yet ported
+        self.cga = CompiledGroupedAgg(
+            app.app, q,
+            n_lanes=initial_lanes(app.app) if self.keyed else 1,
+            keyed=self.keyed, device=app.app_ctx.siddhi_context.device)
+        # surfaced by service/rest.py stats: did the selection tail
+        # (having/order/limit) compile to the device?
+        self.selection_route = None
+        if self.cga.selection is not None:
+            self.selection_route = {"backend": "device",
+                                    "sig": self.cga.selection.key}
+        if self.keyed:
+            ex = key_executors.get(self.cga.stream_id)
+            if ex is None:
+                raise SiddhiAppCreationError(
+                    f"device grouped-agg path: stream "
+                    f"'{self.cga.stream_id}' has no partition key executor")
+            self.key_executor = ex
+        self.key_lanes: Dict[Any, int] = KeyLanes()
+        self.qr = qr
+        self._dtype_for = dtype_for
+
+        attrs = [Attribute(name,
+                           self.cga.output_attr_type(kind, attr))
+                 for (name, kind, attr) in self.cga.outputs]
+        target = getattr(q.output_stream, "target_id", "") or qr.name
+        out_def = StreamDefinition(target, attrs)
+        self.head = qr._finish_device_chain(out_def, factory)
+
+        recv = ProcessStreamReceiver(
+            _DeviceIngress(self, 0, self.cga.stream_id), qr.lock,
+            app.latency_tracker_for(qr.name), qr.name, app.app_ctx)
+        app.junction_of(self.cga.stream_id, sis.is_inner,
+                        sis.is_fault).subscribe(recv)
+        qr.receivers[self.cga.stream_id] = recv
+        self._init_pipeline(app, [self.cga.stream_id])
+        self.cga.flush_hook = self.flush
+        self.app_name = app.name
+        # the compiler owns dispatch/decode, so it registers its own
+        # output buffers on the app slab
+        self.cga.egress_fuser = egress_fuser_for(app)
+
+    # ------------------------------------------------------------ ingest
+
+    def _grow_lanes(self, cap: int) -> None:
+        # lane growth re-shapes the [P, ...] planes: retire in-flight
+        # work first so replay never mixes widths
+        self.flush()
+        self.cga.grow_lanes(cap)
+
+    def ingest(self, stream_code: int, stream_id: str, chunk) -> None:
+        from ..core.event import CURRENT
+        from ..core.profiling import profiler
+        data = chunk.only(CURRENT)
+        if data.is_empty:
+            return
+        prof = profiler()
+        disp0 = prof.total_dispatches() if prof.enabled else 0
+        ticks0 = prof.total_scan_ticks() if prof.enabled else 0
+        if self.keyed:
+            keys = self.key_executor.keys(data)
+            keep = np.asarray([k is not None for k in keys], bool)
+            if not keep.all():
+                data = data.mask(keep)
+                keys = [k for k in keys if k is not None]
+                if data.is_empty:
+                    return
+            lanes = map_keys_to_lanes(self.key_lanes, keys,
+                                      self.cga.n_lanes, self._grow_lanes)
+        else:
+            lanes = np.zeros(len(data), np.int64)
+        with _ledger().span("device"):
+            work = self.cga.dispatch(lanes, data)
+        if work is None:
+            return
+        self._submit(work)
+        _record_block(self, prof, disp0, ticks0, stream_id, len(data))
+
+    def _retire(self, work) -> None:
+        from ..utils.errors import SiddhiAppRuntimeException
+        from .gagg_compiler import GaggOverflow
+        eng = self.cga
+        try:
+            res = eng.decode(work)
+        except GaggOverflow:
+            # a still-in-window time-ring entry was evicted: rewind to
+            # this chunk's pre-carry, grow the ring, replay it and every
+            # later in-flight chunk (exact — no undercounted windows)
+            pending = [work] + list(self._inflight)
+            self._inflight.clear()
+            eng.carry = work["pre_carry"]
+            eng.grow_time_window()
+            for w in pending:
+                while True:
+                    with _ledger().span("device"):
+                        eng.redispatch(w)
+                    try:
+                        res = eng.decode(w)
+                        break
+                    except GaggOverflow:
+                        eng.carry = w["pre_carry"]
+                        eng.grow_time_window()
+                self._emit(w, res)
+            return
+        except SiddhiAppRuntimeException:
+            # data error (the exact-sum bound of running configs; a time
+            # window never trips it): drop the chunk — rewind its carry,
+            # replay the LATER chunks, and re-raise at the @OnError
+            # boundary.  A replayed chunk that trips the bound again is
+            # un-applied and dropped the same way
+            rest = list(self._inflight)
+            self._inflight.clear()
+            eng.carry = work["pre_carry"]
+            for w in rest:
+                eng.redispatch(w)
+                try:
+                    res = eng.decode(w)
+                except SiddhiAppRuntimeException:
+                    eng.carry = w["pre_carry"]
+                    continue
+                self._emit(w, res)
+            raise
+        self._emit(work, res)
+
+    def _emit(self, work, res) -> None:
+        from ..core.event import EventChunk
+        data = work["data"]
+        sel = res.pop("sel_rows", None)
+        if sel is not None:
+            # the selection step already masked/ordered/limited the rows;
+            # sel holds chunk-row indices in emission order
+            if len(sel) == 0:
+                return
+            out_ts = np.asarray(data.timestamps)[sel]
+        else:
+            ok = res.pop("mask")
+            out_ts = np.asarray(data.timestamps)[ok]
+        names = [o[0] for o in self.cga.outputs]
+        cols: Dict[str, np.ndarray] = {}
+        for (name, kind, attr) in self.cga.outputs:
+            dt = self._dtype_for(self.cga.output_attr_type(kind, attr))
+            v = res[name]
+            if dt is object:
+                col = np.empty(len(v), object)
+                col[:] = list(v)
+                cols[name] = col
+            else:
+                cols[name] = np.asarray(v).astype(dt)
+        self.head.process(EventChunk.from_columns(names, out_ts, cols))
+
+    # ------------------------------------------------------------ lifecycle
+
+    def start(self) -> None:
+        pass
+
+    def shutdown(self) -> None:
+        self.flush()
+
+    # ------------------------------------------------------------ snapshot
+
+    def current_state(self) -> dict:
+        """The JAX package's runtime state dict (the engine's numpy state
+        + key→lane map)."""
+        with self.qr.lock:
+            self.flush()
+            return {"cga": self.cga.current_state(),
+                    "key_lanes": dict(self.key_lanes)}
+
+    def restore_state(self, state: dict) -> None:
+        """Accepts this runtime's own ``current_state()`` or the JAX
+        package's ``DeviceGroupedAggRuntime.current_state()`` unchanged."""
+        with self.qr.lock:
+            self.flush()
+            if state.get("shards") is not None:
+                raise SiddhiAppCreationError(
+                    "sharded grouped-agg state: shard-out not yet ported "
+                    "to the torch backend")
+            self.cga.restore_state(state["cga"])
+            self.key_lanes = KeyLanes(state["key_lanes"])
 
 
-class DeviceFilterRuntime(_NotYetPorted):
-    kind = "device filter path"
+@persistent_schema("device-filter", schema=None,
+                   doc="stateless: the deferred mask read needs no "
+                       "replay machinery at all")
+class DeviceFilterRuntime(PipelinedDeviceIngest):
+    """Stateless filter/project query as one column program over the
+    torch expression programs (plan/expr_compiler.TorchXP, K5) — the
+    device replacement for the reference's per-event expression-tree DFS
+    (FilterProcessor.java:55-67 + QuerySelector attribute processors).
+    String predicates run on per-chunk code lanes (plan/str_lanes.py).
+    Elementwise: no hand kernel.  Ingest is pipelined (plan/pipeline.py);
+    stateless, so the deferred mask read needs no replay machinery."""
+
+    backend = "device"
+
+    def __init__(self, query_runtime, sis, factory):
+        from ..core.aggregator import is_aggregator
+        from ..core.event import dtype_for
+        from ..core.query_runtime import ProcessStreamReceiver
+        from ..ops.windowed_agg import kernel_device
+        from ..query_api import Filter
+        from ..query_api.query import OutputAttribute
+        from .expr_compiler import EvalCtx, ExprCompiler, Scope, TorchXP
+        from .pipeline import egress_fuser_for
+        from .str_lanes import StringLanes, StringRewriteError
+        from .wagg_compiler import _EXPR_REJECTIONS
+        import torch
+
+        qr = query_runtime
+        app = qr.app_runtime
+        q = qr.query
+        sel = q.selector
+        if sel.group_by or sel.having is not None or sel.order_by or \
+                sel.limit is not None or sel.offset is not None:
+            raise SiddhiAppCreationError(
+                "device filter path: group-by/having/order-by/limit are "
+                "host-only")
+        if any(not isinstance(h, Filter) for h in sis.handlers):
+            raise SiddhiAppCreationError(
+                "device filter path: windows/stream functions are stateful")
+
+        def is_agg(e):
+            return is_aggregator(e.namespace, e.name, len(e.args))
+
+        definition = app.definition_of(sis.stream_id, sis.is_inner,
+                                       sis.is_fault)
+        self.definition = definition
+        numeric = {a.name for a in definition.attributes
+                   if dtype_for(a.type) is not object}
+
+        sel_attrs = sel.attributes
+        if sel.select_all:            # `select *` → passthrough of all attrs
+            sel_attrs = [OutputAttribute(a.name, Variable(a.name))
+                         for a in definition.attributes]
+
+        # string predicates lower onto per-chunk order-preserving code
+        # lanes (plan/str_lanes.py) — ==/!=/order/is-null over STRING
+        # attrs evaluate on the device via integer ranks; constructs with
+        # no lane form reject with the rewrite's reason
+        slanes = StringLanes({a.name for a in definition.attributes
+                              if a.type == AttrType.STRING})
+        try:
+            filter_exprs = [slanes.rewrite(h.expr) for h in sis.handlers]
+        except StringRewriteError as se:
+            raise SiddhiAppCreationError(
+                f"device filter path: {se}") from se
+        out_rewritten = {}
+        for oa in sel_attrs:
+            try:
+                out_rewritten[id(oa)] = slanes.rewrite(oa.expr)
+            except StringRewriteError:
+                pass                  # host-expr fallback handles it
+        self._slanes = slanes
+
+        scope = Scope()
+        ext_def = definition
+        if slanes.any:
+            ext_def = StreamDefinition(
+                definition.id, list(definition.attributes) +
+                [Attribute(nm, AttrType.FLOAT)
+                 for nm in slanes.lane_names()])
+        scope.add_primary(sis.stream_id, sis.stream_ref, ext_def)
+        self.device = kernel_device(app.app_ctx.siddhi_context.device)
+        xp = TorchXP(self.device)
+        compiler = ExprCompiler(scope, xp)
+        filters = [compiler.compile(e) for e in filter_exprs]
+
+        if any(_scan_fns(oa.expr, is_agg) for oa in sel_attrs):
+            raise SiddhiAppCreationError(
+                "device filter path: aggregates are stateful (host windows)")
+        if any(_scan_fns(h.expr, _is_time_fn) for h in sis.handlers):
+            # the device FILTER must be exact; output expressions with
+            # time functions evaluate host-side below instead
+            raise SiddhiAppCreationError(
+                "device filter path: timestamp functions in filters need "
+                "int64 host evaluation")
+
+        # outputs: plain attribute passthroughs gather host-side by mask
+        # (exact dtypes — INT/LONG would corrupt on float32 device lanes);
+        # computed FLOAT/DOUBLE/BOOL outputs evaluate on the device;
+        # computed outputs the device cannot express exactly (STRING/
+        # OBJECT, INT/LONG, timestamp functions) evaluate host-side on
+        # the device-masked rows
+        self.outputs = []      # (name, 'host_col'|'dev'|'host_expr', ref)
+        dev_exprs = []
+        host_exprs = []
+        attrs = []
+        host_compiler = ExprCompiler(scope, np,
+                                     app.app_ctx.script_functions,
+                                     app.extension_registry)
+        attr_types = {a.name: a.type for a in definition.attributes}
+        for oa in sel_attrs:
+            e = oa.expr
+            if isinstance(e, Variable) and e.attribute in attr_types and \
+                    e.stream_index is None:
+                self.outputs.append((oa.rename, "host_col", e.attribute))
+                attrs.append(Attribute(oa.rename, attr_types[e.attribute]))
+                continue
+            ce = None
+            if not _scan_fns(e, _is_time_fn):
+                try:
+                    ce = compiler.compile(out_rewritten.get(id(oa), e))
+                except Exception:       # noqa: BLE001 — host expr instead
+                    ce = None
+            if ce is None or dtype_for(ce.type) is object or \
+                    ce.type in (AttrType.INT, AttrType.LONG):
+                che = host_compiler.compile(e)
+                self.outputs.append((oa.rename, "host_expr",
+                                     len(host_exprs)))
+                host_exprs.append(che)
+                attrs.append(Attribute(oa.rename, che.type))
+            else:
+                self.outputs.append((oa.rename, "dev", len(dev_exprs)))
+                dev_exprs.append(ce)
+                attrs.append(Attribute(oa.rename, ce.type))
+        if host_exprs and not filters:
+            raise SiddhiAppCreationError(
+                "device filter path: no filters and host-only computed "
+                "outputs — nothing to run on the device")
+        self._host_exprs = host_exprs
+        self._dev_dtypes = [dtype_for(ce.type) for ce in dev_exprs]
+        self.numeric = sorted(numeric)
+
+        def program(cols, ts, valid):
+            n = ts.shape[0]
+            ctx = EvalCtx(cols, ts, n)
+            ok = valid
+            for f in filters:
+                m = xp.asarray(f.fn(ctx), bool)
+                ok = ok & m.expand(ok.shape)
+            outs = [xp.asarray(ce.fn(ctx)).expand(n).contiguous()
+                    for ce in dev_exprs]
+            return ok, outs
+
+        from ..core.profiling import wrap_kernel
+        from .shapes import shape_registry
+        self._program = wrap_kernel(
+            "filter.program",
+            shape_registry().jit(
+                "filter.program",
+                {"filters": len(filters), "outs": len(dev_exprs),
+                 "lanes": len(self.numeric), "device": self.device.type},
+                program),
+            batch_of=lambda cols, ts, valid: int(ts.shape[0]))
+
+        # run the program on one invalid row now, so an expression the
+        # torch program cannot take rejects at plan time; a failed copy,
+        # allocation or launch raises as it is (never a host run)
+        warm = {a: torch.zeros((1,), dtype=torch.float32, device=self.device)
+                for a in self.numeric + self._slanes.lane_names()}
+        try:
+            self._program(warm,
+                          torch.zeros((1,), dtype=torch.int32,
+                                      device=self.device),
+                          torch.zeros((1,), dtype=torch.bool,
+                                      device=self.device))
+        except _EXPR_REJECTIONS as e:
+            raise SiddhiAppCreationError(
+                f"device filter path: program rejected by the torch "
+                f"namespace ({type(e).__name__}: {e})") from e
+
+        if app.has_named_window(sis.stream_id):
+            raise SiddhiAppCreationError(
+                "device filter path: named-window input is host-only")
+        target = getattr(q.output_stream, "target_id", "") or qr.name
+        self.head = qr._finish_device_chain(StreamDefinition(target, attrs),
+                                            factory)
+        self.qr = qr
+        recv = ProcessStreamReceiver(
+            _DeviceIngress(self, 0, sis.stream_id), qr.lock,
+            app.latency_tracker_for(qr.name), qr.name, app.app_ctx)
+        app.junction_of(sis.stream_id, sis.is_inner,
+                        sis.is_fault).subscribe(recv)
+        qr.receivers[sis.stream_id] = recv
+        self._init_pipeline(app, [sis.stream_id])
+        self.app_name = app.name
+        self._fuser = egress_fuser_for(app)
+
+    # ------------------------------------------------------------ ingest
+
+    def ingest(self, stream_code: int, stream_id: str, chunk) -> None:
+        import torch
+        from ..core.profiling import profiler
+        n = len(chunk)
+        if n == 0:
+            return
+        prof = profiler()
+        disp0 = prof.total_dispatches() if prof.enabled else 0
+        ticks0 = prof.total_scan_ticks() if prof.enabled else 0
+        n_pad = 1 << (n - 1).bit_length()
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(a).to(dev, non_blocking=True)
+
+        cols = {}
+        for a in self.numeric:
+            col = chunk.columns.get(a)
+            arr = np.zeros(n_pad, np.float32)
+            if col is not None:
+                arr[:n] = np.asarray(col, np.float32)
+            cols[a] = put(arr)
+        if self._slanes.any:
+            for nm, lane in self._slanes.encode(chunk.columns, n,
+                                                n_pad).items():
+                cols[nm] = put(np.ascontiguousarray(lane, np.float32))
+        # int32 ts offsets — absolute-timestamp functions are planner-
+        # rejected on this path, nothing else reads ctx.timestamps
+        ts = np.zeros(n_pad, np.int32)
+        ts_arr = np.asarray(chunk.timestamps)
+        ts[:n] = (ts_arr - ts_arr[0]).astype(np.int32)
+        valid = np.zeros(n_pad, bool)
+        valid[:n] = True
+        with _ledger().span("device"):
+            ok, outs = self._program(cols, put(ts), put(valid))
+        token = copy = None
+        if self._fuser is not None:
+            # mask + device columns ride the app's per-ingest-block slab
+            token = self._fuser.register(self, [ok] + list(outs))
+        else:
+            copy = HostCopy([ok] + list(outs))
+        self._submit({"fuse": token, "copy": copy, "chunk": chunk, "n": n})
+        _record_block(self, prof, disp0, ticks0, stream_id, n)
+
+    def _retire(self, work) -> None:
+        from ..core.event import TIMER, RESET, EventChunk
+        from ..core.tracing import trace_span
+        chunk, n = work["chunk"], work["n"]
+        if work.get("fuse") is not None:
+            fetched = work["fuse"].fetch()
+        else:
+            with _ledger().span("egress_d2h"):
+                fetched = work["copy"].wait()
+        ok, outs = fetched[0][:n], fetched[1:]
+        # TIMER/RESET rows always pass (host FilterProcessor parity)
+        ok = ok | (chunk.types == TIMER) | (chunk.types == RESET)
+        if not ok.any():
+            return
+        hctx = None
+        if self._host_exprs:
+            from .expr_compiler import EvalCtx
+            masked = chunk.mask(ok)
+            hctx = EvalCtx(masked.columns, masked.timestamps, len(masked))
+        out_cols: Dict[str, np.ndarray] = {}
+        for (name, kind, ref) in self.outputs:
+            if kind == "host_col":
+                out_cols[name] = np.asarray(chunk.columns[ref])[ok]
+            elif kind == "host_expr":
+                v = np.asarray(self._host_exprs[ref].fn(hctx))
+                if v.ndim == 0:
+                    v = np.broadcast_to(v, (hctx.n,))
+                out_cols[name] = v
+            else:
+                arr = np.asarray(outs[ref])[:n][ok]
+                out_cols[name] = arr.astype(self._dev_dtypes[ref])
+        out = EventChunk.from_columns(
+            [o[0] for o in self.outputs],
+            np.asarray(chunk.timestamps)[ok], out_cols,
+            types=chunk.types[ok])
+        with trace_span("match.scatter", n=len(out)):
+            self.head.process(out)
+
+    # ------------------------------------------------------------ lifecycle
+
+    def start(self) -> None:
+        pass
+
+    def shutdown(self) -> None:
+        self.flush()
+
+    def current_state(self):
+        self.flush()
+        return None
+
+    def restore_state(self, state):
+        pass
 
 
 @persistent_schema(
@@ -918,7 +1423,8 @@ def plan_state_runtime(query_runtime, sis, factory):
 def plan_single_runtime(query_runtime, sis, factory):
     """Device build for a single-stream query: aggregation/window shapes
     go to the grouped-agg path, stateless filter/project to the column
-    program (both not yet ported: host under 'auto')."""
+    program; a window with a plain projection stays on the host (the
+    dwin hybrid path is not yet ported)."""
     from ..core.aggregator import is_aggregator
     from ..query_api import WindowHandler
 

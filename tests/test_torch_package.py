@@ -9,7 +9,8 @@
 - device paths not yet ported fall back to the host under 'auto' with
   "not yet ported" in the recorded reason, and raise under 'device'
   (for patterns: a pattern outside the CUDA NFA kernel's class, on a
-  CUDA device).
+  CUDA device); the shapes ported since (filters, grouped and time-window
+  aggregation) build on the device engine under both.
 """
 import ast
 import os
@@ -52,8 +53,10 @@ def test_import_pulls_in_no_jax():
     env["PYTHONPATH"] = ROOT
     code = ("import sys, siddhi_tpu_torch\n"
             "from siddhi_tpu_torch.plan import planner, wagg_compiler\n"
+            "from siddhi_tpu_torch.plan import gagg_compiler\n"
             "from siddhi_tpu_torch.plan import nfa_compiler\n"
             "from siddhi_tpu_torch.ops import windowed_agg, _kernels, nfa\n"
+            "from siddhi_tpu_torch.ops import grouped_agg, select\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'siddhi_tpu' not in sys.modules, 'siddhi_tpu imported'\n")
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -110,24 +113,38 @@ UNPORTED = {
         partition with (sym of S) begin
         from every e1=S[price > 5.0], e2=S[price < e1.price]
         select e1.sym as a, e2.price as p insert into Out; end;""", True),
+    # unpartitioned shapes: the query runtime records the reason
+    "pattern": ("""
+        define stream S (sym string, price float);
+        from every e1=S[price > 5.0], e2=S[price < e1.price]
+        select e1.sym as a insert into Out;""", False),
+    # the join's buffers run on the host; its device probe is unported
+    "join": ("""
+        define stream S (sym string, price float);
+        define stream R (sym string, v float);
+        from S#window.length(3) join R#window.length(3)
+        on S.sym == R.sym select S.sym as a, R.v as v insert into Out;""",
+             False),
+}
+
+#: shapes that were in UNPORTED until the grouped-aggregation and filter
+#: runtimes were ported: each now builds on the device engine
+PORTED = {
     "partition_time_window": ("""
         define stream S (sym string, price float);
         partition with (sym of S) begin
         from S#window.time(1 sec)
         select sym, sum(price) as s group by sym insert into Out; end;""",
-                              True),
-    # unpartitioned shapes: the query runtime records the reason
+                              True, "DeviceGroupedAggRuntime"),
     "filter": ("""
         define stream S (sym string, price float);
-        from S[price > 5.0] select sym, price insert into Out;""", False),
+        from S[price > 5.0] select sym, price insert into Out;""", False,
+               "DeviceFilterRuntime"),
     "window_aggregate": ("""
         define stream S (sym string, price float);
         from S#window.length(3)
-        select sym, sum(price) as s group by sym insert into Out;""", False),
-    "pattern": ("""
-        define stream S (sym string, price float);
-        from every e1=S[price > 5.0], e2=S[price < e1.price]
-        select e1.sym as a insert into Out;""", False),
+        select sym, sum(price) as s group by sym insert into Out;""", False,
+                         "DeviceGroupedAggRuntime"),
 }
 
 
@@ -159,7 +176,7 @@ def test_unported_kind_falls_back_under_auto(name, monkeypatch):
         rt.shutdown()
 
 
-@pytest.mark.parametrize("name", ["partition_pattern", "filter", "pattern"])
+@pytest.mark.parametrize("name", ["partition_pattern", "pattern"])
 def test_unported_kind_raises_under_device(name, monkeypatch):
     text, _ = UNPORTED[name]
     with pytest.raises(SiddhiAppCreationError, match="not yet ported"):
@@ -167,14 +184,35 @@ def test_unported_kind_raises_under_device(name, monkeypatch):
             "@app:engine('device')\n" + text)
 
 
+@pytest.mark.parametrize("engine", ["auto", "device"])
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_kind_builds_on_device(name, engine):
+    text, partitioned, runtime = PORTED[name]
+    rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(
+        f"@app:engine('{engine}')\n" + text)
+    try:
+        if partitioned:
+            pr = rt.partition_runtimes[0]
+            assert pr.device_mode, pr.fallback_reason
+            (qr,) = pr.device_query_runtimes.values()
+        else:
+            (qr,) = rt.query_runtimes.values()
+        assert qr.backend == "device", qr.backend_reason
+        assert type(qr.device_runtime).__name__ == runtime
+    finally:
+        rt.shutdown()
+
+
 STRING_FILTER_APP = WAGG_APP.replace("S[price > 1.0]",
                                      "S[sym != 'x' and price > 1.0]")
 
 
 def test_expression_rejection_falls_back_under_auto():
-    """A filter over a string attribute (no device lane) is the
-    expression's own rejection (SiddhiAppCreationError): a host run under
-    'auto', a raise under 'device'."""
+    """A filter over a string attribute (no device lane) is the length-
+    window program's own rejection (SiddhiAppCreationError), never a
+    crash: the keyed fallback hands the query to the grouped-agg step,
+    whose filters run host-side, so the partition stays on the device
+    engine under 'auto' and under 'device' (as in the JAX package)."""
     import numpy as np
     from siddhi_tpu_torch.plan.wagg_compiler import CompiledWindowedAgg
     cwa = CompiledWindowedAgg("""
@@ -190,15 +228,16 @@ def test_expression_rejection_falls_back_under_auto():
                        match="expression rejected.*KeyError"):
         cwa.process_block(block)
 
-    rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(
-        STRING_FILTER_APP)
-    try:
-        assert not rt.partition_runtimes[0].device_mode
-    finally:
-        rt.shutdown()
-    with pytest.raises(SiddhiAppCreationError):
-        SiddhiManager(device="cpu").create_siddhi_app_runtime(
-            "@app:engine('device')\n" + STRING_FILTER_APP)
+    for head in ("", "@app:engine('device')\n"):
+        rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(
+            head + STRING_FILTER_APP)
+        try:
+            pr = rt.partition_runtimes[0]
+            assert pr.device_mode, pr.fallback_reason
+            assert type(pr.device_query_runtimes["q"].device_runtime) \
+                .__name__ == "DeviceGroupedAggRuntime"
+        finally:
+            rt.shutdown()
 
 
 @pytest.mark.parametrize("where", ["to_device", "step", "program_launch"])
