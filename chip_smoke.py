@@ -88,8 +88,13 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      group growth, evictions in the arriving group, a +-inf/NaN/-0.0
      feed, ints near 2^31, a ring overflow, partly filled carries,
      rejected rows, P = 1 and 1,024, numguard, rings above shared memory,
-     short and long group lists in one lane, timestamps out of order;
-     then both timed at the cells' shapes with their bounds;
+     short and long group ranges in one lane, timestamps out of order,
+     one group holding a whole T = 4,096 lane, T not a multiple of the
+     passes' tile and below one tile, in-place steps whose evictions
+     cross a tile boundary, tiles doubled past the count budget (a CTA
+     walking two blocks of items); then both timed at the cells' shapes
+     with their bounds, each pass's share, and the one-chain and skewed
+     lanes (the walk's serial floor);
  13. the grouped cell: config 2's queries (GQ of its 100) as an
      unpartitioned group-by — one global length(1000) window, 1,024
      string keys as groups, P = 1 — GC chunks of 262,144 events through
@@ -3192,6 +3197,30 @@ GAGG_CASES = [
     # timestamps out of order within a lane
     dict(kind="time", P=16, W=64, ms=30, G=40, VF=1, VI=1, T=(128, 128),
          feed="nonfinite", ts="jitter"),
+    # one group holds the lane: the walk's one chain of T events and as
+    # many evictions, every range the warp's
+    dict(kind="length", P=1, W=1000, G=1, VF=1, VI=1, T=(4096, 4096),
+         minmax=True, forever=True, inplace=True),
+    dict(kind="time", P=1, W=1024, ms=1000, G=1, VF=1, VI=1, T=(4096,),
+         forever=True),
+    # T not a multiple of the passes' tile (256 events), and below one
+    dict(kind="length", P=5, W=300, G=16, VF=2, VI=1, T=(1000, 777),
+         minmax=True, forever=True),
+    dict(kind="time", P=5, W=512, ms=300, G=16, VF=1, VI=2, T=(1000, 777),
+         forever=True, gids="skew"),
+    dict(kind="length", P=9, W=50, G=4, VF=1, VI=1, T=(100, 37),
+         minmax=True),
+    # in place, the ring wider than a tile: evictions of carry entries
+    # and of the block's own cross tile boundaries
+    dict(kind="length", P=3, W=600, G=8, VF=1, VI=1, T=(700, 900),
+         fill=450, minmax=True, inplace=True, feed="nonfinite"),
+    # count matrices over split_tile's budget: the tile doubles to 512,
+    # so a CTA walks two blocks of 256 items (events, and the carry's
+    # entries) and carries its ranks and group counts across them
+    dict(kind="length", P=256, W=300, G=16384, VF=1, VI=1, T=(400, 512),
+         fill=280, minmax=True, forever=True, inplace=True),
+    dict(kind="time", P=256, W=512, ms=200, G=16384, VF=1, VI=1,
+         T=(400, 512), fill=280, forever=True),
 ]
 
 
@@ -3386,22 +3415,67 @@ GAGG_TIMED = {
     "time_cell": ("time", 1, CHUNK, 1024, N_KEYS, 1, 1, 1000),
 }
 T_PLAIN = 4096
+#: the walk's serial floor at the grouped cell's shape: one group holding
+#: the lane, and half the events in group 0 ((shape), gids feed)
+GAGG_FLOORS = {
+    "one_chain": (("length", 1, CHUNK, WINDOW, 1, 1, 0, 0), "uniform"),
+    "skew": (("length", 1, CHUNK, WINDOW, N_KEYS, 1, 0, 0), "skew"),
+}
+#: the step's kernels (csrc/grouped_agg.cu), in launch order; K7a and K7b
+#: share them
+GAGG_PASSES = ("gagg_count_kernel", "gagg_scan_groups_kernel",
+               "gagg_scan_lane_kernel", "gagg_scatter_kernel",
+               "gagg_walk_kernel", "gagg_windows_kernel", "gagg_ring_kernel")
+#: the spans between gagg_time_passes' events
+GAGG_SPANS = ("count", "scan", "scatter", "walk", "windows", "ring")
+
+
+def gagg_split(step, args, dev, n=3, sleep_cycles=SLEEP_CYCLES):
+    """Median device ms of each pass of one K7 step (GAGG_SPANS), from
+    CUDA events the C entry records between its launches
+    (gagg_time_passes), the L2 flushed before each run."""
+    import ctypes
+
+    import torch
+    from siddhi_tpu_torch.ops import grouped_agg as ga
+    lib = ga.load_kernel("grouped_agg")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    for ev in evs:                           # created on first record
+        ev.record()
+    handles = (ctypes.c_void_p * 7)(*[ev.cuda_event for ev in evs])
+    runs = []
+    lib.gagg_time_passes(handles, 7)
+    try:
+        for _ in range(n):
+            flush.zero_()
+            torch.cuda._sleep(sleep_cycles)
+            step(*args)
+            torch.cuda.synchronize()
+            runs.append([evs[k].elapsed_time(evs[k + 1]) for k in range(6)])
+    finally:
+        lib.gagg_time_passes(None, 0)
+    return dict(zip(GAGG_SPANS, (float(x) for x in np.median(runs, 0))))
 
 
 def time_gagg(dev, seed, sleep_cycles=SLEEP_CYCLES):
     """K7a and K7b timed with CUDA events at each cell's shape (median
-    of runs, L2 flushed; a carry in steady state: a full window first),
-    the plain twin at the keyed cell's full shape and at T = T_PLAIN
-    for the unkeyed ones (the kernel timed there too), and each launch's
-    bound.  Returns {cell: dict}."""
+    of runs, L2 flushed; a carry in steady state: a full window first)
+    and split by pass, the plain twin at the keyed cell's full shape and
+    at T = T_PLAIN for the unkeyed ones (the kernel timed there too), each
+    launch's bound; then K7a at GAGG_FLOORS' lanes (the walk's floor).
+    Returns {cell or floor: dict}."""
     import torch
-    from siddhi_tpu_torch.ops import grouped_agg as ga
     rng = np.random.default_rng(seed + 13)
     res = {}
     n0 = _gagg_launches()
-    for name, (kind, P, T, W, G, VF, VI, ms) in GAGG_TIMED.items():
+    shapes = [(name, shape, "uniform", True)
+              for name, shape in GAGG_TIMED.items()]
+    shapes += [(name, shape, gids, False)
+               for name, (shape, gids) in GAGG_FLOORS.items()]
+    for name, (kind, P, T, W, G, VF, VI, ms), gids, plain in shapes:
         case = dict(kind=kind, P=P, W=W, G=G, VF=VF, VI=VI, ms=ms,
-                    minmax=True, inplace=(kind == "length"))
+                    minmax=True, inplace=(kind == "length"), gids=gids)
         kstep, pstep, make = _gagg_steps(case, G)
 
         def feed(t, t0):
@@ -3416,28 +3490,36 @@ def time_gagg(dev, seed, sleep_cycles=SLEEP_CYCLES):
         warm, _ = feed(max(W, 1) + 7, 0)
         carry, _ = kstep(carry, *warm)
         args, acc = feed(T, W + 7)
-        cut, acc_cut = feed(min(T, T_PLAIN), W + 7)
         runs = 3 if T > 4096 else TIMED_LAUNCHES
         # K7a updates in place (the cell's donated carry): each timed
         # launch steps the same carry on; K7b writes a fresh one
         ms_k = median_ms(lambda: kstep(carry, *args), dev, n=runs,
                          sleep_cycles=sleep_cycles)
-        ms_cut = median_ms(lambda: kstep(carry, *cut), dev, n=runs,
+        split = gagg_split(kstep, [carry] + args, dev,
                            sleep_cycles=sleep_cycles)
-        plain_args = args if T <= T_PLAIN else cut
-        ms_plain = median_ms(lambda: pstep(carry, *plain_args), dev, n=1,
-                             sleep_cycles=sleep_cycles)
         bound, by = gagg_bound(P, T, W, G, VF, VI, acc, True,
                                kind == "time")
-        res[name] = {"kind": kind, "ms": ms_k, "ms_at_plain_T": ms_cut,
-                     "plain_ms": ms_plain, "bound_ms": bound, "bound_by": by,
+        res[name] = {"kind": kind, "ms": ms_k, "bound_ms": bound,
+                     "bound_by": by, "split": split, "gids": gids,
                      "shape": {"P": P, "T": T, "W": W, "G": G, "VF": VF,
-                               "VI": VI, "window_ms": ms},
-                     "plain_T": min(T, T_PLAIN)}
-        log(f"  K7{'b' if kind == 'time' else 'a'} {name} P={P} T={T} W={W} "
-            f"G={G}: {ms_k:.4f} ms (median of {runs}; {ms_k / T * 1e3:.4f} "
-            f"us an event a lane), at T={min(T, T_PLAIN)} {ms_cut:.4f} ms "
-            f"vs plain {ms_plain:.4f} ms; bound {bound:.6f} ms by {by}")
+                               "VI": VI, "window_ms": ms}}
+        line = (f"  K7{'b' if kind == 'time' else 'a'} {name} P={P} T={T} "
+                f"W={W} G={G} gids={gids}: {ms_k:.4f} ms (median of {runs}; "
+                f"{ms_k / T * 1e3:.6f} us an event a lane)")
+        if plain:
+            cut, _ = feed(min(T, T_PLAIN), W + 7)
+            ms_cut = median_ms(lambda: kstep(carry, *cut), dev, n=runs,
+                               sleep_cycles=sleep_cycles)
+            plain_args = args if T <= T_PLAIN else cut
+            ms_plain = median_ms(lambda: pstep(carry, *plain_args), dev,
+                                 n=1, sleep_cycles=sleep_cycles)
+            res[name].update(ms_at_plain_T=ms_cut, plain_ms=ms_plain,
+                             plain_T=min(T, T_PLAIN))
+            line += (f", at T={min(T, T_PLAIN)} {ms_cut:.4f} ms vs plain "
+                     f"{ms_plain:.4f} ms")
+        log(line + f"; bound {bound:.6f} ms by {by}")
+        log("    passes (ms): " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in split.items()))
     _set_gagg_launches(n0)                # timing launches are not a path
     return res
 
@@ -3675,7 +3757,7 @@ def run_gagg_cell(names, chunks, dev, n_queries, keyed):
     name = "keyed cell" if keyed else "grouped cell"
     res = _cell_report(name, len(chunks) * CHUNK, len(chunks),
                        wall, per_kernel, dev_us, stages, launches,
-                       ["gagg_step_kernel"])
+                       list(GAGG_PASSES))
     res.update(lanes=lanes, groups=groups, queries=n_queries,
                query_events_per_s=res["events_per_s"] * n_queries,
                peak=torch.cuda.max_memory_allocated() - mem0)
@@ -3821,7 +3903,7 @@ def run_time_cell(names, tchunks, dev):
     rt.shutdown()
     res = _cell_report("time cell", len(tchunks) * CHUNK, len(tchunks),
                        wall, per_kernel, dev_us, stages, launches,
-                       ["gagg_time_kernel"])
+                       list(GAGG_PASSES))
     res.update(capacity=capacity, route=route, select=sel)
     log(f"  ring capacity {capacity} after growth; selection route {route}")
     if launches[1] < len(tchunks):
@@ -4279,21 +4361,31 @@ def main(argv=None) -> int:
         "totals_only_ms": fc["ring_totals_ms"],
         "shape": {"patterns": N_BANK, "P": BANK_P, "ring": BANK_RING}}]
 
-    def cell(c, kernel):
+    def cell(c, kernels=()):
+        """A cell's numbers; kernel_ms sums the named kernels' device
+        time (a K7 step's passes), kernel_ms_by_name splits it."""
+        got = c.get("kernel_ms") or {}
+        by = {k: got[k] for k in kernels if k in got}
         return {k: c.get(k) for k in (
             "events_per_s", "query_events_per_s", "ms_per_chunk",
             "dispatch_s", "device_s", "decode_s", "device_ms", "idle_share",
             "launches")} | {
-            "kernel_ms": (c.get("kernel_ms") or {}).get(kernel)}
+            "kernel_ms": sum(by.values()) if by else None,
+            "kernel_ms_by_name": by or None}
 
     def k7(timed):
         return {k: timed[k] for k in (
             "ms", "plain_ms", "plain_T", "ms_at_plain_T", "bound_ms",
-            "bound_by", "shape")}
+            "bound_by", "shape", "split")}
+
+    def floor(timed):
+        return {k: timed[k] for k in ("ms", "bound_ms", "bound_by",
+                                      "gids", "shape", "split")}
 
     kernels += [{
         # K7a: the grouped cell (phase 13) is its main path; the keyed
-        # cell (phase 14) runs it at P = 1,024
+        # cell (phase 14) runs it at P = 1,024.  A launch is one step:
+        # the seven kernels of GAGG_PASSES on one stream
         "name": "gagg_step", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/grouped_agg.cu",
         "replaces": "siddhi_tpu/ops/grouped_agg.py:119",
@@ -4302,20 +4394,21 @@ def main(argv=None) -> int:
                              "keyed_cell": kc14["launches"][0]},
         **gchk["length"], **k7(gt["grouped_cell"]), "library_ms": None,
         "keyed_shape": k7(gt["keyed_cell"]),
-        "grouped_cell": cell(gc13, "gagg_step_kernel"),
-        "keyed_cell": cell(kc14, "gagg_step_kernel")}, {
+        "chain_floor": {k: floor(gt[k]) for k in GAGG_FLOORS},
+        "grouped_cell": cell(gc13, GAGG_PASSES),
+        "keyed_cell": cell(kc14, GAGG_PASSES)}, {
         "name": "gagg_time_step", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/grouped_agg.cu",
         "replaces": "siddhi_tpu/ops/grouped_agg.py:283",
         "checked": True, "launches": tc15["launches"][1],
         **gchk["time"], **k7(gt["time_cell"]), "library_ms": None,
-        "time_cell": cell(tc15, "gagg_time_kernel") | {
+        "time_cell": cell(tc15, GAGG_PASSES) | {
             "capacity": tc15["capacity"], "rows": tc15["rows"],
             "select_step": tc15["select"]}}]
     # the filter cell runs no hand kernel (torch programs): a cell of the
     # line of its own
     print(json.dumps({"kernels": kernels,
-                      "cells": {"filter_cell": cell(fc16, None)}}),
+                      "cells": {"filter_cell": cell(fc16)}}),
           flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,10 +46,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         "wagg_length_scratch_bytes": (_LL, [_I, _I, _I, _I]),
     },
     "grouped_agg": {
-        # pointers (events, carry in, carry out, 13 output planes, in
-        # ops/grouped_agg._launch order), dims, stream
+        # pointers (events, carry in, carry out, 13 output planes, the
+        # scratch, in ops/grouped_agg._launch order), dims, stream
         "gagg_step": (_I, [_VP, _VP, _VP]),
         "gagg_time_step": (_I, [_VP, _VP, _VP]),
+        # P, T, W, G, VF, VI, time -> int32 words of scratch a step needs
+        "gagg_scratch_words": (_LL, [_I] * 7),
+        # cudaEvent_t handles recorded at the passes' boundaries, count
+        "gagg_time_passes": (_I, [_VP, _I]),
     },
     "nfa_step": {
         # attrs, ts, stream, gates, prog, prog_len,

@@ -20,6 +20,10 @@ The port computes each step twice:
   - the hand-written Hopper kernels ``csrc/grouped_agg.cu`` (K7a
     ``gagg_step``, K7b ``gagg_time_step``) — launched by
     :func:`grouped_step` / :func:`grouped_time_step` for CUDA tensors.
+    They split a lane's events across the card (ranks and per-group
+    chains by tiled counting passes, a serial walk per group for the
+    running sums, a range per event for the windowed planes);
+    :func:`grouped_split_model` is the CPU model of their passes.
 
 Where the JAX step's bits are subtle the twin and the kernel follow it:
 
@@ -37,7 +41,7 @@ its own canonical NaN); every other bit is.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -143,8 +147,8 @@ def carry_from_reference(state, device=None):
     a :class:`GroupedTimeCarry`; every leaf is pinned to the JAX dtype
     (float32, int32, bool) on ``device`` (default: the card).  Every carry
     a step produces fills its ring from slot 0 (``pos == cnt`` while
-    ``cnt < W``), and the kernels' group lists take it so: a state that
-    breaks it raises ``ValueError``."""
+    ``cnt < W``), and the kernels place the ring's entries by it: a state
+    that breaks it raises ``ValueError``."""
     leaves = state["carry"] if isinstance(state, dict) else state
     if len(leaves) == len(GroupedAggCarry._fields):
         cls, dts = GroupedAggCarry, LENGTH_DTYPES
@@ -432,6 +436,410 @@ def grouped_time_step_plain(window_ms: int, capacity: int,
     return step
 
 
+# ------------------------------------------------------ the split design
+
+#: threads of a CTA of the kernels' tiled passes; the longest live range
+#: of a group one thread reduces alone (csrc/grouped_agg.cu kBlock,
+#: kShort); the count matrices' budget (kCountBytes)
+SPLIT_BLOCK = 256
+SPLIT_SHORT = 32
+SPLIT_COUNT_BYTES = 64 << 20
+
+
+def split_tile(P: int, T: int, W: int, G: int) -> int:
+    """Events (or carry entries) one CTA of the tiled passes takes, as
+    ``csrc/grouped_agg.cu split_tile`` decides: one block of threads,
+    doubled while the per-tile group counts of the P lanes would pass
+    SPLIT_COUNT_BYTES."""
+    tile = SPLIT_BLOCK
+    while tile < max(T, W, 1):
+        n_tiles = -(-W // tile) + 2 * -(-T // tile)
+        if P * n_tiles * G * 4 <= SPLIT_COUNT_BYTES:
+            break
+        tile *= 2
+    return tile
+
+
+def _wrap32(x: int) -> int:
+    return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _tree_node(a, b):
+    """One node of _pair_tree_sum: (hi, lo) pairs a (the lower slots)
+    and b combined."""
+    s, e = _two_sum(a[0], b[0])
+    lo2 = (a[1] + b[1]) + e
+    h = s + lo2
+    return h, lo2 - (h - s)
+
+
+def _sparse_tree(leaves, W: int, zero):
+    """_pair_tree_sum over W slots of which only ``leaves`` ((slot, hi)
+    pairs) are live, as the kernel computes it: the live slots ordered by
+    their bit-reversed index, so that each level's siblings (i and
+    i + half) are neighbours in the list; a node whose sibling is not
+    live meets (+0.0, +0.0) on its side, the operations of the dense
+    tree."""
+    bits = max(W.bit_length() - 1, 0)
+
+    def rev(i):
+        return int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+
+    nodes = [(s, (h, zero)) for s, h in sorted(leaves,
+                                               key=lambda x: rev(x[0]))]
+    w = W
+    while w > 1:
+        half = w >> 1
+        nxt, k = [], 0
+        while k < len(nodes):
+            i, node = nodes[k]
+            if i & half:
+                pair, k = ((zero, zero), node), k + 1
+            elif k + 1 < len(nodes) and nodes[k + 1][0] == i + half:
+                pair, k = (node, nodes[k + 1][1]), k + 2
+            else:
+                pair, k = (node, (zero, zero)), k + 1
+            nxt.append((i & (half - 1), _tree_node(*pair)))
+        nodes, w = nxt, half
+    return nodes[0][1] if nodes else (zero, zero)
+
+
+class _Chains(NamedTuple):
+    """Passes A and B of the split, per lane: E (the lane's entries by
+    virtual index: the carry's live entries oldest first, then the
+    accepted events at cnt0 + rank), each group's entry chain ENT
+    (virtual indices, ascending) and event chain EVC (event indices,
+    ascending), and per event its window's end hi (entries before it
+    and itself) and its group's entries before hi (b)."""
+    first: np.ndarray       # [P] the slot of virtual index 0
+    n_acc: np.ndarray       # [P] accepted events of the block
+    ent: np.ndarray         # [P, W + T] ENT, group after group
+    ent_off: np.ndarray     # [P, G]
+    ent_len: np.ndarray     # [P, G]
+    evc: np.ndarray         # [P, T] EVC, group after group
+    evc_off: np.ndarray     # [P, G]
+    evc_len: np.ndarray     # [P, G]
+    hi: np.ndarray          # [P, T]
+    b: np.ndarray           # [P, T]
+    e_f: torch.Tensor       # [P, W + T, VF]
+    e_i: torch.Tensor       # [P, W + T, VI]
+    e_g: np.ndarray         # [P, W + T]
+    e_ts: Optional[np.ndarray]
+
+
+def _split_chains(carry, vals_f, vals_i, gids, ts, accepted, tile: int
+                  ) -> _Chains:
+    """Passes A and B, as the kernel's count, scan and scatter passes do
+    them: tiles of ``tile`` items, the carry's ceil(W / tile) tiles of
+    entries before the block's tiles of events."""
+    W = int(carry.ring_gid.shape[1])
+    P, T = (int(x) for x in gids.shape)
+    G = int(carry.fmin_f.shape[1])
+    g_np = gids.numpy().astype(np.int64)
+    ok_np = accepted.numpy().astype(bool)
+    cnt0 = carry.cnt.numpy().astype(np.int64)
+    rg0 = carry.ring_gid.numpy().astype(np.int64)
+    first = np.where(cnt0 < W, 0, carry.pos.numpy().astype(np.int64))
+    n_tc, n_tb = -(-W // tile), -(-T // tile)
+
+    # A: per tile, its accepted events and per group its events (EVC) and
+    # entries (ENT); per item its ranks in the tile
+    acc_in = np.zeros((P, T), np.int64)
+    kall_in = np.zeros((P, T), np.int64)
+    kacc_in = np.zeros((P, T), np.int64)
+    kent_in = np.zeros((P, W), np.int64)
+    tile_acc = np.zeros((P, n_tb), np.int64)
+    cnt_ent = np.zeros((P, n_tc + n_tb, G), np.int64)
+    cnt_evc = np.zeros((P, n_tb, G), np.int64)
+    for p in range(P):
+        for v in range(int(cnt0[p])):
+            q = rg0[p, (first[p] + v) % W]
+            if 0 <= q < G:                  # (a carry a step made: always)
+                kent_in[p, v] = cnt_ent[p, v // tile, q]
+                cnt_ent[p, v // tile, q] += 1
+        for t in range(T):
+            b, q = t // tile, g_np[p, t]
+            acc_in[p, t] = tile_acc[p, b]
+            kall_in[p, t] = cnt_evc[p, b, q]
+            kacc_in[p, t] = cnt_ent[p, n_tc + b, q]
+            cnt_evc[p, b, q] += 1
+            if ok_np[p, t]:
+                cnt_ent[p, n_tc + b, q] += 1
+                tile_acc[p, b] += 1
+
+    # B: the scans (tile order, then group order), then the scatter
+    def excl(x, axis):
+        return np.cumsum(x, axis=axis) - x
+    tile_base = excl(tile_acc, 1)
+    ent_base, evc_base = excl(cnt_ent, 1), excl(cnt_evc, 1)
+    ent_len, evc_len = cnt_ent.sum(1), cnt_evc.sum(1)
+    ent_off, evc_off = excl(ent_len, 1), excl(evc_len, 1)
+    NE = W + T
+    src = np.full((P, NE), -1, np.int64)    # E's source: slot, or event
+    from_ring = np.zeros((P, NE), bool)
+    ent = np.full((P, NE), -1, np.int64)
+    evc = np.zeros((P, T), np.int64)
+    hi = np.zeros((P, T), np.int64)
+    bb = np.zeros((P, T), np.int64)
+    for p in range(P):
+        for v in range(int(cnt0[p])):
+            s = (first[p] + v) % W
+            src[p, v], from_ring[p, v] = s, True
+            q = rg0[p, s]
+            if 0 <= q < G:
+                ent[p, ent_off[p, q] + ent_base[p, v // tile, q] +
+                    kent_in[p, v]] = v
+        for t in range(T):
+            b, q, ok = t // tile, g_np[p, t], int(ok_np[p, t])
+            r = tile_base[p, b] + acc_in[p, t]
+            k = ent_base[p, n_tc + b, q] + kacc_in[p, t]
+            hi[p, t] = cnt0[p] + r + ok
+            bb[p, t] = k + ok
+            evc[p, evc_off[p, q] + evc_base[p, b, q] + kall_in[p, t]] = t
+            if ok:
+                src[p, cnt0[p] + r] = t
+                ent[p, ent_off[p, q] + k] = cnt0[p] + r
+    lane = torch.arange(P)[:, None]
+    rs = torch.from_numpy(np.where(from_ring, src, 0))
+    es = torch.from_numpy(np.where(from_ring | (src < 0), 0, src))
+    fr = torch.from_numpy(from_ring)
+
+    def gather(ring, ev):
+        e = (ev[lane, es] if T else
+             torch.zeros((P, NE) + tuple(ev.shape[2:]), dtype=ev.dtype))
+        if not W:
+            return e
+        m = fr.reshape(fr.shape + (1,) * (e.dim() - 2))
+        return torch.where(m, ring[lane, rs], e)
+    time = isinstance(carry, GroupedTimeCarry)
+    return _Chains(
+        first=first, n_acc=tile_acc.sum(1), ent=ent,
+        ent_off=ent_off, ent_len=ent_len, evc=evc, evc_off=evc_off,
+        evc_len=evc_len, hi=hi, b=bb,
+        e_f=gather(carry.ring_f, vals_f), e_i=gather(carry.ring_i, vals_i),
+        e_g=gather(carry.ring_gid, gids).numpy().astype(np.int64),
+        e_ts=(gather(carry.ring_ts, ts).numpy().astype(np.int64)
+              if time else None))
+
+
+_ON = torch.tensor(True)
+
+
+def _split_walk(ch: _Chains, carry, out, outs, vals_f, vals_i, accepted,
+                want_minmax: bool, want_forever: bool):
+    """Pass C: one walk per (lane, group) over its event chain, each of
+    its entries' evictions (K7a with a window) merged in: entry v has left
+    the window at event t when v < hi - W, so every such entry is evicted
+    before t's add (the entry t itself evicts, v = hi - 1 - W, included;
+    the rest after the group's last event, while v < cnt0 + accepted -
+    W).  The kernel reads both chains as chain-ordered copies.  Writes
+    the sums, count and forever planes at every event of the group
+    (K7a's windowed planes too without a windowed min/max), then the
+    group's slabs into ``out``."""
+    time = isinstance(carry, GroupedTimeCarry)
+    W = int(carry.ring_gid.shape[1])
+    P, T = (int(x) for x in accepted.shape)
+    G = int(carry.fmin_f.shape[1])
+    ok_np = accepted.numpy().astype(bool)
+    cnt0 = carry.cnt.numpy().astype(np.int64)
+    upd_forever = want_forever or (want_minmax and W == 0)
+    windowed = want_minmax and W > 0
+    for p in range(P):
+        for q in range(G):
+            mn_f, mx_f = carry.fmin_f[p, q], carry.fmax_f[p, q]
+            mn_i, mx_i = carry.fmin_i[p, q], carry.fmax_i[p, q]
+            if not time:
+                fh, fl = carry.fsum_hi[p, q], carry.fsum_lo[p, q]
+                ih, il = carry.isum_hi[p, q], carry.isum_lo[p, q]
+                gc = carry.gcnt[p, q]
+            chain = ch.ent[p, ch.ent_off[p, q]:][:ch.ent_len[p, q]]
+            n_ev = 0 if time or not W else len(chain)
+            end = cnt0[p] + ch.n_acc[p]
+            k = 0
+            events = ch.evc[p, ch.evc_off[p, q]:][:ch.evc_len[p, q]]
+            for t in list(events) + [T]:
+                lim = (ch.hi[p, t] if t < T else end) - W
+                while k < n_ev and chain[k] < lim:
+                    v = chain[k]
+                    fh, fl = _pair_add(fh, fl, -(ch.e_f[p, v] + 0.0), _ON)
+                    ih = ih + -(ch.e_i[p, v] >> 16)
+                    il = il + -(ch.e_i[p, v] & (_SPLIT - 1))
+                    gc = gc - 1
+                    k += 1
+                if t == T:
+                    break
+                if ok_np[p, t]:
+                    xf, xi = vals_f[p, t], vals_i[p, t]
+                    if not time:
+                        fh, fl = _pair_add(fh, fl, xf, _ON)
+                        ih = ih + (xi >> 16)
+                        il = il + (xi & (_SPLIT - 1))
+                        gc = gc + 1
+                    if upd_forever:
+                        mn_f, mx_f = _fmin(mn_f, xf), _fmax(mx_f, xf)
+                        mn_i = torch.minimum(mn_i, xi)
+                        mx_i = torch.maximum(mx_i, xi)
+                ext = (mn_f, mx_f, mn_i, mx_i)
+                row = {9 + j: x for j, x in enumerate(ext)}
+                if not time:
+                    row.update(enumerate((fh, fl, ih, il, gc)))
+                    if not windowed:
+                        row.update({5 + j: x for j, x in enumerate(ext)})
+                for j, x in row.items():
+                    outs[j][p, t] = x
+            slabs = dict(fmin_f=mn_f, fmax_f=mx_f, fmin_i=mn_i, fmax_i=mx_i)
+            if not time:
+                slabs.update(fsum_hi=fh, fsum_lo=fl, isum_hi=ih,
+                             isum_lo=il, gcnt=gc)
+            for name, x in slabs.items():
+                getattr(out, name)[p, q] = x
+
+
+def _split_windows(ch: _Chains, carry, out, outs, gids, ts, accepted,
+                   window_ms: int, short: int):
+    """Pass D: every event's windowed planes (K7a: min/max; K7b: sums,
+    count, min/max, and the ring overflow).  Its group's live entries are
+    ENT's range of virtual indices in [max(0, hi - W), hi) that ends at b
+    (K7b: those with ts > the event's ts - window_ms)."""
+    time = isinstance(carry, GroupedTimeCarry)
+    W = int(carry.ring_gid.shape[1])
+    P, T = (int(x) for x in gids.shape)
+    VF, VI = int(carry.ring_f.shape[2]), int(carry.ring_i.shape[2])
+    g_np = gids.numpy().astype(np.int64)
+    ok_np = accepted.numpy().astype(bool)
+    ts_np = ts.numpy().astype(np.int64) if time else None
+    zero = torch.zeros(VF, dtype=_F32)
+    inf = torch.full((VF,), float("inf"), dtype=_F32)
+    for p in range(P):
+        for t in range(T):
+            q, hi, b = g_np[p, t], ch.hi[p, t], ch.b[p, t]
+            lo = max(0, hi - W)
+            chain = ch.ent[p, ch.ent_off[p, q]:]
+            lo_ts = _wrap32(ts_np[p, t] - window_ms) if time else 0
+            if b - 1 - short >= 0 and chain[b - 1 - short] >= lo:
+                # a warp: K7a walks the chain down 32 entries a step
+                # until one falls below the window; K7b the dense tree
+                if not time:
+                    live, top = [], b - 1
+                    while True:
+                        step = [chain[k] for k in range(top, top - 32, -1)
+                                if k >= 0 and chain[k] >= lo]
+                        live += step
+                        if len(step) < 32:
+                            break
+                        top -= 32
+                    tree = None
+                else:
+                    d = (hi - 1 + ch.first[p] - np.arange(W)) % W
+                    v = hi - 1 - d
+                    ok_slot = v >= 0
+                    vv = np.where(ok_slot, v, 0)
+                    m = (ok_slot & (ch.e_g[p, vv] == q) &
+                         (ch.e_ts[p, vv] > lo_ts))
+                    live = list(vv[m])
+                    leaves = ch.e_f[p, torch.from_numpy(vv)]
+                    tree = _pair_tree_sum(
+                        leaves, torch.from_numpy(m)[:, None], dim=0)
+            else:                           # one thread walks the range
+                live, k = [], b - 1
+                while k >= 0 and chain[k] >= lo:
+                    if not time or ch.e_ts[p, chain[k]] > lo_ts:
+                        live.append(chain[k])
+                    k -= 1
+                tree = None
+                if time:
+                    tree = _sparse_tree(
+                        [((ch.first[p] + v) % W, ch.e_f[p, v])
+                         for v in live], W, zero)
+            mn, mx = inf, -inf
+            for v in live:
+                mn, mx = _fmin(mn, ch.e_f[p, v]), _fmax(mx, ch.e_f[p, v])
+            xi = ch.e_i[p, live].to(torch.int64) if live else \
+                torch.zeros((0, VI), dtype=torch.int64)
+            outs[5][p, t], outs[6][p, t] = mn, mx
+            outs[7][p, t] = (xi.amin(0) if live else
+                             torch.full((VI,), I32_MAX)).to(_I32)
+            outs[8][p, t] = (xi.amax(0) if live else
+                             torch.full((VI,), I32_MIN)).to(_I32)
+            if time:
+                outs[0][p, t], outs[1][p, t] = tree
+                for j, part in ((2, xi >> 16), (3, xi & (_SPLIT - 1))):
+                    outs[j][p, t] = torch.tensor(
+                        [_wrap32(int(x)) for x in part.sum(0)], dtype=_I32)
+                outs[4][p, t] = len(live)
+                if ok_np[p, t] and hi - 1 - W >= 0 and \
+                        ch.e_ts[p, hi - 1 - W] > lo_ts:
+                    out.overflow[p] = True
+
+
+def _split_ring(ch: _Chains, carry, out):
+    """Pass E: each slot of the ring takes the newest entry that lands in
+    it (an entry of the block; a slot the block leaves keeps the carry's),
+    then pos and cnt move on by the block's accepted events."""
+    W = int(carry.ring_gid.shape[1])
+    if not W:
+        return
+    P = int(carry.cnt.shape[0])
+    cnt0 = carry.cnt.numpy().astype(np.int64)     # copies: in place,
+    pos0 = carry.pos.numpy().astype(np.int64)     # out is the carry
+    names = ["ring_f", "ring_i", "ring_gid"] + (
+        ["ring_ts"] if isinstance(carry, GroupedTimeCarry) else [])
+    srcs = [ch.e_f, ch.e_i, torch.from_numpy(ch.e_g).to(_I32)] + (
+        [torch.from_numpy(ch.e_ts).to(_I32)] if len(names) == 4 else [])
+    for p in range(P):
+        end = cnt0[p] + ch.n_acc[p]
+        for s in range(W):
+            v = end - 1 - (end - 1 + ch.first[p] - s) % W
+            if v >= cnt0[p]:
+                for name, e in zip(names, srcs):
+                    getattr(out, name)[p, s] = e[p, v]
+    out.pos.copy_(torch.from_numpy((pos0 + ch.n_acc) % W).to(_I32))
+    out.cnt.copy_(torch.from_numpy(np.minimum(cnt0 + ch.n_acc, W))
+                  .to(_I32))
+
+
+def grouped_split_model(carry, vals_f, vals_i, gids, ts, accepted, *,
+                        want_minmax: bool = False, want_forever: bool = False,
+                        window_ms: int = 0, inplace: bool = False,
+                        tile: Optional[int] = None, short: int = SPLIT_SHORT):
+    """The CPU model of ``csrc/grouped_agg.cu``: K7a's contract
+    (:func:`grouped_step_plain`; ``ts`` None) for a
+    :class:`GroupedAggCarry`, K7b's (:func:`grouped_time_step_plain`) for a
+    :class:`GroupedTimeCarry`, computed by the kernels' passes with
+    ``tile`` events to a tile (default :func:`split_tile`) and ranges of
+    at most ``short`` entries reduced by one thread:
+
+      A, B  ranks, chains and the entry array (:func:`_split_chains`);
+      C     the chain walk per (lane, group) (:func:`_split_walk`): K7a's
+            sums and counts, the forever extrema of both;
+      D     the windowed planes per event (:func:`_split_windows`);
+      E     the ring (:func:`_split_ring`).
+
+    With ``inplace`` the given carry's tensors are written, last, as the
+    kernel does.  Returns (carry, the 13 planes)."""
+    time = isinstance(carry, GroupedTimeCarry)
+    W = int(carry.ring_gid.shape[1])
+    P, T = (int(x) for x in gids.shape)
+    G = int(carry.fmin_f.shape[1])
+    VF, VI = int(carry.ring_f.shape[2]), int(carry.ring_i.shape[2])
+    tile = split_tile(P, T, W, G) if tile is None else tile
+    out = carry if inplace else type(carry)(*[a.clone() for a in carry])
+    ch = _split_chains(carry, vals_f, vals_i, gids, ts, accepted, tile)
+    outs = list(_empty_outs(P, T, VF, VI, gids.device))
+    if not time or want_forever:
+        _split_walk(ch, carry, out, outs, vals_f, vals_i, accepted,
+                    want_minmax, want_forever)
+    else:                                   # K7b: the carry's extrema
+        lane, g = torch.arange(P)[:, None], gids.long()
+        for j, name in enumerate(("fmin_f", "fmax_f", "fmin_i", "fmax_i")):
+            outs[9 + j][:] = getattr(carry, name)[lane, g]
+    if time or (want_minmax and W > 0):
+        _split_windows(ch, carry, out, outs, gids, ts, accepted, window_ms,
+                       short)
+    _split_ring(ch, carry, out)
+    return out, tuple(outs)
+
+
 # ------------------------------------------------------------ CUDA kernels
 
 def _check(fn: str, name: str, t: torch.Tensor, dtype, shape, device):
@@ -461,9 +869,10 @@ def _ptrs(tensors) -> list:
 
 
 def _launch(entry: str, fn: str, carry, events, dims, inplace: bool):
-    """Check, allocate and launch one K7 kernel: ``events`` are the
-    per-event inputs, the carry comes in and a fresh one (or, with
-    ``inplace``, the same tensors) goes out."""
+    """Check, allocate and launch one K7 step (its passes, on the current
+    stream): ``events`` are the per-event inputs, the carry comes in and
+    a fresh one (or, with ``inplace``, the same tensors) goes out; the
+    passes' scratch is ``gagg_scratch_words`` int32 words."""
     import ctypes
     P, T, W, G, VF, VI = dims[:6]
     dev = events[0].device
@@ -476,10 +885,14 @@ def _launch(entry: str, fn: str, carry, events, dims, inplace: bool):
     out_carry = carry if inplace else cls(*[torch.empty_like(a)
                                             for a in carry])
     outs = _empty_outs(P, T, VF, VI, dev)
-    ptrs = _ptrs(events) + _ptrs(carry) + _ptrs(out_carry) + _ptrs(outs)
+    lib = load_kernel("grouped_agg")
+    words = lib.gagg_scratch_words(P, T, W, G, VF, VI,
+                                   int(cls is GroupedTimeCarry))
+    scratch = torch.empty((max(words, 1),), dtype=_I32, device=dev)
+    ptrs = (_ptrs(events) + _ptrs(carry) + _ptrs(out_carry) + _ptrs(outs)
+            + [scratch.data_ptr()])
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     idims = (ctypes.c_int * len(dims))(*dims)
-    lib = load_kernel("grouped_agg")
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(lib, entry)(arr, idims, stream)
     if rc != 0:

@@ -1,25 +1,27 @@
 #!/usr/bin/env python3
-"""A/B of the grouped-aggregation kernels' group lists on one GPU.
+"""A/B of the grouped-aggregation kernels on one GPU: the split design
+against its all-warp variant and, optionally, another source.
 
-    python3 tools/gagg_probe.py [--seed S]
+    python3 tools/gagg_probe.py [--seed S] [--parent PATH]
 
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc.
 
-``csrc/grouped_agg.cu`` keeps each group's live ring slots as a list and
-reduces a group of at most ``kShort`` entries by walking it (K7b rebuilds
-its pairwise tree from the entries' positions, ``sparse_tree``); longer
-groups take a pass of the warp over the ring.  This probe builds the same
-source a second time with ``kShort = 0``: no lists are kept and every
-windowed reduction is the pass over the ring (the event tile, group slabs
-and ring staged in shared memory as before).
+``csrc/grouped_agg.cu`` reduces a group's live range of at most ``kShort``
+entries on one thread (K7b: the pairwise tree over its live slots) and a
+longer one on the warp (K7a: down the chain 32 entries a step; K7b: the
+dense tree over the ring's slots).  This probe builds the same source a
+second time with ``kShort = 0``: every non-empty range goes to the warp.
+``--parent PATH`` builds a third library from another ``grouped_agg.cu``
+with the same C entry points (e.g. an earlier commit's, unpacked with
+``git archive``; one that takes no scratch is given none).
 
 At each launch shape of ``chip_smoke.py`` phase 12 (``GAGG_TIMED``: the
 grouped, keyed and time cells' K7 launches, a carry with a full window
-first, the same random feed), both builds step the same carry on the same
+first, the same random feed), every build steps the same carry on the same
 events, not in place; every output plane and carry leaf must be equal bit
 for bit (NaN payloads aside).  Then each build is timed with CUDA events
 (``chip_smoke.median_ms``: the L2 flushed before each run), in the order
-lists, none, none, lists.
+split, warp, parent, parent, warp, split.
 
 Prints one line ``GAGGPROBE {json}`` with the card's name and power limit.
 """
@@ -31,20 +33,22 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: the group lists' limit, as the source has it
+#: the short-range limit, as the source has it
 SHORT = "constexpr int kShort = 32;"
 
 
-def build_variant(kernels, tag, edits) -> ctypes.CDLL:
-    """csrc/grouped_agg.cu with each text `old` of the (old, new) edits
+def build_variant(kernels, tag, src_path, edits=()):
+    """The source at src_path with each text `old` of the (old, new) edits
     made `new`, built into the checkout's build directory and bound like
-    the real one."""
-    src = open(os.path.join(kernels.CSRC, "grouped_agg.cu")).read()
+    the real one.  A source without gagg_scratch_words (an earlier design)
+    is bound with a stand-in that asks for no scratch."""
+    src = open(src_path).read()
     for old, new in edits:
         if src.count(old) != 1:
-            raise RuntimeError(f"grouped_agg.cu: {old!r} is not where this "
+            raise RuntimeError(f"{src_path}: {old!r} is not where this "
                                f"probe expects it")
         src = src.replace(old, new)
     os.makedirs(kernels.BUILD, exist_ok=True)
@@ -55,16 +59,22 @@ def build_variant(kernels, tag, edits) -> ctypes.CDLL:
     subprocess.run([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
                    ["-o", so, cu], check=True)
     lib = ctypes.CDLL(so)
+    bound = types.SimpleNamespace()
     for fn, (restype, argtypes) in kernels.SIGNATURES["grouped_agg"].items():
+        if not hasattr(lib, fn):
+            continue
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = restype
-    return lib
+        setattr(bound, fn, f)
+    if not hasattr(bound, "gagg_scratch_words"):
+        bound.gagg_scratch_words = lambda *dims: 0
+    return bound
 
 
 def ab_shape(cs, ga, libs, name, seed, dev) -> dict:
-    """One GAGG_TIMED shape: both builds' outputs compared, then timed in
-    turns → {"lists": [ms, ms], "none": [ms, ms], ...}."""
+    """One GAGG_TIMED shape: every build's outputs compared, then timed in
+    turns → {tag: [ms, ms], ...}."""
     import numpy as np
     import torch
     kind, P, T, W, G, VF, VI, ms = cs.GAGG_TIMED[name]
@@ -83,7 +93,7 @@ def ab_shape(cs, ga, libs, name, seed, dev) -> dict:
     def use(tag):
         ga.load_kernel = lambda _name, lib=libs[tag]: lib
 
-    use("lists")
+    use("split")
     carry, _ = kstep(make(dev), *feed(max(W, 1) + 7, 0))
     args = feed(T, W + 7)
     got = {}
@@ -92,18 +102,21 @@ def ab_shape(cs, ga, libs, name, seed, dev) -> dict:
         nc, outs = kstep(carry, *args)
         torch.cuda.synchronize()
         got[tag] = list(outs) + list(nc)
-    for i, (x, y) in enumerate(zip(got["lists"], got["none"])):
-        if not cs._nan_equal(x, y):
-            raise AssertionError(f"{name}: the builds differ on leaf {i}")
+    for tag in libs:
+        for i, (x, y) in enumerate(zip(got["split"], got[tag])):
+            if not cs._nan_equal(x, y):
+                raise AssertionError(f"{name}: build {tag} differs from "
+                                     f"the split build on leaf {i}")
     runs = 3 if T > 4096 else cs.TIMED_LAUNCHES
     res = {"kind": kind, "shape": {"P": P, "T": T, "W": W, "G": G,
                                    "VF": VF, "VI": VI, "window_ms": ms},
-           "runs": runs, "lists": [], "none": []}
-    for tag in ("lists", "none", "none", "lists"):
+           "runs": runs} | {tag: [] for tag in libs}
+    order = [t for t in ("split", "warp", "parent") if t in libs]
+    for tag in order + order[::-1]:
         use(tag)
         res[tag].append(cs.median_ms(lambda: kstep(carry, *args), dev,
                                      n=runs))
-    print(f"  {name}: lists {res['lists']} ms, none {res['none']} ms",
+    print(f"  {name}: " + ", ".join(f"{t} {res[t]} ms" for t in order),
           file=sys.stderr, flush=True)
     return res
 
@@ -111,6 +124,8 @@ def ab_shape(cs, ga, libs, name, seed, dev) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", default=None,
+                    help="another grouped_agg.cu to build and time")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     import torch
@@ -124,12 +139,15 @@ def main(argv=None) -> int:
     dev = "cuda"
     _kernels.build_all(["grouped_agg"])
     load = ga.load_kernel
-    libs = {"lists": _kernels.load_kernel("grouped_agg"),
-            "none": build_variant(_kernels, "nolists",
+    src = os.path.join(_kernels.CSRC, "grouped_agg.cu")
+    libs = {"split": _kernels.load_kernel("grouped_agg"),
+            "warp": build_variant(_kernels, "warp", src,
                                   [(SHORT, SHORT.replace("32", "0"))])}
+    if args.parent:
+        libs["parent"] = build_variant(_kernels, "parent", args.parent)
     launches = cs._gagg_launches()
     out = {"device": torch.cuda.get_device_name(0),
-           "nvidia_smi": cs.nvidia_smi_line()}
+           "nvidia_smi": cs.nvidia_smi_line(), "parent": args.parent}
     try:
         for name in cs.GAGG_TIMED:
             out[name] = ab_shape(cs, ga, libs, name, args.seed, dev)
