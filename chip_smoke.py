@@ -111,6 +111,30 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      8 chunks, the string compare on code lanes; rows against numpy;
  17. small apps of the JAX suites' shapes through CUDA, the CPU plain
      steps and the host engine;
+ 18. K6 (csrc/wagg_time.cu) against its plain twin, bit for bit on every
+     output plane and carry leaf (NaN payloads aside) over chained
+     blocks: the K6 cell's shape (and T >= C), an overflow grown and
+     replayed, a ring above shared memory, timestamps out of order, a
+     +-inf/NaN/-0.0 feed, rejected rows, P = 1 and 1,024; then timed at
+     the cell's shape against its bound;
+ 19. K9 (csrc/dwin_step.cu) against its plain twin, bit for bit on the
+     egress rows up to the count, the telemetry row, the tail and every
+     carry leaf, over chained steps of all twelve kinds (timer steps
+     without events, grow-and-replay, telemetry, externalTime out of
+     order, sort ties and LONG hi/lo keys, keyed and keyless sessions,
+     hopping flush and append steps) and on pools above one CTA; then,
+     at the window cell's shape, time and timeBatch held against the twin
+     (two steps each, the scan across 2,048 CTAs) and timed with sort
+     and session;
+ 20. the K6 cell: `partition with (sym of T)` `#window.time(1 sec)`
+     sum/count/avg/min/max grouped by the key, 1,024 string keys, 256
+     events a ms, WAGG_CHUNKS chunks of 262,144 events on
+     DeviceWindowedAggRuntime
+     (window_kind "time"); every row against a float64 reference;
+ 21. the window cell: `#window.timeBatch(1 sec)` per-symbol totals on the
+     device window path (DeviceWindowProcessor on K9, host selector),
+     WINDOW_CHUNKS chunks of phase 20's feed; each flush against a numpy reference of
+     the batches, the first flush against the host engine;
   then one JSON line per the kernel table, the nvidia-smi line, and the
   last line ``{"ok": true, "device": {...}}``.
 
@@ -3642,11 +3666,12 @@ def check_gagg_rows(name, got, chunks, threshold, keyed, names):
         f"min/max exact; sum/avg rel <= 1e-5)")
 
 
-def _drive_cell(rt, stream, chunks, launches_of):
+def _drive_cell(rt, stream, chunks, launches_of, reset=None):
     """Send every chunk through the public API, flush, synchronize, under
     torch.profiler: (wall s, per-kernel device us, device us, ledger
     stage seconds of the run, launches in the run).  The launch counts
-    are set to 0 just before and read just after."""
+    are set to 0 just before (``reset``, default K7's) and read just
+    after."""
     import torch
     from siddhi_tpu_torch.core.ledger import ledger
     h = rt.get_input_handler(stream)
@@ -3660,7 +3685,7 @@ def _drive_cell(rt, stream, chunks, launches_of):
         return time.perf_counter() - t
 
     stage0 = dict(ledger().snapshot()["stage_seconds"])
-    _set_gagg_launches()                  # counts start here
+    (reset or _set_gagg_launches)()       # counts start here
     wall, per_kernel, dev_us = profile_device(drive)
     launches = launches_of()
     stage1 = ledger().snapshot()["stage_seconds"]
@@ -4080,6 +4105,654 @@ def gagg_parity(dev, seed):
         raise AssertionError("phase 17 launched no K7 kernel")
 
 
+# ------------------------------------------------------------------ phase 18
+
+#: the K6 cell's shape (phase 20): 1,024 lanes, ~256 events a lane a chunk,
+#: the ring grown to 512 slots by replays
+K6_P, K6_T, K6_C = N_KEYS, 256, 512
+WIN_EVENTS_PER_MS = 256                   # phases 20-21's feed rate
+WAGG_CHUNKS = 4                           # phase 20
+#: phase 21's chunks: 3 flushes.  Each flush after the first runs
+#: 524,288 rows (the expired batch and the new one) through the host
+#: selector's row-at-a-time pass, ~22 s on the card's host: 8 chunks took
+#: the four new phases past 120 s
+WINDOW_CHUNKS = 4
+
+
+def _time_feed(rng, P, T, kind, t0, dev):
+    """One K6 block on the card: (values, ts offsets, accepted, last ts)."""
+    import torch
+    v = rng.uniform(0, 100, (P, T)).astype(np.float32)
+    if kind == "nonfinite":
+        m = rng.random((P, T))
+        v[m < 0.05] = np.inf
+        v[(m >= 0.05) & (m < 0.08)] = -np.inf
+        v[(m >= 0.08) & (m < 0.1)] = np.nan
+        v[(m >= 0.1) & (m < 0.3)] = -0.0
+    ts = t0 + np.cumsum(rng.integers(0, 8, (P, T)), axis=1)
+    if kind == "out_of_order":
+        ts = t0 + rng.integers(0, 2000, (P, T))
+    dens = {"rejected": 0.5, "none": 0.0}.get(kind, 0.9)
+    ok = rng.random((P, T)) < dens
+    return (torch.tensor(v, device=dev),
+            torch.tensor(ts.astype(np.int32), device=dev),
+            torch.tensor(ok, device=dev), int(ts.max()))
+
+
+def grow_time_carry(carry, new_c):
+    """The compiler's grow_capacity on a bare carry: entries kept in ts
+    order (stable), empty slots dropped, pos = cnt."""
+    import torch
+    from siddhi_tpu_torch.ops.windowed_agg import TS_EMPTY, TimeWaggCarry
+    ring = carry.ring.cpu().numpy()
+    rts = carry.ring_ts.cpu().numpy()
+    P = ring.shape[0]
+    nr = np.zeros((P, new_c), np.float32)
+    nts = np.full((P, new_c), TS_EMPTY, np.int32)
+    cnt = np.zeros(P, np.int32)
+    order = np.argsort(rts, axis=1, kind="stable")
+    keep = np.take_along_axis(rts, order, 1) != TS_EMPTY
+    for p in range(P):
+        sel = order[p][keep[p]]
+        nr[p, :len(sel)] = ring[p, sel]
+        nts[p, :len(sel)] = rts[p, sel]
+        cnt[p] = len(sel)
+    dev = carry.ring.device
+    return TimeWaggCarry(torch.tensor(nr, device=dev),
+                         torch.tensor(nts, device=dev),
+                         torch.tensor(cnt % new_c, device=dev),
+                         torch.tensor(cnt, device=dev), carry.last_ts,
+                         torch.zeros(P, dtype=torch.bool, device=dev))
+
+
+#: phase 18's K6 cases: (name, P, T, C, window ms, feed, blocks)
+K6_CASES = [
+    ("cell shape, T >= C", K6_P, 300, 256, 1000, "uniform", 3),
+    ("cell shape", K6_P, K6_T, K6_C, 1000, "uniform", 3),
+    ("overflow, grown and replayed", 64, 200, 16, 1000, "uniform", 3),
+    ("ring above shared memory", 4, 64, 32768, 1000, "uniform", 2),
+    ("timestamps out of order", 256, 128, 64, 500, "out_of_order", 3),
+    ("+-inf / NaN / -0.0 feed", 256, 128, 128, 1000, "nonfinite", 3),
+    ("rejected rows", 256, 128, 128, 1000, "rejected", 3),
+    ("all rejected", 256, 16, 64, 1000, "none", 2),
+    ("P = 1", 1, 700, 1024, 1000, "uniform", 3),
+]
+
+
+def check_wagg_time(dev, seed):
+    """K6 (csrc/wagg_time.cu) against time_wagg_step_plain on the card, bit
+    for bit on every output plane and carry leaf (NaN payloads aside),
+    over chained blocks, min/max on and off; an overflowing block is
+    rewound, its ring doubled and the block replayed on both sides."""
+    import torch
+    from siddhi_tpu_torch.ops.windowed_agg import (make_time_wagg_carry,
+                                                   time_wagg_step,
+                                                   time_wagg_step_plain)
+    rng = np.random.default_rng(seed + 18)
+    n = 0
+    worst = 0.0
+    for name, P, T, C, span, feed, blocks in K6_CASES:
+        for minmax in (True, False):
+            ck = make_time_wagg_carry(P, C, dev)
+            cp = make_time_wagg_carry(P, C, dev)
+            t0 = 0
+            replays = 0
+            for _ in range(blocks):
+                v, ts, ok, t0 = _time_feed(rng, P, T, feed, t0, dev)
+                while True:
+                    nk, ok_ = time_wagg_step(span, ck, v, ts, ok, minmax)
+                    np_, op_ = time_wagg_step_plain(span, cp, v, ts, ok,
+                                                    minmax)
+                    torch.cuda.synchronize()
+                    for x, y in list(zip(ok_, op_)) + list(zip(nk, np_)):
+                        worst = max(worst, _abs_err(x, y))
+                        if not _nan_equal(x, y):
+                            raise AssertionError(
+                                f"wagg_time_step != plain: {name}, "
+                                f"minmax={minmax}")
+                    if not bool(np_.overflow.any()):
+                        break
+                    replays += 1
+                    C2 = ck.ring.shape[1] * 2
+                    ck, cp = grow_time_carry(ck, C2), grow_time_carry(cp, C2)
+                ck, cp = nk, np_
+            n += 1
+            log(f"  wagg_time_step == plain: {name} (P={P} T={T} C={C}, "
+                f"minmax={int(minmax)}, replays {replays})")
+            if name.startswith("overflow") and not replays:
+                raise AssertionError("the overflow case did not overflow")
+    return {"cases": n, "max_abs_err": worst}
+
+
+def time_wagg_bound(P, T, C, minmax):
+    """(bound ms, by): the launch's inputs (values, ts, ok; the carry)
+    read once and its outputs (sums, counts[, mins, maxs]; the fresh
+    carry) written once over HBM3's rate, against P*T*C masked adds
+    over the float32 peak."""
+    carry = P * (C * 8 + 13)
+    nbytes = P * T * (4 + 4 + 1) + P * T * (16 if minmax else 8) + 2 * carry
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = P * T * C / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def time_wagg_time(dev, seed):
+    """K6 and its plain twin timed at the K6 cell's shape on a full ring
+    (the window holds ~256 of its 512 slots), min/max on (the cell's)."""
+    import torch
+    from siddhi_tpu_torch.ops.windowed_agg import (make_time_wagg_carry,
+                                                   time_wagg_step,
+                                                   time_wagg_step_plain)
+    rng = np.random.default_rng(seed + 181)
+    carry = make_time_wagg_carry(K6_P, K6_C, dev)
+    t0 = 0
+    for _ in range(2):
+        v, ts, ok, t0 = _time_feed(rng, K6_P, K6_T, "uniform", t0, dev)
+        carry, _ = time_wagg_step(1000, carry, v, ts, ok, True)
+    v, ts, ok, t0 = _time_feed(rng, K6_P, K6_T, "uniform", t0, dev)
+    n0 = time_wagg_step.launches
+    ms = median_ms(lambda: time_wagg_step(1000, carry, v, ts, ok, True), dev)
+    plain_ms = median_ms(
+        lambda: time_wagg_step_plain(1000, carry, v, ts, ok, True), dev, n=5)
+    time_wagg_step.launches = n0          # timing launches are not the path
+    bound, by = time_wagg_bound(K6_P, K6_T, K6_C, True)
+    log(f"  wagg_time_step at P={K6_P} T={K6_T} C={K6_C} min/max: {ms:.4f} "
+        f"ms (plain {plain_ms:.4f} ms, bound {bound:.6f} ms by {by}, "
+        f"{bound / ms * 100:.2f}% of the bound reached)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "shape": {"P": K6_P, "T": K6_T, "C": K6_C, "minmax": True}}
+
+
+# ------------------------------------------------------------------ phase 19
+
+#: phase 19's K9 specs (ops/dwin.DwinSpec fields): every kind, with
+#: variants for each kind's corner cases
+DWIN_SPECS = {
+    "length": ("length", 8, 1, 2, 0, 3),
+    "time": ("time", 8, 1, 2, 100, 0),
+    "time_telemetry_overflow": ("time", 4, 1, 1, 400, 0, (), -1, True),
+    "externalTime_out_of_order": ("externalTime", 8, 1, 2, 100, 0),
+    "timeLength": ("timeLength", 8, 2, 1, 100, 3),
+    "delay": ("delay", 8, 1, 1, 100, 0),
+    "lengthBatch": ("lengthBatch", 8, 1, 1, 0, 3),
+    "timeBatch_telemetry": ("timeBatch", 8, 1, 1, 1000, 0, (), -1, True),
+    "externalTimeBatch": ("externalTimeBatch", 8, 1, 3, 500, 0),
+    "batch": ("batch", 8, 1, 1, 0, 0),
+    "sort_ties": ("sort", 8, 1, 2, 0, 3, ((0, 0, True),)),
+    "sort_long_hi_lo_desc": ("sort", 8, 1, 3, 0, 4,
+                             ((1, 1, False), (1, 2, False), (0, 0, True))),
+    "session_keyed": ("session", 8, 1, 2, 300, 0, (), 1),
+    "session_keyless": ("session", 8, 1, 1, 300, 0, (), 0),
+    "hopping": ("hopping", 8, 1, 1, 300, 0, (), -1, False, 100),
+}
+#: the same kinds on pools above one CTA (capacity 300, chunks to 400)
+DWIN_BIG = ("length", "time", "externalTime_out_of_order", "timeLength",
+            "lengthBatch", "timeBatch_telemetry", "externalTimeBatch",
+            "batch", "sort_long_hi_lo_desc", "session_keyed", "hopping",
+            "delay")
+
+
+def _dwin_steps(spec, rng, n_steps, sizes, dev):
+    """Chained K9 step inputs on the card (the CPU tests' generator):
+    timer steps with no valid row, integer-valued payloads (sort ties),
+    out-of-order externalTime stamps, flush ids and hopping flags."""
+    import torch
+    F, I = max(spec.n_f, 1), max(spec.n_i, 1)
+    t0 = 1000
+    for _ in range(n_steps):
+        T = int(rng.choice(sizes))
+        ev_f = rng.integers(0, 4, (1, T, F)).astype(np.float32)
+        if rng.random() < 0.3:
+            ev_f = rng.normal(size=(1, T, F)).astype(np.float32)
+        ev_i = rng.integers(-2, 3, (1, T, I)).astype(np.int32)
+        ts = t0 + np.cumsum(rng.integers(0, 40, T))
+        if spec.kind == "externalTime" and rng.random() < 0.5:
+            ts = t0 + rng.integers(0, 300, T)
+        valid = np.ones((1, T), bool)
+        if rng.random() < 0.2:
+            valid[:] = False
+        t0 = int(ts.max()) + 1
+        now = np.asarray([t0 + int(rng.integers(-50, 800))], np.int32)
+        directive = np.zeros((1, T), np.int32)
+        if spec.kind in ("timeBatch", "externalTimeBatch"):
+            n_done = int(rng.integers(0, 3))
+            directive[0] = np.sort(rng.integers(0, n_done + 1, T))
+            now = np.asarray([n_done], np.int32)
+        if spec.kind == "hopping":
+            directive[0, 0] = int(rng.random() < 0.5)
+        yield [torch.tensor(a, device=dev) for a in
+               (ev_f, ev_i, ts[None].astype(np.int32), valid, now,
+                directive)]
+
+
+def grow_dwin_carry(carry, new_cap):
+    """The compiler's _grow on a bare carry: zero payload slots and
+    TS_NONE timestamps appended."""
+    import torch
+    from siddhi_tpu_torch.ops.dwin import TS_NONE
+    c = dict(carry)
+    for k in ("ring_f", "ring_i", "exp_f", "exp_i"):
+        if k in c:
+            pad = new_cap - c[k].shape[1]
+            c[k] = torch.cat([c[k], c[k].new_zeros(
+                (1, pad) + tuple(c[k].shape[2:]))], dim=1)
+    for k in ("ring_ts", "exp_ts"):
+        if k in c:
+            c[k] = torch.cat([c[k], c[k].new_full(
+                (1, new_cap - c[k].shape[1]), TS_NONE)], dim=1)
+    return c
+
+
+def _dwin_equal(spec, cap, kb, pb, kc, pc) -> bool:
+    n = min(int(pb[-1, 0]), cap)
+    return bool(torch_equal(kb[:n], pb[:n]) and
+                torch_equal(kb[cap:], pb[cap:]) and
+                all(_same_bits(kc[k], pc[k]) for k in pc))
+
+
+def check_dwin(dev, seed):
+    """K9 (csrc/dwin_step.cu) against dwin_step_plain on the card, bit for
+    bit on the egress rows up to the count, the telemetry row, the tail
+    and every carry leaf, over chained steps of every kind (and on pools
+    above one CTA); an overflowing step is rewound, the ring doubled and
+    the step replayed on both sides, as the compiler does."""
+    import torch
+    from siddhi_tpu_torch.ops.dwin import (DwinSpec, dwin_step,
+                                           dwin_step_plain, make_dwin_carry)
+    rng = np.random.default_rng(seed + 19)
+    n = replays = 0
+    runs = [(name, 8, 10, (1, 4, 11)) for name in DWIN_SPECS] + \
+        [(name, 300, 4, (1, 150, 400)) for name in DWIN_BIG]
+    for name, cap0, n_steps, sizes in runs:
+        spec = DwinSpec(*DWIN_SPECS[name])._replace(capacity=cap0)
+        kc = make_dwin_carry(spec, 1, dev)
+        pc = make_dwin_carry(spec, 1, dev)
+        for inp in _dwin_steps(spec, rng, n_steps, sizes, dev):
+            while True:
+                cap = 2 * spec.capacity + inp[2].shape[1]
+                nk, kb = dwin_step(spec, kc, *inp, cap)
+                npc, pb = dwin_step_plain(spec, pc, *inp, cap)
+                torch.cuda.synchronize()
+                n += 1
+                if not _dwin_equal(spec, cap, kb, pb, nk, npc):
+                    raise AssertionError(f"dwin_step != plain: {name}, "
+                                         f"capacity {spec.capacity}")
+                if not int(pb[-1, 4]):
+                    break
+                replays += 1
+                spec = spec._replace(capacity=spec.capacity * 2)
+                kc = grow_dwin_carry(kc, spec.capacity)
+                pc = grow_dwin_carry(pc, spec.capacity)
+            kc, pc = nk, npc
+        log(f"  dwin_step == plain: {name} (capacity {cap0} -> "
+            f"{spec.capacity}, {n_steps} steps)")
+    if not replays:
+        raise AssertionError("phase 19 replayed no overflowing step")
+    log(f"  {n} K9 steps equal bit for bit, {replays} grow-and-replays")
+    return {"cases": n, "replays": replays, "max_abs_err": 0.0}
+
+
+def dwin_bound(spec, T, count):
+    """(bound ms, "bytes"): the carry read and written once (ring and,
+    for the batch kinds and hopping, the exp plane: (F+I+1) words a
+    slot), the chunk read once (payload, ts, valid, directive) and the
+    step's emitted rows and tail written once."""
+    F, I = max(spec.n_f, 1), max(spec.n_i, 1)
+    planes = 2 if spec.kind in ("lengthBatch", "timeBatch",
+                                "externalTimeBatch", "batch",
+                                "hopping") else 1
+    carry = planes * spec.capacity * (F + I + 1) * 4 + 16
+    chunk = T * ((F + I + 1) * 4 + 1 + 4)
+    rows = (count + 1 + int(spec.telemetry)) * (4 + F + I) * 4
+    return (2 * carry + chunk + rows) / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+#: phase 19's timed kinds, one of each family, at the window cell's shape
+DWIN_TIMED = {
+    "time": ("time", 0, 1, 1, 1000, 0),
+    "timeBatch": ("timeBatch", 0, 1, 1, 1000, 0),
+    "sort": ("sort", 0, 1, 1, 0, 1024, ((0, 0, True),)),
+    "session": ("session", 0, 1, 2, 1000, 0, (), 1),
+}
+DWIN_TIMED_C = 1 << 18                    # the window cell's ring, at least
+DWIN_PLAIN_C = 2048                       # the quadratic kinds' plain shape
+
+
+def _dwin_timed_inputs(spec, chunk, step, dev):
+    """One step's device inputs from a window-cell chunk (price lane,
+    sym code lane, ts offsets): `step` 0 fills the ring, 1 is timed."""
+    import torch
+    cols, ts, ki = chunk
+    T = len(ts)
+    ev_f = torch.tensor(cols["price"].reshape(1, T, 1), device=dev)
+    codes = (ki + 1).astype(np.int32)
+    I = max(spec.n_i, 1)
+    ev_i = torch.tensor(np.repeat(codes[None, :, None], I, axis=2),
+                        device=dev)
+    off = (ts - ts[0] + step * 1100).astype(np.int32)
+    directive = np.full((1, T), step, np.int32)
+    now = {"timeBatch": step}.get(spec.kind, int(off[-1]))
+    return [ev_f, ev_i, torch.tensor(off[None], device=dev),
+            torch.ones((1, T), dtype=torch.bool, device=dev),
+            torch.tensor([now], dtype=torch.int32, device=dev),
+            torch.tensor(directive, device=dev)]
+
+
+def time_dwin(dev, wchunks):
+    """K9 timed at the window cell's shape (ring C = 2^18, a chunk of
+    262,144 events) for one kind of each family: a carry filled by one
+    step, then the next chunk's step; median of TIMED_LAUNCHES launches
+    (5 for the quadratic sort and session walks), L2 flushed; the plain
+    twin at the same shape for time and timeBatch, and for sort and
+    session (whose twin materialises [M, M] masks) at C = T = 2,048,
+    with the kernel at that shape beside it.  Wherever the twin runs,
+    both steps are held against it bit for bit first (at the cell's
+    shape the pool is 2,048 CTAs, so the scan carries totals across its
+    1,024-CTA chunks).  ({kind: timings}, steps held)."""
+    import torch
+    from siddhi_tpu_torch.ops.dwin import (DwinSpec, dwin_step,
+                                           dwin_step_plain, make_dwin_carry)
+    out = {}
+    held = 0
+    n0 = dwin_step.launches
+    for name, fields in DWIN_TIMED.items():
+        quad = name in ("sort", "session")
+        res = {}
+        for C, T in ((DWIN_TIMED_C, CHUNK),) + \
+                (((DWIN_PLAIN_C, DWIN_PLAIN_C),) if quad else ()):
+            spec = DwinSpec(*fields)._replace(capacity=C)
+            ch = [(c[0], c[1], c[2]) for c in wchunks[:2]]
+            ch = [({k: v[:T] for k, v in c[0].items()}, c[1][:T], c[2][:T])
+                  for c in ch]
+            carry0 = make_dwin_carry(spec, 1, dev)
+            cap = 2 * C + T
+            inp0 = _dwin_timed_inputs(spec, ch[0], 0, dev)
+            carry, buf0 = dwin_step(spec, carry0, *inp0, cap)
+            inp = _dwin_timed_inputs(spec, ch[1], 1, dev)
+            new, buf = dwin_step(spec, carry, *inp, cap)
+            count = int(buf[-1, 0])
+            reps = 5 if quad else TIMED_LAUNCHES
+            ms = median_ms(lambda: dwin_step(spec, carry, *inp, cap), dev,
+                           n=reps)
+            bound, by = dwin_bound(spec, T, count)
+            row = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                   "emitted": count, "launches_timed": reps,
+                   "shape": {"C": C, "T": T, "F": spec.n_f, "I": spec.n_i}}
+            twin = not quad or C == DWIN_PLAIN_C
+            if twin:
+                row["plain_ms"] = median_ms(
+                    lambda: dwin_step_plain(spec, carry, *inp, cap), dev,
+                    n=5)
+                for c_in, i_in, kc, kb in ((carry0, inp0, carry, buf0),
+                                           (carry, inp, new, buf)):
+                    pc, pb = dwin_step_plain(spec, c_in, *i_in, cap)
+                    if not _dwin_equal(spec, cap, kb, pb, kc, pc):
+                        raise AssertionError(
+                            f"dwin_step != plain: {name} at C={C} T={T}")
+                    held += 1
+                del pc, pb
+            del new, buf0
+            res["cell" if C == DWIN_TIMED_C else "plain_shape"] = row
+            log(f"  dwin_step {name} at C={C} T={T}: {ms:.4f} ms "
+                f"(median of {reps}; plain "
+                f"{row.get('plain_ms', float('nan')):.4f} ms; bound "
+                f"{bound:.6f} ms by bytes; {count} rows emitted"
+                f"{'; both steps == plain' if twin else ''})")
+        out[name] = res
+    dwin_step.launches = n0               # timing launches are not the path
+    return out, held
+
+
+# ------------------------------------------------------------------ phase 20
+
+K6_APP = """
+@app:name('k6cell')
+@app:playback
+define stream T (sym string, price float);
+partition with (sym of T) begin
+@info(name='q')
+from T#window.time(1 sec)
+select sym, sum(price) as t, count() as n, avg(price) as a, min(price) as lo,
+       max(price) as hi
+group by sym insert into Out;
+end;
+"""
+
+
+def make_window_chunks(seed, n_chunks):
+    """Phases 20-21's feed: 1,024 string keys drawn uniformly, prices
+    uniform in [0, 100), 256 events a millisecond, 262,144 events a chunk
+    (1,024 ms).  (names, [(columns, timestamps, key index)])."""
+    rng = np.random.default_rng(seed + 20)
+    names = np.asarray([f"w{i:04d}-{rng.integers(1 << 30):x}"
+                        for i in range(N_KEYS)], object)
+    out = []
+    for c in range(n_chunks):
+        ki = rng.integers(0, N_KEYS, CHUNK)
+        idx = c * CHUNK + np.arange(CHUNK, dtype=np.int64)
+        out.append(({"sym": names[ki],
+                     "price": rng.uniform(0, 100, CHUNK).astype(np.float32)},
+                    1_000_000 + idx // WIN_EVENTS_PER_MS, ki))
+    return names, out
+
+
+def k6_reference(chunks):
+    """Every event's window in float64: its key's events that arrived no
+    later than it with ts > its ts - 1000 (a contiguous range in (key,
+    arrival) order): sum, count, min, max, in input order."""
+    ki = np.concatenate([c[2] for c in chunks]).astype(np.int64)
+    ts = np.concatenate([c[1] for c in chunks])
+    price = np.concatenate([c[0]["price"] for c in chunks]).astype(
+        np.float64)
+    n = len(ki)
+    order = np.lexsort((np.arange(n), ki))
+    ks, tss, ps = ki[order], ts[order], price[order]
+    key = ks * (1 << 40) + tss
+    start = np.searchsorted(key, ks * (1 << 40) + tss - 999, side="left")
+    idx = np.arange(n)
+    L = idx - start + 1
+    s = np.zeros(n)
+    lo = np.full(n, np.inf)
+    hi = np.full(n, -np.inf)
+    for d in range(int(L.max())):
+        m = d < L
+        x = ps[idx[m] - d]
+        s[m] += x
+        lo[m] = np.minimum(lo[m], x)
+        hi[m] = np.maximum(hi[m], x)
+    S, N, LO, HI = (np.empty(n), np.empty(n, np.int64), np.empty(n),
+                    np.empty(n))
+    S[order], N[order], LO[order], HI[order] = s, L, lo, hi
+    return S, N, LO, HI
+
+
+def _peak_reset(dev):
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def run_k6_cell(names, chunks, dev):
+    """Phase 20: the K6 cell through the public API — a partitioned
+    #window.time(1 sec) grouped by its key is a DeviceWindowedAggRuntime
+    with window_kind "time" on K6; every row against k6_reference."""
+    import torch
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    from siddhi_tpu_torch.ops import windowed_agg as wa
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(K6_APP)
+    qrs = _device_queries(rt, "DeviceWindowedAggRuntime", True)
+    cwa = qrs["q"].device_runtime.cwa
+    if cwa.window_kind != "time":
+        raise AssertionError(f"K6 cell: window kind {cwa.window_kind}")
+    got = []
+    rt.add_callback("Out", ColumnarStreamCallback(
+        lambda c: got.append({k: np.array(c.columns[k])
+                              for k in ("sym", "t", "n", "a", "lo", "hi")}
+                             | {"ts": np.array(c.timestamps)})))
+    rt.start()
+    _peak_reset(dev)
+    wall, per_kernel, dev_us, stages, launches = _drive_cell(
+        rt, "T", [(c, ts) for c, ts, _ in chunks],
+        lambda: wa.time_wagg_step.launches,
+        reset=lambda: setattr(wa.time_wagg_step, "launches", 0))
+    peak = torch.cuda.max_memory_allocated(dev)
+    capacity = cwa.window
+    rt.shutdown()
+    res = _cell_report("K6 cell", len(chunks) * CHUNK, len(chunks), wall,
+                       per_kernel, dev_us, stages, launches,
+                       ["wagg_time_kernel"])
+    res.update(peak=peak, capacity=capacity)
+    log(f"  ring capacity {capacity} after growth by replay; peak device "
+        f"memory {peak} B")
+    if launches < len(chunks):
+        raise AssertionError(f"K6 launched {launches} times")
+    S, N, LO, HI = k6_reference(chunks)
+    g = {k: np.concatenate([x[k] for x in got]) for k in got[0]}
+    ts_all = np.concatenate([c[1] for c in chunks])
+    ki_all = np.concatenate([c[2] for c in chunks])
+    if len(g["n"]) != len(N) or not (
+            (g["ts"] == ts_all).all() and (g["sym"] == names[ki_all]).all()
+            and (g["n"] == N).all() and (g["lo"] == LO).all()
+            and (g["hi"] == HI).all()):
+        raise AssertionError("K6 cell: rows, keys, counts or min/max differ "
+                             "from the reference")
+    for col, want in (("t", S), ("a", S / N)):
+        err = np.abs(g[col] - want) / np.maximum(np.abs(want), 1e-30)
+        if not (err <= 1e-5).all():
+            raise AssertionError(f"K6 cell: {col} rel err {err.max():.3g}")
+    log(f"  K6 cell: {len(N)} rows == float64 reference (keys, counts, "
+        f"min/max exact; sum/avg rel <= 1e-5)")
+    res["rows"] = len(N)
+    return res
+
+
+# ------------------------------------------------------------------ phase 21
+
+WINDOW_APP = """
+@app:name('wincell')
+@app:playback
+define stream S (sym string, price float);
+@info(name='q')
+from S#window.timeBatch(1 sec)
+select sym, sum(price) as t, count() as n
+group by sym insert into Out;
+"""
+
+
+def window_reference(chunks, window_ms=1000):
+    """The time batches as the reference's TimeBatchWindowProcessor forms
+    them from chunked input: the first batch ends 1 s after the first
+    event; a chunk whose last event reaches the batch end flushes the
+    events buffered before it (each elapsed boundary once), then joins
+    the buffer.  Per flush, per key: (last event ts, float64 price sum,
+    count), sorted by key index."""
+    flushes = []
+    buf = []
+    next_emit = int(chunks[0][1][0]) + window_ms
+    for cols, ts, ki in chunks:
+        while int(ts[-1]) >= next_emit:
+            if buf:
+                k = np.concatenate([b[2] for b in buf])
+                t = np.concatenate([b[1] for b in buf])
+                p = np.concatenate([b[0]["price"] for b in buf]).astype(
+                    np.float64)
+                keys = np.unique(k)
+                last = np.zeros(N_KEYS, np.int64)
+                np.maximum.at(last, k, t)     # ts rise with arrival
+                flushes.append((keys, last[keys],
+                                np.bincount(k, p, N_KEYS)[keys],
+                                np.bincount(k, minlength=N_KEYS)[keys]))
+            buf = []
+            next_emit += window_ms
+        buf.append((cols, ts, ki))
+    return flushes
+
+
+def run_window_cell(names, chunks, dev):
+    """Phase 21: the window cell through the public API — timeBatch(1 sec)
+    per-symbol totals (gagg refuses batch windows, so the window runs on
+    the device window path: DeviceWindowProcessor on K9, the selector on
+    the host); each flush's rows against window_reference, the first
+    flush against the port's host engine."""
+    import torch
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    from siddhi_tpu_torch.ops import dwin
+
+    def build(engine):
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            (f"@app:engine('{engine}')\n" if engine else "") + WINDOW_APP)
+        got = []
+        rt.add_callback("Out", ColumnarStreamCallback(
+            lambda c: got.append({k: np.array(c.columns[k])
+                                  for k in ("sym", "t", "n")}
+                                 | {"ts": np.array(c.timestamps)})))
+        rt.start()
+        return rt, got
+
+    rt, got = build(None)
+    qr = rt.query_runtimes["q"]
+    (w,) = qr.windows
+    if type(w).__name__ != "DeviceWindowProcessor" or \
+            qr.backend != "device":
+        raise AssertionError(f"window cell: {type(w).__name__} "
+                             f"({qr.backend}: {qr.backend_reason})")
+    _peak_reset(dev)
+    wall, per_kernel, dev_us, stages, launches = _drive_cell(
+        rt, "S", [(c, ts) for c, ts, _ in chunks],
+        lambda: dwin.dwin_step.launches,
+        reset=lambda: setattr(dwin.dwin_step, "launches", 0))
+    peak = torch.cuda.max_memory_allocated(dev)
+    capacity = w.capacity
+    rt.shutdown()
+    res = _cell_report("window cell", len(chunks) * CHUNK, len(chunks), wall,
+                       per_kernel, dev_us, stages, launches,
+                       ["dwin_prep", "dwin_decide", "dwin_scan",
+                        "dwin_scatter"])
+    F, I = max(w.n_f, 1), max(w.n_i, 1)
+    egress = (2 * capacity + CHUNK + 1) * (4 + F + I) * 4
+    res.update(peak=peak, capacity=capacity, egress_bytes_per_step=egress)
+    log(f"  ring capacity {capacity} after growth; egress read per step "
+        f"{egress} B (cap + 1 rows of {4 + F + I} int32); peak device "
+        f"memory {peak} B")
+    if launches < len(chunks) or capacity < DWIN_TIMED_C:
+        raise AssertionError(f"K9 launched {launches} times, capacity "
+                             f"{capacity}")
+    ref = window_reference(chunks)
+    if len(got) != len(ref):
+        raise AssertionError(f"window cell: {len(got)} flushes, reference "
+                             f"{len(ref)}")
+    rows = 0
+    code = {nm: i for i, nm in enumerate(names)}
+    for g, (keys, last, s, n) in zip(got, ref):
+        ki = np.asarray([code[x] for x in g["sym"]])
+        o = np.argsort(ki)
+        if not (np.array_equal(ki[o], keys) and
+                np.array_equal(g["ts"][o], last) and
+                np.array_equal(g["n"][o], n)):
+            raise AssertionError("window cell: a flush's keys, timestamps or "
+                                 "counts differ from the reference")
+        err = np.abs(g["t"][o] - s) / np.maximum(np.abs(s), 1e-30)
+        if not (err <= 1e-5).all():
+            raise AssertionError(f"window cell: t rel err {err.max():.3g}")
+        rows += len(keys)
+    log(f"  window cell: {len(ref)} flushes, {rows} rows == reference "
+        f"(keys, timestamps, counts exact; t rel <= 1e-5)")
+    host, hgot = build("host")
+    h = host.get_input_handler("S")
+    for cols, ts, _ in chunks[:2]:
+        h.send_batch(cols, timestamps=ts)
+    host.shutdown()
+    if not hgot or any(not np.array_equal(hgot[0][k], got[0][k])
+                       for k in ("sym", "ts", "n", "t")):
+        raise AssertionError("window cell: the first flush differs from the "
+                             "host engine's")
+    log(f"  window cell: the first flush ({len(got[0]['n'])} rows) == the "
+        f"host engine's, in order")
+    res["rows"] = rows
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 def main(argv=None) -> int:
@@ -4267,6 +4940,37 @@ def main(argv=None) -> int:
     log("== phase 17: engine parity for grouped aggregation, selection "
         "tails and filters on the card")
     gagg_parity(dev, args.seed)
+
+    log("== phase 18: K6 (wagg_time.cu) vs its plain twin on the card")
+    t18 = time.perf_counter()
+    k6chk = check_wagg_time(dev, args.seed)
+    k6t = time_wagg_time(dev, args.seed)
+    log(f"  phase 18 took {time.perf_counter() - t18:.1f} s; "
+        f"{k6chk['cases']} cases bit for bit, max abs err "
+        f"{k6chk['max_abs_err']}")
+
+    log("== phase 19: K9 (dwin_step.cu) vs its plain twin on the card, all "
+        "twelve kinds")
+    t19 = time.perf_counter()
+    k9chk = check_dwin(dev, args.seed)
+    wnames, wchunks = make_window_chunks(args.seed,
+                                         max(WAGG_CHUNKS, WINDOW_CHUNKS))
+    k9t, held = time_dwin(dev, wchunks)
+    k9chk["cases"] += held
+    log(f"  {held} K9 steps at the timed shapes equal bit for bit")
+    log(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    log("== phase 20: K6 cell (partitioned #window.time(1 sec) grouped by "
+        "its key, 1,024 keys) on the device engine")
+    t20 = time.perf_counter()
+    k6c = run_k6_cell(wnames, wchunks[:WAGG_CHUNKS], dev)
+    log(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
+
+    log("== phase 21: window cell (timeBatch(1 sec) per-symbol totals) on "
+        "the device window path")
+    t21 = time.perf_counter()
+    wc = run_window_cell(wnames, wchunks[:WINDOW_CHUNKS], dev)
+    log(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     def timing(minmax):
@@ -4405,6 +5109,35 @@ def main(argv=None) -> int:
         "time_cell": cell(tc15, GAGG_PASSES) | {
             "capacity": tc15["capacity"], "rows": tc15["rows"],
             "select_step": tc15["select"]}}]
+    def cell_k(c, names):
+        return cell(c, names) | {k: c.get(k) for k in (
+            "peak", "capacity", "rows", "egress_bytes_per_step")
+            if k in c}
+
+    kernels += [{
+        # K6: the K6 cell (phase 20) is its main path
+        "name": "wagg_time_step", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/wagg_time.cu",
+        "replaces": "siddhi_tpu/ops/windowed_agg.py:125",
+        "checked": True, "launches": k6c["launches"], **k6chk,
+        **{k: k6t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "shape")},
+        "library_ms": None,
+        "k6_cell": cell_k(k6c, ["wagg_time_kernel"])}, {
+        # K9: the window cell (phase 21) is its main path; a launch is one
+        # step, four kernels on one stream
+        "name": "dwin_step", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/dwin_step.cu",
+        "replaces": "siddhi_tpu/ops/dwin.py:177",
+        "checked": True, "launches": wc["launches"], **k9chk,
+        "ms": k9t["timeBatch"]["cell"]["ms"],
+        "plain_ms": k9t["timeBatch"]["cell"]["plain_ms"],
+        "bound_ms": k9t["timeBatch"]["cell"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shape": k9t["timeBatch"]["cell"]["shape"] | {"kind": "timeBatch"},
+        "by_kind": k9t,
+        "window_cell": cell_k(wc, ["dwin_prep", "dwin_decide", "dwin_scan",
+                                   "dwin_scatter"])}]
     # the filter cell runs no hand kernel (torch programs): a cell of the
     # line of its own
     print(json.dumps({"kernels": kernels,

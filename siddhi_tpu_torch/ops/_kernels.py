@@ -45,6 +45,19 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         # P, T, W, want_minmax -> bytes of device scratch the step needs
         "wagg_length_scratch_bytes": (_LL, [_I, _I, _I, _I]),
     },
+    "wagg_time": {
+        # values, ts, ok, carry in (ring, ring_ts, pos, cnt, last_ts,
+        # overflow), carry out (the same six), sums, counts, mins, maxs,
+        # P, T, C, window_ms, want_minmax, stream
+        "wagg_time_step": (_I, [_VP] * 19 + [_I] * 5 + [_VP]),
+    },
+    "dwin_step": {
+        # header ints (ops/dwin.kernel_header), device pointers
+        # (ops/dwin.dwin_launch order), stream
+        "dwin_step": (_I, [_VP, _VP, _VP]),
+        # header ints -> bytes of device scratch a step needs
+        "dwin_scratch_bytes": (_LL, [_VP]),
+    },
     "grouped_agg": {
         # pointers (events, carry in, carry out, 13 output planes, the
         # scratch, in ops/grouped_agg._launch order), dims, stream

@@ -56,6 +56,8 @@ import numpy as np
 import torch
 
 from ._kernels import load_kernel
+# the host packer, where the JAX package keeps it (ops/nfa.py:1294)
+from .pack import pack_blocks  # noqa: F401
 
 COUNT_INF = 0x7FFFFFFF
 

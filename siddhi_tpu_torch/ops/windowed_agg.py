@@ -1,9 +1,11 @@
-"""Sliding length-window aggregation step (BASELINE config 2 path).
+"""Sliding length- and time-window aggregation steps (BASELINE config 2).
 
 Counterpart of ``siddhi_tpu/ops/windowed_agg.py``: the length-window
 contract of ``build_wagg_step`` (jnp scan, ``:53``) and
 ``build_wagg_step_pallas`` (the TPU kernel, ``:185``), which the JAX
-package documents as identical semantics.  The port computes it with
+package documents as identical semantics, and the time-window contract
+of ``build_time_wagg_step`` (``:125``; below, after the length half).
+The port computes the length window with
 
   - :func:`wagg_step_plain` — PyTorch over ``[P]`` lanes, a Python loop
     over the block's T events.  Used for CPU tensors and by the checks.
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ._kernels import load_kernel
@@ -189,3 +192,208 @@ def wagg_step(carry: WaggCarry, values: torch.Tensor,
 
 #: launches of the CUDA kernel since the last reset (plain runs excluded)
 wagg_step.launches = 0
+
+
+def build_wagg_step(window: int, want_minmax: bool = False):
+    """The JAX package's builder signature: ``fn(carry, values, accepted)
+    → (carry, outs)``, :func:`wagg_step` on the tensors' device (the
+    window is the carry's)."""
+    def step(carry: WaggCarry, values, accepted):
+        return wagg_step(carry, values, accepted, want_minmax)
+    return step
+
+
+def build_wagg_step_pallas(window: int, t_per_block: int,
+                           want_minmax: bool = False):
+    """The JAX package's Pallas builder: its port is the hand kernel
+    behind :func:`wagg_step` (``csrc/wagg_length.cu``), which takes any
+    T, so this is :func:`build_wagg_step`."""
+    return build_wagg_step(window, want_minmax)
+
+
+# ------------------------------------------------------------- time windows
+
+#: empty-slot timestamp marker of the time ring (the JAX package's)
+TS_EMPTY = int(np.iinfo(np.int32).min)
+
+
+class TimeWaggCarry(NamedTuple):
+    """The JAX package's time-window carry, leaf for leaf."""
+    ring: torch.Tensor      # [P, C] f32 — the last C accepted values
+    ring_ts: torch.Tensor   # [P, C] i32 — their ts offsets (TS_EMPTY: empty)
+    pos: torch.Tensor       # [P] i32 — next write slot
+    cnt: torch.Tensor       # [P] i32 — entries written (<= C)
+    last_ts: torch.Tensor   # [P] i32 — most recent accepted ts offset
+    overflow: torch.Tensor  # [P] bool — sticky: a still-in-window entry was
+    #                         evicted (the caller grows C and replays)
+
+
+TIME_CARRY_DTYPES = (torch.float32, torch.int32, torch.int32, torch.int32,
+                     torch.int32, torch.bool)
+
+
+def make_time_wagg_carry(n_partitions: int, capacity: int,
+                         device=None) -> TimeWaggCarry:
+    """An empty time carry on ``device`` (default: the card)."""
+    z = dict(device=kernel_device(device))
+    return TimeWaggCarry(
+        ring=torch.zeros((n_partitions, capacity), dtype=torch.float32, **z),
+        ring_ts=torch.full((n_partitions, capacity), TS_EMPTY,
+                           dtype=torch.int32, **z),
+        pos=torch.zeros((n_partitions,), dtype=torch.int32, **z),
+        cnt=torch.zeros((n_partitions,), dtype=torch.int32, **z),
+        last_ts=torch.zeros((n_partitions,), dtype=torch.int32, **z),
+        overflow=torch.zeros((n_partitions,), dtype=torch.bool, **z))
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 with two's-complement wrap (jnp's int32 arithmetic)."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def pair_tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim by the pairwise tree of the time kernel: the
+    row padded with ``+0.0`` to a power of two, then adjacent pairs
+    (``x[2i] + x[2i + 1]``) level by level."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width > n:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (width - n,))], -1)
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def time_wagg_step_plain(window_ms: int, carry: TimeWaggCarry,
+                         values: torch.Tensor, ts: torch.Tensor,
+                         accepted: torch.Tensor, want_minmax: bool = False
+                         ) -> Tuple[TimeWaggCarry, tuple]:
+    """The time step in plain PyTorch, vectorised over P with a Python loop
+    over T: ``(carry, values [P,T] f32, ts [P,T] i32 offsets, accepted
+    [P,T] bool) → (new carry, (sums, counts[, mins, maxs]))``.
+
+    Per event, as ``build_time_wagg_step``'s lane step: the event's slot
+    sets the sticky overflow when it still holds an entry inside the
+    window (ring full and its ts > t - window_ms), an accepted event
+    overwrites it, then the outputs are a fresh masked reduction over the
+    slots ``[0, cnt)`` with ts > t - window_ms — also for a rejected
+    event, against its own ts.  The sum is :func:`pair_tree_sum` (the
+    kernel's order; the JAX package's XLA reduction may order it
+    otherwise); min/max are IEEE (NaN propagates, -0.0 < +0.0).
+    Functional: the input carry is not modified."""
+    from .grouped_agg import _masked_extreme
+    ring = carry.ring.clone()
+    rts = carry.ring_ts.clone()
+    pos, cnt, last, ovf = carry.pos, carry.cnt, carry.last_ts, \
+        carry.overflow
+    P, C = ring.shape
+    T = values.shape[1]
+    dev = ring.device
+    lane = torch.arange(P, device=dev)
+    slot = torch.arange(C, device=dev, dtype=torch.int32)
+    sums = torch.empty((P, T), dtype=torch.float32, device=dev)
+    counts = torch.empty((P, T), dtype=torch.int32, device=dev)
+    if want_minmax:
+        mins = torch.empty((P, T), dtype=torch.float32, device=dev)
+        maxs = torch.empty((P, T), dtype=torch.float32, device=dev)
+    for t in range(T):
+        x, tt, ok = values[:, t], ts[:, t], accepted[:, t]
+        cut = _wrap32(tt.long() - window_ms)
+        at = pos.long()
+        old_ts = rts[lane, at]
+        ovf = ovf | (ok & (cnt == C) & (old_ts > cut))
+        ring[lane, at] = torch.where(ok, x, ring[lane, at])
+        rts[lane, at] = torch.where(ok, tt, old_ts)
+        pos = torch.where(ok, (pos + 1) % C, pos)
+        cnt = torch.where(ok, torch.clamp(cnt + 1, max=C), cnt)
+        last = torch.where(ok, tt, last)
+        valid = (slot[None, :] < cnt[:, None]) & (rts > cut[:, None])
+        sums[:, t] = pair_tree_sum(torch.where(valid, ring,
+                                               torch.zeros_like(ring)))
+        counts[:, t] = valid.sum(dim=1, dtype=torch.int32)
+        if want_minmax:
+            mins[:, t] = _masked_extreme(ring, valid, 1, True)
+            maxs[:, t] = _masked_extreme(ring, valid, 1, False)
+    outs = (sums, counts) + ((mins, maxs) if want_minmax else ())
+    return TimeWaggCarry(ring, rts, pos.to(torch.int32),
+                         cnt.to(torch.int32), last, ovf), outs
+
+
+def time_wagg_step(window_ms: int, carry: TimeWaggCarry,
+                   values: torch.Tensor, ts: torch.Tensor,
+                   accepted: torch.Tensor, want_minmax: bool = False
+                   ) -> Tuple[TimeWaggCarry, tuple]:
+    """The time step on the tensors' own device.
+
+    CPU tensors run :func:`time_wagg_step_plain`.  CUDA tensors launch
+    ``csrc/wagg_time.cu`` on the current stream, which writes a FRESH
+    carry: the caller replays a block from the carry it passed in when
+    the step reports an overflow (the JAX package does not donate it
+    either).  A failed build, load or launch raises — there is no
+    fallback to the plain version."""
+    dev = values.device
+    if dev.type == "cpu":
+        return time_wagg_step_plain(window_ms, carry, values, ts, accepted,
+                                    want_minmax)
+    if dev.type != "cuda":
+        raise RuntimeError(f"time_wagg_step: no kernel for device {dev}")
+    P, C = carry.ring.shape
+    T = values.shape[1] if values.dim() == 2 else -1
+    _check("values", values, torch.float32, (P, T), dev)
+    _check("ts", ts, torch.int32, (P, T), dev)
+    _check("accepted", accepted, torch.bool, (P, T), dev)
+    for name, leaf, dt in zip(TimeWaggCarry._fields, carry,
+                              TIME_CARRY_DTYPES):
+        _check(name, leaf, dt, (P, C) if name.startswith("ring") else (P,),
+               dev)
+    new, outs = time_wagg_launch(load_kernel("wagg_time"), window_ms, carry,
+                                 values, ts, accepted, want_minmax,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    time_wagg_step.launches += 1
+    return new, outs
+
+
+def time_wagg_launch(lib, window_ms: int, carry: TimeWaggCarry,
+                     values: torch.Tensor, ts: torch.Tensor,
+                     accepted: torch.Tensor, want_minmax: bool, stream
+                     ) -> Tuple[TimeWaggCarry, tuple]:
+    """Allocate the fresh carry and the output planes on the inputs'
+    device and call ``lib.wagg_time_step`` (the loaded kernel) on
+    ``stream``; raises on a non-zero CUDA error."""
+    P, C = carry.ring.shape
+    T = values.shape[1]
+    dev = values.device
+    new = TimeWaggCarry(*[torch.empty_like(a) for a in carry])
+    sums = torch.empty((P, T), dtype=torch.float32, device=dev)
+    counts = torch.empty((P, T), dtype=torch.int32, device=dev)
+    mins = maxs = None
+    if want_minmax:
+        mins = torch.empty((P, T), dtype=torch.float32, device=dev)
+        maxs = torch.empty((P, T), dtype=torch.float32, device=dev)
+    rc = lib.wagg_time_step(
+        values.data_ptr(), ts.data_ptr(), accepted.data_ptr(),
+        *[a.data_ptr() for a in carry], *[a.data_ptr() for a in new],
+        sums.data_ptr(), counts.data_ptr(),
+        mins.data_ptr() if want_minmax else None,
+        maxs.data_ptr() if want_minmax else None,
+        P, T, C, int(window_ms), int(want_minmax), stream)
+    if rc != 0:
+        raise RuntimeError(f"wagg_time_step: launch failed with CUDA error "
+                           f"{rc}")
+    outs = (sums, counts) + ((mins, maxs) if want_minmax else ())
+    return new, outs
+
+
+#: launches of the CUDA kernel since the last reset (plain runs excluded)
+time_wagg_step.launches = 0
+
+
+def build_time_wagg_step(window_ms: int, capacity: int,
+                         want_minmax: bool = False):
+    """The JAX package's builder signature: ``fn(carry, values, ts,
+    accepted) → (carry, outs)``, :func:`time_wagg_step` on the tensors'
+    device (the capacity is the carry's)."""
+    def step(carry: TimeWaggCarry, values, ts, accepted):
+        return time_wagg_step(window_ms, carry, values, ts, accepted,
+                              want_minmax)
+    return step

@@ -3,13 +3,15 @@ the host oracle.
 
 Counterpart of ``siddhi_tpu/plan/planner.py``, carrying what the torch
 port's slices so far need: engine selection, keyed lanes, the pattern
-NFA runtime (:class:`DevicePatternRuntime`), the keyed length-window
-aggregation runtime (:class:`DeviceWindowedAggRuntime`), the grouped /
-running / time-window aggregation runtime with its selection tail
-(:class:`DeviceGroupedAggRuntime`) and the stateless filter/project
-program (:class:`DeviceFilterRuntime`).  A device path the port has not
-reached (device windows, incremental aggregation, the join probe,
-shard-out) raises ``SiddhiAppCreationError`` naming it "not yet ported",
+NFA runtime (:class:`DevicePatternRuntime`), the keyed length- and
+time-window aggregation runtime (:class:`DeviceWindowedAggRuntime`),
+the grouped / running / time-window aggregation runtime with its
+selection tail (:class:`DeviceGroupedAggRuntime`) and the stateless
+filter/project program (:class:`DeviceFilterRuntime`); device windows
+under a host selector are plan/dwin_compiler.py's, wired by the query
+runtime.  A device path the port has not reached (incremental
+aggregation, the join probe, shard-out) raises
+``SiddhiAppCreationError`` naming it "not yet ported",
 so ``'auto'`` falls back to the host exactly as the JAX package's planner
 does for a query its device path cannot express, and ``'device'`` raises.
 On a CUDA device a pattern outside the NFA kernel's class is refused the
@@ -1147,11 +1149,12 @@ class DeviceFilterRuntime(PipelinedDeviceIngest):
 @persistent_schema(
     "keyed-window-agg", version=1, schema=Keyed("cwa"))
 class DeviceWindowedAggRuntime(PipelinedDeviceIngest):
-    """Partitioned length-window aggregation on the sliding-window step
-    (ops/windowed_agg.py → csrc/wagg_length.cu): partition keys become
-    group lanes of one ring slab (BASELINE config 2 — the reference's
-    per-key window buffers + per-group aggregator maps,
-    QuerySelector.java:171).  Ingest is pipelined (plan/pipeline.py)."""
+    """Partitioned length- or time-window aggregation on the sliding-
+    window steps (ops/windowed_agg.py → csrc/wagg_length.cu, K1, and
+    csrc/wagg_time.cu, K6): partition keys become group lanes of one ring
+    slab (BASELINE config 2 — the reference's per-key window buffers +
+    per-group aggregator maps, QuerySelector.java:171).  Ingest is
+    pipelined (plan/pipeline.py)."""
 
     backend = "device"
 
@@ -1250,6 +1253,7 @@ class DeviceWindowedAggRuntime(PipelinedDeviceIngest):
                 for a in self.cwa.input_definition.attributes
                 if self._dtype_for(a.type) is not object}
         warm["__ts"] = np.zeros((P, 1), np.int32)
+        warm["__ts64"] = np.zeros((P, 1), np.int64)
         warm["__valid"] = np.zeros((P, 1), bool)
         self.cwa.process_block(warm)
         self.head = qr._finish_device_chain(out_def, factory)
@@ -1301,6 +1305,15 @@ class DeviceWindowedAggRuntime(PipelinedDeviceIngest):
         block, rows = pack_blocks(lanes, cols, ts_arr,
                                   np.zeros(n, np.int32), P,
                                   base_ts=int(ts_arr[0]), return_rows=True)
+        if self.cwa.window_kind == "time":
+            # absolute i64 ts lanes: the time step's expiry must be
+            # comparable ACROSS blocks (packed __ts is per-block offsets);
+            # externalTime reads the event's ts attribute instead
+            src = (np.asarray(data.columns[self.cwa.ts_attr], np.int64)
+                   if self.cwa.ts_attr else ts_arr)
+            ts64 = np.zeros(block["__ts"].shape, np.int64)
+            ts64[lanes, rows] = src
+            block["__ts64"] = ts64
         with _ledger().span("device"):
             outs = self.cwa.process_block(block)
         token = None
@@ -1423,8 +1436,9 @@ def plan_state_runtime(query_runtime, sis, factory):
 def plan_single_runtime(query_runtime, sis, factory):
     """Device build for a single-stream query: aggregation/window shapes
     go to the grouped-agg path, stateless filter/project to the column
-    program; a window with a plain projection stays on the host (the
-    dwin hybrid path is not yet ported)."""
+    program; a window with a plain projection is left to the dwin hybrid
+    (device window state, host selector; core/query_runtime.py
+    ``_try_device_window``)."""
     from ..core.aggregator import is_aggregator
     from ..query_api import WindowHandler
 

@@ -1,23 +1,27 @@
 """Windowed-aggregation query → device step (BASELINE config 2 path).
 
-Counterpart of ``siddhi_tpu/plan/wagg_compiler.py``, length windows only.
-Lowers `from S[filter]#window.length(W) select sum(x)/count()/avg(x)/
-min(x)/max(x) group by <partition key>` into ops/windowed_agg: the filter
-and the aggregated value expression compile once through the shared
-expression compiler under the torch namespace (plan/expr_compiler
-.TorchXP) and run over the block's [P, T] tensors on the engine's device;
-the stateful sliding-window update is ``ops.windowed_agg.wagg_step`` —
-the CUDA kernel for CUDA tensors, the plain PyTorch version for CPU ones.
+Counterpart of ``siddhi_tpu/plan/wagg_compiler.py``.  Lowers `from
+S[filter]#window.length(W) | #window.time(t) | #window.externalTime(ts,
+t) select sum(x)/count()/avg(x)/min(x)/max(x) group by <partition key>`
+into ops/windowed_agg: the filter and the aggregated value expression
+compile once through the shared expression compiler under the torch
+namespace (plan/expr_compiler.TorchXP) and run over the block's [P, T]
+tensors on the engine's device; the stateful window update is
+``ops.windowed_agg.wagg_step`` (length, K1) or ``time_wagg_step`` (time
+and externalTime, K6) — the CUDA kernel for CUDA tensors, the plain
+PyTorch version for CPU ones.
 
 The group-by key is the partition axis — the same key→lane mapping the
-JAX package uses (SURVEY.md §2.8).  ``#window.time`` and
-``#window.externalTime`` are not yet ported.
+JAX package uses (SURVEY.md §2.8).
 
-State: the kernel updates the carry in place, where the JAX package
-donates it to the jitted step (``donate_argnums``); either way the
-previous carry is gone after a step.  ``current_state``/``restore_state``
-use the JAX package's numpy state dict, so state crosses between the two
-packages (:func:`carry_from_reference`).
+State: the length kernel updates its carry in place, where the JAX
+package donates it to the jitted step (``donate_argnums``).  The time
+step writes a fresh carry: on a ring overflow the block is replayed from
+the carry before it, after the ring doubles (as in the JAX package).
+The time ring keeps int32 ts offsets from a host-held base
+(``ops/ts32``).  ``current_state``/``restore_state`` use the JAX
+package's numpy state dict, so state crosses between the two packages
+(:func:`carry_from_reference`).
 """
 from __future__ import annotations
 
@@ -30,13 +34,19 @@ from ..compiler import SiddhiCompiler
 from ..query_api import Filter, Query, SingleInputStream
 from ..core.stateschema import (CarryTuple, Scalar, Struct,
                                 persistent_schema)
-from ..query_api.expression import AttributeFunction, Variable
+from ..query_api.definition import AttrType
+from ..query_api.expression import AttributeFunction, Constant, Variable
 from ..utils.errors import SiddhiAppCreationError
 from .expr_compiler import EvalCtx, ExprCompiler, Scope, TorchXP
-from ..ops.windowed_agg import (CARRY_DTYPES, WaggCarry, kernel_device,
-                                make_wagg_carry, wagg_step)
+from ..ops.windowed_agg import (CARRY_DTYPES, TIME_CARRY_DTYPES, TS_EMPTY,
+                                TimeWaggCarry, WaggCarry, kernel_device,
+                                make_time_wagg_carry, make_wagg_carry,
+                                time_wagg_step, wagg_step)
 
 _AGGS = {"sum", "count", "avg", "min", "max"}
+
+TIME_CAPACITY_START = 64      # initial time-window ring capacity (doubles
+                              # on overflow; the block is replayed)
 
 # what evaluating a compiled expression under TorchXP raises when the
 # expression itself is unsupported: a column with no device lane
@@ -45,18 +55,24 @@ _AGGS = {"sum", "count", "avg", "min", "max"}
 _EXPR_REJECTIONS = (KeyError, TypeError, AttributeError, NotImplementedError)
 
 
-def carry_from_reference(state: dict, device=None) -> WaggCarry:
+def carry_from_reference(state: dict, device=None):
     """The port's carry from the dict the JAX package's
     ``CompiledWindowedAgg.current_state()`` returns (numpy leaves in
-    WaggCarry order), placed on ``device`` (default: the card).  Every
-    carry a step produces has ``pos == cnt`` in a lane whose ring is not
-    yet full (the ring fills from slot 0), and the kernel's min/max path
-    takes it so: a state that breaks it raises ``ValueError``."""
-    if state.get("window_kind", "length") != "length":
-        raise SiddhiAppCreationError(
-            "time-window aggregation state not yet ported to the torch "
-            "backend")
+    WaggCarry or TimeWaggCarry order, by ``window_kind``), placed on
+    ``device`` (default: the card).  Every length carry a step produces
+    has ``pos == cnt`` in a lane whose ring is not yet full (the ring
+    fills from slot 0), and the kernel's min/max path takes it so: a
+    state that breaks it raises ``ValueError``."""
     leaves = state["carry"]
+    if state.get("window_kind", "length") == "time":
+        if len(leaves) != len(TimeWaggCarry._fields):
+            raise ValueError(f"time-window carry has "
+                             f"{len(TimeWaggCarry._fields)} leaves, got "
+                             f"{len(leaves)}")
+        dev = kernel_device(device)
+        return TimeWaggCarry(*[
+            torch.tensor(np.asarray(a), dtype=dt, device=dev)
+            for a, dt in zip(leaves, TIME_CARRY_DTYPES)])
     if len(leaves) != len(WaggCarry._fields):
         raise ValueError(f"length-window carry has {len(WaggCarry._fields)}"
                          f" leaves, got {len(leaves)}")
@@ -83,11 +99,18 @@ def carry_from_reference(state: dict, device=None) -> WaggCarry:
     doc="partition-lane count is adopted by restore; the window kind "
         "decides the carry tuple class and is plan-fixed")
 class CompiledWindowedAgg:
-    """One length-window aggregation query over P group/partition lanes."""
+    """One length- or time-window aggregation query over P
+    group/partition lanes.  ``t_per_block`` and ``use_pallas`` are the
+    JAX package's signature: the port's steps take any T and there is
+    no Pallas path (``use_pallas=True`` raises)."""
 
     def __init__(self, app_string, n_partitions: int,
-                 query_name: Optional[str] = None,
+                 t_per_block: int = 16, query_name: Optional[str] = None,
+                 use_pallas: Optional[bool] = None,
                  query: Optional[Query] = None, device="cuda"):
+        if use_pallas:
+            raise SiddhiAppCreationError(
+                "windowed-agg path: the torch backend has no Pallas step")
         app = (SiddhiCompiler.parse(app_string)
                if isinstance(app_string, str) else app_string)
         if query is None:
@@ -104,16 +127,47 @@ class CompiledWindowedAgg:
                 "windowed-agg path needs a single input stream")
         wh = s.window_handler
         kind = (wh.name.lower() if wh is not None else "")
-        if kind in ("time", "externaltime"):
+        self.window_ms = 0
+        self.ts_attr = None
+        self._ts_base = None          # i64→i32 offset base (time kinds)
+        if kind == "length":
+            self.window_kind = "length"
+            self.window = int(wh.params[0].value)
+        elif kind in ("time", "externaltime"):
+            # time(t): arrival-ts driven; externalTime(tsAttr, t): the same
+            # masked-expiry ring driven by the event's own timestamp
+            # attribute (reference ExternalTimeWindowProcessor)
+            self.window_kind = "time"
+            if kind == "externaltime":
+                if len(wh.params) != 2 or \
+                        not isinstance(wh.params[0], Variable):
+                    raise SiddhiAppCreationError(
+                        "externalTime needs (tsAttr, window)")
+                self.ts_attr = wh.params[0].attribute
+                span = wh.params[1]
+            else:
+                span = wh.params[0] if wh.params else None
+            if not isinstance(span, Constant):
+                raise SiddhiAppCreationError(
+                    f"{wh.name} needs a constant window length")
+            self.window_ms = int(span.value)
+            self.window = TIME_CAPACITY_START
+        else:
             raise SiddhiAppCreationError(
-                f"#window.{wh.name} aggregation not yet ported to the "
-                f"torch backend")
-        if kind != "length":
-            raise SiddhiAppCreationError(
-                "windowed-agg path needs #window.length(n)")
-        self.window_kind = "length"
-        self.window = int(wh.params[0].value)
+                "windowed-agg path needs #window.length(n), "
+                "#window.time(t) or #window.externalTime(tsAttr, t)")
         definition = app.stream_definitions[s.stream_id]
+        if self.ts_attr is not None:
+            at = {a.name: a.type for a in definition.attributes}.get(
+                self.ts_attr)
+            if at is None:
+                raise SiddhiAppCreationError(
+                    f"externalTime: '{self.ts_attr}' is not an attribute "
+                    f"of '{s.stream_id}'")
+            if at not in (AttrType.LONG, AttrType.INT):
+                raise SiddhiAppCreationError(
+                    f"externalTime: '{self.ts_attr}' must be INT/LONG, "
+                    f"got {at}")
 
         # outputs: aggregates of ONE value expression + key passthroughs
         # (name, sum|count|avg|min|max|key, key_attr_or_None)
@@ -154,13 +208,14 @@ class CompiledWindowedAgg:
         self.input_definition = definition
         self.stream_id = s.stream_id
         self.n_partitions = n_partitions
+        self.t_per_block = t_per_block
         # numeric sentinels (core/numguard.py, SIDDHI_TPU_NUMGUARD):
         # host-rim witnesses over arrays the retire path already fetches
         from ..core.numguard import numeric_sentinels, numguard_enabled
         self.sentinels = numeric_sentinels(app.name or "?") \
             if numguard_enabled() else None
         self._build_step()
-        self.carry = make_wagg_carry(n_partitions, self.window, self.device)
+        self.carry = self._make_carry(n_partitions)
 
     def _build_step(self):
         xp = self._xp
@@ -200,22 +255,36 @@ class CompiledWindowedAgg:
             return (vals.reshape(shape).contiguous(),
                     ok.reshape(shape).contiguous())
 
+        window_ms = self.window_ms
+
         def full_step(carry, block):
             vals, ok = program(block)
+            if self.window_kind == "time":
+                # i32 ts offsets (rebased in process_block) for
+                # cross-block window expiry
+                return time_wagg_step(window_ms, carry, vals,
+                                      block["__ts32"], ok, want_minmax)
             return wagg_step(carry, vals, ok, want_minmax)
 
         self._program = program
         from ..core.profiling import wrap_kernel
         from .shapes import shape_registry
+        kind = f"wagg.{self.window_kind}.step"
         self._step = wrap_kernel(
-            "wagg.length.step",
+            kind,
             shape_registry().jit(
-                "wagg.length.step",
-                {"win": self.window, "win_ms": 0,
+                kind,
+                {"win": self.window, "win_ms": window_ms,
                  "filters": len(self.filters), "minmax": want_minmax,
-                 "device": dev.type, "donate": True},
+                 "device": dev.type,
+                 "donate": self.window_kind == "length"},
                 full_step),
             batch_of=lambda carry, block: int(block["__ts"].numel()))
+
+    def _make_carry(self, n: int):
+        if self.window_kind == "length":
+            return make_wagg_carry(n, self.window, self.device)
+        return make_time_wagg_carry(n, self.window, self.device)
 
     def to_device(self, block) -> Dict[str, torch.Tensor]:
         """Host [P, T] numpy lanes → tensors on the engine's device.  On
@@ -231,11 +300,53 @@ class CompiledWindowedAgg:
         """Widen the group-lane axis (keyed partitioning slab growth)."""
         if n_partitions <= self.n_partitions:
             return
-        fresh = make_wagg_carry(n_partitions - self.n_partitions,
-                                self.window, self.device)
-        self.carry = WaggCarry(*[torch.cat([a, b], dim=0)
-                                 for a, b in zip(self.carry, fresh)])
+        fresh = self._make_carry(n_partitions - self.n_partitions)
+        self.carry = type(self.carry)(*[torch.cat([a, b], dim=0)
+                                        for a, b in zip(self.carry, fresh)])
         self.n_partitions = n_partitions
+
+    # ------------------------------------------------- time-window capacity
+
+    def overflowed(self) -> bool:
+        """True if any lane evicted a still-in-window entry (time mode) —
+        the just-processed block's results undercount; grow and replay."""
+        return self.window_kind == "time" and \
+            bool(self.carry.overflow.any())
+
+    def grow_capacity(self, new_capacity: int) -> None:
+        """Double the time-window ring, keeping its entries in
+        chronological order (ts order, stable; empty slots dropped) so
+        the slot-fill invariant ``valid slots = [0, cnt)`` holds in the
+        new ring.  Host-side, at grow time only (the JAX package's
+        arithmetic)."""
+        assert self.window_kind == "time"
+        if new_capacity <= self.window:
+            return
+        old = self.carry
+        ring = old.ring.cpu().numpy()
+        rts = old.ring_ts.cpu().numpy()
+        P = ring.shape[0]
+        cnt = np.zeros(P, np.int32)
+        new_ring = np.zeros((P, new_capacity), np.float32)
+        new_rts = np.full((P, new_capacity), TS_EMPTY, np.int32)
+        order = np.argsort(rts, axis=1, kind="stable")
+        keep = np.take_along_axis(rts, order, 1) != TS_EMPTY
+        for p in range(P):
+            sel = order[p][keep[p]]
+            k = len(sel)
+            new_ring[p, :k] = ring[p, sel]
+            new_rts[p, :k] = rts[p, sel]
+            cnt[p] = k
+        self.window = new_capacity
+        dev = self.device
+        self.carry = TimeWaggCarry(
+            ring=torch.from_numpy(new_ring).to(dev),
+            ring_ts=torch.from_numpy(new_rts).to(dev),
+            pos=torch.from_numpy(cnt % new_capacity).to(dev),
+            cnt=torch.from_numpy(cnt).to(dev),
+            last_ts=old.last_ts,
+            overflow=torch.zeros((P,), dtype=torch.bool, device=dev))
+        self._build_step()
 
     def schema_dims(self) -> dict:
         return {"P": int(self.n_partitions), "wkind": self.window_kind}
@@ -245,25 +356,78 @@ class CompiledWindowedAgg:
                           for a in self.carry],
                 "n_partitions": self.n_partitions,
                 "window_kind": self.window_kind, "window": self.window,
-                "ts_base": None}
+                "ts_base": self._ts_base}
 
     def restore_state(self, state: dict) -> None:
+        if state.get("window_kind", "length") != self.window_kind:
+            raise SiddhiAppCreationError(
+                f"windowed-agg state of a {state.get('window_kind')} "
+                f"window restored into a {self.window_kind} window")
         self.n_partitions = state["n_partitions"]
+        if self.window_kind == "time":
+            self._ts_base = state.get("ts_base")
+            if state["window"] != self.window:
+                self.window = state["window"]
+                self._build_step()
         self.carry = carry_from_reference(state, self.device)
 
     def process_block(self, block):
-        """block: [P, T] packed lanes (ops.pack.pack_blocks, numpy) →
-        (sums [P, T], counts [P, T][, mins, maxs]) running aggregates, as
-        tensors on the engine's device."""
-        self.carry, outs = self._step(self.carry, self.to_device(block))
-        return outs
+        """block: [P, T] packed lanes (ops.pack.pack_blocks, numpy; time
+        mode also needs ``block['__ts64']``, absolute i64 lanes) → (sums
+        [P, T], counts [P, T][, mins, maxs]) running aggregates, as
+        tensors on the engine's device.  Time mode: on a ring overflow
+        the ring grows and the block replays from the carry before it,
+        so results are always exact."""
+        if self.window_kind == "length":
+            self.carry, outs = self._step(self.carry, self.to_device(block))
+            return outs
+        dev_block = self.to_device(self._with_ts_offsets(block))
+        while True:
+            prev = self.carry
+            self.carry, outs = self._step(prev, dev_block)
+            if not self.overflowed():
+                return outs
+            self.carry = prev
+            self.grow_capacity(self.window * 2)
+
+    def _with_ts_offsets(self, block) -> Dict[str, np.ndarray]:
+        """The step's i32 ``__ts32`` lanes from the block's absolute i64
+        ``__ts64`` lanes by the shared rebase protocol (ops/ts32; ~24.8
+        days of stream time per base).  A rebase shifts the carried ring
+        timestamps and ``last_ts`` with the base."""
+        from ..ops.ts32 import rebase_offsets, shift_clamped
+        ts_abs = np.asarray(block["__ts64"], np.int64)
+        valid = np.asarray(block["__valid"])
+        base_before = self._ts_base
+        offs, self._ts_base, new_ring = rebase_offsets(
+            ts_abs.reshape(-1), valid.reshape(-1), self._ts_base,
+            self.window_ms, self.carry.ring_ts, TS_EMPTY,
+            sentinels=self.sentinels, site="wagg.ts32")
+        if new_ring is not self.carry.ring_ts:
+            # the ring only shifts when a prior base moved by delta
+            delta = self._ts_base - (base_before or 0)
+            last = shift_clamped(self.carry.last_ts, delta, TS_EMPTY + 1)
+            self.carry = self.carry._replace(ring_ts=new_ring, last_ts=last)
+        out = {k: v for k, v in block.items() if k != "__ts64"}
+        out["__ts32"] = offs.reshape(ts_abs.shape)
+        return out
 
     def current_aggregates(self) -> Dict[str, np.ndarray]:
         """Per-lane aggregate values right now."""
-        s = self.carry.runsum.cpu().numpy()
-        c = self.carry.cnt.cpu().numpy()
-        ring = None               # D2H of the [P, W] ring only if a
-        valid = None              # min/max output actually needs it
+        if self.window_kind == "time":
+            ring = self.carry.ring.cpu().numpy()
+            rts = self.carry.ring_ts.cpu().numpy()
+            cnt = self.carry.cnt.cpu().numpy()
+            now = self.carry.last_ts.cpu().numpy().astype(np.int64)
+            valid = (np.arange(self.window)[None, :] < cnt[:, None]) & \
+                (rts > (now - self.window_ms)[:, None])
+            s = np.where(valid, ring, 0.0).sum(axis=1)
+            c = valid.sum(axis=1)
+        else:
+            s = self.carry.runsum.cpu().numpy()
+            c = self.carry.cnt.cpu().numpy()
+            ring = None           # D2H of the [P, W] ring only if a
+            valid = None          # min/max output actually needs it
         if self.sentinels is not None:
             # NUMGUARD witness over the arrays fetched above — reads only
             self.sentinels.observe_floats("wagg.retire", s)

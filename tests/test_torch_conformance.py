@@ -8,12 +8,15 @@ collection:
 
   - an import hook mapping the name ``siddhi_tpu`` (and every
     ``siddhi_tpu.<module>``) onto ``siddhi_tpu_torch``;
-  - ``SiddhiManager`` defaulting to ``device="cpu"`` (the port's default
-    is the card), so the device engine runs the plain PyTorch steps.
+  - ``SiddhiManager`` and ``CompiledWindowedAgg`` defaulting to
+    ``device="cpu"`` (the port's default is the card), so the device
+    engine runs the plain PyTorch steps.
 
 The run must pass, and must not have imported jax.  A suite test the
 port cannot pass stays in ``SKIPS`` with its reason (ROADMAP Queue 3
-lists each).
+lists each).  ``tests/test_torch_conformance_*.py`` run further suite
+groups through :func:`run_suites`, one file a group so that ``--dist
+loadfile`` spreads them over workers.
 """
 import json
 import os
@@ -28,11 +31,7 @@ SUITES = ["tests/test_device_grouped_agg.py", "tests/test_select_device.py",
           "tests/test_ref_misc_filters.py"]
 
 #: suite test id -> why the port skips it
-SKIPS = {
-    "tests/test_device_grouped_agg.py::test_device_rejects_unsupported_to_host":
-        "its last case runs #window.lengthBatch on the device window path "
-        "(plan/dwin_compiler.py), not yet ported (ROADMAP Queue 1 item 5)",
-}
+SKIPS = {}
 
 PLUGIN = textwrap.dedent('''
     """pytest plugin: run the JAX package's suites against the port."""
@@ -77,6 +76,17 @@ PLUGIN = textwrap.dedent('''
 
 
     siddhi_tpu_torch.SiddhiManager.__init__ = _cpu_default
+
+    import siddhi_tpu_torch.plan.wagg_compiler as _wc  # noqa: E402
+
+    _cwa_init = _wc.CompiledWindowedAgg.__init__
+
+
+    def _cwa_cpu_default(self, *a, device="cpu", **k):
+        _cwa_init(self, *a, device=device, **k)
+
+
+    _wc.CompiledWindowedAgg.__init__ = _cwa_cpu_default
     SKIPS = json.loads(%r)
     OUT = %r
 
@@ -102,20 +112,28 @@ PLUGIN = textwrap.dedent('''
 ''')
 
 
-def test_reference_suites_pass_on_the_port(tmp_path):
+def run_suites(tmp_path, suites, skips, extra_args=()):
+    """Run the suite files under the port (see the module docstring) in
+    one subprocess; assert it passed and imported neither jax nor the
+    JAX package.  Returns pytest's output."""
     out = tmp_path / "session.json"
     (tmp_path / "port_as_reference.py").write_text(
-        PLUGIN % (json.dumps(SKIPS), str(out)))
+        PLUGIN % (json.dumps(skips), str(out)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), ROOT])
     r = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "--noconftest",
          "-p", "port_as_reference", "-p", "no:cacheprovider",
          "-p", "no:randomly", "-p", "no:xdist", "-o", "addopts=",
-         "--rootdir", ROOT] + SUITES,
+         "--rootdir", ROOT] + list(extra_args) + list(suites),
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
     tail = (r.stdout + r.stderr)[-6000:]
     assert r.returncode == 0, tail
     session = json.loads(out.read_text())
     assert session == {"jax": False, "reference": False, "exit": 0}, tail
     assert " passed" in r.stdout, tail
+    return r.stdout
+
+
+def test_reference_suites_pass_on_the_port(tmp_path):
+    run_suites(tmp_path, SUITES, SKIPS)

@@ -92,11 +92,10 @@ APPS = {
         select user, price / 4.0 as q, volume insert into Out;""",
 }
 
-RUNTIME = {"filter": "DeviceFilterRuntime"}
-#: the JAX package runs a partitioned time window grouped by the partition
-#: key on its time-window wagg step (K6, not yet ported); the port's
-#: keyed fallback takes it to the grouped time step (K7b)
-JAX_RUNTIME = {"partition_time_window": "DeviceWindowedAggRuntime"}
+#: a partitioned time window grouped by the partition key runs on the
+#: time-window wagg step (K6) in both packages
+RUNTIME = {"filter": "DeviceFilterRuntime",
+           "partition_time_window": "DeviceWindowedAggRuntime"}
 
 
 def _batches(seed, n_chunks=3, n=64):
@@ -159,12 +158,13 @@ def _norm(rows, partitioned):
 def test_device_rows_equal_jax(name):
     text = APPS[name]
     partitioned = text.lstrip().startswith("partition")
-    want = RUNTIME.get(name.split("_")[0], "DeviceGroupedAggRuntime")
+    want = RUNTIME.get(name, RUNTIME.get(name.split("_")[0],
+                                         "DeviceGroupedAggRuntime"))
     batches = _batches(sum(map(ord, name)))
     jx = Run(siddhi_tpu, text)
     pt = Run(siddhi_tpu_torch, text, device="cpu")
     try:
-        for r, rt_name in ((jx, JAX_RUNTIME.get(name, want)), (pt, want)):
+        for r, rt_name in ((jx, want), (pt, want)):
             qr = r.query()
             assert qr.backend == "device", qr.backend_reason
             assert type(qr.device_runtime).__name__ == rt_name

@@ -127,15 +127,16 @@ UNPORTED = {
              False),
 }
 
-#: shapes that were in UNPORTED until the grouped-aggregation and filter
-#: runtimes were ported: each now builds on the device engine
+#: shapes that were in UNPORTED until the grouped-aggregation, filter and
+#: time-window aggregation (K6) runtimes were ported: each now builds on
+#: the device engine
 PORTED = {
     "partition_time_window": ("""
         define stream S (sym string, price float);
         partition with (sym of S) begin
         from S#window.time(1 sec)
         select sym, sum(price) as s group by sym insert into Out; end;""",
-                              True, "DeviceGroupedAggRuntime"),
+                              True, "DeviceWindowedAggRuntime"),
     "filter": ("""
         define stream S (sym string, price float);
         from S[price > 5.0] select sym, price insert into Out;""", False,

@@ -150,14 +150,18 @@ def test_state_carried_from_jax(app):
 
 
 def test_time_windows_not_yet_ported():
-    for window in ("time(1 sec)", "externalTime(ets, 200)"):
-        with pytest.raises(SiddhiAppCreationError, match="not yet ported"):
-            CompiledWindowedAgg(f"""
-                define stream S (k int, ets long, v float);
-                @info(name='q')
-                from S#window.{window}
-                select k, sum(v) as total group by k insert into Out;
-            """, n_partitions=4, device="cpu")
+    """Time windows were refused here until K6 was ported: both kinds now
+    compile onto the time step, externalTime reading its attribute."""
+    for window, ts_attr in (("time(1 sec)", None),
+                            ("externalTime(ets, 200)", "ets")):
+        cwa = CompiledWindowedAgg(f"""
+            define stream S (k int, ets long, v float);
+            @info(name='q')
+            from S#window.{window}
+            select k, sum(v) as total group by k insert into Out;
+        """, n_partitions=4, device="cpu")
+        assert cwa.window_kind == "time" and cwa.ts_attr == ts_attr
+        assert cwa.window == 64
 
 
 def test_rejects_distinct_aggregate_args():
