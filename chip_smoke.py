@@ -113,19 +113,21 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      steps and the host engine;
  18. K6 (csrc/wagg_time.cu) against its plain twin, bit for bit on every
      output plane and carry leaf (NaN payloads aside) over chained
-     blocks: the K6 cell's shape (and T >= C), an overflow grown and
-     replayed, a ring above shared memory, timestamps out of order, a
-     +-inf/NaN/-0.0 feed, rejected rows, P = 1 and 1,024; then timed at
-     the cell's shape against its bound;
+     blocks: the K6 cell's shape (and T >= C), C not a power of two,
+     T < 32, an overflow grown and replayed, a ring above shared memory,
+     timestamps out of order, a +-inf/NaN/-0.0 feed, rejected rows, P = 1
+     and 1,024; then timed at the cell's shape against its bound;
  19. K9 (csrc/dwin_step.cu) against its plain twin, bit for bit on the
      egress rows up to the count, the telemetry row, the tail and every
      carry leaf, over chained steps of all twelve kinds (timer steps
      without events, grow-and-replay, telemetry, externalTime out of
-     order, sort ties and LONG hi/lo keys, keyed and keyless sessions,
+     order, sort ties and LONG hi/lo keys, NaN and +-0.0 sort keys at
+     the first and a later key, keyed, keyless and many-key sessions,
      hopping flush and append steps) and on pools above one CTA; then,
      at the window cell's shape, time and timeBatch held against the twin
-     (two steps each, the scan across 2,048 CTAs) and timed with sort
-     and session;
+     (two steps each, the scan across 2,048 CTAs), sort and session
+     against an independent numpy reference (heapq under the greedy rule
+     of Siddhi's SortWindowProcessor; a per-key max), all four timed;
  20. the K6 cell: `partition with (sym of T)` `#window.time(1 sec)`
      sum/count/avg/min/max grouped by the key, 1,024 string keys, 256
      events a ms, WAGG_CHUNKS chunks of 262,144 events on
@@ -4110,6 +4112,8 @@ def gagg_parity(dev, seed):
 #: the K6 cell's shape (phase 20): 1,024 lanes, ~256 events a lane a chunk,
 #: the ring grown to 512 slots by replays
 K6_P, K6_T, K6_C = N_KEYS, 256, 512
+#: K6's kernels (one launch of time_wagg_step runs both)
+K6_KERNELS = ["wagg_time_prep", "wagg_time_events"]
 WIN_EVENTS_PER_MS = 256                   # phases 20-21's feed rate
 WAGG_CHUNKS = 4                           # phase 20
 #: phase 21's chunks: 3 flushes.  Each flush after the first runs
@@ -4169,6 +4173,8 @@ def grow_time_carry(carry, new_c):
 K6_CASES = [
     ("cell shape, T >= C", K6_P, 300, 256, 1000, "uniform", 3),
     ("cell shape", K6_P, K6_T, K6_C, 1000, "uniform", 3),
+    ("C not a power of two", 256, 128, 100, 500, "uniform", 3),
+    ("T < 32", 256, 20, 64, 1000, "uniform", 3),
     ("overflow, grown and replayed", 64, 200, 16, 1000, "uniform", 3),
     ("ring above shared memory", 4, 64, 32768, 1000, "uniform", 2),
     ("timestamps out of order", 256, 128, 64, 500, "out_of_order", 3),
@@ -4285,18 +4291,36 @@ DWIN_SPECS = {
     "session_keyed": ("session", 8, 1, 2, 300, 0, (), 1),
     "session_keyless": ("session", 8, 1, 1, 300, 0, (), 0),
     "hopping": ("hopping", 8, 1, 1, 300, 0, (), -1, False, 100),
+    "sort_nan_zero_first_key": ("sort", 8, 1, 1, 0, 3, ((0, 0, True),)),
+    "sort_nan_zero_later_key_desc": ("sort", 8, 2, 1, 0, 3,
+                                     ((1, 0, True), (0, 1, False))),
+    "sort_nan_zero_three_keys": ("sort", 8, 3, 1, 0, 4,
+                                 ((0, 0, False), (0, 1, True),
+                                  (0, 2, False))),
+    "session_many_keys": ("session", 8, 1, 2, 300, 0, (), 1),
 }
+#: the feeds of the specs that need their own (_dwin_steps)
+DWIN_FEEDS = {"sort_nan_zero_first_key": "nan",
+              "sort_nan_zero_later_key_desc": "nan",
+              "sort_nan_zero_three_keys": "nan",
+              "session_many_keys": "many_keys"}
 #: the same kinds on pools above one CTA (capacity 300, chunks to 400)
 DWIN_BIG = ("length", "time", "externalTime_out_of_order", "timeLength",
             "lengthBatch", "timeBatch_telemetry", "externalTimeBatch",
             "batch", "sort_long_hi_lo_desc", "session_keyed", "hopping",
-            "delay")
+            "delay", "sort_nan_zero_first_key", "sort_nan_zero_three_keys",
+            "session_many_keys")
+#: float sort keys of the "nan" feed
+DWIN_SPECIAL = np.asarray([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf,
+                          1.0, -1.0], np.float32)
 
 
-def _dwin_steps(spec, rng, n_steps, sizes, dev):
+def _dwin_steps(spec, rng, n_steps, sizes, dev, feed=None):
     """Chained K9 step inputs on the card (the CPU tests' generator):
     timer steps with no valid row, integer-valued payloads (sort ties),
-    out-of-order externalTime stamps, flush ids and hopping flags."""
+    out-of-order externalTime stamps, flush ids and hopping flags; feed
+    "nan": half the float lanes NaN, +-0.0, +-inf or +-1; "many_keys":
+    session keys from 0..999."""
     import torch
     F, I = max(spec.n_f, 1), max(spec.n_i, 1)
     t0 = 1000
@@ -4305,7 +4329,12 @@ def _dwin_steps(spec, rng, n_steps, sizes, dev):
         ev_f = rng.integers(0, 4, (1, T, F)).astype(np.float32)
         if rng.random() < 0.3:
             ev_f = rng.normal(size=(1, T, F)).astype(np.float32)
+        if feed == "nan":
+            m = rng.random((1, T, F)) < 0.5
+            ev_f[m] = rng.choice(DWIN_SPECIAL, int(m.sum()))
         ev_i = rng.integers(-2, 3, (1, T, I)).astype(np.int32)
+        if feed == "many_keys":
+            ev_i[0, :, spec.skey_lane] = rng.integers(0, 1000, T)
         ts = t0 + np.cumsum(rng.integers(0, 40, T))
         if spec.kind == "externalTime" and rng.random() < 0.5:
             ts = t0 + rng.integers(0, 300, T)
@@ -4368,7 +4397,8 @@ def check_dwin(dev, seed):
         spec = DwinSpec(*DWIN_SPECS[name])._replace(capacity=cap0)
         kc = make_dwin_carry(spec, 1, dev)
         pc = make_dwin_carry(spec, 1, dev)
-        for inp in _dwin_steps(spec, rng, n_steps, sizes, dev):
+        for inp in _dwin_steps(spec, rng, n_steps, sizes, dev,
+                               DWIN_FEEDS.get(name)):
             while True:
                 cap = 2 * spec.capacity + inp[2].shape[1]
                 nk, kb = dwin_step(spec, kc, *inp, cap)
@@ -4408,6 +4438,132 @@ def dwin_bound(spec, T, count):
     return (2 * carry + chunk + rows) / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
+def _dwin_pool(spec, carry, inp):
+    """The step's pool on the host: payload bits, ts, liveness, ranks."""
+    from siddhi_tpu_torch.ops.dwin import TS_NONE
+    C = spec.capacity
+    ev_f, ev_i, ev_ts, ev_valid = [a.cpu().numpy() for a in inp[:4]]
+    fill = int(carry["fill"][0])
+    nv = int(ev_valid.sum())
+    pf = np.concatenate([carry["ring_f"][0].cpu().numpy(), ev_f[0]])
+    pi = np.concatenate([carry["ring_i"][0].cpu().numpy(), ev_i[0]])
+    pts = np.concatenate([carry["ring_ts"][0].cpu().numpy(),
+                          np.where(ev_valid[0], ev_ts[0], TS_NONE)])
+    x = np.arange(len(pts))
+    live = np.where(x < C, x < fill, x - C < nv)
+    rank = np.where(x < C, x, fill + x - C)
+    return pf, pi, pts.astype(np.int64), live, rank, fill, nv
+
+
+def _dwin_reference_out(spec, pf, pi, pts, live, keep, emit, evict_t,
+                        cause, live_min):
+    """Rows, tail and carry a step must give for these keep and emit
+    masks: the new ring is the kept entries in pool order, then the rest
+    in pool order, cut at C (ts TS_NONE past the fill); the rows the
+    emitted entries in pool order."""
+    from siddhi_tpu_torch.ops.dwin import TS_NONE
+    C = spec.capacity
+    order = np.concatenate([np.flatnonzero(keep), np.flatnonzero(~keep)])
+    K = int(keep.sum())
+    nfill = min(K, C)
+    sel = order[:C]
+    ts = np.where(np.arange(C) < nfill, pts[sel], TS_NONE)
+    carry = {"ring_f": pf[sel][None], "ring_i": pi[sel][None],
+             "ring_ts": ts[None].astype(np.int32),
+             "fill": np.asarray([nfill], np.int32)}
+    e = np.flatnonzero(emit)
+    rows = np.concatenate([
+        np.stack([e, evict_t[e], cause[e], pts[e]], 1).astype(np.int64),
+        pf[e].view(np.int32).astype(np.int64), pi[e].astype(np.int64)],
+        1).astype(np.int32)
+    tail = np.zeros(rows.shape[1], np.int32)
+    tail[:5] = (len(e), nfill, 0, live_min, int(K > C))
+    return rows, tail, carry
+
+
+def dwin_sort_reference(spec, carry, inp):
+    """The sort kind's step by Siddhi's SortWindowProcessor rule: the
+    carry's live entries, then each valid chunk row in order, enter a
+    heap; past n entries the current lex-max (ties: the newest) is
+    evicted, at that row's chunk index.  Finite keys only (the greedy
+    rule needs a total order)."""
+    import heapq
+    from siddhi_tpu_torch.ops.dwin import C_LEN, TS_NONE
+    pf, pi, pts, live, rank, fill, nv = _dwin_pool(spec, carry, inp)
+    C, n = spec.capacity, spec.length
+    cols = []
+    for bank, lane, asc in spec.sort_keys:
+        v = (pf[:, lane].astype(np.float64) if bank == 0
+             else pi[:, lane].astype(np.float64))
+        if not np.isfinite(v[live]).all():
+            raise AssertionError("sort reference: a non-finite key")
+        cols.append(v if asc else -v)
+    keyed = np.stack(cols, 1).tolist()
+    heap, evict_t = [], np.zeros(len(pts), np.int64)
+    emit = np.zeros(len(pts), bool)
+    if fill > n:
+        raise AssertionError("sort reference: a carry above n entries")
+    for x in np.flatnonzero(live):         # pool order is rank order
+        heapq.heappush(heap, ([-k for k in keyed[x]], -int(rank[x]),
+                              int(x)))
+        if len(heap) > n:
+            y = heapq.heappop(heap)[2]
+            emit[y] = True
+            evict_t[y] = int(x) - C
+    keep = live & ~emit
+    return _dwin_reference_out(spec, pf, pi, pts, live, keep, emit,
+                               evict_t, np.full(len(pts), C_LEN),
+                               TS_NONE)
+
+
+def dwin_session_reference(spec, carry, inp):
+    """The session kind's step: a carried live entry expires when its
+    key's last activity over the carried live entries (a per-key max,
+    floored at NEG) + the gap <= now; the tail's minimum is each kept
+    entry's key's last activity in the new ring (floored at NEG unless
+    the key holds all C slots)."""
+    from siddhi_tpu_torch.ops.dwin import C_TIME, NEG, TS_NONE
+    pf, pi, pts, live, rank, fill, nv = _dwin_pool(spec, carry, inp)
+    C = spec.capacity
+    now = int(inp[4][0])
+    key = pi[:, spec.skey_lane].astype(np.int64)
+    _, kid = np.unique(key, return_inverse=True)
+    carried = live & (np.arange(len(pts)) < C)
+    last = np.full(kid.max() + 1, NEG, np.int64)
+    np.maximum.at(last, kid[carried], pts[carried])
+    ev = last[kid] + spec.window_ms
+    ev = (ev + (1 << 31)) % (1 << 32) - (1 << 31)
+    emit = carried & (ev <= now)
+    keep = live & ~emit
+    ring = np.flatnonzero(keep)[:C]
+    live_min = TS_NONE
+    if len(ring):
+        mx = np.full(kid.max() + 1, np.iinfo(np.int64).min, np.int64)
+        np.maximum.at(mx, kid[ring], pts[ring])
+        n_of = np.bincount(kid[ring], minlength=len(mx))
+        per = np.where(n_of[kid[ring]] >= C, mx[kid[ring]],
+                       np.maximum(mx[kid[ring]], NEG))
+        live_min = int(per.min())
+    return _dwin_reference_out(spec, pf, pi, pts, live, keep, emit, ev,
+                               np.full(len(pts), C_TIME), live_min)
+
+
+def _dwin_reference_equal(cap, kb, kc, ref) -> bool:
+    """Kernel step == reference: the count, every emitted row, the tail
+    and every carry leaf, bit for bit."""
+    rows, tail, carry = ref
+    got = kb.cpu().numpy()
+    n = len(rows)
+
+    def bits(a):
+        return a.view(np.int32) if a.dtype == np.float32 else a
+    return bool(int(got[-1, 0]) == n and n <= cap and
+                np.array_equal(got[:n], rows) and
+                np.array_equal(got[cap], tail) and
+                all(np.array_equal(bits(kc[k].cpu().numpy()), bits(v))
+                    for k, v in carry.items()))
+
+
 #: phase 19's timed kinds, one of each family, at the window cell's shape
 DWIN_TIMED = {
     "time": ("time", 0, 1, 1, 1000, 0),
@@ -4416,7 +4572,7 @@ DWIN_TIMED = {
     "session": ("session", 0, 1, 2, 1000, 0, (), 1),
 }
 DWIN_TIMED_C = 1 << 18                    # the window cell's ring, at least
-DWIN_PLAIN_C = 2048                       # the quadratic kinds' plain shape
+DWIN_PLAIN_C = 2048                       # sort's and session's plain shape
 
 
 def _dwin_timed_inputs(spec, chunk, step, dev):
@@ -4442,14 +4598,16 @@ def _dwin_timed_inputs(spec, chunk, step, dev):
 def time_dwin(dev, wchunks):
     """K9 timed at the window cell's shape (ring C = 2^18, a chunk of
     262,144 events) for one kind of each family: a carry filled by one
-    step, then the next chunk's step; median of TIMED_LAUNCHES launches
-    (5 for the quadratic sort and session walks), L2 flushed; the plain
-    twin at the same shape for time and timeBatch, and for sort and
-    session (whose twin materialises [M, M] masks) at C = T = 2,048,
-    with the kernel at that shape beside it.  Wherever the twin runs,
-    both steps are held against it bit for bit first (at the cell's
-    shape the pool is 2,048 CTAs, so the scan carries totals across its
-    1,024-CTA chunks).  ({kind: timings}, steps held)."""
+    step, then the next chunk's step; median of TIMED_LAUNCHES launches,
+    L2 flushed; the plain twin at the same shape for time and timeBatch,
+    and for sort and session (whose twin materialises [M, M] masks) at
+    C = T = 2,048, with the kernel at that shape beside it.  Wherever the
+    twin runs, both steps are held against it bit for bit first (at the
+    cell's shape the pool is 2,048 CTAs, so the scan carries totals
+    across its 1,024-CTA chunks); at the cell's shape both sort and
+    session steps are held against dwin_sort_reference /
+    dwin_session_reference: every emitted row, the tail and every carry
+    leaf.  ({kind: timings}, steps held)."""
     import torch
     from siddhi_tpu_torch.ops.dwin import (DwinSpec, dwin_step,
                                            dwin_step_plain, make_dwin_carry)
@@ -4472,7 +4630,18 @@ def time_dwin(dev, wchunks):
             inp = _dwin_timed_inputs(spec, ch[1], 1, dev)
             new, buf = dwin_step(spec, carry, *inp, cap)
             count = int(buf[-1, 0])
-            reps = 5 if quad else TIMED_LAUNCHES
+            reps = TIMED_LAUNCHES
+            if quad and C == DWIN_TIMED_C:
+                ref = (dwin_sort_reference if name == "sort"
+                       else dwin_session_reference)
+                for c_in, i_in, kc, kb in ((carry0, inp0, carry, buf0),
+                                           (carry, inp, new, buf)):
+                    if not _dwin_reference_equal(cap, kb, kc,
+                                                 ref(spec, c_in, i_in)):
+                        raise AssertionError(
+                            f"dwin_step != numpy reference: {name} at "
+                            f"C={C} T={T}")
+                    held += 1
             ms = median_ms(lambda: dwin_step(spec, carry, *inp, cap), dev,
                            n=reps)
             bound, by = dwin_bound(spec, T, count)
@@ -4480,6 +4649,7 @@ def time_dwin(dev, wchunks):
                    "emitted": count, "launches_timed": reps,
                    "shape": {"C": C, "T": T, "F": spec.n_f, "I": spec.n_i}}
             twin = not quad or C == DWIN_PLAIN_C
+            row["held_against"] = "plain" if twin else "numpy reference"
             if twin:
                 row["plain_ms"] = median_ms(
                     lambda: dwin_step_plain(spec, carry, *inp, cap), dev,
@@ -4498,7 +4668,7 @@ def time_dwin(dev, wchunks):
                 f"(median of {reps}; plain "
                 f"{row.get('plain_ms', float('nan')):.4f} ms; bound "
                 f"{bound:.6f} ms by bytes; {count} rows emitted"
-                f"{'; both steps == plain' if twin else ''})")
+                f"; both steps == {row['held_against']})")
         out[name] = res
     dwin_step.launches = n0               # timing launches are not the path
     return out, held
@@ -4601,7 +4771,7 @@ def run_k6_cell(names, chunks, dev):
     rt.shutdown()
     res = _cell_report("K6 cell", len(chunks) * CHUNK, len(chunks), wall,
                        per_kernel, dev_us, stages, launches,
-                       ["wagg_time_kernel"])
+                       K6_KERNELS)
     res.update(peak=peak, capacity=capacity)
     log(f"  ring capacity {capacity} after growth by replay; peak device "
         f"memory {peak} B")
@@ -5123,7 +5293,7 @@ def main(argv=None) -> int:
         **{k: k6t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "shape")},
         "library_ms": None,
-        "k6_cell": cell_k(k6c, ["wagg_time_kernel"])}, {
+        "k6_cell": cell_k(k6c, K6_KERNELS)}, {
         # K9: the window cell (phase 21) is its main path; a launch is one
         # step, four kernels on one stream
         "name": "dwin_step", "route": "cuda",

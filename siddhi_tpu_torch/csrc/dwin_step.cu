@@ -15,35 +15,52 @@
 // entries in index order, then the rest in index order, cut at C — and
 // _pack_egress is a compaction of the emit mask in flat order ([pool ‖ exp
 // plane] for the batch kinds and hopping).  Every position comes from one
-// exclusive scan.  Four launches on one stream:
+// exclusive scan.  Four launches on one stream for ten kinds:
 //   0. prep (one CTA): nv = #valid chunk rows (the twin's `live` reads it),
 //      externalTimeBatch's last flushed batch id, the accumulators reset;
 //   1. decide (one thread an entry): keep / emit / exp-keep, evict_t and
 //      cause by the kind's closed form; in-CTA exclusive ranks and per-CTA
 //      counts.  externalTime and timeLength run JAX's own searchsorted
 //      (method='scan': ceil(log2(T+1)) halvings, mid = (low+high)/2,
-//      go_left = q <= a[mid]), which decides an out-of-order attribute.
-//      sort: entry x is displaced at the (n)-th smallest arrival among its
-//      lex-predecessors; those arrivals rise with the pool index (carry
-//      entries all -1 first), so it is the arrival of x's n-th
-//      predecessor in index order: a walk over the pool in shared-memory
-//      tiles that stops when every thread of the CTA has found its own.
-//      session: a carried entry's key's last activity, a tiled walk over
-//      the carried entries;
+//      go_left = q <= a[mid]), which decides an out-of-order attribute;
 //   2. scan (one CTA): exclusive offsets of the per-CTA counts;
 //   3. scatter: the new ring (and exp plane) by partition position, the
 //      egress rows by emit position; the last CTA to finish writes fill,
 //      exp_fill, the telemetry leaf and rows, and the tail.  The tail's
 //      min live ts (sliding kinds: the kept entries' ts; session: their
-//      key's last activity in the new ring, another tiled walk) is an
-//      atomicMin across CTAs.
-// The sort and session walks are quadratic in the pool, like the twin's
-// [M, M] masks, but never allocate M^2 bytes: simple and right first.
+//      key's last activity in the new ring) is an atomicMin across CTAs.
+//
+// Sort and session first sort the L = fill + nv live entries, by rank (0
+// .. L-1 is pool order), with a stable LSD radix sort written here: per
+// 4-bit digit one pass of three launches (per-CTA digit counts; one CTA a
+// digit scans its counts; a stable scatter, in-CTA ranks by
+// __match_any_sync), 8 passes a 32-bit key word, the last key first.
+//   sort: each key maps to an order key (float: -0.0 as +0.0, NaN last in
+//     the key's direction; desc: complemented).  The twin's lex compare
+//     stops at the first key where == fails and answers < there (false on
+//     a NaN), ties by rank, so x's lex-predecessors are a prefix of the
+//     sorted order: the entries before x, or, when x's first NaN is at key
+//     k, the entries before the run sharing x's first k keys (a binary
+//     search).  tN(x), the n-th smallest arrival among them, is the n-th
+//     smallest rank in that prefix (arrival rises with rank): a wavelet
+//     matrix over the sorted ranks, ceil(log2 M) levels of one stable
+//     1-bit partition each (the same three launches, which also write the
+//     level's zero counts), then a descent of ceil(log2 M) rank lookups an
+//     entry in decide.
+//   session: the runs of equal keys in that order (a binary search for a
+//     run's start); a warp-segmented max, one atomicMax a run a warp, gives
+//     each key's last activity over the carried live entries (decide), and
+//     after the scan its max and count over the new ring's entries (the
+//     tail's minimum; the twin's NEG floor unless the C slots are all that
+//     key's).  An int32 max and count do not depend on order.
+// No pass is quadratic in the pool M = C + T: the sort is O(M * 8 * keys),
+// the wavelet and the searches O(M log M).
 //
 // What bounds it on this card: bytes.  The carry in and out (C entries of
 // 4(F+I)+4 bytes each way, twice for the batch kinds), the chunk (T rows),
-// the emitted rows; the scratch adds ~21 B an entry.  chip_smoke phase 19
-// computes the bound per kind at the window cell's shape.
+// the emitted rows; the scratch adds ~21 B an entry (sort and session: the
+// radix and wavelet planes besides).  chip_smoke phase 19 computes the
+// bound per kind at the window cell's shape.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -59,6 +76,8 @@ constexpr int kMaxKeys = 16;
 constexpr int kTsNone = 0x7fffffff;
 constexpr int kNeg = -(1 << 30);
 constexpr int kBig = 1 << 30;
+constexpr int kDigitBits = 4;           // sort and session: radix digits
+constexpr int kMaxBins = 1 << kDigitBits;
 constexpr int C_TIME = 1, C_LEN = 2, C_BATCH = 3, C_EXPBATCH = 4,
               C_DELAY = 5;
 
@@ -75,6 +94,7 @@ struct Prog {
   int kind, C, T, F, I, window_ms, length, skey_lane, telem, hop_ms, cap;
   int nkeys;
   int key_bank[kMaxKeys], key_lane[kMaxKeys], key_asc[kMaxKeys];
+  int nbits;                           // sort: wavelet levels, ceil(log2 M)
 };
 
 struct Ptrs {
@@ -114,6 +134,17 @@ struct Ptrs {
   int* be;
   int* bx;
   int* g;  // [nv, last_id, K, E, X, min_live, done, 0]
+  // sort and session only
+  int* perm[2];   // radix / wavelet sequences (ranks), ping-pong
+  int* inv;       // session: rank -> sorted position
+  int* aux;       // sort: rank -> prefix length; session: position -> run
+  int* mxa;       // session: a run's max ts over the carried live entries
+  int* mxb;       // session: ... over the new ring's entries
+  int* cb;        // session: the new ring's entries of a run
+  int* wr;        // sort: wavelet zero counts, nbits rows of M + 1
+  int* wz;        // sort: wavelet zeros a level
+  int* rcnt;      // radix digit counts, [bins][CTA]
+  int* rtot;      // radix digit totals
 };
 
 __host__ __device__ __forceinline__ bool has_exp_planes(int kind) {
@@ -252,6 +283,285 @@ dwin_prep(Prog p, Ptrs q) {
   }
 }
 
+// ------------------------------------------- sort and session: the order
+
+// pool index of the live entry of rank r
+__device__ __forceinline__ int pool_of(int r, int fill, int C) {
+  return r < fill ? r : C + (r - fill);
+}
+
+// sort key k of pool entry x as an unsigned whose order is the key's
+// direction: floats with -0.0 as +0.0 and NaN after every number; ints
+// with the sign flipped; desc complemented (NaN stays last).  k < 0 (a
+// sort without keys): 0.
+__device__ __forceinline__ unsigned okey(const Prog& p, const Ptrs& q,
+                                         int x, int k) {
+  if (k < 0) return 0u;
+  unsigned a;
+  if (p.key_bank[k] == 0) {
+    unsigned u = static_cast<unsigned>(pool_f_bits(p, q, x, p.key_lane[k]));
+    if ((u & 0x7fffffffu) > 0x7f800000u) return 0xffffffffu;
+    if (u == 0x80000000u) u = 0u;
+    a = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  } else {
+    a = static_cast<unsigned>(pool_i(p, q, x, p.key_lane[k])) ^ 0x80000000u;
+  }
+  return p.key_asc[k] ? a : ~a;
+}
+
+__device__ __forceinline__ bool f_is_nan(const Prog& p, const Ptrs& q,
+                                         int x, int k) {
+  return p.key_bank[k] == 0 &&
+         (static_cast<unsigned>(pool_f_bits(p, q, x, p.key_lane[k])) &
+          0x7fffffffu) > 0x7f800000u;
+}
+
+// One radix pass: digits of the sequence `in` (mode 0: the ranks' order
+// key word `key`, `first` = the identity sequence; mode 1: the wavelet
+// level's bit of the ranks themselves), stably partitioned into `out`.
+struct Pass {
+  int mode, key, shift, bins, first, level;
+  const int* in;
+  int* out;
+};
+
+__device__ __forceinline__ int pass_item(const Pass& a, int i) {
+  return a.mode == 0 && a.first ? i : a.in[i];
+}
+
+__device__ __forceinline__ int pass_digit(const Prog& p, const Ptrs& q,
+                                          const Pass& a, int item,
+                                          int fill) {
+  if (a.mode == 1) return (item >> a.shift) & 1;
+  return static_cast<int>(
+      (okey(p, q, pool_of(item, fill, p.C), a.key) >> a.shift) &
+      (kMaxBins - 1));
+}
+
+// The CTA's stable rank of each thread's digit (d < bins; d == bins: no
+// item) among the CTA's threads of that digit; the CTA's count of each
+// digit into cnt[bins].
+__device__ int cta_digit_rank(int d, int bins, int* cnt) {
+  __shared__ int wc[kWarps][kMaxBins];
+  const int tid = threadIdx.x;
+  const int lid = tid & 31, wid = tid >> 5;
+  for (int i = tid; i < kWarps * kMaxBins; i += kB) wc[i / kMaxBins][i % kMaxBins] = 0;
+  __syncthreads();
+  const unsigned m = __match_any_sync(kFull, d);
+  const int lr = __popc(m & ((1u << lid) - 1u));
+  if (lr == 0 && d < bins) wc[wid][d] = __popc(m);
+  __syncthreads();
+  int before = 0;
+  if (d < bins)
+    for (int w = 0; w < wid; ++w) before += wc[w][d];
+  if (tid < bins) {
+    int t = 0;
+    for (int w = 0; w < kWarps; ++w) t += wc[w][tid];
+    cnt[tid] = t;
+  }
+  __syncthreads();
+  return before + lr;
+}
+
+__global__ void __launch_bounds__(kB)
+dwin_radix_count(Prog p, Ptrs q, Pass a) {
+  __shared__ int cnt[kMaxBins];
+  const int fill = q.fill[0];
+  const int L = fill + q.g[0];
+  const int i = blockIdx.x * kB + threadIdx.x;
+  const int d = i < L ? pass_digit(p, q, a, pass_item(a, i), fill) : a.bins;
+  cta_digit_rank(d, a.bins, cnt);
+  if (threadIdx.x < a.bins)
+    q.rcnt[threadIdx.x * gridDim.x + blockIdx.x] = cnt[threadIdx.x];
+}
+
+// one CTA a digit: its per-CTA counts to exclusive offsets, its total
+__global__ void __launch_bounds__(kScanThreads)
+dwin_radix_scan(Ptrs q, int nb) {
+  __shared__ int ws[kScanThreads / 32];
+  __shared__ int carry_in;
+  const int tid = threadIdx.x;
+  const int lid = tid & 31, wid = tid >> 5;
+  int* c = q.rcnt + static_cast<size_t>(blockIdx.x) * nb;
+  if (tid == 0) carry_in = 0;
+  __syncthreads();
+  for (int b0 = 0; b0 < nb; b0 += kScanThreads) {
+    const int b = b0 + tid;
+    const int v = b < nb ? c[b] : 0;
+    int inc = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, inc, o);
+      if (lid >= o) inc += u;
+    }
+    if (lid == 31) ws[wid] = inc;
+    __syncthreads();
+    int pre = 0, tot = 0;
+    for (int w = 0; w < kScanThreads / 32; ++w) {
+      if (w < wid) pre += ws[w];
+      tot += ws[w];
+    }
+    if (b < nb) c[b] = carry_in + pre + inc - v;
+    __syncthreads();
+    if (tid == 0) carry_in += tot;
+    __syncthreads();
+  }
+  if (tid == 0) q.rtot[blockIdx.x] = carry_in;
+}
+
+__global__ void __launch_bounds__(kB)
+dwin_radix_scatter(Prog p, Ptrs q, Pass a) {
+  __shared__ int cnt[kMaxBins];
+  const int fill = q.fill[0];
+  const int L = fill + q.g[0];
+  const int i = blockIdx.x * kB + threadIdx.x;
+  const int item = i < L ? pass_item(a, i) : 0;
+  const int d = i < L ? pass_digit(p, q, a, item, fill) : a.bins;
+  const int r = cta_digit_rank(d, a.bins, cnt);
+  if (i < L) {
+    int base = q.rcnt[d * gridDim.x + blockIdx.x];
+    for (int e = 0; e < d; ++e) base += q.rtot[e];
+    a.out[base + r] = item;
+    if (a.mode == 1) {                    // the level's zeros before i
+      int* R = q.wr + static_cast<size_t>(a.level) * (p.C + p.T + 1);
+      R[i] = q.rcnt[blockIdx.x] + (d == 0 ? r : threadIdx.x - r);
+    }
+  }
+  if (a.mode == 1 && blockIdx.x == 0 && threadIdx.x == 0) {
+    q.wr[static_cast<size_t>(a.level) * (p.C + p.T + 1) + L] = q.rtot[0];
+    q.wz[a.level] = q.rtot[0];
+  }
+}
+
+// sort: each live entry's predecessor prefix in the sorted order `srt`
+__global__ void __launch_bounds__(kB)
+dwin_sort_prefix(Prog p, Ptrs q, const int* __restrict__ srt) {
+  const int fill = q.fill[0];
+  const int L = fill + q.g[0];
+  const int i = blockIdx.x * kB + threadIdx.x;
+  if (i >= L) return;
+  const int r = srt[i];
+  const int x = pool_of(r, fill, p.C);
+  int kn = -1;                            // x's first NaN key
+  for (int k = 0; k < p.nkeys && kn < 0; ++k)
+    if (f_is_nan(p, q, x, k)) kn = k;
+  int len = i;
+  if (kn >= 0) {                          // the run of x's first kn keys
+    int lo = 0, hi = i;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      const int y = pool_of(srt[mid], fill, p.C);
+      bool lt = false;
+      for (int k = 0; k < kn; ++k) {
+        const unsigned ky = okey(p, q, y, k), kx = okey(p, q, x, k);
+        if (ky != kx) {
+          lt = ky < kx;
+          break;
+        }
+      }
+      if (lt) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    len = lo;
+  }
+  q.aux[r] = len;
+}
+
+// sort: the k-th smallest (from 0) of the wavelet's sequence in [0, len)
+__device__ int wavelet_kth(const Prog& p, const Ptrs& q, int k, int len) {
+  const size_t stride = static_cast<size_t>(p.C) + p.T + 1;
+  int lo = 0, hi = len, v = 0;
+  for (int l = 0; l < p.nbits; ++l) {
+    const int* R = q.wr + l * stride;
+    const int rlo = R[lo], rhi = R[hi];
+    if (k < rhi - rlo) {
+      lo = rlo;
+      hi = rhi;
+    } else {
+      k -= rhi - rlo;
+      const int z = q.wz[l];
+      lo = z + lo - rlo;
+      hi = z + hi - rhi;
+      v |= 1 << (p.nbits - 1 - l);
+    }
+  }
+  return v;
+}
+
+// session: each sorted position's run of equal keys; the runs' slots
+// reset
+__global__ void __launch_bounds__(kB)
+dwin_runs(Prog p, Ptrs q, const int* __restrict__ srt) {
+  const int fill = q.fill[0];
+  const int L = fill + q.g[0];
+  const int i = blockIdx.x * kB + threadIdx.x;
+  if (i >= L) return;
+  const int r = srt[i];
+  q.inv[r] = i;
+  const int key = pool_i(p, q, pool_of(r, fill, p.C), p.skey_lane);
+  int lo = 0, hi = i;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (pool_i(p, q, pool_of(srt[mid], fill, p.C), p.skey_lane) < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  q.aux[i] = lo;
+  q.mxa[i] = kNeg;
+  q.mxb[i] = static_cast<int>(0x80000000u);
+  q.cb[i] = 0;
+}
+
+// session: a run's max ts (and count) over its members: the carried live
+// entries (which 0), the new ring's entries (which 1, after the scan)
+__global__ void __launch_bounds__(kB)
+dwin_session_agg(Prog p, Ptrs q, const int* __restrict__ srt, int which) {
+  const int fill = q.fill[0];
+  const int L = fill + q.g[0];
+  const int i = blockIdx.x * kB + threadIdx.x;
+  const int lid = threadIdx.x & 31;
+  const bool active = i < L;
+  int rs = 0x7fffffff, v = static_cast<int>(0x80000000u), c = 0;
+  if (active) {
+    rs = q.aux[i];
+    const int r = srt[i];
+    const int x = pool_of(r, fill, p.C);
+    bool member;
+    if (which == 0) {
+      member = r < fill;
+    } else {
+      member = (q.flags[x] & F_KEEP) &&
+               q.bk[x / kB] + q.krank[x] < p.C;
+    }
+    if (member) {
+      v = pool_ts(p, q, x);
+      c = 1;
+    }
+  }
+  for (int o = 1; o < 32; o <<= 1) {     // segmented by run, in the warp
+    const int vv = __shfl_up_sync(kFull, v, o);
+    const int cc = __shfl_up_sync(kFull, c, o);
+    const int rr = __shfl_up_sync(kFull, rs, o);
+    if (lid >= o && rr == rs) {
+      v = vv > v ? vv : v;
+      c += cc;
+    }
+  }
+  const int next = __shfl_down_sync(kFull, rs, 1);
+  if (active && c > 0 && (lid == 31 || next != rs)) {
+    if (which == 0) {
+      atomicMax(&q.mxa[rs], v);
+    } else {
+      atomicMax(&q.mxb[rs], v);
+      atomicAdd(&q.cb[rs], c);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- pass 1
 
 // first chunk index whose ets >= v (JAX's scan searchsorted, side='left')
@@ -275,9 +585,6 @@ __device__ int search_scan(const Prog& p, const Ptrs& q, int v) {
 
 __global__ void __launch_bounds__(kB)
 dwin_decide(Prog p, Ptrs q) {
-  __shared__ int tile_a[kMaxKeys][kB];
-  __shared__ int tile_r[kB];
-  __shared__ unsigned char tile_l[kB];
   const int tid = threadIdx.x;
   const long long m2 = pool2(p);
   const int M = p.C + p.T;
@@ -299,53 +606,14 @@ dwin_decide(Prog p, Ptrs q) {
   const int after_self = !is_carry ? x - C + 1 : (x - fill + 1 > 0 ? x - fill + 1 : 0);
 
   if (p.kind == K_SORT) {
-    // the n-th lex-predecessor (in index order) of each live entry
+    // tN: the n-th smallest rank in the entry's predecessor prefix
     const int n = p.length;
-    const int kth = (n - 1 < M - 1 ? n - 1 : M - 1) + 1;
-    int xa[kMaxKeys];
-    if (in && x < M) {
-      for (int k = 0; k < p.nkeys; ++k)
-        xa[k] = p.key_bank[k] == 0 ? pool_f_bits(p, q, x, p.key_lane[k])
-                                   : pool_i(p, q, x, p.key_lane[k]);
-    }
-    int cnt = 0, tN = kBig;
-    bool done = !(in && x < M && live) || n - 1 >= M;
-    for (int y0 = 0; y0 < M; y0 += kB) {
-      if (!__syncthreads_or(!done)) break;
-      const int y = y0 + tid;
-      if (y < M) {
-        for (int k = 0; k < p.nkeys; ++k)
-          tile_a[k][tid] = p.key_bank[k] == 0
-                               ? pool_f_bits(p, q, y, p.key_lane[k])
-                               : pool_i(p, q, y, p.key_lane[k]);
-        tile_r[tid] = y < C ? y : fill + (y - C);
-        tile_l[tid] = y < C ? (y < fill) : ((y - C) < nv);
-      }
-      __syncthreads();
-      const int lim = M - y0 < kB ? M - y0 : kB;
-      for (int i = 0; i < lim && !done; ++i) {
-        if (!tile_l[i]) continue;
-        bool less = false, eq = true;
-        for (int k = 0; k < p.nkeys && eq; ++k) {
-          bool lt, e;
-          if (p.key_bank[k] == 0) {
-            const float a = __int_as_float(xa[k]);
-            const float b = __int_as_float(tile_a[k][i]);
-            lt = p.key_asc[k] ? (b < a) : (b > a);
-            e = b == a;
-          } else {
-            const int a = xa[k], b = tile_a[k][i];
-            lt = p.key_asc[k] ? (b < a) : (b > a);
-            e = b == a;
-          }
-          less = lt;
-          eq = e;
-        }
-        if (!less && eq) less = tile_r[i] < rank;
-        if (less && ++cnt == kth) {
-          tN = y0 + i < C ? -1 : y0 + i - C;
-          done = true;
-        }
+    int tN = kBig;
+    if (in && x < M && live && n >= 1 && n - 1 < M) {
+      const int len = q.aux[rank];
+      if (len >= n) {
+        const int v = wavelet_kth(p, q, n - 1, len);
+        tN = v < fill ? -1 : v - fill;
       }
     }
     const int arr = is_carry ? -1 : x - C;
@@ -355,22 +623,8 @@ dwin_decide(Prog p, Ptrs q) {
     cause = C_LEN;
   } else if (p.kind == K_SESSION) {
     // a carried live entry's key's last activity over the carried entries
-    const int kx = in && x < M ? pool_i(p, q, x, p.skey_lane) : 0;
     int last = kNeg;
-    for (int y0 = 0; y0 < fill; y0 += kB) {
-      const int y = y0 + tid;
-      if (y < fill) {
-        tile_a[0][tid] = q.ring_i[static_cast<size_t>(y) * p.I + p.skey_lane];
-        tile_r[tid] = q.ring_ts[y];
-      }
-      __syncthreads();
-      const int lim = fill - y0 < kB ? fill - y0 : kB;
-      if (in && x < M && is_carry && live) {
-        for (int i = 0; i < lim; ++i)
-          if (tile_a[0][i] == kx && tile_r[i] > last) last = tile_r[i];
-      }
-      __syncthreads();
-    }
+    if (in && x < M && is_carry && live) last = q.mxa[q.aux[q.inv[x]]];
     evt = wadd(last, p.window_ms);
     emit = is_carry && live && evt <= now;
     keep = live && !emit;
@@ -541,9 +795,6 @@ __device__ __forceinline__ void copy_entry(const Prog& p, const Ptrs& q,
 
 __global__ void __launch_bounds__(kB)
 dwin_scatter(Prog p, Ptrs q) {
-  __shared__ int tile_k[kB];
-  __shared__ int tile_t[kB];
-  __shared__ unsigned char tile_ok[kB];
   __shared__ bool am_last;
   const int tid = threadIdx.x;
   const long long m2 = pool2(p);
@@ -630,41 +881,12 @@ dwin_scatter(Prog p, Ptrs q) {
     int cand = kTsNone;
     if (sliding) {
       if (mine) cand = pool_ts(p, q, x);
-    } else {
-      // the entry's key's last activity among the new ring's live slots
-      const int kx = mine ? pool_i(p, q, x, p.skey_lane) : 0;
-      int last = kNeg, same = 0;
-      for (int y0 = 0; y0 < M; y0 += kB) {
-        const int y = y0 + tid;
-        unsigned char ok = 0;
-        if (y < M && (q.flags[y] & F_KEEP)) {
-          const int yp = q.bk[y / kB] + q.krank[y];
-          if (yp < C) {
-            ok = 1;
-            tile_k[tid] = pool_i(p, q, y, p.skey_lane);
-            tile_t[tid] = pool_ts(p, q, y);
-          }
-        }
-        tile_ok[tid] = ok;
-        __syncthreads();
-        if (mine) {
-          const int lim = M - y0 < kB ? M - y0 : kB;
-          for (int i = 0; i < lim; ++i) {
-            if (tile_ok[i] && tile_k[i] == kx) {
-              ++same;
-              if (tile_t[i] > last) last = tile_t[i];
-            }
-          }
-        }
-        __syncthreads();
-      }
+    } else if (mine) {
+      // the entry's key's last activity among the new ring's live slots;
       // the twin's row max includes NEG unless every slot is this key's
-      if (same >= C) {
-        // every one of the C slots is a live slot of this key: no floor
-      } else if (kNeg > last) {
-        last = kNeg;
-      }
-      if (mine) cand = last;
+      const int rs = q.aux[q.inv[x < C ? x : fill + (x - C)]];
+      const int last = q.mxb[rs];
+      cand = q.cb[rs] >= C || last > kNeg ? last : kNeg;
     }
     const int m = block_min(cand);
     if (tid == 0 && m != kTsNone) atomicMin(&q.g[5], m);
@@ -732,9 +954,47 @@ void read_prog(const int* h, Prog& p) {
     p.key_lane[k] = h[13 + 3 * k];
     p.key_asc[k] = h[14 + 3 * k];
   }
+  const long long M = static_cast<long long>(p.C) + p.T;
+  p.nbits = 1;
+  while ((1ll << p.nbits) < M) ++p.nbits;
 }
 
 size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
+
+bool sorts(const Prog& p) { return p.kind == K_SORT || p.kind == K_SESSION; }
+
+// The scratch layout, in one place: the byte offset of each plane
+// (kinds without a plane give it 0 bytes); returns the total.
+size_t scratch_layout(const Prog& p, size_t* off) {
+  const size_t m2 = static_cast<size_t>(pool2(p));
+  const size_t nb = (m2 + kB - 1) / kB;
+  const size_t M = static_cast<size_t>(p.C) + p.T;
+  const bool sort = p.kind == K_SORT, session = p.kind == K_SESSION;
+  const size_t sz[] = {
+      align16(m2),                                      // flags
+      align16(m2 * 4), align16(m2 * 4), align16(m2 * 4),  // evt, cause,
+      align16(m2 * 4), align16(m2 * 4),                 // k/e/x ranks
+      align16(nb * 4), align16(nb * 4), align16(nb * 4),  // bk, be, bx
+      64,                                               // g
+      sorts(p) ? align16(M * 4) : 0,                    // perm[0]
+      sorts(p) ? align16(M * 4) : 0,                    // perm[1]
+      session ? align16(M * 4) : 0,                     // inv
+      sorts(p) ? align16(M * 4) : 0,                    // aux
+      session ? align16(M * 4) : 0,                     // mxa
+      session ? align16(M * 4) : 0,                     // mxb
+      session ? align16(M * 4) : 0,                     // cb
+      sort ? align16(static_cast<size_t>(p.nbits) * (M + 1) * 4) : 0,  // wr
+      sort ? align16(static_cast<size_t>(p.nbits) * 4) : 0,           // wz
+      sorts(p) ? align16(kMaxBins * nb * 4) : 0,        // rcnt
+      sorts(p) ? align16(kMaxBins * 4) : 0};            // rtot
+  size_t t = 0;
+  for (size_t k = 0; k < sizeof(sz) / sizeof(sz[0]); ++k) {
+    if (off) off[k] = t;
+    t += sz[k];
+  }
+  return t;
+}
+constexpr int kPlanes = 21;
 
 }  // namespace
 
@@ -744,10 +1004,7 @@ extern "C" {
 long long dwin_scratch_bytes(const int* hdr) {
   Prog p;
   read_prog(hdr, p);
-  const size_t m2 = static_cast<size_t>(pool2(p));
-  const size_t nb = (m2 + kB - 1) / kB;
-  return static_cast<long long>(align16(m2) + 5 * align16(m2 * 4) +
-                                3 * align16(nb * 4) + 64);
+  return static_cast<long long>(scratch_layout(p, nullptr));
 }
 
 // One step.  hdr (host ints): kind id, C, T, F, I, window_ms, length,
@@ -756,12 +1013,18 @@ long long dwin_scratch_bytes(const int* hdr) {
 // KERNEL_PTRS order): the carry in (ring_f, ring_i, ring_ts, fill,
 // exp_f, exp_i, exp_ts, exp_fill, telem; null where the kind has none),
 // the chunk (ev_f, ev_i, ev_ts, ev_valid, now, directive), the carry out
-// (the nine), the egress buffer, the scratch.  Returns the CUDA error of
-// the launches (0 = ok).
-int dwin_step(const int* hdr, const long long* ptrs, void* stream) {
+// (the nine), the egress buffer, the scratch (scratch_bytes bytes, at
+// least dwin_scratch_bytes(hdr)).  Returns the CUDA error of the launches
+// (0 = ok).
+int dwin_step(const int* hdr, const long long* ptrs, long long scratch_bytes,
+              void* stream) {
   Prog p;
   read_prog(hdr, p);
   if (p.nkeys > kMaxKeys || p.T < 1 || p.C < 1 || p.F < 1 || p.I < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t off[kPlanes];
+  if (scratch_bytes < 0 ||
+      static_cast<size_t>(scratch_bytes) < scratch_layout(p, off))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t m2 = static_cast<size_t>(pool2(p));
   const size_t nb = (m2 + kB - 1) / kB;
@@ -794,25 +1057,76 @@ int dwin_step(const int* hdr, const long long* ptrs, void* stream) {
   q.o_telem = static_cast<int*>(const_cast<void*>(v[23]));
   q.buf = static_cast<int*>(const_cast<void*>(v[24]));
   unsigned char* s = static_cast<unsigned char*>(const_cast<void*>(v[25]));
+  int* w[kPlanes];
+  for (int k = 0; k < kPlanes; ++k) w[k] = reinterpret_cast<int*>(s + off[k]);
   q.flags = s;
-  s += align16(m2);
-  int** planes[5] = {&q.evt, &q.cause, &q.krank, &q.erank, &q.xrank};
-  for (int k = 0; k < 5; ++k) {
-    *planes[k] = reinterpret_cast<int*>(s);
-    s += align16(m2 * 4);
-  }
-  q.bk = reinterpret_cast<int*>(s);
-  s += align16(nb * 4);
-  q.be = reinterpret_cast<int*>(s);
-  s += align16(nb * 4);
-  q.bx = reinterpret_cast<int*>(s);
-  s += align16(nb * 4);
-  q.g = reinterpret_cast<int*>(s);
+  q.evt = w[1];
+  q.cause = w[2];
+  q.krank = w[3];
+  q.erank = w[4];
+  q.xrank = w[5];
+  q.bk = w[6];
+  q.be = w[7];
+  q.bx = w[8];
+  q.g = w[9];
+  q.perm[0] = w[10];
+  q.perm[1] = w[11];
+  q.inv = w[12];
+  q.aux = w[13];
+  q.mxa = w[14];
+  q.mxb = w[15];
+  q.cb = w[16];
+  q.wr = w[17];
+  q.wz = w[18];
+  q.rcnt = w[19];
+  q.rtot = w[20];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nbu = static_cast<unsigned>(nb);
   dwin_prep<<<1, kScanThreads, 0, st>>>(p, q);
-  dwin_decide<<<static_cast<unsigned>(nb), kB, 0, st>>>(p, q);
+  const int* srt = nullptr;
+  if (sorts(p)) {
+    // the live entries (ranks) sorted by the keys, the last key first
+    Prog ps = p;
+    if (p.kind == K_SESSION) {
+      ps.nkeys = 1;
+      ps.key_bank[0] = 1;
+      ps.key_lane[0] = p.skey_lane;
+      ps.key_asc[0] = 1;
+    }
+    int cur = 0, first = 1;
+    for (int k = ps.nkeys - 1; k >= (ps.nkeys > 0 ? 0 : -1); --k) {
+      for (int sh = 0; sh < 32; sh += kDigitBits) {
+        const Pass a = {0, k, sh, kMaxBins, first, 0, q.perm[cur],
+                        q.perm[1 - cur]};
+        dwin_radix_count<<<nbu, kB, 0, st>>>(ps, q, a);
+        dwin_radix_scan<<<kMaxBins, kScanThreads, 0, st>>>(q, nbu);
+        dwin_radix_scatter<<<nbu, kB, 0, st>>>(ps, q, a);
+        cur = 1 - cur;
+        first = 0;
+        if (k < 0) break;                   // no keys: one identity pass
+      }
+    }
+    srt = q.perm[cur];
+    if (p.kind == K_SORT) {
+      dwin_sort_prefix<<<nbu, kB, 0, st>>>(p, q, srt);
+      for (int l = 0; l < p.nbits; ++l) {   // the wavelet matrix
+        const Pass a = {1, 0, p.nbits - 1 - l, 2, 0, l, q.perm[cur],
+                        q.perm[1 - cur]};
+        dwin_radix_count<<<nbu, kB, 0, st>>>(p, q, a);
+        dwin_radix_scan<<<2, kScanThreads, 0, st>>>(q, nbu);
+        dwin_radix_scatter<<<nbu, kB, 0, st>>>(p, q, a);
+        cur = 1 - cur;
+      }
+    } else {
+      dwin_runs<<<nbu, kB, 0, st>>>(p, q, srt);
+      dwin_session_agg<<<nbu, kB, 0, st>>>(p, q, srt, 0);
+    }
+  }
+  dwin_decide<<<nbu, kB, 0, st>>>(p, q);
   dwin_scan<<<1, kScanThreads, 0, st>>>(q, static_cast<int>(nb));
-  dwin_scatter<<<static_cast<unsigned>(nb), kB, 0, st>>>(p, q);
+  if (p.kind == K_SESSION)
+    dwin_session_agg<<<nbu, kB, 0, st>>>(p, q, srt, 1);
+  dwin_scatter<<<nbu, kB, 0, st>>>(p, q);
   return static_cast<int>(cudaGetLastError());
 }
 

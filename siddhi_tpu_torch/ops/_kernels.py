@@ -48,13 +48,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
     "wagg_time": {
         # values, ts, ok, carry in (ring, ring_ts, pos, cnt, last_ts,
         # overflow), carry out (the same six), sums, counts, mins, maxs,
-        # P, T, C, window_ms, want_minmax, stream
-        "wagg_time_step": (_I, [_VP] * 19 + [_I] * 5 + [_VP]),
+        # scratch, scratch bytes, P, T, C, window_ms, want_minmax, stream
+        "wagg_time_step": (_I, [_VP] * 20 + [_LL] + [_I] * 5 + [_VP]),
+        # P, T, C -> bytes of device scratch the step needs
+        "wagg_time_scratch_bytes": (_LL, [_I, _I, _I]),
     },
     "dwin_step": {
         # header ints (ops/dwin.kernel_header), device pointers
-        # (ops/dwin.dwin_launch order), stream
-        "dwin_step": (_I, [_VP, _VP, _VP]),
+        # (ops/dwin.dwin_launch order), scratch bytes, stream
+        "dwin_step": (_I, [_VP, _VP, _LL, _VP]),
         # header ints -> bytes of device scratch a step needs
         "dwin_scratch_bytes": (_LL, [_VP]),
     },

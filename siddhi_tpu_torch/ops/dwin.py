@@ -483,8 +483,8 @@ def dwin_launch(lib, spec: DwinSpec, carry, ev_f, ev_i, ev_ts, ev_valid,
     F, I = max(spec.n_f, 1), max(spec.n_i, 1)
     hdr_list = kernel_header(spec, T, cap)
     hdr = (ctypes.c_int * len(hdr_list))(*hdr_list)
-    scratch = torch.empty((int(lib.dwin_scratch_bytes(hdr)),),
-                          dtype=torch.uint8, device=dev)
+    nscratch = int(lib.dwin_scratch_bytes(hdr))
+    scratch = torch.empty((nscratch,), dtype=torch.uint8, device=dev)
     new = {k: torch.empty_like(v) for k, v in carry.items()}
     buf = torch.empty((egress_rows(spec, cap), 4 + F + I), dtype=_I32,
                       device=dev)
@@ -493,7 +493,7 @@ def dwin_launch(lib, spec: DwinSpec, carry, ev_f, ev_i, ev_ts, ev_valid,
                [new.get(k) for k in CARRY_KEYS] + [buf, scratch])
     ptrs = [t.data_ptr() if t is not None else 0 for t in tensors]
     arr = (ctypes.c_longlong * len(ptrs))(*ptrs)
-    rc = lib.dwin_step(hdr, arr, stream)
+    rc = lib.dwin_step(hdr, arr, nscratch, stream)
     if rc != 0:
         raise RuntimeError(f"dwin_step: launch failed with CUDA error {rc}")
     return new, buf
@@ -549,16 +549,134 @@ dwin_step.launches = 0
 
 # --------------------------------------------------------------- CPU model
 
+#: bits of a radix digit of the sort and session passes (kDigitBits)
+DIGIT_BITS = 4
+
+
+def order_keys(bits: np.ndarray, bank: int, asc: bool) -> np.ndarray:
+    """csrc/dwin_step.cu okey over a lane's 32-bit words (float bits for
+    bank 0): uint32 keys whose order is the sort key's direction, -0.0
+    as +0.0 and NaN after every number either way."""
+    u = np.asarray(bits).astype(np.int64) & 0xFFFFFFFF
+    if bank == 0:
+        nan = (u & 0x7FFFFFFF) > 0x7F800000
+        u = np.where(u == 0x80000000, 0, u)
+        a = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    else:
+        nan = np.zeros(u.shape, bool)
+        a = u ^ 0x80000000
+    a = a if asc else ~a & 0xFFFFFFFF
+    return np.where(nan, 0xFFFFFFFF, a)
+
+
+def radix_pass(seq: np.ndarray, digit: np.ndarray, bins: int, block: int):
+    """One stable partition pass of the kernel's radix sort (count, scan,
+    scatter): per block of ``block`` items its digit counts, offsets
+    digit-major (all blocks' digit 0, then digit 1, ...), each item at
+    its digit's base + its block's offset + its stable rank in the block.
+    Returns (the new sequence, each item's rank in its block, each
+    block's offset of digit 0)."""
+    L = len(seq)
+    blk = np.arange(L) // block
+    nb = max(-(-L // block), 1)
+    counts = np.zeros((bins, nb), np.int64)
+    np.add.at(counts, (digit, blk), 1)
+    comb = blk * bins + digit
+    order = np.argsort(comb, kind="stable")
+    first = np.searchsorted(comb[order], comb[order], side="left")
+    rank = np.empty(L, np.int64)
+    rank[order] = np.arange(L) - first
+    flat = counts.reshape(-1)
+    off = (np.cumsum(flat) - flat).reshape(bins, nb)    # digit-major
+    out = np.empty_like(seq)
+    out[off[digit, blk] + rank] = seq
+    return out, rank, off[0]
+
+
+def radix_sort_model(keys, L: int, block: int) -> np.ndarray:
+    """The kernel's LSD radix sort of the ranks 0..L-1 by ``keys`` (uint32
+    arrays over the ranks, in lex order): DIGIT_BITS-bit digits, the last
+    key's lowest digit first."""
+    seq = np.arange(L, dtype=np.int64)
+    bins = 1 << DIGIT_BITS
+    for k in reversed(keys):
+        for sh in range(0, 32, DIGIT_BITS):
+            seq = radix_pass(seq, (k[seq] >> sh) & (bins - 1), bins,
+                             block)[0]
+    return seq
+
+
+def wavelet_model(seq: np.ndarray, nbits: int, block: int):
+    """The kernel's wavelet matrix over ``seq``: per level (high bit
+    first) a stable 1-bit radix pass; R[l][i] the level's zeros before
+    position i (its block's digit-0 offset + the zeros before it in the
+    block), R[l][L] and Z[l] the level's zeros."""
+    L = len(seq)
+    R = np.zeros((nbits, L + 1), np.int64)
+    Z = np.zeros(nbits, np.int64)
+    pos = np.arange(L)
+    for lv in range(nbits):
+        d = (seq >> (nbits - 1 - lv)) & 1
+        nxt, rank, off0 = radix_pass(seq, d, 2, block)
+        inb = pos % block
+        R[lv, :L] = off0[pos // block] + np.where(d == 0, rank, inb - rank)
+        Z[lv] = R[lv, L] = int((d == 0).sum())
+        seq = nxt
+    return R, Z
+
+
+def wavelet_kth(R, Z, nbits: int, k: int, length: int) -> int:
+    """The k-th smallest (from 0) of the wavelet's sequence in [0,
+    length): one rank lookup pair a level."""
+    lo, hi, v = 0, length, 0
+    for lv in range(nbits):
+        rlo, rhi = int(R[lv, lo]), int(R[lv, hi])
+        if k < rhi - rlo:
+            lo, hi = rlo, rhi
+        else:
+            k -= rhi - rlo
+            lo, hi = int(Z[lv]) + lo - rlo, int(Z[lv]) + hi - rhi
+            v |= 1 << (nbits - 1 - lv)
+    return v
+
+
+def sort_prefix_lengths(okeys, nan_first, srt) -> np.ndarray:
+    """Per rank, the length of its lex-predecessor prefix of the sorted
+    order ``srt``: its sorted position, or, when its first NaN key is k
+    (``nan_first``, -1 for none), the start of the run sharing its first
+    k order keys (a binary search, the kernel's)."""
+    out = np.empty(len(srt), np.int64)
+    for i, r in enumerate(srt):
+        k = int(nan_first[r])
+        if k < 0:
+            out[r] = i
+            continue
+        xk = tuple(int(okeys[j][r]) for j in range(k))
+        lo, hi = 0, i
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if tuple(int(okeys[j][srt[mid]]) for j in range(k)) < xk:
+                lo = mid + 1
+            else:
+                hi = mid
+        out[r] = lo
+    return out
+
+
 def dwin_pass_model(spec: DwinSpec, carry: Dict[str, np.ndarray], ev_f,
                     ev_i, ev_ts, ev_valid, now, directive, cap: int,
                     block: int = 256):
     """csrc/dwin_step.cu's passes in numpy, at P = 1 (numpy in, numpy out,
     the egress rows past the count left zero): prep (nv, the last flushed
-    batch id), decide (one entry at a time, the kernel's per-thread
-    code: JAX's scan searchsorted, sort's walk to the n-th predecessor in
-    index order, session's walk over the carried keys), in-block ranks,
-    the scan of block counts, and the scatter by partition and emit
-    positions, with the tail written last.  The tests hold it against
+    batch id); for sort and session the radix sort of the live entries
+    (:func:`radix_sort_model`), then sort's prefix lengths and wavelet
+    matrix (:func:`sort_prefix_lengths`, :func:`wavelet_model`) or
+    session's runs and their carried maxima; decide (one entry at a
+    time, the kernel's per-thread code: JAX's scan searchsorted, sort's
+    wavelet descent); in-block ranks, the scan of block counts, session's
+    new-ring maxima and counts, and the scatter by partition and emit
+    positions, with the tail written last.  ``block`` is the CTA's
+    entries (the kernel's kB).  The tests hold it against
     :func:`dwin_step_plain`."""
     def wrap(v):
         return int(((int(v) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31))
@@ -600,6 +718,38 @@ def dwin_pass_model(spec: DwinSpec, carry: Dict[str, np.ndarray], ev_f,
             if dirv[t] < nowv:
                 last_id = max(last_id, int(dirv[t]))
 
+    # sort and session: the live entries (ranks 0..L-1) in key order
+    L = fill + nv
+
+    def pool_of(r):
+        return r if r < fill else C + (r - fill)
+    if kind in ("sort", "session"):
+        xs = [pool_of(r) for r in range(L)]
+        keys = (spec.sort_keys if kind == "sort"
+                else ((1, spec.skey_lane, True),))
+        okeys = [order_keys(np.asarray(
+            [pf(x)[lane] if bank == 0 else pi(x)[lane] for x in xs],
+            np.int32), bank, asc) for bank, lane, asc in keys]
+        srt = radix_sort_model(okeys or [np.zeros(L, np.int64)], L, block)
+        if kind == "sort":
+            nan_first = np.full(L, -1, np.int64)
+            for k in reversed(range(len(keys))):
+                if keys[k][0] == 0:
+                    nan_first[okeys[k] == 0xFFFFFFFF] = k
+            plen = sort_prefix_lengths(okeys, nan_first, srt)
+            nbits = max((M - 1).bit_length(), 1)
+            wr, wz = wavelet_model(srt, nbits, block)
+        else:
+            skey = np.asarray([int(pi(x)[spec.skey_lane]) for x in xs],
+                              np.int64)
+            inv = np.empty(L, np.int64)
+            inv[srt] = np.arange(L)
+            runs = np.searchsorted(skey[srt], skey[srt], side="left")
+            mxa = np.full(L, NEG, np.int64)
+            carried = srt < fill
+            np.maximum.at(mxa, runs[carried],
+                          [pts(pool_of(r)) for r in srt[carried]])
+
     def search(v):
         levels = 0
         while (1 << levels) < T + 1:
@@ -640,45 +790,17 @@ def dwin_pass_model(spec: DwinSpec, carry: Dict[str, np.ndarray], ev_f,
         p = pts(x)
         if kind == "sort":
             n = spec.length
-            kth = min(n - 1, M - 1) + 1
             tN = BIG
-            if live and n - 1 < M:
-                cnt = 0
-                for y in range(M):
-                    ylive = y < fill if y < C else (y - C) < nv
-                    if not ylive:
-                        continue
-                    less, eq = False, True
-                    for bank, lane, asc in spec.sort_keys:
-                        if not eq:
-                            break
-                        if bank == 0:
-                            a = np.int32(pf(x)[lane]).view(np.float32)
-                            b = np.int32(pf(y)[lane]).view(np.float32)
-                        else:
-                            a, b = int(pi(x)[lane]), int(pi(y)[lane])
-                        less = bool(b < a) if asc else bool(b > a)
-                        eq = bool(b == a)
-                    yrank = y if y < C else fill + (y - C)
-                    if not less and eq:
-                        less = yrank < rank
-                    if less:
-                        cnt += 1
-                        if cnt == kth:
-                            tN = -1 if y < C else y - C
-                            break
+            if live and 1 <= n and n - 1 < M and plen[rank] >= n:
+                v = wavelet_kth(wr, wz, nbits, n - 1, int(plen[rank]))
+                tN = -1 if v < fill else v - fill
             arr = -1 if is_carry else x - C
             evt[x] = max(tN, arr)
             emit[x] = live and n - 1 < M and tN < BIG and evt[x] < nv
             keep[x] = live and not emit[x]
             cause[x] = C_LEN
         elif kind == "session":
-            last = NEG
-            if is_carry and live:
-                kx = int(pi(x)[spec.skey_lane])
-                for y in range(fill):
-                    if int(ring_i[y, spec.skey_lane]) == kx:
-                        last = max(last, int(carry["ring_ts"][0, y]))
+            last = int(mxa[runs[inv[x]]]) if is_carry and live else NEG
             evt[x] = wrap(last + w)
             emit[x] = is_carry and live and evt[x] <= nowv
             keep[x] = live and not emit[x]
@@ -798,12 +920,18 @@ def dwin_pass_model(spec: DwinSpec, carry: Dict[str, np.ndarray], ev_f,
     if kind in SLIDING_KINDS:
         live_min = min([pts(x) for x in mine], default=TS_NONE)
     elif kind == "session":
+        # the runs' max ts and count over the new ring's entries
+        mxb = np.full(L, np.iinfo(np.int32).min, np.int64)
+        cb = np.zeros(L, np.int64)
         for x in mine:
-            kx = int(pi(x)[spec.skey_lane])
-            same = [pts(y) for y in mine
-                    if int(pi(y)[spec.skey_lane]) == kx]
-            last = max(same) if len(same) >= C else max(same + [NEG])
-            live_min = min(live_min, last)
+            rs = runs[inv[x if x < C else fill + (x - C)]]
+            mxb[rs] = max(mxb[rs], pts(x))
+            cb[rs] += 1
+        for x in mine:
+            rs = runs[inv[x if x < C else fill + (x - C)]]
+            last = int(mxb[rs])
+            live_min = min(live_min,
+                           last if cb[rs] >= C or last > NEG else NEG)
     nfill = min(K, C)
     ovf = int(K > C)
     post_exp = 0

@@ -357,12 +357,16 @@ def time_wagg_launch(lib, window_ms: int, carry: TimeWaggCarry,
                      values: torch.Tensor, ts: torch.Tensor,
                      accepted: torch.Tensor, want_minmax: bool, stream
                      ) -> Tuple[TimeWaggCarry, tuple]:
-    """Allocate the fresh carry and the output planes on the inputs'
-    device and call ``lib.wagg_time_step`` (the loaded kernel) on
-    ``stream``; raises on a non-zero CUDA error."""
+    """Allocate the fresh carry, the output planes and the scratch
+    (``lib.wagg_time_scratch_bytes``) on the inputs' device and call
+    ``lib.wagg_time_step`` (the loaded kernel) on ``stream``; raises on a
+    non-zero CUDA error."""
     P, C = carry.ring.shape
     T = values.shape[1]
     dev = values.device
+    nscratch = int(lib.wagg_time_scratch_bytes(P, T, C))
+    scratch = torch.empty((max(nscratch, 1),), dtype=torch.uint8,
+                          device=dev)
     new = TimeWaggCarry(*[torch.empty_like(a) for a in carry])
     sums = torch.empty((P, T), dtype=torch.float32, device=dev)
     counts = torch.empty((P, T), dtype=torch.int32, device=dev)
@@ -376,7 +380,8 @@ def time_wagg_launch(lib, window_ms: int, carry: TimeWaggCarry,
         sums.data_ptr(), counts.data_ptr(),
         mins.data_ptr() if want_minmax else None,
         maxs.data_ptr() if want_minmax else None,
-        P, T, C, int(window_ms), int(want_minmax), stream)
+        scratch.data_ptr(), nscratch, P, T, C, int(window_ms),
+        int(want_minmax), stream)
     if rc != 0:
         raise RuntimeError(f"wagg_time_step: launch failed with CUDA error "
                            f"{rc}")
@@ -386,6 +391,89 @@ def time_wagg_launch(lib, window_ms: int, carry: TimeWaggCarry,
 
 #: launches of the CUDA kernel since the last reset (plain runs excluded)
 time_wagg_step.launches = 0
+
+#: events a CTA of csrc/wagg_time.cu's events pass takes (kChunk)
+TIME_CHUNK = 64
+
+
+def time_split_model(window_ms: int, carry: TimeWaggCarry,
+                     values: torch.Tensor, ts: torch.Tensor,
+                     accepted: torch.Tensor, want_minmax: bool = False,
+                     chunk: int = TIME_CHUNK
+                     ) -> Tuple[TimeWaggCarry, tuple]:
+    """The CPU model of ``csrc/wagg_time.cu``, pass for pass, on CPU
+    tensors (:func:`time_wagg_step_plain`'s contract):
+
+      prep    per lane, A_t (accepted events up to and including event
+              t) and X, the lane's entries in write order: the carry's
+              slot (pos0 + j) % C at j < C, the a-th accepted event at
+              C + a; the overflow (the a-th accepted event, with cnt0 + a
+              >= C, evicts X[a] while X[a].ts > its ts - window_ms), the
+              ring at A_T and the carry's scalars;
+      events  per event, slot s holds X[A_t + ((s - pos0 - A_t) mod C)],
+              read from the window [A_e0, A_e1 + C) its CTA of ``chunk``
+              events holds (asserted); the masked leaves summed by the
+              pairwise tree over the C slots padded to a power of two,
+              the count and the IEEE min / max."""
+    from .grouped_agg import _masked_extreme
+    P, C = carry.ring.shape
+    T = values.shape[1]
+    pos0 = carry.pos.numpy().astype(np.int64)
+    cnt0 = carry.cnt.numpy().astype(np.int64)
+    ok = accepted.numpy().astype(bool)
+    vbits = values.numpy().view(np.int32)
+    tsn = ts.numpy().astype(np.int64)
+
+    def wrap(x):
+        return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+    # prep
+    acnt = np.cumsum(ok, axis=1, dtype=np.int64)
+    n = acnt[:, -1] if T else np.zeros(P, np.int64)
+    rot = (pos0[:, None] + np.arange(C)[None, :]) % C
+    xv = np.zeros((P, C + T), np.int32)
+    xt = np.zeros((P, C + T), np.int64)
+    xv[:, :C] = np.take_along_axis(carry.ring.numpy().view(np.int32), rot, 1)
+    xt[:, :C] = np.take_along_axis(carry.ring_ts.numpy(), rot, 1)
+    ovf = carry.overflow.numpy().copy()
+    last = carry.last_ts.numpy().copy()
+    for p in range(P):
+        k = int(n[p])
+        xv[p, C:C + k] = vbits[p, ok[p]]
+        xt[p, C:C + k] = tsn[p, ok[p]]
+        a = np.arange(k)
+        ovf[p] |= bool(((cnt0[p] + a >= C) &
+                        (xt[p, a] > wrap(xt[p, C + a] - window_ms))).any())
+        if k:
+            last[p] = xt[p, C + k - 1]
+    slot = np.arange(C)[None, :]
+    j_end = n[:, None] + (slot - pos0[:, None] - n[:, None]) % C
+    new = TimeWaggCarry(
+        torch.from_numpy(np.take_along_axis(xv, j_end, 1).view(np.float32)),
+        torch.from_numpy(np.take_along_axis(xt, j_end, 1).astype(np.int32)),
+        torch.from_numpy(((pos0 + n) % C).astype(np.int32)),
+        torch.from_numpy(np.minimum(cnt0 + n, C).astype(np.int32)),
+        torch.from_numpy(last.astype(np.int32)), torch.from_numpy(ovf))
+    # events
+    t = np.arange(T)
+    e0 = (t // chunk) * chunk
+    e1 = np.minimum(e0 + chunk, T)
+    A = acnt[:, :, None]                                    # [P, T, 1]
+    jj = A + (slot[None] - pos0[:, None, None] - A) % C     # [P, T, C]
+    lo = acnt[:, e0][:, :, None]
+    hi = acnt[:, e1 - 1][:, :, None] + C
+    assert ((jj >= lo) & (jj < hi)).all(), "a leaf outside its window"
+    lane = np.arange(P)[:, None, None]
+    leaf = torch.from_numpy(xv[lane, jj].view(np.float32))
+    cnt_t = np.minimum(cnt0[:, None] + acnt, C)[:, :, None]
+    cut = wrap(tsn - window_ms)[:, :, None]
+    valid = torch.from_numpy((slot[None] < cnt_t) & (xt[lane, jj] > cut))
+    sums = pair_tree_sum(torch.where(valid, leaf, torch.zeros_like(leaf)))
+    outs = (sums, valid.sum(dim=2, dtype=torch.int32))
+    if want_minmax:
+        outs += (_masked_extreme(leaf, valid, 2, True),
+                 _masked_extreme(leaf, valid, 2, False))
+    return new, outs
 
 
 def build_time_wagg_step(window_ms: int, capacity: int,
