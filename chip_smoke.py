@@ -137,6 +137,27 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      device window path (DeviceWindowProcessor on K9, host selector),
      WINDOW_CHUNKS chunks of phase 20's feed; each flush against a numpy reference of
      the batches, the first flush against the host engine;
+ 22. K10 (csrc/iagg_fold.cu) against its plain twin run on a CPU copy
+     of the same inputs (torch's CUDA scatter-add is atomic), bit for bit
+     on vals, cnt and comp (NaN by position), both modes: each base alone
+     and all six, n from 1 to 262,144, S up to the aggregation cell's sec
+     slab, masked rows, one slot holding the batch, NaN/+-inf/+-0.0 in
+     the feed and the slab, chained folds, an integer feed past 2^24 in
+     compensated mode (exact); then timed at the cell's sec slab and at
+     one slot holding the whole batch (the walk's serial floor);
+ 23. the aggregation cell: samples/incremental_agg_performance.py's
+     TradeAgg (`every sec ... hour`), 1,024 symbols, IAGG_CHUNKS chunks
+     of 262,144 events by send_batch on DeviceAggregationRuntime, then a
+     `per 'seconds'` query inside the clock; every row of it and of a
+     `per 'hours'` query against a float64 numpy reference;
+ 24. K11 (csrc/join_probe.cu) against its plain twin bit for bit (mask
+     densities 0, sparse, 50% and 100%, shapes [1, 1] to [16,384,
+     16,384], valid bounds not powers of 2, cap below the count); then
+     timed at the join cell's shape beside nonzero_static and the sum;
+ 25. the join cell: samples/tpu_join_performance.py's range stream-table
+     join at its own sizes (a 10,000-row table, 16,384-event chunks, 2
+     warm-up and JOIN_CHUNKS timed) on the device probe; every chunk's
+     pairs in order against a numpy reference;
   then one JSON line per the kernel table, the nvidia-smi line, and the
   last line ``{"ok": true, "device": {...}}``.
 
@@ -4923,6 +4944,542 @@ def run_window_cell(names, chunks, dev):
     return res
 
 
+# ------------------------------------------------------------------ phase 22
+
+IAGG_FNS = ("sum", "sumsq", "min", "max", "count", "last")
+#: TradeAgg's bases (avg, sum, count: sum and count lanes)
+IAGG_CELL_FNS = ("sum", "count", "sum", "count")
+IAGG_SYMBOLS = 1024
+IAGG_CHUNKS = 4
+IAGG_BASE_TS = 1_496_289_950_000
+IAGG_HOUR_MS = 3_600_000
+IAGG_SEC_SLAB = 1 << 20           # the cell's sec slab after its 4 chunks
+IAGG_SPECIAL = np.asarray([np.nan, np.inf, -np.inf, 0.0, -0.0],
+                          np.float32)
+
+
+def _iagg_slab(rng, S, fns, special):
+    """A slab state: identities, random rows and (special) NaN, +-inf and
+    -0.0 in values and error lanes; counts up to 2^31 - 1."""
+    from siddhi_tpu_torch.ops.incremental_agg import init_row
+    B = len(fns)
+    vals = np.tile(init_row(fns), (S, 1))
+    half = S // 2
+    vals[:half] = rng.standard_normal((half, B)).astype(np.float32) * 100
+    comp = (rng.standard_normal((S, B)) * 1e-5).astype(np.float32)
+    cnt = rng.integers(0, 1000, S).astype(np.int32)
+    cnt[:min(S, 3)] = np.int32(2**31 - 2)         # the count lane wraps
+    if special:
+        for a in (vals, comp):
+            m = rng.random(a.shape) < 0.02
+            a[m] = rng.choice(IAGG_SPECIAL, int(m.sum()))
+    return vals, cnt, comp
+
+
+def _iagg_feed(rng, n, S, B, seg_kind, feed):
+    if seg_kind == "one":
+        seg = np.full(n, min(5, S - 1), np.int32)
+    elif seg_kind == "masked":
+        seg = rng.integers(0, S, n).astype(np.int32)
+        seg[rng.random(n) < 0.9] = -1
+    else:
+        seg = rng.integers(0, S, n).astype(np.int32)
+        seg[rng.random(n) < 0.1] = -1
+        seg[rng.random(n) < 0.01] = S + 3             # past the slab: masked
+    if feed == "int":
+        bv = rng.integers(1, 10, (n, B)).astype(np.float32)
+    else:
+        bv = (rng.standard_normal((n, B)) * 100).astype(np.float32)
+        if feed == "special":
+            m = rng.random((n, B)) < 0.02
+            bv[m] = rng.choice(IAGG_SPECIAL, int(m.sum()))
+    return seg, bv
+
+
+IAGG_CASES = (
+    [dict(fns=(fn,), n=4096, S=2048, comp=c, feed="special")
+     for fn in IAGG_FNS for c in (False, True)] +
+    [dict(fns=IAGG_FNS, n=n, S=2048, comp=c, feed="special")
+     for n in (1, 7, 1000, 65_536, 262_144) for c in (False, True)] +
+    [dict(fns=IAGG_FNS, n=262_144, S=IAGG_SEC_SLAB, comp=c,
+          feed="special") for c in (False, True)] +
+    # ~57 rows a slot: runs on both sides of the warp walk's threshold
+    [dict(fns=IAGG_FNS, n=262_144, S=4096, comp=c, feed="special")
+     for c in (False, True)] +
+    [dict(fns=IAGG_FNS, n=262_144, S=2048, comp=c, feed="special",
+          seg="one") for c in (False, True)] +
+    [dict(fns=IAGG_FNS, n=65_536, S=4096, comp=c, feed="special",
+          seg="masked", steps=3) for c in (False, True)] +
+    [dict(fns=IAGG_CELL_FNS, n=262_144, S=IAGG_SEC_SLAB, comp=False,
+          feed="uniform", steps=2),
+     # an integer-valued feed past 2^24: the error lanes keep it exact
+     dict(fns=("sum", "count", "sumsq"), n=262_144, S=2048, comp=True,
+          feed="int", seg="one", steps=3, start=float(1 << 25))])
+
+
+def check_iagg(dev, seed):
+    """Phase 22: K10 (iagg_fold) against slab_update_plain run on a CPU
+    copy of the same inputs (torch's CUDA index_add_ adds with atomics),
+    bit for bit on vals, cnt and comp (NaN compared by position), over
+    chained folds."""
+    import torch
+    from siddhi_tpu_torch.ops.incremental_agg import (slab_update,
+                                                      slab_update_plain)
+    rng = np.random.default_rng(seed + 221)
+    worst = 0.0
+    n_cases = 0
+    for case in IAGG_CASES:
+        fns, n, S = case["fns"], case["n"], case["S"]
+        B = len(fns)
+        comp_on = case["comp"]
+        vals, cnt, comp = _iagg_slab(rng, S, fns, case["feed"] == "special")
+        if "start" in case:
+            vals[:] = case["start"]
+            comp[:] = 0.0
+        kc = [torch.tensor(vals, device=dev), torch.tensor(cnt, device=dev),
+              torch.tensor(comp, device=dev) if comp_on else None]
+        pc = [torch.tensor(vals), torch.tensor(cnt),
+              torch.tensor(comp) if comp_on else None]
+        exact = np.zeros(S, np.int64)
+        for _ in range(case.get("steps", 1)):
+            seg, bv = _iagg_feed(rng, n, S, B, case.get("seg", "uniform"),
+                                 case["feed"])
+            segd, bvd = torch.tensor(seg, device=dev), torch.tensor(
+                bv, device=dev)
+            ko = slab_update(fns, kc[0], kc[1], segd, bvd, kc[2])
+            po = slab_update_plain(fns, pc[0], pc[1], torch.tensor(seg),
+                                   torch.tensor(bv), pc[2])
+            torch.cuda.synchronize()
+            kc = [ko[0], ko[-1], ko[1] if comp_on else None]
+            pc = [po[0], po[-1], po[1] if comp_on else None]
+            for x, y in zip(ko, po):
+                y = y.to(dev)
+                worst = max(worst, _abs_err(x, y))
+                if not _equal(x, y):
+                    raise AssertionError(
+                        f"iagg_fold != slab_update_plain: fns={fns} n={n} "
+                        f"S={S} comp={comp_on} feed={case['feed']} "
+                        f"seg={case.get('seg', 'uniform')}")
+            if case["feed"] == "int":
+                ok = (seg >= 0) & (seg < S)
+                np.add.at(exact, seg[ok], bv[ok, 0].astype(np.int64))
+            n_cases += 1
+        if "start" in case:
+            s = int(seg[0])
+            got = np.float64(kc[0][s, 0].item()) + np.float64(
+                kc[2][s, 0].item())
+            if got != case["start"] + exact[s]:
+                raise AssertionError(f"iagg_fold: compensated sum {got} != "
+                                     f"{case['start'] + exact[s]}")
+        log(f"  iagg_fold == slab_update_plain  fns={','.join(fns)} n={n} "
+            f"S={S} compensated={int(comp_on)} feed={case['feed']} "
+            f"seg={case.get('seg', 'uniform')} steps={case.get('steps', 1)}")
+    return {"cases": n_cases, "max_abs_err": worst}
+
+
+def iagg_bound(n, B, touched, comp):
+    """Bytes the fold must move: the rows (seg and B values each) read
+    once, the touched slots' vals, cnt (and comp) read and written."""
+    row = 4 * B + 4 + (4 * B if comp else 0)
+    return (n * (4 * B + 4) + 2 * touched * row) / PEAK_BYTES_PER_S * 1e3
+
+
+def _iagg_cell_seg(rng, n, S):
+    """The sec slab's segments for one of the cell's chunks: the pairs
+    (second, symbol) of uniform timestamps over an hour, as slots."""
+    sec = rng.integers(0, IAGG_HOUR_MS, n) // 1000
+    sym = rng.integers(0, IAGG_SYMBOLS, n)
+    code = sec * IAGG_SYMBOLS + sym
+    _, inv = np.unique(code, return_inverse=True)
+    slots = rng.permutation(S)[:inv.max() + 1]
+    return slots[inv].astype(np.int32), int(inv.max() + 1)
+
+
+def time_iagg(dev, seed):
+    """K10 timed at the aggregation cell's sec slab (the cell's bases, a
+    chunk's ~250,000 touched slots of 2^20) and at one slot holding the
+    whole batch (the walk's serial floor); the twin on the card beside
+    (index_add_ with atomics: the same function, its order free)."""
+    import torch
+    from siddhi_tpu_torch.ops.incremental_agg import (slab_update,
+                                                      slab_update_plain)
+    rng = np.random.default_rng(seed + 227)
+    fns = IAGG_CELL_FNS
+    B = len(fns)
+    out = {}
+    n = CHUNK
+    for name, S in (("cell", IAGG_SEC_SLAB), ("one_slot", 2048)):
+        if name == "cell":
+            seg, touched = _iagg_cell_seg(rng, n, S)
+        else:
+            seg, touched = np.full(n, 5, np.int32), 1
+        bv = rng.uniform(1, 100, (n, B)).astype(np.float32)
+        vals = torch.zeros((S, B), dtype=torch.float32, device=dev)
+        cnt = torch.zeros((S,), dtype=torch.int32, device=dev)
+        segd = torch.tensor(seg, device=dev)
+        bvd = torch.tensor(bv, device=dev)
+        n0 = slab_update.launches
+        ms = median_ms(lambda: slab_update(fns, vals, cnt, segd, bvd), dev,
+                       n=TIMED_LAUNCHES if name == "cell" else 3)
+        slab_update.launches = n0        # timing launches are not the path
+        plain_ms = median_ms(
+            lambda: slab_update_plain(fns, vals, cnt, segd, bvd), dev, n=5)
+        bound = iagg_bound(n, B, touched, False)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes",
+                     "shape": {"n": n, "S": S, "B": B, "touched": touched}}
+        log(f"  iagg_fold at n={n} S={S} B={B} ({touched} touched slots, "
+            f"{name}): {ms:.4f} ms (plain twin on the card {plain_ms:.4f} "
+            f"ms, bound {bound:.6f} ms by bytes, "
+            f"{bound / ms * 100:.2f}% of the bound reached)")
+    return out
+
+
+# ------------------------------------------------------------------ phase 23
+
+IAGG_APP = """
+define stream TradeStream (symbol string, price double, volume long, ts long);
+define aggregation TradeAgg
+from TradeStream
+select symbol, avg(price) as avgPrice, sum(price) as total, count() as n
+group by symbol
+aggregate by ts every sec ... hour;
+"""
+IAGG_QUERY = ("from TradeAgg within 1496289000000, 1496296000000 per "
+              "'{per}' select AGG_TIMESTAMP, symbol, avgPrice, total, n")
+
+
+def make_iagg_chunks(seed, n_chunks, n=CHUNK):
+    """samples/incremental_agg_performance.py's feed at the cell's size:
+    1,024 symbols, prices uniform in [1, 100), volumes in [1, 10),
+    timestamps uniform over one hour."""
+    rng = np.random.default_rng(seed + 23)
+    names = np.asarray([f"k{i}" for i in range(IAGG_SYMBOLS)], object)
+    chunks = []
+    for _ in range(n_chunks):
+        ki = rng.integers(0, IAGG_SYMBOLS, n)
+        price = rng.uniform(1.0, 100.0, n)
+        ts = IAGG_BASE_TS + rng.integers(0, IAGG_HOUR_MS, n)
+        chunks.append(({"symbol": names[ki], "price": price,
+                        "volume": rng.integers(1, 10, n), "ts": ts}, ki))
+    return names, chunks
+
+
+def iagg_reference(chunks, step_ms):
+    """(bucket ts, symbol index, count, sum) per bucket in float64, sorted
+    by bucket then symbol."""
+    ts = np.concatenate([c["ts"] for c, _ in chunks])
+    ki = np.concatenate([k for _, k in chunks])
+    price = np.concatenate([c["price"] for c, _ in chunks])
+    code = (ts // step_ms) * IAGG_SYMBOLS + ki
+    u, inv = np.unique(code, return_inverse=True)
+    cnt = np.bincount(inv)
+    s = np.bincount(inv, weights=price)
+    return (u // IAGG_SYMBOLS) * step_ms, u % IAGG_SYMBOLS, cnt, s
+
+
+def run_iagg_cell(dev, seed):
+    """Phase 23: the aggregation cell through the public API — TradeAgg
+    on DeviceAggregationRuntime, IAGG_CHUNKS chunks of 262,144 events by
+    send_batch, then one `per 'seconds'` query inside the clock; every
+    row of that query and of a `per 'hours'` one against iagg_reference
+    (keys, buckets and counts exact; sums and averages rel <= 1e-5)."""
+    import torch
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.ledger import ledger
+    from siddhi_tpu_torch.ops import incremental_agg as ia
+    names, chunks = make_iagg_chunks(seed, IAGG_CHUNKS)
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(IAGG_APP)
+    agg = rt.aggregations["TradeAgg"]
+    if type(agg).__name__ != "DeviceAggregationRuntime":
+        raise AssertionError(f"aggregation cell: {type(agg).__name__}")
+    rt.start()
+    h = rt.get_input_handler("TradeStream")
+
+    def drive():
+        t = time.perf_counter()
+        for cols, _ki in chunks:
+            h.send_batch(cols)
+        rows = rt.query(IAGG_QUERY.format(per="seconds"))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, rows
+
+    _peak_reset(dev)
+    stage0 = dict(ledger().snapshot()["stage_seconds"])
+    ia.slab_update.launches = 0           # counts start here
+    (wall, rows), per_kernel, dev_us = profile_device(drive)
+    launches = ia.slab_update.launches
+    stage1 = ledger().snapshot()["stage_seconds"]
+    stages = {k: stage1[k] - stage0.get(k, 0.0) for k in stage1}
+    peak = torch.cuda.max_memory_allocated(dev)
+    hours = rt.query(IAGG_QUERY.format(per="hours"))
+    slots = {d: len(agg._slabs[d].pair_of) for d in agg.durations}
+    caps = {d: agg._slabs[d].cap for d in agg.durations}
+    rt.shutdown()
+    n_events = len(chunks) * CHUNK
+    res = _cell_report("aggregation cell", n_events, len(chunks), wall,
+                       per_kernel, dev_us, stages, launches, IAGG_KERNELS)
+    res.update(peak=peak, slots=slots, caps=caps)
+    log(f"  slots per duration {slots} (caps {caps}); peak device memory "
+        f"{peak} B")
+    if launches < len(chunks) * len(slots):
+        raise AssertionError(f"K10 launched {launches} times")
+    code = {nm: i for i, nm in enumerate(names)}
+    for per, got, step in (("seconds", rows, 1000),
+                           ("hours", hours, IAGG_HOUR_MS)):
+        b, k, c, s = iagg_reference(chunks, step)
+        g = np.asarray([(e.data[0], code[e.data[1]]) for e in got], np.int64)
+        o = np.lexsort((g[:, 1], g[:, 0])) if len(g) else np.zeros(0, int)
+        gv = np.asarray([e.data[2:] for e in got], np.float64)[o]
+        if len(g) != len(b) or not (np.array_equal(g[o, 0], b) and
+                                    np.array_equal(g[o, 1], k) and
+                                    np.array_equal(gv[:, 2], c)):
+            raise AssertionError(f"aggregation cell: per '{per}' rows, "
+                                 f"buckets, keys or counts differ from the "
+                                 f"reference ({len(g)} rows, reference "
+                                 f"{len(b)})")
+        for j, want in ((1, s), (0, s / c)):
+            err = np.abs(gv[:, j] - want) / np.abs(want)
+            if not (err <= 1e-5).all():
+                raise AssertionError(f"aggregation cell: per '{per}' rel "
+                                     f"err {err.max():.3g}")
+        log(f"  aggregation cell: per '{per}' {len(b)} rows == float64 "
+            f"reference (buckets, keys, counts exact; sums and averages rel "
+            f"<= 1e-5)")
+        res[f"rows_{per}"] = len(b)
+    return res
+
+
+IAGG_KERNELS = ["iagg_radix_count", "iagg_radix_scan", "iagg_radix_scatter",
+                "iagg_walk", "iagg_walk_long", "iagg_settle"]
+
+
+# ------------------------------------------------------------------ phase 24
+
+JOIN_TABLE = 10_000
+JOIN_CHUNK = 16_384
+JOIN_WARM = 2
+JOIN_CHUNKS = 16
+JOIN_CELL_SHAPE = (JOIN_CHUNK, 1 << 14)       # pow2 of the table's 10,000
+
+PROBE_CASES = [
+    # (nl2, nr2, nl, nr, density, cap)
+    (1, 1, 1, 1, 1.0, 4), (1, 1, 0, 0, 1.0, 4), (1, 1, 1, 1, 0.0, 0),
+    (7, 13, 5, 11, 0.5, 64), (8, 16, 8, 16, 1.0, 100),
+    (16, 8, 13, 7, 0.5, 50), (32, 48, 20, 33, 0.7, 10_000),
+    (64, 64, 33, 50, 0.5, 4096), (1024, 1000, 1000, 999, 0.001, 4096),
+    (1024, 1024, 1000, 1000, 0.5, 4096), (2048, 2048, 2047, 1999, 1.0, 4096),
+    (4096, 8192, 4000, 8000, 0.0, 4096), (1, 100_000, 1, 99_999, 0.3, 4096),
+    (100_000, 1, 99_999, 1, 0.3, 4096),
+    (JOIN_CHUNK, 1 << 14, JOIN_CHUNK, JOIN_TABLE, 0.000625, 131_072),
+    (JOIN_CHUNK, 1 << 14, JOIN_CHUNK, JOIN_TABLE, 0.000625, 4096),
+    (JOIN_CHUNK, 1 << 14, 12_345, 9_999, 0.5, 1 << 20),
+    (JOIN_CHUNK, 1 << 14, JOIN_CHUNK, JOIN_TABLE, 1.0, 1 << 16),
+]
+
+
+def check_probe(dev, seed):
+    """Phase 24: K11 (probe_compact) against probe_compact_plain on the
+    same mask, bit for bit on the indices and the count."""
+    import torch
+    from siddhi_tpu_torch.ops.join_probe import (probe_compact,
+                                                 probe_compact_plain)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 241)
+    n_cases = 0
+    for nl2, nr2, nl, nr, dens, cap in PROBE_CASES:
+        layouts = [torch.bool, torch.uint8]
+        if nl2 * nr2 <= 1 << 22:
+            layouts.append("unaligned")   # storage one byte past 16
+        for dtype in layouts:
+            mask = (torch.rand((nl2, nr2), generator=g, device=dev) < dens)
+            if dtype == "unaligned":
+                store = torch.zeros(nl2 * nr2 + 1, dtype=torch.uint8,
+                                    device=dev)
+                mask = store[1:].view(nl2, nr2).copy_(mask)
+            else:
+                mask = mask.to(dtype)
+            n_cases += 1
+            ki, kc = probe_compact(mask, nl, nr, cap)
+            pi, pcnt = probe_compact_plain(mask, nl, nr, cap)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki, pi) and int(kc) == int(pcnt)
+                    and ki.dtype == torch.int32 and kc.dtype == torch.int32):
+                raise AssertionError(
+                    f"probe_compact != plain at [{nl2}, {nr2}] valid "
+                    f"({nl}, {nr}) density {dens} cap {cap} {dtype}: count "
+                    f"{int(kc)} vs {int(pcnt)}")
+        log(f"  probe_compact == plain  [{nl2}, {nr2}] valid ({nl}, {nr}) "
+            f"density {dens} cap {cap}: count {int(kc)}")
+    return {"cases": n_cases, "max_abs_err": 0.0}
+
+
+def join_cell_arrays(rng):
+    """samples/tpu_join_performance.py's table: thresholds uniform in [99,
+    100), bands 0-7."""
+    thr = rng.uniform(99, 100, JOIN_TABLE).astype(np.float32)
+    band = rng.integers(0, 8, JOIN_TABLE).astype(np.int64)
+    return thr, band
+
+
+def time_probe(dev, seed):
+    """K11 at the join cell's shape on the cell's own mask (a chunk's
+    prices against the table), its twin, and the library calls alone
+    (nonzero_static and the sum over the valid mask)."""
+    import torch
+    from siddhi_tpu_torch.ops.join_probe import (probe_compact,
+                                                 probe_compact_plain)
+    rng = np.random.default_rng(seed + 243)
+    thr, band = join_cell_arrays(rng)
+    price = rng.uniform(0, 100, JOIN_CHUNK).astype(np.float32)
+    nl2, nr2 = JOIN_CELL_SHAPE
+    t = torch.zeros(nr2, dtype=torch.float32, device=dev)
+    t[:JOIN_TABLE] = torch.tensor(thr, device=dev)
+    bd = torch.zeros(nr2, dtype=torch.float32, device=dev)
+    bd[:JOIN_TABLE] = torch.tensor(band.astype(np.float32), device=dev)
+    p = torch.tensor(price, device=dev)
+    mask = ((p[:, None] > t[None, :]) & (bd[None, :] == 3.0)).contiguous()
+    _, count = probe_compact_plain(mask, JOIN_CHUNK, JOIN_TABLE, 1)
+    count = int(count)
+    cap = 4096
+    while cap < count:
+        cap *= 2
+    valid = mask.clone()
+    valid[:, JOIN_TABLE:] = False
+    flat = valid.reshape(-1)
+    n0 = probe_compact.launches
+    ms = median_ms(lambda: probe_compact(mask, JOIN_CHUNK, JOIN_TABLE, cap),
+                   dev)
+    probe_compact.launches = n0
+    plain_ms = median_ms(
+        lambda: probe_compact_plain(mask, JOIN_CHUNK, JOIN_TABLE, cap), dev)
+    lib_ms = median_ms(
+        lambda: (torch.nonzero_static(flat, size=cap, fill_value=-1),
+                 flat.sum(dtype=torch.int32)), dev)
+    # the valid cells read once (the padded columns need not be), the
+    # indices written once
+    bound = (JOIN_CHUNK * JOIN_TABLE + 4 * min(count, cap)) \
+        / PEAK_BYTES_PER_S * 1e3
+    log(f"  probe_compact at [{nl2}, {nr2}] valid ({JOIN_CHUNK}, "
+        f"{JOIN_TABLE}), {count} matches, cap {cap}: {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms; nonzero_static + sum {lib_ms:.4f} ms; bound "
+        f"{bound:.6f} ms by bytes, {bound / ms * 100:.2f}% of the bound "
+        f"reached)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "shape": {"nl2": nl2, "nr2": nr2, "nl": JOIN_CHUNK,
+                      "nr": JOIN_TABLE, "count": count, "cap": cap}}
+
+
+# ------------------------------------------------------------------ phase 25
+
+JOIN_APP = """
+@app:playback
+define stream L (id int, price float);
+define table T (tid int, threshold float, band int);
+define stream Fill (tid int, threshold float, band int);
+from Fill insert into T;
+@info(name='q')
+from L join T on L.price > T.threshold and T.band == 3
+select L.id as lid, T.tid as tid
+insert into Out;
+"""
+JOIN_KERNELS = ["probe_count", "probe_scan", "probe_scatter"]
+
+
+def run_join_cell(dev, seed):
+    """Phase 25: samples/tpu_join_performance.py's app at its own sizes
+    through the public API — a 10,000-row table, L chunks of 16,384
+    events, JOIN_WARM warm-up chunks then JOIN_CHUNKS timed; the query on
+    the device probe; every chunk's output pairs against a numpy
+    reference in order (float32 compares, L-major)."""
+    import torch
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    from siddhi_tpu_torch.core.ledger import ledger
+    from siddhi_tpu_torch.ops import join_probe as jp
+    rng = np.random.default_rng(seed + 25)
+    thr, band = join_cell_arrays(rng)
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(JOIN_APP)
+    qr = rt.query_runtimes["q"]
+    jr = qr.join_runtime
+    if qr.backend != "device" or jr.device_probe is None:
+        raise AssertionError(f"join cell: backend {qr.backend} "
+                             f"({qr.backend_reason})")
+    got = []
+    rt.add_callback("Out", ColumnarStreamCallback(
+        lambda c: got.append((np.array(c.columns["lid"]),
+                              np.array(c.columns["tid"])))))
+    rt.start()
+    rt.get_input_handler("Fill").send_batch(
+        {"tid": np.arange(JOIN_TABLE, dtype=np.int64), "threshold": thr,
+         "band": band}, timestamps=np.full(JOIN_TABLE, 1_000_000, np.int64))
+    h = rt.get_input_handler("L")
+    chunks = []
+    for ci in range(JOIN_WARM + JOIN_CHUNKS):
+        chunks.append({"id": ci * JOIN_CHUNK + np.arange(JOIN_CHUNK,
+                                                         dtype=np.int64),
+                       "price": rng.uniform(0, 100, JOIN_CHUNK)
+                       .astype(np.float32)})
+    for ci, cols in enumerate(chunks[:JOIN_WARM]):
+        h.send_batch(cols, timestamps=np.full(JOIN_CHUNK, 1_001_000 + ci,
+                                              np.int64))
+    timed = chunks[JOIN_WARM:]
+
+    def drive():
+        t = time.perf_counter()
+        for ci, cols in enumerate(timed):
+            h.send_batch(cols, timestamps=np.full(
+                JOIN_CHUNK, 1_002_000 + ci, np.int64))
+        rt.flush()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    _peak_reset(dev)
+    stage0 = dict(ledger().snapshot()["stage_seconds"])
+    n_warm_out = len(got)
+    jp.probe_compact.launches = 0          # counts start here
+    wall, per_kernel, dev_us = profile_device(drive)
+    launches = jp.probe_compact.launches
+    stage1 = ledger().snapshot()["stage_seconds"]
+    stages = {k: stage1[k] - stage0.get(k, 0.0) for k in stage1}
+    peak = torch.cuda.max_memory_allocated(dev)
+    cap = jr._probe_cap
+    rt.shutdown()
+    n_events = len(timed) * JOIN_CHUNK
+    res = _cell_report("join cell", n_events, len(timed), wall, per_kernel,
+                       dev_us, stages, launches, JOIN_KERNELS)
+    res.update(peak=peak, cap=cap, probes_per_s=launches / wall,
+               pairs_per_s=n_events * JOIN_TABLE / wall)
+    log(f"  {launches} probes, {launches / wall:.1f} probes/s "
+        f"({n_events * JOIN_TABLE / wall:.4g} pairs/s); cap grew to {cap}; "
+        f"peak device memory {peak} B")
+    if launches < len(timed):
+        raise AssertionError(f"K11 launched {launches} times")
+    # every chunk's pairs in order: a chunk's output may arrive in more
+    # than one callback, so the rows are joined and cut per chunk
+    lid = np.concatenate([a for a, _ in got]) if got else np.zeros(0)
+    tid = np.concatenate([b for _, b in got]) if got else np.zeros(0)
+    sel = band == 3
+    pos = 0
+    rows = 0
+    for ci, cols in enumerate(chunks):
+        m = (cols["price"][:, None] > thr[None, :]) & sel[None, :]
+        i, j = np.nonzero(m)
+        k = len(i)
+        if not (np.array_equal(lid[pos:pos + k], cols["id"][i]) and
+                np.array_equal(tid[pos:pos + k], j)):
+            raise AssertionError(f"join cell: chunk {ci}'s {k} pairs differ "
+                                 f"from the reference")
+        pos += k
+        rows += k if ci >= JOIN_WARM else 0
+    if pos != len(lid):
+        raise AssertionError(f"join cell: {len(lid)} rows, reference {pos}")
+    log(f"  join cell: {JOIN_WARM + JOIN_CHUNKS} chunks' {pos} pairs == "
+        f"numpy reference in order ({n_warm_out} warm-up callbacks)")
+    res["rows"] = rows
+    return res
+
+
 # ------------------------------------------------------------------ main
 
 def main(argv=None) -> int:
@@ -5141,6 +5698,33 @@ def main(argv=None) -> int:
     t21 = time.perf_counter()
     wc = run_window_cell(wnames, wchunks[:WINDOW_CHUNKS], dev)
     log(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
+
+    log("== phase 22: K10 (iagg_fold.cu) vs its plain twin on the card")
+    t22 = time.perf_counter()
+    k10chk = check_iagg(dev, args.seed)
+    k10t = time_iagg(dev, args.seed)
+    log(f"  phase 22 took {time.perf_counter() - t22:.1f} s; "
+        f"{k10chk['cases']} folds bit for bit, max abs err "
+        f"{k10chk['max_abs_err']}")
+
+    log("== phase 23: aggregation cell (TradeAgg, sec ... hour, 1,024 "
+        "symbols) on DeviceAggregationRuntime")
+    t23 = time.perf_counter()
+    ac23 = run_iagg_cell(dev, args.seed)
+    log(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
+
+    log("== phase 24: K11 (join_probe.cu) vs its plain twin on the card")
+    t24 = time.perf_counter()
+    k11chk = check_probe(dev, args.seed)
+    k11t = time_probe(dev, args.seed)
+    log(f"  phase 24 took {time.perf_counter() - t24:.1f} s; "
+        f"{k11chk['cases']} cases bit for bit")
+
+    log("== phase 25: join cell (a range stream-table join, 10,000 rows, "
+        "16,384-event chunks) on the device probe")
+    t25 = time.perf_counter()
+    jc25 = run_join_cell(dev, args.seed)
+    log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     def timing(minmax):
@@ -5308,6 +5892,30 @@ def main(argv=None) -> int:
         "by_kind": k9t,
         "window_cell": cell_k(wc, ["dwin_prep", "dwin_decide", "dwin_scan",
                                    "dwin_scatter"])}]
+    kernels += [{
+        # K10: the aggregation cell (phase 23) is its main path; a launch
+        # is one fold, the radix passes, the walk and the settle
+        "name": "iagg_fold", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/iagg_fold.cu",
+        "replaces": "siddhi_tpu/ops/incremental_agg.py:64",
+        "checked": True, "launches": ac23["launches"], **k10chk,
+        **{k: k10t["cell"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "shape")},
+        "library_ms": None, "one_slot": k10t["one_slot"],
+        "aggregation_cell": cell_k(ac23, IAGG_KERNELS) | {
+            k: ac23.get(k) for k in ("slots", "rows_seconds",
+                                     "rows_hours")}}, {
+        # K11: the join cell (phase 25) is its main path; a launch is one
+        # compaction, three kernels on one stream
+        "name": "probe_compact", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/join_probe.cu",
+        "replaces": "siddhi_tpu/core/join.py:367",
+        "checked": True, "launches": jc25["launches"], **k11chk,
+        **{k: k11t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "shape")},
+        "join_cell": cell_k(jc25, JOIN_KERNELS) | {
+            k: jc25.get(k) for k in ("cap", "probes_per_s",
+                                     "pairs_per_s")}}]
     # the filter cell runs no hand kernel (torch programs): a cell of the
     # line of its own
     print(json.dumps({"kernels": kernels,

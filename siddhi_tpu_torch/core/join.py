@@ -27,6 +27,7 @@ from ..plan.expr_compiler import CompiledExpr, EvalCtx, Scope
 from ..query_api import (EventTrigger, Filter, JoinInputStream, JoinType,
                          StreamFunctionHandler, WindowHandler)
 from ..query_api.definition import Attribute, StreamDefinition
+from ..query_api.expression import expr_children
 from ..utils.errors import SiddhiAppCreationError
 from .event import CURRENT, EXPIRED, TIMER, EventChunk
 from .processor import Processor
@@ -235,8 +236,7 @@ class JoinRuntime:
             self.device_probe_reason = \
                 "device join probe: aggregation sides are host-only"
         else:
-            # the device probe is a later slice of the torch port
-            self.device_probe_reason = "join probe not yet ported"
+            self._try_build_device_probe(jis, scope)
 
         qr._finish_chain([], scope, self.union_def, factory)
         self.head = qr._chain_head([])
@@ -261,6 +261,270 @@ class JoinRuntime:
     def windows(self) -> List[WindowProcessor]:
         return [w for w in (self.left.window, self.right.window)
                 if w is not None]
+
+    # ------------------------------------------------------- device probe
+
+    def _try_build_device_probe(self, jis, scope) -> None:
+        """Build the device probe (the JAX package's, with the condition
+        as a torch program on the app's device and the compaction in
+        ``ops/join_probe``).  A condition that cannot compile or run as a
+        torch program records ``device_probe_reason`` and keeps the host
+        mask; a missing CUDA device, a failed build or a failed launch
+        raises ``RuntimeError``."""
+        from ..query_api.definition import AttrType
+        from ..query_api.expression import variables_of
+        from ..plan.expr_compiler import ExprCompiler as _EC
+
+        from ..query_api.expression import MathExpr
+
+        def _fail(reason):
+            self.device_probe_reason = "device join probe: " + reason
+
+        # timestamp functions would read a zeros placeholder in the probe
+        # ctx — the sibling device paths reject them the same way
+        from ..plan.planner import _is_time_fn, _scan_fns
+        if _scan_fns(jis.on, _is_time_fn):
+            return _fail("timestamp functions need int64 host evaluation")
+
+        types = {}
+        for s in (self.left, self.right):
+            for a in s.definition.attributes:
+                types.setdefault((s.ref, a.name), a.type)
+                types.setdefault((s.stream_id, a.name), a.type)
+                types.setdefault((None, a.name), a.type)
+
+        # STRING compares (equality AND order, var-vs-var/var-vs-const)
+        # and exact DOUBLE compares rewrite onto per-probe lanes —
+        # order-preserving rank codes / monotone 64-bit keys split into
+        # i32 pairs (plan/join_lanes.py)
+        from ..plan.join_lanes import JoinLanes, JoinRewriteError
+        jl = JoinLanes(types)
+        try:
+            dev_cond = jl.rewrite(jis.on)
+        except JoinRewriteError as ve:
+            return _fail(str(ve))
+        self._jlanes = jl
+
+        # INT/LONG variables are range-guarded per column (2^24), but
+        # arithmetic ON them (L.id * R.id) can leave the exact range even
+        # when the columns are inside it — reject at build
+        def int_in_math(e, inside=False) -> bool:
+            from ..query_api.expression import Variable as _V
+            if isinstance(e, _V) and inside and \
+                    types.get((e.stream_id, e.attribute)) in \
+                    (AttrType.INT, AttrType.LONG):
+                return True
+            inside = inside or isinstance(e, MathExpr)
+            return any(int_in_math(x, inside) for x in expr_children(e))
+        if int_in_math(jis.on):
+            return _fail("arithmetic on INT/LONG attributes can leave the "
+                         "f32 exact-integer range")
+
+        for v in variables_of(jis.on):
+            t = types.get((v.stream_id, v.attribute))
+            if t is None:
+                continue            # resolution errors surface on host
+            if t == AttrType.OBJECT:
+                return _fail(f"non-numeric attribute '{v.attribute}'")
+
+        import torch
+
+        from ..ops.join_probe import probe_compact
+        from ..ops.windowed_agg import kernel_device
+        from ..plan.expr_compiler import TorchXP
+        from ..plan.wagg_compiler import _EXPR_REJECTIONS
+        dev = kernel_device(self.qr.app_runtime.app_ctx.siddhi_context
+                            .device)
+        xp = TorchXP(dev)
+        # device scope: numeric attrs mirror the joined scope's wiring;
+        # string/double attrs never reach the program raw — the rewritten
+        # condition reads their per-probe lanes (exact i32 columns)
+        lane_map = jl.lane_map()
+        dev_scope = Scope()
+        seen_u: set = set()
+        refs = []
+        for s in (self.left, self.right):
+            side_attrs = {a.name for a in s.definition.attributes}
+            entries = [(a.name, a.type)
+                       for a in s.definition.attributes
+                       if a.type not in (AttrType.STRING,
+                                         AttrType.DOUBLE,
+                                         AttrType.OBJECT)]
+            entries += [(lane, AttrType.INT)
+                        for (lane, src) in lane_map
+                        if src is None or src in side_attrs]
+            for name, t in entries:
+                def g(ctx, _r=s.ref, _a=name):
+                    return ctx.qualified[(_r, 0)][_a]
+                dev_scope.add(s.ref, name, t, g)
+                if s.stream_id != s.ref:
+                    dev_scope.add(s.stream_id, name, t, g)
+                if name not in seen_u:
+                    seen_u.add(name)
+                    dev_scope.add(None, name, t, g)
+            keys = [s.ref] + ([s.stream_id] if s.stream_id != s.ref else [])
+            refs.append((keys, [name for name, _t in entries]))
+        try:
+            dev_on = _EC(dev_scope, xp).compile(dev_cond)
+        except Exception as e:  # noqa: BLE001 — any compile failure → host
+            return _fail(f"condition not device-compilable ({e})")
+
+        def condition(lcols, rcols, nl2, nr2):
+            """The on-condition over the [nl2, nr2] cross product, as a
+            contiguous bool mask (a torch program)."""
+            q = {}
+            for (keys, names), cols, expand in (
+                    (refs[0], lcols, 0), (refs[1], rcols, 1)):
+                cc = {a: (cols[a][:, None] if expand == 0
+                          else cols[a][None, :]) for a in names
+                      if a in cols}
+                for k in keys:
+                    q[(k, 0)] = cc
+            ctx = EvalCtx({}, torch.zeros((1,), dtype=torch.int32,
+                                          device=dev), nl2 * nr2,
+                          qualified=q)
+            m = torch.broadcast_to(xp.tensor(dev_on.fn(ctx), torch.bool),
+                                   (nl2, nr2))
+            return m if m.is_contiguous() else m.contiguous()
+
+        def probe(lcols, rcols, nl, nr, nl2, nr2, cap):
+            # device-side compaction: the first-cap matching pair indices
+            # (row-major == host emission order) + the true count
+            return probe_compact(condition(lcols, rcols, nl2, nr2),
+                                 nl, nr, cap)
+
+        # run the condition at [1, 1] now, so one the torch program
+        # cannot take (functions, scripts, table membership) rejects at
+        # build time; a failed copy, allocation or launch raises as it is
+        warm = {}
+        for (_keys, names), s in ((refs[0], self.left),
+                                  (refs[1], self.right)):
+            warm[s.side] = {
+                nm: torch.zeros((1,), dtype=torch.int32
+                                if nm.startswith("__") else torch.float32,
+                                device=dev)
+                for nm in names}
+        try:
+            condition(warm["left"], warm["right"], 1, 1)
+        except _EXPR_REJECTIONS as e:
+            return _fail(f"condition not device-traceable ({e})")
+        from ..plan.shapes import shape_registry
+        self._probe_jit = shape_registry().jit(
+            "join.probe",
+            {"lcols": len(refs[0][1]), "rcols": len(refs[1][1])},
+            probe)
+        self._probe_cap = 4096
+        self._probe_device = dev
+        self._probe_jit(warm["left"], warm["right"], 0, 0, 1, 1, 4)
+        self.device_probe = probe
+        # build-time constants of the probe hot path: raw columns the
+        # lane encode replaces (strings/doubles) or that never feed
+        # the program (objects)
+        self._probe_skip = {
+            s.side: {a.name for a in s.definition.attributes
+                     if a.type in (AttrType.STRING, AttrType.DOUBLE,
+                                   AttrType.OBJECT)}
+            for s in (self.left, self.right)}
+        # condition-referenced attrs per definition: a referenced
+        # column that arrives object-typed (outer-join nulls upstream)
+        # must force the host mask, not vanish from the feed
+        self._cond_attrs = {v.attribute for v in variables_of(jis.on)}
+        self._int24 = [
+            (s.side, a.name)
+            for s in (self.left, self.right)
+            for a in s.definition.attributes
+            if a.type in (AttrType.INT, AttrType.LONG)]
+
+    def _device_pairs(self, side: JoinSide, data: EventChunk,
+                      buf: EventChunk):
+        """(sel_data, sel_buf) matching-pair indices in host emission
+        order via the device probe, or None when a runtime guard (int
+        2^24 exactness) demands the host path."""
+        import torch
+
+        from ..ops import join_probe as _join_probe
+        dev = self._probe_device
+        left_first = side.side == "left"
+        chunks = {"left": data if left_first else buf,
+                  "right": buf if left_first else data}
+        nl, nr = len(chunks["left"]), len(chunks["right"])
+        # pow2 padding keeps the JAX package's flat indices (and its
+        # retrace bound, log(max shape) per axis)
+        nl2 = 1 << max(nl - 1, 0).bit_length()
+        nr2 = 1 << max(nr - 1, 0).bit_length()
+        # flat indices are int32, as in the JAX package: a larger probe
+        # runs in blocks of rb rows, each block's indices offset on the
+        # host in int64 (the blocks, in row order, keep row-major order)
+        rb = nl2
+        while rb > 0 and rb * nr2 > _join_probe.MAX_CELLS:
+            rb //= 2
+        if rb == 0:
+            raise ValueError(
+                f"device join probe: {nr} opposite events exceed one "
+                f"probe row of int32 indices")
+        skip = self._probe_skip
+        host = {}
+        for sd, c in chunks.items():
+            cc = {}
+            for a in c.names:
+                if a in skip[sd]:
+                    continue           # lanes carry strings/doubles
+                col = c.columns[a]
+                if col.dtype == object:
+                    if a in self._cond_attrs:
+                        # a numeric column promoted to object (nulls
+                        # from an upstream outer join): host mask owns
+                        # null-compare semantics
+                        return None
+                    continue
+                if (sd, a) in self._int24 and len(col) \
+                        and np.abs(np.asarray(col, np.int64)).max() >= \
+                        (1 << 24):
+                    return None     # would round on f32 lanes
+                cc[a] = np.asarray(col, np.float32)
+            host[sd] = cc
+        if self._jlanes.any:
+            enc = self._jlanes.encode(
+                chunks["left"].columns, nl, chunks["right"].columns, nr)
+            if enc is None:
+                return None     # null strings / NaN doubles → host mask
+            for sd, lanes in (("left", enc[0]), ("right", enc[1])):
+                for name, arr in lanes.items():
+                    host[sd][name] = np.asarray(arr, np.int32)
+        cols = {}
+        for sd, want in (("left", nl2), ("right", nr2)):
+            cc = {}
+            for a, v in host[sd].items():
+                if len(v) != want:
+                    v = np.concatenate([v, np.zeros(want - len(v), v.dtype)])
+                cc[a] = torch.from_numpy(v).to(dev)
+            cols[sd] = cc
+        parts = []
+        for i0 in range(0, max(nl, 1), rb):
+            lcols = cols["left"] if rb == nl2 else \
+                {a: v[i0:i0 + rb] for a, v in cols["left"].items()}
+            nlb = min(rb, nl - i0)
+            while True:
+                idx, count = self._probe_jit(lcols, cols["right"], nlb, nr,
+                                             rb, nr2, self._probe_cap)
+                count = int(count)
+                if count <= self._probe_cap:
+                    break
+                # overflow: grow the compaction buffer and re-run —
+                # results stay exact
+                cap = self._probe_cap
+                while cap < count:
+                    cap *= 2
+                self._probe_cap = cap
+            parts.append(idx[:count].cpu().numpy().astype(np.int64)
+                         + i0 * nr2)
+        idx = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        li, rj = idx // nr2, idx % nr2
+        if not left_first:
+            li, rj = rj, li
+            order = np.lexsort((rj, li))    # host order: data-major
+            li, rj = li[order], rj[order]
+        return li, rj
 
     # ------------------------------------------------------------ event flow
 
@@ -372,23 +636,29 @@ class JoinRuntime:
             return
 
         # cross product: row i of data × row j of buffer
-        li = np.repeat(np.arange(n), m)
-        rj = np.tile(np.arange(m), n)
-        if self.on is not None:
-            qualified = {}
-            for s, c, idx in ((side, data, li), (opposite, buf, rj)):
-                cols = {a: c.columns[a][idx] for a in c.names}
-                qualified[(s.ref, 0)] = cols
-                if s.stream_id != s.ref:
-                    qualified[(s.stream_id, 0)] = cols
-            ctx = EvalCtx({}, data.timestamps[li], n * m,
-                          qualified=qualified)
-            mask = np.asarray(self.on.fn(ctx), bool)
-            if mask.ndim == 0:
-                mask = np.full(n * m, bool(mask))
+        sel = None
+        if self.device_probe is not None:
+            sel = self._device_pairs(side, data, buf)
+        if sel is not None:
+            sel_l, sel_r = sel
         else:
-            mask = np.ones(n * m, bool)
-        sel_l, sel_r = li[mask], rj[mask]
+            li = np.repeat(np.arange(n), m)
+            rj = np.tile(np.arange(m), n)
+            if self.on is not None:
+                qualified = {}
+                for s, c, idx in ((side, data, li), (opposite, buf, rj)):
+                    cols = {a: c.columns[a][idx] for a in c.names}
+                    qualified[(s.ref, 0)] = cols
+                    if s.stream_id != s.ref:
+                        qualified[(s.stream_id, 0)] = cols
+                ctx = EvalCtx({}, data.timestamps[li], n * m,
+                              qualified=qualified)
+                mask = np.asarray(self.on.fn(ctx), bool)
+                if mask.ndim == 0:
+                    mask = np.full(n * m, bool(mask))
+            else:
+                mask = np.ones(n * m, bool)
+            sel_l, sel_r = li[mask], rj[mask]
         if outer_this:
             matched = np.zeros(n, bool)
             matched[sel_l] = True

@@ -304,7 +304,8 @@ class SiddhiAppRuntime:
         for fid, fd in app.function_definitions.items():
             self.app_ctx.script_functions[fid] = ScriptFunction(fd)
         # 6. aggregations (planner: slab-tensor device ingest unless the
-        # app pins @app:engine('host') or device setup fails)
+        # app pins @app:engine('host') or the shape has no slab lane; a
+        # device failure — no CUDA, a failed build or launch — raises)
         for aid, ad in app.aggregation_definitions.items():
             from ..plan.planner import engine_mode
             from .aggregation import AggregationRuntime
@@ -313,15 +314,8 @@ class SiddhiAppRuntime:
                 try:
                     from ..plan.iagg_compiler import DeviceAggregationRuntime
                     ar = DeviceAggregationRuntime(ad, self)
-                except TypeError:
+                except (TypeError, SiddhiAppCreationError):
                     ar = None     # unsupported shape (e.g. string lanes)
-                except Exception:
-                    import logging
-                    logging.getLogger(__name__).warning(
-                        "aggregation '%s': device slab path failed, "
-                        "falling back to the host cascade", aid,
-                        exc_info=True)
-                    ar = None
             if ar is None:
                 ar = AggregationRuntime(ad, self)
             self.aggregations[aid] = ar

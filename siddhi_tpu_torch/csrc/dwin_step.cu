@@ -66,6 +66,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "radix.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -338,31 +340,6 @@ __device__ __forceinline__ int pass_digit(const Prog& p, const Ptrs& q,
       (kMaxBins - 1));
 }
 
-// The CTA's stable rank of each thread's digit (d < bins; d == bins: no
-// item) among the CTA's threads of that digit; the CTA's count of each
-// digit into cnt[bins].
-__device__ int cta_digit_rank(int d, int bins, int* cnt) {
-  __shared__ int wc[kWarps][kMaxBins];
-  const int tid = threadIdx.x;
-  const int lid = tid & 31, wid = tid >> 5;
-  for (int i = tid; i < kWarps * kMaxBins; i += kB) wc[i / kMaxBins][i % kMaxBins] = 0;
-  __syncthreads();
-  const unsigned m = __match_any_sync(kFull, d);
-  const int lr = __popc(m & ((1u << lid) - 1u));
-  if (lr == 0 && d < bins) wc[wid][d] = __popc(m);
-  __syncthreads();
-  int before = 0;
-  if (d < bins)
-    for (int w = 0; w < wid; ++w) before += wc[w][d];
-  if (tid < bins) {
-    int t = 0;
-    for (int w = 0; w < kWarps; ++w) t += wc[w][tid];
-    cnt[tid] = t;
-  }
-  __syncthreads();
-  return before + lr;
-}
-
 __global__ void __launch_bounds__(kB)
 dwin_radix_count(Prog p, Ptrs q, Pass a) {
   __shared__ int cnt[kMaxBins];
@@ -370,7 +347,7 @@ dwin_radix_count(Prog p, Ptrs q, Pass a) {
   const int L = fill + q.g[0];
   const int i = blockIdx.x * kB + threadIdx.x;
   const int d = i < L ? pass_digit(p, q, a, pass_item(a, i), fill) : a.bins;
-  cta_digit_rank(d, a.bins, cnt);
+  radix::cta_digit_rank<kB, kMaxBins>(d, a.bins, cnt);
   if (threadIdx.x < a.bins)
     q.rcnt[threadIdx.x * gridDim.x + blockIdx.x] = cnt[threadIdx.x];
 }
@@ -378,34 +355,9 @@ dwin_radix_count(Prog p, Ptrs q, Pass a) {
 // one CTA a digit: its per-CTA counts to exclusive offsets, its total
 __global__ void __launch_bounds__(kScanThreads)
 dwin_radix_scan(Ptrs q, int nb) {
-  __shared__ int ws[kScanThreads / 32];
-  __shared__ int carry_in;
-  const int tid = threadIdx.x;
-  const int lid = tid & 31, wid = tid >> 5;
   int* c = q.rcnt + static_cast<size_t>(blockIdx.x) * nb;
-  if (tid == 0) carry_in = 0;
-  __syncthreads();
-  for (int b0 = 0; b0 < nb; b0 += kScanThreads) {
-    const int b = b0 + tid;
-    const int v = b < nb ? c[b] : 0;
-    int inc = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(kFull, inc, o);
-      if (lid >= o) inc += u;
-    }
-    if (lid == 31) ws[wid] = inc;
-    __syncthreads();
-    int pre = 0, tot = 0;
-    for (int w = 0; w < kScanThreads / 32; ++w) {
-      if (w < wid) pre += ws[w];
-      tot += ws[w];
-    }
-    if (b < nb) c[b] = carry_in + pre + inc - v;
-    __syncthreads();
-    if (tid == 0) carry_in += tot;
-    __syncthreads();
-  }
-  if (tid == 0) q.rtot[blockIdx.x] = carry_in;
+  const int tot = radix::cta_exclusive_scan<kScanThreads>(c, nb);
+  if (threadIdx.x == 0) q.rtot[blockIdx.x] = tot;
 }
 
 __global__ void __launch_bounds__(kB)
@@ -416,7 +368,7 @@ dwin_radix_scatter(Prog p, Ptrs q, Pass a) {
   const int i = blockIdx.x * kB + threadIdx.x;
   const int item = i < L ? pass_item(a, i) : 0;
   const int d = i < L ? pass_digit(p, q, a, item, fill) : a.bins;
-  const int r = cta_digit_rank(d, a.bins, cnt);
+  const int r = radix::cta_digit_rank<kB, kMaxBins>(d, a.bins, cnt);
   if (i < L) {
     int base = q.rcnt[d * gridDim.x + blockIdx.x];
     for (int e = 0; e < d; ++e) base += q.rtot[e];

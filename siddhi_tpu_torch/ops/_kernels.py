@@ -3,9 +3,10 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, at first use, and loaded with
 ``ctypes``.  Libraries land in ``siddhi_tpu_torch/_build/`` named by a
-hash of their source and flags, so an edited source rebuilds and an
-unchanged one is reused within a checkout.  No PyTorch headers are
-involved: a build takes seconds, not minutes.
+hash of their source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused within a checkout.  No PyTorch headers are involved: a build
+takes seconds, not minutes.
 
 :func:`build_all` starts one ``nvcc`` per source at once (used by
 ``chip_smoke.py``); :func:`load_kernel` builds (if needed) and loads one.
@@ -70,6 +71,20 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         # cudaEvent_t handles recorded at the passes' boundaries, count
         "gagg_time_passes": (_I, [_VP, _I]),
     },
+    "iagg_fold": {
+        # base_vals, seg, vals, comp (or null), cnt, fns (host ints), n, S,
+        # B, scratch, scratch bytes, stream
+        "iagg_fold": (_I, [_VP] * 6 + [_I] * 3 + [_VP, _LL, _VP]),
+        # n, S -> bytes of device scratch a fold needs
+        "iagg_scratch_bytes": (_LL, [_I, _I]),
+    },
+    "join_probe": {
+        # mask (u8), nl, nr, nl2, nr2, cap, idx out, count out, scratch,
+        # scratch bytes, stream
+        "probe_compact": (_I, [_VP] + [_I] * 5 + [_VP] * 3 + [_LL, _VP]),
+        # nl2, nr2 -> bytes of device scratch a compaction needs
+        "probe_scratch_bytes": (_LL, [_I, _I]),
+    },
     "nfa_step": {
         # attrs, ts, stream, gates, prog, prog_len,
         # carry in (ops/nfa.KERNEL_CARRY: st, start, enter, seq, arm_seq,
@@ -108,10 +123,15 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
+    # the shared headers (csrc/*.cuh) are hashed with every source, so an
+    # edit to one rebuilds the sources that include it
+    srcs = [os.path.join(CSRC, name + ".cu")] + sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC)
+        if f.endswith(".cuh"))
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for src in srcs:
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -6,8 +6,13 @@ shape class (``kind`` plus static dims).  PyTorch runs eagerly and the
 port's kernels are built once per process (``ops/_kernels.py``), so
 there is nothing to trace: :meth:`ShapeRegistry.jit` keeps the same
 surface, records the shape class and counts calls, and returns the step
-unchanged.  The compile counters stay at zero; ``configure_compile_cache``
-reports that a persistent compile cache does not apply.
+wrapped.  A wrapped step's first call is the port's counterpart of an
+XLA compile (on the card it includes the kernel library's load and, at
+first use, its ``nvcc`` build): it is timed, counted on the entry
+(``compiles``, ``compile_seconds``, ``last_compile_unix``) and written
+to the flight ring as a compile row, as the JAX package's
+``_note_compile`` does.  ``configure_compile_cache`` reports that a
+persistent compile cache does not apply.
 
 The signature helper is the JAX package's own (plan-IR dumps and
 schema reports pin the key format).
@@ -15,6 +20,7 @@ schema reports pin the key format).
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Dict, List
 
 
@@ -58,10 +64,12 @@ def configure_compile_cache() -> Dict[str, Any]:
 
 
 class ShapeEntry:
-    """Per-shape-class ledger line (calls only; no compiles under torch)."""
+    """Per-shape-class ledger line: calls, and the first calls of its
+    steps as compiles."""
 
     __slots__ = ("signature", "kind", "dims", "calls", "triggers",
-                 "last_trigger")
+                 "last_trigger", "compiles", "compile_seconds",
+                 "last_compile_unix")
 
     def __init__(self, signature: str, kind: str, dims: Dict[str, Any]):
         self.signature = signature
@@ -70,29 +78,48 @@ class ShapeEntry:
         self.calls = 0
         self.triggers: Dict[str, int] = {}
         self.last_trigger = ""
+        self.compiles = 0
+        self.compile_seconds = 0.0
+        self.last_compile_unix = 0.0
 
     def as_dict(self) -> Dict[str, Any]:
         return {"signature": self.signature, "kind": self.kind,
-                "dims": dict(self.dims), "compiles": 0,
-                "compile_seconds": 0.0, "blocked_seconds": 0.0,
+                "dims": dict(self.dims), "compiles": self.compiles,
+                "compile_seconds": self.compile_seconds,
+                "blocked_seconds": self.compile_seconds,
                 "cache_hits": 0, "cache_misses": 0,
                 "calls": self.calls, "triggers": dict(self.triggers),
                 "last_trigger": self.last_trigger,
-                "last_compile_unix": 0.0, "prewarmed": False}
+                "last_compile_unix": self.last_compile_unix,
+                "prewarmed": False}
 
 
 class RegisteredStep:
-    """The registry's wrapper around one built step: counts calls."""
+    """The registry's wrapper around one built step: counts calls, and
+    notes its first call as the shape class's compile."""
 
-    __slots__ = ("fn", "entry")
+    __slots__ = ("fn", "entry", "registry", "trigger", "_first")
 
-    def __init__(self, fn: Callable, entry: ShapeEntry):
+    def __init__(self, fn: Callable, entry: ShapeEntry,
+                 registry: "ShapeRegistry", trigger: str):
         self.fn = fn
         self.entry = entry
+        self.registry = registry
+        self.trigger = trigger
+        self._first = True
 
     def __call__(self, *args, **kwargs):
-        self.entry.calls += 1
-        return self.fn(*args, **kwargs)
+        if not self._first:
+            self.entry.calls += 1
+            return self.fn(*args, **kwargs)
+        self._first = False
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.entry.calls += 1
+            self.registry._note_compile(self.entry, self.trigger,
+                                        time.perf_counter() - t0)
 
 
 class ShapeRegistry:
@@ -118,13 +145,28 @@ class ShapeRegistry:
         with self._lock:
             e.triggers[trigger] = e.triggers.get(trigger, 0) + 1
             e.last_trigger = trigger
-        return RegisteredStep(fn, e)
+        return RegisteredStep(fn, e, self, trigger)
+
+    def _note_compile(self, e: ShapeEntry, trigger: str,
+                      seconds: float) -> None:
+        """One first call: the entry's counters and a compile row on the
+        flight ring (``core/flight.record_compile``)."""
+        with self._lock:
+            e.compiles += 1
+            e.compile_seconds += seconds
+            e.last_trigger = trigger
+            e.last_compile_unix = time.time()
+        from ..core.flight import flight
+        flight().record_compile(e.kind, e.signature, trigger, seconds)
 
     def totals(self) -> Dict[str, Any]:
         with self._lock:
-            n = len(self._entries)
-        return {"shape_classes": n, "compiles": 0, "compile_seconds": 0.0,
-                "blocked_seconds": 0.0, "cache_hits": 0, "cache_misses": 0}
+            entries = list(self._entries.values())
+        secs = sum(e.compile_seconds for e in entries)
+        return {"shape_classes": len(entries),
+                "compiles": sum(e.compiles for e in entries),
+                "compile_seconds": secs, "blocked_seconds": secs,
+                "cache_hits": 0, "cache_misses": 0}
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:

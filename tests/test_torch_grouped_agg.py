@@ -205,6 +205,27 @@ def test_sentinel_plane_and_int_reassembly_equal_jax():
             J.reassemble_int_sums(ihi, ilo)).all()
 
 
+def test_sentinel_plane_counts_flags():
+    """tests/test_numguard.py's case of the same name (it builds its
+    planes with jax.numpy), on the port's torch tensors."""
+    near = int(0.95 * (1 << 31))
+    hi, lo = near // 65536, near % 65536
+    fsum_hi = torch.tensor([[1.0, float("inf")], [float("nan"), 2.0]],
+                           dtype=torch.float32)
+    isum_hi = torch.tensor([[hi, 0], [0, 0]], dtype=torch.int32)
+    isum_lo = torch.tensor([[lo, 0], [0, 0]], dtype=torch.int32)
+    gcnt = torch.tensor([[2_000_000_000, 3], [1, 0]], dtype=torch.int32)
+    plane = G.sentinel_plane(fsum_hi, isum_hi, isum_lo, gcnt)
+    assert plane.tolist() == [1, 1, 2]     # near-int, near-cnt, nonfinite
+
+
+def test_sentinel_plane_all_clear():
+    """tests/test_numguard.py's case of the same name, on torch tensors."""
+    z = torch.zeros((3, 4), dtype=torch.int32)
+    f = torch.ones((3, 4), dtype=torch.float32)
+    assert G.sentinel_plane(f, z, z, z).tolist() == [0, 0, 0]
+
+
 def _sparse_tree_model(vals, live_slots, width):
     """csrc/grouped_agg.cu sparse_tree in numpy float32: the pairwise
     two-float tree over `width` leaves computed only above the live

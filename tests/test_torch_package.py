@@ -10,7 +10,9 @@
   "not yet ported" in the recorded reason, and raise under 'device'
   (for patterns: a pattern outside the CUDA NFA kernel's class, on a
   CUDA device); the shapes ported since (filters, grouped and time-window
-  aggregation) build on the device engine under both.
+  aggregation, the join probe) build on the device engine under both;
+- a registered step's first call writes a compile row to the flight
+  ring and counts on its shape class.
 """
 import ast
 import os
@@ -57,6 +59,8 @@ def test_import_pulls_in_no_jax():
             "from siddhi_tpu_torch.plan import nfa_compiler\n"
             "from siddhi_tpu_torch.ops import windowed_agg, _kernels, nfa\n"
             "from siddhi_tpu_torch.ops import grouped_agg, select\n"
+            "from siddhi_tpu_torch.ops import incremental_agg, join_probe\n"
+            "from siddhi_tpu_torch.plan import iagg_compiler\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'siddhi_tpu' not in sys.modules, 'siddhi_tpu imported'\n")
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -118,19 +122,19 @@ UNPORTED = {
         define stream S (sym string, price float);
         from every e1=S[price > 5.0], e2=S[price < e1.price]
         select e1.sym as a insert into Out;""", False),
-    # the join's buffers run on the host; its device probe is unported
+}
+
+#: shapes that were in UNPORTED until the grouped-aggregation, filter,
+#: time-window aggregation (K6) runtimes and the join probe (K11) were
+#: ported: each now builds on the device engine (a join: its buffers on
+#: the host, its probe on the device)
+PORTED = {
     "join": ("""
         define stream S (sym string, price float);
         define stream R (sym string, v float);
         from S#window.length(3) join R#window.length(3)
         on S.sym == R.sym select S.sym as a, R.v as v insert into Out;""",
-             False),
-}
-
-#: shapes that were in UNPORTED until the grouped-aggregation, filter and
-#: time-window aggregation (K6) runtimes were ported: each now builds on
-#: the device engine
-PORTED = {
+             False, "JoinRuntime"),
     "partition_time_window": ("""
         define stream S (sym string, price float);
         partition with (sym of S) begin
@@ -199,7 +203,11 @@ def test_ported_kind_builds_on_device(name, engine):
         else:
             (qr,) = rt.query_runtimes.values()
         assert qr.backend == "device", qr.backend_reason
-        assert type(qr.device_runtime).__name__ == runtime
+        if qr.join_runtime is not None:
+            assert qr.join_runtime.device_probe is not None
+            assert type(qr.join_runtime).__name__ == runtime
+        else:
+            assert type(qr.device_runtime).__name__ == runtime
     finally:
         rt.shutdown()
 
@@ -280,6 +288,46 @@ def test_plan_verify_records_jaxpr_pass_as_skipped():
         rep = attach_plan_analysis(rt, jaxpr=True)
         assert rep.skipped and "not run under torch" in rep.skipped[0]
         assert rt.partition_runtimes[0].device_mode
+    finally:
+        rt.shutdown()
+
+
+FLIGHT_APP = """
+@app:name('compilerow')
+@app:statistics(reporter='console', interval='300', telemetry='true')
+define stream S (sym string, price float);
+@info(name='q')
+from every e1=S[price > 10.0] -> e2=S[price > e1.price]
+select e1.price as p1, e2.price as p2 insert into Out;
+"""
+
+
+def test_first_call_writes_compile_row(tmp_path, monkeypatch):
+    """The port's counterpart of an XLA compile: a step's first call is
+    timed, counted on its shape class and written to the flight ring,
+    so an on-demand bundle carries a "compile" row, as the JAX
+    package's does."""
+    from siddhi_tpu_torch.core.flight import DIR_ENV, flight
+    from siddhi_tpu_torch.plan.shapes import shape_registry
+    monkeypatch.setenv(DIR_ENV, str(tmp_path))
+    before = shape_registry().totals()["compiles"]
+    rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(FLIGHT_APP)
+    try:
+        rt.start()
+        h = rt.get_input_handler("S")
+        for p in (12.0, 15.0, 11.0, 20.0):
+            h.send(["A", p])
+        rt.flush()
+        bundle = flight().emit("on_demand", app="compilerow", runtime=rt)
+        rows = [r for r in bundle["ring"] if "compile" in r]
+        assert rows and rows[-1]["kernel"].startswith("nfa.")
+        assert rows[-1]["blocked_s"] >= 0.0
+        totals = shape_registry().totals()
+        assert totals["compiles"] > before
+        entry = next(e for e in shape_registry().snapshot()["entries"]
+                     if e["signature"] == rows[-1]["compile"])
+        assert entry["compiles"] >= 1 and entry["last_compile_unix"] > 0
+        assert entry["compile_seconds"] >= 0.0 and entry["calls"] >= 1
     finally:
         rt.shutdown()
 
