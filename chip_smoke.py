@@ -181,6 +181,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor) peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# the same units counted in instructions: the data sheet's rate counts an
+# FMA as two operations; a compare, a conversion or a bitwise operation
+# is one instruction a lane a clock, at half that rate
+PEAK_F32_INSTR_PER_S = PEAK_F32_OPS_PER_S / 2
 # float ops of one accepted event's sum/count update (select, 5 Kahan
 # lines, pos and cnt), and the amortized compares per accepted event of a
 # monotonic-deque sliding min (or max): at most one failing and one
@@ -5014,14 +5018,61 @@ IAGG_CASES = (
           feed="uniform", steps=2),
      # an integer-valued feed past 2^24: the error lanes keep it exact
      dict(fns=("sum", "count", "sumsq"), n=262_144, S=2048, comp=True,
-          feed="int", seg="one", steps=3, start=float(1 << 25))])
+          feed="int", seg="one", steps=3, start=float(1 << 25))] +
+    # S at the radix sort's 8-bit digit boundaries (keys in [0, S]: one
+    # pass to 255, two to 65,535, three past), n not a multiple of a pass
+    # tile (2,048 rows)
+    [dict(fns=IAGG_FNS, n=n, S=S, comp=c, feed="special", seg=sk)
+     for S, n, sk in ((255, 100_003, "uniform"), (256, 4097, "masked"),
+                      (65_535, 65_537, "uniform"),
+                      (65_536, 100_003, "masked"),
+                      (1 << 20, 262_143, "uniform"))
+     for c in (False, True)] +
+    [dict(fns=("sum", "min", "last"), n=262_144, S=(1 << 24) - 1, comp=c,
+          feed="special") for c in (False, True)])
+#: K10's times before its 8-bit sort (run F13b: chip_smoke.py on an H100
+#: 80GB HBM3 at 700 W), printed beside this run's
+IAGG_WAS_MS = {"cell": 0.1232, "one_slot": 3.0983}
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal bit for bit (-0.0 is not +0.0), a NaN matching a NaN at the
+    same position whatever its payload."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return bool(((a.view(torch.int32) == b.view(torch.int32)) |
+                     (torch.isnan(a) & torch.isnan(b))).all())
+    return bool((a == b).all())
+
+
+def device_ops(fn, calls=4):
+    """Device operations (kernels, memsets, copies) one call of fn
+    enqueues, from torch.profiler over `calls` calls (it may drop the
+    first event of a trace: the count is rounded up), or None when it
+    records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us:
+            n += ev.count
+    return -(-n // calls) or None
 
 
 def check_iagg(dev, seed):
     """Phase 22: K10 (iagg_fold) against slab_update_plain run on a CPU
     copy of the same inputs (torch's CUDA index_add_ adds with atomics),
-    bit for bit on vals, cnt and comp (NaN compared by position), over
-    chained folds."""
+    bit for bit on vals, cnt and comp (-0.0 apart from +0.0; NaN compared
+    by position), over chained folds."""
     import torch
     from siddhi_tpu_torch.ops.incremental_agg import (slab_update,
                                                       slab_update_plain)
@@ -5055,7 +5106,7 @@ def check_iagg(dev, seed):
             for x, y in zip(ko, po):
                 y = y.to(dev)
                 worst = max(worst, _abs_err(x, y))
-                if not _equal(x, y):
+                if not _bits_equal(x, y):
                     raise AssertionError(
                         f"iagg_fold != slab_update_plain: fns={fns} n={n} "
                         f"S={S} comp={comp_on} feed={case['feed']} "
@@ -5095,11 +5146,59 @@ def _iagg_cell_seg(rng, n, S):
     return slots[inv].astype(np.int32), int(inv.max() + 1)
 
 
-def time_iagg(dev, seed):
-    """K10 timed at the aggregation cell's sec slab (the cell's bases, a
-    chunk's ~250,000 touched slots of 2^20) and at one slot holding the
-    whole batch (the walk's serial floor); the twin on the card beside
-    (index_add_ with atomics: the same function, its order free)."""
+def _iagg_timed_inputs(rng, name, dev):
+    """The timed folds' inputs: the cell's sec slab (the cell's bases, a
+    chunk's ~250,000 touched slots of 2^20) or one slot holding the
+    batch: (S, touched, vals, cnt, seg, base values) on the card."""
+    import torch
+    n, B = CHUNK, len(IAGG_CELL_FNS)
+    if name == "cell":
+        S = IAGG_SEC_SLAB
+        seg, touched = _iagg_cell_seg(rng, n, S)
+    else:
+        S = 2048
+        seg, touched = np.full(n, 5, np.int32), 1
+    bv = rng.uniform(1, 100, (n, B)).astype(np.float32)
+    return (S, touched, torch.zeros((S, B), dtype=torch.float32, device=dev),
+            torch.zeros((S,), dtype=torch.int32, device=dev),
+            torch.tensor(seg, device=dev), torch.tensor(bv, device=dev))
+
+
+def count_device_ops(dev, seed):
+    """Device operations (kernels, memsets) one K10 fold (the cell's sec
+    slab, one slot) and one fused K11 probe (the join cell's shape)
+    enqueue, from torch.profiler; run first, before any other profiler
+    session (later ones lose events)."""
+    from siddhi_tpu_torch.ops.incremental_agg import slab_update
+    from siddhi_tpu_torch.ops.join_probe import probe_fused
+    rng = np.random.default_rng(seed + 227)
+    n0 = (slab_update.launches, probe_fused.launches)
+    out = {}
+    for name in ("cell", "one_slot"):
+        _S, _t, vals, cnt, segd, bvd = _iagg_timed_inputs(rng, name, dev)
+        out[name] = device_ops(lambda: slab_update(IAGG_CELL_FNS, vals, cnt,
+                                                   segd, bvd))
+    left, right = _timed_lanes(dev, seed)
+    prog = fused_program(FUSED_CONDS["cell"])
+    ll = [left[a] for a in prog.lanes[0]]
+    rl = [right[a] for a in prog.lanes[1]]
+    nl2, nr2 = JOIN_CELL_SHAPE
+    out["probe_fused"] = device_ops(lambda: probe_fused(
+        prog, ll, rl, JOIN_CHUNK, JOIN_TABLE, nl2, nr2, 1 << 17))
+    slab_update.launches, probe_fused.launches = n0
+    log(f"  device operations: a K10 fold {out['cell']} (sec slab), "
+        f"{out['one_slot']} (one slot); a fused K11 probe "
+        f"{out['probe_fused']}")
+    return out
+
+
+def time_iagg(dev, seed, ops):
+    """K10 timed at the aggregation cell's sec slab and at one slot
+    holding the whole batch (the walk's serial floor), in one call; the
+    twin on the card beside (index_add_ with atomics: the same function,
+    its order free), the sort's yardstick (torch.sort(stable=True) of the
+    masked keys alone), the times before the 8-bit sort, and `ops`
+    (count_device_ops)."""
     import torch
     from siddhi_tpu_torch.ops.incremental_agg import (slab_update,
                                                       slab_update_plain)
@@ -5108,30 +5207,31 @@ def time_iagg(dev, seed):
     B = len(fns)
     out = {}
     n = CHUNK
-    for name, S in (("cell", IAGG_SEC_SLAB), ("one_slot", 2048)):
-        if name == "cell":
-            seg, touched = _iagg_cell_seg(rng, n, S)
-        else:
-            seg, touched = np.full(n, 5, np.int32), 1
-        bv = rng.uniform(1, 100, (n, B)).astype(np.float32)
-        vals = torch.zeros((S, B), dtype=torch.float32, device=dev)
-        cnt = torch.zeros((S,), dtype=torch.int32, device=dev)
-        segd = torch.tensor(seg, device=dev)
-        bvd = torch.tensor(bv, device=dev)
+    for name in ("cell", "one_slot"):
+        S, touched, vals, cnt, segd, bvd = _iagg_timed_inputs(rng, name, dev)
         n0 = slab_update.launches
         ms = median_ms(lambda: slab_update(fns, vals, cnt, segd, bvd), dev,
                        n=TIMED_LAUNCHES if name == "cell" else 3)
         slab_update.launches = n0        # timing launches are not the path
         plain_ms = median_ms(
             lambda: slab_update_plain(fns, vals, cnt, segd, bvd), dev, n=5)
+        keys = torch.where((segd >= 0) & (segd < S), segd,
+                           torch.full_like(segd, S))
+        sort_ms = median_ms(lambda: torch.sort(keys, stable=True), dev)
         bound = iagg_bound(n, B, touched, False)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": "bytes",
+                     "bound_by": "bytes", "sort_library_ms": sort_ms,
+                     "device_ops": ops[name],
                      "shape": {"n": n, "S": S, "B": B, "touched": touched}}
         log(f"  iagg_fold at n={n} S={S} B={B} ({touched} touched slots, "
-            f"{name}): {ms:.4f} ms (plain twin on the card {plain_ms:.4f} "
-            f"ms, bound {bound:.6f} ms by bytes, "
-            f"{bound / ms * 100:.2f}% of the bound reached)")
+            f"{name}): {ms:.4f} ms (was {IAGG_WAS_MS[name]} ms, run F13b; "
+            f"plain twin on the card {plain_ms:.4f} ms; the sort's "
+            f"yardstick torch.sort(stable=True) {sort_ms:.4f} ms; bound "
+            f"{bound:.6f} ms by bytes, {bound / ms * 100:.2f}% of the bound "
+            f"reached); {ops[name]} device operations a fold")
+    if out["one_slot"]["ms"] > 1.03 * IAGG_WAS_MS["one_slot"]:
+        log(f"  NOTE: one slot {out['one_slot']['ms']:.4f} ms is more than "
+            f"3% above run F13b's {IAGG_WAS_MS['one_slot']} ms")
     return out
 
 
@@ -5250,8 +5350,7 @@ def run_iagg_cell(dev, seed):
     return res
 
 
-IAGG_KERNELS = ["iagg_radix_count", "iagg_radix_scan", "iagg_radix_scatter",
-                "iagg_walk", "iagg_walk_long", "iagg_settle"]
+IAGG_KERNELS = ["iagg_prep", "iagg_pass", "iagg_walk", "iagg_walk_long"]
 
 
 # ------------------------------------------------------------------ phase 24
@@ -5371,6 +5470,231 @@ def time_probe(dev, seed):
                       "nr": JOIN_TABLE, "count": count, "cap": cap}}
 
 
+#: conditions of the fused route's checks (the join cell's first): the
+#: string compares and double compares run on i32 lanes
+FUSED_STREAMS = """
+define stream L (id int, price float, sym string, d double);
+define stream R (id int, threshold float, sym string, d double);
+"""
+FUSED_CONDS = {
+    "cell": "L.price > R.threshold and R.id == 3",
+    "range": "L.price > R.threshold and L.id == R.id",
+    "string_and_double_lanes": "L.sym == R.sym and L.d < R.d",
+    "right_arrivals": "L.price < R.threshold and L.sym != R.sym",
+    "or_across": "L.price > R.threshold or L.id != R.id",
+    "not_across": "not (L.price <= R.threshold) and not (R.id == L.id)",
+    "f32_arith": "(L.price + 1.5) * 0.5 > R.threshold / 4.0 or "
+                 "L.price / (L.price - 50.0) < -R.threshold or "
+                 "L.price - 2.0 >= R.threshold * R.threshold",
+    "unary_minus": "-L.price > R.threshold - 100.0",
+    "string_consts": "L.sym > 'a' and R.sym <= L.sym and R.sym != 'c'",
+    "double_consts": "L.d >= 0.25 and R.d != L.d or R.d < 0.5",
+    "deep": "((L.price > R.threshold or L.id == R.id) and "
+            "(L.price < R.threshold + 10.0 or L.id > R.id)) or "
+            "(not (L.id == 2) and R.threshold >= 50.0 and L.price < 60.0)",
+}
+FUSED_F32 = np.asarray([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, 3.0, 25.0,
+                        50.0, -1.5, 99.5, 100.0, 1e-30, -1e30], np.float32)
+FUSED_CASES = [
+    # (nl2, nr2, nl, nr, cap, row offset): lanes of nl2 rows taken at the
+    # offset of a longer lane, as a probe's row blocks are
+    (1, 1, 1, 1, 4, 0), (1, 1, 0, 0, 4, 0), (1, 1, 1, 1, 0, 0),
+    (8, 16, 5, 16, 7, 0), (64, 32, 61, 29, 10, 0),
+    (4, 128, 4, 100, 4096, 12), (1024, 1000, 1000, 999, 4096, 0),
+    (2048, 2048, 2047, 1999, 1 << 22, 0), (33, 4096, 33, 4096, 100, 0),
+    # a row wider than one tile's words: column tiles
+    (3, 1 << 20, 3, 600_000, 1 << 21, 0),
+]
+
+
+def join_runtime_for(cond, device):
+    """The join runtime of a join on ``cond`` over FUSED_STREAMS, built on
+    ``device`` (its app shut down; its probes stay callable)."""
+    from siddhi_tpu_torch import SiddhiManager
+    rt = SiddhiManager(device=device).create_siddhi_app_runtime(
+        FUSED_STREAMS + f"""
+        @info(name='q')
+        from L#window.length(5) join R#window.length(5) on {cond}
+        select L.id as lid, R.id as rid insert into Out;""")
+    jr = rt.query_runtimes["q"].join_runtime
+    rt.shutdown()
+    return jr
+
+
+def fused_program(cond):
+    """The port's lowered program for a join on ``cond`` (built on the
+    CPU: the program does not depend on the device)."""
+    jr = join_runtime_for(cond, "cpu")
+    if jr.probe_route != "fused":
+        raise AssertionError(f"fused route expected for {cond!r}: "
+                             f"{jr.probe_route} ({jr.probe_route_reason})")
+    return jr.probe_program
+
+
+def _fused_lane(rng, name, n):
+    if name.startswith("__dk"):                   # double key halves
+        pool = np.asarray([-2**31, -7, 0, 1, 5, 2**31 - 1], np.int64)
+        v = np.where(rng.random(n) < 0.5, rng.choice(pool, n),
+                     rng.integers(-2**31, 2**31, n))
+        return v.astype(np.int32)
+    if name.startswith("__"):                     # string ranks
+        return rng.integers(0, 5, n).astype(np.int32)
+    if name == "id":
+        return rng.integers(0, 5, n).astype(np.float32)
+    return np.where(rng.random(n) < 0.6, rng.choice(FUSED_F32, n),
+                    rng.uniform(-10, 110, n)).astype(np.float32)
+
+
+def fused_bound(prog, nl, nr, count, cap):
+    """(ms, by): the lanes read once and the indices written, against the
+    instructions the cells need at the card's FP32 instruction rate: a
+    compare a cell for each atom on a left slot; for an atom that reads
+    no left slot, a compare a column for 32 rows (1/32 a cell); the
+    and/or/not tree once a 32 cells (an instruction a node)."""
+    from siddhi_tpu_torch.plan import join_program as jpg
+    nbytes = 4 * (nl * len(prog.lanes[0]) + nr * len(prog.lanes[1])) \
+        + 4 * min(count, cap)
+    on_left = int((prog.atoms[:, 2] == jpg.K_LSLOT).sum())
+    cell_ops = on_left + (prog.n_atoms - on_left + len(prog.tree)) / 32
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nl * nr * cell_ops / PEAK_F32_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_fused(dev, seed):
+    """Phase 24: the fused probe (probe_fused) against probe_fused_plain
+    on the same CUDA lanes, bit for bit on idx and count: every condition
+    of FUSED_CONDS on every case of FUSED_CASES (NaN, +-inf, +-0.0 and
+    ties in the lanes; counts past cap; nr not a multiple of 32; row
+    blocks; column tiles), and the cell's shape for three of them."""
+    import torch
+    from siddhi_tpu_torch.ops.join_probe import (probe_fused,
+                                                 probe_fused_plain)
+    rng = np.random.default_rng(seed + 245)
+    n_cases = 0
+    cases = list(FUSED_CASES)
+    for name, cond in FUSED_CONDS.items():
+        prog = fused_program(cond)
+        mine = cases + ([(JOIN_CHUNK, 1 << 14, JOIN_CHUNK, JOIN_TABLE,
+                          131_072, 0)]
+                        if name in ("cell", "f32_arith", "deep") else [])
+        for nl2, nr2, nl, nr, cap, off in mine:
+            ll = [torch.tensor(_fused_lane(rng, a, nl2 + off),
+                               device=dev)[off:] for a in prog.lanes[0]]
+            rl = [torch.tensor(_fused_lane(rng, a, nr2), device=dev)
+                  for a in prog.lanes[1]]
+            ki, kc = probe_fused(prog, ll, rl, nl, nr, nl2, nr2, cap)
+            pi, pc = probe_fused_plain(prog, ll, rl, nl, nr, nl2, nr2, cap)
+            torch.cuda.synchronize()
+            n_cases += 1
+            if not (torch.equal(ki, pi) and int(kc) == int(pc) and
+                    ki.dtype == torch.int32 and kc.dtype == torch.int32):
+                raise AssertionError(
+                    f"probe_fused != plain for {name} at [{nl2}, {nr2}] "
+                    f"valid ({nl}, {nr}) cap {cap} offset {off}: count "
+                    f"{int(kc)} vs {int(pc)}")
+        log(f"  probe_fused == plain  {name}: {len(mine)} cases (last "
+            f"count {int(kc)})")
+    return {"cases": n_cases, "max_abs_err": 0.0}
+
+
+#: conditions timed at the join cell's shape on the cell's data, each on
+#: the route its runtime chose and on the mask route (the runtime's own
+#: torch program, then probe_compact); the cell's first.  Arithmetic that
+#: reads both sides is outside the fused class: the mask route only
+TIMED_CONDS = {
+    "cell": FUSED_CONDS["cell"],
+    "deep": FUSED_CONDS["deep"],
+    "cross_arith": "(L.price + R.threshold) * 0.5 > 25.0 or "
+                   "L.price / R.threshold < -1.0 or "
+                   "L.price - R.threshold >= 1.0",
+}
+
+
+def _timed_lanes(dev, seed):
+    """The join cell's data as lanes at its shape: a chunk's prices and
+    ids 0-4 (left); the table's thresholds and bands as R.id (right),
+    padded with zeros."""
+    import torch
+    rng = np.random.default_rng(seed + 243)
+    thr, band = join_cell_arrays(rng)
+    price = rng.uniform(0, 100, JOIN_CHUNK).astype(np.float32)
+    ids = rng.integers(0, 5, JOIN_CHUNK).astype(np.float32)
+    left = {"price": torch.tensor(price, device=dev),
+            "id": torch.tensor(ids, device=dev)}
+    right = {}
+    for name, v in (("threshold", thr), ("id", band.astype(np.float32))):
+        t = torch.zeros(JOIN_CELL_SHAPE[1], dtype=torch.float32, device=dev)
+        t[:JOIN_TABLE] = torch.tensor(v, device=dev)
+        right[name] = t
+    return left, right
+
+
+def time_fused(dev, seed, ops):
+    """The fused probe at the join cell's shape on the cell's data, beside
+    the mask route on the same inputs, for each of TIMED_CONDS: both
+    through the join runtime's own probes (``device_probe`` on its route,
+    ``mask_probe``), bit for bit against each other where the route is
+    fused, at the cap the runtime grows to for the count; the cell's
+    plain version; `ops` from count_device_ops."""
+    import torch
+    from siddhi_tpu_torch.ops.join_probe import (probe_compact, probe_fused,
+                                                 probe_fused_plain)
+    left, right = _timed_lanes(dev, seed)
+    nl2, nr2 = JOIN_CELL_SHAPE
+    shape = (JOIN_CHUNK, JOIN_TABLE, nl2, nr2)
+    n0 = (probe_fused.launches, probe_compact.launches)
+    by_cond = {}
+    for name, cond in TIMED_CONDS.items():
+        jr = join_runtime_for(cond, dev)
+        count = int(jr.mask_probe(left, right, *shape, 1)[1])
+        cap = 4096
+        while cap < count:
+            cap *= 2
+        row = {"route": jr.probe_route, "count": count, "cap": cap}
+        if jr.probe_route == "fused":
+            ki, kc = jr.device_probe(left, right, *shape, cap)
+            mi, mc = jr.mask_probe(left, right, *shape, cap)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki, mi) and int(kc) == int(mc) == count):
+                raise AssertionError(f"probe_fused != the mask route for "
+                                     f"{name} at the cell's shape")
+            row["ms"] = median_ms(
+                lambda: jr.device_probe(left, right, *shape, cap), dev)
+            row["bound_ms"], row["bound_by"] = fused_bound(
+                jr.probe_program, JOIN_CHUNK, JOIN_TABLE, count, cap)
+            row["atoms"] = jr.probe_program.n_atoms
+        row["mask_route_ms"] = median_ms(
+            lambda: jr.mask_probe(left, right, *shape, cap), dev)
+        by_cond[name] = row
+        fused = (f"fused {row['ms']:.4f} ms (bound {row['bound_ms']:.6f} "
+                 f"ms by {row['bound_by']}, "
+                 f"{row['bound_ms'] / row['ms'] * 100:.2f}% of it reached)"
+                 if "ms" in row else f"route {jr.probe_route} "
+                 f"({jr.probe_route_reason})")
+        log(f"  {name} at [{nl2}, {nr2}] valid ({JOIN_CHUNK}, {JOIN_TABLE})"
+            f", {count} matches, cap {cap}: {fused}; the mask route "
+            f"(its torch program + probe_compact) "
+            f"{row['mask_route_ms']:.4f} ms")
+    cell = by_cond["cell"]
+    prog = fused_program(FUSED_CONDS["cell"])
+    ll = [left[a] for a in prog.lanes[0]]
+    rl = [right[a] for a in prog.lanes[1]]
+    probe_fused.launches, probe_compact.launches = n0
+    plain_ms = median_ms(lambda: probe_fused_plain(
+        prog, ll, rl, *shape, cell["cap"]), dev, n=5)
+    ops = ops["probe_fused"]
+    log(f"  probe_fused plain version at the cell: {plain_ms:.4f} ms; "
+        f"{ops} device operations a probe")
+    return {"ms": cell["ms"], "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
+            "mask_route_ms": cell["mask_route_ms"], "device_ops": ops,
+            "by_condition": by_cond,
+            "shape": {"nl2": nl2, "nr2": nr2, "nl": JOIN_CHUNK,
+                      "nr": JOIN_TABLE, "count": cell["count"],
+                      "cap": cell["cap"], "atoms": cell["atoms"]}}
+
+
 # ------------------------------------------------------------------ phase 25
 
 JOIN_APP = """
@@ -5384,27 +5708,41 @@ from L join T on L.price > T.threshold and T.band == 3
 select L.id as lid, T.tid as tid
 insert into Out;
 """
-JOIN_KERNELS = ["probe_count", "probe_scan", "probe_scatter"]
+#: the same join with the condition outside the fused class (price is in
+#: [0, 100), so the same pairs): the mask route's main path
+JOIN_MASK_APP = JOIN_APP.replace("on L.price > T.threshold",
+                                 "on L.price % 100.0 > T.threshold")
+JOIN_MASK_CHUNKS = 4
+JOIN_KERNELS = {"fused": ["probe_fused_kernel"],
+                "mask": ["probe_count", "probe_scan", "probe_scatter"]}
 
 
-def run_join_cell(dev, seed):
+def run_join_cell(dev, seed, route="fused"):
     """Phase 25: samples/tpu_join_performance.py's app at its own sizes
     through the public API — a 10,000-row table, L chunks of 16,384
     events, JOIN_WARM warm-up chunks then JOIN_CHUNKS timed; the query on
-    the device probe; every chunk's output pairs against a numpy
-    reference in order (float32 compares, L-major)."""
+    the device probe's fused route; every chunk's output pairs against a
+    numpy reference in order (float32 compares, L-major).  With route
+    "mask", JOIN_MASK_APP for JOIN_MASK_CHUNKS chunks on the mask route."""
     import torch
     from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
     from siddhi_tpu_torch.core.ledger import ledger
     from siddhi_tpu_torch.ops import join_probe as jp
     rng = np.random.default_rng(seed + 25)
     thr, band = join_cell_arrays(rng)
-    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(JOIN_APP)
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+        JOIN_APP if route == "fused" else JOIN_MASK_APP)
     qr = rt.query_runtimes["q"]
     jr = qr.join_runtime
     if qr.backend != "device" or jr.device_probe is None:
         raise AssertionError(f"join cell: backend {qr.backend} "
                              f"({qr.backend_reason})")
+    if jr.probe_route != route:
+        raise AssertionError(f"join cell: route {jr.probe_route} "
+                             f"({jr.probe_route_reason}), expected {route}")
+    log(f"  route {jr.probe_route}: {jr.probe_route_reason}")
+    counter = jp.probe_fused if route == "fused" else jp.probe_compact
+    n_chunks = JOIN_CHUNKS if route == "fused" else JOIN_MASK_CHUNKS
     got = []
     rt.add_callback("Out", ColumnarStreamCallback(
         lambda c: got.append((np.array(c.columns["lid"]),
@@ -5415,7 +5753,7 @@ def run_join_cell(dev, seed):
          "band": band}, timestamps=np.full(JOIN_TABLE, 1_000_000, np.int64))
     h = rt.get_input_handler("L")
     chunks = []
-    for ci in range(JOIN_WARM + JOIN_CHUNKS):
+    for ci in range(JOIN_WARM + n_chunks):
         chunks.append({"id": ci * JOIN_CHUNK + np.arange(JOIN_CHUNK,
                                                          dtype=np.int64),
                        "price": rng.uniform(0, 100, JOIN_CHUNK)
@@ -5437,24 +5775,28 @@ def run_join_cell(dev, seed):
     _peak_reset(dev)
     stage0 = dict(ledger().snapshot()["stage_seconds"])
     n_warm_out = len(got)
-    jp.probe_compact.launches = 0          # counts start here
+    jp.probe_fused.launches = jp.probe_compact.launches = 0  # counts start
     wall, per_kernel, dev_us = profile_device(drive)
-    launches = jp.probe_compact.launches
+    launches = counter.launches
+    other = (jp.probe_compact if route == "fused" else jp.probe_fused) \
+        .launches
     stage1 = ledger().snapshot()["stage_seconds"]
     stages = {k: stage1[k] - stage0.get(k, 0.0) for k in stage1}
     peak = torch.cuda.max_memory_allocated(dev)
     cap = jr._probe_cap
     rt.shutdown()
     n_events = len(timed) * JOIN_CHUNK
-    res = _cell_report("join cell", n_events, len(timed), wall, per_kernel,
-                       dev_us, stages, launches, JOIN_KERNELS)
+    res = _cell_report(f"join cell ({route} route)", n_events, len(timed),
+                       wall, per_kernel, dev_us, stages, launches,
+                       JOIN_KERNELS[route])
     res.update(peak=peak, cap=cap, probes_per_s=launches / wall,
-               pairs_per_s=n_events * JOIN_TABLE / wall)
+               pairs_per_s=n_events * JOIN_TABLE / wall, route=route)
     log(f"  {launches} probes, {launches / wall:.1f} probes/s "
         f"({n_events * JOIN_TABLE / wall:.4g} pairs/s); cap grew to {cap}; "
         f"peak device memory {peak} B")
-    if launches < len(timed):
-        raise AssertionError(f"K11 launched {launches} times")
+    if launches < len(timed) or other:
+        raise AssertionError(f"K11 ({route}) launched {launches} times, the "
+                             f"other route {other}")
     # every chunk's pairs in order: a chunk's output may arrive in more
     # than one callback, so the rows are joined and cut per chunk
     lid = np.concatenate([a for a, _ in got]) if got else np.zeros(0)
@@ -5516,6 +5858,7 @@ def main(argv=None) -> int:
         f"{sys.version.split()[0]}")
     build_s = build_kernels()
     log(f"  kernels built in {build_s:.3f} s")
+    ops0 = count_device_ops(dev, args.seed)
 
     log("== phase 2: kernels vs plain versions on the card")
     rng = np.random.default_rng(args.seed + 1)
@@ -5702,7 +6045,7 @@ def main(argv=None) -> int:
     log("== phase 22: K10 (iagg_fold.cu) vs its plain twin on the card")
     t22 = time.perf_counter()
     k10chk = check_iagg(dev, args.seed)
-    k10t = time_iagg(dev, args.seed)
+    k10t = time_iagg(dev, args.seed, ops0)
     log(f"  phase 22 took {time.perf_counter() - t22:.1f} s; "
         f"{k10chk['cases']} folds bit for bit, max abs err "
         f"{k10chk['max_abs_err']}")
@@ -5713,17 +6056,22 @@ def main(argv=None) -> int:
     ac23 = run_iagg_cell(dev, args.seed)
     log(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
 
-    log("== phase 24: K11 (join_probe.cu) vs its plain twin on the card")
+    log("== phase 24: K11 (join_probe.cu: the fused probe and the mask "
+        "route's compaction) vs their plain versions on the card")
     t24 = time.perf_counter()
     k11chk = check_probe(dev, args.seed)
     k11t = time_probe(dev, args.seed)
+    fchk = check_fused(dev, args.seed)
+    ft = time_fused(dev, args.seed, ops0)
     log(f"  phase 24 took {time.perf_counter() - t24:.1f} s; "
-        f"{k11chk['cases']} cases bit for bit")
+        f"{k11chk['cases']} compaction cases and {fchk['cases']} fused "
+        f"cases bit for bit")
 
     log("== phase 25: join cell (a range stream-table join, 10,000 rows, "
-        "16,384-event chunks) on the device probe")
+        "16,384-event chunks) on the fused probe, then on the mask route")
     t25 = time.perf_counter()
-    jc25 = run_join_cell(dev, args.seed)
+    jc25 = run_join_cell(dev, args.seed, "fused")
+    jm25 = run_join_cell(dev, args.seed, "mask")
     log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -5894,27 +6242,43 @@ def main(argv=None) -> int:
                                    "dwin_scatter"])}]
     kernels += [{
         # K10: the aggregation cell (phase 23) is its main path; a launch
-        # is one fold, the radix passes, the walk and the settle
+        # is one fold: prep (digit counts, settle), the radix passes, the
+        # walks
         "name": "iagg_fold", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/iagg_fold.cu",
         "replaces": "siddhi_tpu/ops/incremental_agg.py:64",
         "checked": True, "launches": ac23["launches"], **k10chk,
         **{k: k10t["cell"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "shape")},
+                                        "bound_by", "sort_library_ms",
+                                        "device_ops",
+                                        "shape")},
         "library_ms": None, "one_slot": k10t["one_slot"],
         "aggregation_cell": cell_k(ac23, IAGG_KERNELS) | {
             k: ac23.get(k) for k in ("slots", "rows_seconds",
                                      "rows_hours")}}, {
-        # K11: the join cell (phase 25) is its main path; a launch is one
-        # compaction, three kernels on one stream
+        # K11, fused: the join cell (phase 25) is its main path; a launch
+        # is one probe, one kernel (after a memset of its look-back words)
+        "name": "probe_fused", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/join_probe.cu",
+        "replaces": "siddhi_tpu/core/join.py:367",
+        "checked": True, "launches": jc25["launches"], **fchk,
+        **{k: ft[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "mask_route_ms", "device_ops",
+                              "shape", "by_condition")},
+        "join_cell": cell_k(jc25, JOIN_KERNELS["fused"]) | {
+            k: jc25.get(k) for k in ("cap", "probes_per_s",
+                                     "pairs_per_s")}}, {
+        # K11, the mask route's compaction: the join cell's app with its
+        # condition outside the fused class (phase 25) is its main path;
+        # a launch is one compaction, three kernels on one stream
         "name": "probe_compact", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/join_probe.cu",
         "replaces": "siddhi_tpu/core/join.py:367",
-        "checked": True, "launches": jc25["launches"], **k11chk,
+        "checked": True, "launches": jm25["launches"], **k11chk,
         **{k: k11t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "shape")},
-        "join_cell": cell_k(jc25, JOIN_KERNELS) | {
-            k: jc25.get(k) for k in ("cap", "probes_per_s",
+        "join_mask_cell": cell_k(jm25, JOIN_KERNELS["mask"]) | {
+            k: jm25.get(k) for k in ("cap", "probes_per_s",
                                      "pairs_per_s")}}]
     # the filter cell runs no hand kernel (torch programs): a cell of the
     # line of its own

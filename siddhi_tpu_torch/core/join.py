@@ -218,6 +218,13 @@ class JoinRuntime:
         # device brute-force cross is for non-indexable conditions.
         self.device_probe = None
         self.device_probe_reason: Optional[str] = None
+        # the device probe's route, fixed at build: "fused" (the condition
+        # lowered to plan/join_program, one kernel, no mask) or "mask"
+        # (the torch program's mask, then probe_compact), with the reason
+        self.probe_route: Optional[str] = None
+        self.probe_route_reason: Optional[str] = None
+        self.probe_program = None
+        self.mask_probe = None
         from ..plan.planner import engine_mode
         app_obj = getattr(app, "app", None)
         mode = engine_mode(app_obj) if app_obj is not None else "host"
@@ -265,12 +272,14 @@ class JoinRuntime:
     # ------------------------------------------------------- device probe
 
     def _try_build_device_probe(self, jis, scope) -> None:
-        """Build the device probe (the JAX package's, with the condition
-        as a torch program on the app's device and the compaction in
-        ``ops/join_probe``).  A condition that cannot compile or run as a
-        torch program records ``device_probe_reason`` and keeps the host
-        mask; a missing CUDA device, a failed build or a failed launch
-        raises ``RuntimeError``."""
+        """Build the device probe (the JAX package's, on the app's device).
+        A condition that cannot compile or run as a torch program records
+        ``device_probe_reason`` and keeps the host mask.  Otherwise the
+        route is fixed here (``probe_route``, ``probe_route_reason``): a
+        condition inside ``plan/join_program``'s class runs fused
+        (``ops/join_probe.probe_fused``), any other as the torch program's
+        mask compacted by ``probe_compact``.  A missing CUDA device, a
+        failed build or a failed launch raises ``RuntimeError``."""
         from ..query_api.definition import AttrType
         from ..query_api.expression import variables_of
         from ..plan.expr_compiler import ExprCompiler as _EC
@@ -329,7 +338,7 @@ class JoinRuntime:
 
         import torch
 
-        from ..ops.join_probe import probe_compact
+        from ..ops.join_probe import probe_compact, probe_fused
         from ..ops.windowed_agg import kernel_device
         from ..plan.expr_compiler import TorchXP
         from ..plan.wagg_compiler import _EXPR_REJECTIONS
@@ -356,6 +365,7 @@ class JoinRuntime:
             for name, t in entries:
                 def g(ctx, _r=s.ref, _a=name):
                     return ctx.qualified[(_r, 0)][_a]
+                g.lane = (len(refs), name, t)
                 dev_scope.add(s.ref, name, t, g)
                 if s.stream_id != s.ref:
                     dev_scope.add(s.stream_id, name, t, g)
@@ -387,7 +397,7 @@ class JoinRuntime:
                                    (nl2, nr2))
             return m if m.is_contiguous() else m.contiguous()
 
-        def probe(lcols, rcols, nl, nr, nl2, nr2, cap):
+        def probe_mask(lcols, rcols, nl, nr, nl2, nr2, cap):
             # device-side compaction: the first-cap matching pair indices
             # (row-major == host emission order) + the true count
             return probe_compact(condition(lcols, rcols, nl2, nr2),
@@ -408,6 +418,20 @@ class JoinRuntime:
             condition(warm["left"], warm["right"], 1, 1)
         except _EXPR_REJECTIONS as e:
             return _fail(f"condition not device-traceable ({e})")
+        prog = self._lower_probe(dev_cond, dev_scope, xp)
+        if prog is None:
+            probe = probe_mask
+        else:
+            lnames, rnames = prog.lanes
+
+            def probe(lcols, rcols, nl, nr, nl2, nr2, cap):
+                return probe_fused(prog, [lcols[a] for a in lnames],
+                                   [rcols[a] for a in rnames], nl, nr,
+                                   nl2, nr2, cap, dev)
+        self.probe_program = prog
+        # the mask route for this condition whatever the route: the
+        # yardstick a fused probe is timed against
+        self.mask_probe = probe_mask
         from ..plan.shapes import shape_registry
         self._probe_jit = shape_registry().jit(
             "join.probe",
@@ -434,6 +458,36 @@ class JoinRuntime:
             for s in (self.left, self.right)
             for a in s.definition.attributes
             if a.type in (AttrType.INT, AttrType.LONG)]
+
+    def _lower_probe(self, dev_cond, dev_scope, xp):
+        """The condition as a fused probe program (``probe_route`` =
+        "fused"), or None (``probe_route`` = "mask") with the reason."""
+        from ..query_api.definition import AttrType
+        from ..plan.expr_compiler import EvalCtx as _Ctx
+        from ..plan.expr_compiler import ExprCompiler as _EC
+        from ..plan.join_program import Unfused, lower_condition
+
+        def resolve(v):
+            side, name, t = dev_scope.resolve(v)[0].lane
+            if t not in (AttrType.INT, AttrType.LONG, AttrType.FLOAT):
+                raise Unfused(f"'{v.attribute}' is {t.name}")
+            return side, name
+
+        ctx0 = _Ctx({}, xp.tensor(np.zeros(1, np.int32)), 1, qualified={})
+
+        def fold(e):
+            return _EC(dev_scope, xp).compile(e).fn(ctx0)
+        try:
+            prog = lower_condition(dev_cond, resolve, fold)
+        except Unfused as u:
+            self.probe_route = "mask"
+            self.probe_route_reason = f"outside the fused class: {u}"
+            return None
+        self.probe_route = "fused"
+        self.probe_route_reason = (
+            f"{prog.n_atoms} cross-side atoms, "
+            f"{prog.n_slots[0]}+{prog.n_slots[1]} one-sided slots")
+        return prog
 
     def _device_pairs(self, side: JoinSide, data: EventChunk,
                       buf: EventChunk):

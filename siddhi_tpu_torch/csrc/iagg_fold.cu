@@ -10,13 +10,25 @@
 // Why not atomics: a float sum depends on the order of its additions.  The
 // JAX package's segment_sum on the CPU, and the twin's index_add_, add a
 // slot's rows one at a time in batch order, from 0.0.  So the kernel
-// orders each slot's rows by batch position and one thread folds them:
-//   1. a stable LSD radix sort of the rows by slot (a masked row, seg < 0
-//      or >= S, has the key S and sorts last): per 4-bit digit one pass of
-//      three launches (per-CTA digit counts; one CTA a digit scans its
-//      counts; a stable scatter, in-CTA ranks by __match_any_sync), the
-//      keys and the row indices moved together, ceil(bits(S) / 4) passes;
-//   2. walk: the first position of each run of equal keys starts a thread;
+// orders each slot's rows by batch position and one thread folds them.
+// A fold is a memset and 3 + ceil(bits(S) / 8) kernels: seven device
+// operations at S = 2^20.
+//   1. prep (after a memset of the digit counts): one read of seg counts
+//      every 8-bit digit of every pass's key (a masked row, seg < 0 or
+//      >= S, has the key S and sorts last), a CTA a tile of kTile rows,
+//      warp-aggregated in shared memory, then added to the counts; it
+//      also zeroes the passes' look-back words, their tile counters and
+//      the long-run counter, and settles every slot's sum columns;
+//   2. one launch a pass, ceil(bits(S) / 8) passes (3 at S = 2^20): a
+//      stable LSD radix sort of the rows by slot, Onesweep (Adinets and
+//      Merrill, 2022): a CTA takes a tile of kTile rows from an atomic
+//      counter, ranks them stably (warp-striped items, __match_any_sync
+//      ranks in row order, radix.cuh warp_striped_rank), adds the digit's
+//      total before it (the prep counts) and the digit's count in the
+//      tiles before it (decoupled look-back a digit, radix.cuh lookback),
+//      stages the tile in sorted order in shared memory and writes the
+//      keys and row indices out, a digit's rows at consecutive positions;
+//   3. walk: the first position of each run of equal keys starts a thread;
 //      it finds the run's end (a galloping search over the sorted keys),
 //      then for each base column folds the run's rows in order from the
 //      reduction's identity, loading kUnroll rows ahead of the chain (a
@@ -31,13 +43,17 @@
 //        last  the run's last row (its largest batch index)
 //        count the run's length into the int32 lane, wrapping
 //      and combines the partial with the slab row: cur + acc, or TwoSum
-//      (s, err) with s to vals and comp + err to comp; it flags the slot;
-//   3. settle: the twin (and the JAX program) combine every slot, an
-//      untouched one with a partial of 0.0f.  That changes a sum column's
-//      bits only where cur is -0.0 (to +0.0) or, in compensated mode, not
-//      finite (comp becomes NaN) or comp is -0.0: one thread a slot
-//      applies it to the unflagged slots' sum columns, writing only the
-//      words whose value changes (a NaN stays as it is).
+//      (s, err) with s to vals and comp + err to comp.
+// The settle: the twin (and the JAX program) combine every slot, an
+// untouched one with a partial of 0.0f.  That changes a sum column's bits
+// only where cur is -0.0 (to +0.0) or, in compensated mode, not finite
+// (comp becomes NaN) or comp is -0.0.  prep applies cur + 0.0f (TwoSum in
+// compensated mode) to every slot, writing only the words whose value
+// changes (a NaN stays as it is); the walk then combines the touched
+// slots.  Settling a touched slot first changes none of its bits: a
+// partial folded from +0.0f is never -0.0, so (cur + 0) + acc == cur +
+// acc, and TwoSum(cur, 0) adds +0.0 or NaN to comp exactly where
+// TwoSum(cur, acc) leaves comp + err as +0.0-signed or NaN.
 // --fmad=false keeps every product and sum rounded as the twin's are.
 //
 // The design's floor is the longest chain: one slot holding the whole
@@ -55,14 +71,19 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kB = 256;                 // threads a CTA
-constexpr int kScanThreads = 1024;
-constexpr int kDigitBits = 4;
-constexpr int kBins = 1 << kDigitBits;
+constexpr int kWarps = kB / 32;
+constexpr int kDigitBits = 8;
+constexpr int kRadix = 1 << kDigitBits; // == kB: a thread a digit
+constexpr int kItems = 8;               // rows a thread a pass
+constexpr int kTile = kB * kItems;      // rows a pass CTA
+constexpr int kMaxPasses = 4;
 constexpr int kMaxBases = 32;           // ops/incremental_agg.MAX_BASES
 constexpr int kUnroll = 8;              // rows a thread loads ahead
 constexpr int kLongRun = 64;            // runs at least this long: a warp
 constexpr int kDepth = 8;               // 32-row parts of a warp's chunk
 constexpr unsigned kCanonicalNan = 0x7fc00000u;
+
+static_assert(kRadix == kB, "a pass's thread owns a digit");
 
 // base functions (ops/incremental_agg.FN_CODES)
 enum Fn { F_SUM = 0, F_SUMSQ = 1, F_MIN = 2, F_MAX = 3, F_COUNT = 4,
@@ -71,68 +92,24 @@ enum Fn { F_SUM = 0, F_SUMSQ = 1, F_MIN = 2, F_MAX = 3, F_COUNT = 4,
 struct Fold {
   int n, S, B;
   int folds;             // a sum, sumsq, min or max column exists
+  int sums;              // a sum or sumsq column exists
   int fn[kMaxBases];
 };
 
 struct Sort {
-  int n, S, nb, shift;
-  const int* seg;        // the first pass reads keys from seg, items i
-  const int* in_key;     // later passes: the previous pass's output
-  const int* in_item;
-  int* out_key;
-  int* out_item;
-  int* rcnt;             // [kBins][nb] digit counts, then offsets
-  int* rtot;             // [kBins] digit totals
+  int n, S, npass, ntiles;
+  const int* seg;
+  int* key[2];           // pass p writes key[p & 1], item[p & 1]
+  int* item[2];
+  int* hist;             // [kMaxPasses][kRadix] digit counts (zeroed)
+  unsigned* status;      // [npass][ntiles][kRadix] look-back words
+  int* counter;          // [npass] tiles handed out
+  int* nruns;            // long runs listed by the walk
 };
 
-__device__ __forceinline__ void item_at(const Sort& a, int i, int* key,
-                                        int* item) {
-  if (a.in_key == nullptr) {
-    const int s = a.seg[i];
-    *key = (s >= 0 && s < a.S) ? s : a.S;
-    *item = i;
-  } else {
-    *key = a.in_key[i];
-    *item = a.in_item[i];
-  }
-}
-
-__global__ void __launch_bounds__(kB) iagg_radix_count(Sort a) {
-  __shared__ int cnt[kBins];
-  const int i = blockIdx.x * kB + threadIdx.x;
-  int d = kBins;
-  if (i < a.n) {
-    int key, item;
-    item_at(a, i, &key, &item);
-    d = (key >> a.shift) & (kBins - 1);
-  }
-  radix::cta_digit_rank<kB, kBins>(d, kBins, cnt);
-  if (threadIdx.x < kBins)
-    a.rcnt[threadIdx.x * a.nb + blockIdx.x] = cnt[threadIdx.x];
-}
-
-// one CTA a digit: its per-CTA counts to exclusive offsets, its total
-__global__ void __launch_bounds__(kScanThreads) iagg_radix_scan(Sort a) {
-  int* c = a.rcnt + static_cast<size_t>(blockIdx.x) * a.nb;
-  const int tot = radix::cta_exclusive_scan<kScanThreads>(c, a.nb);
-  if (threadIdx.x == 0) a.rtot[blockIdx.x] = tot;
-}
-
-__global__ void __launch_bounds__(kB) iagg_radix_scatter(Sort a) {
-  __shared__ int cnt[kBins];
-  const int i = blockIdx.x * kB + threadIdx.x;
-  int d = kBins, key = 0, item = 0;
-  if (i < a.n) {
-    item_at(a, i, &key, &item);
-    d = (key >> a.shift) & (kBins - 1);
-  }
-  const int r = radix::cta_digit_rank<kB, kBins>(d, kBins, cnt);
-  if (i < a.n) {
-    int base = a.rcnt[d * a.nb + blockIdx.x];
-    for (int e = 0; e < d; ++e) base += a.rtot[e];
-    a.out_key[base + r] = key;
-    a.out_item[base + r] = item;
-  }
+__device__ __forceinline__ int key_of(const Sort& a, int i) {
+  const int s = a.seg[i];
+  return (s >= 0 && s < a.S) ? s : a.S;
 }
 
 __device__ __forceinline__ float canonical_nan() {
@@ -214,7 +191,7 @@ __device__ __forceinline__ float identity_of(int fn) {
 __global__ void __launch_bounds__(kB)
 iagg_walk(Fold f, const float* __restrict__ bv, const int* __restrict__ skey,
           const int* __restrict__ srow, float* vals, float* comp, int* cnt,
-          unsigned char* touched, int* runs, int* nruns) {
+          int* runs, int* nruns) {
   const int i = blockIdx.x * kB + threadIdx.x;
   if (i >= f.n) return;
   const int k = skey[i];
@@ -233,7 +210,6 @@ iagg_walk(Fold f, const float* __restrict__ bv, const int* __restrict__ skey,
     if (skey[mid] == k) lo = mid; else hi = mid;
   }
   const int e = hi;
-  touched[k] = 1;
   cnt[k] = static_cast<int>(static_cast<unsigned>(cnt[k]) +
                             static_cast<unsigned>(e - i));
   const size_t B = static_cast<size_t>(f.B);
@@ -344,13 +320,10 @@ iagg_walk_long(Fold f, const float* __restrict__ bv,
   }
 }
 
-// The untouched slots' sum columns: cur + 0.0f (TwoSum in compensated
-// mode), as the twin combines them.
-__global__ void __launch_bounds__(kB)
-iagg_settle(Fold f, float* vals, float* comp,
-            const unsigned char* __restrict__ touched) {
-  const int k = blockIdx.x * kB + threadIdx.x;
-  if (k >= f.S || touched[k]) return;
+// Settle slot k's sum columns: cur + 0.0f (TwoSum in compensated mode),
+// as the twin combines an untouched slot.
+__device__ __forceinline__ void settle_slot(const Fold& f, float* vals,
+                                            float* comp, int k) {
   const size_t B = static_cast<size_t>(f.B);
   for (int b = 0; b < f.B; ++b) {
     if (f.fn[b] != F_SUM && f.fn[b] != F_SUMSQ) continue;
@@ -368,6 +341,122 @@ iagg_settle(Fold f, float* vals, float* comp,
   }
 }
 
+// prep: the passes' digit counts (CTAs below a.ntiles, a tile each,
+// warp-aggregated shared atomics, then one global add a digit), the
+// look-back words, tile counters and long-run counter zeroed, every slot
+// settled.
+__global__ void __launch_bounds__(kB)
+iagg_prep(Sort a, Fold f, float* vals, float* comp) {
+  __shared__ int h[kMaxPasses][kRadix];
+  const int tid = threadIdx.x, lid = tid & 31, wid = tid >> 5;
+  const int stride = gridDim.x * kB;
+  const int gid = blockIdx.x * kB + tid;
+  const size_t nstatus = static_cast<size_t>(a.npass) * a.ntiles * kRadix;
+  for (size_t k = gid; k < nstatus; k += stride) a.status[k] = 0u;
+  if (gid < a.npass) a.counter[gid] = 0;
+  if (gid == 0) *a.nruns = 0;
+  if (f.sums)
+    for (int k = gid; k < f.S; k += stride) settle_slot(f, vals, comp, k);
+  const int t = blockIdx.x;
+  if (t >= a.ntiles) return;             // the same for the whole CTA
+  for (int k = tid; k < kMaxPasses * kRadix; k += kB)
+    h[k / kRadix][k % kRadix] = 0;
+  __syncthreads();
+  const int row0 = t * kTile + wid * (32 * kItems) + lid;
+  int key[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = row0 + 32 * k;
+    key[k] = i < a.n ? key_of(a, i) : -1;
+  }
+  for (int p = 0; p < a.npass; ++p) {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int d = key[k] < 0 ? kRadix
+                               : (key[k] >> (p * kDigitBits)) & (kRadix - 1);
+      const unsigned m = __match_any_sync(kFull, d);
+      if (d < kRadix && (m & ((1u << lid) - 1u)) == 0u)
+        atomicAdd(&h[p][d], __popc(m));
+    }
+  }
+  __syncthreads();
+  for (int p = 0; p < a.npass; ++p)
+    if (h[p][tid] != 0) atomicAdd(&a.hist[p * kRadix + tid], h[p][tid]);
+}
+
+// One radix pass p: a tile of kTile rows, warp-striped (warp w's item k
+// of lane l is the tile's row w * 256 + k * 32 + l), ranked stably,
+// offset by the digit's start and its look-back, staged in shared memory
+// in the tile's sorted order, then written out: a digit's rows of the
+// tile land at consecutive positions, so the writes coalesce.
+__global__ void __launch_bounds__(kB) iagg_pass(Sort a, int p) {
+  __shared__ int run[kWarps][kRadix];    // a warp's count a digit
+  __shared__ int start[kRadix];          // the digit's first position
+  __shared__ int local[kRadix];          // the digit's first in the tile
+  __shared__ int s_key[kTile];
+  __shared__ int s_item[kTile];
+  __shared__ int s_tile;
+  const int tid = threadIdx.x, lid = tid & 31, wid = tid >> 5;
+  if (tid == 0) s_tile = atomicAdd(&a.counter[p], 1);
+  for (int k = tid; k < kWarps * kRadix; k += kB)
+    run[k / kRadix][k % kRadix] = 0;
+  start[tid] = a.hist[p * kRadix + tid]; // rows of digit tid, this pass
+  __syncthreads();
+  radix::cta_exclusive_scan<kB>(start, kRadix);
+  const int t = s_tile;
+  const int shift = p * kDigitBits;
+  const int* in_key = p == 0 ? nullptr : a.key[(p - 1) & 1];
+  const int* in_item = p == 0 ? nullptr : a.item[(p - 1) & 1];
+  const int row0 = t * kTile + wid * (32 * kItems) + lid;
+  int key[kItems], item[kItems], d[kItems], r[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = row0 + 32 * k;
+    if (i < a.n) {
+      key[k] = in_key ? in_key[i] : key_of(a, i);
+      item[k] = in_item ? in_item[i] : i;
+      d[k] = (key[k] >> shift) & (kRadix - 1);
+    } else {
+      d[k] = kRadix;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kItems; ++k)
+    r[k] = radix::warp_striped_rank<kRadix>(d[k], run[wid]);
+  __syncthreads();
+  int c = 0;                             // thread tid: digit tid
+  for (int w = 0; w < kWarps; ++w) {
+    const int x = run[w][tid];
+    run[w][tid] = c;                     // the warps before w, this digit
+    c += x;
+  }
+  local[tid] = c;
+  radix::cta_exclusive_scan<kB>(local, kRadix);
+  const unsigned excl = radix::lookback<unsigned>(
+      a.status + (static_cast<size_t>(p) * a.ntiles) * kRadix + tid, kRadix,
+      t, static_cast<unsigned>(c));
+  // a tile's row at sorted position j (digit d) goes to start[d] + j
+  start[tid] += static_cast<int>(excl) - local[tid];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (d[k] < kRadix) {
+      const int j = local[d[k]] + run[wid][d[k]] + r[k];
+      s_key[j] = key[k];
+      s_item[j] = item[k];
+    }
+  }
+  __syncthreads();
+  int* out_key = a.key[p & 1];
+  int* out_item = a.item[p & 1];
+  const int rows = min(kTile, a.n - t * kTile);
+  for (int j = tid; j < rows; j += kB) {
+    const int k = s_key[j];
+    const int pos = start[(k >> shift) & (kRadix - 1)] + j;
+    out_key[pos] = k;
+    out_item[pos] = s_item[j];
+  }
+}
+
 int key_bits(int S) {
   int bits = 0;
   while ((S >> bits) != 0) ++bits;       // keys lie in [0, S]
@@ -377,14 +466,25 @@ int key_bits(int S) {
 // long runs a fold of n rows can have
 int max_runs(int n) { return n / kLongRun + 1; }
 
-size_t scratch_layout(int n, int S, int* nb_out, int* npass_out) {
-  const int nb = (n + kB - 1) / kB;
-  if (nb_out) *nb_out = nb;
-  if (npass_out) *npass_out = (key_bits(S) + kDigitBits - 1) / kDigitBits;
-  return sizeof(int) * (4 * static_cast<size_t>(n) +
-                        static_cast<size_t>(kBins) * nb + kBins +
-                        1 + 3 * static_cast<size_t>(max_runs(n))) +
-         static_cast<size_t>(S);       // the walk's touched flags
+struct Layout {
+  int npass, ntiles;
+  size_t key, item, hist, status, counter, nruns, runs, bytes;  // offsets
+};
+
+Layout scratch_layout(int n, int S) {
+  Layout l;
+  l.npass = (key_bits(S) + kDigitBits - 1) / kDigitBits;
+  l.ntiles = (n + kTile - 1) / kTile;
+  const size_t N = static_cast<size_t>(n);
+  l.key = 0;                             // int words from here on
+  l.item = l.key + 2 * N;
+  l.hist = l.item + 2 * N;
+  l.status = l.hist + static_cast<size_t>(kMaxPasses) * kRadix;
+  l.counter = l.status + static_cast<size_t>(l.npass) * l.ntiles * kRadix;
+  l.nruns = l.counter + kMaxPasses;
+  l.runs = l.nruns + 1;
+  l.bytes = sizeof(int) * (l.runs + 3 * static_cast<size_t>(max_runs(n)));
+  return l;
 }
 
 }  // namespace
@@ -393,7 +493,9 @@ extern "C" {
 
 // bytes of device scratch a fold of n rows into S slots needs
 long long iagg_scratch_bytes(int n, int S) {
-  return static_cast<long long>(scratch_layout(n, S, nullptr, nullptr));
+  return n <= 0 || S <= 0
+             ? 0
+             : static_cast<long long>(scratch_layout(n, S).bytes);
 }
 
 // base_vals [n, B] f32, seg [n] i32, vals [S, B] f32 (in place), comp
@@ -403,64 +505,56 @@ int iagg_fold(const float* base_vals, const int* seg, float* vals,
               float* comp, int* cnt, const int* fns, int n, int S, int B,
               void* scratch, long long scratch_bytes, void* stream) {
   if (n <= 0) return 0;
-  if (S <= 0 || B <= 0 || B > kMaxBases) return cudaErrorInvalidValue;
-  int nb = 0, npass = 0;
-  const size_t need = scratch_layout(n, S, &nb, &npass);
-  if (scratch_bytes < static_cast<long long>(need))
+  if (S <= 0 || B <= 0 || B > kMaxBases || n >= (1 << 30))
+    return cudaErrorInvalidValue;
+  const Layout l = scratch_layout(n, S);
+  if (scratch_bytes < static_cast<long long>(l.bytes))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* w = static_cast<int*>(scratch);
-  int* key[2] = {w, w + n};
-  int* item[2] = {w + 2 * static_cast<size_t>(n),
-                  w + 3 * static_cast<size_t>(n)};
   Sort a;
   a.n = n;
   a.S = S;
-  a.nb = nb;
+  a.npass = l.npass;
+  a.ntiles = l.ntiles;
   a.seg = seg;
-  a.rcnt = w + 4 * static_cast<size_t>(n);
-  a.rtot = a.rcnt + static_cast<size_t>(kBins) * nb;
-  const int* skey = nullptr;
-  const int* srow = nullptr;
-  for (int p = 0; p < npass; ++p) {
-    a.shift = p * kDigitBits;
-    a.in_key = p == 0 ? nullptr : key[(p - 1) & 1];
-    a.in_item = p == 0 ? nullptr : item[(p - 1) & 1];
-    a.out_key = key[p & 1];
-    a.out_item = item[p & 1];
-    iagg_radix_count<<<nb, kB, 0, st>>>(a);
-    iagg_radix_scan<<<kBins, kScanThreads, 0, st>>>(a);
-    iagg_radix_scatter<<<nb, kB, 0, st>>>(a);
-    skey = a.out_key;
-    srow = a.out_item;
-  }
+  a.key[0] = w + l.key;
+  a.key[1] = w + l.key + n;
+  a.item[0] = w + l.item;
+  a.item[1] = w + l.item + n;
+  a.hist = w + l.hist;
+  a.status = reinterpret_cast<unsigned*>(w + l.status);
+  a.counter = w + l.counter;
+  a.nruns = w + l.nruns;
+  int* runs = w + l.runs;
   Fold f;
   f.n = n;
   f.S = S;
   f.B = B;
   f.folds = 0;
-  bool any_sum = false;
+  f.sums = 0;
   for (int b = 0; b < kMaxBases; ++b) {
     f.fn[b] = b < B ? fns[b] : F_COUNT;
-    any_sum |= f.fn[b] == F_SUM || f.fn[b] == F_SUMSQ;
+    f.sums |= f.fn[b] == F_SUM || f.fn[b] == F_SUMSQ;
     f.folds |= f.fn[b] != F_COUNT && f.fn[b] != F_LAST;
   }
-  int* nruns = a.rtot + kBins;
-  int* runs = nruns + 1;
-  unsigned char* touched =
-      reinterpret_cast<unsigned char*>(runs + 3 * static_cast<size_t>(
-          max_runs(n)));
-  cudaMemsetAsync(nruns, 0, sizeof(int), st);
-  cudaMemsetAsync(touched, 0, static_cast<size_t>(S), st);
+  const int prep_grid =
+      max(l.ntiles, min((max(S, l.npass * l.ntiles * kRadix) + kB - 1) / kB,
+                        1024));
+  cudaMemsetAsync(a.hist, 0, sizeof(int) * kMaxPasses * kRadix, st);
+  iagg_prep<<<prep_grid, kB, 0, st>>>(a, f, vals, comp);
+  for (int p = 0; p < l.npass; ++p)
+    iagg_pass<<<l.ntiles, kB, 0, st>>>(a, p);
+  const int* skey = a.key[(l.npass - 1) & 1];
+  const int* srow = a.item[(l.npass - 1) & 1];
+  const int nb = (n + kB - 1) / kB;
   iagg_walk<<<nb, kB, 0, st>>>(f, base_vals, skey, srow, vals, comp, cnt,
-                               touched, runs, nruns);
+                               runs, a.nruns);
   if (f.folds) {
     const int warps = max_runs(n);
     iagg_walk_long<<<(warps * 32 + kB - 1) / kB, kB, 0, st>>>(
-        f, base_vals, srow, vals, comp, runs, nruns);
+        f, base_vals, srow, vals, comp, runs, a.nruns);
   }
-  if (any_sum)
-    iagg_settle<<<(S + kB - 1) / kB, kB, 0, st>>>(f, vals, comp, touched);
   return static_cast<int>(cudaGetLastError());
 }
 

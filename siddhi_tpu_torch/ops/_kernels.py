@@ -84,6 +84,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         "probe_compact": (_I, [_VP] + [_I] * 5 + [_VP] * 3 + [_LL, _VP]),
         # nl2, nr2 -> bytes of device scratch a compaction needs
         "probe_scratch_bytes": (_LL, [_I, _I]),
+        # the host block (ops/join_probe.kernel_block), 32 lane pointers,
+        # idx out, count out, scratch, scratch bytes, stream
+        "probe_fused": (_I, [_VP] * 5 + [_LL, _VP]),
+        # the host block -> bytes of device scratch a fused probe needs
+        "probe_fused_scratch_bytes": (_LL, [_VP]),
     },
     "nfa_step": {
         # attrs, ts, stream, gates, prog, prog_len,

@@ -4,7 +4,7 @@
   on the CPU, bit for bit (NaN payloads included): both fold a slot's
   rows in batch order from the identity.  Both modes, each base alone
   and all six, masked rows, NaN/+-inf/+-0.0 in the feed and the slab,
-  one slot holding the batch.
+  one slot holding the batch, S at the radix sort's digit boundaries.
 - ``reset_slots_plain`` against ``reset_slots``.
 - The public API: the same ``define aggregation`` app through the JAX
   package's default engine and the port's (``device="cpu"``, the twin):
@@ -27,12 +27,17 @@ FNS = ("sum", "sumsq", "min", "max", "count", "last")
 SPECIAL = np.asarray([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)
 
 
-def _same(a, b) -> bool:
+def _same(a, b, nan_bits=True) -> bool:
+    """Equal bit for bit; with ``nan_bits`` False a NaN matches a NaN
+    whatever its payload."""
     a, b = np.asarray(a), np.asarray(b)
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.dtype.kind == "f":
-        return bool((a.view(np.int32) == b.view(np.int32)).all())
+        eq = a.view(np.int32) == b.view(np.int32)
+        if not nan_bits:
+            eq |= np.isnan(a) & np.isnan(b)
+        return bool(eq.all())
     return bool((a == b).all())
 
 
@@ -58,14 +63,27 @@ def _inputs(rng, fns, n, S, seg_kind, special):
 
 
 CASES = ([(fn,) for fn in FNS] + [FNS])
+#: slab sizes at K10's digit boundaries
+_DIGIT_S = (255, 256, 65_535, 65_536, 1 << 20)
 
 
 @pytest.mark.parametrize("compensated", [False, True])
 @pytest.mark.parametrize("seg_kind,n,S", [
     ("uniform", 1, 8), ("uniform", 700, 64), ("masked", 4000, 512),
-    ("one", 5000, 16), ("uniform", 20_000, 37)])
+    ("one", 5000, 16), ("uniform", 20_000, 37),
+    # S at the 8-bit digit boundaries of K10's radix sort (keys lie in
+    # [0, S]: one pass to 255, two to 65,535, three past); NaN compared by
+    # position there (_DIGIT_S)
+    ("uniform", 300, 255), ("masked", 600, 256), ("uniform", 700, 65_535),
+    ("masked", 800, 65_536), ("uniform", 1000, 1 << 20)])
 @pytest.mark.parametrize("fns", CASES, ids=lambda f: "+".join(f))
 def test_slab_update_plain_equals_jax(fns, seg_kind, n, S, compensated):
+    # Where both addends of a compensated error lane are NaN (comp NaN, cur
+    # +-inf), XLA's fused program keeps either operand's payload, by how it
+    # fuses (it differs between programs), and torch's kernel the second's:
+    # the digit-boundary slabs hold hundreds of such cells, so they compare
+    # NaN by position, as K10's contract does on the card
+    nan_bits = S not in _DIGIT_S
     rng = np.random.default_rng(len(fns) * 1000 + n + S)
     vals, cnt, comp, seg, bv = _inputs(rng, fns, n, S, seg_kind,
                                        special=True)
@@ -78,13 +96,13 @@ def test_slab_update_plain_equals_jax(fns, seg_kind, n, S, compensated):
                               else None)
     assert len(want) == len(got)
     for w, g in zip(want, got):
-        assert _same(w, g.numpy())
+        assert _same(w, g.numpy(), nan_bits)
     # the entry takes CPU tensors to the twin
     again = T.slab_update(fns, *[torch.from_numpy(a) for a in
                                  (vals, cnt, seg, bv)],
                           torch.from_numpy(comp) if compensated else None)
     for w, g in zip(want, again):
-        assert _same(w, g.numpy())
+        assert _same(w, g.numpy(), nan_bits)
 
 
 def test_compensated_twin_exact_past_2_24():

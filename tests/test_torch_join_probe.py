@@ -9,8 +9,17 @@
   in order: a range join, string and double lanes, an outer join,
   right-side arrivals, a run that grows the cap past 4096, a probe past
   the int32 cell limit (cut small) in row blocks.
+- The fused route (``plan/join_program`` + ``probe_fused_plain``) against
+  the JAX package's ``device_probe`` closure, bit for bit on idx and
+  count, over lanes with NaN, +-0, +-inf and ties: the join cell's
+  condition, the four apps', ``or`` and ``not`` across sides, f32
+  arithmetic on each side, string and double constants; a condition
+  outside the class (arithmetic across sides among them) takes the mask
+  route with its reason, rows equal.
 - Without CUDA the port's default device raises for a device-probe join.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +29,7 @@ import jax.numpy as jnp
 import siddhi_tpu
 import siddhi_tpu_torch
 from siddhi_tpu_torch.ops.join_probe import probe_compact, \
-    probe_compact_plain
+    probe_compact_plain, probe_fused, probe_fused_plain
 
 
 def _jax_compact(mask, nl, nr, cap):
@@ -130,6 +139,132 @@ def test_join_rows_equal_jax(name):
     tb, tr, got = _run(siddhi_tpu_torch, app, sends)
     assert jb == "device", jr
     assert tb == "device", tr
+    assert _route(app) == ("fused", None)
+    assert want and got == want
+
+
+def _route(app):
+    """The port's probe route for ``app`` (and the mask route's reason)."""
+    rt = siddhi_tpu_torch.SiddhiManager(device="cpu") \
+        .create_siddhi_app_runtime(app)
+    try:
+        jr = rt.query_runtimes["q"].join_runtime
+        return jr.probe_route, (jr.probe_route_reason
+                                if jr.probe_route == "mask" else None)
+    finally:
+        rt.shutdown()
+
+
+# ------------------------------------------------------------ fused route
+
+#: conditions the fused route takes (the join cell's: a right-side
+#: constant compare beside a cross-side range)
+FUSED_CONDS = {
+    "cell": "L.price > R.threshold and R.id == 3",
+    "range": "L.price > R.threshold and L.id == R.id",
+    "string_and_double_lanes": "L.sym == R.sym and L.d < R.d",
+    "left_outer": "L.price > R.threshold",
+    "right_arrivals": "L.price < R.threshold and L.sym != R.sym",
+    "or_across": "L.price > R.threshold or L.id != R.id",
+    "not_across": "not (L.price <= R.threshold) and not (R.id == L.id)",
+    "f32_arith": "(L.price + 1.5) * 0.5 > R.threshold / 4.0 or "
+                 "L.price / (L.price - 50.0) < -R.threshold or "
+                 "L.price - 2.0 >= R.threshold * R.threshold",
+    "unary_minus": "-L.price > R.threshold - 100.0",
+    "string_consts": "L.sym > 'a' and R.sym <= L.sym and R.sym != 'c'",
+    "double_consts": "L.d >= 0.25 and R.d != L.d or R.d < 0.5",
+    "deep": "((L.price > R.threshold or L.id == R.id) and "
+            "(L.price < R.threshold + 10.0 or L.id > R.id)) or "
+            "(not (L.id == 2) and R.threshold >= 50.0 and L.price < 60.0)",
+}
+
+#: lane values that tie and that hold NaN, +-0.0 and +-inf
+_F32 = np.asarray([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, 3.0, 25.0, 50.0,
+                   -1.5, 99.5, 100.0, 1e-30, -1e30], np.float32)
+
+
+def _cond_app(cond):
+    return STREAMS + f"""
+        @info(name='q')
+        from L#window.length(5) join R#window.length(5) on {cond}
+        select L.id as lid, R.id as rid insert into Out;"""
+
+
+@functools.lru_cache(maxsize=None)
+def _probes(cond):
+    """(the JAX package's device_probe closure, the port's program)."""
+    out = []
+    for pkg in (siddhi_tpu, siddhi_tpu_torch):
+        m = (pkg.SiddhiManager(device="cpu") if pkg is siddhi_tpu_torch
+             else pkg.SiddhiManager())
+        rt = m.create_siddhi_app_runtime(_cond_app(cond))
+        jr = rt.query_runtimes["q"].join_runtime
+        out.append(jr.device_probe if pkg is siddhi_tpu
+                   else (jr.probe_route, jr.probe_program))
+        rt.shutdown()
+    return out
+
+
+def _lane_values(rng, name, n):
+    if name.startswith("__"):
+        if name.startswith("__dk"):       # key halves: any int32
+            pool = np.asarray([-2**31, -7, 0, 1, 5, 2**31 - 1], np.int64)
+            v = np.where(rng.random(n) < 0.5, rng.choice(pool, n),
+                         rng.integers(-2**31, 2**31, n))
+            return v.astype(np.int32)
+        return rng.integers(0, 5, n).astype(np.int32)   # string ranks
+    if name == "id":
+        return rng.integers(0, 5, n).astype(np.float32)
+    return np.where(rng.random(n) < 0.6, rng.choice(_F32, n),
+                    rng.uniform(-10, 110, n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1, 4), (8, 16, 5, 16, 7),
+                                   (16, 8, 0, 8, 4), (64, 32, 61, 29, 10)])
+@pytest.mark.parametrize("name", sorted(FUSED_CONDS))
+def test_fused_plain_equals_jax_probe(name, shape):
+    nl2, nr2, nl, nr, cap = shape
+    jprobe, (route, prog) = _probes(FUSED_CONDS[name])
+    assert route == "fused"
+    rng = np.random.default_rng(nl2 * 31 + nr2 + len(name))
+    lv = [_lane_values(rng, a, nl2) for a in prog.lanes[0]]
+    rv = [_lane_values(rng, a, nr2) for a in prog.lanes[1]]
+    jidx, jcount = jprobe(
+        {a: jnp.asarray(v) for a, v in zip(prog.lanes[0], lv)},
+        {a: jnp.asarray(v) for a, v in zip(prog.lanes[1], rv)},
+        jnp.asarray(np.arange(nl2) < nl), jnp.asarray(np.arange(nr2) < nr),
+        cap)
+    args = ([torch.from_numpy(v) for v in lv],
+            [torch.from_numpy(v) for v in rv], nl, nr, nl2, nr2, cap)
+    idx, count = probe_fused_plain(prog, *args)
+    assert idx.dtype == torch.int32 and count.dtype == torch.int32
+    assert np.array_equal(idx.numpy(), np.asarray(jidx))
+    assert int(count) == int(jcount)
+    idx2, count2 = probe_fused(prog, *args)         # CPU: the plain version
+    assert torch.equal(idx2, idx) and int(count2) == int(count)
+
+
+@pytest.mark.parametrize("cond,why", [
+    ("L.price % 7.0 > R.threshold", "'%'"),
+    ("math:abs(L.price) > R.threshold", "AttributeFunction"),
+    ("ifThenElse(L.price > 50.0, L.price, 0.0) > R.threshold",
+     "AttributeFunction"),
+    ("(L.price + R.threshold) * 0.5 > 25.0 or "
+     "L.price / R.threshold < -1.0 or L.price - R.threshold >= 1.0",
+     "arithmetic that reads both sides"),
+    # nine cross-side compares: past the kernel's eight atoms
+    ("L.price > R.threshold or L.price < R.threshold or L.id == R.id or "
+     "L.price != R.id or L.id > R.threshold or L.id < R.id or "
+     "L.id >= R.threshold or L.price <= R.id or L.id <= R.threshold",
+     "more than 8 cross-side compares")])
+def test_outside_the_class_takes_the_mask_route(cond, why):
+    app = _cond_app(cond)
+    route, reason = _route(app)
+    assert route == "mask" and why in reason, reason
+    sends = _sends(len(cond))
+    jb, jr, want = _run(siddhi_tpu, app, sends)
+    tb, tr, got = _run(siddhi_tpu_torch, app, sends)
+    assert jb == "device" and tb == "device", (jr, tr)
     assert want and got == want
 
 
