@@ -44,8 +44,12 @@ raises, so the script exits non-zero and prints no ``ok`` line:
   6. the pattern cell at full width — __graft_entry__.PARTITIONED_APP
      over 10,000 integer keys (BASELINE config 3's keyed stream, one
      pattern), M chunks of 262,144 events through the public API on the
-     device engine; the query must run on the NFA kernels, every match
-     row is held against an independent per-key reference; the cell's own
+     device engine, twice: on the default dispatch (the query a
+     cross-tenant bucket of one on phase 26's gang kernels: the cell's
+     main path) and with SIDDHI_TPU_XTENANT=0 (the step and compaction
+     kernels per app); each run must launch its pair of kernels, the two
+     runs' rows must be equal and every match row is held against an
+     independent per-key reference; each run's wall, device split and
      peak device memory;
   7. engine parity for the pattern apps: CUDA kernel, CPU plain, host
      (PARTITIONED_APP, BASELINE config 4's count app; config 3's absent
@@ -73,9 +77,10 @@ raises, so the script exits non-zero and prints no ``ok`` line:
  10. the count cell — BASELINE config 4 (`every e1=S[kind == 0]<3:10> ->
      e2=S[kind == 1 and price > e1[last].price] within 10 sec`) over
      100,000 string keys, C chunks of 262,144 events through the public
-     API on the NFA kernels; every row against an independent per-key
-     reference, the CPU plain composition and (the first 1,000 keys) the
-     host engine;
+     API on the NFA kernels, packed and with SIDDHI_TPU_XTENANT=0 as in
+     phase 6; the two runs' rows equal, and every row against an
+     independent per-key reference, the CPU plain composition and (the
+     first 1,000 keys) the host engine;
  11. the absent fleet cell — BASELINE config 3: phase 8's bank with a
      trailing `not S[kind == 0 and price > e2.price] for 3 sec`, A blocks
      on the bank step's thread instance and the ring; every pattern's
@@ -84,12 +89,13 @@ raises, so the script exits non-zero and prints no ``ok`` line:
  12. the grouped-aggregation kernels (csrc/grouped_agg.cu: K7a gagg_step,
      K7b gagg_time_step) against their plain twins, bit for bit on every
      output plane and carry leaf (NaN payloads aside), over chained
-     blocks: the cells' shapes (the plain twin at a cut T), T >= W,
+     blocks: the cells' shapes (the plain twin at a cut T: 1,024 at
+     P = 1), T >= W,
      group growth, evictions in the arriving group, a +-inf/NaN/-0.0
      feed, ints near 2^31, a ring overflow, partly filled carries,
      rejected rows, P = 1 and 1,024, numguard, rings above shared memory,
      short and long group ranges in one lane, timestamps out of order,
-     one group holding a whole T = 4,096 lane, T not a multiple of the
+     one group holding a whole T = 2,048 lane, T not a multiple of the
      passes' tile and below one tile, in-place steps whose evictions
      cross a tile boundary, tiles doubled past the count budget (a CTA
      walking two blocks of items); then both timed at the cells' shapes
@@ -108,7 +114,7 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      64 -> 1,024 by replay), on K7b and the selection step; every row,
      its order and its exact sum against a reference;
  16. the filter cell: `S[price > 50.0 and sym != key]` with a projection,
-     8 chunks, the string compare on code lanes; rows against numpy;
+     phase 3's chunks, the string compare on code lanes; rows against numpy;
  17. small apps of the JAX suites' shapes through CUDA, the CPU plain
      steps and the host engine;
  18. K6 (csrc/wagg_time.cu) against its plain twin, bit for bit on every
@@ -158,6 +164,29 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      join at its own sizes (a 10,000-row table, 16,384-event chunks, 2
      warm-up and JOIN_CHUNKS timed) on the device probe; every chunk's
      pairs in order against a numpy reference;
+ 26. the cross-tenant gang (K12: csrc/nfa_gang.cu's nfa_gang_step and
+     nfa_gang_compact through ops/nfa.nfa_gang_step_egress) against its
+     plain twin and against each tenant stepped alone (nfa_step_egress),
+     bit for bit on every carry leaf and egress row, over chained flushes
+     of two buckets: thresholds, T and `within` differing, the simple
+     and absent template instances in one flush, kleene counts, a tenant
+     whose ring overflows, one without a pending block, a full scratch
+     segment and a cap below the count; and a bucket of 32 of the
+     service's unkeyed apps at its shape (P = 1, T = 8); the gang at the
+     keyed cell's shape (32 tenants, P = 1,024) held against the twin bit
+     for bit and timed against the tenants' summed K2 + K4 bounds; then
+     bench.py's _mtenant_app service: 100 apps (4 buckets of 32), 8
+     events a tenant a round, and the same apps in `partition with (k of
+     S)`, 1,024 keys and 16,384 events a tenant a round, 8 rounds; each
+     packed and with SIDDHI_TPU_XTENANT=0 in turns, every tenant's rows
+     equal, gang launches, device operations and D2H reads a flush and
+     the wall a round printed;
+ 27. partition shard-out with SIDDHI_TPU_SHARDS=4 (every shard on
+     cuda:0): the pattern cell's app, config 2's keyed wagg (4 queries)
+     and phase 14's keyed gagg, each over a few chunks: unsharded, then
+     sharded in two runtimes (persist after the first half, restore into
+     a new runtime for the second); the rows equal as multisets, the
+     /stats shard rows hold every key and event once;
   then one JSON line per the kernel table, the nvidia-smi line, and the
   last line ``{"ok": true, "device": {...}}``.
 
@@ -850,11 +879,12 @@ def pattern_reference(chunks):
 
 
 def _nfa_blocks(nfa, P, T, n_blocks, seed, dev, valid=True, gap=1000,
-                nan=False, skew=False):
+                nan=False, skew=False, hi=100.0):
     """n_blocks chained [P, T] blocks of random events on `dev` (T events
-    per lane, every stream of the spec, the kernel's dtypes), `gap` ms
-    apart in each lane; with `nan`, 5% of prices are NaN; with `skew`,
-    only lane 0 has events past the first 64 (one hot key sets T)."""
+    per lane, every stream of the spec, the kernel's dtypes, values
+    uniform in [0, hi)), `gap` ms apart in each lane; with `nan`, 5% of
+    prices are NaN; with `skew`, only lane 0 has events past the first
+    64 (one hot key sets T)."""
     import torch
     rng = np.random.default_rng(seed)
     out = []
@@ -864,7 +894,7 @@ def _nfa_blocks(nfa, P, T, n_blocks, seed, dev, valid=True, gap=1000,
             if a in ("kind", "qty"):
                 v = rng.integers(0, 3 if a == "qty" else 2, (P, T))
             else:
-                v = rng.uniform(0, 100, (P, T))
+                v = rng.uniform(0, hi, (P, T))
                 if nan:
                     v[rng.random((P, T)) < 0.05] = np.nan
             blk[a] = torch.tensor(v.astype(np.float32), device=dev)
@@ -1245,6 +1275,160 @@ def check_compaction(t_main, dev, seed):
 
 # ------------------------------------------------------------------ phase 6
 
+def app_runtime(dev, text, packed):
+    """The runtime of `text`.  packed: the dispatch users get by default,
+    where each unsharded pattern query joins the cross-tenant packer and
+    steps as a bucket (of one, alone) through nfa_gang_step /
+    nfa_gang_compact; otherwise SIDDHI_TPU_XTENANT=0 while it is built,
+    and its pattern queries step through nfa_step / nfa_compact."""
+    from siddhi_tpu_torch import SiddhiManager
+    prev = os.environ.pop("SIDDHI_TPU_XTENANT", None)
+    if not packed:
+        os.environ["SIDDHI_TPU_XTENANT"] = "0"
+    try:
+        return SiddhiManager(device=dev).create_siddhi_app_runtime(text)
+    finally:
+        os.environ.pop("SIDDHI_TPU_XTENANT", None)
+        if prev is not None:
+            os.environ["SIDDHI_TPU_XTENANT"] = prev
+
+
+#: the NFA kernels a pattern cell can launch, in _gang_launches' order:
+#: the gang's on the default (packed) dispatch, the per-app pair with
+#: SIDDHI_TPU_XTENANT=0 (and for a packed tenant's replays)
+NFA_CELL_KERNELS = ("nfa_gang_step_kernel", "nfa_gang_compact_kernel",
+                    "nfa_step_kernel", "nfa_compact_kernel")
+
+
+def drive_nfa_cell(dev, text, chunks, columns, packed):
+    """One run of a pattern cell through the public API: `text` built by
+    app_runtime, every query on the device pattern path, `chunks`
+    ((columns, timestamps, ...)) sent to S and Out collected by a
+    columnar callback, under the profiler; the four NFA kernels' counts
+    set to 0 just before the chunks and read just after.  Returns a dict
+    of the run: got (column: arrays), wall, per_kernel, dev_us,
+    launches (gang step, gang compaction, nfa_step, nfa_compact), host
+    stage seconds, slot grows, replays, final K, lanes, carry bytes,
+    dropped partials, peak above the memory allocated before it."""
+    import gc
+
+    import torch
+    from siddhi_tpu_torch import ColumnarStreamCallback
+    from siddhi_tpu_torch.core.ledger import ledger
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = app_runtime(dev, text, packed)
+    build_s = time.perf_counter() - t0
+    pr = rt.partition_runtimes[0]
+    if not pr.device_mode:
+        raise AssertionError(f"partition fell back to host: "
+                             f"{pr.fallback_reason}")
+    runtimes = []
+    for qname, qr in pr.device_query_runtimes.items():
+        if qr.backend != "device" or \
+                type(qr.device_runtime).__name__ != "DevicePatternRuntime":
+            raise AssertionError(f"{qname} is not on the device pattern path")
+        runtimes.append(qr.device_runtime)
+    got = {c: [] for c in ("ts",) + tuple(columns)}
+
+    def sink(chunk):
+        got["ts"].append(np.array(chunk.timestamps))
+        for c in columns:
+            got[c].append(np.array(chunk.columns[c]))
+    rt.add_callback("Out", ColumnarStreamCallback(sink))
+    rt.start()
+    h = rt.get_input_handler("S")
+
+    def drive():
+        t = time.perf_counter()
+        for c in chunks:
+            h.send_batch(c[0], timestamps=c[1])
+        rt.flush()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    stage0 = dict(ledger().snapshot()["stage_seconds"])
+    _set_gang_launches()                  # counts start here
+    wall, per_kernel, dev_us = profile_device(drive)
+    launches = _gang_launches()
+    stage1 = ledger().snapshot()["stage_seconds"]
+    nfa = runtimes[0].nfa
+    res = {"got": got, "wall": wall, "per_kernel": per_kernel,
+           "dev_us": dev_us, "launches": launches, "build_s": build_s,
+           "stages": {k: stage1[k] - stage0.get(k, 0.0) for k in stage1},
+           "grows": sum(r.slot_grows for r in runtimes),
+           "replays": sum(r.replays for r in runtimes),
+           "k_final": nfa.spec.n_slots, "lanes": nfa.n_partitions,
+           "carry_bytes": sum(v.numel() * v.element_size()
+                              for v in nfa.carry.values()),
+           "dropped": sum(int(r.nfa.carry["dropped"].sum())
+                          for r in runtimes)}
+    rt.shutdown()
+    res["peak"] = torch.cuda.max_memory_allocated() - mem0
+    res["mem0"] = mem0
+    return res
+
+
+def report_nfa_cell(name, r, n_events, n_chunks, packed):
+    """Log one drive_nfa_cell run (events/s, ms per chunk, peak, host
+    stages, each NFA kernel's device time and launches, the idle share)
+    and check that its dispatch's pair of kernels ran once a chunk at
+    least, and the other dispatch's gang not at all.  Returns the run's
+    numbers for the kernels line."""
+    wall = r["wall"]
+    route = ("default dispatch: a cross-tenant bucket of one" if packed
+             else "SIDDHI_TPU_XTENANT=0: per-app dispatch")
+    out = {"wall": wall, "events_per_s": n_events / wall,
+           "ms_per_chunk": wall / n_chunks * 1e3,
+           "launches": list(r["launches"]), "peak": r["peak"],
+           "lanes": r["lanes"], "build_s": r["build_s"],
+           "kernel_ms": None, "device_ms": None, "idle_share": None}
+    log(f"  {name} ({route}): {n_events} events ({n_chunks} chunks), "
+        f"{r['lanes']} lanes, K={r['k_final']}, carry {r['carry_bytes']} B; "
+        f"{wall:.3f} s wall (app built in {r['build_s']:.3f} s)")
+    log(f"    events/s: {out['events_per_s']:.1f}; ms per chunk: "
+        f"{out['ms_per_chunk']:.3f}")
+    log(f"    max_memory_allocated: {r['peak']} B above the {r['mem0']} B "
+        f"allocated before the run; slot grows {r['grows']}, replays "
+        f"{r['replays']}, dropped {r['dropped']}")
+    log("    host stages (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["stages"].items()))
+    per_kernel = r["per_kernel"]
+    if per_kernel is not None:
+        dev_us = r["dev_us"]
+        ms = {k: sum(us for key, us in per_kernel.items()
+                     if is_kernel(key, k)) / 1e3 for k in NFA_CELL_KERNELS}
+        out.update(kernel_ms=ms, device_ms=dev_us / 1e3,
+                   idle_share=100 - dev_us / 1e6 / wall * 100)
+        log("    device time (ms) / launches: " + ", ".join(
+            f"{k} {ms[k]:.3f} / {n}"
+            for k, n in zip(NFA_CELL_KERNELS, r["launches"])) +
+            f"; all device time {dev_us / 1e3:.3f} ms = "
+            f"{dev_us / 1e6 / wall * 100:.3f}% of wall (idle share "
+            f"{out['idle_share']:.3f}%)")
+        for k, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"      device {us / 1e3:10.3f} ms  {k[:90]}")
+    else:
+        log("    torch.profiler recorded no device time: the kernels' "
+            "share not measured")
+    g_step, g_comp, step, comp = r["launches"]
+    ran = (g_step, g_comp) if packed else (step, comp)
+    stray = 0 if packed else g_step + g_comp
+    if min(ran) < n_chunks or stray:
+        raise AssertionError(f"{name} ({route}): launches (gang step, gang "
+                             f"compaction, nfa_step, nfa_compact) "
+                             f"{r['launches']}, expected >= {n_chunks} of "
+                             f"the dispatch's pair")
+    if r["dropped"]:
+        raise AssertionError(f"{name} ({route}) dropped {r['dropped']} "
+                             f"partials")
+    return out
+
+
 def pattern_app() -> str:
     """The pattern cell's app: PARTITIONED_APP with @app:lanes and the
     @Async input junction of the config-2 app."""
@@ -1257,106 +1441,38 @@ def pattern_app() -> str:
 
 
 def run_pattern_path(chunks, dev):
-    import torch
-    import gc
-
-    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
-    from siddhi_tpu_torch.ops.nfa import nfa_compact, nfa_step_egress
-
+    """Phase 6: the pattern cell on the default dispatch (its main path:
+    the query is a cross-tenant bucket of one on K12), then with
+    SIDDHI_TPU_XTENANT=0 (K2 + K4 per app); both runs' rows equal, in
+    order, and equal the independent per-key reference.  Returns
+    {"packed": numbers, "per_app": numbers}."""
     n_chunks = len(chunks)
-    gc.collect()
-    torch.cuda.empty_cache()
-    mem0 = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(pattern_app())
-    log(f"  app built in {time.perf_counter() - t0:.3f} s")
-    pr = rt.partition_runtimes[0]
-    if not pr.device_mode:
-        raise AssertionError(f"partition fell back to host: "
-                             f"{pr.fallback_reason}")
-    runtimes = []
-    for qname, qr in pr.device_query_runtimes.items():
-        if qr.backend != "device" or \
-                type(qr.device_runtime).__name__ != "DevicePatternRuntime":
-            raise AssertionError(f"{qname} is not on the device pattern path")
-        runtimes.append(qr.device_runtime)
-    got = {"ts": [], "p1": [], "p2": []}
-
-    def sink(chunk):
-        got["ts"].append(np.array(chunk.timestamps))
-        got["p1"].append(np.array(chunk.columns["p1"]))
-        got["p2"].append(np.array(chunk.columns["p2"]))
-    rt.add_callback("Out", ColumnarStreamCallback(sink))
-    rt.start()
-    h = rt.get_input_handler("S")
-
-    def drive():
-        t = time.perf_counter()
-        for cols, ts in chunks:
-            h.send_batch(cols, timestamps=ts)
-        rt.flush()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t
-
-    from siddhi_tpu_torch.core.ledger import ledger
-    stage0 = dict(ledger().snapshot()["stage_seconds"])
-    nfa_step_egress.launches = 0          # counts start here
-    nfa_compact.launches = 0
-    wall, per_kernel, dev_us = profile_device(drive)
-    launches = (nfa_step_egress.launches, nfa_compact.launches)
-    stage1 = ledger().snapshot()["stage_seconds"]
-    grows = sum(r.slot_grows for r in runtimes)
-    replays = sum(r.replays for r in runtimes)
-    k_final = runtimes[0].nfa.spec.n_slots
-    rt.shutdown()
-    n_events = n_chunks * CHUNK
-    cols = {k: np.concatenate(v) if v else np.zeros(0)
-            for k, v in got.items()}
-    log(f"  pattern path: {n_events} events ({n_chunks} chunks of "
-        f"{CHUNK}), {N_PATTERN_KEYS} keys, {wall:.3f} s wall")
-    log(f"  events/s: {n_events / wall:.1f}; ms per chunk: "
-        f"{wall / n_chunks * 1e3:.3f}; matches: {len(cols['ts'])}")
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  max_memory_allocated: {peak} B ({peak - mem0} B above the "
-        f"{mem0} B allocated before the cell)")
-    log(f"  slot grows {grows}, replays {replays}, final K {k_final}")
-    log("  host stages (s): " + ", ".join(
-        f"{k} {stage1[k] - stage0.get(k, 0.0):.3f}" for k in stage1))
-    if per_kernel is not None:
-        step_us = sum(us for k, us in per_kernel.items()
-                      if is_kernel(k, "nfa_step_kernel"))
-        comp_us = sum(us for k, us in per_kernel.items()
-                      if is_kernel(k, "nfa_compact_kernel"))
-        nfa_us = step_us + comp_us
-        log(f"  nfa_step device time {step_us / 1e3:.3f} ms over "
-            f"{launches[0]} launches, nfa_compact {comp_us / 1e3:.3f} ms over "
-            f"{launches[1]} launches = {nfa_us / 1e6 / wall * 100:.3f}% of "
-            f"wall; all "
-            f"device time {dev_us / 1e3:.3f} ms = "
-            f"{dev_us / 1e6 / wall * 100:.3f}% of wall (idle share "
-            f"{100 - dev_us / 1e6 / wall * 100:.3f}%)")
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-        for k, us in top:
-            log(f"    device {us / 1e3:10.3f} ms  {k[:90]}")
-    else:
-        log("  torch.profiler recorded no device time: nfa_step share not "
-            "measured")
-    if min(launches) < n_chunks:
-        raise AssertionError(f"nfa_step / nfa_compact launched {launches} "
-                             f"times, expected >= {n_chunks} each")
+    n_events = sum(len(c[1]) for c in chunks)
+    runs, cols = {}, {}
+    for key, packed in (("packed", True), ("per_app", False)):
+        r = drive_nfa_cell(dev, pattern_app(), chunks, ("p1", "p2"), packed)
+        cols[key] = {k: np.concatenate(v) if v else np.zeros(0)
+                     for k, v in r["got"].items()}
+        runs[key] = report_nfa_cell("pattern cell", r, n_events, n_chunks,
+                                    packed)
+        runs[key]["matches"] = len(cols[key]["ts"])
+    a, b = cols["packed"], cols["per_app"]
+    if not all(np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError("pattern cell: packed rows != "
+                             "SIDDHI_TPU_XTENANT=0 rows")
     t_ref = time.perf_counter()
     rts, rp1, rp2 = pattern_reference(chunks)
-    if len(rts) != len(cols["ts"]):
-        raise AssertionError(f"pattern path: {len(cols['ts'])} rows, "
+    if len(rts) != len(a["ts"]):
+        raise AssertionError(f"pattern path: {len(a['ts'])} rows, "
                              f"reference {len(rts)}")
-    if not (np.array_equal(cols["ts"], np.asarray(rts, np.int64)) and
-            np.array_equal(cols["p1"].astype(np.float32), rp1) and
-            np.array_equal(cols["p2"].astype(np.float32), rp2)):
+    if not (np.array_equal(a["ts"], np.asarray(rts, np.int64)) and
+            np.array_equal(a["p1"].astype(np.float32), rp1) and
+            np.array_equal(a["p2"].astype(np.float32), rp2)):
         raise AssertionError("pattern path rows != reference")
-    log(f"  all {len(rts)} match rows == the per-key reference, in order "
-        f"and exactly (reference {time.perf_counter() - t_ref:.1f} s)")
-    return launches, wall
+    log(f"  all {len(rts)} match rows of both runs equal, in order, and "
+        f"== the per-key reference, exactly (reference "
+        f"{time.perf_counter() - t_ref:.1f} s)")
+    return runs
 
 
 # ------------------------------------------------------------------ phase 7
@@ -2787,116 +2903,37 @@ def run_count_app(text, chunks, device, engine="device"):
 def run_count_path(chunks, dev):
     """Phase 10: BASELINE config 4 on the card through the public API —
     the count app over 100,000 string keys, the chunks through the @Async
-    junction and the device engine (K2 + K4 with kleene count units).
-    The query must run on the NFA kernels; events/s, ms per chunk, the
-    device split by exact kernel name, the idle share and the cell's
-    peak.  Its rows must equal, as multisets, the independent per-key
-    reference, the same chunks through SiddhiManager(device="cpu") (the
-    plain composition), and for the first COUNT_HOST_KEYS keys the
-    port's host engine; nothing dropped."""
-    import gc
-
-    import torch
-    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
-    from siddhi_tpu_torch.ops.nfa import nfa_compact, nfa_step_egress
-
+    junction and the device engine (K2 + K4 with kleene count units): on
+    the default dispatch (its main path: a cross-tenant bucket of one on
+    K12), then with SIDDHI_TPU_XTENANT=0 (K2 + K4 per app).  Each run's
+    events/s, ms per chunk, device split by exact kernel name, idle share
+    and peak.  The two runs' rows must be equal, and equal, as multisets,
+    the independent per-key reference, the same chunks through
+    SiddhiManager(device="cpu") (the plain composition), and for the
+    first COUNT_HOST_KEYS keys the port's host engine; nothing dropped.
+    Returns {"packed": numbers, "per_app": numbers}."""
     n_chunks = len(chunks)
-    gc.collect()
-    torch.cuda.empty_cache()
-    mem0 = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(count_app())
-    log(f"  app built in {time.perf_counter() - t0:.3f} s")
-    pr = rt.partition_runtimes[0]
-    if not pr.device_mode:
-        raise AssertionError(f"partition fell back to host: "
-                             f"{pr.fallback_reason}")
-    runtimes = []
-    for qname, qr in pr.device_query_runtimes.items():
-        if qr.backend != "device" or \
-                type(qr.device_runtime).__name__ != "DevicePatternRuntime":
-            raise AssertionError(f"{qname} is not on the device pattern path")
-        runtimes.append(qr.device_runtime)
-    got = {"ts": [], "p0": [], "pl": [], "p2": []}
-
-    def sink(chunk):
-        got["ts"].append(np.array(chunk.timestamps))
-        for k in ("p0", "pl", "p2"):
-            got[k].append(np.array(chunk.columns[k]))
-    rt.add_callback("Out", ColumnarStreamCallback(sink))
-    rt.start()
-    h = rt.get_input_handler("S")
-
-    def drive():
-        t = time.perf_counter()
-        for cols, ts, _ki in chunks:
-            h.send_batch(cols, timestamps=ts)
-        rt.flush()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t
-
-    from siddhi_tpu_torch.core.ledger import ledger
-    stage0 = dict(ledger().snapshot()["stage_seconds"])
-    nfa_step_egress.launches = 0          # counts start here
-    nfa_compact.launches = 0
-    wall, per_kernel, dev_us = profile_device(drive)
-    launches = (nfa_step_egress.launches, nfa_compact.launches)
-    stage1 = ledger().snapshot()["stage_seconds"]
-    nfa = runtimes[0].nfa
-    lanes, k_final = nfa.n_partitions, nfa.spec.n_slots
-    carry_bytes = sum(v.numel() * v.element_size()
-                      for v in nfa.carry.values())
-    dropped = sum(int(r.nfa.carry["dropped"].sum()) for r in runtimes)
-    grows = sum(r.slot_grows for r in runtimes)
-    rt.shutdown()
-    peak = torch.cuda.max_memory_allocated()
     n_events = sum(len(c[1]) for c in chunks)
-    rows = _rows_of(got)
-    res = {"wall": wall, "events_per_s": n_events / wall,
-           "ms_per_chunk": wall / n_chunks * 1e3, "launches": launches,
-           "rows": len(rows), "peak": peak - mem0, "lanes": lanes}
-    log(f"  count path: {n_events} events ({n_chunks} chunks), "
-        f"{N_COUNT_KEYS} keys on {lanes} lanes, K={k_final}, carry "
-        f"{carry_bytes} B; {wall:.3f} s wall")
-    log(f"  events/s: {res['events_per_s']:.1f}; ms per chunk: "
-        f"{res['ms_per_chunk']:.3f}; matches: {len(rows)}")
-    log(f"  max_memory_allocated: {peak} B ({peak - mem0} B above the "
-        f"{mem0} B allocated before the cell); slot grows {grows}, "
-        f"dropped {dropped}")
-    log("  host stages (s): " + ", ".join(
-        f"{k} {stage1[k] - stage0.get(k, 0.0):.3f}" for k in stage1))
-    if per_kernel is not None:
-        step_us = sum(us for k, us in per_kernel.items()
-                      if is_kernel(k, "nfa_step_kernel"))
-        comp_us = sum(us for k, us in per_kernel.items()
-                      if is_kernel(k, "nfa_compact_kernel"))
-        res.update(step_ms=step_us / 1e3, compact_ms=comp_us / 1e3,
-                   device_ms=dev_us / 1e3,
-                   idle_share=100 - dev_us / 1e6 / wall * 100)
-        log(f"  nfa_step device time {step_us / 1e3:.3f} ms over "
-            f"{launches[0]} launches, nfa_compact {comp_us / 1e3:.3f} ms over "
-            f"{launches[1]} launches; all device time {dev_us / 1e3:.3f} ms = "
-            f"{dev_us / 1e6 / wall * 100:.3f}% of wall (idle share "
-            f"{res['idle_share']:.3f}%)")
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-        for k, us in top:
-            log(f"    device {us / 1e3:10.3f} ms  {k[:90]}")
-    else:
-        log("  torch.profiler recorded no device time: nfa_step share not "
-            "measured")
-    if min(launches) < n_chunks:
-        raise AssertionError(f"nfa_step / nfa_compact launched {launches} "
-                             f"times, expected >= {n_chunks} each")
-    if dropped:
-        raise AssertionError(f"count path dropped {dropped} partials")
+    runs, rows = {}, {}
+    for key, packed in (("packed", True), ("per_app", False)):
+        r = drive_nfa_cell(dev, count_app(), chunks, ("p0", "pl", "p2"),
+                           packed)
+        rows[key] = _rows_of(r["got"])
+        runs[key] = report_nfa_cell("count cell", r, n_events, n_chunks,
+                                    packed)
+        runs[key]["rows"] = len(rows[key])
+    rows, other = rows["packed"], rows["per_app"]
+    if rows != other:
+        raise AssertionError(f"count cell: {len(rows)} packed rows != "
+                             f"{len(other)} SIDDHI_TPU_XTENANT=0 rows")
     t1 = time.perf_counter()
     want = count_reference(chunks)
     if rows != want:
         raise AssertionError(f"count path: {len(rows)} rows, reference "
                              f"{len(want)} (or values differ)")
-    log(f"  all {len(rows)} rows == the per-key reference, as multisets "
-        f"and exactly ({time.perf_counter() - t1:.1f} s)")
+    log(f"  all {len(rows)} rows of both runs equal, and == the per-key "
+        f"reference, as multisets and exactly "
+        f"({time.perf_counter() - t1:.1f} s)")
     t1 = time.perf_counter()
     plain, _d = run_count_app(count_app(), chunks, "cpu")
     if plain != rows:
@@ -2919,7 +2956,7 @@ def run_count_path(chunks, dev):
                              f"{len(host)}")
     log(f"  the first {COUNT_HOST_KEYS} keys' {len(host)} rows == the host "
         f"engine's, as multisets ({time.perf_counter() - t1:.1f} s)")
-    return res
+    return runs
 
 
 def _row_keys(rows, chunks):
@@ -3194,10 +3231,15 @@ def run_count_bank(dev, seed):
 #: (a partly filled carry); grow: the group slabs widened to this G before
 #: the last block (new gids up to it); dens: accepted share per block;
 #: gids "skew": half the events in group 0; ts "jitter": out of order
+#: the P = 1 cases' T (the plain twin is a Python loop over events, 2-3
+#: ms an event at G = 1,024 on the card; cut from 4,096 to keep the
+#: script within its time limit) and the one-chain case's
+GAGG_PLAIN_T = 1024
+GAGG_CHAIN_T = 2048
 GAGG_CASES = [
     # the grouped cell's shape, T cut for the plain twin (a Python loop)
-    dict(kind="length", P=1, W=1000, G=1024, VF=1, VI=0, T=(4096, 2048),
-         minmax=True, inplace=True),
+    dict(kind="length", P=1, W=1000, G=1024, VF=1, VI=0,
+         T=(GAGG_PLAIN_T, GAGG_PLAIN_T // 2), minmax=True, inplace=True),
     # the keyed cell's shape: 1,024 lanes, G = 4, T >= W after the fill
     dict(kind="length", P=1024, W=1000, G=4, VF=1, VI=0, T=(1024, 512),
          minmax=True, inplace=True),
@@ -3225,7 +3267,7 @@ GAGG_CASES = [
          minmax=True),                                 # ring above smem
     # K7b: the time cell's shape, T cut for the plain twin
     dict(kind="time", P=1, W=1024, ms=1000, G=1024, VF=1, VI=1,
-         T=(4096, 2048)),
+         T=(GAGG_PLAIN_T, GAGG_PLAIN_T // 2)),
     dict(kind="time", P=16, W=8, ms=6, G=3, VF=2, VI=2, T=(64, 40),
          forever=True),
     dict(kind="time", P=8, W=8, ms=1000, G=3, VF=1, VI=1,
@@ -3250,10 +3292,11 @@ GAGG_CASES = [
          feed="nonfinite", ts="jitter"),
     # one group holds the lane: the walk's one chain of T events and as
     # many evictions, every range the warp's
-    dict(kind="length", P=1, W=1000, G=1, VF=1, VI=1, T=(4096, 4096),
-         minmax=True, forever=True, inplace=True),
-    dict(kind="time", P=1, W=1024, ms=1000, G=1, VF=1, VI=1, T=(4096,),
-         forever=True),
+    dict(kind="length", P=1, W=1000, G=1, VF=1, VI=1,
+         T=(GAGG_CHAIN_T, GAGG_CHAIN_T), minmax=True, forever=True,
+         inplace=True),
+    dict(kind="time", P=1, W=1024, ms=1000, G=1, VF=1, VI=1,
+         T=(GAGG_PLAIN_T,), forever=True),
     # T not a multiple of the passes' tile (256 events), and below one
     dict(kind="length", P=5, W=300, G=16, VF=2, VI=1, T=(1000, 777),
          minmax=True, forever=True),
@@ -3465,7 +3508,7 @@ GAGG_TIMED = {
     "keyed_cell": ("length", N_KEYS, 512, WINDOW, 8, 1, 0, 0),
     "time_cell": ("time", 1, CHUNK, 1024, N_KEYS, 1, 1, 1000),
 }
-T_PLAIN = 4096
+T_PLAIN = GAGG_PLAIN_T
 #: the walk's serial floor at the grouped cell's shape: one group holding
 #: the lane, and half the events in group 0 ((shape), gids feed)
 GAGG_FLOORS = {
@@ -5824,6 +5867,680 @@ def run_join_cell(dev, seed, route="fused"):
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------------------------ phase 26
+
+GANG_P = 2048
+GANG_K = 8
+GANG_BLOCKS = 3
+
+
+def _gang_simple(thr, within=" within 10 sec"):
+    return (_S3 + f"from every e1=S[kind == 0 and price > {thr}] -> "
+            f"e2=S[kind == 1 and price > e1.price]{within} select "
+            f"e1.price as p1, e2.price as p2 insert into Out;")
+
+
+#: the gang checks' buckets (name: app, T): tenants of one K and one
+#: egress width; thresholds, T and `within` differ.  The first mixes the
+#: simple units' template instance with the absent units' (one step
+#: launch each); one tenant never closes its partials (its ring
+#: overflows), one has no pending block in the second flush, one runs
+#: with one scratch row a CTA (a full segment) and one with a cap below
+#: its count
+GANG_BUCKETS = {
+    "simple + absent (two instances)": {
+        "thr 20": (_gang_simple(20.0), 48),
+        "thr 50, cap below count": (_gang_simple(50.0), 64),
+        "thr 80, no within": (_gang_simple(80.0, ""), 17),
+        "overflow": (_S3 + "from every e1=S[price > 0.0] -> e2=S[kind == 1 "
+                     "and price > 99.9] select e1.price as p1, e2.price as "
+                     "p2 insert into Out;", 64),
+        "absent trailing, one scratch row": (
+            WIDE_CASES["absent trailing (config 3)"], 32),
+        "absent trailing thr 80": (
+            WIDE_CASES["absent trailing (config 3)"].replace(
+                "price > 50.0", "price > 80.0", 1), 40),
+    },
+    "kleene counts": {
+        "count thr 50": (WIDE_CASES["count mid-chain"], 40),
+        "count thr 30": (WIDE_CASES["count mid-chain"].replace(
+            "price > 50.0", "price > 30.0", 1), 64),
+        "count thr 70": (WIDE_CASES["count mid-chain"].replace(
+            "price > 50.0", "price > 70.0", 1), 23),
+    },
+}
+GANG_IDLE = {"thr 80, no within", "count thr 30"}   # idle in flush 1
+
+
+def _gang_launches():
+    from siddhi_tpu_torch.ops.nfa import (nfa_compact, nfa_gang_compact,
+                                          nfa_gang_step_egress,
+                                          nfa_step_egress)
+    return (nfa_gang_step_egress.launches, nfa_gang_compact.launches,
+            nfa_step_egress.launches, nfa_compact.launches)
+
+
+def _set_gang_launches(v=(0, 0, 0, 0)):
+    from siddhi_tpu_torch.ops.nfa import (nfa_compact, nfa_gang_compact,
+                                          nfa_gang_step_egress,
+                                          nfa_step_egress)
+    (nfa_gang_step_egress.launches, nfa_gang_compact.launches,
+     nfa_step_egress.launches, nfa_compact.launches) = v
+
+
+def _slab_err(got, want, cap) -> float:
+    """The largest absolute difference over what _slab_equal compares
+    (int32 words)."""
+    n = min(int(want[cap, 0]), cap)
+    return max(_abs_err(got[:n], want[:n]),
+               _abs_err(got[n:cap, 0], want[n:cap, 0]),
+               _abs_err(got[cap], want[cap]))
+
+
+def _carry_err(got, want, what) -> float:
+    """Every leaf of `want` bit for bit in `got` (else AssertionError
+    naming `what` and the leaf); returns the largest absolute difference
+    over the leaves."""
+    err = 0.0
+    for leaf in want:
+        if not _same_bits(got[leaf], want[leaf]):
+            raise AssertionError(f"{what}: carry.{leaf} differs")
+        err = max(err, _abs_err(got[leaf], want[leaf]))
+    return err
+
+
+def gang_buckets():
+    """check_gang's buckets: (name, P, value range, {tenant: (app, T)});
+    GANG_BUCKETS at P = GANG_P, then the unkeyed service cell's bucket
+    shape: 32 of its apps (thresholds 0.0 to 0.45) at P = 1 and T =
+    TENANT_EVENTS[False], values in [0, 1) as the cell feeds them."""
+    out = [(g, GANG_P, 100.0, m) for g, m in GANG_BUCKETS.items()]
+    out.append(("unkeyed service (32 tenants, P = 1)", 1, 1.0,
+                {f"mt{i}": (mtenant_app(i, False), TENANT_EVENTS[False])
+                 for i in range(32)}))
+    return out
+
+
+def check_gang(dev, seed):
+    """The gang kernels (nfa_gang_step + nfa_gang_compact through
+    ops/nfa.nfa_gang_step_egress) against the plain twin
+    (nfa_gang_step_egress_plain) and against each tenant stepped alone
+    through nfa_step_egress, on the card, over GANG_BLOCKS chained
+    flushes per bucket: every carry leaf bit for bit, each tenant's egress
+    by the slab contract and its status row; a full scratch segment is
+    re-run alone with segments that fit and a count above cap re-packed
+    alone, as the engine does.  Returns (flushes checked, step launches
+    of each flush, the largest absolute difference over every carry leaf
+    and slab compared)."""
+    import torch
+    from siddhi_tpu_torch.ops.nfa import (GangTenant, nfa_gang_step_egress,
+                                          nfa_gang_step_egress_plain,
+                                          nfa_step_egress)
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
+    saved = _gang_launches()
+    flushes, per_flush, err = 0, [], 0.0
+    for gi, (gname, P, hi, members) in enumerate(gang_buckets()):
+        nfas, feeds = {}, {}
+        for i, (name, (app, T)) in enumerate(members.items()):
+            nfa = CompiledPatternNFA(app, n_partitions=P, n_slots=GANG_K,
+                                     device=dev)
+            nfas[name] = nfa
+            feeds[name] = _nfa_blocks(nfa, P, T, GANG_BLOCKS,
+                                      seed + 31 * gi + i, dev, gap=300,
+                                      hi=hi)
+        carries = {n: nfas[n].carry for n in members}
+        stats = {n: [0, 0, 0, 0] for n in members}  # matches, reruns,
+        for b in range(GANG_BLOCKS):                # repacks, dropped
+            live = [n for n in members if not (b == 1 and n in GANG_IDLE)]
+            # caps from the counts of the plain composition (a cap below
+            # the count for one tenant; 1024 for the rest)
+            probe = [GangTenant(nfas[n].spec, carries[n], feeds[n][b],
+                                nfas[n].kprog, 1 << 20) for n in live]
+            p_news, p_ge = nfa_gang_step_egress_plain(probe)
+            counts = {n: int(p_ge.egress[j].buf[-2, 0])
+                      for j, n in enumerate(live)}
+            caps = {n: (max(counts[n] // 2, 1) if "cap below" in n
+                        else 1024) for n in live}
+            tenants = [GangTenant(nfas[n].spec, carries[n], feeds[n][b],
+                                  nfas[n].kprog, caps[n],
+                                  1 if "scratch" in n else None)
+                       for n in live]
+            l0 = _gang_launches()[0]
+            news, ge = nfa_gang_step_egress(tenants)
+            per_flush.append(_gang_launches()[0] - l0)
+            _, pg = nfa_gang_step_egress_plain(tenants)
+            torch.cuda.synchronize()
+            for j, (n, t) in enumerate(zip(live, tenants)):
+                one_new, one = nfa_step_egress(t.spec, t.carry, t.block,
+                                               t.kprog, t.cap, t.seg)
+                for got, who in ((news[j], "gang"), (one_new, "alone")):
+                    err = max(err, _carry_err(
+                        got, p_news[j], f"gang {who} != plain: {gname} / "
+                        f"{n} (flush {b})"))
+                gbuf = ge.egress[j].buf
+                if not torch_equal(gbuf[-1], one.buf[-1]):
+                    raise AssertionError(f"gang status row != alone: {n}")
+                err = max(err, _abs_err(gbuf[-1], one.buf[-1]))
+                if int(gbuf[-1, 0]) > int(gbuf[-1, 1]):
+                    # a full segment: the engine re-runs this tenant alone
+                    stats[n][1] += 1
+                    _, re = nfa_step_egress(t.spec, t.carry, t.block,
+                                            t.kprog, t.cap,
+                                            _next_pow2(int(gbuf[-1, 0])))
+                    gbuf = re.buf
+                    repack = re.repack
+                else:
+                    repack = ge.egress[j].repack
+                    if not _slab_equal(gbuf, one.buf, t.cap):
+                        raise AssertionError(f"gang slab != alone: {n}")
+                    err = max(err, _slab_err(gbuf, one.buf, t.cap))
+                want = pg.egress[j]
+                if not _slab_equal(gbuf, want.buf, t.cap) or \
+                        int(gbuf[t.cap, 0]) != counts[n]:
+                    raise AssertionError(f"gang slab != plain: {gname} / "
+                                         f"{n} (flush {b})")
+                err = max(err, _slab_err(gbuf, want.buf, t.cap))
+                if counts[n] > t.cap:
+                    c = _next_pow2(counts[n])
+                    stats[n][2] += 1
+                    got, ref = repack(c), want.repack(c)
+                    if not _slab_equal(got, ref, c):
+                        raise AssertionError(f"gang repack != plain: {n}")
+                    err = max(err, _slab_err(got, ref, c))
+                stats[n][0] += counts[n]
+                carries[n] = news[j]
+            flushes += 1
+        for n, (m, reruns, repacks, _d) in stats.items():
+            dropped = int(carries[n]["dropped"].sum())
+            if n == "overflow" and dropped == 0:
+                raise AssertionError("the overflow tenant dropped nothing")
+            if dev == "cuda" and "scratch" in n and reruns == 0:
+                raise AssertionError(f"{n}: no segment filled up")
+            if "cap below" in n and repacks == 0:
+                raise AssertionError(f"{n}: no count passed its cap")
+            if m == 0:
+                raise AssertionError(f"{gname} / {n}: no match")
+        if len(members) > 8:
+            log(f"  gang == plain == alone  {gname}: {len(members)} tenants, "
+                f"P={P} K={GANG_K} T={sorted({v[1] for v in members.values()})}"
+                f" matches={sum(v[0] for v in stats.values())}")
+            continue
+        for n, (m, reruns, repacks, _d) in stats.items():
+            log(f"  gang == plain == alone  {gname} / {n}: P={P} "
+                f"K={GANG_K} T={members[n][1]} matches={m} dropped="
+                f"{int(carries[n]['dropped'].sum())} segment re-runs="
+                f"{reruns} re-packs={repacks}")
+    _set_gang_launches(saved)
+    log(f"  step launches a flush: {per_flush} (one a template instance "
+        f"present); largest abs difference {err}")
+    return flushes, per_flush, err
+
+
+def mtenant_app(i: int, keyed: bool) -> str:
+    """bench.py's _mtenant_app (`:1153-1166`): one tiny tenant, its own
+    threshold; keyed: the same query in `partition with (k of S)` with
+    TENANT_KEYS lanes declared."""
+    thr = round(0.05 * (i % 10), 2)
+    q = (f"@info(name='q') from every e1=S[v > {thr}] -> e2=S[v > e1.v] "
+         "select e1.v as a, e2.v as b insert into Out;")
+    if keyed:
+        return (f"@app:name('mt{i}') @app:pipeline('4') "
+                f"@app:lanes('{TENANT_KEYS}') "
+                "define stream S (k int, v double); "
+                f"partition with (k of S) begin {q} end;")
+    return (f"@app:name('mt{i}') @app:pipeline('4') "
+            f"define stream S (k int, v double); {q}")
+
+
+N_TENANTS = 100
+TENANT_KEYS = 1024
+TENANT_EVENTS = {False: 8, True: 16_384}    # events a tenant a round
+TENANT_ROUNDS = {False: 4, True: 8}
+
+
+def profile_ops(fn):
+    """fn under torch.profiler: (result, {kernel or copy: (device us,
+    count)}), or (result, None) when the profiler records no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    except Exception as e:   # noqa: BLE001 — measurement only
+        log(f"  torch.profiler unavailable ({type(e).__name__}: {e})")
+        return fn(), None
+    try:
+        res = fn()
+    finally:
+        prof.__exit__(None, None, None)
+    per = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us:
+            a, c = per.get(ev.key, (0.0, 0))
+            per[ev.key] = (a + float(us), c + ev.count)
+    return res, (per or None)
+
+
+def _packer_rows():
+    from siddhi_tpu_torch.plan.xtenant import tenant_packer
+    return [b for b in tenant_packer().snapshot()["buckets"]
+            if any(t.startswith("mt") for t in b["tenants"])]
+
+
+def run_tenant_service(dev, seed, keyed, packed):
+    """N_TENANTS tenant apps through the public API, round-robin: one
+    warm round, then `rounds` measured rounds of one block a tenant
+    (the last profiled).  Returns rows per tenant (ts, a, b sorted),
+    the wall per measured round, and the counters of the measured
+    rounds: gang step and compaction launches (one compaction a bucket
+    flush), per-tenant step launches, and the last round's device
+    operations by kind (the D2H reads among them)."""
+    import torch
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    rounds = TENANT_ROUNDS[keyed]
+    events = TENANT_EVENTS[keyed]
+    prev = os.environ.get("SIDDHI_TPU_XTENANT")
+    os.environ["SIDDHI_TPU_XTENANT"] = "1" if packed else "0"
+    try:
+        mgr = SiddhiManager(device=dev)
+        got = [{"ts": [], "a": [], "b": []} for _ in range(N_TENANTS)]
+        rts = []
+        t_build = time.perf_counter()
+        for i in range(N_TENANTS):
+            rt = mgr.create_siddhi_app_runtime(mtenant_app(i, keyed))
+
+            def sink(chunk, _g=got[i]):
+                _g["ts"].append(np.array(chunk.timestamps))
+                _g["a"].append(np.array(chunk.columns["a"]))
+                _g["b"].append(np.array(chunk.columns["b"]))
+            rt.add_callback("Out", ColumnarStreamCallback(sink))
+            rt.start()
+            rts.append(rt)
+        t_build = time.perf_counter() - t_build
+        handlers = [rt.get_input_handler("S") for rt in rts]
+        rng = np.random.default_rng(seed + 11)
+        t = [1_000_000]
+
+        def feed(n_rounds):
+            for _ in range(n_rounds):
+                for h in handlers:
+                    k = (rng.integers(0, TENANT_KEYS, events) if keyed
+                         else np.arange(events) % 4).astype(np.int64)
+                    h.send_batch({"k": k, "v": rng.uniform(0.0, 1.0,
+                                                           events)},
+                                 timestamps=t[0] + np.arange(
+                                     events, dtype=np.int64))
+                t[0] += events
+
+        feed(1)                                   # fills the pipelines
+        for rt in rts:
+            rt.flush()
+        torch.cuda.synchronize()
+        _set_gang_launches()
+        t0 = time.perf_counter()
+        feed(rounds - 1)
+        _, per = profile_ops(lambda: feed(1))
+        for rt in rts:
+            rt.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _gang_launches()
+        labels = sorted({b["bucket"] for b in _packer_rows()})
+        mgr.shutdown()
+    finally:
+        if prev is None:
+            os.environ.pop("SIDDHI_TPU_XTENANT", None)
+        else:
+            os.environ["SIDDHI_TPU_XTENANT"] = prev
+    rows = []
+    for g in got:
+        if not g["ts"]:
+            rows.append(np.zeros((0, 3)))
+            continue
+        r = np.stack([np.concatenate(g["ts"]).astype(np.float64),
+                      np.concatenate(g["a"]), np.concatenate(g["b"])], 1)
+        rows.append(r[np.lexsort(r.T[::-1])])
+    ops = None
+    if per is not None:
+        ops = {"kernels": sum(c for k, (_u, c) in per.items()
+                              if "Memcpy" not in k and "Memset" not in k),
+               "h2d": sum(c for k, (_u, c) in per.items() if "HtoD" in k),
+               "d2h": sum(c for k, (_u, c) in per.items() if "DtoH" in k),
+               "other": sum(c for k, (_u, c) in per.items()
+                            if "Memset" in k or "DtoD" in k),
+               "device_ms": sum(u for u, _c in per.values()) / 1e3,
+               "gang_ms": sum(u for k, (u, _c) in per.items()
+                              if is_kernel(k, "nfa_gang_step_kernel") or
+                              is_kernel(k, "nfa_gang_compact_kernel"))
+               / 1e3,
+               "flushes": sum(c for k, (_u, c) in per.items()
+                              if is_kernel(k, "nfa_gang_compact_kernel"))}
+    return {"rows": rows, "wall_per_round": wall / rounds,
+            "build_s": t_build, "launches": launches,
+            "flushes": launches[1], "buckets": labels,
+            "ops_last_round": ops,
+            "matches": int(sum(len(r) for r in rows))}
+
+
+def _rows_equal(x, y) -> bool:
+    return len(x) == len(y) and all(
+        a.shape == b.shape and np.array_equal(a, b) for a, b in zip(x, y))
+
+
+def run_tenant_cell(dev, seed, keyed):
+    """The service cell packed and with SIDDHI_TPU_XTENANT=0, in turns
+    (packed, unpacked, unpacked, packed): every tenant's rows equal as
+    multisets across all four; the packed runs' counters per flush."""
+    name = "keyed" if keyed else "unkeyed"
+    runs = [run_tenant_service(dev, seed, keyed, p)
+            for p in (True, False, False, True)]
+    for r in runs[1:]:
+        if not _rows_equal(r["rows"], runs[0]["rows"]):
+            raise AssertionError(f"tenant cell ({name}): packed rows != "
+                                 f"SIDDHI_TPU_XTENANT=0 rows")
+    if runs[0]["matches"] == 0:
+        raise AssertionError(f"tenant cell ({name}): no match")
+    p, u = runs[0], runs[1]
+    g_launch, g_compact, t_launch, t_compact = p["launches"]
+    if dev == "cuda" and (g_launch == 0 or g_compact == 0):
+        raise AssertionError(f"tenant cell ({name}): the gang kernels were "
+                             f"not launched on the main path")
+    if u["launches"][0] or (dev == "cuda" and u["launches"][2] == 0):
+        raise AssertionError(f"tenant cell ({name}): the unpacked run "
+                             f"did not step per tenant")
+    fl = max(p["flushes"], 1)
+    ops = p["ops_last_round"]
+    lf = max(ops["flushes"], 1) if ops else 1
+    out = {"tenants": N_TENANTS, "events_per_tenant_round":
+           TENANT_EVENTS[keyed], "rounds": TENANT_ROUNDS[keyed],
+           "buckets": p["buckets"], "matches": p["matches"],
+           "flushes": p["flushes"],
+           "gang_step_launches_per_flush": g_launch / fl,
+           "gang_compact_launches_per_flush": g_compact / fl,
+           "tenant_step_launches_packed": t_launch,
+           "d2h_per_flush": ops["d2h"] / lf if ops else None,
+           "device_ops_per_flush": ({k: ops[k] / lf for k in
+                                     ("kernels", "h2d", "d2h", "other")}
+                                    if ops else None),
+           "wall_per_round_s": {"packed": [runs[0]["wall_per_round"],
+                                           runs[3]["wall_per_round"]],
+                                "unpacked": [runs[1]["wall_per_round"],
+                                             runs[2]["wall_per_round"]]},
+           "ops_last_round": {"packed": p["ops_last_round"],
+                              "unpacked": u["ops_last_round"]},
+           "launches": g_launch, "compact_launches": g_compact}
+    log(f"  {name} tenant cell: {N_TENANTS} apps x "
+        f"{TENANT_EVENTS[keyed]} events a round, buckets "
+        f"{p['buckets']}, {p['matches']} matches, rows equal packed == "
+        f"unpacked (4 runs in turns)")
+    log(f"    per flush: {out['gang_step_launches_per_flush']:.3f} gang "
+        f"step launches, {out['gang_compact_launches_per_flush']:.3f} "
+        f"compaction launches ({p['flushes']} flushes; {t_launch} "
+        f"per-tenant step launches packed: grow-and-replay and segment "
+        f"re-runs); device operations a flush (last round) "
+        f"{out['device_ops_per_flush']}, D2H reads a flush "
+        f"{out['d2h_per_flush']}")
+    log(f"    last round's device operations, packed: {ops}; unpacked: "
+        f"{u['ops_last_round']}")
+    log(f"    wall per round (s): packed {out['wall_per_round_s']['packed']}"
+        f", unpacked {out['wall_per_round_s']['unpacked']}; apps built in "
+        f"{p['build_s']:.2f} s")
+    return out
+
+
+def time_gang(dev, seed):
+    """The gang at the keyed cell's shape: one bucket of 32 tenants (the
+    cell's apps, P = TENANT_KEYS, a block of TENANT_EVENTS[True] events a
+    tenant on a carry in steady state, caps and segments the engine
+    settles on).  Median ms of the gang call (gate words, descriptor
+    copy, step, compaction) by CUDA events, of the compaction alone, of
+    the plain twin and the plain compaction; the device split by kernel;
+    the host's enqueue split; the bounds: the sum of the tenants' fused
+    step (K2 + K4) bounds, and of their compaction bounds."""
+    import torch
+    from siddhi_tpu_torch.ops.nfa import (GangTenant, egress_pack_plain,
+                                          kernel_gate_word, kernel_geometry,
+                                          nfa_block_step_plain,
+                                          nfa_gang_step_egress,
+                                          nfa_gang_step_egress_plain)
+    from siddhi_tpu_torch.ops.pack import pack_blocks
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
+    saved = _gang_launches()
+    P, K, n_t = TENANT_KEYS, GANG_K, 32
+    rng = np.random.default_rng(seed + 5)
+    nfas = [CompiledPatternNFA(mtenant_app(i, False), n_partitions=P,
+                               n_slots=K, device=dev) for i in range(n_t)]
+
+    def block(nfa, t0):
+        n = TENANT_EVENTS[True]
+        pids = rng.integers(0, P, n)
+        cols = {"v": rng.uniform(0.0, 1.0, n), "k": pids.astype(np.float64)}
+        return nfa.to_device(pack_blocks(
+            pids, {a: cols[a] for a in nfa.attr_names},
+            t0 + np.arange(n, dtype=np.int64), np.zeros(n, np.int32), P,
+            base_ts=0))
+
+    warm = [block(n, 0) for n in nfas]
+    blks = [block(n, TENANT_EVENTS[True]) for n in nfas]
+    carries, _ = nfa_gang_step_egress(
+        [GangTenant(n.spec, n.carry, b, n.kprog) for n, b in
+         zip(nfas, warm)])
+    _, ge = nfa_gang_step_egress(
+        [GangTenant(n.spec, c, b, n.kprog) for n, c, b in
+         zip(nfas, carries, blks)])
+    counts = [int(e.buf[-2, 0]) for e in ge.egress]
+    caps = [_next_pow2(c) for c in counts]
+    segs = [max(e.seg, _next_pow2(int(e.buf[-1, 0]))) for e in ge.egress]
+    tenants = [GangTenant(n.spec, c, b, n.kprog, cap, seg) for
+               n, c, b, cap, seg in zip(nfas, carries, blks, caps, segs)]
+    news, ge = nfa_gang_step_egress(tenants)
+    plain = []
+    plain_ms = median_ms(
+        lambda: plain.append(nfa_gang_step_egress_plain(tenants)), dev, n=3)
+    # the timed call held against the plain twin: every tenant's carry
+    # leaves bit for bit, its slab by the egress contract
+    p_news, p_ge = plain[-1]
+    err = 0.0
+    for j, t in enumerate(tenants):
+        err = max(err, _carry_err(news[j], p_news[j],
+                                  f"gang at the keyed shape, tenant {j}"))
+        gbuf, want = ge.egress[j].buf, p_ge.egress[j].buf
+        if int(gbuf[-1, 0]) > int(gbuf[-1, 1]) or \
+                not _slab_equal(gbuf, want, t.cap):
+            raise AssertionError(f"gang at the keyed shape, tenant {j}: "
+                                 f"slab != plain (status {gbuf[-1].tolist()})")
+        err = max(err, _slab_err(gbuf, want, t.cap))
+    del plain, p_news, p_ge
+    log(f"  gang == plain at the keyed cell's shape: {n_t} tenants' carries "
+        f"and slabs, largest abs difference {err}")
+    # the gang's host enqueue (tens of torch ops a tenant): a long sleep
+    # keeps it off the events' clock
+    ms = median_ms(lambda: nfa_gang_step_egress(tenants), dev,
+                   sleep_cycles=40 * SLEEP_CYCLES)
+    compact_ms = median_ms(ge.compact, dev)
+    outs = [nfa_block_step_plain(t.spec, t.carry, t.block) for t in tenants]
+
+    def plain_compact():
+        return torch.cat([egress_pack_plain(
+            t.spec, *o[1], o[0]["dropped"], cap=t.cap)
+            for t, o in zip(tenants, outs)])
+    plain_compact_ms = median_ms(plain_compact, dev, n=5)
+    _, per = profile_ops(lambda: [nfa_gang_step_egress(tenants)
+                                  for _ in range(5)])
+    split = None
+    if per is not None:
+        step = sum(u for k, (u, c) in per.items()
+                   if is_kernel(k, "nfa_gang_step_kernel")) / 5e3
+        comp = sum(u for k, (u, c) in per.items()
+                   if is_kernel(k, "nfa_gang_compact_kernel")) / 5e3
+        rest = sum(u for u, c in per.values()) / 5e3 - step - comp
+        split = {"step_ms": step, "compact_ms": comp, "other_ms": rest,
+                 "ops_a_call": {k[:60]: c / 5 for k, (u, c) in
+                                per.items()}}
+    # the host's enqueue of one gang call, the card asleep: the tenants'
+    # gate words alone, then the whole call
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200 * SLEEP_CYCLES)
+    h0 = time.perf_counter()
+    for t in tenants:
+        kernel_gate_word(t.spec, t.kprog, t.block)
+    h1 = time.perf_counter()
+    nfa_gang_step_egress(tenants)
+    h2 = time.perf_counter()
+    torch.cuda.synchronize()
+    bound = sum(nfa_bound(P, int(t.block["__ts"].shape[1]), K, t.spec,
+                          t.kprog, max(len(c) for c in t.kprog.cmp), cnt,
+                          t.cap)[0] for t, cnt in zip(tenants, counts))
+    W = 4 + max(nfas[0].spec.n_rows, 1) * max(nfas[0].spec.n_caps, 1)
+    L = kernel_geometry(K)[1]
+    cbound = sum(compact_bound(P, -(-P // L), cnt, t.cap, W)[0]
+                 for t, cnt in zip(tenants, counts))
+    _set_gang_launches(saved)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "max_abs_err": err, "compact_ms": compact_ms,
+            "plain_compact_ms": plain_compact_ms,
+            "compact_bound_ms": cbound, "split": split,
+            "host_ms": {"gate_words": (h1 - h0) * 1e3,
+                        "gang_call": (h2 - h1) * 1e3},
+            "shape": {"tenants": n_t, "P": P, "K": K,
+                      "T": [int(t.block["__ts"].shape[1])
+                            for t in tenants][:4],
+                      "matches": sum(counts), "caps": sorted(set(caps))}}
+
+
+# ------------------------------------------------------------------ phase 27
+
+SHARD_N = 4
+SHARD_PATTERN_CHUNKS = 4
+SHARD_WAGG_QUERIES = 4
+SHARD_CHUNKS = 2
+
+
+def _canon(cols: dict) -> dict:
+    """One output stream's rows in a canonical order (lexsort over its
+    numeric columns, the timestamp last), as arrays."""
+    num = [k for k, v in cols.items() if v.dtype != object and k != "ts"]
+    order = np.lexsort([cols[k] for k in reversed(num)] + [cols["ts"]])
+    return {k: v[order] for k, v in cols.items()}
+
+
+def _shard_drive(app, chunks, dev, shards, store=None, restore=False):
+    """Run `app` over `chunks` with SIDDHI_TPU_SHARDS=shards; returns
+    ({stream: canonical rows}, runtime statistics' shard rows, wall s,
+    kernel launches).  With a store: persist at the end (restore=False)
+    or restore the last revision first (restore=True)."""
+    import torch
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    os.environ["SIDDHI_TPU_SHARDS"] = str(shards)
+    try:
+        mgr = SiddhiManager(device=dev)
+        if store is not None:
+            mgr.set_persistence_store(store)
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = {}
+
+        def sink(sid):
+            def fn(chunk):
+                d = got.setdefault(sid, {"ts": []})
+                d["ts"].append(np.array(chunk.timestamps))
+                for k, v in chunk.columns.items():
+                    d.setdefault(k, []).append(np.array(v))
+            return fn
+        for sid in list(rt.junctions):
+            if sid.startswith("Out"):
+                rt.add_callback(sid, ColumnarStreamCallback(sink(sid)))
+        rt.start()
+        if restore:
+            rt.restore_last_revision()
+        h = rt.get_input_handler("S")
+        from siddhi_tpu_torch.ops.grouped_agg import grouped_step
+        from siddhi_tpu_torch.ops.nfa import nfa_step_egress
+        from siddhi_tpu_torch.ops.windowed_agg import wagg_step
+        l0 = (nfa_step_egress.launches, wagg_step.launches,
+              grouped_step.launches)
+        t0 = time.perf_counter()
+        for c in chunks:
+            h.send_batch(c[0], timestamps=c[1])
+        rt.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tuple(b - a for a, b in zip(l0, (
+            nfa_step_egress.launches, wagg_step.launches,
+            grouped_step.launches)))
+        stats = rt.statistics.get("shards")
+        if store is not None and not restore:
+            rt.persist()
+        mgr.shutdown()
+    finally:
+        os.environ.pop("SIDDHI_TPU_SHARDS", None)
+    rows = {sid: {k: np.concatenate(v) for k, v in d.items()}
+            for sid, d in got.items()}
+    return rows, stats, wall, launches
+
+
+def run_shard_cell(name, app, chunks, dev, key_col):
+    """The app unsharded, then with SHARD_N shards in two runtimes: the
+    first half of the chunks, persist, shut down; a new runtime restores
+    and takes the second half.  The sharded rows (both halves) must equal
+    the unsharded rows as multisets; the /stats shard rows must hold
+    SHARD_N shards on the card, every key of the first half once, every
+    event once; the kernels of the path must have run."""
+    from siddhi_tpu_torch.core.snapshot import InMemoryPersistenceStore
+    h = len(chunks) // 2
+    mono, _s, wall0, _l = _shard_drive(app, chunks, dev, 0)
+    store = InMemoryPersistenceStore()
+    a, stats, wall_a, la = _shard_drive(app, chunks[:h], dev, SHARD_N,
+                                        store)
+    b, _s2, wall_b, lb = _shard_drive(app, chunks[h:], dev, SHARD_N, store,
+                                      restore=True)
+    if not stats:
+        raise AssertionError(f"shard cell {name}: no shard rows in /stats")
+    keys = len(np.unique(np.concatenate(
+        [np.asarray(c[0][key_col]).astype(str) for c in chunks[:h]])))
+    n_ev = sum(len(c[1]) for c in chunks[:h])
+    want_dev = ({"cuda:0"} if dev == "cuda" else
+                {f"cpu:{i}" for i in range(SHARD_N)})
+    for label, rows in stats.items():
+        if len(rows) != SHARD_N or \
+                {r["device"] for r in rows} != want_dev or \
+                sum(r["keys"] for r in rows) != keys or \
+                sum(r["events"] for r in rows) != n_ev or \
+                min(r["keys"] for r in rows) == 0:
+            raise AssertionError(f"shard cell {name}: /stats rows of "
+                                 f"{label} wrong: {rows}")
+    if dev == "cuda" and (not any(la) or not any(lb)):
+        raise AssertionError(f"shard cell {name}: no kernel launched "
+                             f"({la}, {lb})")
+    n_rows = 0
+    for sid, want in mono.items():
+        got = {k: np.concatenate([a.get(sid, {}).get(k, v[:0]),
+                                  b.get(sid, {}).get(k, v[:0])])
+               for k, v in want.items()}
+        x, y = _canon(got), _canon(want)
+        for k in want:
+            eq = (np.array_equal(x[k], y[k], equal_nan=True)
+                  if y[k].dtype != object else
+                  bool((x[k] == y[k]).all()) and len(x[k]) == len(y[k]))
+            if not eq:
+                raise AssertionError(f"shard cell {name}: {sid}.{k} "
+                                     f"sharded != unsharded")
+        n_rows += len(want["ts"])
+    if n_rows == 0:
+        raise AssertionError(f"shard cell {name}: no rows")
+    log(f"  shard cell {name}: {SHARD_N} shards on {sorted(want_dev)}, "
+        f"{n_rows} rows "
+        f"over {len(mono)} streams equal the unsharded run's as multisets "
+        f"across a persist/restore after chunk {h} of {len(chunks)}; "
+        f"/stats rows {[(r['shard'], r['keys'], r['events']) for r in next(iter(stats.values()))]}; "
+        f"wall {wall0:.3f} s unsharded, {wall_a + wall_b:.3f} s sharded "
+        f"(launches nfa/wagg/gagg {tuple(x + y for x, y in zip(la, lb))})")
+    return {"rows": n_rows, "wall_unsharded_s": wall0,
+            "wall_sharded_s": wall_a + wall_b, "stats": stats}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunks", type=int, default=8)
@@ -5893,9 +6610,9 @@ def main(argv=None) -> int:
 
     log("== phase 3: main path (BASELINE config 2) on the device engine")
     launches, wall = run_main_path(args.queries, names, chunks, dev)
-    if args.chunks < 8 or args.queries < 100:
-        log(f"CUT: {args.queries} queries x {args.chunks} chunks (the "
-            f"default is 100 x 8)")
+    if args.chunks < 16 or args.queries < 100:
+        log(f"CUT: {args.queries} queries x {args.chunks} chunks (config "
+            f"2's cell is 100 x 16)")
 
     log("== phase 4: engine parity on the card")
     engine_parity(dev, args.seed)
@@ -5923,8 +6640,10 @@ def main(argv=None) -> int:
         f"{nt['split']}")
 
     log("== phase 6: pattern cell (PARTITIONED_APP, 10,000 keys) on the "
-        "device engine")
-    (nfa_launches, compact_launches), _pwall = run_pattern_path(pchunks, dev)
+        "device engine, packed (K12) and with SIDDHI_TPU_XTENANT=0 (K2 + K4)")
+    t6 = time.perf_counter()
+    pc = run_pattern_path(pchunks, dev)
+    log(f"  phase 6 took {time.perf_counter() - t6:.1f} s")
     if args.pattern_chunks < 16:
         log(f"CUT: pattern cell at {args.pattern_chunks} chunks (full size "
             f"is 16)")
@@ -5952,7 +6671,8 @@ def main(argv=None) -> int:
             f"is {LAT_BLOCKS})")
 
     log("== phase 10: count cell (BASELINE config 4: A[3:10] -> B, 100,000 "
-        "keys) on the device engine")
+        "keys) on the device engine, packed (K12) and with "
+        "SIDDHI_TPU_XTENANT=0 (K2 + K4)")
     t10 = time.perf_counter()
     cc = run_count_path(make_count_chunks(args.seed, args.count_chunks), dev)
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
@@ -5974,6 +6694,9 @@ def main(argv=None) -> int:
     t12 = time.perf_counter()
     gchk = check_gagg(dev, args.seed)
     gt = time_gagg(dev, args.seed)
+    log(f"CUT: phase 12's plain twins at T = {GAGG_PLAIN_T} for the P = 1 "
+        f"cells' shapes (two checked cases and the timed plain, from 4096) "
+        f"and {GAGG_CHAIN_T} for the one-chain lane (from 4096)")
     log(f"  phase 12 took {time.perf_counter() - t12:.1f} s; bit for bit: "
         + "; ".join(f"{k} {v['cases']} cases, max abs err {v['max_abs_err']}"
                     for k, v in gchk.items()))
@@ -6073,6 +6796,44 @@ def main(argv=None) -> int:
     jc25 = run_join_cell(dev, args.seed, "fused")
     jm25 = run_join_cell(dev, args.seed, "mask")
     log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
+
+    log("== phase 26: the cross-tenant gang (K12: nfa_gang_step + "
+        "nfa_gang_compact) vs its plain twin and per-tenant steps; "
+        f"{N_TENANTS} tenant apps packed and unpacked")
+    t26 = time.perf_counter()
+    g_flushes, g_instances, g_err = check_gang(dev, args.seed)
+    gg = time_gang(dev, args.seed)
+    g_err = max(g_err, gg["max_abs_err"])
+    log(f"  gang at the keyed cell's shape ({gg['shape']}): {gg['ms']:.4f} "
+        f"ms a call (plain twin {gg['plain_ms']:.4f} ms, bound "
+        f"{gg['bound_ms']:.6f} ms by bytes: the tenants' K2 + K4 bounds "
+        f"summed); compaction alone {gg['compact_ms']:.4f} ms (plain "
+        f"{gg['plain_compact_ms']:.4f}, bound {gg['compact_bound_ms']:.6f})")
+    log(f"  device split a call: {gg['split']}")
+    log(f"  host enqueue a call (the card asleep): {gg['host_ms']}")
+    tc26 = run_tenant_cell(dev, args.seed, keyed=False)
+    tk26 = run_tenant_cell(dev, args.seed, keyed=True)
+    log(f"  phase 26 took {time.perf_counter() - t26:.1f} s")
+
+    log(f"== phase 27: partition shard-out, SIDDHI_TPU_SHARDS={SHARD_N} "
+        "(every shard on cuda:0)")
+    t27 = time.perf_counter()
+    sc = SHARD_CHUNKS
+    sh27 = {
+        "pattern_cell": run_shard_cell(
+            "pattern (PARTITIONED_APP, 10,000 keys)", pattern_app(),
+            make_pattern_chunks(args.seed, SHARD_PATTERN_CHUNKS), dev,
+            "partition"),
+        "config2_wagg": run_shard_cell(
+            f"config 2 ({SHARD_WAGG_QUERIES} queries, K1)",
+            main_app(SHARD_WAGG_QUERIES), chunks[:sc], dev, "sym"),
+        "keyed_gagg": run_shard_cell(
+            f"keyed gagg (phase 14's {GAGG_QUERIES} queries, K7a)",
+            gagg_app(GAGG_QUERIES, keyed=True), chunks[:sc], dev, "sym")}
+    log(f"CUT: shard cells at {SHARD_PATTERN_CHUNKS} of the pattern cell's "
+        f"16 chunks, config 2 at {SHARD_WAGG_QUERIES} of 100 queries x {sc} "
+        f"chunks, the keyed gagg cell at {sc} of its {GAGG_CHUNKS} chunks")
+    log(f"  phase 27 took {time.perf_counter() - t27:.1f} s")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     def timing(minmax):
@@ -6095,12 +6856,17 @@ def main(argv=None) -> int:
         "name": "nfa_step", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:579",
-        "checked": True, "launches": nfa_launches, "max_abs_err": nfa_err,
-        "launches_by_path": {"pattern_cell": nfa_launches,
-                             "count_cell": cc["launches"][0]},
-        "count_cell": {k: cc.get(k) for k in (
-            "events_per_s", "ms_per_chunk", "step_ms", "compact_ms",
-            "device_ms", "idle_share", "peak", "rows", "lanes")},
+        # its path: the pattern cell with SIDDHI_TPU_XTENANT=0; on the
+        # default dispatch a cell's query steps through K12 (its launches
+        # there are replays)
+        "checked": True, "launches": pc["per_app"]["launches"][2],
+        "max_abs_err": nfa_err,
+        "launches_by_path": {
+            "pattern_cell_xtenant0": pc["per_app"]["launches"][2],
+            "count_cell_xtenant0": cc["per_app"]["launches"][2],
+            "pattern_cell": pc["packed"]["launches"][2],
+            "count_cell": cc["packed"]["launches"][2]},
+        "pattern_cell": pc, "count_cell": cc,
         "ms": nt["ms"], "plain_ms": nt["plain_ms"],
         "bound_ms": nt["bound_ms"], "bound_by": nt["bound_by"],
         "library_ms": None, "split": nt["split"],
@@ -6110,9 +6876,12 @@ def main(argv=None) -> int:
         "name": "nfa_compact", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/plan/nfa_compiler.py:1837",
-        "checked": True, "launches": compact_launches,
-        "launches_by_path": {"pattern_cell": compact_launches,
-                             "count_cell": cc["launches"][1]},
+        "checked": True, "launches": pc["per_app"]["launches"][3],
+        "launches_by_path": {
+            "pattern_cell_xtenant0": pc["per_app"]["launches"][3],
+            "count_cell_xtenant0": cc["per_app"]["launches"][3],
+            "pattern_cell": pc["packed"]["launches"][3],
+            "count_cell": cc["packed"]["launches"][3]},
         "max_abs_err": nfa_err, "ms": nt["compact_ms"],
         "plain_ms": nt["plain_compact_ms"],
         "bound_ms": nt["compact_bound_ms"],
@@ -6280,10 +7049,48 @@ def main(argv=None) -> int:
         "join_mask_cell": cell_k(jm25, JOIN_KERNELS["mask"]) | {
             k: jm25.get(k) for k in ("cap", "probes_per_s",
                                      "pairs_per_s")}}]
+    kernels += [{
+        # K12: the keyed tenant cell (phase 26, packed) is its main path;
+        # a launch is one step launch (one a template instance present in
+        # a flush); ms is the whole gang call at the cell's shape (gate
+        # words, the descriptor copy, step, compaction)
+        "name": "nfa_gang_step", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/nfa_gang.cu",
+        "replaces": "siddhi_tpu/plan/xtenant.py:95",
+        "checked": True, "launches": tk26["launches"],
+        "max_abs_err": g_err, "flushes_checked": g_flushes,
+        "launches_a_flush": g_instances,
+        "launches_by_path": {"keyed_tenant_cell": tk26["launches"],
+                             "tenant_cell": tc26["launches"],
+                             "pattern_cell": pc["packed"]["launches"][0],
+                             "count_cell": cc["packed"]["launches"][0]},
+        "ms": gg["ms"], "plain_ms": gg["plain_ms"],
+        "bound_ms": gg["bound_ms"], "bound_by": gg["bound_by"],
+        "library_ms": None, "split": gg["split"], "host_ms": gg["host_ms"],
+        "shape": gg["shape"],
+        "keyed_tenant_cell": {k: v for k, v in tk26.items()
+                              if k != "launches"},
+        "tenant_cell": {k: v for k, v in tc26.items() if k != "launches"}},
+        {
+        "name": "nfa_gang_compact", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/nfa_gang.cu",
+        "replaces": "siddhi_tpu/plan/xtenant.py:95",
+        "checked": True, "launches": tk26["compact_launches"],
+        "launches_by_path": {"keyed_tenant_cell": tk26["compact_launches"],
+                             "tenant_cell": tc26["compact_launches"],
+                             "pattern_cell": pc["packed"]["launches"][1],
+                             "count_cell": cc["packed"]["launches"][1]},
+        "max_abs_err": g_err, "ms": gg["compact_ms"],
+        "plain_ms": gg["plain_compact_ms"],
+        "bound_ms": gg["compact_bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shape": gg["shape"]}]
     # the filter cell runs no hand kernel (torch programs): a cell of the
     # line of its own
     print(json.dumps({"kernels": kernels,
-                      "cells": {"filter_cell": cell(fc16)}}),
+                      "cells": {"filter_cell": cell(fc16),
+                                "shards": {k: {x: y for x, y in v.items()
+                                               if x != "stats"}
+                                           for k, v in sh27.items()}}}),
           flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -113,6 +113,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         # stream
         "nfa_bank_ring": (_I, [_VP] * 11 + [_I] * 7 + [_VP]),
     },
+    "nfa_gang": {
+        # tenants n -> bytes of the gang's device table
+        "nfa_gang_table_bytes": (_LL, [_I]),
+        # host descriptor ([n, ops/nfa.GANG_FIELDS] int64), n, device
+        # table, its bytes, out (int[2]: step launches, CTAs), stream
+        "nfa_gang_step": (_I, [_VP, _I, _VP, _LL, _VP, _VP]),
+        # device table (written by nfa_gang_step), n, CTAs, stream
+        "nfa_gang_compact": (_I, [_VP, _I, _I, _VP]),
+    },
 }
 
 _LOCK = threading.Lock()

@@ -49,6 +49,7 @@ pattern's top-``ring`` lanes and their payloads).
 """
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -1443,6 +1444,109 @@ def nfa_compact(rows: torch.Tensor, lane_count: torch.Tensor,
 nfa_compact.launches = 0
 
 
+def _step_egress_plain(spec: NfaSpec, carry: Dict[str, torch.Tensor],
+                       block: Dict[str, torch.Tensor], cap: int,
+                       batch_b: Optional[int]):
+    """The plain composition on the tensors' device:
+    :func:`nfa_block_step_plain`, then :func:`egress_pack_plain` (and an
+    all-zero status row: the plain path has no scratch segments)."""
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    width = 4 + R * C
+    dev = block["__ts"].device
+    new, outs = nfa_block_step_plain(spec, carry, block, batch_b)
+    absent = _has(spec, "absent")
+    dl_st = new["slot_state"] if absent else None
+    dl = new.get("deadline") if absent else None
+
+    def repack_plain(c: int) -> torch.Tensor:
+        return torch.cat([
+            egress_pack_plain(spec, *outs, new["dropped"], dl_st, dl, c),
+            _status_row(0, 0, width, dev)])
+    return new, NfaEgress(repack_plain(cap), repack_plain, 0)
+
+
+class _KernelCall(NamedTuple):
+    """One block's kernel inputs and outputs, checked and allocated
+    (:func:`_kernel_call`)."""
+    attrs: torch.Tensor
+    gates: torch.Tensor
+    prog: torch.Tensor
+    new: Dict[str, torch.Tensor]
+    rows: torch.Tensor
+    lane_count: torch.Tensor
+    fill: torch.Tensor
+    dl_min: Optional[torch.Tensor]
+    P: int
+    T: int
+    K: int
+    G: int
+    L: int
+    seg: int
+    A: int
+    width: int
+
+
+def _kernel_call(spec: NfaSpec, carry: Dict[str, torch.Tensor],
+                 block: Dict[str, torch.Tensor],
+                 kprog: Optional[NfaKernelProgram], seg: Optional[int],
+                 who: str) -> _KernelCall:
+    """Check one block's tensors against the kernel's class and layout,
+    build its gate word (the torch condition programs, K5) and allocate
+    the new carry and the step's scratch."""
+    dev = block["__ts"].device
+    if kprog is None or kprog.reason is not None:
+        raise RuntimeError(
+            f"{who}: spec outside the CUDA kernel's class ("
+            f"{'no kernel program' if kprog is None else kprog.reason})")
+    if any(kprog.pcmp):
+        raise RuntimeError(f"{who}: a parameterized spec steps through the "
+                           f"pattern bank (nfa_bank_step)")
+    if dev.type != "cuda":
+        raise RuntimeError(f"{who}: no kernel for device {dev}")
+    K = spec.n_slots
+    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
+    P, T = block["__ts"].shape
+    G, L = kernel_geometry(K)
+    n_cta = -(-P // L)
+    seg = default_segment(L) if seg is None else int(seg)
+    _check("__ts", block["__ts"], torch.int32, (P, T), dev, who)
+    _check("__stream", block["__stream"], torch.int32, (P, T), dev, who)
+    _check("__valid", block["__valid"], torch.bool, (P, T), dev, who)
+    _check_carry(spec, carry, (P,), dev, who)
+    A = len(kprog.kern_attrs)
+    if A == 1:
+        attrs = block[kprog.kern_attrs[0]]
+        _check("attrs", attrs, torch.float32, (P, T), dev, who)
+    elif A:
+        attrs = torch.stack([block[a] for a in kprog.kern_attrs])
+        _check("attrs", attrs, torch.float32, (A, P, T), dev, who)
+    else:
+        attrs = torch.zeros((1,), dtype=torch.float32, device=dev)
+    gates = kernel_gate_word(spec, kprog, block)
+    gates = torch.where(block["__valid"], gates | _VALID_BIT, gates)
+    new = {k: torch.empty_like(carry[k]) for k in KERNEL_CARRY
+           if k in carry}
+    width = 4 + R * C
+    i32 = dict(dtype=torch.int32, device=dev)
+    return _KernelCall(
+        attrs=attrs, gates=gates, prog=_prog_tensor(spec, kprog, dev),
+        new=new, rows=torch.empty((max(n_cta * seg * (width + 2), 1),),
+                                  **i32),
+        lane_count=torch.empty((P,), **i32),
+        fill=torch.empty((n_cta,), **i32),
+        dl_min=(torch.empty((n_cta,), **i32) if "deadline" in carry
+                else None),
+        P=P, T=T, K=K, G=G, L=L, seg=seg, A=A, width=width)
+
+
+def _repack_of(k: _KernelCall) -> Callable[[int], torch.Tensor]:
+    """A step's compaction re-run at another cap, from its scratch."""
+    def repack(c: int) -> torch.Tensor:
+        return nfa_compact(k.rows, k.lane_count, k.fill, k.new["dropped"],
+                           k.dl_min, k.P, k.L, k.seg, c, k.width)
+    return repack
+
+
 def nfa_step_egress(spec: NfaSpec, carry: Dict[str, torch.Tensor],
                     block: Dict[str, torch.Tensor],
                     kprog: Optional[NfaKernelProgram] = None,
@@ -1461,78 +1565,183 @@ def nfa_step_egress(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     no fallback to the plain version.  The input carry survives
     (grow-and-replay re-runs a chunk from it)."""
     dev = block["__ts"].device
-    K = spec.n_slots
-    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
-    width = 4 + R * C
     if dev.type == "cpu":
-        new, outs = nfa_block_step_plain(spec, carry, block, batch_b)
-        absent = _has(spec, "absent")
-        dl_st = new["slot_state"] if absent else None
-        dl = new.get("deadline") if absent else None
-
-        def repack_plain(c: int) -> torch.Tensor:
-            return torch.cat([
-                egress_pack_plain(spec, *outs, new["dropped"], dl_st, dl, c),
-                _status_row(0, 0, width, dev)])
-        return new, NfaEgress(repack_plain(cap), repack_plain, 0)
-    if kprog is None or kprog.reason is not None:
-        raise RuntimeError(
-            "nfa_step_egress: spec outside the CUDA kernel's class ("
-            f"{'no kernel program' if kprog is None else kprog.reason})")
-    if any(kprog.pcmp):
-        raise RuntimeError("nfa_step_egress: a parameterized spec steps "
-                           "through the pattern bank (nfa_bank_step)")
-    if dev.type != "cuda":
-        raise RuntimeError(f"nfa_step_egress: no kernel for device {dev}")
-    P, T = block["__ts"].shape
-    G, L = kernel_geometry(K)
-    n_cta = -(-P // L)
-    seg = default_segment(L) if seg is None else int(seg)
-    _check("__ts", block["__ts"], torch.int32, (P, T), dev)
-    _check("__stream", block["__stream"], torch.int32, (P, T), dev)
-    _check("__valid", block["__valid"], torch.bool, (P, T), dev)
-    _check_carry(spec, carry, (P,), dev, "nfa_step_egress")
-    A = len(kprog.kern_attrs)
-    if A == 1:
-        attrs = block[kprog.kern_attrs[0]]
-        _check("attrs", attrs, torch.float32, (P, T), dev)
-    elif A:
-        attrs = torch.stack([block[a] for a in kprog.kern_attrs])
-        _check("attrs", attrs, torch.float32, (A, P, T), dev)
-    else:
-        attrs = torch.zeros((1,), dtype=torch.float32, device=dev)
-    gates = kernel_gate_word(spec, kprog, block)
-    gates = torch.where(block["__valid"], gates | _VALID_BIT, gates)
-    prog = _prog_tensor(spec, kprog, dev)
-    new = {k: torch.empty_like(carry[k]) for k in KERNEL_CARRY
-           if k in carry}
-    i32 = dict(dtype=torch.int32, device=dev)
-    rows = torch.empty((max(n_cta * seg * (width + 2), 1),), **i32)
-    lane_count = torch.empty((P,), **i32)
-    fill = torch.empty((n_cta,), **i32)
-    dl_min = torch.empty((n_cta,), **i32) if "deadline" in carry else None
+        return _step_egress_plain(spec, carry, block, cap, batch_b)
+    k = _kernel_call(spec, carry, block, kprog, seg, "nfa_step_egress")
     lib = load_kernel("nfa_step")
     rc = lib.nfa_step(
-        attrs.data_ptr(), block["__ts"].data_ptr(),
-        block["__stream"].data_ptr(), gates.data_ptr(), prog.data_ptr(),
-        prog.numel(), *_carry_ptrs(carry), *_carry_ptrs(new),
-        rows.data_ptr(), lane_count.data_ptr(), fill.data_ptr(),
-        None if dl_min is None else dl_min.data_ptr(),
-        P, T, K, G, seg, A, R * C,
+        k.attrs.data_ptr(), block["__ts"].data_ptr(),
+        block["__stream"].data_ptr(), k.gates.data_ptr(), k.prog.data_ptr(),
+        k.prog.numel(), *_carry_ptrs(carry), *_carry_ptrs(k.new),
+        k.rows.data_ptr(), k.lane_count.data_ptr(), k.fill.data_ptr(),
+        None if k.dl_min is None else k.dl_min.data_ptr(),
+        k.P, k.T, k.K, k.G, k.seg, k.A, k.width - 4,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nfa_step: launch failed with CUDA error {rc}")
     nfa_step_egress.launches += 1
-    dropped = new["dropped"]
-
-    def repack(c: int) -> torch.Tensor:
-        return nfa_compact(rows, lane_count, fill, dropped, dl_min, P, L,
-                           seg, c, width)
-    return new, NfaEgress(repack(cap), repack, seg)
+    repack = _repack_of(k)
+    return k.new, NfaEgress(repack(cap), repack, k.seg)
 
 
 #: launches of the step kernel since the last reset (plain runs excluded)
 nfa_step_egress.launches = 0
+
+
+# ------------------------------------------------------------ the gang step
+
+class GangTenant(NamedTuple):
+    """One packed tenant's pending block (plan/xtenant.py): its spec and
+    kernel program, its carry and [P, T] block, its egress cap and scratch
+    rows per CTA (None: the kernel's default)."""
+    spec: NfaSpec
+    carry: Dict[str, torch.Tensor]
+    block: Dict[str, torch.Tensor]
+    kprog: Optional[NfaKernelProgram] = None
+    cap: int = 1024
+    seg: Optional[int] = None
+
+
+class GangEgress(NamedTuple):
+    """A gang's egress on the device: ``buf`` [sum(cap_i + 2), W] int32
+    holds tenant i's egress buffer (:class:`NfaEgress`: slab, tail,
+    status) at row ``offsets[i]``; ``egress[i]`` is tenant i's NfaEgress,
+    its ``buf`` a view of ``buf`` and its ``repack`` a compaction of that
+    tenant alone.  ``compact`` (CUDA only, else None) re-runs the one
+    compaction launch of every tenant into ``buf``."""
+    buf: torch.Tensor
+    offsets: Tuple[int, ...]
+    egress: Tuple[NfaEgress, ...]
+    compact: Optional[Callable[[], None]] = None
+
+
+def _gang_width(tenants: List[GangTenant]) -> int:
+    ws = {4 + max(t.spec.n_rows, 1) * max(t.spec.n_caps, 1)
+          for t in tenants}
+    if len(ws) > 1:
+        raise ValueError(f"nfa gang: tenants' egress widths differ {ws}: "
+                         f"one bucket shares R and C")
+    return ws.pop() if ws else 5
+
+
+def nfa_gang_step_egress_plain(tenants: List[GangTenant],
+                               batch_b: Optional[int] = None):
+    """The gang's plain twin on the tensors' device: each tenant's
+    :func:`nfa_block_step_plain`, then :func:`egress_pack_plain` at its
+    own cap, in list order — the contract of :func:`nfa_step_egress` per
+    tenant — with the egress buffers stacked in one ``GangEgress``.
+    Returns ``(new carries, GangEgress)``; no input carry is modified."""
+    width = _gang_width(tenants)
+    news, egs, offsets, off = [], [], [], 0
+    for t in tenants:
+        new, eg = _step_egress_plain(t.spec, t.carry, t.block, t.cap,
+                                     batch_b)
+        news.append(new)
+        egs.append(eg)
+        offsets.append(off)
+        off += int(eg.buf.shape[0])
+    buf = torch.cat([e.buf for e in egs]) if egs else \
+        torch.zeros((0, width), dtype=torch.int32)
+    views = tuple(NfaEgress(buf[o:o + int(e.buf.shape[0])], e.repack, e.seg)
+                  for o, e in zip(offsets, egs))
+    return news, GangEgress(buf, tuple(offsets), views)
+
+
+#: int64 words a tenant in the gang's host descriptor (csrc/nfa_gang.cu
+#: kGangFields): attrs, ts, stream, gates, prog, prog_len, carry in (11,
+#: KERNEL_CARRY), carry out (11), rows, lane_count, fill, dl_min, P, T,
+#: K, G, seg, A, RC, slab, cap, W
+GANG_FIELDS = 42
+
+
+def nfa_gang_step_egress(tenants: List[GangTenant],
+                         batch_b: Optional[int] = None):
+    """Step every pending tenant of a bucket and compact its matches:
+    ``(new carries, GangEgress)``, each tenant's result the one
+    :func:`nfa_step_egress` gives it alone.
+
+    CPU tensors run :func:`nfa_gang_step_egress_plain`.  CUDA tensors
+    launch csrc/nfa_gang.cu's entry points on the current stream:
+    the tenants' descriptors go to the card in one copy, then ONE step
+    launch per template instance present (``nfa_gang_step``: a CTA finds
+    its tenant by a search over the tenants' CTA prefix and runs the step
+    body on that tenant's carry, block and program) and ONE compaction
+    launch (``nfa_gang_compact``), which writes every tenant's slab, tail
+    and status rows at its offset in the one bucket buffer.  The tenants
+    share K and R*C (a bucket's shape key); their programs, attribute
+    counts, T and caps differ.  Each tenant's gate word is its own torch
+    condition program (K5).  A failed build, load or launch raises: no
+    fallback.  No input carry is modified, so one tenant's overflow
+    replays alone from its pre-gang carry."""
+    if not tenants or tenants[0].block["__ts"].device.type == "cpu":
+        return nfa_gang_step_egress_plain(tenants, batch_b)
+    dev = tenants[0].block["__ts"].device
+    width = _gang_width(tenants)
+    calls = [_kernel_call(t.spec, t.carry, t.block, t.kprog, t.seg,
+                          "nfa_gang_step_egress") for t in tenants]
+    if len({(k.K, k.G) for k in calls}) > 1:
+        raise ValueError("nfa_gang_step_egress: tenants' K differ (one "
+                         "bucket shares K)")
+    rows = [t.cap + 2 for t in tenants]
+    buf = torch.empty((sum(rows), width), dtype=torch.int32, device=dev)
+    desc = np.zeros((len(tenants), GANG_FIELDS), np.int64)
+    offsets, off = [], 0
+    for i, (t, k, r) in enumerate(zip(tenants, calls, rows)):
+        offsets.append(off)
+        ptrs = [k.attrs.data_ptr(), t.block["__ts"].data_ptr(),
+                t.block["__stream"].data_ptr(), k.gates.data_ptr(),
+                k.prog.data_ptr(), k.prog.numel()] + \
+            [p or 0 for p in _carry_ptrs(t.carry)] + \
+            [p or 0 for p in _carry_ptrs(k.new)] + \
+            [k.rows.data_ptr(), k.lane_count.data_ptr(), k.fill.data_ptr(),
+             0 if k.dl_min is None else k.dl_min.data_ptr(),
+             k.P, k.T, k.K, k.G, k.seg, k.A, width - 4,
+             buf.data_ptr() + off * width * 4, t.cap, width]
+        desc[i] = ptrs
+        off += r
+    lib = load_kernel("nfa_gang")
+    table = torch.empty((int(lib.nfa_gang_table_bytes(len(tenants))),),
+                        dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = (ctypes.c_int * 2)()
+    rc = lib.nfa_gang_step(desc.ctypes.data, len(tenants), table.data_ptr(),
+                           table.numel(), out, stream)
+    if rc != 0:
+        raise RuntimeError(f"nfa_gang_step: launch failed with CUDA error "
+                           f"{rc}")
+    nfa_gang_step_egress.launches += out[0]
+    n, n_cta = len(tenants), out[1]
+
+    def compact() -> None:
+        nfa_gang_compact(table, n, n_cta, dev)
+    compact()
+    egs = tuple(NfaEgress(buf[o:o + r], _repack_of(k), k.seg)
+                for o, r, k in zip(offsets, rows, calls))
+    return [k.new for k in calls], GangEgress(buf, tuple(offsets), egs,
+                                              compact)
+
+
+#: step launches of the gang since the last reset: one a template
+#: instance present in a flush (plain runs excluded)
+nfa_gang_step_egress.launches = 0
+
+
+def nfa_gang_compact(table: torch.Tensor, n: int, n_cta: int, dev) -> None:
+    """Launch csrc/nfa_gang.cu's compaction over the ``n`` tenants
+    (``n_cta`` step CTAs in all) whose descriptors ``nfa_gang_step``
+    wrote into ``table`` (on the card): every tenant's scratch rows into
+    its place in the bucket buffer.  CUDA tensors only."""
+    lib = load_kernel("nfa_gang")
+    rc = lib.nfa_gang_compact(table.data_ptr(), n, n_cta,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nfa_gang_compact: launch failed with CUDA "
+                           f"error {rc}")
+    nfa_gang_compact.launches += 1
+
+
+#: launches of the gang compaction since the last reset
+nfa_gang_compact.launches = 0
 
 
 # ------------------------------------------------------------ the pattern bank

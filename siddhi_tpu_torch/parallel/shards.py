@@ -1,4 +1,5 @@
-"""Partition-axis shard routing: consistent key→shard assignment.
+"""Partition-axis shard-out: consistent key→shard routing and per-shard
+engine clones.
 
 Counterpart of ``siddhi_tpu/parallel/shards.py``.  The canonical FNV-1a
 routing, ``split_rows``, ``resolve_shards`` and ``routing_digest`` are
@@ -6,12 +7,21 @@ copied unchanged: the assignment is part of the checkpoint contract (a
 per-shard snapshot only restores if every key still routes to the same
 shard), so the two packages must agree bit for bit.
 
-Shard-out itself (one engine clone per device) is not yet ported:
-``build_shards`` raises when ``SIDDHI_TPU_SHARDS >= 2`` asks for it.
+With ``SIDDHI_TPU_SHARDS=N`` (N >= 2) a keyed device runtime
+(plan/planner.py) splits its key space over N :class:`EngineShard` objects.
+Each owns an engine clone, its key→lane map, its in-flight queue and its
+grow-and-replay bookkeeping, so a hot shard grows and replays alone.
+Every shard of a CUDA runtime lives on the runtime's card (all four on
+``cuda:0`` on one H100: placing shards across cards is the multi-device
+work that waits with the mesh); a CPU runtime labels shard i
+``cpu:i``, the host's counterpart of the JAX package's virtual CPU
+devices.  No step reduces across shards: the per-shard stats rows are
+summed on the host.
 """
 from __future__ import annotations
 
 import os
+from collections import deque
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -117,12 +127,62 @@ def split_rows(keys: Sequence[Any],
     return out
 
 
-def build_shards(template: Any, n_shards: int) -> List[Any]:
-    """Per-device engine clones: a later slice of the port."""
-    from ..utils.errors import SiddhiAppCreationError
-    raise SiddhiAppCreationError(
-        f"shard-out not yet ported to the torch backend "
-        f"({SHARDS_ENV}={n_shards})")
+def shard_devices(n_shards: int, device: Any = "cuda") -> List[Any]:
+    """The device of each shard of a runtime on ``device``: the runtime's
+    own card for every shard of a CUDA runtime, ``cpu:i`` for shard i of
+    a CPU runtime (tensors there all live in host memory)."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return [torch.device("cpu", i) for i in range(n_shards)]
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return [dev] * n_shards
+
+
+class EngineShard:
+    """One shard of a keyed device runtime: an engine clone plus ALL the
+    per-shard mutable state (key→lane map, in-flight queue, grow-and-
+    replay bookkeeping, stats counters).  The runtime never mixes state
+    across EngineShards — that isolation is what makes growth and
+    checkpointing shard-granular."""
+
+    __slots__ = ("idx", "engine", "device", "key_lanes", "inflight",
+                 "dropped_seen", "events", "dispatches", "grows")
+
+    def __init__(self, idx: int, engine: Any, device: Any,
+                 key_lanes: Optional[dict] = None):
+        self.idx = idx
+        self.engine = engine
+        self.device = device
+        self.key_lanes = key_lanes if key_lanes is not None else {}
+        self.inflight: deque = deque()
+        self.dropped_seen = 0
+        self.events = 0
+        self.dispatches = 0
+        self.grows = 0
+
+    def stats_row(self) -> dict:
+        cap = getattr(self.engine, "n_partitions",
+                      getattr(self.engine, "n_lanes", 1))
+        return {"shard": self.idx, "device": str(self.device),
+                "keys": len(self.key_lanes), "capacity": int(cap),
+                "events": self.events, "dispatches": self.dispatches,
+                "grows": self.grows}
+
+
+def build_shards(template: Any, n_shards: int) -> List[EngineShard]:
+    """Template engine → N EngineShards.  Shard 0 adopts the template
+    itself (pinned to shard 0's device); shards 1..N-1 are fresh-state
+    clones via the engine's ``clone_for_shard(device)``, which share its
+    compiled programs but own their carry and growth axes."""
+    devs = shard_devices(n_shards, template.device)
+    template.pin_to_device(devs[0])
+    shards = [EngineShard(0, template, devs[0])]
+    for i in range(1, n_shards):
+        shards.append(EngineShard(i, template.clone_for_shard(devs[i]),
+                                  devs[i]))
+    return shards
 
 
 def routing_digest(n_owners: int = 8, n_keys: int = 64) -> str:

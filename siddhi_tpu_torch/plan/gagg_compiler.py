@@ -27,7 +27,8 @@ the step sees is int32 or float32 (bool for the accepted flags).
 
 State: ``current_state``/``restore_state`` keep the JAX package's
 persistent schema (numpy carry leaves), so a JAX snapshot restores here
-(``ops.grouped_agg.carry_from_reference``).  Shard-out is not ported.
+(``ops.grouped_agg.carry_from_reference``).  Shard-out clones the
+engine per shard (``clone_for_shard``, parallel/shards.py).
 """
 from __future__ import annotations
 
@@ -377,6 +378,36 @@ class CompiledGroupedAgg:
         self.carry = type(self.carry)(
             *[torch.cat([a, b], dim=0) for a, b in zip(self.carry, fresh)])
         self.n_lanes = n_lanes
+
+    # ------------------------------------------------ partition shard-out
+
+    def pin_to_device(self, device) -> None:
+        """Pin the engine to one shard's device (parallel/shards.py): the
+        carry moves there, and steps, group growth and ring compaction
+        follow it."""
+        dev = torch.device(device)
+        self.device = dev
+        self.carry = type(self.carry)(*[a.to(dev) for a in self.carry])
+
+    def clone_for_shard(self, device) -> "CompiledGroupedAgg":
+        """Fresh-state shard clone on ``device``: shares the compiled step
+        and value/filter programs; owns its carry AND its group-id
+        dictionaries — gid_map/_lane_gids mutate in place, so sharing
+        them across shards would hand one shard's group slots to
+        another's keys."""
+        import copy
+        cl = copy.copy(self)
+        cl.device = torch.device(device)
+        cl.gid_map = {}
+        cl._lane_gids = {}
+        cl.n_groups = G_START
+        if cl.window_kind == "time":
+            cl._ts_base = None
+        cl.carry = cl._make_carry(cl.n_lanes)
+        # never fused into the app egress slab: each shard reads its own
+        cl.egress_fuser = None
+        cl.flush_hook = None
+        return cl
 
     def _grow_groups(self, n_groups: int) -> None:
         if n_groups <= self.n_groups:

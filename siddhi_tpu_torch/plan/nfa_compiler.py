@@ -1783,11 +1783,56 @@ class CompiledPatternNFA:
                                 for v in placed.values()))
         return placed
 
+    # ------------------------------------------------ partition shard-out
+
+    def pin_to_device(self, device) -> None:
+        """Pin this engine to one shard's device (parallel/shards.py): the
+        carry moves there, and steps, growth and replay follow it."""
+        self.device = torch.device(device)
+        self.carry = self._place_carry(self.carry)
+
+    def clone_for_shard(self, device) -> "CompiledPatternNFA":
+        """A fresh-state shard clone on ``device``.  Shares the compiled
+        artifacts (spec, step, condition programs) and — by design — the
+        string dictionary (str_encoder/str_decoder mutate in place, so
+        encoded values stay comparable across shards and one decode table
+        serves the whole set).  Owns its carry, base_ts and growth axes:
+        a clone growing slots rebuilds only its own step."""
+        import copy
+        cl = copy.copy(self)
+        cl.device = torch.device(device)
+        cl.carry = cl._place_carry(make_carry(cl.spec, cl.n_partitions,
+                                              cl.device))
+        cl.base_ts = None
+        # never packed (plan/xtenant.py) and never fused into the app
+        # slab: each shard reads its own egress
+        cl.egress_fuser = None
+        cl._tenant_bucket = None
+        return cl
+
     @property
     def replayable(self) -> bool:
         """True: the step never modifies its input carry, so an
-        overflowing chunk can replay from the pre-chunk carry."""
+        overflowing chunk can replay from the pre-chunk carry (and a
+        packed tenant can rewind alone, plan/xtenant.py)."""
         return True
+
+    # ------------------------------------------------ cross-tenant packing
+
+    def _xt_sync(self) -> None:
+        """A packed tenant's pending block (plan/xtenant.py) steps before
+        any out-of-band access to its carry."""
+        bucket = getattr(self, "_tenant_bucket", None)
+        if bucket is not None:
+            bucket.sync(self)
+
+    def _xt_rebucket(self) -> None:
+        """Shape change (K/P growth, snapshot restore): a packed tenant
+        re-keys into the bucket matching its new shape class — its old
+        gang signatures are stale (plan/xtenant.py)."""
+        bucket = getattr(self, "_tenant_bucket", None)
+        if bucket is not None:
+            bucket.packer.rebucket(self)
 
     def _build_step(self, trigger: str = "build"):
         from ..core.profiling import wrap_kernel
@@ -1818,6 +1863,7 @@ class CompiledPatternNFA:
             raise SiddhiAppCreationError(
                 "a parameterized compile holds no carry to grow: a "
                 "CompiledPatternBank's partition count is fixed")
+        self._xt_sync()
         fresh = make_carry(self.spec, n_partitions - self.n_partitions,
                            self.device)
         self.carry = self._place_carry(
@@ -1825,6 +1871,7 @@ class CompiledPatternNFA:
              for k in self.carry})
         self.n_partitions = n_partitions
         self._step = self._build_step(trigger="grow")
+        self._xt_rebucket()
 
     def grow_slots(self, n_slots: int) -> None:
         """Widen the K (concurrent-partials) axis: the host oracle's pending
@@ -1832,6 +1879,7 @@ class CompiledPatternNFA:
         when a pattern has no `within` bound."""
         if n_slots <= self.spec.n_slots:
             return
+        self._xt_sync()
         if not self._parameterize:
             R, C = max(self.spec.n_rows, 1), max(self.spec.n_caps, 1)
             self.carry = self._place_carry(_widen_slots(
@@ -1839,6 +1887,7 @@ class CompiledPatternNFA:
         self.spec = self.spec._replace(n_slots=n_slots)
         if not self._parameterize:
             self._step = self._build_step(trigger="grow")
+            self._xt_rebucket()
 
     def max_active_slots(self) -> int:
         """Device reduction: the fullest partition's live-partial count."""
@@ -1867,6 +1916,7 @@ class CompiledPatternNFA:
     def current_state(self) -> Dict[str, Any]:
         """The JAX package's state dict: numpy carry leaves, the time
         base, the lane count and the string dictionary."""
+        self._xt_sync()         # a snapshot must see the pending block
         return {"carry": {k: v.detach().cpu().numpy().copy()
                           for k, v in self.carry.items()},
                 "base_ts": self.base_ts,
@@ -1877,6 +1927,7 @@ class CompiledPatternNFA:
     def restore_state(self, state: Dict[str, Any]) -> None:
         """Accepts this engine's own ``current_state()`` or the JAX
         package's ``CompiledPatternNFA.current_state()`` unchanged."""
+        self._xt_sync()
         self.n_partitions = int(state["n_partitions"])
         self.carry = self._place_carry(state["carry"])
         self.base_ts = state["base_ts"]
@@ -1892,6 +1943,7 @@ class CompiledPatternNFA:
         if k != self.spec.n_slots:    # snapshot taken after slot growth
             self.spec = self.spec._replace(n_slots=k)
         self._step = self._build_step(trigger="restart")
+        self._xt_rebucket()
 
     def to_device(self, block) -> Dict[str, torch.Tensor]:
         """Host [P, T] numpy lanes → tensors on the engine's device (attr
@@ -1914,6 +1966,10 @@ class CompiledPatternNFA:
         composition on the CPU.  Returns the block's NfaEgress on the
         engine's device; nothing is read back."""
         own = carry is None
+        if own:
+            # a packed tenant stepped out-of-band (timer rows, replay):
+            # its deferred block lands first
+            self._xt_sync()
         new, eg = self._step(self.carry if own else carry,
                              self.to_device(block), self._egress_cap,
                              self._egress_seg if seg is None else seg)
@@ -2143,6 +2199,7 @@ class CompiledPatternNFA:
             if self.has_absent:
                 self.last_min_deadline = None
             return []
+        self._xt_sync()
         if self.base_ts is None:
             self.base_ts = now_ms
         self._maybe_rebase(now_ms, now_ms)
@@ -2171,6 +2228,12 @@ class CompiledPatternNFA:
             return {"dead": True, "pre_carry": self.carry,
                     "pre_base": self.base_ts, "base_ts": self.base_ts,
                     "ts_range": None, "block": None}
+        bucket = getattr(self, "_tenant_bucket", None)
+        if bucket is not None:
+            # a still-pending earlier block of THIS tenant must step
+            # before the rebase below mutates the carry it will read
+            # (and before two blocks of one tenant could coexist)
+            bucket.sync(self)
         if self.base_ts is None:
             self.base_ts = int(timestamps[0]) if len(timestamps) else 0
         ts_range = None
@@ -2198,6 +2261,11 @@ class CompiledPatternNFA:
         block = pack_blocks(np.asarray(partition_ids), cols,
                             np.asarray(timestamps), codes,
                             self.n_partitions, base_ts=self.base_ts)
+        if bucket is not None:
+            # cross-tenant gang (plan/xtenant.py): the block waits in the
+            # tenant's bucket and steps with every co-tenant's pending
+            # block in one launch; any read of the handle flushes it
+            return bucket.submit(self, block, ts_range)
         pre_carry, pre_base = self.carry, self.base_ts
         h = self._dispatch(block)
         h.update(ts_range=ts_range, pre_carry=pre_carry,
@@ -2219,6 +2287,8 @@ class CompiledPatternNFA:
     def retire_events(self, h: dict):
         """Block on a dispatched handle → (pids, ts, columns) in emission
         order (columnar decode).  Sets self.last_dropped_total."""
+        if "xpend" in h:
+            h["xpend"].resolve(h)
         if h.get("dead"):
             self.last_dropped_total = 0
             if self.has_absent:
@@ -2243,6 +2313,8 @@ class CompiledPatternNFA:
         h = self.dispatch_events(partition_ids, columns, timestamps,
                                  stream_names=stream_names,
                                  stream_codes=stream_codes)
+        if "xpend" in h:
+            h["xpend"].resolve(h)
         if h.get("dead"):
             self.last_dropped_total = 0
             return []

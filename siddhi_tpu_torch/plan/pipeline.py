@@ -169,7 +169,10 @@ class _FuseGroup:
                 elif dt == "torch.bool":
                     pieces.append(b.reshape(-1).to(torch.int32))
         if pieces:
-            self._copy = HostCopy([torch.cat(pieces)])
+            # one registered buffer (a packed bucket's, plan/xtenant.py)
+            # is read as it is: no concatenation
+            self._copy = HostCopy([pieces[0] if len(pieces) == 1
+                                   else torch.cat(pieces)])
 
     def fetch(self, index: int) -> List[Any]:
         with self.fuser._lock:
@@ -243,6 +246,16 @@ class EgressFuser:
             grp.owners.add(id(owner))
             grp.entries.append(list(buffers))
             return _FuseToken(grp, len(grp.entries) - 1)
+
+
+    def seal_block(self) -> None:
+        """Close the open group explicitly.  The cross-tenant packer
+        (plan/xtenant.py) registers a gang flush's bucket buffer and knows
+        the block boundary exactly — sealing here starts the slab's D2H
+        at once instead of at the next repeat registration."""
+        with self._lock:
+            if self._current.entries:
+                self._rotate()
 
 
 def egress_fuser_for(app) -> Optional[EgressFuser]:

@@ -9,10 +9,12 @@ the grouped / running / time-window aggregation runtime with its
 selection tail (:class:`DeviceGroupedAggRuntime`) and the stateless
 filter/project program (:class:`DeviceFilterRuntime`); device windows
 under a host selector are plan/dwin_compiler.py's, wired by the query
-runtime.  A device path the port has not reached (incremental
-aggregation, the join probe, shard-out) raises
-``SiddhiAppCreationError`` naming it "not yet ported",
-so ``'auto'`` falls back to the host exactly as the JAX package's planner
+runtime.  With ``SIDDHI_TPU_SHARDS=N`` (N >= 2) the keyed pattern,
+wagg and gagg runtimes shard their key space over N engine clones
+(parallel/shards.py); eligible pattern automata join the cross-tenant
+packer (plan/xtenant.py).  A device path the port has not reached
+raises ``SiddhiAppCreationError`` naming it "not yet ported", so
+``'auto'`` falls back to the host exactly as the JAX package's planner
 does for a query its device path cannot express, and ``'device'`` raises.
 On a CUDA device a pattern outside the NFA kernel's class is refused the
 same way (plan/nfa_compiler.py).
@@ -42,7 +44,7 @@ from ..query_api.query import OutputEventsFor
 from ..utils.errors import SiddhiAppCreationError
 from ..core.ledger import ledger as _ledger
 from ..core.stateschema import Keyed, persistent_schema
-from ..parallel.shards import build_shards, resolve_shards
+from ..parallel.shards import build_shards, resolve_shards, split_rows
 from .pipeline import HostCopy, PipelinedDeviceIngest
 
 ENGINE_ENV = "SIDDHI_TPU_ENGINE"
@@ -97,6 +99,12 @@ def _record_block(rt_obj, prof, disp0: int, ticks0: int, stream: str,
              if fuser is not None and fuser.last_slab_bytes else None)
     if ledger_row:
         extra = dict(extra or {}, ledger=ledger_row)
+    bucket = getattr(getattr(rt_obj, "nfa", None), "_tenant_bucket", None)
+    if bucket is not None:
+        # per-tenant attribution for packed runtimes: which shared bucket
+        # this app's blocks ride, and how many tenants co-pay its gang
+        extra = dict(extra or {}, xtenant={"bucket": bucket.label,
+                                           "tenants": len(bucket.tenants)})
     # rim-vs-kernel ms split since this runtime's previous block
     rim_now = rim_stats().rim_ns
     kern_now = prof.total_dispatch_ns() if prof.enabled else 0
@@ -199,6 +207,22 @@ def map_keys_to_lanes(key_lanes: Dict[Any, int], keys: List[Any],
     return lanes
 
 
+def _check_shard_count(shards, snap_shards) -> None:
+    """Shard-count mismatch on restore is a routing change: key→shard
+    assignment is modular in the shard count, so a snapshot taken at S
+    shards only restores into S shards.  Raises the typed SC005 error
+    naming expected-vs-found counts (the same diagnostic the envelope
+    verifier emits before restore_state is reached — this guard covers
+    snapshots restored through paths that skip the envelope)."""
+    have = len(shards) if shards else 0
+    want = len(snap_shards) if snap_shards else 0
+    if have != want:
+        from ..core.stateschema import shard_mismatch_message
+        from ..utils.errors import CannotRestoreStateError
+        raise CannotRestoreStateError(
+            "SC005: " + shard_mismatch_message(have, want), code="SC005")
+
+
 def _scan_fns(e, pred) -> bool:
     """True if any AttributeFunction node in the expression satisfies pred."""
     from ..query_api.expression import AttributeFunction
@@ -255,7 +279,8 @@ class _DeviceIngress:
 
 @persistent_schema(
     "keyed-pattern", version=1, schema=Keyed("nfa"),
-    doc="per-key NFA lanes: one flat slab keyed by the key→lane map")
+    doc="per-key NFA lanes: one flat slab or per-shard sections keyed "
+        "by the pinned FNV-1a routing")
 class DevicePatternRuntime:
     """Pattern query running on the batched NFA step (plan/nfa_compiler
     → ops/nfa → csrc/nfa_step.cu on CUDA).
@@ -266,8 +291,9 @@ class DevicePatternRuntime:
     runtime clones (partition/PartitionRuntime.java:255-308).  Ingest is
     pipelined up to ``pipeline_depth`` chunks; a chunk whose slot ring
     overflowed is replayed from its pre-chunk carry on a doubled ring
-    (grow-and-replay), so drops never lose matches.  Shard-out and the
-    cross-tenant packer are not yet ported."""
+    (grow-and-replay), so drops never lose matches.  Keyed runtimes shard
+    out with ``SIDDHI_TPU_SHARDS``; the others join the cross-tenant
+    packer (plan/xtenant.py)."""
 
     backend = "device"
 
@@ -291,14 +317,31 @@ class DevicePatternRuntime:
         self.keyed = key_executors is not None
         self.key_executors = key_executors or {}
         telemetry = bool(getattr(app.app_ctx, "telemetry_enabled", False))
-        n_shards = resolve_shards() if self.keyed else 0
-        if n_shards >= 2:
-            build_shards(None, n_shards)          # raises: not yet ported
-        capacity = initial_lanes(app.app) if self.keyed else 1
+        # partition shard-out (parallel/shards.py): with
+        # SIDDHI_TPU_SHARDS=N (N >= 2) a keyed runtime splits its key
+        # space over N engine clones
+        want_shards = resolve_shards() if self.keyed else 0
+        capacity = initial_lanes(app.app, want_shards) if self.keyed else 1
         self.nfa = CompiledPatternNFA(
             app.app, n_partitions=capacity,
             n_slots=DEFAULT_SLOTS if n_slots is None else n_slots, query=q,
             telemetry=telemetry, device=app.app_ctx.siddhi_context.device)
+        self.shards: Optional[List[Any]] = None
+        self.shard_reason: Optional[str] = None
+        if want_shards >= 2:
+            # shard-eligibility gates: these features aggregate across
+            # the whole key space through ONE engine's carry, so the app
+            # stays monolithic with the reason recorded (SA080 and the
+            # partition's shard_report surface it)
+            if self.nfa.has_absent:
+                self.shard_reason = ("absent (`not ... for`) deadline "
+                                     "timers arm off one engine's carry")
+            elif telemetry:
+                self.shard_reason = ("on-device telemetry aggregates one "
+                                     "engine's occupancy planes")
+            elif self.nfa.statically_dead:
+                self.shard_reason = "statically dead automaton"
+        self._shard_want = want_shards
         self.key_lanes: Dict[Any, int] = KeyLanes()
         self.qr = qr
         self._dtype_for = dtype_for
@@ -352,6 +395,21 @@ class DevicePatternRuntime:
                            for sid in self.nfa.stream_codes}
         # on-device telemetry sink (@app:statistics(telemetry='true'))
         self._telemetry_sink = getattr(app, "device_telemetry", None)
+        # cross-tenant packing (plan/xtenant.py): eligible small automata
+        # of DIFFERENT apps bucket by shape class and step as one gang per
+        # bucket per block.  A no-op when SIDDHI_TPU_XTENANT is off; with
+        # pipeline depth 0 the bucket flushes inside every ingest
+        from .xtenant import tenant_packer
+        if self._shard_want >= 2 and self.shard_reason is None:
+            # shard 0 adopts the template engine; siblings are fresh-state
+            # clones sharing its step.  Each shard reads its own egress,
+            # and sharded engines never join the packer
+            self.nfa.egress_fuser = None
+            self.shards = build_shards(self.nfa, self._shard_want)
+            for sh in self.shards:
+                sh.key_lanes = KeyLanes()
+        else:
+            tenant_packer().register(self.nfa, app=app.name, query=qr.name)
 
     def _warm(self) -> None:
         """One all-invalid event per lane through the step (the state is
@@ -418,6 +476,86 @@ class DevicePatternRuntime:
                            else np.zeros(n, np.float32))
         return cols
 
+    # ------------------------------------------------------- sharded path
+
+    def _ingest_sharded(self, stream_code: int, data, keys: List[Any],
+                        n: int) -> None:
+        """Route the chunk by consistent key hash and dispatch each
+        shard's sub-block on that shard's own engine.  One hash pass per
+        batch (split_rows); per-key event order is preserved (row indices
+        ascend inside each sub-block); no step reduces across shards."""
+        keys_arr = np.asarray(keys)
+        cols = self._event_cols(data, n)
+        ts_arr = np.asarray(data.timestamps, np.int64)
+        for sid, rows in split_rows(keys_arr, len(self.shards)):
+            sh = self.shards[sid]
+
+            def grow(cap, sh=sh):
+                # shard-local growth: only THIS engine's in-flight
+                # pre-carries go stale, so only its queue is retired and
+                # only its slab re-keys — sibling shards' carries are
+                # untouched
+                self._flush_shard(sh)
+                sh.engine.grow(cap)
+                sh.grows += 1
+
+            pids = map_keys_to_lanes(sh.key_lanes, keys_arr[rows],
+                                     sh.engine.n_partitions, grow)
+            sub_cols = {k: np.asarray(v)[rows] for k, v in cols.items()}
+            codes = np.full(len(rows), stream_code, np.int32)
+            with _ledger().span("device"):
+                h = sh.engine.dispatch_events(pids, sub_cols, ts_arr[rows],
+                                              stream_codes=codes)
+            sh.inflight.append(h)
+            sh.events += len(rows)
+            sh.dispatches += 1
+            while len(sh.inflight) > self.pipeline_depth:
+                with _ledger().span("decode"):
+                    self._retire_shard(sh)
+
+    def _retire_shard(self, sh) -> None:
+        """Per-shard twin of _retire_one: wait for the shard's oldest
+        in-flight chunk; on slot-ring overflow rewind/grow/replay THIS
+        shard only."""
+        h = sh.inflight.popleft()
+        eng = sh.engine
+        pids, ts, cols = eng.retire_events(h)
+        dropped = eng.last_dropped_total
+        if dropped > sh.dropped_seen and eng.replayable:
+            pending = [h] + list(sh.inflight)
+            sh.inflight.clear()
+            eng.carry = h["pre_carry"]
+            eng.base_ts = h["pre_base"]
+            eng.grow_slots(eng.spec.n_slots * 2)
+            sh.grows += 1
+            for e in pending:
+                while True:
+                    pre_carry, pre_base = eng.carry, eng.base_ts
+                    self.replays += 1
+                    with _ledger().span("device"):
+                        r = eng.replay_block(e)
+                    pids, ts, cols = eng.retire_events(r)
+                    if eng.last_dropped_total <= sh.dropped_seen:
+                        break
+                    eng.carry = pre_carry
+                    eng.base_ts = pre_base
+                    eng.grow_slots(eng.spec.n_slots * 2)
+                    sh.grows += 1
+                self._emit_columns(pids, ts, cols)
+            return
+        sh.dropped_seen = max(dropped, sh.dropped_seen)
+        self._emit_columns(pids, ts, cols)
+
+    def _flush_shard(self, sh) -> None:
+        while sh.inflight:
+            with _ledger().span("decode"):
+                self._retire_shard(sh)
+
+    def shard_stats(self) -> Optional[List[dict]]:
+        if self.shards is None:
+            return None
+        return [sh.stats_row() for sh in self.shards]
+
     def ingest(self, stream_code: int, stream_id: str, chunk) -> None:
         from ..core.event import CURRENT
         from ..core.profiling import profiler
@@ -442,6 +580,11 @@ class DevicePatternRuntime:
                 n = len(data)
                 if n == 0:
                     return
+            if self.shards is not None:
+                self._ingest_sharded(stream_code, data, keys, n)
+                _record_block(self, prof, disp0, ticks0, stream_id, n,
+                              junction=self._junctions.get(stream_id))
+                return
             pids = self._lanes_for_keys(keys)
         else:
             pids = np.zeros(n, np.int64)
@@ -485,6 +628,14 @@ class DevicePatternRuntime:
             # ring — rewind to this chunk's pre-carry, grow, replay all
             pending = [h] + list(self._inflight)
             self._inflight.clear()
+            # packed tenant (plan/xtenant.py): later in-flight chunks may
+            # still sit in the bucket queue; gang-step them NOW, before
+            # the rewind.  Otherwise grow_slots' rebucket would flush them
+            # onto the rewound carry AND the loop below would replay them
+            # — the same block applied twice
+            for e in pending:
+                if "xpend" in e:
+                    e["xpend"].resolve(e)
             self.nfa.carry = h["pre_carry"]
             self.nfa.base_ts = h["pre_base"]
             self.nfa.grow_slots(self.nfa.spec.n_slots * 2)
@@ -519,6 +670,9 @@ class DevicePatternRuntime:
         query lock (re-entrant) — state reads can race the junction
         worker's ingest."""
         with self.qr.lock:
+            if self.shards is not None:
+                for sh in self.shards:
+                    self._flush_shard(sh)
             while self._inflight:
                 with _ledger().span("decode"):
                     self._retire_one()
@@ -590,14 +744,26 @@ class DevicePatternRuntime:
     def shutdown(self) -> None:
         self.flush()
         self._shutdown = True
+        # packed tenants leave their bucket on shutdown; co-tenants'
+        # state is untouched (plan/xtenant.py evict contract).  Sharded
+        # NFAs never registered, and evict is a no-op for them
+        from .xtenant import tenant_packer
+        tenant_packer().evict(self.nfa)
 
     # ------------------------------------------------------------ snapshot
 
     def current_state(self) -> dict:
         """The JAX package's runtime state dict (the engine's numpy state
-        + key→lane map)."""
+        + key→lane map; per shard when sharded)."""
         with self.qr.lock:
             self.flush()
+            if self.shards is not None:
+                # shard-granular checkpoint: each slab snapshots on its
+                # own (keys route by the pinned FNV hash, so a restored
+                # shard's keys still land on it)
+                return {"shards": [{"nfa": sh.engine.current_state(),
+                                    "key_lanes": dict(sh.key_lanes)}
+                                   for sh in self.shards]}
             return {"nfa": self.nfa.current_state(),
                     "key_lanes": dict(self.key_lanes)}
 
@@ -606,10 +772,16 @@ class DevicePatternRuntime:
         package's ``DevicePatternRuntime.current_state()`` unchanged."""
         with self.qr.lock:
             self.flush()
-            if state.get("shards") is not None:
-                raise SiddhiAppCreationError(
-                    "sharded pattern state: shard-out not yet ported to "
-                    "the torch backend")
+            snap_shards = state.get("shards")
+            if snap_shards is not None or self.shards is not None:
+                _check_shard_count(self.shards, snap_shards)
+                for sh, st in zip(self.shards, snap_shards):
+                    sh.engine.restore_state(st["nfa"])
+                    sh.engine.pin_to_device(sh.device)
+                    sh.key_lanes = KeyLanes(st.get("key_lanes") or {})
+                    sh.dropped_seen = int(
+                        sh.engine.carry["dropped"].sum())
+                return
             self.nfa.restore_state(state["nfa"])
             # the restored carry's lanes are only meaningful with the
             # snapshot's key→lane map; dropping it would hand restored
@@ -632,7 +804,8 @@ class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
     Keyed mode maps partition keys to lanes (like DevicePatternRuntime);
     unkeyed mode runs one lane.  Ingest is pipelined (plan/pipeline.py):
     each chunk's step dispatches at once, its decode retires up to
-    ``pipeline_depth`` chunks later.  Shard-out is not yet ported."""
+    ``pipeline_depth`` chunks later.  Keyed runtimes shard out with
+    ``SIDDHI_TPU_SHARDS`` (works carry their shard)."""
 
     backend = "device"
 
@@ -666,12 +839,11 @@ class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
             raise SiddhiAppCreationError(
                 "device grouped-agg path: named-window input is host-only")
         self.keyed = key_executors is not None
-        n_shards = resolve_shards() if self.keyed else 0
-        if n_shards >= 2:
-            build_shards(None, n_shards)          # raises: not yet ported
+        self._shard_want = resolve_shards() if self.keyed else 0
         self.cga = CompiledGroupedAgg(
             app.app, q,
-            n_lanes=initial_lanes(app.app) if self.keyed else 1,
+            n_lanes=initial_lanes(app.app, self._shard_want)
+            if self.keyed else 1,
             keyed=self.keyed, device=app.app_ctx.siddhi_context.device)
         # surfaced by service/rest.py stats: did the selection tail
         # (having/order/limit) compile to the device?
@@ -709,6 +881,18 @@ class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
         # the compiler owns dispatch/decode, so it registers its own
         # output buffers on the app slab
         self.cga.egress_fuser = egress_fuser_for(app)
+        self.shards: Optional[List[Any]] = None
+        if self._shard_want >= 2:
+            # each shard reads its own outputs; clones share the
+            # template's programs but own fresh group dictionaries
+            # (clone_for_shard), so group ids stay shard-local.  Every
+            # shard's group growth funnels through the shared flush
+            # (pre-carries of in-flight works go stale)
+            self.cga.egress_fuser = None
+            self.shards = build_shards(self.cga, self._shard_want)
+            for sh in self.shards:
+                sh.key_lanes = KeyLanes()
+                sh.engine.flush_hook = self.flush
 
     # ------------------------------------------------------------ ingest
 
@@ -717,6 +901,54 @@ class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
         # work first so replay never mixes widths
         self.flush()
         self.cga.grow_lanes(cap)
+
+    def _ingest_sharded(self, data, keys: List[Any]) -> None:
+        """Hash-route the chunk; each shard's sub-block dispatches on its
+        own engine.  Works carry a "shard" tag so the retire path decodes
+        (and, on overflow, rewinds/replays) against the right engine
+        while sibling shards' in-flight works stay queued untouched."""
+        keys_arr = np.asarray(keys)
+        for sid, rows in split_rows(keys_arr, len(self.shards)):
+            sh = self.shards[sid]
+            m = np.zeros(len(data), bool)
+            m[rows] = True
+            sub = data.mask(m)
+
+            def grow(cap, sh=sh):
+                self.flush()
+                sh.engine.grow_lanes(cap)
+                sh.grows += 1
+
+            lanes = map_keys_to_lanes(sh.key_lanes, keys_arr[rows],
+                                      sh.engine.n_lanes, grow)
+            with _ledger().span("device"):
+                work = sh.engine.dispatch(lanes, sub)
+            sh.events += len(rows)
+            if work is None:
+                continue
+            sh.dispatches += 1
+            work["shard"] = sh
+            self._submit(work)
+
+    def shard_stats(self) -> Optional[List[dict]]:
+        if self.shards is None:
+            return None
+        return [sh.stats_row() for sh in self.shards]
+
+    def _take_same_shard(self, sh) -> list:
+        """Pull the failing engine's LATER in-flight works out of the
+        shared queue for replay; other shards' works keep their queue
+        positions (their pre-carries belong to other engines and stay
+        valid).  Unsharded: takes everything."""
+        if sh is None:
+            rest = list(self._inflight)
+            self._inflight.clear()
+            return rest
+        mine = [w for w in self._inflight if w.get("shard") is sh]
+        keep = [w for w in self._inflight if w.get("shard") is not sh]
+        self._inflight.clear()
+        self._inflight.extend(keep)
+        return mine
 
     def ingest(self, stream_code: int, stream_id: str, chunk) -> None:
         from ..core.event import CURRENT
@@ -735,6 +967,11 @@ class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
                 keys = [k for k in keys if k is not None]
                 if data.is_empty:
                     return
+            if self.shards is not None:
+                self._ingest_sharded(data, keys)
+                _record_block(self, prof, disp0, ticks0, stream_id,
+                              len(data))
+                return
             lanes = map_keys_to_lanes(self.key_lanes, keys,
                                       self.cga.n_lanes, self._grow_lanes)
         else:
@@ -749,17 +986,20 @@ class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
     def _retire(self, work) -> None:
         from ..utils.errors import SiddhiAppRuntimeException
         from .gagg_compiler import GaggOverflow
-        eng = self.cga
+        sh = work.get("shard")
+        eng = sh.engine if sh is not None else self.cga
         try:
             res = eng.decode(work)
         except GaggOverflow:
             # a still-in-window time-ring entry was evicted: rewind to
             # this chunk's pre-carry, grow the ring, replay it and every
-            # later in-flight chunk (exact — no undercounted windows)
-            pending = [work] + list(self._inflight)
-            self._inflight.clear()
+            # later in-flight chunk OF THIS ENGINE (exact — no
+            # undercounted windows); sibling shards are untouched
+            pending = [work] + self._take_same_shard(sh)
             eng.carry = work["pre_carry"]
             eng.grow_time_window()
+            if sh is not None:
+                sh.grows += 1
             for w in pending:
                 while True:
                     with _ledger().span("device"):
@@ -770,6 +1010,8 @@ class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
                     except GaggOverflow:
                         eng.carry = w["pre_carry"]
                         eng.grow_time_window()
+                        if sh is not None:
+                            sh.grows += 1
                 self._emit(w, res)
             return
         except SiddhiAppRuntimeException:
@@ -778,8 +1020,7 @@ class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
             # replay the LATER chunks, and re-raise at the @OnError
             # boundary.  A replayed chunk that trips the bound again is
             # un-applied and dropped the same way
-            rest = list(self._inflight)
-            self._inflight.clear()
+            rest = self._take_same_shard(sh)
             eng.carry = work["pre_carry"]
             for w in rest:
                 eng.redispatch(w)
@@ -833,6 +1074,10 @@ class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
         + key→lane map)."""
         with self.qr.lock:
             self.flush()
+            if self.shards is not None:
+                return {"shards": [{"cga": sh.engine.current_state(),
+                                    "key_lanes": dict(sh.key_lanes)}
+                                   for sh in self.shards]}
             return {"cga": self.cga.current_state(),
                     "key_lanes": dict(self.key_lanes)}
 
@@ -841,10 +1086,14 @@ class DeviceGroupedAggRuntime(PipelinedDeviceIngest):
         package's ``DeviceGroupedAggRuntime.current_state()`` unchanged."""
         with self.qr.lock:
             self.flush()
-            if state.get("shards") is not None:
-                raise SiddhiAppCreationError(
-                    "sharded grouped-agg state: shard-out not yet ported "
-                    "to the torch backend")
+            snap_shards = state.get("shards")
+            if snap_shards is not None or self.shards is not None:
+                _check_shard_count(self.shards, snap_shards)
+                for sh, st in zip(self.shards, snap_shards):
+                    sh.engine.restore_state(st["cga"])
+                    sh.engine.pin_to_device(sh.device)
+                    sh.key_lanes = KeyLanes(st["key_lanes"])
+                return
             self.cga.restore_state(state["cga"])
             self.key_lanes = KeyLanes(state["key_lanes"])
 
@@ -1154,7 +1403,8 @@ class DeviceWindowedAggRuntime(PipelinedDeviceIngest):
     csrc/wagg_time.cu, K6): partition keys become group lanes of one ring
     slab (BASELINE config 2 — the reference's per-key window buffers +
     per-group aggregator maps, QuerySelector.java:171).  Ingest is
-    pipelined (plan/pipeline.py)."""
+    pipelined (plan/pipeline.py); ``SIDDHI_TPU_SHARDS`` shards the key
+    space over engine clones."""
 
     backend = "device"
 
@@ -1177,12 +1427,12 @@ class DeviceWindowedAggRuntime(PipelinedDeviceIngest):
                    OutputEventsFor.CURRENT) != OutputEventsFor.CURRENT:
             raise SiddhiAppCreationError(
                 "device wagg path: expired-event output is host-only")
-        n_shards = resolve_shards()
-        if n_shards >= 2:
-            build_shards(None, n_shards)          # raises: not yet ported
+        # always keyed (partition-driven); shard-out splits the key space
+        # over engine clones when SIDDHI_TPU_SHARDS >= 2
+        self._shard_want = resolve_shards()
         self.cwa = CompiledWindowedAgg(
-            app.app, n_partitions=initial_lanes(app.app), query=q,
-            device=app.app_ctx.siddhi_context.device)
+            app.app, n_partitions=initial_lanes(app.app, self._shard_want),
+            query=q, device=app.app_ctx.siddhi_context.device)
         # the program sees int32 ts offsets while the host-twin emission
         # filter sees true int64 — absolute-timestamp filters would diverge
         if any(_scan_fns(e, _is_time_fn) for e in self.cwa.filter_exprs):
@@ -1267,6 +1517,14 @@ class DeviceWindowedAggRuntime(PipelinedDeviceIngest):
         from .pipeline import egress_fuser_for
         self.app_name = app.name
         self._fuser = egress_fuser_for(app)
+        self.shards: Optional[List[Any]] = None
+        if self._shard_want >= 2:
+            # each shard's outputs are read on their own; built AFTER the
+            # warm block so every clone shares the template's step
+            self._fuser = None
+            self.shards = build_shards(self.cwa, self._shard_want)
+            for sh in self.shards:
+                sh.key_lanes = KeyLanes()
 
     # ------------------------------------------------------------ ingest
 
@@ -1279,7 +1537,6 @@ class DeviceWindowedAggRuntime(PipelinedDeviceIngest):
     def ingest(self, stream_code: int, stream_id: str, chunk) -> None:
         from ..core.event import CURRENT
         from ..core.profiling import profiler
-        from ..ops.pack import pack_blocks
         data = chunk.only(CURRENT)
         if data.is_empty:
             return
@@ -1294,39 +1551,81 @@ class DeviceWindowedAggRuntime(PipelinedDeviceIngest):
             if data.is_empty:
                 return
         n = len(data)
+        if self.shards is not None:
+            self._ingest_sharded(data, keys)
+            _record_block(self, prof, disp0, ticks0, stream_id, n)
+            return
         lanes = map_keys_to_lanes(self.key_lanes, keys,
                                   self.cwa.n_partitions, self._grow)
-        P = self.cwa.n_partitions
+        self._dispatch_block(self.cwa, data, lanes, self._fuser)
+        _record_block(self, prof, disp0, ticks0, stream_id, n)
+
+    def _dispatch_block(self, eng, data, lanes: np.ndarray, fuser) -> None:
+        """Pack one chunk's events into ``eng``'s [P, T] lanes, step it
+        and submit the work (its outputs on the app slab, or read on
+        their own)."""
+        from ..ops.pack import pack_blocks
+        n = len(data)
+        P = eng.n_partitions
         cols = {a.name: np.asarray(data.columns[a.name])
-                for a in self.cwa.input_definition.attributes
+                for a in eng.input_definition.attributes
                 if a.name in data.columns and
                 data.columns[a.name].dtype != object}
         ts_arr = np.asarray(data.timestamps, np.int64)
         block, rows = pack_blocks(lanes, cols, ts_arr,
                                   np.zeros(n, np.int32), P,
                                   base_ts=int(ts_arr[0]), return_rows=True)
-        if self.cwa.window_kind == "time":
+        if eng.window_kind == "time":
             # absolute i64 ts lanes: the time step's expiry must be
             # comparable ACROSS blocks (packed __ts is per-block offsets);
             # externalTime reads the event's ts attribute instead
-            src = (np.asarray(data.columns[self.cwa.ts_attr], np.int64)
-                   if self.cwa.ts_attr else ts_arr)
+            src = (np.asarray(data.columns[eng.ts_attr], np.int64)
+                   if eng.ts_attr else ts_arr)
             ts64 = np.zeros(block["__ts"].shape, np.int64)
             ts64[lanes, rows] = src
             block["__ts64"] = ts64
         with _ledger().span("device"):
-            outs = self.cwa.process_block(block)
+            outs = eng.process_block(block)
         token = None
         copy = None
-        if self._fuser is not None:
+        if fuser is not None:
             # outputs ride the app's per-ingest-block slab: one shared
             # D2H at retire instead of a read per runtime
-            token = self._fuser.register(self, list(outs))
+            token = fuser.register(self, list(outs))
         else:
             copy = HostCopy(list(outs))
         self._submit({"fuse": token, "copy": copy, "data": data,
                       "lanes": lanes, "rows": rows})
-        _record_block(self, prof, disp0, ticks0, stream_id, n)
+
+    def _ingest_sharded(self, data, keys: List[Any]) -> None:
+        """Hash-route the chunk and run each shard's sub-block through its
+        own window slab.  The retire path is untouched: a work carries its
+        own lanes/rows/data, and _retire never mutates engine state, so
+        shard works share the pipeline queue safely."""
+        keys_arr = np.asarray(keys)
+        for sid, rows_idx in split_rows(keys_arr, len(self.shards)):
+            sh = self.shards[sid]
+            m = np.zeros(len(data), bool)
+            m[rows_idx] = True
+            sub = data.mask(m)
+
+            def grow(cap, sh=sh):
+                # same width contract as _grow; the full flush is cheap
+                # (retire only reads) and keeps one code path
+                self.flush()
+                sh.engine.grow(cap)
+                sh.grows += 1
+
+            lanes = map_keys_to_lanes(sh.key_lanes, keys_arr[rows_idx],
+                                      sh.engine.n_partitions, grow)
+            self._dispatch_block(sh.engine, sub, lanes, None)
+            sh.events += len(sub)
+            sh.dispatches += 1
+
+    def shard_stats(self) -> Optional[List[dict]]:
+        if self.shards is None:
+            return None
+        return [sh.stats_row() for sh in self.shards]
 
     def _retire(self, work) -> None:
         from ..core.event import EventChunk
@@ -1392,6 +1691,10 @@ class DeviceWindowedAggRuntime(PipelinedDeviceIngest):
         key→lane map)."""
         with self.qr.lock:
             self.flush()
+            if self.shards is not None:
+                return {"shards": [{"cwa": sh.engine.current_state(),
+                                    "key_lanes": dict(sh.key_lanes)}
+                                   for sh in self.shards]}
             return {"cwa": self.cwa.current_state(),
                     "key_lanes": dict(self.key_lanes)}
 
@@ -1400,10 +1703,14 @@ class DeviceWindowedAggRuntime(PipelinedDeviceIngest):
         package's ``DeviceWindowedAggRuntime.current_state()`` unchanged."""
         with self.qr.lock:
             self.flush()
-            if state.get("shards") is not None:
-                raise SiddhiAppCreationError(
-                    "sharded wagg state: shard-out not yet ported to the "
-                    "torch backend")
+            snap_shards = state.get("shards")
+            if snap_shards is not None or self.shards is not None:
+                _check_shard_count(self.shards, snap_shards)
+                for sh, st in zip(self.shards, snap_shards):
+                    sh.engine.restore_state(st["cwa"])
+                    sh.engine.pin_to_device(sh.device)
+                    sh.key_lanes = KeyLanes(st["key_lanes"])
+                return
             self.cwa.restore_state(state["cwa"])
             self.key_lanes = KeyLanes(state["key_lanes"])
 

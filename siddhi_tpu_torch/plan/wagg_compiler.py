@@ -305,6 +305,27 @@ class CompiledWindowedAgg:
                                         for a, b in zip(self.carry, fresh)])
         self.n_partitions = n_partitions
 
+    # ------------------------------------------------ partition shard-out
+
+    def pin_to_device(self, device) -> None:
+        """Pin the engine to one shard's device (parallel/shards.py): the
+        carry moves there, and steps and growth follow it."""
+        dev = torch.device(device)
+        self.device = dev
+        self.carry = type(self.carry)(*[a.to(dev) for a in self.carry])
+
+    def clone_for_shard(self, device) -> "CompiledWindowedAgg":
+        """Fresh-state shard clone on ``device``: shares the compiled step
+        and programs; owns its carry (and time-ring rebasing base), so
+        capacity growth is shard-local."""
+        import copy
+        cl = copy.copy(self)
+        cl.device = torch.device(device)
+        if cl.window_kind == "time":
+            cl._ts_base = None
+        cl.carry = cl._make_carry(cl.n_partitions)
+        return cl
+
     # ------------------------------------------------- time-window capacity
 
     def overflowed(self) -> bool:

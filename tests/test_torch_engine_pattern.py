@@ -196,13 +196,17 @@ def test_chip_smoke_reference_equals_host_engine():
 
 
 def test_shard_out_not_yet_ported(monkeypatch):
+    # SIDDHI_TPU_SHARDS=2 builds the keyed pattern runtime on the device
+    # engine with two shards
     monkeypatch.setenv("SIDDHI_TPU_SHARDS", "2")
     rt = siddhi_tpu_torch.SiddhiManager(device="cpu") \
         .create_siddhi_app_runtime(graft.PARTITIONED_APP)
     try:
         pr = rt.partition_runtimes[0]
-        assert not pr.device_mode
-        assert "not yet ported" in pr.fallback_reason
+        assert pr.device_mode, pr.fallback_reason
+        (qr,) = pr.device_query_runtimes.values()
+        assert len(qr.device_runtime.shards) == 2
+        assert qr.device_runtime.shard_reason is None
     finally:
         rt.shutdown()
 

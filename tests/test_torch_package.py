@@ -271,12 +271,15 @@ def test_device_failure_is_not_a_fallback(where, monkeypatch):
 
 
 def test_shard_out_not_yet_ported(monkeypatch):
+    # SIDDHI_TPU_SHARDS=2 builds the keyed runtime on the device engine
+    # with two shards
     monkeypatch.setenv("SIDDHI_TPU_SHARDS", "2")
     rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(WAGG_APP)
     try:
         pr = rt.partition_runtimes[0]
-        assert not pr.device_mode
-        assert "not yet ported" in pr.fallback_reason
+        assert pr.device_mode, pr.fallback_reason
+        (qr,) = pr.device_query_runtimes.values()
+        assert len(qr.device_runtime.shards) == 2
     finally:
         rt.shutdown()
 
