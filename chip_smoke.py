@@ -38,9 +38,18 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      and e[last-j] banks, min == max, an unbounded max, trailing, min-0
      after a unit; absent units mid-chain, trailing, chained, with
      `within`; TIMER blocks between blocks; 2 and 4 slots a thread and
-     the wide ring; P = 2047; a cap below the count; a full segment); the
-     compaction kernel against numpy; all timed, with the split between
-     the two kernels;
+     the wide ring; P = 2047; a cap below the count; a full segment), and
+     on the JAX step's whole structural class on the widened template
+     instance (CLASS_CASES: logical `and` / `or` units, leading too;
+     SEQUENCE with simple, count, logical and absent units; an `every`
+     group; mid-chain and trailing `every`; leading min-0 counts, with
+     SEQUENCE's every-min-0 seed; a leading absent unit; telemetry;
+     `<capture> <cmp> <constant>` compares and the string null guard;
+     TIMER blocks between blocks; the logical, mid-chain `every` and
+     SEQUENCE kinds also at 2 and 4 slots a thread and on the wide
+     ring), each class case timed beside its bound; the compaction
+     kernel against numpy; all timed, with the split between the two
+     kernels;
   6. the pattern cell at full width — __graft_entry__.PARTITIONED_APP
      over 10,000 integer keys (BASELINE config 3's keyed stream, one
      pattern), M chunks of 262,144 events through the public API on the
@@ -187,6 +196,16 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      sharded in two runtimes (persist after the first half, restore into
      a new runtime for the second); the rows equal as multisets, the
      /stats shard rows hold every key and event once;
+ 28. the widened class at full width: two queries on the pattern cell's
+     stream and partition (CLASS_APPS: SEQUENCE; a logical `or` then a
+     trailing `every`) over its 10,000 keys and 16,384 lanes, 16 chunks
+     of 262,144 events with kinds 0..2, on the default dispatch (K12)
+     and with SIDDHI_TPU_XTENANT=0 (K2 + K4): every query on the device
+     pattern path, both runs' rows equal, the first 4 chunks' rows equal
+     the port's CPU run (the plain steps), events/s, device ms and
+     launches printed; then phase 6's app with
+     @app:statistics(telemetry='true') over 4 chunks: its rows equal the
+     per-key reference, its last_telemetry the CPU run's;
   then one JSON line per the kernel table, the nvidia-smi line, and the
   last line ``{"ok": true, "device": {...}}``.
 
@@ -816,6 +835,93 @@ WIDE_CASES = {
 }
 
 
+#: phase-5 shapes of the JAX step's whole structural class, on the
+#: widened template instance (kinds 0..2 in their blocks): logical units,
+#: SEQUENCE, the `every` forms, leading min-0 counts and absences,
+#: telemetry (CLASS_TELEMETRY) and `<capture> <cmp> <constant>` compares
+CLASS_CASES = {
+    "logical and": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> (e2=S[kind == "
+        "1 and price > e1.price] and e3=S[kind == 2]) -> e4=S[kind == 0 and "
+        "price < e1.price] within 10 sec select e1.price as p1, e2.price as "
+        "p2, e3.price as p3, e4.price as p4 insert into Out;"),
+    "logical or": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> (e2=S[kind == "
+        "1 and price > e1.price] or e3=S[kind == 2 and price < e1.price]) "
+        "select e1.price as p1, e2.price as p2, e3.price as p3 insert into "
+        "Out;"),
+    "logical leading": (
+        _S3 + "from every (e1=S[kind == 0 and price > 50.0] and e2=S[kind == "
+        "1]) -> e3=S[kind == 2 and price > e1.price] within 10 sec select "
+        "e1.price as p1, e2.price as p2, e3.price as p3 insert into Out;"),
+    "sequence": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0], e2=S[kind == 1 "
+        "and price > e1.price], e3=S[kind == 2] within 10 sec select "
+        "e1.price as p1, e2.price as p2, e3.price as p3 insert into Out;"),
+    "sequence count": (
+        _S3 + "from every e1=S[kind == 0], e2=S[kind == 1]<1:3>, e3=S[kind "
+        "== 2] select e1.price as p1, e2[last].price as l2, e3.price as p3 "
+        "insert into Out;"),
+    "sequence logical": (
+        _S3 + "from every e1=S[kind == 0], (e2=S[kind == 1] or e3=S[kind == "
+        "2]) select e1.price as p1, e2.price as p2, e3.price as p3 insert "
+        "into Out;"),
+    "sequence absent": (
+        _S3 + "from every e1=S[kind == 0 and price > 30.0], not S[kind == 1] "
+        "for 2 sec select e1.price as p1 insert into Out;"),
+    "every group": (
+        _S3 + "from every (e1=S[kind == 0 and price > 50.0] -> e2=S[kind == "
+        "1]) -> e3=S[kind == 2 and price > e1.price] within 10 sec select "
+        "e1.price as p1, e2.price as p2, e3.price as p3 insert into Out;"),
+    "mid every": (
+        _S3 + "from e1=S[kind == 0] -> every e2=S[kind == 1 and price > "
+        "e1.price] -> e3=S[kind == 2] within 10 sec select e1.price as p1, "
+        "e2.price as p2, e3.price as p3 insert into Out;"),
+    "mid every group": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> every (e2=S["
+        "kind == 1] -> e3=S[kind == 2]) -> e4=S[kind == 0 and price > "
+        "e1.price] within 10 sec select e1.price as p1, e3.price as p3, "
+        "e4.price as p4 insert into Out;"),
+    "trailing every, logical": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> (e2=S[kind == "
+        "1 and price > e1.price] or e3=S[kind == 2 and price < e1.price]) "
+        "-> every e4=S[kind == 1 and price > 80.0] within 10 sec select "
+        "e1.price as p1, e2.price as p2, e3.price as p3, e4.price as p4 "
+        "insert into Out;"),
+    "leading min-0 count": (
+        _S3 + "from e1=S[kind == 0]<0:3> -> e2=S[kind == 1 and price > 50.0] "
+        "within 10 sec select e1[0].price as f1, e1[last].price as l1, "
+        "e2.price as p2 insert into Out;"),
+    "leading min-0 count, every": (
+        _S3 + "from every e1=S[kind == 0]<0:2> -> e2=S[kind == 1 and price > "
+        "30.0] within 10 sec select e1[last].price as l1, e2.price as p2 "
+        "insert into Out;"),
+    "sequence min-0 count, every": (
+        _S3 + "from every e1=S[kind == 0]<0:3>, e2=S[kind == 1] select "
+        "e1[0].price as f1, e2.price as p2 insert into Out;"),
+    "leading absent, every": (
+        _S3 + "from every not S[kind == 1 and price > 50.0] for 2 sec -> "
+        "e2=S[kind == 0] -> e3=S[kind == 2] within 10 sec select e2.price "
+        "as p2, e3.price as p3 insert into Out;"),
+    "capture to constant": (
+        _S3 + "from every e1=S[kind == 0] -> e2=S[kind == 1 and e1.price > "
+        "40.0 and price > e1.price] -> e3=S[kind == 2 and 70.0 >= e2.price] "
+        "within 10 sec select e1.price as p1, e2.price as p2, e3.price as "
+        "p3 insert into Out;"),
+    "string null guard": (
+        "define stream S (partition int, sym string, price float, kind "
+        "int);\nfrom every e1=S[kind == 0] -> e2=S[kind == 1 and sym == "
+        "e1.sym] within 10 sec select e1.price as p1, e2.price as p2 insert "
+        "into Out;"),
+}
+#: CLASS_CASES whose fused call phase 5 splits by kernel (profiler)
+CLASS_SPLIT = ("sequence", "logical and")
+#: CLASS_CASES also run with the telemetry leaf
+CLASS_TELEMETRY = ("logical or", "sequence", "every group",
+                   "trailing every, logical", "mid every",
+                   "leading absent, every")
+
+
 def pattern_query(app_text: str) -> str:
     """The pattern query of a partitioned app, as a plain app (the NFA
     engine's own input)."""
@@ -825,17 +931,18 @@ def pattern_query(app_text: str) -> str:
 
 
 def make_pattern_chunks(seed: int, n_chunks: int, n_keys=N_PATTERN_KEYS,
-                        chunk=CHUNK):
+                        chunk=CHUNK, kinds=2):
     """The pattern cell's feed: per chunk (columns, timestamps) with
     integer keys drawn uniformly, price uniform in [0, 100), kind
-    uniform in {0, 1}, timestamps 1 ms apart from 1,000,000."""
+    uniform in {0, .., kinds - 1} ({0, 1} for the pattern cell),
+    timestamps 1 ms apart from 1,000,000."""
     rng = np.random.default_rng(seed + 2)
     out = []
     for c in range(n_chunks):
         out.append(({"partition": rng.integers(0, n_keys, chunk)
                      .astype(np.int32),
                      "price": rng.uniform(0, 100, chunk).astype(np.float32),
-                     "kind": rng.integers(0, 2, chunk).astype(np.int32)},
+                     "kind": rng.integers(0, kinds, chunk).astype(np.int32)},
                     PATTERN_BASE_TS + c * chunk +
                     np.arange(chunk, dtype=np.int64)))
     return out
@@ -879,20 +986,22 @@ def pattern_reference(chunks):
 
 
 def _nfa_blocks(nfa, P, T, n_blocks, seed, dev, valid=True, gap=1000,
-                nan=False, skew=False, hi=100.0):
+                nan=False, skew=False, hi=100.0, kinds=2):
     """n_blocks chained [P, T] blocks of random events on `dev` (T events
     per lane, every stream of the spec, the kernel's dtypes, values
-    uniform in [0, hi)), `gap` ms apart in each lane; with `nan`, 5% of
-    prices are NaN; with `skew`, only lane 0 has events past the first
-    64 (one hot key sets T)."""
+    uniform in [0, hi), `kind` uniform in 0..kinds-1, a string's code
+    lane `sym` in 0..3 with 0 its null), `gap` ms apart in each lane;
+    with `nan`, 5% of prices are NaN; with `skew`, only lane 0 has events
+    past the first 64 (one hot key sets T)."""
     import torch
     rng = np.random.default_rng(seed)
     out = []
     for b in range(n_blocks):
         blk = {}
         for a in nfa.attr_names:
-            if a in ("kind", "qty"):
-                v = rng.integers(0, 3 if a == "qty" else 2, (P, T))
+            if a in ("kind", "qty", "sym"):
+                v = rng.integers(0, {"qty": 3, "sym": 4}.get(a, kinds),
+                                 (P, T))
             else:
                 v = rng.uniform(0, hi, (P, T))
                 if nan:
@@ -1006,20 +1115,30 @@ def check_nfa(t_main, dev, seed):
          {"seg": 1}),
         ("absent mid-chain, matchy (gap 300 ms)", wide["absent mid-chain"],
          2048, 128, 16, 2, True, 300, {"timer": True}),
-    ]
+    ] + [(n, a, 2048, 64, 8, 2, True, 1000,
+          {"timer": True, "kinds": 3, "telemetry": n in CLASS_TELEMETRY})
+         for n, a in CLASS_CASES.items()] + [
+        # the logical, mid-chain `every` and SEQUENCE kinds in the 2- and
+        # 4-slot instances and the wide ring (K > 128)
+        (f"{n} K={K}", CLASS_CASES[n], P, T, K, 1, True, 100,
+         {"timer": True, "kinds": 3})
+        for n in ("logical or", "mid every", "sequence")
+        for K, P, T in ((64, 1024, 200), (128, 512, 200), (160, 256, 300))]
     nan_cases = {"chain3", "count mid-chain", "absent mid-chain"}
     worst = 0.0
     launches0 = (nfa_step_egress.launches, nfa_compact.launches)
     for i, (name, app, P, T, K, n_blocks, valid, gap, opt) in \
             enumerate(cases):
-        nfa = CompiledPatternNFA(app, n_partitions=P, n_slots=K, device=dev)
+        nfa = CompiledPatternNFA(app, n_partitions=P, n_slots=K, device=dev,
+                                 telemetry=opt.get("telemetry", False))
         ck = cp = nfa.carry
         matches = hi = reruns = repacks = hot = 0
         feed = []
         for b, blk in enumerate(_nfa_blocks(nfa, P, T, n_blocks, seed + i,
                                             dev, valid, gap,
                                             nan=name in nan_cases,
-                                            skew=opt.get("skew", False))):
+                                            skew=opt.get("skew", False),
+                                            kinds=opt.get("kinds", 2))):
             feed.append(blk)
             if opt.get("timer"):        # a TIMER row a lane (T = 1)
                 tb = make_timer_block(P, (b + 1) * T * gap - 1,
@@ -1089,7 +1208,7 @@ def check_nfa(t_main, dev, seed):
         if hi <= opt.get("live", -1):
             raise AssertionError(f"{name}: at most {hi} partials in a lane "
                                  f"(needs > {opt['live']})")
-        if name in wide and matches == 0:
+        if (name in wide or name in CLASS_CASES) and matches == 0:
             raise AssertionError(f"{name}: no match")
         tag = " (NaN prices)" if name in nan_cases else ""
         tag += " (+ TIMER blocks)" if opt.get("timer") else ""
@@ -1102,12 +1221,52 @@ def check_nfa(t_main, dev, seed):
     return len(cases), worst
 
 
+def time_class(dev, seed, P=2048, T=64, K=8):
+    """Each CLASS_CASES shape on the widened instance at phase 5's shape
+    ([P, T], K, kinds 0..2, gap 1000 ms, the telemetry leaf where
+    CLASS_TELEMETRY names it), on a carry in steady state (one warm
+    block) at the cap and segment the engine settles on: the fused
+    call's median ms and its bound, and for CLASS_SPLIT the device split
+    (profiler).  Returns {name: numbers}."""
+    from siddhi_tpu_torch.ops.nfa import nfa_compact, nfa_step_egress
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
+    launches0 = (nfa_step_egress.launches, nfa_compact.launches)
+    out = {}
+    for i, (name, app) in enumerate(CLASS_CASES.items()):
+        nfa = CompiledPatternNFA(app, n_partitions=P, n_slots=K, device=dev,
+                                 telemetry=name in CLASS_TELEMETRY)
+        spec, kp = nfa.spec, nfa.kprog
+        warm, blk = _nfa_blocks(nfa, P, T, 2, seed + i, dev, kinds=3)
+        carry, _ = nfa_step_egress(spec, nfa.carry, warm, kp)
+        _, eg = nfa_step_egress(spec, carry, blk, kp)
+        count = int(eg.buf[-2, 0])
+        cap = _next_pow2(count)
+        seg = max(eg.seg, _next_pow2(int(eg.buf[-1, 0])))
+
+        def call():
+            return nfa_step_egress(spec, carry, blk, kp, cap, seg)
+        ms = median_ms(call, dev, sleep_cycles=5 * SLEEP_CYCLES)
+        split = device_split(call) if name in CLASS_SPLIT else None
+        cmps = max(len(x) + len(y) for x, y in
+                   zip(kp.cmp, kp.ccmp or [()] * len(kp.cmp)))
+        b_ms, b_by = nfa_bound(P, T, K, spec, kp, cmps, count, cap)
+        out[name] = {"ms": ms, "step_ms": (split or {}).get("step_ms"),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "shape": {"P": P, "T": T, "K": K, "matches": count}}
+        log(f"  widened step, {name}: {ms:.4f} ms a fused call at P={P} "
+            f"T={T} K={K}, {count} matches; bound {b_ms:.6f} ms by {b_by}" +
+            (f"; device split {split}" if split else ""))
+    nfa_step_egress.launches, nfa_compact.launches = launches0
+    return out
+
+
 def slot_words(spec) -> int:
     """int32 words of one slot's carry besides its captures: state,
-    start, enter, seq, and cnt_cur and cnt_prev with count units and the
-    deadline with absent units."""
+    start, enter, seq, and cnt_cur and cnt_prev with count units, the
+    deadline with absent units and the side mask with logical units."""
     kinds = {u.kind for u in spec.units}
-    return 4 + 2 * ("count" in kinds) + ("absent" in kinds)
+    return 4 + 2 * ("count" in kinds) + ("absent" in kinds) + \
+        ("logical" in kinds)
 
 
 def nfa_bound(P, T, K, spec, kprog, cond_cmps, count, cap):
@@ -1126,7 +1285,9 @@ def nfa_bound(P, T, K, spec, kprog, cond_cmps, count, cap):
     n_gates = len(spec.cond_fns)
     inputs = P * T * (4 * n_lanes + 4 + 4 + 1 + n_gates)
     carry = P * K * 4 * (slot_words(spec) + R * C) + \
-        P * 4 * (2 + int(spec.arm_once))
+        P * 4 * (2 + int(spec.arm_once) +
+                 int(spec.eps_start and spec.is_sequence) +
+                 (3 * len(spec.units) + 1 if spec.telemetry else 0))
     slab = min(count, cap) * W * 4 + max(cap - count, 0) * 4 + 2 * W * 4
     if any(u.kind == "absent" for u in spec.units):
         slab += 2 * 4 * -(-P // kernel_geometry(K)[1])
@@ -1193,7 +1354,8 @@ def time_nfa(t_main, dev, seed):
     plain compaction alone, at the main path's shape on a carry in steady
     state, with the cap and segments the engine settles on; each
     kernel's device time from the profiler; and the bounds."""
-    from siddhi_tpu_torch.ops.nfa import (egress_pack_plain, kernel_geometry,
+    from siddhi_tpu_torch.ops.nfa import (egress_pack_plain, kernel_gate_word,
+                                          kernel_geometry,
                                           nfa_block_step_plain, nfa_compact,
                                           nfa_step_egress)
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
@@ -1224,6 +1386,11 @@ def time_nfa(t_main, dev, seed):
         cap=cap), dev, n=5)
     split = device_split(
         lambda: nfa_step_egress(spec, carry, blk, kp, cap, seg))
+    # K5 alone: the block's gate word (the torch condition programs); its
+    # bound: each attribute lane read once, the word written once
+    gate_ms = median_ms(lambda: kernel_gate_word(spec, kp, blk), dev)
+    gate_bound = P * T * 4 * (len(spec.attr_names) + 1) / \
+        PEAK_BYTES_PER_S * 1e3
     nfa_step_egress.launches, nfa_compact.launches = launches0
     cmps = max(len(c) for c in kp.cmp)
     bound_ms, bound_by = nfa_bound(P, T, K, spec, kp, cmps, count, cap)
@@ -1233,7 +1400,25 @@ def time_nfa(t_main, dev, seed):
             "bound_by": bound_by, "compact_ms": compact_ms,
             "plain_compact_ms": plain_compact_ms, "compact_bound_ms": cb_ms,
             "compact_bound_by": cb_by, "split": split, "count": count,
-            "cap": cap, "seg": seg, "G": G, "L": L}
+            "cap": cap, "seg": seg, "G": G, "L": L, "gate_ms": gate_ms,
+            "gate_bound_ms": gate_bound}
+
+
+def torch_op_bounds() -> dict:
+    """Bounds by bytes, at a stated shape, of the JAX package's device
+    programs the port keeps as torch ops with no caller on the cells:
+    K10b ``reset_slots`` (a batch of 262,144 slots of a slab with 4 value
+    lanes: each slot id read, its value row and count written) and K14
+    ``shift_clamped`` (a rebase of the pattern cell's carry: its
+    slot_start and slot_enter planes read once and written once)."""
+    n, V = 262_144, 4
+    k10b = n * (4 + 4 * V + 4) / PEAK_BYTES_PER_S * 1e3
+    k14 = 2 * 2 * PATTERN_LANES * PATTERN_SLOTS * 4 / PEAK_BYTES_PER_S * 1e3
+    return {"reset_slots": {"bound_ms": k10b, "bound_by": "bytes",
+                            "shape": {"slots": n, "value_lanes": V}},
+            "shift_clamped": {"bound_ms": k14, "bound_by": "bytes",
+                              "shape": {"P": PATTERN_LANES,
+                                        "K": PATTERN_SLOTS, "planes": 2}}}
 
 
 def check_compaction(t_main, dev, seed):
@@ -1357,7 +1542,9 @@ def drive_nfa_cell(dev, text, chunks, columns, packed):
     launches = _gang_launches()
     stage1 = ledger().snapshot()["stage_seconds"]
     nfa = runtimes[0].nfa
+    tel = getattr(nfa, "last_telemetry", None)
     res = {"got": got, "wall": wall, "per_kernel": per_kernel,
+           "telemetry": None if tel is None else np.array(tel),
            "dev_us": dev_us, "launches": launches, "build_s": build_s,
            "stages": {k: stage1[k] - stage0.get(k, 0.0) for k in stage1},
            "grows": sum(r.slot_grows for r in runtimes),
@@ -2790,6 +2977,8 @@ COUNT_MIN, COUNT_MAX, COUNT_WITHIN_MS = 3, 10, 10_000
 COUNT_EVENTS_PER_MS = 100
 #: keys whose rows are held against the host engine
 COUNT_HOST_KEYS = 1_000
+#: the count cell's chunks held against SiddhiManager(device="cpu")
+COUNT_CPU_CHUNKS = 4
 
 
 def count_app(app_text=COUNT_APP) -> str:
@@ -2935,12 +3124,25 @@ def run_count_path(chunks, dev):
         f"reference, as multisets and exactly "
         f"({time.perf_counter() - t1:.1f} s)")
     t1 = time.perf_counter()
-    plain, _d = run_count_app(count_app(), chunks, "cpu")
-    if plain != rows:
-        raise AssertionError(f"count path: {len(rows)} rows, the plain "
-                             f"composition (CPU) {len(plain)}")
-    log(f"  == SiddhiManager(device='cpu') (plain step and compaction), as "
-        f"multisets ({time.perf_counter() - t1:.1f} s)")
+    # rows before the first event of the first chunk left out: completed
+    # by the events of the chunks the CPU run takes
+    h = min(COUNT_CPU_CHUNKS, n_chunks)
+    end = int(chunks[h][1][0]) if h < n_chunks else None
+    plain, _d = run_count_app(count_app(), chunks[:h], "cpu")
+    if end is not None:
+        plain = [r for r in plain if r[0] < end]
+    head = [r for r in rows if end is None or r[0] < end]
+    if plain != head:
+        raise AssertionError(f"count path: {len(head)} rows of the first "
+                             f"{h} chunks, the plain composition (CPU) "
+                             f"{len(plain)}")
+    log(f"  the first {h} chunks' {len(head)} rows == SiddhiManager("
+        f"device='cpu') (plain step and compaction), as multisets "
+        f"({time.perf_counter() - t1:.1f} s)")
+    if h < n_chunks:
+        log(f"CUT: the count cell's CPU comparison at its first {h} of "
+            f"{n_chunks} chunks (the device runs and the reference keep "
+            f"all {n_chunks})")
     t1 = time.perf_counter()
     few = []
     for cols, ts, ki in chunks:
@@ -5908,8 +6110,51 @@ GANG_BUCKETS = {
         "count thr 70": (WIDE_CASES["count mid-chain"].replace(
             "price > 50.0", "price > 70.0", 1), 23),
     },
+    # the widened template instance beside the simple units' one, and a
+    # bucket of widened tenants alone (a tenant named "telemetry" carries
+    # the telem leaf)
+    "simple + widened (two instances)": {
+        "thr 20": (_gang_simple(20.0), 48),
+        "sequence": (
+            _S3 + "from every e1=S[kind == 0 and price > 50.0], e2=S[kind "
+            "== 1 and price > e1.price] within 10 sec select e1.price as "
+            "p1, e2.price as p2 insert into Out;", 64),
+        "trailing every": (
+            _S3 + "from every e1=S[kind == 0 and price > 60.0] -> every "
+            "e2=S[kind == 1 and price > e1.price] within 5 sec select "
+            "e1.price as p1, e2.price as p2 insert into Out;", 40),
+        "leading absent, cap below count": (
+            _S3 + "from every not S[kind == 1 and price > 90.0] for 2 sec -> "
+            "e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 and price > "
+            "e1.price] within 10 sec select e1.price as p1, e2.price as p2 "
+            "insert into Out;", 64),
+        "telemetry thr 50": (_gang_simple(50.0), 33),
+    },
+    "widened alone": {
+        "sequence 3": (
+            _S3 + "from every e1=S[kind == 0 and price > 50.0], e2=S[kind "
+            "== 1 and price > e1.price], e3=S[kind == 0] within 10 sec "
+            "select e1.price as p1, e2.price as p2, e3.price as p3 insert "
+            "into Out;", 64),
+        "every group": (
+            _S3 + "from every (e1=S[kind == 0 and price > 50.0] -> e2=S["
+            "kind == 1]) -> e3=S[kind == 0 and price > e1.price] within 10 "
+            "sec select e1.price as p1, e2.price as p2, e3.price as p3 "
+            "insert into Out;", 48),
+        "mid every, one scratch row": (
+            _S3 + "from e1=S[kind == 0] -> every e2=S[kind == 1 and price > "
+            "e1.price] -> e3=S[kind == 0 and price < e2.price] within 10 "
+            "sec select e1.price as p1, e2.price as p2, e3.price as p3 "
+            "insert into Out;", 64),
+        "capture to constant": (
+            _S3 + "from every e1=S[kind == 0] -> e2=S[kind == 1 and e1.price "
+            "> 40.0 and price > e1.price] -> e3=S[kind == 0 and 70.0 >= "
+            "e2.price] within 10 sec select e1.price as p1, e2.price as p2, "
+            "e3.price as p3 insert into Out;", 40),
+    },
 }
-GANG_IDLE = {"thr 80, no within", "count thr 30"}   # idle in flush 1
+GANG_IDLE = {"thr 80, no within", "count thr 30",   # idle in flush 1
+             "trailing every", "every group"}
 
 
 def _gang_launches():
@@ -5983,7 +6228,8 @@ def check_gang(dev, seed):
         nfas, feeds = {}, {}
         for i, (name, (app, T)) in enumerate(members.items()):
             nfa = CompiledPatternNFA(app, n_partitions=P, n_slots=GANG_K,
-                                     device=dev)
+                                     device=dev,
+                                     telemetry=name.startswith("telemetry"))
             nfas[name] = nfa
             feeds[name] = _nfa_blocks(nfa, P, T, GANG_BLOCKS,
                                       seed + 31 * gi + i, dev, gap=300,
@@ -6339,7 +6585,7 @@ def time_gang(dev, seed):
     news, ge = nfa_gang_step_egress(tenants)
     plain = []
     plain_ms = median_ms(
-        lambda: plain.append(nfa_gang_step_egress_plain(tenants)), dev, n=3)
+        lambda: plain.append(nfa_gang_step_egress_plain(tenants)), dev, n=1)
     # the timed call held against the plain twin: every tenant's carry
     # leaves bit for bit, its slab by the egress contract
     p_news, p_ge = plain[-1]
@@ -6541,6 +6787,157 @@ def run_shard_cell(name, app, chunks, dev, key_col):
             "wall_sharded_s": wall_a + wall_b, "stats": stats}
 
 
+
+# ------------------------------------------------------------------ phase 28
+
+#: phase 28's queries on the pattern cell's stream and partition: each a
+#: widened kind of the NFA step's class, (query, output columns)
+CLASS_APPS = {
+    "sequence": (
+        "from every e1=S[kind == 0 and price > 50.0], e2=S[kind == 1 and "
+        "price > e1.price], e3=S[kind == 2] within 10 sec select e1.price "
+        "as p1, e2.price as p2, e3.price as p3 insert into Out;",
+        ("p1", "p2", "p3")),
+    "logical, trailing every": (
+        "from every e1=S[kind == 0 and price > 50.0] -> (e2=S[kind == 1 and "
+        "price > e1.price] or e3=S[kind == 2 and price < e1.price]) -> "
+        "every e4=S[kind == 1 and price > 80.0] within 10 sec select "
+        "e1.price as p1, e2.price as p2, e3.price as p3, e4.price as p4 "
+        "insert into Out;",
+        ("p1", "p2", "p3", "p4")),
+}
+#: the cell's chunks (the pattern cell's 16 of 262,144 events), the
+#: chunks held against the CPU run, the kinds of the feed (0..2: every
+#: unit of the apps sees its stream), and the telemetry run's chunks
+CLASS_CHUNKS = 16
+CLASS_CPU_CHUNKS = 4
+CLASS_KINDS = 3
+
+
+def class_app(query: str, name: str, telemetry: bool = False) -> str:
+    """pattern_app() with its query replaced by `query` (optionally with
+    @app:statistics(telemetry='true'))."""
+    head = pattern_app().split("@info(name='q')", 1)[0]
+    head = head.replace("@app:name('pattern')", f"@app:name('{name}')")
+    if telemetry:
+        head = "@app:statistics(telemetry='true')\n" + head
+    return head + "@info(name='q')\n" + query + "\nend;\n"
+
+
+def _cols(got) -> dict:
+    return {k: np.concatenate(v) if v else np.zeros(0)
+            for k, v in got.items()}
+
+
+def _cols_equal(a: dict, b: dict) -> bool:
+    """Two runs' rows, in order, bit for bit (NaN for a null payload)."""
+    return set(a) == set(b) and all(
+        a[k].shape == b[k].shape and
+        np.array_equal(np.asarray(a[k], np.float64),
+                       np.asarray(b[k], np.float64), equal_nan=True)
+        for k in a)
+
+
+def _prefix(cols: dict, end_ts: int) -> dict:
+    keep = cols["ts"] < end_ts
+    return {k: v[keep] for k, v in cols.items()}
+
+
+def run_cpu_app(text, chunks, columns):
+    """`text` through SiddhiManager(device="cpu") (the plain steps) over
+    `chunks`: (rows, last_telemetry of query q or None)."""
+    from siddhi_tpu_torch import ColumnarStreamCallback, SiddhiManager
+    rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(text)
+    got = {c: [] for c in ("ts",) + tuple(columns)}
+
+    def sink(chunk):
+        got["ts"].append(np.array(chunk.timestamps))
+        for c in columns:
+            got[c].append(np.array(chunk.columns[c]))
+    rt.add_callback("Out", ColumnarStreamCallback(sink))
+    rt.start()
+    h = rt.get_input_handler("S")
+    for c in chunks:
+        h.send_batch(c[0], timestamps=c[1])
+    rt.flush()
+    nfa = rt.partition_runtimes[0].device_query_runtimes["q"] \
+        .device_runtime.nfa
+    tel = None if nfa.last_telemetry is None else \
+        np.array(nfa.last_telemetry)
+    rt.shutdown()
+    return _cols(got), tel
+
+
+def run_class_cells(dev, seed, n_chunks=CLASS_CHUNKS,
+                    cpu_chunks=CLASS_CPU_CHUNKS):
+    """Phase 28: each CLASS_APPS query over the pattern cell's feed (kinds
+    0..2) on the device engine, on the default dispatch (K12) and with
+    SIDDHI_TPU_XTENANT=0 (K2 + K4): every query on the device pattern
+    path, the two runs' rows equal in order, and the rows of the first
+    `cpu_chunks` chunks equal the port's CPU run of the same app on those
+    chunks.  Then phase 6's app with telemetry on the default dispatch
+    over `cpu_chunks` chunks: its rows equal the per-key reference's
+    (phase 6's), its last_telemetry the CPU run's.  Returns {name:
+    {"packed": numbers, "per_app": numbers}} and the telemetry run's."""
+    chunks = make_pattern_chunks(seed, n_chunks, kinds=CLASS_KINDS)
+    n_events = sum(len(c[1]) for c in chunks)
+    end_ts = PATTERN_BASE_TS + cpu_chunks * CHUNK
+    out = {}
+    for name, (query, columns) in CLASS_APPS.items():
+        text = class_app(query, name.split(",")[0])
+        runs, cols = {}, {}
+        for key, packed in (("packed", True), ("per_app", False)):
+            r = drive_nfa_cell(dev, text, chunks, columns, packed)
+            cols[key] = _cols(r["got"])
+            runs[key] = report_nfa_cell(f"{name} cell", r, n_events,
+                                        n_chunks, packed)
+            runs[key]["matches"] = len(cols[key]["ts"])
+        if not _cols_equal(cols["packed"], cols["per_app"]):
+            raise AssertionError(f"{name} cell: packed rows != "
+                                 f"SIDDHI_TPU_XTENANT=0 rows")
+        t_cpu = time.perf_counter()
+        want, _tel = run_cpu_app(text, chunks[:cpu_chunks], columns)
+        got = _prefix(cols["packed"], end_ts)
+        if len(want["ts"]) == 0 or not _cols_equal(got, want):
+            raise AssertionError(f"{name} cell: the first {cpu_chunks} "
+                                 f"chunks' rows ({len(got['ts'])}) != the "
+                                 f"CPU run's ({len(want['ts'])})")
+        log(f"  {name} cell: {len(cols['packed']['ts'])} rows, K12 == K2 + "
+            f"K4 in order; the first {cpu_chunks} chunks' "
+            f"{len(want['ts'])} rows == the CPU run's (plain steps, "
+            f"{time.perf_counter() - t_cpu:.1f} s)")
+        out[name] = runs
+    # phase 6's app with on-device telemetry (the widened instance)
+    pchunks = make_pattern_chunks(seed, cpu_chunks)
+    text = class_app(PARTITIONED_APP.split("@info(name='q')\n", 1)[1]
+                     .rsplit("end;", 1)[0], "pattern_telemetry",
+                     telemetry=True)
+    r = drive_nfa_cell(dev, text, pchunks, ("p1", "p2"), True)
+    n_ev = sum(len(c[1]) for c in pchunks)
+    tel = report_nfa_cell("pattern cell, telemetry", r, n_ev, cpu_chunks,
+                          True)
+    got = _cols(r["got"])
+    rts, rp1, rp2 = pattern_reference(pchunks)
+    if not (np.array_equal(got["ts"], np.asarray(rts, np.int64)) and
+            np.array_equal(got["p1"].astype(np.float32), rp1) and
+            np.array_equal(got["p2"].astype(np.float32), rp2)):
+        raise AssertionError("pattern cell with telemetry: rows != the "
+                             "per-key reference")
+    want_rows, want_tel = run_cpu_app(text, pchunks, ("p1", "p2"))
+    if not _cols_equal(got, want_rows):
+        raise AssertionError("pattern cell with telemetry: rows != CPU")
+    gpu_tel = r.get("telemetry")
+    if gpu_tel is None or want_tel is None or \
+            not np.array_equal(gpu_tel, want_tel):
+        raise AssertionError("pattern cell with telemetry: last_telemetry "
+                             "!= the CPU run's")
+    tel["telemetry_sum"] = [int(x) for x in gpu_tel.sum(axis=0)]
+    log(f"  pattern cell with telemetry: {len(rts)} rows == the per-key "
+        f"reference and the CPU run; last_telemetry [{gpu_tel.shape[0]}, "
+        f"{gpu_tel.shape[1]}] == the CPU run's (summed over lanes: "
+        f"{tel['telemetry_sum']})")
+    return out, tel
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunks", type=int, default=8)
@@ -6633,11 +7030,21 @@ def main(argv=None) -> int:
         f"composition {nt['plain_ms']:.4f} ms, bound {nt['bound_ms']:.6f} "
         f"ms by {nt['bound_by']}, {nt['bound_ms'] / nt['ms'] * 100:.2f}% of "
         f"the bound reached); {n_cases} cases equal, max abs err {nfa_err}")
+    class_timed = time_class(dev, args.seed)
     log(f"  compaction alone: {nt['compact_ms']:.4f} ms (plain "
         f"{nt['plain_compact_ms']:.4f} ms, bound "
         f"{nt['compact_bound_ms']:.6f} ms by {nt['compact_bound_by']})")
     log(f"  device split of the fused call (profiler, ms per call): "
         f"{nt['split']}")
+    log(f"  K5 alone, the block's gate word (torch programs): "
+        f"{nt['gate_ms']:.4f} ms (bound {nt['gate_bound_ms']:.6f} ms by "
+        f"bytes)")
+    tob = torch_op_bounds()
+    log(f"  torch ops without a caller on the cells, bounds by bytes: "
+        f"K10b reset_slots {tob['reset_slots']['bound_ms']:.6f} ms at "
+        f"{tob['reset_slots']['shape']}, K14 shift_clamped "
+        f"{tob['shift_clamped']['bound_ms']:.6f} ms at "
+        f"{tob['shift_clamped']['shape']}")
 
     log("== phase 6: pattern cell (PARTITIONED_APP, 10,000 keys) on the "
         "device engine, packed (K12) and with SIDDHI_TPU_XTENANT=0 (K2 + K4)")
@@ -6834,6 +7241,13 @@ def main(argv=None) -> int:
         f"16 chunks, config 2 at {SHARD_WAGG_QUERIES} of 100 queries x {sc} "
         f"chunks, the keyed gagg cell at {sc} of its {GAGG_CHUNKS} chunks")
     log(f"  phase 27 took {time.perf_counter() - t27:.1f} s")
+
+    log("== phase 28: the widened class at full width (SEQUENCE; logical "
+        "then trailing `every`), packed (K12) and with SIDDHI_TPU_XTENANT=0 "
+        "(K2 + K4); phase 6's app with telemetry")
+    t28 = time.perf_counter()
+    cl28, tel28 = run_class_cells(dev, args.seed)
+    log(f"  phase 28 took {time.perf_counter() - t28:.1f} s")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     def timing(minmax):
@@ -6859,29 +7273,41 @@ def main(argv=None) -> int:
         # its path: the pattern cell with SIDDHI_TPU_XTENANT=0; on the
         # default dispatch a cell's query steps through K12 (its launches
         # there are replays)
-        "checked": True, "launches": pc["per_app"]["launches"][2],
+        "checked": True,
+        "launches": pc["per_app"]["launches"][2] + sum(
+            v["per_app"]["launches"][2] for v in cl28.values()),
         "max_abs_err": nfa_err,
         "launches_by_path": {
             "pattern_cell_xtenant0": pc["per_app"]["launches"][2],
             "count_cell_xtenant0": cc["per_app"]["launches"][2],
             "pattern_cell": pc["packed"]["launches"][2],
-            "count_cell": cc["packed"]["launches"][2]},
-        "pattern_cell": pc, "count_cell": cc,
+            "count_cell": cc["packed"]["launches"][2]} | {
+            f"class_cell {k} xtenant0": v["per_app"]["launches"][2]
+            for k, v in cl28.items()},
+        "pattern_cell": pc, "count_cell": cc, "class_cells": cl28,
+        "telemetry_cell": tel28, "widened": class_timed,
         "ms": nt["ms"], "plain_ms": nt["plain_ms"],
         "bound_ms": nt["bound_ms"], "bound_by": nt["bound_by"],
         "library_ms": None, "split": nt["split"],
+        "gate_word": {"ms": nt["gate_ms"], "bound_ms": nt["gate_bound_ms"],
+                      "bound_by": "bytes"},
+        "torch_op_bounds": tob,
         "shape": {"P": PATTERN_LANES, "T": t_pat, "K": PATTERN_SLOTS,
                   "matches": nt["count"], "cap": nt["cap"],
                   "seg": nt["seg"]}}, {
         "name": "nfa_compact", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/plan/nfa_compiler.py:1837",
-        "checked": True, "launches": pc["per_app"]["launches"][3],
+        "checked": True,
+        "launches": pc["per_app"]["launches"][3] + sum(
+            v["per_app"]["launches"][3] for v in cl28.values()),
         "launches_by_path": {
             "pattern_cell_xtenant0": pc["per_app"]["launches"][3],
             "count_cell_xtenant0": cc["per_app"]["launches"][3],
             "pattern_cell": pc["packed"]["launches"][3],
-            "count_cell": cc["packed"]["launches"][3]},
+            "count_cell": cc["packed"]["launches"][3]} | {
+            f"class_cell {k} xtenant0": v["per_app"]["launches"][3]
+            for k, v in cl28.items()},
         "max_abs_err": nfa_err, "ms": nt["compact_ms"],
         "plain_ms": nt["plain_compact_ms"],
         "bound_ms": nt["compact_bound_ms"],
@@ -7057,13 +7483,19 @@ def main(argv=None) -> int:
         "name": "nfa_gang_step", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_gang.cu",
         "replaces": "siddhi_tpu/plan/xtenant.py:95",
-        "checked": True, "launches": tk26["launches"],
+        "checked": True,
+        "launches": tk26["launches"] + sum(
+            v["packed"]["launches"][0] for v in cl28.values()) +
+        tel28["launches"][0],
         "max_abs_err": g_err, "flushes_checked": g_flushes,
         "launches_a_flush": g_instances,
         "launches_by_path": {"keyed_tenant_cell": tk26["launches"],
                              "tenant_cell": tc26["launches"],
                              "pattern_cell": pc["packed"]["launches"][0],
-                             "count_cell": cc["packed"]["launches"][0]},
+                             "count_cell": cc["packed"]["launches"][0],
+                             "telemetry_cell": tel28["launches"][0]} | {
+            f"class_cell {k}": v["packed"]["launches"][0]
+            for k, v in cl28.items()},
         "ms": gg["ms"], "plain_ms": gg["plain_ms"],
         "bound_ms": gg["bound_ms"], "bound_by": gg["bound_by"],
         "library_ms": None, "split": gg["split"], "host_ms": gg["host_ms"],
@@ -7075,11 +7507,17 @@ def main(argv=None) -> int:
         "name": "nfa_gang_compact", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_gang.cu",
         "replaces": "siddhi_tpu/plan/xtenant.py:95",
-        "checked": True, "launches": tk26["compact_launches"],
+        "checked": True,
+        "launches": tk26["compact_launches"] + sum(
+            v["packed"]["launches"][1] for v in cl28.values()) +
+        tel28["launches"][1],
         "launches_by_path": {"keyed_tenant_cell": tk26["compact_launches"],
                              "tenant_cell": tc26["compact_launches"],
                              "pattern_cell": pc["packed"]["launches"][1],
-                             "count_cell": cc["packed"]["launches"][1]},
+                             "count_cell": cc["packed"]["launches"][1],
+                             "telemetry_cell": tel28["launches"][1]} | {
+            f"class_cell {k}": v["packed"]["launches"][1]
+            for k, v in cl28.items()},
         "max_abs_err": g_err, "ms": gg["compact_ms"],
         "plain_ms": gg["plain_compact_ms"],
         "bound_ms": gg["compact_bound_ms"], "bound_by": "bytes",

@@ -24,8 +24,8 @@
 //    and their CTA prefix (ceil(P / L) CTAs a tenant) and copies that
 //    table to the card in ONE copy.
 //  - Tenants are grouped by template instance (slots a thread, and
-//    whether count or absent words ride the carry); one launch a group
-//    present.  A CTA bisects the prefix for its tenant, copies that
+//    whether count or absent words ride the carry, or the program is a
+//    widened one); one launch a group present.  A CTA bisects the prefix for its tenant, copies that
 //    tenant's StepArgs into shared memory and runs nfa_step.cu's step
 //    body on its lanes; a tenant's scratch rows, lane counts and fills
 //    are its own.
@@ -88,13 +88,13 @@ __device__ __forceinline__ int gang_load(const Args* tab, const int* cta0,
 // One launch steps tenants [lo, hi) of the table, all of one template
 // instance: each CTA runs the step body on its tenant's block, carry and
 // program, as nfa_step_kernel does for one block.
-template <int SPT, bool EXT>
+template <int SPT, bool EXT, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
     nfa_gang_step_kernel(const StepArgs* tab, const int* cta0, int lo,
                          int hi) {
   __shared__ StepArgs a;
   const int c = gang_load(tab, cta0, lo, hi, &a);
-  step_body<SPT, false, EXT>(a, c);
+  step_body<SPT, false, EXT, WIDE>(a, c);
 }
 
 // One launch compacts every tenant of the table: each CTA is the
@@ -125,13 +125,13 @@ GangLayout gang_layout(int n) {
 // tenant's StepArgs and the tenant search)
 constexpr size_t kGangStatic = sizeof(StepArgs) + 64;
 
-template <int SPT, bool EXT>
+template <int SPT, bool EXT, bool WIDE>
 int launch_gang(const StepArgs* tab, const int* cta0, int lo, int hi,
                 long long grid, size_t smem, cudaStream_t s) {
   if (grid <= 0) return 0;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   void (*const kern)(const StepArgs*, const int*, int, int) =
-      nfa_gang_step_kernel<SPT, EXT>;
+      nfa_gang_step_kernel<SPT, EXT, WIDE>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -145,10 +145,22 @@ int launch_gang(const StepArgs* tab, const int* cta0, int lo, int hi,
 template <bool EXT>
 int launch_gang_as(int spt, const StepArgs* tab, const int* cta0, int lo,
                    int hi, long long grid, size_t smem, cudaStream_t s) {
-  if (spt == 1) return launch_gang<1, EXT>(tab, cta0, lo, hi, grid, smem, s);
-  if (spt == 2) return launch_gang<2, EXT>(tab, cta0, lo, hi, grid, smem, s);
-  if (spt == 4) return launch_gang<4, EXT>(tab, cta0, lo, hi, grid, smem, s);
-  return launch_gang<0, EXT>(tab, cta0, lo, hi, grid, smem, s);
+  if (spt == 1)
+    return launch_gang<1, EXT, false>(tab, cta0, lo, hi, grid, smem, s);
+  if (spt == 2)
+    return launch_gang<2, EXT, false>(tab, cta0, lo, hi, grid, smem, s);
+  if (spt == 4)
+    return launch_gang<4, EXT, false>(tab, cta0, lo, hi, grid, smem, s);
+  return launch_gang<0, EXT, false>(tab, cta0, lo, hi, grid, smem, s);
+}
+
+// the widened instance in the gang: one slot a thread, or the wide ring
+// (a tenant of 33 to 128 slots runs it too: two instances fewer to build)
+int launch_gang_wide(int spt, const StepArgs* tab, const int* cta0, int lo,
+                     int hi, long long grid, size_t smem, cudaStream_t s) {
+  if (spt == 1)
+    return launch_gang<1, true, true>(tab, cta0, lo, hi, grid, smem, s);
+  return launch_gang<0, true, true>(tab, cta0, lo, hi, grid, smem, s);
 }
 
 }  // namespace
@@ -158,8 +170,9 @@ namespace {
 // int64 words a tenant in nfa_gang_step's host descriptor
 // (ops/nfa.GANG_FIELDS): attrs, ts, stream, gates, prog, prog_len, carry
 // in (11), carry out (11), rows, lane_count, fill, dl_min, P, T, K, G,
-// seg, A, RC, slab, cap, W
-constexpr int kGangFields = 42;
+// seg, A, RC, slab, cap, W, widened carry in (3: lmask, seq_froze,
+// telem), widened carry out (3), flags, tel_w
+constexpr int kGangFields = 50;
 
 template <class T>
 T* ptr(long long v) {
@@ -179,7 +192,8 @@ extern "C" long long nfa_gang_table_bytes(int n) {
 // buffer (slab: a [cap + 2, W] run of rows).  The tenants' StepArgs and
 // PackArgs and their CTA prefix go to `table` (table_bytes >=
 // nfa_gang_table_bytes(n), on the card) in ONE copy; then one launch per
-// template instance present (slots a thread x count-or-absent words),
+// template instance present (slots a thread x simple, count-or-absent
+// or widened),
 // the tenants sorted by instance, list order kept within one.  Writes
 // the step launches made to out[0] and the tenants' CTAs in all (the
 // compaction's grid) to out[1] (host ints).  nfa_gang_compact then
@@ -217,6 +231,10 @@ extern "C" int nfa_gang_step(const long long* desc, int n, void* table,
     const long long P = d[32], T = d[33], K = d[34], G = d[35], seg = d[36];
     const long long A = d[37], RC = d[38], cap = d[40], W = d[41];
     const long long prog_len = d[5];
+    const int* const win[3] = {ptr<const int>(d[42]), ptr<const int>(d[43]),
+                               ptr<const int>(d[44])};
+    int* const wout[3] = {ptr<int>(d[45]), ptr<int>(d[46]), ptr<int>(d[47])};
+    const long long flags = d[48], tel_w = d[49];
     if (P <= 0 || P > INT_MAX || T > INT_MAX || K > INT_MAX ||
         prog_len > INT_MAX || seg > INT_MAX || A > INT_MAX ||
         RC > INT_MAX || cap < 0 || cap > INT_MAX || W != 4 + RC ||
@@ -224,7 +242,10 @@ extern "C" int nfa_gang_step(const long long* desc, int n, void* table,
                      static_cast<int>(G), static_cast<int>(A),
                      static_cast<int>(RC), static_cast<int>(prog_len)) ||
         seg < 0 || missing_leaves(in, out) ||
-        ((in.dl != nullptr) != (dl_min != nullptr)) || !d[39])
+        ((in.dl != nullptr) != (dl_min != nullptr)) || !d[39] ||
+        tel_w > INT_MAX || flags < 0 || flags > INT_MAX ||
+        bad_wide(win[0], win[1], win[2], wout[0], wout[1], wout[2],
+                 static_cast<int>(flags), static_cast<int>(tel_w)))
       return static_cast<int>(cudaErrorInvalidValue);
     StepArgs& a = args[i];
     a = StepArgs{};
@@ -248,9 +269,12 @@ extern "C" int nfa_gang_step(const long long* desc, int n, void* table,
     a.RC = static_cast<int>(RC);
     a.CN = 1;
     a.n_params = 0;
-    const StepPlan p = plan_step(a, false, limit);
+    set_wide(a, win, wout, static_cast<int>(flags),
+             static_cast<int>(tel_w));
+    const StepPlan p = plan_step(a, false, limit, a.wide ? 1 : 4);
     if (p.smem > limit) return static_cast<int>(cudaErrorInvalidValue);
-    key[i] = p.spt * 2 + ((in.cc || in.dl) ? 1 : 0);
+    // 0: simple units, 1: count or absent words, 2: widened
+    key[i] = p.spt * 3 + (a.wide ? 2 : ((in.cc || in.dl) ? 1 : 0));
     smem[i] = p.smem;
     const int n_cta = (a.P + a.L - 1) / a.L;
     packs[i] = PackArgs{a.rows, a.lane_count, a.fill, out.dropped, dl_min,
@@ -290,12 +314,14 @@ extern "C" int nfa_gang_step(const long long* desc, int n, void* table,
       sm = std::max(sm, smem[order[hi]]);
       ++hi;
     }
-    const int k = key[order[lo]];
+    const int k = key[order[lo]], spt = k / 3, mode = k % 3;
     const long long grid = h_cta0[hi] - h_cta0[lo];
-    const int rc = (k & 1) ? launch_gang_as<true>(k >> 1, d_args, d_cta0, lo,
-                                                  hi, grid, sm, s)
-                           : launch_gang_as<false>(k >> 1, d_args, d_cta0,
-                                                   lo, hi, grid, sm, s);
+    const int rc =
+        mode == 2 ? launch_gang_wide(spt, d_args, d_cta0, lo, hi, grid, sm, s)
+        : mode == 1 ? launch_gang_as<true>(spt, d_args, d_cta0, lo, hi, grid,
+                                           sm, s)
+                    : launch_gang_as<false>(spt, d_args, d_cta0, lo, hi, grid,
+                                            sm, s);
     if (rc != 0) return rc;
     ++out[0];
     lo = hi;

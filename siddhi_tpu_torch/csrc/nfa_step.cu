@@ -22,16 +22,20 @@
 // caller re-runs the step with larger segments when the first exceeds the
 // second).  The dense [P, T, K, ...] outputs never reach device memory.
 //
-// The kernels' class (ops/nfa.kernel_class_reason and the compiler's
-// condition split): simple units, kleene counts <m:n> (any position but a
-// leading min-0 one; min == max and an unbounded max included) and absent
-// units `not X for t` (any position but the start); PATTERN; `every` on
-// the leading unit or none (arm_once; a leading `every` count arms once);
-// optional `within`; no telemetry.  Condition i is bit i of a block-wide
-// gate word (its capture-free part, computed by the torch condition
-// program) AND a table of `event lane <op> capture lane` compares (a
+// The step's class (ops/nfa.kernel_class_reason and the compiler's
+// condition split) is the JAX step's structural class: simple units,
+// logical `and` / `or` units, kleene counts <m:n> (a leading min-0 one
+// too; min == max and an unbounded max included) and absent units `not X
+// for t` (a leading one too); PATTERN and SEQUENCE; `every` on the
+// leading unit, over a group, mid-chain (at most kMaxMid groups) or
+// trailing, or none; optional `within`; the telemetry leaf.  Condition i
+// is bit i of a block-wide gate word (its capture-free part, computed by
+// the torch condition program) AND a table of `event lane <op> capture
+// lane` compares AND one of `capture lane <op> constant` compares (a
 // capture lane: another unit's first bank, or an earlier count's [last]
-// bank); bit 31 of the word is the event's __valid.  A count's capture row
+// bank); bit 31 of the word is the event's __valid.  The pattern bank's
+// class is narrower (ops/nfa.bank_class_reason): none of the widened
+// kinds.  A count's capture row
 // holds its first bank, its last bank, its e[k] banks, its e[last-j] banks
 // and its __n lane; the program gives each count row's layout.
 //
@@ -78,6 +82,24 @@
 //    event; then, once the first free slot is known, arming, the deadline
 //    pass and the rows, in slot order.  A slot's count words (cnt_cur,
 //    cnt_prev) and deadline live where its state lives.
+//  - The widened instance (WIDE, flag kFlagWide: every spec beyond the
+//    simple, count and absent units of PATTERN with a leading `every`)
+//    runs ops/nfa.py _one_event_step section by section on the lane's G
+//    threads (nfa_step.cuh Wide::event): within expiry, the leading
+//    absent and min-0 ensure-arm steps, SEQUENCE's early deadline pass
+//    and barrier, the unit loop in unit order (a landing ranks its slots
+//    by (enter, seq) against the others landing from that unit: a
+//    shuffle sweep), live appends, strict contiguity, arming, the
+//    every-min-0 seed, the mid-chain clones (a prefix popcount of the
+//    free slots matched to the sources' ranks; captures copied between
+//    threads through shared memory or the carry after __syncwarp), the
+//    deadline pass.  Every lane-wide step is a ballot over the group's
+//    bits taken by the whole warp.  A completing slot writes its row at
+//    once (a trailing `every` clears rows right after) and its rank when
+//    the event ends.  Telemetry counts in shared memory a lane row.
+//  - Flag kFlagPadWithin: one more `within` pass at the last event's ts
+//    after the block, as the plain step's padding rows (a block padded
+//    to a multiple of its B) do.
 //  - nfa_compact: one CTA per step CTA; it sums the fills of the CTAs
 //    before it, scans its lanes' counts, scatters each scratch row to
 //    slab[offset(p) + rank] when that is below cap, writes -1 into column
@@ -202,7 +224,9 @@ namespace {
 
 // One name per kernel, so a device trace keeps the step and the bank step
 // apart.  EXT: the program has count or absent units (their carry words
-// are passed); the other instance is the simple units' own.
+// are passed); the other instance is the simple units' own.  (The
+// widened instance is csrc/nfa_wide.cu's: a source of its own, so the
+// two build in parallel.)
 template <int SPT, bool EXT>
 __global__ void __launch_bounds__(kThreads) nfa_step_kernel(StepArgs a) {
   step_body<SPT, false, EXT>(a, static_cast<int>(blockIdx.x));
@@ -1215,9 +1239,11 @@ int run_step_as(StepArgs& a, cudaStream_t s) {
   return launch_step<0, BANK, EXT>(a, p.smem, grid, s);
 }
 
-// the instance for the carry: count or deadline words passed, or not
+// the instance for the carry: count or deadline words passed, or not (a
+// widened program launches through csrc/nfa_wide.cu)
 template <bool BANK>
 int run_step(StepArgs& a, cudaStream_t s) {
+  if (a.wide) return static_cast<int>(cudaErrorInvalidValue);
   return a.cc_in || a.dl_in ? run_step_as<BANK, true>(a, s)
                             : run_step_as<BANK, false>(a, s);
 }
@@ -1248,25 +1274,9 @@ bool aligned16(const void* p) {
 }  // namespace
 
 
-#define CARRY_PARAMS                                                        \
-  const int *st_in, const int *start_in, const int *enter_in,              \
-      const int *seq_in, const int *armseq_in, const float *caps_in,       \
-      const int *dropped_in, const int *armed_in, const int *cc_in,        \
-      const int *cp_in, const int *dl_in, int *st, int *start, int *enter, \
-      int *seq, int *armseq_out, float *caps, int *dropped_out,            \
-      int *armed_out, int *cc, int *cp, int *dl
-#define CARRY_IN                                                          \
-  CarryPtrs {                                                             \
-    st_in, start_in, enter_in, seq_in, armseq_in, caps_in, dropped_in,    \
-        armed_in, cc_in, cp_in, dl_in                                     \
-  }
-#define CARRY_OUT                                                         \
-  CarryOut {                                                              \
-    st, start, enter, seq, armseq_out, caps, dropped_out, armed_out, cc, \
-        cp, dl                                                            \
-  }
-
-// Launch one block step on `stream`.  G (threads per lane: K rounded up
+// Launch one block step on `stream` (a program of the simple or count and
+// absent instances; csrc/nfa_wide.cu's nfa_step_wide takes the widened
+// ones, with this signature).  G (threads per lane: K rounded up
 // to a power of two, at most 32) and seg (scratch rows per CTA) come from
 // the caller, which sizes rows as ceil(P / (256 / G)) * seg * (6 + RC)
 // int32, and fill and dl_min (null without absent units) as one int32 a
@@ -1275,38 +1285,20 @@ bool aligned16(const void* p) {
 extern "C" int nfa_step(const float* attrs, const int* ts, const int* strm,
                         const int* gates, const int* prog, int prog_len,
                         CARRY_PARAMS, int* rows, int* lane_count, int* fill,
-                        int* dl_min, int P, int T, int K, int G, int seg,
-                        int A, int RC, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                        int* dl_min, const int* lm_in, const int* sf_in,
+                        const int* tel_in, int* lm, int* sf, int* tel, int P,
+                        int T, int K, int G, int seg, int A, int RC,
+                        int flags, int tel_w, void* stream) {
   if (P <= 0) return 0;
-  const CarryPtrs in = CARRY_IN;
-  const CarryOut out = CARRY_OUT;
-  if (bad_geometry(K, T, G, A, RC, prog_len) || seg < 0 ||
-      missing_leaves(in, out) || ((in.dl != nullptr) !=
-                                                   (dl_min != nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
   StepArgs a{};
-  a.attrs = attrs;
-  a.ts = ts;
-  a.strm = strm;
-  a.gates = gates;
-  a.prog = prog;
-  set_carry(a, in, out);
-  a.rows = rows;
-  a.lane_count = lane_count;
-  a.fill = fill;
-  a.dl_min = dl_min;
-  a.prog_len = prog_len;
-  a.P = P;
-  a.T = T;
-  a.K = K;
-  a.G = G;
-  a.seg = seg;
-  a.A = A;
-  a.RC = RC;
-  a.CN = 1;
-  a.n_params = 0;
-  return run_step<false>(a, s);
+  const int* const win[3] = {lm_in, sf_in, tel_in};
+  int* const wout[3] = {lm, sf, tel};
+  if ((flags & kFlagWide) ||
+      !make_step_args(a, attrs, ts, strm, gates, prog, prog_len, CARRY_IN,
+                      CARRY_OUT, rows, lane_count, fill, dl_min, win, wout,
+                      P, T, K, G, seg, A, RC, flags, tel_w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run_step<false>(a, static_cast<cudaStream_t>(stream));
 }
 
 // Launch the bank step over CN patterns on `stream`: carry leaves

@@ -18,10 +18,22 @@ constexpr int kTileBytes = 32 * 1024;   // both tile buffers together: at
                                         // K = 8 five CTAs fit an SM, so
                                         // P = 16384 runs in one wave
 constexpr int kMaxTileEvents = 128;
-constexpr int kHeader = 12;             // S, R, C, has_within, within_ms,
+constexpr int kHeader = 24;             // S, R, C, has_within, within_ms,
                                         // arm_once, n_cond, n_cmp, n_pcmp,
-                                        // has_count, has_absent, occ_hi
+                                        // has_count, has_absent, occ_hi,
+                                        // then the widened instance's:
+                                        // wide, is_sequence, is_every,
+                                        // every_group_end,
+                                        // tail_every_start, eps_start,
+                                        // lead_absent, dead_start,
+                                        // telemetry, has_logical, n_mid,
+                                        // n_ccmp
 constexpr unsigned kValidBit = 0x80000000u;
+// the step's flags (ops/nfa.kernel_flags): the widened instance, and one
+// more `within` pass after the last event at that event's ts (the invalid
+// rows padding the plain step's block to a multiple of its B)
+constexpr int kFlagWide = 1;
+constexpr int kFlagPadWithin = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
 // A unit's words in the program (ops/nfa.kernel_prog): kind, stream,
@@ -33,7 +45,15 @@ constexpr int kUnit = 11;
 enum UnitWord {
   uKind, uStream, uCond, uRow, uMin, uMax, uWait, uLand, uLive0, uApp0, uApp1
 };
-enum UnitKind { kSimple = 0, kCount = 1, kAbsent = 2 };
+enum UnitKind { kSimple = 0, kCount = 1, kAbsent = 2, kLogical = 3 };
+// A unit's words in the widened table: a logical unit's side B (stream,
+// condition, capture row) and whether it is `and`.
+constexpr int kUnitB = 4;
+enum UnitBWord { bStream, bCond, bRow, bAnd };
+// mid-chain `every` groups the widened instance holds a clone rank for
+// (ops/nfa.MAX_MID_EVERY), and its slots a thread in the wide ring
+constexpr int kMaxMid = 4;
+constexpr int kWideMaxSpt = 32;
 // a slot's state while an event is stepped: it completed a match in the
 // unit loop (no state of the class is this value)
 constexpr int kMatched = INT_MIN;
@@ -52,6 +72,13 @@ struct Prog {
   const int* cmp;         // n_cmp x (attr, row, lane, op)
   const int* pcmp_start;  // n_cond + 1
   const int* pcmp;        // n_pcmp x (attr, param, op)
+  // the widened instance's (ops/nfa.kernel_prog)
+  int is_seq, is_every, every_end, tail_every, eps, lead_absent;
+  int dead_start, telem, has_logical, n_mid;
+  const int* unitsb;      // S x kUnitB
+  const int* mid;         // n_mid x (g0, g1), ascending g0
+  const int* ccmp_start;  // n_cond + 1
+  const int* ccmp;        // n_ccmp x (row, lane, op, constant's bits)
 };
 
 __device__ __forceinline__ Prog parse(const int* p) {
@@ -68,6 +95,16 @@ __device__ __forceinline__ Prog parse(const int* p) {
   g.has_count = p[9];
   g.has_absent = p[10];
   g.occ_hi = p[11];
+  g.is_seq = p[13];
+  g.is_every = p[14];
+  g.every_end = p[15];
+  g.tail_every = p[16];
+  g.eps = p[17];
+  g.lead_absent = p[18];
+  g.dead_start = p[19];
+  g.telem = p[20];
+  g.has_logical = p[21];
+  g.n_mid = p[22];
   g.units = p + kHeader;
   g.row_src = g.units + kUnit * g.S;
   g.rowx_start = g.row_src + g.R * g.C;
@@ -76,11 +113,19 @@ __device__ __forceinline__ Prog parse(const int* p) {
   g.cmp = g.cmp_start + g.n_cond + 1;
   g.pcmp_start = g.cmp + 4 * g.n_cmp;
   g.pcmp = g.pcmp_start + g.n_cond + 1;
+  g.unitsb = g.pcmp + 3 * g.n_pcmp;
+  g.mid = g.unitsb + kUnitB * g.S;
+  g.ccmp_start = g.mid + 2 * g.n_mid;
+  g.ccmp = g.ccmp_start + g.n_cond + 1;
   return g;
 }
 
 __device__ __forceinline__ const int* unit(const Prog& g, int j) {
   return g.units + kUnit * j;
+}
+
+__device__ __forceinline__ const int* unit_b(const Prog& g, int j) {
+  return g.unitsb + kUnitB * j;
 }
 
 // int32 timestamp offsets add and subtract with two's-complement wrap
@@ -140,7 +185,14 @@ struct StepArgs {
   int* dl_min;            // [n_cta]: the earliest absent deadline
   const float* params;    // bank: [CN, n_params]
   int *count, *lmt, *lmk; // bank: [CN, P]
+  // the widened instance's leaves (null where the spec has none):
+  // lmask [P, K], seq_froze [P], telem [P, tel_w]
+  const int *lm_in, *sf_in, *tel_in;
+  int *lm, *sf, *tel;
   int prog_len, P, T, K, G, spt, L, TT, seg, A, RC, CN, n_params;
+  int wide;               // the widened instance (kFlagWide)
+  int pad_within;         // one more `within` pass at the last ts
+  int tel_w;              // telem's words a lane (3S + 1), 0: none
 };
 
 __device__ __forceinline__ bool compare(int op, float x, float y) {
@@ -202,7 +254,7 @@ __device__ __forceinline__ void load_tile(int* buf, int t0, const StepArgs& a,
 template <int SPT>
 struct Slots {
   int st_[SPT], start_[SPT], enter_[SPT], seq_[SPT];
-  int cc_[SPT], cp_[SPT], dl_[SPT];
+  int cc_[SPT], cp_[SPT], dl_[SPT], lm_[SPT];
   float* cap;
   int RC;
   __device__ __forceinline__ int& st(int s) { return st_[s]; }
@@ -212,8 +264,13 @@ struct Slots {
   __device__ __forceinline__ int& cc(int s) { return cc_[s]; }
   __device__ __forceinline__ int& cp(int s) { return cp_[s]; }
   __device__ __forceinline__ int& dl(int s) { return dl_[s]; }
+  __device__ __forceinline__ int& lm(int s) { return lm_[s]; }
   __device__ __forceinline__ float& c(int s, int i) {
     return cap[(s * RC + i) * kThreads];
+  }
+  // slot s of the thread d places on in the same lane
+  __device__ __forceinline__ float& cx(int d, int s, int i) {
+    return cap[(s * RC + i) * kThreads + d];
   }
 };
 
@@ -221,7 +278,7 @@ struct Slots {
 // thread at k = gl + s*G (cc, cp, dl: only where the spec has the leaf).
 template <>
 struct Slots<0> {
-  int *st_, *start_, *enter_, *seq_, *cc_, *cp_, *dl_;
+  int *st_, *start_, *enter_, *seq_, *cc_, *cp_, *dl_, *lm_;
   float* cap;
   int G, RC;
   __device__ __forceinline__ int& st(int s) { return st_[s * G]; }
@@ -231,8 +288,12 @@ struct Slots<0> {
   __device__ __forceinline__ int& cc(int s) { return cc_[s * G]; }
   __device__ __forceinline__ int& cp(int s) { return cp_[s * G]; }
   __device__ __forceinline__ int& dl(int s) { return dl_[s * G]; }
+  __device__ __forceinline__ int& lm(int s) { return lm_[s * G]; }
   __device__ __forceinline__ float& c(int s, int i) {
     return cap[static_cast<long long>(s) * G * RC + i];
+  }
+  __device__ __forceinline__ float& cx(int d, int s, int i) {
+    return cap[(static_cast<long long>(s) * G + d) * RC + i];
   }
 };
 
@@ -377,6 +438,719 @@ __device__ __forceinline__ void emit_row(const StepArgs& a, SL& sl, int s,
   r[W + 1] = l;
 }
 
+// ------------------------------------------------------------ widened
+
+// Condition i of the event against slot s's captures with the widened
+// tables: cond_ok, then each `capture lane <op> constant` compare.
+template <class SL>
+__device__ __forceinline__ bool cond_w(const Prog& g, int i, unsigned gw,
+                                       SL& sl, int s, const float* at,
+                                       int LT) {
+  if (!cond_ok(g, i, gw, sl, s, at, LT)) return false;
+  for (int q = g.ccmp_start[i]; q < g.ccmp_start[i + 1]; ++q) {
+    const int* c = g.ccmp + 4 * q;
+    if (!compare(c[2], sl.c(s, c[0] * g.C + c[1]), __int_as_float(c[3])))
+      return false;
+  }
+  return true;
+}
+
+// Condition i against a fresh chain's zero captures (SEQUENCE arming of a
+// count, and its every-min-0 seed).
+__device__ __forceinline__ bool cond_zero(const Prog& g, int i, unsigned gw,
+                                          const float* at, int LT) {
+  if (!((gw >> i) & 1u)) return false;
+  for (int q = g.cmp_start[i]; q < g.cmp_start[i + 1]; ++q) {
+    const int* c = g.cmp + 4 * q;
+    if (!compare(c[3], at[c[0] * LT], 0.0f)) return false;
+  }
+  for (int q = g.ccmp_start[i]; q < g.ccmp_start[i + 1]; ++q) {
+    const int* c = g.ccmp + 4 * q;
+    if (!compare(c[2], 0.0f, __int_as_float(c[3]))) return false;
+  }
+  return true;
+}
+
+// The widened instance's lane: one event of ops/nfa.py _one_event_step,
+// section by section, on the G threads of a lane (slot k of the lane at
+// thread k % G, its s = k / G).  Every section that reads the lane as a
+// whole (the first free slot, a slot count, the pending-list rank of the
+// slots landing together, the clone allocation) is a ballot over the
+// group's bits, a prefix popcount or a shuffle sweep over the group's
+// threads; all of them run on every thread of the warp together (warp
+// uniform control flow), so lanes that share a warp step in lockstep.
+// A slot that completes writes its scratch row at once (the captures as
+// they stand then: a trailing `every` clears rows right after); its rank
+// in the lane is written when the event ends, so rows keep (t, k) order.
+template <int SPT>
+struct Wide {
+  static constexpr int NS = SPT > 0 ? SPT : kWideMaxSpt;
+  const Prog& g;
+  const StepArgs& a;
+  Slots<SPT>& sl;
+  int* stel;                  // this lane's telemetry row (shared memory)
+  int* s_fill;
+  int G, gl, gbase, l, p, ns, cta;
+  bool lane_ok;
+  unsigned gmask;
+  int arm_seq, drop, armed, sf, cnt;
+  // the event
+  int t, tsv, sv, LT;
+  unsigned gw;
+  const float* at;
+  bool v;
+  unsigned mb;                // bit s: slot s matched by this event
+  int mpos[NS];               // its scratch row (-1: none yet)
+  int st_pre[NS];             // its state when the unit loop starts
+  int spr[kMaxMid][NS];       // its clone rank in mid-chain group q
+
+  __device__ __forceinline__ int nsl() const { return SPT > 0 ? SPT : ns; }
+  __device__ __forceinline__ bool on(int s) const {
+    return lane_ok && gl + s * G < a.K;
+  }
+  __device__ __forceinline__ unsigned ballot(bool x) const {
+    return (__ballot_sync(kFull, x) & gmask) >> gbase;
+  }
+  __device__ __forceinline__ bool lane_any(unsigned bits) const {
+    bool any = false;
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) any |= ballot((bits >> s) & 1u) != 0;
+    return any;
+  }
+  // the lane's first slot (k order) whose bit is set, -1: none
+  __device__ __forceinline__ int first(unsigned bits) const {
+    int r = -1;
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      const unsigned b = ballot((bits >> s) & 1u);
+      if (r < 0 && b) r = s * G + __ffs(b) - 1;
+    }
+    return r;
+  }
+  __device__ __forceinline__ int count(unsigned bits) const {
+    int n = 0;
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) n += __popc(ballot((bits >> s) & 1u));
+    return n;
+  }
+  // each set slot's exclusive rank among the lane's set slots (k order);
+  // returns their count
+  __device__ __forceinline__ int prefix(unsigned bits, int* rk) const {
+    int n = 0;
+    const unsigned lt = (1u << gl) - 1u;
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      const unsigned b = ballot((bits >> s) & 1u);
+      rk[s] = n + __popc(b & lt);
+      n += __popc(b);
+    }
+    return n;
+  }
+  // each slot of `bits`' rank among the lane's slots of `bits` in
+  // pending-list order (enter, seq): the oracle's append order
+  __device__ __forceinline__ void pending(unsigned bits, int* rk) {
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) rk[s] = 0;
+#pragma unroll
+    for (int s2 = 0; s2 < nsl(); ++s2) {
+      const unsigned b = ballot((bits >> s2) & 1u);
+      if (!__any_sync(kFull, b != 0)) continue;
+      const bool mine = (bits >> s2) & 1u;
+      const int e = mine ? sl.enter(s2) : 0;
+      const int q = mine ? sl.seq(s2) : 0;
+      for (int src = 0; src < G; ++src) {
+        const int e2 = __shfl_sync(kFull, e, gbase + src);
+        const int q2 = __shfl_sync(kFull, q, gbase + src);
+        if (!((b >> src) & 1u)) continue;
+#pragma unroll
+        for (int s = 0; s < nsl(); ++s)
+          if (((bits >> s) & 1u) &&
+              (e2 < sl.enter(s) || (e2 == sl.enter(s) && q2 < sl.seq(s))))
+            ++rk[s];
+      }
+    }
+  }
+  // a bitmask of this thread's slots where f holds
+  template <class F>
+  __device__ __forceinline__ unsigned bits(F f) {
+    unsigned r = 0;
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s)
+      if (on(s) && f(s)) r |= 1u << s;
+    return r;
+  }
+  __device__ __forceinline__ void set_lm(int s, int x) {
+    if (g.has_logical) sl.lm(s) = x;
+  }
+
+  // slot s completes at `ts`: its scratch row (index, ts, enter, seq,
+  // captures, lane); the rank follows when the event ends
+  __device__ __forceinline__ void emit(int s, int ts, int enter, int seq) {
+    mb |= 1u << s;
+    if (mpos[s] < 0) mpos[s] = atomicAdd(s_fill, 1);
+    const int pos = mpos[s];
+    if (pos >= a.seg) return;
+    const int W = 4 + a.RC;
+    int* r = a.rows + (static_cast<long long>(cta) * a.seg + pos) * (W + 2);
+    r[0] = static_cast<int>((static_cast<long long>(p) * a.T + t) * a.K +
+                            gl + s * G);
+    r[1] = ts;
+    r[2] = enter;
+    r[3] = seq;
+    for (int i = 0; i < a.RC; ++i) r[4 + i] = __float_as_int(sl.c(s, i));
+    r[W + 1] = l;
+  }
+
+  // zero the logical units' capture rows of units j0..j1 in slot s (a
+  // re-arm or a clone clears its group's logical sides)
+  __device__ __forceinline__ void clear_logical(int s, int j0, int j1) {
+    if (!g.has_logical) return;
+    for (int j = j0; j <= j1; ++j) {
+      if (unit(g, j)[uKind] != kLogical) continue;
+      const int ra = unit(g, j)[uRow], rb = unit_b(g, j)[bRow];
+      for (int c = 0; c < g.C; ++c) {
+        if (ra >= 0) sl.c(s, ra * g.C + c) = 0.0f;
+        if (rb >= 0) sl.c(s, rb * g.C + c) = 0.0f;
+      }
+    }
+  }
+
+  // the slots of `bits` advance out of unit j at the event's ts, or
+  // (dl) at their deadline (ops/nfa.py _StepState.land); fcp: each
+  // slot's forwarded count word (a count unit's exit), else null
+  __device__ __forceinline__ void land(int j, unsigned bits, bool dl,
+                                       const int* fcp) {
+    const int* u = unit(g, j);
+    const int tgt = u[uLand];
+#pragma unroll
+    for (int q = 0; q < kMaxMid; ++q) {
+      if (q >= g.n_mid || g.mid[2 * q + 1] != j) continue;
+      if (!__any_sync(kFull, bits != 0)) continue;
+      unsigned old = 0;
+#pragma unroll
+      for (int s = 0; s < nsl(); ++s)
+        if (spr[q][s] >= 0) old |= 1u << s;
+      const int n_old = count(old);
+      int rk[NS];
+      pending(bits, rk);
+#pragma unroll
+      for (int s = 0; s < nsl(); ++s)
+        if ((bits >> s) & 1u) spr[q][s] = rk[s] + n_old;
+    }
+    if (tgt >= g.S) {
+#pragma unroll
+      for (int s = 0; s < nsl(); ++s)
+        if ((bits >> s) & 1u)
+          emit(s, dl ? sl.dl(s) : tsv, sl.enter(s), sl.seq(s));
+      if (g.tail_every >= 0) {
+        // trailing `every`: the match is emitted AND the partial re-arms
+        // at the group's start with its earlier captures
+        int rk[NS];
+#pragma unroll
+        for (int s = 0; s < nsl(); ++s) rk[s] = 0;
+        if (__any_sync(kFull, bits != 0)) pending(bits, rk);
+        const int n = count(bits);
+#pragma unroll
+        for (int s = 0; s < nsl(); ++s) {
+          if (!((bits >> s) & 1u)) continue;
+          const int base = dl ? sl.dl(s) : tsv;
+          sl.st(s) = g.tail_every;
+          sl.seq(s) = add32(arm_seq, rk[s]);
+          sl.enter(s) = base;
+          set_lm(s, 0);
+          clear_logical(s, g.tail_every, g.S - 1);
+        }
+        arm_seq = add32(arm_seq, n);
+      } else {
+#pragma unroll
+        for (int s = 0; s < nsl(); ++s)
+          if ((bits >> s) & 1u) sl.st(s) = -1;
+      }
+      return;
+    }
+    const bool to_absent = g.has_absent && unit(g, tgt)[uKind] == kAbsent;
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      if (!((bits >> s) & 1u)) continue;
+      const int base = dl ? sl.dl(s) : tsv;
+      sl.st(s) = tgt;
+      sl.enter(s) = base;
+      set_lm(s, 0);
+      if (g.has_count) {
+        sl.cp(s) = fcp ? fcp[s] : (u[uLive0] ? 0 : -1);
+        sl.cc(s) = 0;
+      }
+      if (to_absent) sl.dl(s) = add32(base, unit(g, tgt)[uWait]);
+    }
+  }
+
+  // the deadline pass over absent units, ascending (a due `not ... for t`
+  // lands at its deadline; a chain of absences cascades in one pass)
+  __device__ __forceinline__ void deadline_pass() {
+    for (int j = 0; j < g.S; ++j) {
+      if (unit(g, j)[uKind] != kAbsent) continue;
+      const unsigned b = bits([&](int s) {
+        return v && sl.st(s) == j && sl.dl(s) <= tsv;
+      });
+      land(j, b, true, nullptr);
+    }
+  }
+
+  // a fresh partial into free slot f (the lane's, k order) at `state`
+  __device__ __forceinline__ void seat(int f, int state, int cc, int cp) {
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      if (!on(s) || gl + s * G != f) continue;
+      for (int i = 0; i < a.RC; ++i) sl.c(s, i) = 0.0f;
+      sl.st(s) = state;
+      sl.start(s) = tsv;
+      sl.enter(s) = tsv;
+      sl.seq(s) = arm_seq;
+      set_lm(s, 0);
+      if (g.has_count) {
+        sl.cc(s) = cc;
+        sl.cp(s) = cp;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void tel_add(int w, int n) {
+    if (stel && n) atomicAdd(stel + w, n);
+  }
+
+  __device__ __forceinline__ void event();
+};
+
+template <int SPT>
+__device__ __forceinline__ void Wide<SPT>::event() {
+  const int S = g.S;
+  const int* u0 = unit(g, 0);
+  const int t0 = u0[uLand];
+  const bool real = v && sv != -2;
+  mb = 0;
+#pragma unroll
+  for (int s = 0; s < nsl(); ++s) {
+    mpos[s] = -1;
+#pragma unroll
+    for (int q = 0; q < kMaxMid; ++q) spr[q][s] = -1;
+  }
+
+  // within expiry (a leading min-0 count's virgin chain is exempt)
+  {
+    int n = 0;
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      if (!on(s)) continue;
+      const int st = sl.st(s);
+      if (g.has_within && st >= 1 && sub32(tsv, sl.start(s)) > g.within &&
+          !(g.eps && st == 1 && sl.cp(s) == 0)) {
+        sl.st(s) = -1;
+        ++n;
+      }
+    }
+    tel_add(3 * S, n);
+  }
+
+  // a leading absent unit: exactly one partial waits at unit 0
+  if (g.lead_absent) {
+    const bool have0 = lane_any(bits([&](int s) { return sl.st(s) == 0; }));
+    const bool want = real && !have0;
+    const int f = first(bits([&](int s) {
+      return sl.st(s) < 0 && !((mb >> s) & 1u);
+    }));
+    if (want && f >= 0) {
+      seat(f, 0, 0, -1);
+#pragma unroll
+      for (int s = 0; s < nsl(); ++s)
+        if (on(s) && gl + s * G == f) sl.dl(s) = add32(tsv, u0[uWait]);
+      arm_seq = add32(arm_seq, 1);
+    }
+    if (want && f < 0) ++drop;
+  }
+
+  if (g.is_seq && g.has_absent) {
+    // SEQUENCE: a due `not ... for t` confirms before the event, then any
+    // real event (TIMER rows excepted) kills a partial waiting at one
+    deadline_pass();
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s)
+      if (on(s) && real && sl.st(s) >= 0 && sl.st(s) < S &&
+          unit(g, sl.st(s))[uKind] == kAbsent)
+        sl.st(s) = -1;
+  }
+
+  // a leading min-0 count: exactly one virgin chain (cnt_prev 0) at unit 1
+  if (g.eps) {
+    const bool have = lane_any(bits([&](int s) {
+      return sl.st(s) == 1 && (!g.is_seq || sl.cp(s) >= 0);
+    }));
+    const bool want = v && !have && (!g.arm_once || armed == 0);
+    const int f = first(bits([&](int s) {
+      return sl.st(s) < 0 && !((mb >> s) & 1u);
+    }));
+    if (want && f >= 0) {
+      seat(f, 1, 0, 0);
+      arm_seq = add32(arm_seq, 1);
+      if (g.arm_once) ++armed;
+    }
+    if (want && f < 0) ++drop;
+  }
+
+#pragma unroll
+  for (int s = 0; s < nsl(); ++s) st_pre[s] = on(s) ? sl.st(s) : -1;
+
+  // the occupancy gate on arming, from the states as the unit loop finds
+  // them
+  bool occ = false;
+  if (g.is_seq && u0[uKind] == kCount && !g.eps && !g.dead_start) {
+    occ = lane_any(bits([&](int s) {
+      const int sp = st_pre[s];
+      return (sp >= 0 && sp <= g.every_end) ||
+             (t0 < S && sp == t0 && sl.cp(s) >= 0);
+    }));
+  } else if (g.occ_hi >= 0) {
+    occ = lane_any(bits([&](int s) {
+      return st_pre[s] >= 0 && st_pre[s] <= g.occ_hi;
+    }));
+  }
+  // unit 0's conditions as arming reads them: against slot 0's captures
+  // before the unit loop writes any
+  const int* u0b = unit_b(g, 0);
+  bool c0a = on(0) && cond_w(g, u0[uCond], gw, sl, 0, at, LT);
+  bool c0b = u0[uKind] == kLogical && on(0) &&
+             cond_w(g, u0b[bCond], gw, sl, 0, at, LT);
+  c0a = __shfl_sync(kFull, c0a, gbase);
+  c0b = __shfl_sync(kFull, c0b, gbase);
+
+  // the unit loop: each slot's one transition, in unit order (a landing
+  // ranks its slots against the others landing from the same unit)
+  unsigned adv = 0, app = 0, ok0b = 0, ok1b = 0, froze0 = 0;
+  bool seed_req = false, block_arm = false;
+  for (int j = 0; j < S; ++j) {
+    const int* u = unit(g, j);
+    const int* ub = unit_b(g, j);
+    const int kind = u[uKind];
+    unsigned pd = 0;
+    int fcp[NS];
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      fcp[s] = -1;
+      if (!on(s) || !v || st_pre[s] != j) continue;
+      // every condition this slot reads, before any write of the event
+      const bool okA = sv == u[uStream] &&
+                       cond_w(g, u[uCond], gw, sl, s, at, LT);
+      const bool okB = kind == kLogical && sv == ub[bStream] &&
+                       cond_w(g, ub[bCond], gw, sl, s, at, LT);
+      if (g.has_count) {
+        const int a0 = u[uApp0], a1 = u[uApp1];
+        if (a0 >= 0 && sv == unit(g, a0)[uStream] &&
+            cond_w(g, unit(g, a0)[uCond], gw, sl, s, at, LT))
+          ok0b |= 1u << s;
+        if (a1 >= 0 && sv == unit(g, a1)[uStream] &&
+            cond_w(g, unit(g, a1)[uCond], gw, sl, s, at, LT))
+          ok1b |= 1u << s;
+      }
+      if (stel) {
+        const bool ea = sv == u[uStream];
+        const bool eb = ub[bCond] >= 0 && sv == ub[bStream];
+        if (ea || eb)
+          atomicAdd(stel + ((okA || okB) ? S : 2 * S) + j, 1);
+      }
+      const unsigned bit = 1u << s;
+      if (kind == kSimple) {
+        bool ok = okA;
+        if (g.eps && j == 1) {
+          if (g.is_seq) ok = ok && !(sl.cp(s) == 0 && sf > 0);
+          if (g.is_seq && g.is_every && ok && sl.cp(s) == 0) seed_req = true;
+          if (ok && sl.cp(s) == 0) sl.start(s) = tsv;
+        }
+        if (ok) {
+          if (u[uRow] >= 0) write_row(g, u[uRow], sl, s, at, LT);
+          pd |= bit;
+          adv |= bit;
+        }
+      } else if (kind == kLogical) {
+        const int lm = sl.lm(s);
+        const bool hA = lm & 1, hB = lm & 2;
+        const bool nA = okA && !hA;
+        const bool nB = okB && !hB && (ub[bAnd] || !nA);
+        if (nA && u[uRow] >= 0) write_row(g, u[uRow], sl, s, at, LT);
+        if (nB && ub[bRow] >= 0) write_row(g, ub[bRow], sl, s, at, LT);
+        const bool done =
+            ub[bAnd] ? ((hA || nA) && (hB || nB)) : (nA || nB);
+        sl.lm(s) = lm | (nA ? 1 : 0) | (nB ? 2 : 0);
+        if (done) {
+          pd |= bit;
+          adv |= bit;
+        } else if (nA || nB) {
+          app |= bit;
+        }
+      } else if (kind == kCount) {
+        const int c2 = sl.cc(s) + 1;
+        if (okA) {
+          if (u[uRow] >= 0)
+            write_count(g, u[uRow], sl, s, at, LT, c2 == 1, c2);
+          sl.cc(s) = c2;
+          if (c2 == u[uMin]) {
+            pd |= bit;
+            adv |= bit;
+            fcp[s] = c2 == u[uMax] ? -1 : c2;
+          }
+          if (g.is_seq && j == 1 && u0[uKind] == kSimple && c2 >= u[uMin] &&
+              c2 != u[uMax])
+            block_arm = true;
+          if (!g.is_seq || c2 >= u[uMin]) app |= bit;
+        }
+      } else if (okA) {                 // absent: an arrival kills
+        if (j == 0 && g.lead_absent) {
+          sl.dl(s) = add32(tsv, u[uWait]);
+          sl.start(s) = tsv;
+          sl.enter(s) = tsv;
+        } else {
+          sl.st(s) = -1;
+        }
+      }
+    }
+    if (kind != kAbsent) land(j, pd, false, kind == kCount ? fcp : nullptr);
+  }
+  seed_req = lane_any(seed_req ? 1u : 0u);
+
+  // the live append of a forwarded count, while the slot waits where the
+  // count's exit landed it
+  if (g.has_count) {
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      if (!on(s) || !v || ((adv >> s) & 1u) || st_pre[s] < 0 ||
+          st_pre[s] >= S)
+        continue;
+      const int* w = unit(g, st_pre[s]);
+      for (int x = 0; x < 2; ++x) {
+        const int j = w[x ? uApp1 : uApp0];
+        if (j < 0 || !(((x ? ok1b : ok0b) >> s) & 1u)) continue;
+        const int* c = unit(g, j);
+        const int cp = sl.cp(s);
+        if (cp < 0 || cp >= c[uMax]) continue;
+        if (g.eps && j == 0 && cp == 0) sl.start(s) = tsv;
+        if (c[uRow] >= 0)
+          write_count(g, c[uRow], sl, s, at, LT, cp == 0, cp + 1);
+        const bool fz = cp + 1 == c[uMax];
+        sl.cp(s) = fz ? -1 : cp + 1;
+        app |= 1u << s;
+        if (fz && j == 0) froze0 |= 1u << s;
+        if (g.is_seq && j == 1 && u0[uKind] == kSimple && !fz)
+          block_arm = true;
+      }
+    }
+    if (g.eps && g.is_seq && t0 < S) {
+      const bool fz = lane_any(froze0);
+      if (v) sf = fz ? 1 : 0;
+    }
+  }
+  block_arm = lane_any(block_arm ? 1u : 0u);
+
+  // SEQUENCE strict contiguity: a real event that moves a partial at a
+  // simple, count or logical unit neither on nor into the chain kills it
+  // (a logical unit already half done waits)
+  if (g.is_seq) {
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      const int sp = st_pre[s];
+      if (!on(s) || !real || sp < 0 || sp >= S || sl.st(s) < 0) continue;
+      const int kind = unit(g, sp)[uKind];
+      if (kind == kAbsent || (((adv | app) >> s) & 1u)) continue;
+      if (kind == kLogical && sl.lm(s) != 0) continue;
+      sl.st(s) = -1;
+    }
+  }
+
+  // arming a fresh partial at unit 0, in the first free slot
+  bool arm = false, match = false, cA = false, cB = false;
+  int state = t0, acc = 0, acp = u0[uLive0] ? 0 : -1, alm = 0;
+  const int k0 = u0[uKind];
+  if (k0 == kSimple) {
+    arm = v && sv == u0[uStream] && c0a;
+    match = t0 >= S;
+  } else if (k0 == kCount && !g.eps && !g.dead_start) {
+    const bool c = g.is_seq ? cond_zero(g, u0[uCond], gw, at, LT) : c0a;
+    arm = v && sv == u0[uStream] && c;
+    if (u0[uMin] <= 1) {
+      match = t0 >= S;
+      acp = u0[uMax] == 1 ? -1 : 1;
+    } else {
+      state = 0;
+      acc = 1;
+      acp = -1;
+    }
+  } else if (k0 == kLogical) {
+    cA = v && sv == u0[uStream] && c0a;
+    cB = v && sv == u0b[bStream] && c0b && (u0b[bAnd] || !cA);
+    arm = cA || cB;
+    const bool both = u0b[bAnd] ? (cA && cB) : (cA || cB);
+    match = both && t0 >= S;
+    if (!both) state = 0;
+    alm = both ? 0 : (cA ? 1 : 0) | (cB ? 2 : 0);
+  }
+  const bool do_arm = arm && !occ && !(g.arm_once && armed != 0) &&
+                      !block_arm;
+  const int f = first(bits([&](int s) {
+    return sl.st(s) < 0 && !((mb >> s) & 1u);
+  }));
+  if (do_arm && f < 0) ++drop;
+  if (g.arm_once) {
+    if (do_arm && f >= 0) ++armed;
+    // a non-every sequence is single-shot: its one initial partial dies
+    // on the first real event it cannot advance on
+    if (g.is_seq && real && armed == 0) armed = 2;
+  }
+  if (do_arm && f >= 0) {
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      if (!on(s) || gl + s * G != f) continue;
+      for (int i = 0; i < a.RC; ++i) sl.c(s, i) = 0.0f;
+      if (k0 == kLogical) {
+        if (cA && u0[uRow] >= 0) write_row(g, u0[uRow], sl, s, at, LT);
+        if (cB && u0b[bRow] >= 0) write_row(g, u0b[bRow], sl, s, at, LT);
+      } else if (u0[uRow] >= 0) {
+        if (k0 == kCount)
+          write_count(g, u0[uRow], sl, s, at, LT, true, 1);
+        else
+          write_row(g, u0[uRow], sl, s, at, LT);
+      }
+      sl.start(s) = tsv;
+      if (match) {                      // completes as it arms: stays free
+        emit(s, tsv, tsv, arm_seq);
+        continue;
+      }
+      sl.st(s) = state;
+      sl.enter(s) = tsv;
+      sl.seq(s) = arm_seq;
+      set_lm(s, alm);
+      if (g.has_count) {
+        sl.cc(s) = acc;
+        sl.cp(s) = acp;
+      }
+      if (g.has_absent && S > 1 && t0 < S && state == t0 &&
+          unit(g, t0)[uKind] == kAbsent)
+        sl.dl(s) = add32(tsv, unit(g, t0)[uWait]);
+    }
+    arm_seq = add32(arm_seq, 1);
+  }
+
+  // SEQUENCE every + leading min-0: the next chain starts with this event
+  // when the virgin closed and the event passes the kleene
+  if (g.eps && g.is_seq && g.is_every && S > 1 &&
+      unit(g, 1)[uKind] == kSimple) {
+    const bool want = seed_req && v && sv == u0[uStream] &&
+                      cond_zero(g, u0[uCond], gw, at, LT);
+    const int fs = first(bits([&](int s) {
+      return sl.st(s) < 0 && !((mb >> s) & 1u);
+    }));
+    if (want && fs >= 0) {
+      const bool mx1 = u0[uMax] == 1;
+#pragma unroll
+      for (int s = 0; s < nsl(); ++s) {
+        if (!on(s) || gl + s * G != fs) continue;
+        for (int i = 0; i < a.RC; ++i) sl.c(s, i) = 0.0f;
+        sl.st(s) = 1;
+        if (u0[uRow] >= 0) write_count(g, u0[uRow], sl, s, at, LT, true, 1);
+        sl.cp(s) = mx1 ? -1 : 1;
+        sl.cc(s) = 0;
+        sl.start(s) = tsv;
+        sl.enter(s) = tsv;
+        sl.seq(s) = arm_seq;
+      }
+      arm_seq = add32(arm_seq, 1);
+      if (mx1) sf = 1;
+    }
+    if (want && fs < 0) ++drop;
+  }
+
+  // mid-chain `every` clones: each partial that left a group's last unit
+  // forks a partial at the group's start with its captures (the group's
+  // logical rows cleared), ranks filling free slots in k order
+#pragma unroll
+  for (int q = 0; q < kMaxMid; ++q) {
+    if (q >= g.n_mid) continue;
+    unsigned src = 0;
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s)
+      if (spr[q][s] >= 0) src |= 1u << s;
+    const int n_sp = count(src);
+    if (!__any_sync(kFull, n_sp > 0)) continue;
+    const int g0 = g.mid[2 * q], g1 = g.mid[2 * q + 1];
+    int fr[NS], from[NS], fstart[NS];
+    const unsigned freeb = bits([&](int s) {
+      return sl.st(s) < 0 && !((mb >> s) & 1u);
+    });
+    const int n_free = prefix(freeb, fr);
+    unsigned fill = 0;
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      from[s] = -1;
+      fstart[s] = 0;
+      if (((freeb >> s) & 1u) && fr[s] < n_sp) fill |= 1u << s;
+    }
+    // the source of each filled slot: the slot whose rank is its rank
+    // among the free slots
+#pragma unroll
+    for (int s2 = 0; s2 < nsl(); ++s2) {
+      const int r = on(s2) ? spr[q][s2] : -1;
+      const int st0 = on(s2) ? sl.start(s2) : 0;
+      for (int x = 0; x < G; ++x) {
+        const int r2 = __shfl_sync(kFull, r, gbase + x);
+        const int s02 = __shfl_sync(kFull, st0, gbase + x);
+        if (r2 < 0) continue;
+#pragma unroll
+        for (int s = 0; s < nsl(); ++s)
+          if (((fill >> s) & 1u) && fr[s] == r2) {
+            from[s] = s2 * G + x;
+            fstart[s] = s02;
+          }
+      }
+    }
+    __syncwarp();                       // the sources' captures are written
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      if (!((fill >> s) & 1u)) continue;
+      const int d = (from[s] & (G - 1)) - gl, s2 = from[s] / G;
+      for (int i = 0; i < a.RC; ++i) sl.c(s, i) = sl.cx(d, s2, i);
+      clear_logical(s, g0, g1);
+      sl.st(s) = g0;
+      sl.start(s) = fstart[s];
+      sl.enter(s) = tsv;
+      sl.seq(s) = add32(arm_seq, fr[s]);
+      set_lm(s, 0);
+      if (g.has_count) {
+        sl.cc(s) = 0;
+        sl.cp(s) = -1;
+      }
+    }
+    __syncwarp();
+    arm_seq = add32(arm_seq, n_sp);
+    if (n_sp > n_free) drop += n_sp - n_free;
+  }
+
+  // the absent deadline pass, after the event
+  if (g.has_absent) deadline_pass();
+
+  // each matched slot's rank in its lane: the lane's count, then k order
+  {
+    int n = 0;
+    const unsigned lt = (1u << gl) - 1u;
+#pragma unroll
+    for (int s = 0; s < nsl(); ++s) {
+      const unsigned b = ballot((mb >> s) & 1u);
+      if (((mb >> s) & 1u) && mpos[s] < a.seg) {
+        const int W = 4 + a.RC;
+        a.rows[(static_cast<long long>(cta) * a.seg + mpos[s]) * (W + 2) + W] =
+            cnt + n + __popc(b & lt);
+      }
+      n += __popc(b);
+    }
+    cnt += n;
+  }
+}
+
 // The step body, shared by the kernels below.  `cta` is the CTA's index
 // in its step (blockIdx.x, or its place in its tenant for the gang).
 // BANK: cta = lane tile * CN + pattern; the pattern's carry, its
@@ -394,7 +1168,11 @@ __device__ __forceinline__ void emit_row(const StepArgs& a, SL& sl, int s,
 // of pass A; arming into the first free slot; the absent deadline pass
 // (`deadline <= ts` lands the slot at its deadline, cascading through
 // absent units); then the slot's row, if it matched, in slot order.
-template <int SPT, bool BANK, bool EXT>
+// WIDE: the widened instance, every spec of the class (Wide::event in
+// place of the two passes; its leaves lmask, seq_froze and telem, the
+// telemetry rows of the CTA's lanes in shared memory after the slots'
+// captures).
+template <int SPT, bool BANK, bool EXT, bool WIDE = false>
 __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
   extern __shared__ int smem[];
   __shared__ int s_fill;
@@ -432,6 +1210,9 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
     g.has_count = g.has_absent = 0;
     g.occ_hi = -1;
   }
+  if constexpr (!WIDE) {
+    if (sprog[12]) __trap();            // the caller picks WIDE
+  }
   const Arm arm = arm_of(g);
   const int G = a.G;
   const int gl = tid & (G - 1);
@@ -464,6 +1245,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
       sl.cc(s) = on && g.has_count ? a.cc_in[sk] : 0;
       sl.cp(s) = on && g.has_count ? a.cp_in[sk] : -1;
       sl.dl(s) = on && g.has_absent ? a.dl_in[sk] : 0;
+      if constexpr (WIDE) sl.lm(s) = on && g.has_logical ? a.lm_in[sk] : 0;
       for (int i = 0; i < RC; ++i)
         sl.c(s, i) = on ? a.caps_in[sk * RC + i] : 0.0f;
     }
@@ -475,6 +1257,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
     sl.cc_ = g.has_count ? a.cc + lane_k + gl : nullptr;
     sl.cp_ = g.has_count ? a.cp + lane_k + gl : nullptr;
     sl.dl_ = g.has_absent ? a.dl + lane_k + gl : nullptr;
+    sl.lm_ = WIDE && g.has_logical ? a.lm + lane_k + gl : nullptr;
     sl.cap = a.caps + (lane_k + gl) * RC;
     sl.G = G;
     sl.RC = RC;
@@ -491,6 +1274,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
         a.cp[sk] = a.cp_in[sk];
       }
       if (g.has_absent) a.dl[sk] = a.dl_in[sk];
+      if (WIDE && g.has_logical) a.lm[sk] = a.lm_in[sk];
       for (int i = 0; i < RC; ++i) a.caps[sk * RC + i] = a.caps_in[sk * RC + i];
     }
   }
@@ -500,6 +1284,26 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
   int cnt = 0;                          // matches of this lane so far
   int lmt = 0, lmk = 0;                 // bank: the lane's last match
   const int* u0 = unit(g, 0);
+  // the widened instance's lane state and its telemetry rows: the CTA's
+  // lanes' [3S + 1] words, pass / fail / within drops accumulated in
+  // place, the occupancy gauge counted after the last event
+  int* stel = nullptr;
+  if constexpr (WIDE) {
+    if (a.tel_w > 0) {
+      int* rows = tiles + 2 * tile_ints + (SPT > 0 ? kThreads * SPT * RC : 0);
+      for (int i = tid; i < a.L * a.tel_w; i += kThreads) {
+        const int w = i % a.tel_w, pl = p0 + i / a.tel_w;
+        rows[i] = pl < a.P && (a.T == 0 || w >= g.S)
+                      ? a.tel_in[static_cast<long long>(pl) * a.tel_w + w]
+                      : 0;
+      }
+      __syncthreads();
+      stel = lane_ok ? rows + l * a.tel_w : nullptr;
+    }
+  }
+  Wide<SPT> w{g, a, sl, stel, &s_fill, G, gl, gbase, l, p, ns, cta,
+              lane_ok, gmask, arm_seq, drop, armed,
+              WIDE && lane_ok && a.sf_in ? a.sf_in[lane] : 0, 0};
 
   const int n_tiles = (a.T + a.TT - 1) / a.TT;
   for (int it = 0; it < n_tiles; ++it) {
@@ -525,6 +1329,17 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
         if (g.n_pcmp) gw = param_gates(g, gw, at, LT, sprm);
       }
       const bool v = lane_ok && (gw & kValidBit);
+      if constexpr (WIDE) {
+        w.t = t;
+        w.tsv = tsv;
+        w.sv = sv;
+        w.LT = LT;
+        w.gw = gw;
+        w.at = at;
+        w.v = v;
+        w.event();
+        continue;
+      }
       int ffree = -1;                   // first free slot of the lane
       bool occ = false;                 // a slot sits at units 0..occ_hi
 
@@ -690,6 +1505,40 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
     }
     __syncthreads();                    // the tile is free to refill
   }
+  if constexpr (!BANK && EXT) {
+    // the plain step's padding rows (invalid, at the last event's ts) run
+    // only the `within` expiry: once more at that ts
+    if (a.pad_within && g.has_within && lane_ok && a.T > 0) {
+      const int tl = a.ts[static_cast<long long>(p) * a.T + a.T - 1];
+      int n = 0;
+#pragma unroll
+      for (int s = 0; s < ns; ++s) {
+        const int k = gl + s * G;
+        if (k >= a.K) continue;
+        const int st = sl.st(s);
+        if (st >= 1 && sub32(tl, sl.start(s)) > g.within &&
+            !(WIDE && g.eps && st == 1 && sl.cp(s) == 0)) {
+          sl.st(s) = -1;
+          ++n;
+        }
+      }
+      if (WIDE && stel && n) atomicAdd(stel + 3 * g.S, n);
+    }
+  }
+  if constexpr (WIDE) {
+    arm_seq = w.arm_seq;
+    drop = w.drop;
+    armed = w.armed;
+    cnt = w.cnt;
+    if (stel && a.T > 0) {              // the occupancy gauge
+#pragma unroll
+      for (int s = 0; s < ns; ++s) {
+        const int k = gl + s * G;
+        if (k < a.K && sl.st(s) >= 0 && sl.st(s) < g.S)
+          atomicAdd(stel + sl.st(s), 1);
+      }
+    }
+  }
 
   // the bank may pass one carry as input and output: every thread of the
   // lane has read the lane's scalars before any is written
@@ -710,6 +1559,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
         a.cp[sk] = sl.cp(s);
       }
       if (g.has_absent) a.dl[sk] = sl.dl(s);
+      if (WIDE && g.has_logical) a.lm[sk] = sl.lm(s);
       for (int i = 0; i < RC; ++i) a.caps[sk * RC + i] = sl.c(s, i);
     }
     if (!BANK && g.has_absent) {
@@ -721,6 +1571,7 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
     a.armseq[lane] = arm_seq;
     a.dropped[lane] = drop;
     if (g.arm_once) a.armed[lane] = armed;
+    if (WIDE && a.sf) a.sf[lane] = w.sf;
     if constexpr (BANK) {
       a.count[lane] = cnt;
       a.lmt[lane] = lmt;
@@ -738,6 +1589,18 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
       if (tid == 0) a.dl_min[cta] = s_dl;
     }
     if (tid == 0) a.fill[cta] = s_fill;
+  }
+  if constexpr (WIDE) {
+    if (a.tel_w > 0) {
+      __syncthreads();
+      const int* rows =
+          tiles + 2 * tile_ints + (SPT > 0 ? kThreads * SPT * RC : 0);
+      for (int i = tid; i < a.L * a.tel_w; i += kThreads) {
+        const int pl = p0 + i / a.tel_w;
+        if (pl < a.P)
+          a.tel[static_cast<long long>(pl) * a.tel_w + i % a.tel_w] = rows[i];
+      }
+    }
   }
 }
 
@@ -874,22 +1737,29 @@ struct StepPlan {
 };
 
 // Tile size, slot instance and shared memory for a within `limit` bytes
-// (smem above the limit: no instance fits).
-StepPlan plan_step(StepArgs& a, bool bank, size_t limit) {
+// (smem above the limit: no instance fits); an instance of more than
+// `spt_max` slots a thread gives way to the wide ring.
+StepPlan plan_step(StepArgs& a, bool bank, size_t limit, int spt_max = 4) {
   a.spt = (a.K + a.G - 1) / a.G;
   a.L = kThreads / a.G;
   // events per tile: both buffers within kTileBytes, a power of two
   int tt = kMaxTileEvents;
   while (tt > 1 && 2LL * (3 + a.A) * a.L * tt * 4 > kTileBytes) tt >>= 1;
   a.TT = tt;
-  const int spt = a.spt <= 2 ? a.spt : (a.spt <= 4 ? 4 : 0);
+  int spt = a.spt <= 2 ? a.spt : (a.spt <= 4 ? 4 : 0);
+  if (spt > spt_max) spt = 0;
   const int prm_pad = bank ? (a.n_params + 3) & ~3 : 0;
   const size_t base =
       static_cast<size_t>(((a.prog_len + 3) & ~3) + prm_pad) * 4 +
       2ull * (3 + a.A) * a.L * a.TT * 4;
   const size_t caps_smem = static_cast<size_t>(kThreads) * spt * a.RC * 4;
-  if (spt > 0 && base + caps_smem <= limit) return {spt, base + caps_smem};
-  return {0, base};
+  const size_t tel = static_cast<size_t>(a.L) * a.tel_w * 4;
+  if (spt > 0 && base + caps_smem + tel <= limit)
+    return {spt, base + caps_smem + tel};
+  // the widened wide-ring instance keeps its per-slot event words in
+  // local arrays of kWideMaxSpt
+  if (a.wide && a.spt > kWideMaxSpt) return {0, limit + 1};
+  return {0, base + tel};
 }
 
 bool bad_geometry(int K, int T, int G, int A, int RC, int prog_len) {
@@ -938,12 +1808,96 @@ void set_carry(StepArgs& a, const CarryPtrs& i, const CarryOut& o) {
   a.dl = o.dl;
 }
 
+// the widened instance's leaves (in: lmask, seq_froze, telem; out: the
+// same), null where the spec's carry has none
+void set_wide(StepArgs& a, const int* const* in, int* const* out,
+              int flags, int tel_w) {
+  a.lm_in = in[0];
+  a.sf_in = in[1];
+  a.tel_in = in[2];
+  a.lm = out[0];
+  a.sf = out[1];
+  a.tel = out[2];
+  a.wide = (flags & kFlagWide) != 0;
+  a.pad_within = (flags & kFlagPadWithin) != 0;
+  a.tel_w = tel_w;
+}
+
+#define CARRY_PARAMS                                                        \
+  const int *st_in, const int *start_in, const int *enter_in,              \
+      const int *seq_in, const int *armseq_in, const float *caps_in,       \
+      const int *dropped_in, const int *armed_in, const int *cc_in,        \
+      const int *cp_in, const int *dl_in, int *st, int *start, int *enter, \
+      int *seq, int *armseq_out, float *caps, int *dropped_out,            \
+      int *armed_out, int *cc, int *cp, int *dl
+#define CARRY_IN                                                          \
+  CarryPtrs {                                                             \
+    st_in, start_in, enter_in, seq_in, armseq_in, caps_in, dropped_in,    \
+        armed_in, cc_in, cp_in, dl_in                                     \
+  }
+#define CARRY_OUT                                                         \
+  CarryOut {                                                              \
+    st, start, enter, seq, armseq_out, caps, dropped_out, armed_out, cc, \
+        cp, dl                                                            \
+  }
+
+// the widened leaves: in and out both or neither, telemetry with a width,
+// all of them only with the widened instance
+bool bad_wide(const int* lm_in, const int* sf_in, const int* tel_in,
+              const int* lm, const int* sf, const int* tel, int flags,
+              int tel_w) {
+  return (!lm_in != !lm) || (!sf_in != !sf) || (!tel_in != !tel) ||
+         (!tel_in != (tel_w <= 0)) || tel_w < 0 ||
+         (flags & ~(kFlagWide | kFlagPadWithin)) ||
+         (!(flags & kFlagWide) && (lm_in || sf_in || tel_in));
+}
+
 // a leaf every spec's carry has is null (the optional leaves are the
 // caller's to match to the program: ops/nfa._check_carry)
 bool missing_leaves(const CarryPtrs& i, const CarryOut& o) {
   return !i.st || !i.start || !i.enter || !i.seq || !i.armseq || !i.caps ||
          !i.dropped || !o.st || !o.start || !o.enter || !o.seq ||
          !o.armseq || !o.caps || !o.dropped;
+}
+
+// One block step's arguments from a C entry's (ops/nfa.py nfa_step_egress
+// passes them in KERNEL_CARRY's and WIDE_CARRY's order); false for a
+// geometry, a carry or a widened leaf set the kernels do not take.
+inline bool make_step_args(StepArgs& a, const float* attrs, const int* ts,
+                           const int* strm, const int* gates,
+                           const int* prog, int prog_len,
+                           const CarryPtrs& in, const CarryOut& out,
+                           int* rows, int* lane_count, int* fill,
+                           int* dl_min, const int* const* win,
+                           int* const* wout, int P, int T, int K, int G,
+                           int seg, int A, int RC, int flags, int tel_w) {
+  if (bad_geometry(K, T, G, A, RC, prog_len) || seg < 0 ||
+      missing_leaves(in, out) || ((in.dl != nullptr) != (dl_min != nullptr)) ||
+      bad_wide(win[0], win[1], win[2], wout[0], wout[1], wout[2], flags,
+               tel_w))
+    return false;
+  a.attrs = attrs;
+  a.ts = ts;
+  a.strm = strm;
+  a.gates = gates;
+  a.prog = prog;
+  set_carry(a, in, out);
+  set_wide(a, win, wout, flags, tel_w);
+  a.rows = rows;
+  a.lane_count = lane_count;
+  a.fill = fill;
+  a.dl_min = dl_min;
+  a.prog_len = prog_len;
+  a.P = P;
+  a.T = T;
+  a.K = K;
+  a.G = G;
+  a.seg = seg;
+  a.A = A;
+  a.RC = RC;
+  a.CN = 1;
+  a.n_params = 0;
+  return true;
 }
 
 }  // namespace

@@ -94,9 +94,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         # attrs, ts, stream, gates, prog, prog_len,
         # carry in (ops/nfa.KERNEL_CARRY: st, start, enter, seq, arm_seq,
         # caps, dropped, armed, cnt_cur, cnt_prev, deadline), carry out
-        # (the same eleven), rows, lane_count, fill, dl_min,
-        # P, T, K, G, seg, A, RC, stream
-        "nfa_step": (_I, [_VP] * 5 + [_I] + [_VP] * 26 + [_I] * 7 + [_VP]),
+        # (the same eleven), rows, lane_count, fill, dl_min, widened
+        # carry in (ops/nfa.WIDE_CARRY: lmask, seq_froze, telem), widened
+        # carry out, P, T, K, G, seg, A, RC, flags (ops/nfa.kernel_flags),
+        # tel_w, stream
+        "nfa_step": (_I, [_VP] * 5 + [_I] + [_VP] * 32 + [_I] * 9 + [_VP]),
         # rows, lane_count, fill, dropped, dl_min, slab, P, L, seg, n_cta,
         # cap, W, stream
         "nfa_compact": (_I, [_VP] * 6 + [_I] * 6 + [_VP]),
@@ -112,6 +114,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         # ring_caps, ring_ts, ring_ok, CN, P, K, RC, ring, tile, smem,
         # stream
         "nfa_bank_ring": (_I, [_VP] * 11 + [_I] * 7 + [_VP]),
+    },
+    "nfa_wide": {
+        # nfa_step's arguments, for a program with FLAG_WIDE
+        "nfa_step_wide": (_I, [_VP] * 5 + [_I] + [_VP] * 32 + [_I] * 9 +
+                          [_VP]),
     },
     "nfa_gang": {
         # tenants n -> bytes of the gang's device table

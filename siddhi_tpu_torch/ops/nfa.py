@@ -18,15 +18,18 @@ program.  The port computes the same function two ways:
     axis written out in place of ``vmap``), a Python loop over the
     block's T events.  Every unit kind, SEQUENCE, absent states and
     telemetry.  Used for CPU tensors and by the checks.
-  - the hand-written Hopper kernels ``csrc/nfa_step.cu`` — the step with
+  - the hand-written Hopper kernels ``csrc/nfa_step.cu`` (and
+    ``csrc/nfa_wide.cu``, the widened instance) — the step with
     the egress compaction fused behind it, launched by
     :func:`nfa_step_egress` for CUDA tensors, for the specs of its class
-    (:func:`kernel_class_reason`): simple units, kleene counts (not a
-    leading min-0 one) and absent units (not at the start), PATTERN,
-    `every` on the leading unit or none, optional `within`, no
-    telemetry.  Its conditions arrive as a block-wide capture-free gate
-    per condition plus a table of ``<event lane> <cmp> <capture lane>``
-    compares and,
+    (:func:`kernel_class_reason`): every unit kind, PATTERN and
+    SEQUENCE, every `every` form, leading min-0 counts and absent units,
+    optional `within` and telemetry; the specs beyond the simple, count
+    and absent units of PATTERN with a leading `every` run its widened
+    template instance (:func:`kernel_wide`).  Its conditions arrive as a
+    block-wide capture-free gate per condition plus a table of ``<event
+    lane> <cmp> <capture lane>`` compares, one of ``<capture lane> <cmp>
+    <constant>`` compares and,
     in a pattern bank, of ``<event lane> <cmp> <pattern constant>``
     compares (:class:`NfaKernelProgram`, built by plan/nfa_compiler.py).  The
     dense per-(p, t, slot) outputs never reach device memory: each
@@ -84,6 +87,13 @@ def resolve_batch_b(batch_b: Optional[int] = None) -> int:
         except ValueError:
             return DEFAULT_BATCH_B
     return max(1, int(batch_b))
+
+
+def spec_batch_b(spec: "NfaSpec", batch_b: Optional[int] = None) -> int:
+    """The B a step of ``spec`` runs at: ``batch_b``, else the spec's own
+    (else the BATCH_ENV default), through :func:`resolve_batch_b`."""
+    return resolve_batch_b(spec.batch_b or None) if batch_b is None \
+        else resolve_batch_b(batch_b)
 
 
 #: Chunk stacking: a bank of C homogeneous-shape pattern chunks steps as
@@ -280,7 +290,9 @@ class NfaKernelProgram(NamedTuple):
     ``CMP_OPS[op]`` capture lane ``(row, lane)``; ``pcmp[i]`` (pattern
     banks) its conjuncts ``(attr, param, op)``: event lane
     ``kern_attrs[attr]`` ``CMP_OPS[op]`` the pattern's float32 constant
-    ``param_names[param]``.  ``row_src`` is, per capture lane
+    ``param_names[param]``; ``ccmp[i]`` its conjuncts ``(row, lane, op,
+    constant)``: capture lane ``(row, lane)`` ``CMP_OPS[op]`` the float32
+    ``constant``.  ``row_src`` is, per capture lane
     ``r * C + c``, the kern_attrs index the event writes there (-1: 0.0,
     -2: 1.0).  ``reason`` names the first feature outside the kernel's
     class (None: inside)."""
@@ -291,18 +303,34 @@ class NfaKernelProgram(NamedTuple):
     reason: Optional[str]
     pcmp: Tuple[Tuple[Tuple[int, int, int], ...], ...] = ()
     param_names: Tuple[str, ...] = ()
+    ccmp: Tuple[Tuple[Tuple[int, int, int, float], ...], ...] = ()
+
+
+#: mid-chain `every` groups the widened instance holds a clone rank for
+MAX_MID_EVERY = 4
 
 
 def kernel_class_reason(spec: NfaSpec) -> Optional[str]:
     """The first structural feature of ``spec`` outside the CUDA kernel's
-    class, or None.  The class: simple units, kleene counts ``<m:n>``
-    (anywhere but a leading min-0 one) and absent units ``not … for t``
-    (anywhere but the start), under PATTERN semantics.  The condition
-    forms are checked by the compiler (NfaKernelProgram.reason)."""
-    for u in spec.units:
-        if u.kind not in ("simple", "count", "absent"):
-            return {"logical": "logical and/or states"}.get(
-                u.kind, f"{u.kind} states")
+    class, or None.  The class is the JAX step's: every unit kind, PATTERN
+    and SEQUENCE, every `every` form, leading min-0 counts and absent
+    units, `within`, telemetry — with at most 31 conditions (bit 31 of
+    the gate word is the event's __valid) and MAX_MID_EVERY mid-chain
+    `every` groups.  The condition forms are checked by the compiler
+    (NfaKernelProgram.reason)."""
+    if len(spec.cond_fns) > 31:
+        return "more than 31 conditions"
+    if len(spec.mid_every) > MAX_MID_EVERY:
+        return f"more than {MAX_MID_EVERY} mid-chain `every` groups"
+    return None
+
+
+def _structural_wide(spec: NfaSpec) -> Optional[str]:
+    """The first feature of ``spec`` beyond the simple, count and absent
+    units of PATTERN with a leading `every` (or none), no telemetry, or
+    None."""
+    if _has(spec, "logical"):
+        return "logical and/or states"
     if spec.eps_start:
         return "a leading min-0 kleene count (<0:n>) state"
     if spec.lead_absent:
@@ -317,8 +345,34 @@ def kernel_class_reason(spec: NfaSpec) -> Optional[str]:
         return "trailing `every`"
     if spec.telemetry:
         return "on-device telemetry"
-    if len(spec.cond_fns) > 31:
-        return "more than 31 conditions"
+    return None
+
+
+def kernel_wide(spec: NfaSpec, kprog: NfaKernelProgram) -> bool:
+    """True when the step runs csrc/nfa_wide.cu's widened template
+    instance: a structural feature beyond the simple, count and absent
+    units of PATTERN with a leading `every` (:func:`_structural_wide`), a
+    ``<capture> <cmp> <constant>`` compare, or a capture compare in unit
+    0's condition (read, as the plain step reads it, against slot 0)."""
+    return _structural_wide(spec) is not None or \
+        any(kprog.ccmp) or bool(kprog.cmp[spec.units[0].cond_a])
+
+
+def bank_class_reason(spec: NfaSpec,
+                      kprog: NfaKernelProgram) -> Optional[str]:
+    """The first feature outside the pattern bank's kernels (K3), or
+    None: they take the step's simple, count and absent units of PATTERN
+    with a leading `every`, no telemetry, and conditions of gate bits,
+    event-to-capture and event-to-constant compares."""
+    if kprog.reason is not None:
+        return kprog.reason
+    wide = _structural_wide(spec)
+    if wide is not None:
+        return wide
+    if any(kprog.ccmp):
+        return "a `<capture> <cmp> <constant>` compare in a condition"
+    if kprog.cmp[spec.units[0].cond_a]:
+        return "a capture compare in the first condition"
     return None
 
 
@@ -335,6 +389,9 @@ def _model_cond(kprog: NfaKernelProgram, event, i: int,
     for attr, row, lane, op in kprog.cmp[i]:
         x = event[kprog.kern_attrs[attr]][:, None]
         ok = ok & _CMP_FNS[op](x, caps[:, :, row, lane])
+    for row, lane, op, c in (kprog.ccmp[i] if kprog.ccmp else ()):
+        ok = ok & _CMP_FNS[op](caps[:, :, row, lane], torch.tensor(
+            c, dtype=torch.float32, device=caps.device))
     return ok.expand(caps.shape[0], caps.shape[1])
 
 
@@ -1131,17 +1188,19 @@ def nfa_block_step_plain(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     loop over T.  Functional: the input carry is not modified.
 
     With B > 1 (``batch_b``, default the spec's) capture-free conditions
-    are hoisted block-wide first, as in the JAX package.  With ``kprog``
-    every condition is computed from the kernel's inputs instead (its
-    gate word and compare table): the CPU model of csrc/nfa_step.cu."""
-    B = resolve_batch_b(spec.batch_b or None) if batch_b is None \
-        else resolve_batch_b(batch_b)
+    are hoisted block-wide first, as in the JAX package, and the block is
+    padded to a multiple of B with invalid rows (:func:`_pad_block_t`).
+    With ``kprog`` every condition is computed from the kernel's inputs
+    instead (its gate word and compare tables): the CPU model of
+    csrc/nfa_step.cu, padded alike."""
+    B = spec_batch_b(spec, batch_b)
     events = dict(block)
     T = int(events["__ts"].shape[1])
     if kprog is not None:
         events[KGATE] = kernel_gate_word(spec, kprog, events)
     elif B > 1:
         events.update(_hoist_cond_gates(spec, events))
+    if B > 1:
         events, T, _ticks = _pad_block_t(events, B)
     steps = int(events["__ts"].shape[1])
     P, K = events["__ts"].shape[0], spec.n_slots
@@ -1163,6 +1222,16 @@ def nfa_block_step_plain(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     outs = tuple(torch.stack([y[i] for y in ys], dim=1)[:, :T]
                  for i in range(5))
     return c, outs
+
+
+def build_block_step(spec: NfaSpec, batch_b: Optional[int] = None):
+    """The JAX package's ``build_block_step`` under its name: a callable
+    ``(carry, block) → (new carry, (mask, caps, ts, enter, seq))`` that
+    runs :func:`nfa_block_step_plain` at ``batch_b`` events a tick (the
+    block's T padded up to a multiple of B, ceil(T / B) ticks)."""
+    def step(carry, block):
+        return nfa_block_step_plain(spec, carry, block, batch_b)
+    return step
 
 
 def make_timer_block(n_partitions: int, ts_offset: int,
@@ -1252,10 +1321,16 @@ def _leaf_shape(name: str, K: int, R: int, C: int) -> Tuple[int, ...]:
             "captures": (K, R, C)}.get(name, (K,))
 
 
-def _carry_ptrs(carry: Dict[str, torch.Tensor]) -> List[Optional[int]]:
-    """KERNEL_CARRY's data pointers, None for a leaf the carry lacks."""
-    return [carry[k].data_ptr() if k in carry else None
-            for k in KERNEL_CARRY]
+#: the carry leaves the step's widened instance reads and writes besides
+#: KERNEL_CARRY (logical units, SEQUENCE's leading min-0 count,
+#: telemetry), passed after it by the step and the gang
+WIDE_CARRY = ("lmask", "seq_froze", "telem")
+
+
+def _carry_ptrs(carry: Dict[str, torch.Tensor],
+                names=KERNEL_CARRY) -> List[Optional[int]]:
+    """``names``' data pointers, None for a leaf the carry lacks."""
+    return [carry[k].data_ptr() if k in carry else None for k in names]
 
 #: threads per CTA of csrc/nfa_step.cu's step kernel
 KERNEL_THREADS = 256
@@ -1280,10 +1355,16 @@ def default_segment(lanes_per_cta: int) -> int:
 
 
 #: unit kinds as csrc/nfa_step.cu numbers them
-UNIT_KINDS = ("simple", "count", "absent")
-#: words of csrc/nfa_step.cu's program header and of one unit's entry
-PROG_HEADER = 12
+UNIT_KINDS = ("simple", "count", "absent", "logical")
+#: words of csrc/nfa_step.cu's program header, of one unit's entry and of
+#: one unit's entry in the widened table
+PROG_HEADER = 24
 UNIT_WORDS = 11
+WIDE_UNIT_WORDS = 4
+#: the header's words from 12 on: the widened instance's
+WIDE_HEADER = ("wide", "is_sequence", "is_every", "every_group_end",
+               "tail_every_start", "eps_start", "lead_absent", "dead_start",
+               "telemetry", "has_logical", "n_mid", "n_ccmp")
 
 
 def _count_row_words(spec: NfaSpec, row: int) -> List[int]:
@@ -1318,20 +1399,27 @@ def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
     csrc/nfa_step.cu reads:
 
       S, R, C, has_within, within_ms, arm_once, n_cond, n_cmp, n_pcmp,
-      has_count, has_absent, occ_hi,
+      has_count, has_absent, occ_hi, WIDE_HEADER (12 words),
       S × (kind, stream, cond, row, min, max, waiting_ms, land, live0,
            app0, app1),
       R·C × row_src, (R + 1) × rowx_start, the count rows' layouts
       (:func:`_count_row_words`; other rows none),
       (n_cond + 1) × cmp_start, n_cmp × (attr, row, lane, op),
-      (n_cond + 1) × pcmp_start, n_pcmp × (attr, param, op)
+      (n_cond + 1) × pcmp_start, n_pcmp × (attr, param, op),
+      S × (stream_b, cond_b, row_b, is_and),
+      n_mid × (g0, g1) in ascending g0,
+      (n_cond + 1) × ccmp_start, n_ccmp × (row, lane, op, constant's
+      float32 bits)
 
     ``occ_hi``: arming waits while a slot of the lane sits at units
     0..occ_hi (-1: never).  Per unit j: ``kind`` a UNIT_KINDS index; ``land`` and ``live0``
     where a slot advancing out of j goes (:func:`_land_static`; land >=
     S: the chain completes); ``app0``, ``app1`` the count units, in
     ascending order, whose forwarded count keeps appending while a slot
-    waits at j (-1: none)."""
+    waits at j (-1: none).  ``wide`` is :func:`kernel_wide`; the other
+    widened words are the spec's fields of those names (``n_mid``: its
+    mid-chain `every` groups, ``n_ccmp``: the capture-to-constant
+    compares), read by the widened instance alone."""
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
     S = len(spec.units)
 
@@ -1344,11 +1432,21 @@ def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
         return start, flat
     cmp_start, cmp = table(kprog.cmp)
     pcmp_start, pcmp = table(kprog.pcmp or [()] * len(kprog.cmp))
+    ccmp_start, ccmp = table(
+        [[(r, ln, op, int(np.float32(c).view(np.int32)))
+          for (r, ln, op, c) in q]
+         for q in (kprog.ccmp or [()] * len(kprog.cmp))])
+    mids = sorted(spec.mid_every)
     prog = [S, R, C, int(spec.within_ms is not None),
             int(spec.within_ms or 0), int(spec.arm_once),
             len(kprog.cmp), cmp_start[-1], pcmp_start[-1],
             int(_has(spec, "count")), int(_has(spec, "absent")),
-            _occ_hi(spec)]
+            _occ_hi(spec),
+            int(kernel_wide(spec, kprog)), int(spec.is_sequence),
+            int(spec.is_every), spec.every_group_end, spec.tail_every_start,
+            int(spec.eps_start), int(spec.lead_absent), int(spec.dead_start),
+            int(spec.telemetry), int(_has(spec, "logical")), len(mids),
+            ccmp_start[-1]]
     apps: Dict[int, List[int]] = {}
     for j, u in enumerate(spec.units):
         t, _live0, completed = _land_static(spec, j)
@@ -1371,7 +1469,11 @@ def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
         rowx_start.append(len(rowx))
     prog += list(kprog.row_src) + rowx_start + rowx + cmp_start + cmp + \
         pcmp_start + pcmp
-    return prog
+    for u in spec.units:
+        prog += [u.stream_b, u.cond_b, u.row_b, int(u.is_and)]
+    for g0, g1 in mids:
+        prog += [g0, g1]
+    return prog + ccmp_start + ccmp
 
 
 def _prog_tensor(spec: NfaSpec, kprog: NfaKernelProgram, dev) -> torch.Tensor:
@@ -1406,14 +1508,19 @@ def _check_carry(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
     want = {"armed_total": spec.arm_once, "cnt_cur": _has(spec, "count"),
             "cnt_prev": _has(spec, "count"),
-            "deadline": _has(spec, "absent")}
-    for name in KERNEL_CARRY:
+            "deadline": _has(spec, "absent"),
+            "lmask": _has(spec, "logical"),
+            "seq_froze": spec.eps_start and spec.is_sequence,
+            "telem": spec.telemetry}
+    shape = {"seq_froze": (), "telem": (3 * len(spec.units) + 1,)}
+    for name in KERNEL_CARRY + WIDE_CARRY:
         if not want.get(name, True):
             continue
         if name not in carry:
             raise ValueError(f"{who}: the carry has no {name}")
         _check(name, carry[name], carry_dtype(name),
-               tuple(lead) + _leaf_shape(name, K, R, C), dev, who)
+               tuple(lead) + shape.get(name, _leaf_shape(name, K, R, C)),
+               dev, who)
 
 
 def nfa_compact(rows: torch.Tensor, lane_count: torch.Tensor,
@@ -1484,12 +1591,31 @@ class _KernelCall(NamedTuple):
     seg: int
     A: int
     width: int
+    flags: int
+    tel_w: int
+
+
+#: csrc/nfa_step.cu's step flags: the widened instance, and one more
+#: `within` pass after the last event at its ts (the invalid rows that
+#: pad the plain step's block to a multiple of B, :func:`_pad_block_t`)
+FLAG_WIDE = 1
+FLAG_PAD_WITHIN = 2
+
+
+def kernel_flags(spec: NfaSpec, kprog: NfaKernelProgram, T: int,
+                 batch_b: Optional[int] = None) -> int:
+    """The step's flags for a [P, T] block at B = ``batch_b`` (default
+    the spec's), as :func:`nfa_block_step_plain` steps it."""
+    B = spec_batch_b(spec, batch_b)
+    pad = B > 1 and T % B != 0 and spec.within_ms is not None
+    return (FLAG_WIDE if kernel_wide(spec, kprog) else 0) | \
+        (FLAG_PAD_WITHIN if pad else 0)
 
 
 def _kernel_call(spec: NfaSpec, carry: Dict[str, torch.Tensor],
                  block: Dict[str, torch.Tensor],
                  kprog: Optional[NfaKernelProgram], seg: Optional[int],
-                 who: str) -> _KernelCall:
+                 who: str, batch_b: Optional[int] = None) -> _KernelCall:
     """Check one block's tensors against the kernel's class and layout,
     build its gate word (the torch condition programs, K5) and allocate
     the new carry and the step's scratch."""
@@ -1524,7 +1650,7 @@ def _kernel_call(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         attrs = torch.zeros((1,), dtype=torch.float32, device=dev)
     gates = kernel_gate_word(spec, kprog, block)
     gates = torch.where(block["__valid"], gates | _VALID_BIT, gates)
-    new = {k: torch.empty_like(carry[k]) for k in KERNEL_CARRY
+    new = {k: torch.empty_like(carry[k]) for k in KERNEL_CARRY + WIDE_CARRY
            if k in carry}
     width = 4 + R * C
     i32 = dict(dtype=torch.int32, device=dev)
@@ -1536,7 +1662,9 @@ def _kernel_call(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         fill=torch.empty((n_cta,), **i32),
         dl_min=(torch.empty((n_cta,), **i32) if "deadline" in carry
                 else None),
-        P=P, T=T, K=K, G=G, L=L, seg=seg, A=A, width=width)
+        P=P, T=T, K=K, G=G, L=L, seg=seg, A=A, width=width,
+        flags=kernel_flags(spec, kprog, T, batch_b),
+        tel_w=3 * len(spec.units) + 1 if spec.telemetry else 0)
 
 
 def _repack_of(k: _KernelCall) -> Callable[[int], torch.Tensor]:
@@ -1567,15 +1695,19 @@ def nfa_step_egress(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     dev = block["__ts"].device
     if dev.type == "cpu":
         return _step_egress_plain(spec, carry, block, cap, batch_b)
-    k = _kernel_call(spec, carry, block, kprog, seg, "nfa_step_egress")
-    lib = load_kernel("nfa_step")
-    rc = lib.nfa_step(
+    k = _kernel_call(spec, carry, block, kprog, seg, "nfa_step_egress",
+                     batch_b)
+    # the widened instance is csrc/nfa_wide.cu's (nfa_step's arguments)
+    step = load_kernel("nfa_wide").nfa_step_wide if k.flags & FLAG_WIDE \
+        else load_kernel("nfa_step").nfa_step
+    rc = step(
         k.attrs.data_ptr(), block["__ts"].data_ptr(),
         block["__stream"].data_ptr(), k.gates.data_ptr(), k.prog.data_ptr(),
         k.prog.numel(), *_carry_ptrs(carry), *_carry_ptrs(k.new),
         k.rows.data_ptr(), k.lane_count.data_ptr(), k.fill.data_ptr(),
         None if k.dl_min is None else k.dl_min.data_ptr(),
-        k.P, k.T, k.K, k.G, k.seg, k.A, k.width - 4,
+        *_carry_ptrs(carry, WIDE_CARRY), *_carry_ptrs(k.new, WIDE_CARRY),
+        k.P, k.T, k.K, k.G, k.seg, k.A, k.width - 4, k.flags, k.tel_w,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nfa_step: launch failed with CUDA error {rc}")
@@ -1650,8 +1782,9 @@ def nfa_gang_step_egress_plain(tenants: List[GangTenant],
 #: int64 words a tenant in the gang's host descriptor (csrc/nfa_gang.cu
 #: kGangFields): attrs, ts, stream, gates, prog, prog_len, carry in (11,
 #: KERNEL_CARRY), carry out (11), rows, lane_count, fill, dl_min, P, T,
-#: K, G, seg, A, RC, slab, cap, W
-GANG_FIELDS = 42
+#: K, G, seg, A, RC, slab, cap, W, WIDE_CARRY in (3), WIDE_CARRY out
+#: (3), flags (FLAG_WIDE, FLAG_PAD_WITHIN), tel_w
+GANG_FIELDS = 50
 
 
 def nfa_gang_step_egress(tenants: List[GangTenant],
@@ -1678,7 +1811,7 @@ def nfa_gang_step_egress(tenants: List[GangTenant],
     dev = tenants[0].block["__ts"].device
     width = _gang_width(tenants)
     calls = [_kernel_call(t.spec, t.carry, t.block, t.kprog, t.seg,
-                          "nfa_gang_step_egress") for t in tenants]
+                          "nfa_gang_step_egress", batch_b) for t in tenants]
     if len({(k.K, k.G) for k in calls}) > 1:
         raise ValueError("nfa_gang_step_egress: tenants' K differ (one "
                          "bucket shares K)")
@@ -1696,7 +1829,10 @@ def nfa_gang_step_egress(tenants: List[GangTenant],
             [k.rows.data_ptr(), k.lane_count.data_ptr(), k.fill.data_ptr(),
              0 if k.dl_min is None else k.dl_min.data_ptr(),
              k.P, k.T, k.K, k.G, k.seg, k.A, width - 4,
-             buf.data_ptr() + off * width * 4, t.cap, width]
+             buf.data_ptr() + off * width * 4, t.cap, width] + \
+            [p or 0 for p in _carry_ptrs(t.carry, WIDE_CARRY)] + \
+            [p or 0 for p in _carry_ptrs(k.new, WIDE_CARRY)] + \
+            [k.flags, k.tel_w]
         desc[i] = ptrs
         off += r
     lib = load_kernel("nfa_gang")
@@ -1819,8 +1955,7 @@ def bank_lanes_plain(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     events as lane columns); ``kprog`` computes every condition from the
     kernel's inputs instead (the CPU model of csrc/nfa_step.cu's bank
     step).  Functional: the input carry is not modified."""
-    B = resolve_batch_b(spec.batch_b or None) if batch_b is None \
-        else resolve_batch_b(batch_b)
+    B = spec_batch_b(spec, batch_b)
     lead = _bank_lead(carry)
     CN = int(np.prod(lead)) if lead else 1
     P, T = (int(x) for x in block["__ts"].shape)
@@ -2363,10 +2498,11 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     dev = block["__ts"].device
     if dev.type == "cpu":
         return bank_lanes_plain(spec, carry, block, params, batch_b)
-    if kprog is None or kprog.reason is not None:
+    reason = "no kernel program" if kprog is None else \
+        bank_class_reason(spec, kprog)
+    if reason is not None:
         raise RuntimeError(
-            "nfa_bank_step: spec outside the CUDA kernel's class ("
-            f"{'no kernel program' if kprog is None else kprog.reason})")
+            f"nfa_bank_step: spec outside the CUDA kernel's class ({reason})")
     if dev.type != "cuda":
         raise RuntimeError(f"nfa_bank_step: no kernel for device {dev}")
     lead = _bank_lead(carry)

@@ -42,7 +42,8 @@ import torch
 
 from ..compiler import SiddhiCompiler
 from ..ops.nfa import (CMP_OPS, COUNT_INF, NfaKernelProgram, NfaSpec,
-                       UnitSpec, carry_dtype, kernel_class_reason,
+                       UnitSpec, bank_class_reason, carry_dtype,
+                       kernel_class_reason,
                        make_bank_carry, make_carry, make_timer_block,
                        nfa_bank_step, nfa_step_egress, resolve_batch_b,
                        resolve_stack)
@@ -1070,9 +1071,12 @@ class CompiledPatternNFA:
             cond_free=tuple(cond_free), batch_b=self.batch_b,
             telemetry=bool(telemetry))
         self.kprog = self._kernel_program(kern_conds)
-        if self.device.type == "cuda" and self.kprog.reason is not None:
+        # a bank's template is held to the bank kernels' narrower class
+        reason = bank_class_reason(self.spec, self.kprog) if parameterize \
+            else self.kprog.reason
+        if self.device.type == "cuda" and reason is not None:
             raise SiddhiAppCreationError(
-                f"device pattern path: {self.kprog.reason} not yet ported "
+                f"device pattern path: {reason} not yet ported "
                 f"to the CUDA NFA kernel")
         self.has_absent = any(u.kind == "absent" for u in self.units)
         self.last_min_deadline: Optional[int] = None
@@ -1083,8 +1087,9 @@ class CompiledPatternNFA:
         self._egress_seg: Optional[int] = None
         self.n_partitions = n_partitions
         # a parameterized compile is a bank's template: the bank holds the
-        # [N, P, ...] carries and builds its own step
-        self.carry = None if parameterize else self._place_carry(
+        # [N, P, ...] carries and builds its own step; the template keeps
+        # a [P, ...] carry of its spec, as the reference's does
+        self.carry = self._place_carry(
             make_carry(self.spec, n_partitions, self.device))
         self._step = None if parameterize else self._build_step()
         self.base_ts: Optional[int] = None
@@ -1539,7 +1544,7 @@ class CompiledPatternNFA:
             def true_fn(event, captures, _dev=self.device):
                 return torch.ones((event["__ts"].shape[0],),
                                   dtype=torch.bool, device=_dev)
-            return true_fn, True, (true_fn, (), ())
+            return true_fn, True, (true_fn, (), (), ())
         expr, cnt_rows = self._condition_expr(side)
 
         # rows this condition references → validity gates for nullable rows
@@ -1571,7 +1576,7 @@ class CompiledPatternNFA:
         fn = self._cond_fn(compiler.compile(expr), side, gate_rows,
                            cnt_rows)
         if free_flag[0] and not self._reads_params(expr):
-            return fn, True, (fn, (), ())
+            return fn, True, (fn, (), (), ())
         if gate_rows or any(not self._guard_holds(side, r)
                             for r in cnt_rows):
             return fn, free_flag[0], "nullable-state and kleene-length " \
@@ -1619,12 +1624,14 @@ class CompiledPatternNFA:
         takes it: its AND conjuncts that read only the event fold into one
         gate program (shared by every pattern of a bank), each conjunct
         reading a constant lane must be ``<event attr> <cmp> <constant>``
-        and each other one ``<event attr> <cmp> <capture attr>`` (either
-        side first; a capture of another unit's first bank, or of an
-        earlier kleene count's ``[last]`` bank) → (gate fn, ((attr, row, lane, op),
-        ...), ((attr, param, op), ...)) with attr an attribute name and
-        param a parameter lane name; or the reason it is outside the
-        kernel's class."""
+        and each other one ``<event attr> <cmp> <capture attr>`` or
+        ``<capture attr> <cmp> <numeric constant>`` (either side first; a
+        capture of another unit's first bank, or of an earlier kleene
+        count's ``[last]`` bank) → (gate fn, ((attr, row, lane, op), ...),
+        ((attr, param, op), ...), ((row, lane, op, constant), ...)) with
+        attr an attribute name, param a parameter lane name and constant
+        the float32 value the condition compares in; or the reason it is
+        outside the kernel's class."""
         conj: List[Any] = []
 
         def flat(e):
@@ -1638,7 +1645,24 @@ class CompiledPatternNFA:
                CompareOp.GTE: ">=", CompareOp.EQ: "==", CompareOp.NEQ: "!="}
         mirror = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "==": "==",
                   "!=": "!="}
-        free, cmps, pcmps = [], [], []
+        free, cmps, pcmps, ccmps = [], [], [], []
+
+        def numeric(e):
+            return isinstance(e, Constant) and \
+                isinstance(e.value, (int, float)) and \
+                not isinstance(e.value, bool)
+
+        def cap_lane(other, cap):
+            """(row, lane) of capture ``cap`` read through ``other``'s
+            row, or None outside the kernel's banks."""
+            which = "l" if cap.stream_index == -1 else "f"
+            lane = self.cap_lane.get((other.row, cap.attribute, which))
+            if cap.stream_index not in (None, 0, -1) or lane is None or \
+                    other.row < 0 or \
+                    (which == "l" and self.units[self.row_unit[other.row]]
+                     .kind != "count"):
+                return None
+            return other.row, lane
         for c in conj:
             srcs: List[str] = []
             _scan_vars(c, lambda v, _acc=srcs:
@@ -1663,8 +1687,23 @@ class CompiledPatternNFA:
                 free.append(c)
                 continue
             form = "a capture reference outside `<attr> <cmp> " \
-                "<capture attr>` (arithmetic, functions, or, not) in a " \
-                "condition"
+                "<capture attr>` and `<capture attr> <cmp> <constant>` " \
+                "(arithmetic, functions, or, not) in a condition"
+            if isinstance(c, Compare) and c.op in ops and \
+                    (numeric(c.left) or numeric(c.right)):
+                op = ops[c.op]
+                cap, const = c.left, c.right
+                if numeric(c.left):
+                    cap, const, op = c.right, c.left, mirror[op]
+                if not isinstance(cap, Variable):
+                    return form
+                kind, other = self._var_source(side, cap)
+                rl = cap_lane(other, cap) if kind == "cap" else None
+                if rl is None:
+                    return form
+                ccmps.append(rl + (CMP_OPS.index(op),
+                                   float(np.float32(const.value))))
+                continue
             if not (isinstance(c, Compare) and c.op in ops and
                     isinstance(c.left, Variable) and
                     isinstance(c.right, Variable)):
@@ -1679,14 +1718,10 @@ class CompiledPatternNFA:
                 ev, cap, op = c.right, c.left, mirror[op]
             other = ls if lk == "cap" else rs
             # a count row's first bank (index 0 or none) or last bank
-            which = "l" if cap.stream_index == -1 else "f"
-            lane = self.cap_lane.get((other.row, cap.attribute, which))
-            if cap.stream_index not in (None, 0, -1) or lane is None or \
-                    other.row < 0 or ev.attribute not in self.attr_names or \
-                    (which == "l" and self.units[self.row_unit[other.row]]
-                     .kind != "count"):
+            rl = cap_lane(other, cap)
+            if rl is None or ev.attribute not in self.attr_names:
                 return form
-            cmps.append((ev.attribute, other.row, lane, CMP_OPS.index(op)))
+            cmps.append((ev.attribute,) + rl + (CMP_OPS.index(op),))
         if free:
             g = free[0]
             for c in free[1:]:
@@ -1696,7 +1731,7 @@ class CompiledPatternNFA:
             def gate(event, captures, _dev=self.device):
                 return torch.ones((event["__ts"].shape[0],),
                                   dtype=torch.bool, device=_dev)
-        return gate, tuple(cmps), tuple(pcmps)
+        return gate, tuple(cmps), tuple(pcmps), tuple(ccmps)
 
     def _kernel_program(self, kern_conds) -> NfaKernelProgram:
         """The spec as the CUDA kernel takes it (ops/nfa
@@ -1707,9 +1742,6 @@ class CompiledPatternNFA:
         for kc in kern_conds:
             if reason is None and isinstance(kc, str):
                 reason = kc
-        u0 = spec.units[0]
-        if reason is None and kern_conds[u0.cond_a][1]:
-            reason = "a capture compare in the first condition"
         kern_attrs: List[str] = []
 
         def attr_ix(a):
@@ -1727,23 +1759,25 @@ class CompiledPatternNFA:
                     row_src.append(attr_ix(cols[c]))
                 else:
                     row_src.append(-2)       # __matched / __n default 1.0
-        gate_fns, cmp, pcmp = [], [], []
+        gate_fns, cmp, pcmp, ccmp = [], [], [], []
         for kc in kern_conds:
             if isinstance(kc, str):
                 gate_fns.append(None)
                 cmp.append(())
                 pcmp.append(())
+                ccmp.append(())
                 continue
             gate_fns.append(kc[0])
             cmp.append(tuple((attr_ix(a), r, ln, op)
                              for (a, r, ln, op) in kc[1]))
             pcmp.append(tuple((attr_ix(a), self.param_names.index(pn), op)
                               for (a, pn, op) in kc[2]))
+            ccmp.append(tuple(kc[3]))
         return NfaKernelProgram(
             gate_fns=tuple(gate_fns), cmp=tuple(cmp),
             kern_attrs=tuple(kern_attrs), row_src=tuple(row_src),
             reason=reason, pcmp=tuple(pcmp),
-            param_names=tuple(self.param_names))
+            param_names=tuple(self.param_names), ccmp=tuple(ccmp))
 
     def extract_params(self, app_string: str,
                        query_name: Optional[str] = None) -> Dict[str, float]:
@@ -1880,10 +1914,9 @@ class CompiledPatternNFA:
         if n_slots <= self.spec.n_slots:
             return
         self._xt_sync()
-        if not self._parameterize:
-            R, C = max(self.spec.n_rows, 1), max(self.spec.n_caps, 1)
-            self.carry = self._place_carry(_widen_slots(
-                self.carry, 1, n_slots - self.spec.n_slots, R, C))
+        R, C = max(self.spec.n_rows, 1), max(self.spec.n_caps, 1)
+        self.carry = self._place_carry(_widen_slots(
+            self.carry, 1, n_slots - self.spec.n_slots, R, C))
         self.spec = self.spec._replace(n_slots=n_slots)
         if not self._parameterize:
             self._step = self._build_step(trigger="grow")

@@ -312,13 +312,17 @@ def test_chip_smoke_block_reference_equals_jax_bank(T_):
 
 def test_bank_template_holds_no_carry():
     """The bank's parameterized compile is a template: the bank holds the
-    carries and builds its own step, so the template allocates neither,
-    and growing the bank's slots widens only the bank's carries."""
+    carries it steps and builds its own step, so the template builds no
+    step; it keeps the [P, ...] carry of its spec, as the reference's
+    does (not stepped), and growing the bank's slots widens it beside
+    the bank's carries."""
     bank = TorchBank([_app(t) for t in THRS], n_partitions=P, n_slots=2,
                      pattern_chunk=4, ring=4, device="cpu")
-    assert bank.nfa.carry is None and bank.nfa._step is None
+    assert bank.nfa._step is None
+    assert tuple(bank.nfa.carry["slot_state"].shape) == (P, 2)
     bank.grow_slots(4)
-    assert bank.nfa.spec.n_slots == 4 and bank.nfa.carry is None
+    assert bank.nfa.spec.n_slots == 4
+    assert tuple(bank.nfa.carry["slot_state"].shape) == (P, 4)
     assert all(c["slot_state"].shape[-1] == 4 for c in bank.carries)
     with pytest.raises(SiddhiAppCreationError, match="no carry"):
         bank.nfa.grow(2 * P)

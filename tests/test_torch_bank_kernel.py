@@ -50,6 +50,7 @@ from siddhi_tpu.plan.nfa_compiler import \
     CompiledPatternBank as JaxBank  # noqa: E402
 from siddhi_tpu_torch.ops.nfa import (BANK_GROUPS, CMP_OPS,  # noqa: E402
                                       PROG_HEADER, SMEM_LIMIT, UNIT_WORDS,
+                                      WIDE_HEADER, WIDE_UNIT_WORDS,
                                       bank_geometry,
                                       bank_lanes_plain, bank_ring_model,
                                       bank_ring_plain, bank_thread_model,
@@ -406,6 +407,15 @@ def parse_prog(prog):
                      for i in range(n_cond))
     h["cmp"] = table(4, h["n_cmp"])
     h["pcmp"] = table(3, h["n_pcmp"])
+    h.update(zip(WIDE_HEADER, prog[12:PROG_HEADER]))
+    h["units_b"] = [tuple(prog[pos + WIDE_UNIT_WORDS * j:
+                               pos + WIDE_UNIT_WORDS * (j + 1)])
+                    for j in range(S)]
+    pos += WIDE_UNIT_WORDS * S
+    h["mid"] = [tuple(prog[pos + 2 * q:pos + 2 * q + 2])
+                for q in range(h["n_mid"])]
+    pos += 2 * h["n_mid"]
+    h["ccmp"] = table(4, h["n_ccmp"])
     assert pos == len(prog)
     return h
 

@@ -8,9 +8,10 @@ collection:
 
   - an import hook mapping the name ``siddhi_tpu`` (and every
     ``siddhi_tpu.<module>``) onto ``siddhi_tpu_torch``;
-  - ``SiddhiManager`` and ``CompiledWindowedAgg`` defaulting to
-    ``device="cpu"`` (the port's default is the card), so the device
-    engine runs the plain PyTorch steps.
+  - ``SiddhiManager``, ``CompiledWindowedAgg``, ``CompiledPatternNFA``
+    and ``CompiledPatternBank`` defaulting to ``device="cpu"`` (the
+    port's default is the card), so the device engine runs the plain
+    PyTorch steps.
 
 The run must pass, and must not have imported jax.  A suite test the
 port cannot pass stays in ``SKIPS`` with its reason (ROADMAP Queue 3
@@ -87,6 +88,20 @@ PLUGIN = textwrap.dedent('''
 
 
     _wc.CompiledWindowedAgg.__init__ = _cwa_cpu_default
+
+    import siddhi_tpu_torch.plan.nfa_compiler as _nc  # noqa: E402
+
+
+    def _cpu_compiler(cls):
+        init = cls.__init__
+
+        def _init_cpu(self, *a, device=None, **k):
+            init(self, *a, device="cpu" if device is None else device, **k)
+        cls.__init__ = _init_cpu
+
+
+    _cpu_compiler(_nc.CompiledPatternNFA)
+    _cpu_compiler(_nc.CompiledPatternBank)
     SKIPS = json.loads(%r)
     OUT = %r
 

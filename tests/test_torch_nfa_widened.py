@@ -45,7 +45,8 @@ from siddhi_tpu.plan.nfa_compiler import \
 from siddhi_tpu.plan.nfa_compiler import \
     CompiledPatternNFA as JaxNFA  # noqa: E402
 from siddhi_tpu_torch.ops.nfa import (COUNT_INF, UNIT_KINDS,  # noqa: E402
-                                      _land_static, bank_geometry,
+                                      _land_static, bank_class_reason,
+                                      bank_geometry,
                                       bank_lanes_plain, bank_thread_model,
                                       kernel_class_reason, kernel_prog,
                                       nfa_block_step_plain, nfa_step_egress)
@@ -307,9 +308,10 @@ def _spec_kprog(name):
 
 def test_widened_shapes_are_in_class_and_the_rest_is_not():
     """Every widened shape (and chip_smoke.py's phase-5 cases) is inside
-    the kernel's class; a leading min-0 count, a leading absent, SEQUENCE
-    with an absent unit, and a kleene count reading its own [last] bank
-    are not."""
+    the kernel's class; a leading min-0 count, a leading absent and
+    SEQUENCE with an absent unit are inside the step's class (the
+    widened instance) but outside the pattern bank's; a kleene count
+    reading its own [last] bank is outside both."""
     for text in list(WIDENED.values()):
         nfa = CompiledPatternNFA(STREAM + text, n_partitions=2, device="cpu")
         assert kernel_class_reason(nfa.spec) is None
@@ -317,7 +319,7 @@ def test_widened_shapes_are_in_class_and_the_rest_is_not():
     for name, text in chip_smoke.WIDE_CASES.items():
         nfa = CompiledPatternNFA(text, n_partitions=2, device="cpu")
         assert nfa.kprog.reason is None, (name, nfa.kprog.reason)
-    outside = {
+    bank_only = {
         "leading min-0 count": ("from e1=S[kind == 0]<0:3> -> e2=S[kind == "
                                 "1] select e2.price as p insert into Out;",
                                 "min-0"),
@@ -327,6 +329,13 @@ def test_widened_shapes_are_in_class_and_the_rest_is_not():
         "SEQUENCE absent": ("from every e1=S[kind == 0], not S[kind == 1] "
                             "for 1 sec select e1.price as p insert into "
                             "Out;", "SEQUENCE"),
+    }
+    for name, (text, word) in bank_only.items():
+        nfa = CompiledPatternNFA(STREAM + text, n_partitions=2, device="cpu")
+        assert nfa.kprog.reason is None, (name, nfa.kprog.reason)
+        reason = bank_class_reason(nfa.spec, nfa.kprog)
+        assert reason is not None and word in reason, (name, reason)
+    outside = {
         "own [last] in a count": (
             "from every e1=S[kind == 0] -> e2=S[kind == 1 and price > "
             "e2[last].price]<1:3> -> e3=S[kind == 2] select e1.price as p "
