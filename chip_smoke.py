@@ -47,7 +47,13 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      `<capture> <cmp> <constant>` compares and the string null guard;
      TIMER blocks between blocks; the logical, mid-chain `every` and
      SEQUENCE kinds also at 2 and 4 slots a thread and on the wide
-     ring), each class case timed beside its bound; the compaction
+     ring), and on condition programs (CLASS_CASES "program: ...": the
+     Quick start ratio, an offset, % and /, unary minus, abs, floor,
+     ceil, sqrt, round, maximum, minimum, or and not around a capture
+     compare, a nullable row after `or`, a kleene count's own [last],
+     SEQUENCE, a program in unit 0; those the simple instances take
+     also forced onto the widened one; NaN prices in three), each class
+     case timed beside its bound on its instance; the compaction
      kernel against numpy; all timed, with the split between the two
      kernels;
   6. the pattern cell at full width — __graft_entry__.PARTITIONED_APP
@@ -94,7 +100,11 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      trailing `not S[kind == 0 and price > e2.price] for 3 sec`, A blocks
      on the bank step's thread instance and the ring; every pattern's
      count per block against an independent reference, one block against
-     the plain bank bit for bit, every ring row a reference match;
+     the plain bank bit for bit, every ring row a reference match; then
+     config 4 as a 100-pattern bank and the README's Quick start as one
+     (`price > e1.price * ratio`, ratios 1.00 to 1.10: a condition
+     program reading a pattern constant), each on the group instance,
+     every block against the plain bank bit for bit;
  12. the grouped-aggregation kernels (csrc/grouped_agg.cu: K7a gagg_step,
      K7b gagg_time_step) against their plain twins, bit for bit on every
      output plane and carry leaf (NaN payloads aside), over chained
@@ -180,7 +190,8 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      of two buckets: thresholds, T and `within` differing, the simple
      and absent template instances in one flush, kleene counts, a tenant
      whose ring overflows, one without a pending block, a full scratch
-     segment and a cap below the count; and a bucket of 32 of the
+     segment and a cap below the count; a bucket of condition programs
+     (the gang's build variant with them); and a bucket of 32 of the
      service's unkeyed apps at its shape (P = 1, T = 8); the gang at the
      keyed cell's shape (32 tenants, P = 1,024) held against the twin bit
      for bit and timed against the tenants' summed K2 + K4 bounds; then
@@ -196,16 +207,19 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      sharded in two runtimes (persist after the first half, restore into
      a new runtime for the second); the rows equal as multisets, the
      /stats shard rows hold every key and event once;
- 28. the widened class at full width: two queries on the pattern cell's
-     stream and partition (CLASS_APPS: SEQUENCE; a logical `or` then a
-     trailing `every`) over its 10,000 keys and 16,384 lanes, 16 chunks
-     of 262,144 events with kinds 0..2, on the default dispatch (K12)
+ 28. the widened class and condition programs at full width: three
+     queries on the pattern cell's stream and partition (CLASS_APPS:
+     SEQUENCE; a logical `or` then a trailing `every`; the Quick start's
+     `price > e1.price * 1.05`) over its 10,000 keys and 16,384 lanes,
+     8 chunks of 262,144 events with kinds 0..2, on the default dispatch (K12)
      and with SIDDHI_TPU_XTENANT=0 (K2 + K4): every query on the device
-     pattern path, both runs' rows equal, the first 4 chunks' rows equal
+     pattern path, both runs' rows equal, the first 2 chunks' rows equal
      the port's CPU run (the plain steps), events/s, device ms and
      launches printed; then phase 6's app with
-     @app:statistics(telemetry='true') over 4 chunks: its rows equal the
-     per-key reference, its last_telemetry the CPU run's;
+     @app:statistics(telemetry='true') over 2 chunks: its rows equal the
+     per-key reference, its last_telemetry the CPU run's; then the
+     README's Quick start and the temperature rule, verbatim, built under
+     @app:engine('device') and their rows equal to the CPU run's;
   then one JSON line per the kernel table, the nvidia-smi line, and the
   last line ``{"ok": true, "device": {...}}``.
 
@@ -215,6 +229,7 @@ it exits with code 2 and prints no result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -913,13 +928,96 @@ CLASS_CASES = {
         "int);\nfrom every e1=S[kind == 0] -> e2=S[kind == 1 and sym == "
         "e1.sym] within 10 sec select e1.price as p1, e2.price as p2 insert "
         "into Out;"),
+    # condition programs (plan/nfa_program.py), one case a form: the
+    # simple instance takes a program outside unit 0 (PROGRAM_WIDE below
+    # holds those on the widened instance too)
+    "program: ratio (Quick start)": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == "
+        "1 and price > e1.price * 1.05] within 10 sec select e1.price as "
+        "p1, e2.price as p2 insert into Out;"),
+    "program: offset": (
+        _S3 + "from every e1=S[kind == 0] -> e2=S[kind == 1 and (e1.price + "
+        "5.0) <= price] within 10 sec select e1.price as p1, e2.price as p2 "
+        "insert into Out;"),
+    "program: % and /": (
+        _S3 + "from every e1=S[kind == 0] -> e2=S[kind == 1 and price % 7.0 "
+        "> e1.price % 5.0 and price / e1.price > 1.1] within 10 sec select "
+        "e1.price as p1, e2.price as p2 insert into Out;"),
+    "program: unary minus, a constant over a lane": (
+        _S3 + "from every e1=S[kind == 0] -> e2=S[kind == 1 and -price < "
+        "-e1.price and 100.0 / price < e1.price] within 10 sec select "
+        "e1.price as p1, e2.price as p2 insert into Out;"),
+    "program: abs, floor, ceil": (
+        _S3 + "from every e1=S[kind == 0] -> e2=S[kind == 1 and "
+        "math:abs(price - 50.0) < e1.price * 0.5 and math:floor(price / "
+        "10.0) * 10.0 > e1.price - 30.0 and math:ceil(price) != e1.price] "
+        "within 10 sec select e1.price as p1, e2.price as p2 insert into "
+        "Out;"),
+    "program: sqrt, round, maximum, minimum": (
+        _S3 + "from every e1=S[kind == 0] -> e2=S[kind == 1 and "
+        "math:sqrt(price) * 10.0 > e1.price and math:round(price) != "
+        "e1.price and maximum(price, 40.0) > e1.price and minimum(price, "
+        "90.0) < e1.price + 30.0] within 10 sec select e1.price as p1, "
+        "e2.price as p2 insert into Out;"),
+    "program: or, not": (
+        _S3 + "from every e1=S[kind == 0] -> e2=S[kind != 0 and (price > "
+        "e1.price * 1.1 or kind == 2) and not (price < e1.price * 0.5)] "
+        "within 10 sec select e1.price as p1, e2.price as p2 insert into "
+        "Out;"),
+    "program: nullable row after or": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> (e2=S[kind == "
+        "1] or e3=S[kind == 2]) -> e4=S[kind == 0 and price > e2.price] "
+        "within 10 sec select e1.price as p1, e2.price as p2, e3.price as "
+        "p3, e4.price as p4 insert into Out;"),
+    "program: own [last]": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 "
+        "and (e2[last].price is null or price > e2[last].price)]<1:3> -> "
+        "e3=S[kind == 2] within 10 sec select e1.price as p1, "
+        "e2[last].price as l2, e3.price as p3 insert into Out;"),
+    "program: SEQUENCE ratio": (
+        _S3 + "from every e1=S[kind == 0 and price > 50.0], e2=S[kind == 1 "
+        "and price > e1.price * 1.05] within 10 sec select e1.price as p1, "
+        "e2.price as p2 insert into Out;"),
+    "program: unit 0 (widened)": (
+        _S3 + "from every e1=S[kind == 0 and (e1[last].price is null or "
+        "price < e1[last].price)]<1:3> -> e2=S[kind == 1 and price > "
+        "e1[last].price] within 10 sec select e1[0].price as f1, "
+        "e1[last].price as l1, e2.price as p2 insert into Out;"),
 }
+#: the program cases the simple instances take, held on the widened
+#: instance as well (forced_wide)
+PROGRAM_WIDE = ("program: ratio (Quick start)", "program: offset",
+                "program: % and /",
+                "program: unary minus, a constant over a lane",
+                "program: abs, floor, ceil",
+                "program: sqrt, round, maximum, minimum",
+                "program: or, not", "program: own [last]")
+#: program cases fed 5% NaN prices
+PROGRAM_NAN = ("program: % and /", "program: sqrt, round, maximum, minimum",
+               "program: unary minus, a constant over a lane")
 #: CLASS_CASES whose fused call phase 5 splits by kernel (profiler)
 CLASS_SPLIT = ("sequence", "logical and")
 #: CLASS_CASES also run with the telemetry leaf
 CLASS_TELEMETRY = ("logical or", "sequence", "every group",
                    "trailing every, logical", "mid every",
                    "leading absent, every")
+
+
+@contextlib.contextmanager
+def forced_wide():
+    """ops/nfa's instance choice forced to the widened instance, which
+    takes every spec of the class: the step runs csrc/nfa_wide.cu and the
+    program table's `wide` word is set with it (the table cache emptied
+    on the way in and out)."""
+    from siddhi_tpu_torch.ops import nfa as nfa_ops
+    real = nfa_ops.kernel_wide
+    nfa_ops._PROG_CACHE.clear()
+    nfa_ops.kernel_wide = lambda spec, kprog: True
+    try:
+        yield
+    finally:
+        nfa_ops.kernel_wide = real
+        nfa_ops._PROG_CACHE.clear()
 
 
 def pattern_query(app_text: str) -> str:
@@ -1123,14 +1221,24 @@ def check_nfa(t_main, dev, seed):
         (f"{n} K={K}", CLASS_CASES[n], P, T, K, 1, True, 100,
          {"timer": True, "kinds": 3})
         for n in ("logical or", "mid every", "sequence")
-        for K, P, T in ((64, 1024, 200), (128, 512, 200), (160, 256, 300))]
-    nan_cases = {"chain3", "count mid-chain", "absent mid-chain"}
+        for K, P, T in ((64, 1024, 200), (128, 512, 200), (160, 256, 300))
+    ] + [(f"{n} (widened)", CLASS_CASES[n], 2048, 64, 8, 2, True, 1000,
+          {"timer": True, "kinds": 3, "wide": True}) for n in PROGRAM_WIDE]
+    nan_cases = {"chain3", "count mid-chain", "absent mid-chain"} | \
+        set(PROGRAM_NAN) | {f"{n} (widened)" for n in PROGRAM_NAN
+                            if n in PROGRAM_WIDE}
     worst = 0.0
     launches0 = (nfa_step_egress.launches, nfa_compact.launches)
     for i, (name, app, P, T, K, n_blocks, valid, gap, opt) in \
             enumerate(cases):
         nfa = CompiledPatternNFA(app, n_partitions=P, n_slots=K, device=dev,
                                  telemetry=opt.get("telemetry", False))
+        if nfa.kprog.reason is not None:
+            raise AssertionError(f"{name}: outside the kernel's class: "
+                                 f"{nfa.kprog.reason}")
+        force = contextlib.ExitStack()
+        if opt.get("wide"):
+            force.enter_context(forced_wide())
         ck = cp = nfa.carry
         matches = hi = reruns = repacks = hot = 0
         feed = []
@@ -1190,6 +1298,7 @@ def check_nfa(t_main, dev, seed):
                 log(f"  fused step, {name}: {ms:.4f} ms at P={P} T={T} "
                     f"K={K}")
             ck, cp = new_k, new_p
+        force.close()
         dropped = int(cp["dropped"].sum())
         if name == "K=1 drops" and dropped == 0:
             raise AssertionError("K=1 case dropped nothing")
@@ -1208,7 +1317,8 @@ def check_nfa(t_main, dev, seed):
         if hi <= opt.get("live", -1):
             raise AssertionError(f"{name}: at most {hi} partials in a lane "
                                  f"(needs > {opt['live']})")
-        if (name in wide or name in CLASS_CASES) and matches == 0:
+        if (name in WIDE_CASES or name in CLASS_CASES or
+                opt.get("wide")) and matches == 0:
             raise AssertionError(f"{name}: no match")
         tag = " (NaN prices)" if name in nan_cases else ""
         tag += " (+ TIMER blocks)" if opt.get("timer") else ""
@@ -1222,13 +1332,15 @@ def check_nfa(t_main, dev, seed):
 
 
 def time_class(dev, seed, P=2048, T=64, K=8):
-    """Each CLASS_CASES shape on the widened instance at phase 5's shape
+    """Each CLASS_CASES shape on its instance (the widened one but for a
+    program case the simple instance takes) at phase 5's shape
     ([P, T], K, kinds 0..2, gap 1000 ms, the telemetry leaf where
     CLASS_TELEMETRY names it), on a carry in steady state (one warm
     block) at the cap and segment the engine settles on: the fused
     call's median ms and its bound, and for CLASS_SPLIT the device split
     (profiler).  Returns {name: numbers}."""
-    from siddhi_tpu_torch.ops.nfa import nfa_compact, nfa_step_egress
+    from siddhi_tpu_torch.ops.nfa import (kernel_wide, nfa_compact,
+                                          nfa_step_egress)
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
     launches0 = (nfa_step_egress.launches, nfa_compact.launches)
     out = {}
@@ -1247,13 +1359,16 @@ def time_class(dev, seed, P=2048, T=64, K=8):
             return nfa_step_egress(spec, carry, blk, kp, cap, seg)
         ms = median_ms(call, dev, sleep_cycles=5 * SLEEP_CYCLES)
         split = device_split(call) if name in CLASS_SPLIT else None
-        cmps = max(len(x) + len(y) for x, y in
-                   zip(kp.cmp, kp.ccmp or [()] * len(kp.cmp)))
+        # a table compare or a program word: one operation an event and slot
+        cmps = max(len(x) + len(y) + len(z) for x, y, z in
+                   zip(kp.cmp, kp.ccmp or [()] * len(kp.cmp),
+                       kp.prog or [()] * len(kp.cmp)))
         b_ms, b_by = nfa_bound(P, T, K, spec, kp, cmps, count, cap)
+        inst = "widened" if kernel_wide(spec, kp) else "simple"
         out[name] = {"ms": ms, "step_ms": (split or {}).get("step_ms"),
-                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_ms": b_ms, "bound_by": b_by, "instance": inst,
                      "shape": {"P": P, "T": T, "K": K, "matches": count}}
-        log(f"  widened step, {name}: {ms:.4f} ms a fused call at P={P} "
+        log(f"  {inst} step, {name}: {ms:.4f} ms a fused call at P={P} "
             f"T={T} K={K}, {count} matches; bound {b_ms:.6f} ms by {b_by}" +
             (f"; device split {split}" if split else ""))
     nfa_step_egress.launches, nfa_compact.launches = launches0
@@ -1765,9 +1880,9 @@ BANK_GAP_MS = BANK_P                      # round-robin: per-lane gap P ms
 BANK_FLOOR = 99.9
 BANK_BASE_TS = 1_000_000
 #: the fleet cell's timed window is repeated this many times from the same
-#: carry (over 1 s of wall at ≈ 1.5 ms a block on an H100, 700 W): median
-#: and spread
-FLEET_REPEATS = 24
+#: carry (over 0.5 s of wall at ≈ 1.5 ms a block on an H100, 700 W): median
+#: and spread (cut from 24 to keep the script within its time limit)
+FLEET_REPEATS = 12
 
 
 def bank_app(thr, floor=BANK_FLOOR, within_ms=BANK_WITHIN_MS) -> str:
@@ -3362,8 +3477,10 @@ def run_absent_fleet_cell(dev, seed, n_blocks):
         f"(in-place bound {res['step_inplace_bound_ms']:.6f} ms)")
     del fresh, staged, bank
     res["count_bank"] = run_count_bank(dev, seed)
+    res["ratio_bank"] = run_ratio_bank(dev, seed)
     res["max_abs_err"] = max(res["max_abs_err"],
-                             res["count_bank"]["max_abs_err"])
+                             res["count_bank"]["max_abs_err"],
+                             res["ratio_bank"]["max_abs_err"])
     return res
 
 
@@ -3373,55 +3490,90 @@ COUNT_BANK_N = 100
 COUNT_BANK_BLOCKS = 3
 
 
-def run_count_bank(dev, seed):
-    """Config 4's kleene count as a bank (COUNT_BANK_N patterns `every
-    e1=S[kind == 0 and price > thr]<3:10> -> e2=S[kind == 1 and price >
-    e1[last].price] within 10 sec` over the fleet's 10,000 lanes, 20
-    patterns a chunk), which the bank runs on its group instance: every
-    block in place against the plain bank bit for bit, the group
-    instance's launch counter rising, and its ms a block.  → {ms a
-    block, max_abs_err, launches, matches}."""
+def _group_bank_cell(name, apps, n_blocks, block_seed, dev, drops=False):
+    """A bank of `apps` the bank runs on its group instance, over the
+    fleet's 10,000 lanes (20 patterns a chunk, ring 32): every block in
+    place against the plain bank bit for bit, the group instance's
+    launch counter rising every block, no thread-instance launch, a
+    match, and no dropped partial unless `drops`.  → {ms a block, its
+    step and ring; max_abs_err, launches, matches, dropped}."""
     import torch
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
-    apps = [_S3 + f"from every e1=S[kind == 0 and price > {t}]<3:10> -> "
-            "e2=S[kind == 1 and price > e1[last].price] within 10 sec "
-            "select e1[0].price as p0, e1[last].price as pl, e2.price as "
-            "p2 insert into Out;" for t in np.linspace(0.0, 99.0, COUNT_BANK_N)]
-    cb = CompiledPatternBank(apps, n_partitions=BANK_P, n_slots=BANK_K,
-                             pattern_chunk=20, ring=BANK_RING, device=dev)
-    blocks = [cb.nfa.to_device(b) for b in bank_blocks(
-        np.random.default_rng(seed + 50), COUNT_BANK_BLOCKS, gap=1_000)]
+    bank = CompiledPatternBank(apps, n_partitions=BANK_P, n_slots=BANK_K,
+                               pattern_chunk=20, ring=BANK_RING, device=dev)
+    blocks = [bank.nfa.to_device(b) for b in bank_blocks(
+        np.random.default_rng(block_seed), n_blocks, gap=1_000)]
     set_bank_launches()                       # counts start here
     worst, matches, times = 0.0, 0, []
     for blk in blocks:
-        pre = _snapshot(cb)
+        pre = _snapshot(bank)
         s0 = torch.cuda.Event(enable_timing=True)
         s1 = torch.cuda.Event(enable_timing=True)
         s0.record()
-        got = cb.process_block(blk)
+        got = bank.process_block(blk)
         s1.record()
-        new_p, want = _bank_plain(cb, pre, blk)
+        new_p, want = _bank_plain(bank, pre, blk)
         torch.cuda.synchronize()
         times.append(s0.elapsed_time(s1))
         worst = max(worst, _bank_outputs_equal(
-            "count bank (group instance)", got, want, _carry(cb), new_p))
+            f"{name} (group instance)", got, want, _carry(bank), new_p))
         matches += int(want[0].sum())
         del pre, new_p, want
     launches = bank_launches()
     if launches[2] < len(blocks) or launches[1]:
-        raise AssertionError(f"count bank launches (step, thread instance, "
+        raise AssertionError(f"{name} launches (step, thread instance, "
                              f"group instance, ring) {launches}: expected "
                              f"the group instance every block")
-    if not matches or cb.total_dropped():
-        raise AssertionError(f"count bank: {matches} matches, dropped "
-                             f"{cb.total_dropped()}")
+    dropped = bank.total_dropped()
+    if not matches or (dropped and not drops):
+        raise AssertionError(f"{name}: {matches} matches, dropped {dropped}")
     res = {"ms_per_block": float(np.median(times)), "max_abs_err": worst,
-           "launches": launches, "matches": matches}
-    log(f"  count bank (config 4 as {COUNT_BANK_N} patterns x {BANK_P} lanes, "
-        f"group instance): {len(blocks)} blocks in place == the plain bank "
-        f"bit for bit, {matches} matches, dropped 0; "
+           "launches": launches, "matches": matches, "dropped": dropped}
+    log(f"  {name} ({len(apps)} patterns x {BANK_P} lanes, group "
+        f"instance): {len(blocks)} blocks in place == the plain bank bit "
+        f"for bit, {matches} matches, dropped {dropped}; "
         f"{res['ms_per_block']:.3f} ms a block (step and ring, median)")
     return res
+
+
+def run_count_bank(dev, seed):
+    """Config 4's kleene count as a bank (COUNT_BANK_N patterns `every
+    e1=S[kind == 0 and price > thr]<3:10> -> e2=S[kind == 1 and price >
+    e1[last].price] within 10 sec`), on the group instance
+    (_group_bank_cell)."""
+    apps = [_S3 + f"from every e1=S[kind == 0 and price > {t}]<3:10> -> "
+            "e2=S[kind == 1 and price > e1[last].price] within 10 sec "
+            "select e1[0].price as p0, e1[last].price as pl, e2.price as "
+            "p2 insert into Out;" for t in np.linspace(0.0, 99.0, COUNT_BANK_N)]
+    return _group_bank_cell("count bank (config 4)", apps, COUNT_BANK_BLOCKS,
+                            seed + 50, dev)
+
+
+#: phase 11's ratio bank: the README's Quick start (`price > e1.price *
+#: ratio`, a condition program reading a pattern constant) as a bank of
+#: this many patterns over the fleet's lanes, for this many blocks
+RATIO_BANK_N = 100
+RATIO_BANK_BLOCKS = 8
+
+
+def ratio_bank_app(thr, ratio) -> str:
+    """The Quick start's spike rule on the fleet's stream: arm above
+    `thr`, close on a price `ratio` times the armed one."""
+    return (_S3 + f"from every e1=S[kind == 0 and price > {thr}] -> "
+            f"e2=S[kind == 1 and price > e1.price * {ratio}] within 10 sec "
+            "select e1.price as p1, e2.price as p2 insert into Out;")
+
+
+def run_ratio_bank(dev, seed):
+    """The Quick start as a bank (RATIO_BANK_N patterns, thresholds 5 to
+    95, ratios 1.00 to 1.10), which the bank runs on its group instance
+    (a condition program; _group_bank_cell; its K = 8 ring may drop)."""
+    apps = [ratio_bank_app(round(float(t), 3), round(float(r), 4))
+            for t, r in zip(np.linspace(5.0, 95.0, RATIO_BANK_N),
+                            np.linspace(1.0, 1.1, RATIO_BANK_N))]
+    return _group_bank_cell("ratio bank (the Quick start, a condition "
+                            "program)", apps, RATIO_BANK_BLOCKS, seed + 60,
+                            dev, drops=True)
 
 
 # ------------------------------------------------------------------ phase 12
@@ -4386,11 +4538,12 @@ K6_P, K6_T, K6_C = N_KEYS, 256, 512
 K6_KERNELS = ["wagg_time_prep", "wagg_time_events"]
 WIN_EVENTS_PER_MS = 256                   # phases 20-21's feed rate
 WAGG_CHUNKS = 4                           # phase 20
-#: phase 21's chunks: 3 flushes.  Each flush after the first runs
-#: 524,288 rows (the expired batch and the new one) through the host
-#: selector's row-at-a-time pass, ~22 s on the card's host: 8 chunks took
-#: the four new phases past 120 s
-WINDOW_CHUNKS = 4
+#: phase 21's chunks.  Each flush after the first runs 524,288 rows (the
+#: expired batch and the new one) through the host selector's
+#: row-at-a-time pass, ~22 s on the card's host: 8 chunks took the four
+#: new phases past 120 s; cut from 4 to pay for the condition programs'
+#: checks
+WINDOW_CHUNKS = 2
 
 
 def _time_feed(rng, P, T, kind, t0, dev):
@@ -6152,6 +6305,18 @@ GANG_BUCKETS = {
             "e2.price] within 10 sec select e1.price as p1, e2.price as p2, "
             "e3.price as p3 insert into Out;", 40),
     },
+    # condition programs ride each tenant's static table: tenants of the
+    # simple instance (programs outside unit 0) beside a widened one
+    "condition programs": {
+        "ratio 1.05": (CLASS_CASES["program: ratio (Quick start)"], 48),
+        "ratio 1.02, cap below count": (
+            CLASS_CASES["program: ratio (Quick start)"].replace(
+                "1.05", "1.02"), 64),
+        "offset": (CLASS_CASES["program: offset"], 40),
+        "a constant over a lane, one scratch row": (
+            CLASS_CASES["program: unary minus, a constant over a lane"], 33),
+        "SEQUENCE ratio": (CLASS_CASES["program: SEQUENCE ratio"], 64),
+    },
 }
 GANG_IDLE = {"thr 80, no within", "count thr 30",   # idle in flush 1
              "trailing every", "every group"}
@@ -6341,7 +6506,9 @@ def mtenant_app(i: int, keyed: bool) -> str:
 N_TENANTS = 100
 TENANT_KEYS = 1024
 TENANT_EVENTS = {False: 8, True: 16_384}    # events a tenant a round
-TENANT_ROUNDS = {False: 4, True: 8}
+#: rounds a cell (the keyed cell's cut from 8 to pay for the condition
+#: programs' checks)
+TENANT_ROUNDS = {False: 4, True: 4}
 
 
 def profile_ops(fn):
@@ -6805,12 +6972,20 @@ CLASS_APPS = {
         "e1.price as p1, e2.price as p2, e3.price as p3, e4.price as p4 "
         "insert into Out;",
         ("p1", "p2", "p3", "p4")),
+    # the README's Quick start on the cell's stream: a condition program
+    # (price > e1.price * 1.05) on the simple instance
+    "quick start": (
+        "from every e1=S[kind == 0 and price > 50.0] -> e2=S[kind == 1 and "
+        "price > e1.price * 1.05] within 10 sec select e1.price as p1, "
+        "e2.price as p2 insert into Out;",
+        ("p1", "p2")),
 }
-#: the cell's chunks (the pattern cell's 16 of 262,144 events), the
-#: chunks held against the CPU run, the kinds of the feed (0..2: every
-#: unit of the apps sees its stream), and the telemetry run's chunks
-CLASS_CHUNKS = 16
-CLASS_CPU_CHUNKS = 4
+#: the cell's chunks (8 of the pattern cell's 16 of 262,144 events: cut
+#: to pay for the Quick start cell), the chunks held against the CPU run,
+#: the kinds of the feed (0..2: every unit of the apps sees its stream),
+#: and the telemetry run's chunks
+CLASS_CHUNKS = 8
+CLASS_CPU_CHUNKS = 2
 CLASS_KINDS = 3
 
 
@@ -6866,6 +7041,78 @@ def run_cpu_app(text, chunks, columns):
         np.array(nfa.last_telemetry)
     rt.shutdown()
     return _cols(got), tel
+
+
+#: the README's Quick start, verbatim, and the temperature rule of the
+#: Siddhi guide: conditions the CUDA step takes as programs
+README_APPS = {
+    "quick start": (
+        "Trades", "spikes", """
+    define stream Trades (symbol string, price float, volume long);
+    @info(name='spikes')
+    from every e1=Trades[price > 100.0] -> e2=Trades[price > e1.price * 1.05]
+        within 10 sec
+    select e1.symbol as symbol, e1.price as p1, e2.price as p2
+    insert into Alerts;
+"""),
+    "temperature": (
+        "Temp", "rise", """
+    define stream Temp (room int, temp double);
+    @info(name='rise')
+    from every e1=Temp -> e2=Temp[e1.room == room and (e1.temp + 5.0) <= temp]
+        within 1 min
+    select e1.room as room, e1.temp as t1, e2.temp as t2
+    insert into Alerts;
+"""),
+}
+
+
+def readme_apps(dev, seed, n=2_000):
+    """Each README_APPS app under @app:engine('device') on `dev`: built
+    with no SiddhiAppCreationError, its query on the device pattern path
+    with the step's kernel program inside the class, its rows over `n`
+    events equal to SiddhiManager(device="cpu")'s in order.  → {name:
+    rows}."""
+    from siddhi_tpu_torch import SiddhiManager, StreamCallback
+    rng = np.random.default_rng(seed + 70)
+    ts = 1_000 + np.cumsum(rng.integers(0, 2_000, n)).astype(np.int64)
+    feeds = {
+        "Trades": {"symbol": np.asarray([f"S{i}" for i in
+                                         rng.integers(0, 8, n)], object),
+                   "price": rng.uniform(80, 130, n).astype(np.float32),
+                   "volume": rng.integers(1, 100, n).astype(np.int64)},
+        "Temp": {"room": rng.integers(0, 16, n).astype(np.int32),
+                 "temp": rng.uniform(10, 40, n)}}
+    out = {}
+    for name, (stream, q, text) in README_APPS.items():
+        rows = {}
+        for d in (dev, "cpu"):
+            rt = SiddhiManager(device=d).create_siddhi_app_runtime(
+                "@app:playback @app:engine('device')" + text)
+            got = []
+            rt.add_callback("Alerts", StreamCallback(
+                lambda evs, _g=got: _g.extend(
+                    (e.timestamp,) + tuple(e.data) for e in evs)))
+            rt.start()
+            rt.get_input_handler(stream).send_batch(feeds[stream],
+                                                    timestamps=ts)
+            rt.flush()
+            qr = rt.query_runtimes[q]
+            if qr.backend != "device":
+                raise AssertionError(f"{name} on {d}: backend {qr.backend} "
+                                     f"({qr.backend_reason})")
+            reason = qr.device_runtime.nfa.kprog.reason
+            rt.shutdown()
+            if reason is not None:
+                raise AssertionError(f"{name}: {reason}")
+            rows[d] = got
+        if not rows[dev] or rows[dev] != rows["cpu"]:
+            raise AssertionError(f"{name}: {len(rows[dev])} rows on {dev} "
+                                 f"!= {len(rows['cpu'])} on the CPU")
+        out[name] = len(rows[dev])
+        log(f"  README {name}: built on {dev} under @app:engine('device'), "
+            f"{out[name]} rows == the CPU run's in order")
+    return out
 
 
 def run_class_cells(dev, seed, n_chunks=CLASS_CHUNKS,
@@ -6940,7 +7187,7 @@ def run_class_cells(dev, seed, n_chunks=CLASS_CHUNKS,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--chunks", type=int, default=8)
+    ap.add_argument("--chunks", type=int, default=2)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--pattern-chunks", type=int, default=16)
     ap.add_argument("--fleet-blocks", type=int, default=32)
@@ -6976,11 +7223,14 @@ def main(argv=None) -> int:
 
     log("== phase 2: kernels vs plain versions on the card")
     rng = np.random.default_rng(args.seed + 1)
-    names, chunks = make_chunks(args.seed, args.chunks)
+    # config 2's chunks: the main path's first N, and at least the grouped
+    # cells' (phases 13-14) and the filter cell's
+    names, chunks = make_chunks(args.seed, max(args.chunks, GAGG_CHUNKS))
+    main_chunks = chunks[:args.chunks]
     # the main path's widest block: events of the busiest key in a chunk
     # (ops/pack.pack_blocks)
     t_main = max(int(np.bincount(c[2], minlength=N_KEYS).max())
-                 for c in chunks)
+                 for c in main_chunks)
     cases = [
         (N_KEYS, WINDOW, 256), (N_KEYS, WINDOW, t_main), (1000, 5, 1),
         (33, 1, 64),
@@ -7006,9 +7256,10 @@ def main(argv=None) -> int:
             f"{max_err}")
 
     log("== phase 3: main path (BASELINE config 2) on the device engine")
-    launches, wall = run_main_path(args.queries, names, chunks, dev)
+    launches, wall = run_main_path(args.queries, names, main_chunks, dev)
     if args.chunks < 16 or args.queries < 100:
-        log(f"CUT: {args.queries} queries x {args.chunks} chunks (config "
+        log(f"CUT: {args.queries} queries x {args.chunks} chunks (from 8) "
+            f"(config "
             f"2's cell is 100 x 16)")
 
     log("== phase 4: engine parity on the card")
@@ -7067,6 +7318,8 @@ def main(argv=None) -> int:
     if args.fleet_blocks < 32:
         log(f"CUT: fleet cell at {args.fleet_blocks} blocks (full size is "
             f"32)")
+    log(f"CUT: the fleet cell's timed window repeated {FLEET_REPEATS} times "
+        f"(from 24)")
 
     log("== phase 9: fleet latency (bench.py's bench_lat: the same bank, "
         f"T={LAT_T} blocks, per-block synchronous)")
@@ -7170,6 +7423,7 @@ def main(argv=None) -> int:
         "the device window path")
     t21 = time.perf_counter()
     wc = run_window_cell(wnames, wchunks[:WINDOW_CHUNKS], dev)
+    log(f"CUT: window cell at {WINDOW_CHUNKS} chunks (from 4)")
     log(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
 
     log("== phase 22: K10 (iagg_fold.cu) vs its plain twin on the card")
@@ -7220,6 +7474,8 @@ def main(argv=None) -> int:
     log(f"  host enqueue a call (the card asleep): {gg['host_ms']}")
     tc26 = run_tenant_cell(dev, args.seed, keyed=False)
     tk26 = run_tenant_cell(dev, args.seed, keyed=True)
+    log(f"CUT: the keyed tenant cell at {TENANT_ROUNDS[True]} rounds (from "
+        f"8)")
     log(f"  phase 26 took {time.perf_counter() - t26:.1f} s")
 
     log(f"== phase 27: partition shard-out, SIDDHI_TPU_SHARDS={SHARD_N} "
@@ -7247,6 +7503,10 @@ def main(argv=None) -> int:
         "(K2 + K4); phase 6's app with telemetry")
     t28 = time.perf_counter()
     cl28, tel28 = run_class_cells(dev, args.seed)
+    readme28 = readme_apps(dev, args.seed)
+    log(f"CUT: phase 28's class cells at {CLASS_CHUNKS} of the pattern "
+        f"cell's 16 chunks, their CPU comparison and the telemetry run at "
+        f"{CLASS_CPU_CHUNKS} (from 4)")
     log(f"  phase 28 took {time.perf_counter() - t28:.1f} s")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
@@ -7286,6 +7546,7 @@ def main(argv=None) -> int:
             for k, v in cl28.items()},
         "pattern_cell": pc, "count_cell": cc, "class_cells": cl28,
         "telemetry_cell": tel28, "widened": class_timed,
+        "readme_apps": readme28,
         "ms": nt["ms"], "plain_ms": nt["plain_ms"],
         "bound_ms": nt["bound_ms"], "bound_by": nt["bound_by"],
         "library_ms": None, "split": nt["split"],
@@ -7326,8 +7587,9 @@ def main(argv=None) -> int:
                                  "group": fc["launches"][2]},
         "launches_by_path": {"fleet_cell": fc["launches"][0],
                              "absent_fleet_cell": ac["launches"][0],
-                             "count_bank": ac["count_bank"]["launches"][0]},
-        "count_bank": ac["count_bank"],
+                             "count_bank": ac["count_bank"]["launches"][0],
+                             "ratio_bank": ac["ratio_bank"]["launches"][0]},
+        "count_bank": ac["count_bank"], "ratio_bank": ac["ratio_bank"],
         "max_abs_err": max(fc["max_abs_err"], ac["max_abs_err"]),
         "absent_cell": {k: ac.get(k) for k in (
             "events_per_s", "ms_per_block", "thread_ms", "device_ms",

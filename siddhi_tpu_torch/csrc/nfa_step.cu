@@ -33,16 +33,26 @@
 // the torch condition program) AND a table of `event lane <op> capture
 // lane` compares AND one of `capture lane <op> constant` compares (a
 // capture lane: another unit's first bank, or an earlier count's [last]
-// bank); bit 31 of the word is the event's __valid.  The pattern bank's
-// class is narrower (ops/nfa.bank_class_reason): none of the widened
-// kinds.  A count's capture row
+// bank) AND its program (plan/nfa_program.py: the conjuncts no table
+// takes and the plain condition's guards, a postfix program over event
+// lanes, the slot's capture lanes, pattern constants and constants that
+// nfa_step.cuh's eval_prog runs on a float32 register stack, each
+// arithmetic op one IEEE operation rounded to nearest); bit 31 of the
+// word is the event's __valid.  A spec with a program launches from the
+// build variant with -DNFA_PROG=1 (ops/_kernels.VARIANTS: nfa_prog, and
+// nfa_wide_prog, nfa_gang_prog); the default build's instances compile
+// the program's code away, so a spec without one keeps their registers.
+// The pattern bank's class is narrower (ops/nfa.bank_class_reason):
+// none of the widened kinds, and no capture compare or program in the
+// first condition.  A count's capture row
 // holds its first bank, its last bank, its e[k] banks, its e[last-j] banks
 // and its __n lane; the program gives each count row's layout.
 //
-// Arithmetic is exact: the only float work is the IEEE compares of the
-// table (a NaN operand makes < <= > >= == false and != true, as torch's),
-// copies and a count's __n lane (an int converted to float, as torch
-// converts it); int32 timestamp offsets add and subtract with
+// Arithmetic is exact: the float work is the IEEE compares of the tables
+// (a NaN operand makes < <= > >= == false and != true, as torch's), the
+// programs' IEEE operations (as the torch program computes them, one for
+// one), copies and a count's __n lane (an int converted to float, as
+// torch converts it); int32 timestamp offsets add and subtract with
 // two's-complement wrap, and `deadline <= ts` is a signed compare.
 //
 // What bounds it on this card.  The function reads the block's inputs
@@ -114,7 +124,8 @@
 // payload ring).  Contract: siddhi_tpu_torch/ops/nfa.py bank_lanes_plain
 // then bank_ring_plain.  A condition is its gate bit (the capture-free,
 // constant-free part, shared by every pattern) AND its `event lane <op>
-// pattern constant` compares AND its capture compares.  Per (pattern,
+// pattern constant` compares AND its capture compares AND its program
+// (the group instance alone: the thread instance refuses one).  Per (pattern,
 // lane) the step writes the match count, and at the lane's last event
 // with a match that event's ts and its lowest matched slot ([C*N, P]
 // int32 each): no rows, no scratch.  The carry has a leading pattern axis
@@ -238,6 +249,9 @@ __global__ void __launch_bounds__(kThreads)
   step_body<SPT, true, EXT>(a, static_cast<int>(blockIdx.x));
 }
 
+#if !NFA_PROG
+// (the compaction, the ring and the bank step's thread instance: the
+// default build's alone)
 __global__ void __launch_bounds__(kThreads) nfa_compact_kernel(PackArgs a) {
   compact_body(a, static_cast<int>(blockIdx.x));
 }
@@ -741,6 +755,7 @@ struct BankCaps {
   __device__ __forceinline__ float& c(int s, int i) {
     return cap[(s * RC + i) * kThreads];
   }
+  __device__ __forceinline__ int cs() const { return kThreads; }
 };
 
 // One thread per (pattern, lane), its K <= KM slots' state and start in
@@ -839,8 +854,11 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
   cp_async_wait<2>();
   __syncthreads();                      // the program is in shared memory
 
-  const Prog g = parse(sprog);
-  if (g.n_pcmp > kBankMaxPcmp) __trap();  // the caller picks the instance
+  Prog g = parse(sprog);
+  // the caller picks the instance: condition programs run on the group
+  // instance (ops/nfa.bank_geometry)
+  if (g.n_pcmp > kBankMaxPcmp || g.np) __trap();
+  g.np = 0;
   const int npc = g.n_pcmp;
   // each pattern's constant compares as intervals (a pattern past CN:
   // the empty one), with the attribute lane's offset in a staged tile and
@@ -1206,6 +1224,8 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
 #undef DL
 }
 
+#endif  // !NFA_PROG
+
 // ------------------------------------------------------------ launches
 
 template <int SPT, bool BANK, bool EXT>
@@ -1248,6 +1268,7 @@ int run_step(StepArgs& a, cudaStream_t s) {
                             : run_step_as<BANK, false>(a, s);
 }
 
+#if !NFA_PROG
 template <int KM, bool ABS>
 int launch_bank_thread(const BankArgs& a, size_t smem, cudaStream_t s) {
   constexpr int NPC = kThreads / kBankLanes;
@@ -1271,6 +1292,7 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+#endif  // !NFA_PROG
 }  // namespace
 
 
@@ -1343,6 +1365,7 @@ extern "C" int nfa_bank_step(const float* attrs, const int* ts,
   return run_step<true>(a, s);
 }
 
+#if !NFA_PROG
 // Launch the bank step's thread instance (one thread per (pattern, lane),
 // K <= 16, at most 8 constant compares, no count unit) over CN patterns
 // on `stream`: the arguments of nfa_bank_step, with TT (events a staged
@@ -1462,3 +1485,5 @@ extern "C" int nfa_bank_ring(const int* count, const int* lmt, const int* lmk,
   nfa_bank_ring_kernel<<<CN, kRingThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+#endif  // !NFA_PROG

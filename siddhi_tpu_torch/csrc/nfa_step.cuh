@@ -10,7 +10,17 @@
 
 #include <cuda_runtime.h>
 
+// The build variant (ops/_kernels.VARIANTS): NFA_PROG=1 builds the step
+// instances that run condition programs (nfa_prog, nfa_wide_prog,
+// nfa_gang_prog); the default build's instances refuse a program and
+// compile its code away, so a spec without one keeps its registers.
+#ifndef NFA_PROG
+#define NFA_PROG 0
+#endif
+
 namespace {
+
+constexpr bool kProg = NFA_PROG != 0;
 
 
 constexpr int kThreads = 256;
@@ -79,6 +89,12 @@ struct Prog {
   const int* mid;         // n_mid x (g0, g1), ascending g0
   const int* ccmp_start;  // n_cond + 1
   const int* ccmp;        // n_ccmp x (row, lane, op, constant's bits)
+  // the condition programs (plan/nfa_program.py): n_cond + 1 starts, then
+  // np words, then the constants' bits; and the pattern's constants (the
+  // bank's group instance, else null)
+  const int* pstart;
+  int np;
+  const float* prm;
 };
 
 __device__ __forceinline__ Prog parse(const int* p) {
@@ -117,6 +133,9 @@ __device__ __forceinline__ Prog parse(const int* p) {
   g.mid = g.unitsb + kUnitB * g.S;
   g.ccmp_start = g.mid + 2 * g.n_mid;
   g.ccmp = g.ccmp_start + g.n_cond + 1;
+  g.pstart = g.ccmp + 4 * g.ccmp_start[g.n_cond];
+  g.np = g.pstart[g.n_cond];
+  g.prm = nullptr;
   return g;
 }
 
@@ -206,6 +225,81 @@ __device__ __forceinline__ bool compare(int op, float x, float y) {
   }
 }
 
+// ------------------------------------------------------------ programs
+
+// A condition program's operations (plan/nfa_program.py OP_*): a word is
+// the op in its low 8 bits and its argument above them (an operand's
+// index; pCmp: the compare's code).
+enum ProgOp {
+  pEv = 0, pCap, pPrm, pK, pAdd, pSub, pMul, pDiv, pMod, pAbs, pFloor,
+  pCeil, pSqrt, pRound, pMax, pMin, pCmp, pAnd, pOr, pNot
+};
+constexpr int kProgDepth = 8;           // plan/nfa_program.MAX_DEPTH
+
+// Program words [w, w + n) over the event's lanes (at, stride LT), one
+// slot's capture words (cb, stride cs; null: a fresh chain's zeros), the
+// pattern's constants (prm) and the program's constants (kc, float32
+// bits), on a stack of float32 registers: a condition is 1.0f or 0.0f;
+// each arithmetic op is one IEEE operation rounded to nearest (the
+// intrinsics keep that whatever --fmad says), as the torch program
+// computes it; max and min give NaN for a NaN operand, as torch's do;
+// round is half to even (rintf), as torch.round.  Not inlined: the
+// register file a step instance needs stays its own.
+__device__ __noinline__ bool eval_prog(const int* w, int n, const int* kc,
+                                       const float* at, int LT,
+                                       const float* cb, int cs,
+                                       const float* prm) {
+  float r[kProgDepth];
+  int sp = 0;
+  for (int q = 0; q < n; ++q) {
+    const int op = w[q] & 0xff;
+    const int x = w[q] >> 8;
+    switch (op) {
+      case pEv: r[sp++] = at[x * LT]; continue;
+      case pCap: r[sp++] = cb ? cb[x * cs] : 0.0f; continue;
+      case pPrm: r[sp++] = prm[x]; continue;
+      case pK: r[sp++] = __int_as_float(kc[x]); continue;
+      case pAbs: r[sp - 1] = fabsf(r[sp - 1]); continue;
+      case pFloor: r[sp - 1] = floorf(r[sp - 1]); continue;
+      case pCeil: r[sp - 1] = ceilf(r[sp - 1]); continue;
+      case pSqrt: r[sp - 1] = __fsqrt_rn(r[sp - 1]); continue;
+      case pRound: r[sp - 1] = rintf(r[sp - 1]); continue;
+      case pNot: r[sp - 1] = r[sp - 1] != 0.0f ? 0.0f : 1.0f; continue;
+      default: break;
+    }
+    const float b = r[--sp];
+    const float a = r[sp - 1];
+    float v;
+    switch (op) {
+      case pAdd: v = __fadd_rn(a, b); break;
+      case pSub: v = __fsub_rn(a, b); break;
+      case pMul: v = __fmul_rn(a, b); break;
+      case pDiv: v = __fdiv_rn(a, b); break;
+      case pMod: v = fmodf(a, b); break;
+      case pMax: v = (isnan(a) || isnan(b)) ? __fadd_rn(a, b) : fmaxf(a, b);
+        break;
+      case pMin: v = (isnan(a) || isnan(b)) ? __fadd_rn(a, b) : fminf(a, b);
+        break;
+      case pCmp: v = compare(x, a, b) ? 1.0f : 0.0f; break;
+      case pAnd: v = (a != 0.0f && b != 0.0f) ? 1.0f : 0.0f; break;
+      default: v = (a != 0.0f || b != 0.0f) ? 1.0f : 0.0f;   // pOr
+    }
+    r[sp - 1] = v;
+  }
+  return r[0] != 0.0f;
+}
+
+// Condition i's program, if it has one, against capture words cb (stride
+// cs; null: zeros).
+__device__ __forceinline__ bool prog_ok(const Prog& g, int i,
+                                        const float* at, int LT,
+                                        const float* cb, int cs) {
+  const int q0 = g.pstart[i], q1 = g.pstart[i + 1];
+  if (q0 == q1) return true;
+  const int* words = g.pstart + g.n_cond + 1;
+  return eval_prog(words + q0, q1 - q0, words + g.np, at, LT, cb, cs, g.prm);
+}
+
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
@@ -272,6 +366,8 @@ struct Slots {
   __device__ __forceinline__ float& cx(int d, int s, int i) {
     return cap[(s * RC + i) * kThreads + d];
   }
+  // words between two capture lanes of a slot
+  __device__ __forceinline__ int cs() const { return kThreads; }
 };
 
 // The wide-ring instance: the slots live in the new carry, slot s of this
@@ -295,6 +391,7 @@ struct Slots<0> {
   __device__ __forceinline__ float& cx(int d, int s, int i) {
     return cap[(static_cast<long long>(s) * G + d) * RC + i];
   }
+  __device__ __forceinline__ int cs() const { return 1; }
 };
 
 // condition i of the event at `at` against slot s's captures
@@ -308,7 +405,7 @@ __device__ __forceinline__ bool cond_ok(const Prog& g, int i, unsigned gw,
     if (!compare(c[3], at[c[0] * LT], sl.c(s, c[1] * g.C + c[2])))
       return false;
   }
-  return true;
+  return !g.np || prog_ok(g, i, at, LT, &sl.c(s, 0), sl.cs());
 }
 
 // the event's gate word with bit i cleared where one of condition i's
@@ -468,7 +565,7 @@ __device__ __forceinline__ bool cond_zero(const Prog& g, int i, unsigned gw,
     const int* c = g.ccmp + 4 * q;
     if (!compare(c[2], 0.0f, __int_as_float(c[3]))) return false;
   }
-  return true;
+  return !g.np || prog_ok(g, i, at, LT, nullptr, 0);
 }
 
 // The widened instance's lane: one event of ops/nfa.py _one_event_step,
@@ -1203,6 +1300,12 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
   __syncthreads();
 
   Prog g = parse(sprog);
+  if constexpr (BANK) g.prm = sprm;
+  if constexpr (!kProg) {
+    // the build without programs: their code compiles away
+    if (g.np) __trap();                 // the caller picks the variant
+    g.np = 0;
+  }
   if constexpr (!EXT) {
     // the instance for simple units alone: the count, deadline and
     // occupancy code compiles away (and with it their registers)

@@ -131,6 +131,20 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
     },
 }
 
+#: build variants: {library: (its source, extra nvcc flags)}.  The NFA
+#: step's instances that run condition programs (csrc/nfa_step.cuh
+#: NFA_PROG) build from the same sources as the default ones, which then
+#: keep the registers they need without a program
+VARIANTS: Dict[str, Tuple[str, List[str]]] = {
+    "nfa_prog": ("nfa_step", ["-DNFA_PROG=1"]),
+    "nfa_wide_prog": ("nfa_wide", ["-DNFA_PROG=1"]),
+    "nfa_gang_prog": ("nfa_gang", ["-DNFA_PROG=1"]),
+}
+SIGNATURES["nfa_prog"] = {k: SIGNATURES["nfa_step"][k]
+                          for k in ("nfa_step", "nfa_bank_step")}
+SIGNATURES["nfa_wide_prog"] = dict(SIGNATURES["nfa_wide"])
+SIGNATURES["nfa_gang_prog"] = dict(SIGNATURES["nfa_gang"])
+
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -143,23 +157,29 @@ def nvcc_path() -> str:
     return p
 
 
+def _source(name: str) -> Tuple[str, List[str]]:
+    """The source file and the extra flags of library ``name``."""
+    src, flags = VARIANTS.get(name, (name, []))
+    return os.path.join(CSRC, src + ".cu"), flags
+
+
 def _lib_path(name: str) -> str:
     # the shared headers (csrc/*.cuh) are hashed with every source, so an
     # edit to one rebuilds the sources that include it
-    srcs = [os.path.join(CSRC, name + ".cu")] + sorted(
-        os.path.join(CSRC, f) for f in os.listdir(CSRC)
-        if f.endswith(".cuh"))
+    src, flags = _source(name)
+    srcs = [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                          if f.endswith(".cuh"))
     h = hashlib.sha256()
     for src in srcs:
         with open(src, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + flags).encode())
     return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _nvcc_cmd(name: str, out: str, verbose: bool) -> List[str]:
-    cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", out,
-                                        os.path.join(CSRC, name + ".cu")]
+    src, flags = _source(name)
+    cmd = [nvcc_path()] + NVCC_FLAGS + flags + ["-o", out, src]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
     return cmd

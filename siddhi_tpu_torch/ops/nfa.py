@@ -59,6 +59,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..plan import nfa_program as npg
 from ._kernels import load_kernel
 # the host packer, where the JAX package keeps it (ops/nfa.py:1294)
 from .pack import pack_blocks  # noqa: F401
@@ -292,7 +293,12 @@ class NfaKernelProgram(NamedTuple):
     ``kern_attrs[attr]`` ``CMP_OPS[op]`` the pattern's float32 constant
     ``param_names[param]``; ``ccmp[i]`` its conjuncts ``(row, lane, op,
     constant)``: capture lane ``(row, lane)`` ``CMP_OPS[op]`` the float32
-    ``constant``.  ``row_src`` is, per capture lane
+    ``constant``; ``prog[i]`` its program (plan/nfa_program.py: the AND
+    of the conjuncts no table takes, and the guards; empty: none), words
+    ``op | arg << 8`` with an event lane by its kern_attrs index, a
+    capture lane ``(row, lane)`` as ``row * C + lane``, a pattern
+    constant by its param_names index and a constant by its index in
+    ``pconst[i]`` (float32 values).  ``row_src`` is, per capture lane
     ``r * C + c``, the kern_attrs index the event writes there (-1: 0.0,
     -2: 1.0).  ``reason`` names the first feature outside the kernel's
     class (None: inside)."""
@@ -304,6 +310,8 @@ class NfaKernelProgram(NamedTuple):
     pcmp: Tuple[Tuple[Tuple[int, int, int], ...], ...] = ()
     param_names: Tuple[str, ...] = ()
     ccmp: Tuple[Tuple[Tuple[int, int, int, float], ...], ...] = ()
+    prog: Tuple[Tuple[int, ...], ...] = ()
+    pconst: Tuple[Tuple[float, ...], ...] = ()
 
 
 #: mid-chain `every` groups the widened instance holds a clone rank for
@@ -348,14 +356,28 @@ def _structural_wide(spec: NfaSpec) -> Optional[str]:
     return None
 
 
+def _first_reads(kprog: NfaKernelProgram, spec: NfaSpec) -> bool:
+    """True when unit 0's condition has a capture compare or a program
+    (the simple instances arm on its gate bit alone)."""
+    c0 = spec.units[0].cond_a
+    return bool(kprog.cmp[c0]) or bool(kprog.prog and kprog.prog[c0])
+
+
+def kernel_has_prog(kprog: NfaKernelProgram) -> bool:
+    """True when a condition has a program: the step launches from the
+    build variant whose instances run them (ops/_kernels.VARIANTS)."""
+    return any(kprog.prog)
+
+
 def kernel_wide(spec: NfaSpec, kprog: NfaKernelProgram) -> bool:
     """True when the step runs csrc/nfa_wide.cu's widened template
     instance: a structural feature beyond the simple, count and absent
     units of PATTERN with a leading `every` (:func:`_structural_wide`), a
-    ``<capture> <cmp> <constant>`` compare, or a capture compare in unit
-    0's condition (read, as the plain step reads it, against slot 0)."""
+    ``<capture> <cmp> <constant>`` compare, or a capture compare or a
+    program in unit 0's condition (read, as the plain step reads it,
+    against slot 0).  A program elsewhere runs in either instance."""
     return _structural_wide(spec) is not None or \
-        any(kprog.ccmp) or bool(kprog.cmp[spec.units[0].cond_a])
+        any(kprog.ccmp) or _first_reads(kprog, spec)
 
 
 def bank_class_reason(spec: NfaSpec,
@@ -363,7 +385,9 @@ def bank_class_reason(spec: NfaSpec,
     """The first feature outside the pattern bank's kernels (K3), or
     None: they take the step's simple, count and absent units of PATTERN
     with a leading `every`, no telemetry, and conditions of gate bits,
-    event-to-capture and event-to-constant compares."""
+    event-to-capture and event-to-constant compares and programs (the
+    group instance), but for the first condition: gate bits and
+    event-to-constant compares."""
     if kprog.reason is not None:
         return kprog.reason
     wide = _structural_wide(spec)
@@ -373,15 +397,56 @@ def bank_class_reason(spec: NfaSpec,
         return "a `<capture> <cmp> <constant>` compare in a condition"
     if kprog.cmp[spec.units[0].cond_a]:
         return "a capture compare in the first condition"
+    if _first_reads(kprog, spec):
+        return "a condition program in the first condition"
     return None
+
+
+#: the program's operations as torch ops (csrc/nfa_step.cuh eval_prog)
+_PROG_UNARY = {npg.OP_ABS: torch.abs, npg.OP_FLOOR: torch.floor,
+               npg.OP_CEIL: torch.ceil, npg.OP_SQRT: torch.sqrt,
+               npg.OP_ROUND: torch.round, npg.OP_NOT: torch.logical_not}
+_PROG_BINARY = {npg.OP_ADD: torch.add, npg.OP_SUB: torch.sub,
+                npg.OP_MUL: torch.mul, npg.OP_DIV: torch.div,
+                npg.OP_MOD: torch.fmod, npg.OP_MAX: torch.maximum,
+                npg.OP_MIN: torch.minimum, npg.OP_AND: torch.logical_and,
+                npg.OP_OR: torch.logical_or}
+
+
+def _model_program(kprog: NfaKernelProgram, event, i: int,
+                   caps: torch.Tensor) -> torch.Tensor:
+    """Condition i's program as csrc/nfa_step.cuh's ``eval_prog`` runs
+    it, one torch op a word: operands [P, 1] (event lanes, pattern
+    constants), [P, K'] (capture lanes of ``caps``) or 0-d (constants),
+    every value float32 → [P, K'] broadcastable bool."""
+    C = caps.shape[3]
+    stack: List[torch.Tensor] = []
+    for w in kprog.prog[i]:
+        op, x = w & 0xff, w >> 8
+        if op == npg.OP_EV:
+            stack.append(event[kprog.kern_attrs[x]][:, None])
+        elif op == npg.OP_CAP:
+            stack.append(caps[:, :, x // C, x % C])
+        elif op == npg.OP_PRM:
+            stack.append(event[kprog.param_names[x]][:, None])
+        elif op == npg.OP_K:
+            stack.append(torch.tensor(kprog.pconst[i][x], dtype=torch.float32,
+                                      device=caps.device))
+        elif op in _PROG_UNARY:
+            stack.append(_PROG_UNARY[op](stack.pop()))
+        else:
+            b = stack.pop()
+            fn = _CMP_FNS[x] if op == npg.OP_CMP else _PROG_BINARY[op]
+            stack.append(fn(stack.pop(), b))
+    return stack[0].to(torch.bool)
 
 
 def _model_cond(kprog: NfaKernelProgram, event, i: int,
                 caps: torch.Tensor) -> torch.Tensor:
     """Condition i as the kernel computes it: gate bit AND every param
     compare (the lane's pattern constants ride the event dict by name)
-    AND every capture compare of its table against ``caps`` ([P, K, R,
-    C], or [P, 1, R, C] zeros) → [P, K'] bool."""
+    AND every capture compare of its table AND its program against
+    ``caps`` ([P, K, R, C], or [P, 1, R, C] zeros) → [P, K'] bool."""
     ok = ((event[KGATE] >> i) & 1).bool()[:, None]
     for attr, prm, op in (kprog.pcmp[i] if kprog.pcmp else ()):
         ok = ok & _CMP_FNS[op](event[kprog.kern_attrs[attr]],
@@ -392,6 +457,8 @@ def _model_cond(kprog: NfaKernelProgram, event, i: int,
     for row, lane, op, c in (kprog.ccmp[i] if kprog.ccmp else ()):
         ok = ok & _CMP_FNS[op](caps[:, :, row, lane], torch.tensor(
             c, dtype=torch.float32, device=caps.device))
+    if kprog.prog and kprog.prog[i]:
+        ok = ok & _model_program(kprog, event, i, caps)
     return ok.expand(caps.shape[0], caps.shape[1])
 
 
@@ -1409,7 +1476,10 @@ def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
       S × (stream_b, cond_b, row_b, is_and),
       n_mid × (g0, g1) in ascending g0,
       (n_cond + 1) × ccmp_start, n_ccmp × (row, lane, op, constant's
-      float32 bits)
+      float32 bits),
+      (n_cond + 1) × prog_start, the programs' words (a constant's
+      argument its index among all conditions' constants), the
+      constants' float32 bits
 
     ``occ_hi``: arming waits while a slot of the lane sits at units
     0..occ_hi (-1: never).  Per unit j: ``kind`` a UNIT_KINDS index; ``land`` and ``live0``
@@ -1473,7 +1543,15 @@ def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
         prog += [u.stream_b, u.cond_b, u.row_b, int(u.is_and)]
     for g0, g1 in mids:
         prog += [g0, g1]
-    return prog + ccmp_start + ccmp
+    pstart, words, consts = [0], [], []
+    for q, kc in zip(kprog.prog or [()] * len(kprog.cmp),
+                     kprog.pconst or [()] * len(kprog.cmp)):
+        base = len(consts)
+        words += [w + (base << 8) if (w & 0xff) == npg.OP_K else w
+                  for w in q]
+        consts += [int(np.float32(c).view(np.int32)) for c in kc]
+        pstart.append(len(words))
+    return prog + ccmp_start + ccmp + pstart + words + consts
 
 
 def _prog_tensor(spec: NfaSpec, kprog: NfaKernelProgram, dev) -> torch.Tensor:
@@ -1624,7 +1702,7 @@ def _kernel_call(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         raise RuntimeError(
             f"{who}: spec outside the CUDA kernel's class ("
             f"{'no kernel program' if kprog is None else kprog.reason})")
-    if any(kprog.pcmp):
+    if kprog.param_names:
         raise RuntimeError(f"{who}: a parameterized spec steps through the "
                            f"pattern bank (nfa_bank_step)")
     if dev.type != "cuda":
@@ -1697,9 +1775,12 @@ def nfa_step_egress(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         return _step_egress_plain(spec, carry, block, cap, batch_b)
     k = _kernel_call(spec, carry, block, kprog, seg, "nfa_step_egress",
                      batch_b)
-    # the widened instance is csrc/nfa_wide.cu's (nfa_step's arguments)
-    step = load_kernel("nfa_wide").nfa_step_wide if k.flags & FLAG_WIDE \
-        else load_kernel("nfa_step").nfa_step
+    # the widened instance is csrc/nfa_wide.cu's (nfa_step's arguments);
+    # a spec with a condition program takes the build variant with them
+    prog = kernel_has_prog(kprog)
+    step = load_kernel("nfa_wide_prog" if prog else "nfa_wide") \
+        .nfa_step_wide if k.flags & FLAG_WIDE else \
+        load_kernel("nfa_prog" if prog else "nfa_step").nfa_step
     rc = step(
         k.attrs.data_ptr(), block["__ts"].data_ptr(),
         block["__stream"].data_ptr(), k.gates.data_ptr(), k.prog.data_ptr(),
@@ -1835,7 +1916,11 @@ def nfa_gang_step_egress(tenants: List[GangTenant],
             [k.flags, k.tel_w]
         desc[i] = ptrs
         off += r
-    lib = load_kernel("nfa_gang")
+    # a bucket with a condition program steps on the gang's build variant
+    # with them (every tenant of the call; the compaction is the same)
+    lib = load_kernel("nfa_gang_prog" if any(kernel_has_prog(k.kprog)
+                                             for k in tenants)
+                      else "nfa_gang")
     table = torch.empty((int(lib.nfa_gang_table_bytes(len(tenants))),),
                         dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -2006,7 +2091,8 @@ class BankGeometry(NamedTuple):
 
 def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
                   n_params: int, prog_len: int, count: bool = False,
-                  absent: bool = False, n_cond: int = 1) -> BankGeometry:
+                  absent: bool = False, n_cond: int = 1,
+                  program: bool = False) -> BankGeometry:
     """The instance csrc/nfa_step.cu's bank step runs for K slots, T
     events a lane, A attribute lanes, R·C capture words a slot, n_pcmp
     constant compares over n_params constants a pattern and a program
@@ -2020,11 +2106,13 @@ def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
     and attribute lanes for the CTA's lanes — two when T is tiled; each
     thread's column of capture, enter and seq words, and of deadlines
     with absent units) fits the CTA's; else the group instance, which
-    takes every unit kind of the class.  TT: a power of two from 4 to
+    takes every unit kind of the class and every condition program
+    (``program``: a condition has one).  TT: a power of two from 4 to
     128, the smallest that holds T; where that tile exceeds
     BANK_BLOCK_BYTES, cut to BANK_TILE_BYTES.  The layout is csrc's
     ``bank_layout``; the launch refuses a size below it."""
-    if count or K > BANK_THREAD_MAX_K or n_pcmp > BANK_THREAD_MAX_PCMP:
+    if count or program or K > BANK_THREAD_MAX_K or \
+            n_pcmp > BANK_THREAD_MAX_PCMP:
         return BankGeometry("group", 0, 0)
     lanes = BANK_LANES
 
@@ -2490,9 +2578,10 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     contract, on the tensors' own device.  CPU tensors run the plain
     version.  CUDA tensors launch csrc/nfa_step.cu's bank step on the
     current stream for a spec inside its class, in the instance
-    :func:`bank_geometry` picks: the thread instance (no count unit, K
-    <= 16; counted in ``nfa_bank_step.thread_launches``) or the group
-    instance (``nfa_bank_step.group_launches``); ``nfa_bank_step.launches``
+    :func:`bank_geometry` picks: the thread instance (no count unit and
+    no condition program, K <= 16; counted in
+    ``nfa_bank_step.thread_launches``) or the group instance
+    (``nfa_bank_step.group_launches``); ``nfa_bank_step.launches``
     counts both.  With ``inplace`` the new carry IS the input carry,
     updated in place.  Anything else raises: no fallback."""
     dev = block["__ts"].device
@@ -2540,8 +2629,11 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     count, lmt, lmk = (torch.empty((CN, P), **i32) for _ in range(3))
     geo = bank_geometry(K, T, A, R * C, sum(len(q) for q in kprog.pcmp),
                         NP, prog.numel(), count=_has(spec, "count"),
-                        absent=_has(spec, "absent"), n_cond=len(kprog.cmp))
-    lib = load_kernel("nfa_step")
+                        absent=_has(spec, "absent"), n_cond=len(kprog.cmp),
+                        program=kernel_has_prog(kprog))
+    # a condition program: the group instance of the build variant with
+    # them (bank_geometry never picks the thread instance for one)
+    lib = load_kernel("nfa_prog" if kernel_has_prog(kprog) else "nfa_step")
     args = (
         attrs.data_ptr(), block["__ts"].data_ptr(),
         block["__stream"].data_ptr(), gates.data_ptr(), prog.data_ptr(),

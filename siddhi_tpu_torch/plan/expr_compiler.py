@@ -241,6 +241,22 @@ class TorchXP:
     def power(self, a, b):
         return self.torch.pow(self.tensor(a), b)
 
+    def divide(self, a, b):
+        """``a / b`` as one IEEE division on every device, as JAX divides:
+        torch computes a scalar over a tensor as ``reciprocal(b) * a``,
+        and on CUDA a tensor over a scalar as ``a * (1 / b)``, each of
+        which can round otherwise.  The scalar becomes a tensor of the
+        result's dtype (rounded as torch rounds it)."""
+        t = self.torch
+        ta, tb = isinstance(a, t.Tensor), isinstance(b, t.Tensor)
+        if ta == tb or (ta and a.device.type == "cpu"):
+            return a / b
+        ref = a if ta else b
+        dt = t.result_type(a, b)
+        if ta:
+            return a / t.full_like(ref, b, dtype=dt)
+        return t.full_like(ref, a, dtype=dt) / b
+
 
 class ExprCompiler:
     """Compiles with a pluggable array namespace: numpy (host) or
@@ -338,6 +354,9 @@ class ExprCompiler:
                 # Java integer division truncates toward zero
                 g = lambda a, b: xp.asarray(xp.trunc(a / b), dt)
                 py = lambda a, b: int(a / b)
+            elif isinstance(xp, TorchXP):
+                g = lambda a, b: xp.asarray(xp.divide(a, b), dt)
+                py = lambda a, b: a / b
             else:
                 g = lambda a, b: xp.asarray(a / b, dt)
                 py = lambda a, b: a / b

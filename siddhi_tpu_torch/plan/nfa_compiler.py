@@ -56,12 +56,14 @@ from ..query_api import (AbsentStreamStateElement, CountStateElement,
 from ..query_api.definition import AttrType
 from ..query_api.expression import (And, Compare, CompareOp, Constant, IsNull,
                                     Not, Or, TimeConstant, Variable,
-                                    variables_of)
+                                    variables_of, walk)
 from ..core.stateschema import (Carry, ListOf, Scalar, Struct,
                                 persistent_schema)
 from ..utils.errors import SiddhiAppCreationError, SiddhiAppRuntimeException
 from .expr_compiler import (CompiledExpr, EvalCtx, ExprCompiler, Scope,
                             TorchXP)
+from .nfa_program import (OP_AND, OP_CAP, OP_CMP, OP_EV, OP_K, Outside,
+                          encode, lower_program)
 
 
 _NUMERIC = (AttrType.INT, AttrType.LONG, AttrType.FLOAT, AttrType.DOUBLE)
@@ -1026,7 +1028,7 @@ class CompiledPatternNFA:
         unit_specs: List[UnitSpec] = []
         self._n_lane = n_lane
         self._matched_lane = matched_lane
-        kern_conds: List[Any] = []      # per cond: (gate_fn, cmp) or reason
+        kern_conds: List[Any] = []      # per cond: _kernel_split or reason
         for u in self.units:
             for side in u.sides:
                 side.cond_id = len(cond_fns)
@@ -1538,13 +1540,14 @@ class CompiledPatternNFA:
         current event (no cross-state captures, no self-[last] bank, no
         __cnt chain-length lanes, no nullable-row validity gates) — the
         license ops/nfa needs to hoist it block-wide (spec.cond_free).
-        ``kernel`` is the condition as the CUDA kernel takes it, (gate fn,
-        compare table), or the reason it cannot (_kernel_split)."""
+        ``kernel`` is the condition as the CUDA kernel takes it (gate fn,
+        compare tables and program, _kernel_split), or the reason it
+        cannot."""
         if not side.filters:
             def true_fn(event, captures, _dev=self.device):
                 return torch.ones((event["__ts"].shape[0],),
                                   dtype=torch.bool, device=_dev)
-            return true_fn, True, (true_fn, (), (), ())
+            return true_fn, True, (true_fn, (), (), (), ())
         expr, cnt_rows = self._condition_expr(side)
 
         # rows this condition references → validity gates for nullable rows
@@ -1576,18 +1579,22 @@ class CompiledPatternNFA:
         fn = self._cond_fn(compiler.compile(expr), side, gate_rows,
                            cnt_rows)
         if free_flag[0] and not self._reads_params(expr):
-            return fn, True, (fn, (), (), ())
-        if gate_rows or any(not self._guard_holds(side, r)
-                            for r in cnt_rows):
-            return fn, free_flag[0], "nullable-state and kleene-length " \
-                "guards in a condition"
-        # every [last] guard holds wherever the condition is read: the
-        # kernel takes the condition without them
+            return fn, True, (fn, (), (), (), ())
         raw = side.filters[0]
         for fe in side.filters[1:]:
             raw = And(raw, fe)
-        kc = self._kernel_split(side, raw, compiler)
-        return fn, free_flag[0], kc
+        if not gate_rows and all(self._guard_holds(side, r)
+                                 for r in cnt_rows) and \
+                not any(isinstance(n, IsNull) for n in walk(raw)):
+            # every [last] guard holds wherever the condition is read:
+            # the kernel takes the condition without them
+            return fn, free_flag[0], self._kernel_split(side, raw, compiler)
+        # the guards the plain condition adds ride its program: the
+        # rewrite's __cnt terms, and each nullable row's validity lane > 0
+        valid = tuple((r, self._n_lane[r] if self._n_lane[r] >= 0
+                       else self._matched_lane[r]) for r in sorted(gate_rows))
+        return fn, free_flag[0], self._kernel_split(side, expr, compiler,
+                                                     valid)
 
     def _guard_holds(self, side: _Side, row: int) -> bool:
         """True when the ``__cnt >= 1`` guard of a ``[last]`` reference
@@ -1609,28 +1616,24 @@ class CompiledPatternNFA:
 
     def _reads_params(self, e) -> bool:
         """True when expression ``e`` reads a parameter lane."""
-        if self._param_of(e) is not None:
-            return True
-        for f in getattr(e, "__dataclass_fields__", {}):
-            v = getattr(e, f)
-            for x in (v if isinstance(v, list) else [v]):
-                if hasattr(x, "__dataclass_fields__") and \
-                        self._reads_params(x):
-                    return True
-        return False
+        return any(self._param_of(n) is not None for n in walk(e))
 
-    def _kernel_split(self, side: _Side, expr, compiler):
+    def _kernel_split(self, side: _Side, expr, compiler, valid=()):
         """A condition reading captures or pattern constants as the kernel
-        takes it: its AND conjuncts that read only the event fold into one
-        gate program (shared by every pattern of a bank), each conjunct
-        reading a constant lane must be ``<event attr> <cmp> <constant>``
-        and each other one ``<event attr> <cmp> <capture attr>`` or
-        ``<capture attr> <cmp> <numeric constant>`` (either side first; a
-        capture of another unit's first bank, or of an earlier kleene
-        count's ``[last]`` bank) → (gate fn, ((attr, row, lane, op), ...),
-        ((attr, param, op), ...), ((row, lane, op, constant), ...)) with
-        attr an attribute name, param a parameter lane name and constant
-        the float32 value the condition compares in; or the reason it is
+        takes it, conjunct by conjunct (its AND): those that read only the
+        event fold into one gate program (shared by every pattern of a
+        bank); ``<event attr> <cmp> <pattern constant>`` goes to the param
+        table, ``<event attr> <cmp> <capture attr>`` and ``<capture attr>
+        <cmp> <numeric constant>`` (either side first; a capture of
+        another unit's first bank, or of an earlier kleene count's
+        ``[last]`` bank) to the capture tables; every other conjunct, the
+        ``[last]`` rewrite's ``__cnt`` terms and, per ``valid`` (row,
+        lane), a nullable row's validity lane ``> 0``, to the condition's
+        program (plan/nfa_program.py) → (gate fn, ((attr, row, lane, op),
+        ...), ((attr, param, op), ...), ((row, lane, op, constant), ...),
+        program) with attr an attribute name, param a parameter lane name,
+        constant the float32 value the condition compares in and program
+        its lowered instructions (empty: none); or the reason it is
         outside the kernel's class."""
         conj: List[Any] = []
 
@@ -1645,12 +1648,17 @@ class CompiledPatternNFA:
                CompareOp.GTE: ">=", CompareOp.EQ: "==", CompareOp.NEQ: "!="}
         mirror = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "==": "==",
                   "!=": "!="}
-        free, cmps, pcmps, ccmps = [], [], [], []
+        free, cmps, pcmps, ccmps, rest = [], [], [], [], []
 
         def numeric(e):
             return isinstance(e, Constant) and \
                 isinstance(e.value, (int, float)) and \
-                not isinstance(e.value, bool)
+                not isinstance(e.value, bool) and self._param_of(e) is None
+
+        def source(v: Variable) -> str:
+            if v.stream_id is None and v.attribute.startswith("__cnt_"):
+                return "cnt"
+            return self._var_source(side, v)[0]
 
         def cap_lane(other, cap):
             """(row, lane) of capture ``cap`` read through ``other``'s
@@ -1663,65 +1671,83 @@ class CompiledPatternNFA:
                      .kind != "count"):
                 return None
             return other.row, lane
-        for c in conj:
-            srcs: List[str] = []
-            _scan_vars(c, lambda v, _acc=srcs:
-                       _acc.append(self._var_source(side, v)[0]))
-            if self._reads_params(c):
-                pform = "a pattern constant outside `<attr> <cmp> " \
-                    "<constant>` (arithmetic, functions, or, not) in a " \
-                    "condition"
-                if not (isinstance(c, Compare) and c.op in ops):
-                    return pform
-                op = ops[c.op]
+
+        def table(c):
+            """The conjunct as a table entry: ("pcmp" | "cmp" | "ccmp",
+            entry), or None."""
+            if not (isinstance(c, Compare) and c.op in ops):
+                return None
+            op = ops[c.op]
+            if self._param_of(c.left) is not None or \
+                    self._param_of(c.right) is not None:
                 ev, prm = c.left, self._param_of(c.right)
                 if prm is None:
                     ev, prm, op = c.right, self._param_of(c.left), mirror[op]
-                if prm is None or not isinstance(ev, Variable) or \
-                        self._var_source(side, ev)[0] != "event" or \
-                        ev.attribute not in self.attr_names:
-                    return pform
-                pcmps.append((ev.attribute, prm, CMP_OPS.index(op)))
-                continue
-            if all(k == "event" for k in srcs):
-                free.append(c)
-                continue
-            form = "a capture reference outside `<attr> <cmp> " \
-                "<capture attr>` and `<capture attr> <cmp> <constant>` " \
-                "(arithmetic, functions, or, not) in a condition"
-            if isinstance(c, Compare) and c.op in ops and \
-                    (numeric(c.left) or numeric(c.right)):
-                op = ops[c.op]
+                if isinstance(ev, Variable) and source(ev) == "event" and \
+                        ev.attribute in self.attr_names:
+                    return "pcmp", (ev.attribute, prm, CMP_OPS.index(op))
+                return None
+            if numeric(c.left) or numeric(c.right):
                 cap, const = c.left, c.right
                 if numeric(c.left):
                     cap, const, op = c.right, c.left, mirror[op]
-                if not isinstance(cap, Variable):
-                    return form
-                kind, other = self._var_source(side, cap)
-                rl = cap_lane(other, cap) if kind == "cap" else None
+                if not isinstance(cap, Variable) or source(cap) != "cap":
+                    return None
+                rl = cap_lane(self._var_source(side, cap)[1], cap)
                 if rl is None:
-                    return form
-                ccmps.append(rl + (CMP_OPS.index(op),
-                                   float(np.float32(const.value))))
-                continue
-            if not (isinstance(c, Compare) and c.op in ops and
-                    isinstance(c.left, Variable) and
+                    return None
+                return "ccmp", rl + (CMP_OPS.index(op),
+                                     float(np.float32(const.value)))
+            if not (isinstance(c.left, Variable) and
                     isinstance(c.right, Variable)):
-                return form
-            (lk, ls), (rk, rs) = (self._var_source(side, c.left),
-                                  self._var_source(side, c.right))
-            if {lk, rk} != {"event", "cap"}:
-                return form
-            op = ops[c.op]
+                return None
+            if {source(c.left), source(c.right)} != {"event", "cap"}:
+                return None
             ev, cap = c.left, c.right
-            if lk == "cap":
+            if source(c.left) == "cap":
                 ev, cap, op = c.right, c.left, mirror[op]
-            other = ls if lk == "cap" else rs
-            # a count row's first bank (index 0 or none) or last bank
-            rl = cap_lane(other, cap)
+            rl = cap_lane(self._var_source(side, cap)[1], cap)
             if rl is None or ev.attribute not in self.attr_names:
-                return form
-            cmps.append((ev.attribute,) + rl + (CMP_OPS.index(op),))
+                return None
+            return "cmp", (ev.attribute,) + rl + (CMP_OPS.index(op),)
+        for c in conj:
+            if not self._reads_params(c) and \
+                    all(source(v) == "event" for v in variables_of(c)):
+                free.append(c)
+                continue
+            t = table(c)
+            if t is None:
+                rest.append(c)
+            else:
+                {"pcmp": pcmps, "cmp": cmps, "ccmp": ccmps}[t[0]].append(
+                    t[1])
+
+        def resolve(v: Variable):
+            kind = source(v)
+            if kind == "cnt":
+                r = int(v.attribute[len("__cnt_"):])
+                return OP_CAP, (r, self._n_lane[r])
+            if kind == "event":
+                if v.attribute not in self.attr_names:
+                    raise Outside(f"the event lane '{v.attribute}' outside "
+                                  f"the kernel's attributes")
+                return OP_EV, v.attribute
+            rl = cap_lane(self._var_source(side, v)[1], v)
+            if rl is None:
+                raise Outside("a capture outside the first bank and a "
+                              "kleene count's [last] bank")
+            return OP_CAP, rl
+        try:
+            prog = list(lower_program(
+                rest, resolve, self._param_of,
+                lambda e: compiler.compile(e).fn(None),
+                lambda e: compiler.compile(e).type)) if rest else []
+        except Outside as e:
+            return e.reason
+        for r, lane in valid:
+            prog += [(OP_CAP, (r, lane)), (OP_K, 0.0),
+                     (OP_CMP, CMP_OPS.index(">"))] + \
+                ([(OP_AND, 0)] if prog else [])
         if free:
             g = free[0]
             for c in free[1:]:
@@ -1731,7 +1757,7 @@ class CompiledPatternNFA:
             def gate(event, captures, _dev=self.device):
                 return torch.ones((event["__ts"].shape[0],),
                                   dtype=torch.bool, device=_dev)
-        return gate, tuple(cmps), tuple(pcmps), tuple(ccmps)
+        return gate, tuple(cmps), tuple(pcmps), tuple(ccmps), tuple(prog)
 
     def _kernel_program(self, kern_conds) -> NfaKernelProgram:
         """The spec as the CUDA kernel takes it (ops/nfa
@@ -1759,13 +1785,12 @@ class CompiledPatternNFA:
                     row_src.append(attr_ix(cols[c]))
                 else:
                     row_src.append(-2)       # __matched / __n default 1.0
-        gate_fns, cmp, pcmp, ccmp = [], [], [], []
+        gate_fns, cmp, pcmp, ccmp, prog, pconst = [], [], [], [], [], []
         for kc in kern_conds:
             if isinstance(kc, str):
                 gate_fns.append(None)
-                cmp.append(())
-                pcmp.append(())
-                ccmp.append(())
+                for t in (cmp, pcmp, ccmp, prog, pconst):
+                    t.append(())
                 continue
             gate_fns.append(kc[0])
             cmp.append(tuple((attr_ix(a), r, ln, op)
@@ -1773,11 +1798,16 @@ class CompiledPatternNFA:
             pcmp.append(tuple((attr_ix(a), self.param_names.index(pn), op)
                               for (a, pn, op) in kc[2]))
             ccmp.append(tuple(kc[3]))
+            words, consts = encode(kc[4], attr_ix, C,
+                                   self.param_names.index)
+            prog.append(words)
+            pconst.append(consts)
         return NfaKernelProgram(
             gate_fns=tuple(gate_fns), cmp=tuple(cmp),
             kern_attrs=tuple(kern_attrs), row_src=tuple(row_src),
             reason=reason, pcmp=tuple(pcmp),
-            param_names=tuple(self.param_names), ccmp=tuple(ccmp))
+            param_names=tuple(self.param_names), ccmp=tuple(ccmp),
+            prog=tuple(prog), pconst=tuple(pconst))
 
     def extract_params(self, app_string: str,
                        query_name: Optional[str] = None) -> Dict[str, float]:

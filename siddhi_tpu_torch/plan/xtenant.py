@@ -76,7 +76,11 @@ def _shape_key(nfa) -> Tuple:
     shapes match (S/K/P/B plus capture geometry and telemetry).  The key
     never forces padding ACROSS tenants — each sub-step runs the
     tenant's own block at its own T — it bounds what one gang call
-    takes: on CUDA one K (one slot geometry) and one egress width."""
+    takes: on CUDA one K (one slot geometry) and one egress width.
+    Conditions are data in each tenant's program table, so tenants whose
+    condition programs differ share a bucket (a bucket with any program
+    steps on the gang's build variant with them, ops/nfa
+    ``nfa_gang_step_egress``)."""
     return (len(nfa.spec.units), nfa.spec.n_slots, nfa.n_partitions,
             nfa.batch_b, max(nfa.spec.n_rows, 1), max(nfa.spec.n_caps, 1),
             bool(nfa.spec.telemetry))

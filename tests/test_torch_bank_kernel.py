@@ -416,6 +416,15 @@ def parse_prog(prog):
                 for q in range(h["n_mid"])]
     pos += 2 * h["n_mid"]
     h["ccmp"] = table(4, h["n_ccmp"])
+    pstart = prog[pos:pos + n_cond + 1]
+    pos += n_cond + 1
+    words = prog[pos:pos + pstart[n_cond]]
+    pos += pstart[n_cond]
+    h["prog"] = tuple(tuple(words[pstart[i]:pstart[i + 1]])
+                      for i in range(n_cond))
+    n_k = 1 + max((w >> 8 for w in words if w & 0xff == 3), default=-1)
+    h["pconst"] = tuple(prog[pos:pos + n_k])
+    pos += n_k
     assert pos == len(prog)
     return h
 
@@ -624,16 +633,16 @@ def test_bank_step_cpu_is_plain():
 
 
 OUT_OF_CLASS = {
-    # a kleene count whose own condition reads its [last] bank (the
-    # empty-chain guard); counts otherwise run on the group instance
+    # a kleene count whose own condition reads its [last] bank through a
+    # transcendental; counts otherwise run on the group instance
     "count unit": (STREAM + "from every e1=S[kind == 0 and price > {t} and "
-                   "price > e1[last].price]<2:3> -> e2=S[kind == 1 and "
-                   "price > e1[last].price] select e2.price as p2 insert "
-                   "into Out;", "kleene-length"),
+                   "math:log(price) < e1[last].price]<2:3> -> e2=S[kind == "
+                   "1 and price > e1[last].price] select e2.price as p2 "
+                   "insert into Out;", "transcendental"),
     "arithmetic on a constant": (
-        STREAM + "from every e1=S[kind == 0 and price * 2 > {t}] -> "
+        STREAM + "from every e1=S[kind == 0 and math:exp(price) > {t}] -> "
         "e2=S[kind == 1 and price > e1.price] select e1.price as p1 "
-        "insert into Out;", "pattern constant outside"),
+        "insert into Out;", "transcendental math:exp"),
 }
 
 

@@ -259,24 +259,29 @@ def test_widened_program_words_are_what_parse_reads():
             for _r, _l, op, c in q] == [("!=", 0.0)]
 
 
+#: the boundary since condition programs (plan/nfa_program.py): arithmetic,
+#: functions, `or`, `not`, two captures compared and a kleene condition
+#: reading its own [last] are inside; these stay out
 OUTSIDE = {
-    "arithmetic around a capture compare": (
-        "from every e1=S[kind == 0] -> e2=S[price > e1.price + 1.0] select "
-        "e1.price as p insert into Out;", "arithmetic"),
-    "or around a capture compare": (
-        "from every e1=S[kind == 0] -> e2=S[price > e1.price or kind == 2] "
-        "select e1.price as p insert into Out;", "capture reference"),
-    "not around a capture compare": (
-        "from every e1=S[kind == 0] -> e2=S[not (price > e1.price)] select "
-        "e1.price as p insert into Out;", "capture reference"),
-    "two captures compared": (
+    "INT arithmetic around a capture compare": (
+        "from every e1=S[kind == 0] -> e2=S[kind > e1.kind + 1] select "
+        "e1.price as p insert into Out;", "INT/LONG arithmetic"),
+    "a transcendental under or": (
+        "from every e1=S[kind == 0] -> e2=S[price > e1.price or "
+        "math:sin(price) > 0.5] select e1.price as p insert into Out;",
+        "transcendental math:sin"),
+    "ifThenElse under not": (
+        "from every e1=S[kind == 0] -> e2=S[not (ifThenElse(kind == 1, "
+        "price, 0.0) > e1.price)] select e1.price as p insert into Out;",
+        "the function ifThenElse"),
+    "is null on a capture": (
         "from every e1=S[kind == 0] -> e2=S[kind == 1] -> e3=S[kind == 2 and "
-        "e1.price < e2.price] select e1.price as p insert into Out;",
-        "capture reference"),
-    "a kleene condition reading its own [last]": (
-        "from every e1=S[kind == 0] -> e2=S[kind == 1 and price > "
-        "e2[last].price]<1:3> -> e3=S[kind == 2] select e1.price as p insert "
-        "into Out;", "kleene-length"),
+        "(e1.price is null or e1.price < e2.price)] select e1.price as p "
+        "insert into Out;", "`is null` outside the [last] rewrite"),
+    "a kleene condition reading its own [last] through exp": (
+        "from every e1=S[kind == 0] -> e2=S[kind == 1 and math:exp(price) "
+        "> e2[last].price]<1:3> -> e3=S[kind == 2] select e1.price as p "
+        "insert into Out;", "transcendental math:exp"),
 }
 
 

@@ -103,7 +103,10 @@ IN_CLASS = {
 #: guard), a leading min-0 count, a leading absent unit, SEQUENCE (with an
 #: absent unit too), ...
 OUT_OF_CLASS = {
-    "count": (STREAM + SHAPES["count"], "kleene"),
+    "count": (STREAM + "from every e1=S[kind == 0] -> e2=S[kind == 1 and "
+              "not (math:log(price) < e2[last].price)]<1:3> -> e3=S[kind "
+              "== 0] select e1.price as p1, e3.price as p3 insert into "
+              "Out;", "transcendental"),
     "kleene0":
         (STREAM + "from e2=S[kind == 2]<0:3> -> e3=S[kind == 1] within 4 "
          "sec select e2.price as p2, e3.price as p3 insert into Out;",
@@ -131,13 +134,13 @@ OUT_OF_CLASS = {
         (STREAM + "from e1=S[kind == 0] -> every e2=S[kind == 1] "
          "select e1.price as p insert into Out;", "trailing"),
     "arithmetic":
-        (STREAM + "from every e1=S[kind == 0] -> e2=S[price > "
-         "e1.price + 1.0] select e1.price as p insert into Out;",
-         "arithmetic"),
+        (STREAM + "from every e1=S[kind == 0] -> e2=S[kind > "
+         "e1.kind + 1] select e1.price as p insert into Out;",
+         "INT/LONG arithmetic"),
     "or_capture":
         (STREAM + "from every e1=S[kind == 0] -> e2=S[price > e1.price "
-         "or kind == 2] select e1.price as p insert into Out;",
-         "capture reference"),
+         "or math:exp(price) > 2.0] select e1.price as p insert into Out;",
+         "transcendental"),
 }
 
 

@@ -311,7 +311,9 @@ def test_widened_shapes_are_in_class_and_the_rest_is_not():
     the kernel's class; a leading min-0 count, a leading absent and
     SEQUENCE with an absent unit are inside the step's class (the
     widened instance) but outside the pattern bank's; a kleene count
-    reading its own [last] bank is outside both."""
+    reading its own [last] bank is inside both (its chain-length guard a
+    condition program); one reading it through a transcendental is
+    outside both."""
     for text in list(WIDENED.values()):
         nfa = CompiledPatternNFA(STREAM + text, n_partitions=2, device="cpu")
         assert kernel_class_reason(nfa.spec) is None
@@ -335,11 +337,18 @@ def test_widened_shapes_are_in_class_and_the_rest_is_not():
         assert nfa.kprog.reason is None, (name, nfa.kprog.reason)
         reason = bank_class_reason(nfa.spec, nfa.kprog)
         assert reason is not None and word in reason, (name, reason)
+    own_last = CompiledPatternNFA(
+        STREAM + "from every e1=S[kind == 0] -> e2=S[kind == 1 and price > "
+        "e2[last].price]<1:3> -> e3=S[kind == 2] select e1.price as p "
+        "insert into Out;", n_partitions=2, device="cpu")
+    assert own_last.kprog.reason is None, own_last.kprog.reason
+    assert any(own_last.kprog.prog)
+    assert bank_class_reason(own_last.spec, own_last.kprog) is None
     outside = {
         "own [last] in a count": (
-            "from every e1=S[kind == 0] -> e2=S[kind == 1 and price > "
-            "e2[last].price]<1:3> -> e3=S[kind == 2] select e1.price as p "
-            "insert into Out;", "kleene-length"),
+            "from every e1=S[kind == 0] -> e2=S[kind == 1 and "
+            "math:log(price) > e2[last].price]<1:3> -> e3=S[kind == 2] "
+            "select e1.price as p insert into Out;", "transcendental"),
     }
     for name, (text, word) in outside.items():
         nfa = CompiledPatternNFA(STREAM + text, n_partitions=2, device="cpu")

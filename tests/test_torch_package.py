@@ -110,26 +110,32 @@ def test_host_engine_needs_no_device(monkeypatch):
 
 UNPORTED = {
     # partitioned shapes: the partition runtime records the reason.  The
-    # pattern shapes compare a capture through arithmetic, a condition
-    # form outside the CUDA NFA kernel's: refused on a CUDA device (on
-    # the CPU the plain step runs them)
+    # pattern shapes compare a capture with a transcendental (math:log),
+    # a condition form outside the CUDA NFA kernel's: refused on a CUDA
+    # device (on the CPU the plain step runs them)
     "partition_pattern": ("""
         define stream S (sym string, price float);
         partition with (sym of S) begin
-        from every e1=S[price > 5.0], e2=S[price < e1.price - 1.0]
+        from every e1=S[price > 5.0], e2=S[math:log(price) < e1.price]
         select e1.sym as a, e2.price as p insert into Out; end;""", True),
     # unpartitioned shapes: the query runtime records the reason
     "pattern": ("""
         define stream S (sym string, price float);
-        from every e1=S[price > 5.0], e2=S[price < e1.price - 1.0]
+        from every e1=S[price > 5.0], e2=S[math:log(price) < e1.price]
         select e1.sym as a insert into Out;""", False),
 }
 
 #: shapes that were in UNPORTED until the grouped-aggregation, filter,
-#: time-window aggregation (K6) runtimes, the join probe (K11) and the
-#: NFA step's widened class were ported: each now builds on the device
-#: engine (a join: its buffers on the host, its probe on the device)
+#: time-window aggregation (K6) runtimes, the join probe (K11), the NFA
+#: step's widened class and its condition programs were ported: each now
+#: builds on the device engine (a join: its buffers on the host, its
+#: probe on the device)
 PORTED = {
+    "arithmetic on a capture": ("""
+        define stream S (sym string, price float);
+        from every e1=S[price > 5.0], e2=S[price < e1.price - 1.0]
+        select e1.sym as a insert into Out;""", False,
+                                "DevicePatternRuntime"),
     "sequence": ("""
         define stream S (sym string, price float);
         from every e1=S[price > 5.0], e2=S[price < e1.price]

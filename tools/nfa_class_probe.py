@@ -10,10 +10,13 @@ and ``tests/test_torch_conformance_nfa.py`` run in one pytest
 subprocess under that checkout's conformance plugin
 (``tests/test_torch_conformance.py``: ``siddhi_tpu`` aliased to the
 port, the compilers on the CPU), with ``CompiledPatternNFA.
-_kernel_program`` wrapped to log each compile's ``kprog.reason``.  A
+_kernel_program`` wrapped to log each compile's ``kprog.reason`` and,
+for a parameterized compile (a pattern bank's template), its
+``ops/nfa.bank_class_reason`` (the bank kernels' narrower class).  A
 compile counts once, under its first reason; ``None`` is a compile the
-kernel takes.  Prints one line per reason and a ``PROBE {json}`` line.
-Runs on the CPU (~2 min); suite failures are reported, not fatal.
+kernel takes.  Prints one line per reason, then the bank templates'
+reasons, and a ``PROBE {json}`` line.  Runs on the CPU (~3 min); suite
+failures are reported, not fatal.
 """
 from __future__ import annotations
 
@@ -31,14 +34,19 @@ SUITE_FILES = ("tests/test_torch_conformance_patterns.py",
 HOOK = '''
 
 import siddhi_tpu_torch.plan.nfa_compiler as _probe_nc  # noqa: E402
+from siddhi_tpu_torch.ops.nfa import \\
+    bank_class_reason as _probe_bank  # noqa: E402
 
 _probe_real = _probe_nc.CompiledPatternNFA._kernel_program
 
 
 def _probe_kernel_program(self, kern_conds):
     kp = _probe_real(self, kern_conds)
+    bank = getattr(self, "_parameterize", False)
     with open(%r, "a") as f:
-        f.write(json.dumps(kp.reason) + "\\n")
+        f.write(json.dumps({"reason": kp.reason, "bank": bank,
+                            "bank_reason": _probe_bank(self.spec, kp)
+                            if bank else None}) + "\\n")
     return kp
 
 
@@ -84,17 +92,25 @@ def main():
              "--rootdir", root] + files,
             cwd=root, env=env, capture_output=True, text=True, timeout=1800)
         tail = [ln for ln in r.stdout.splitlines() if ln.strip()][-1:]
-        reasons = [json.loads(ln) for ln in open(log)] \
+        rows = [json.loads(ln) for ln in open(log)] \
             if os.path.exists(log) else []
+    reasons = [r["reason"] for r in rows]
     counts = collections.Counter(reasons)
     for reason, n in counts.most_common():
         print(f"{n:6d}  {reason}")
     refused = sum(n for k, n in counts.items() if k is not None)
+    banks = collections.Counter(r["bank_reason"] for r in rows if r["bank"])
+    for reason, n in banks.most_common():
+        print(f"{n:6d}  bank template: {reason}")
     res = {"root": root, "compiles": len(reasons), "refused": refused,
            "by_reason": {str(k): n for k, n in counts.most_common()},
+           "bank_templates": sum(banks.values()),
+           "bank_refused": sum(n for k, n in banks.items() if k is not None),
+           "bank_by_reason": {str(k): n for k, n in banks.most_common()},
            "pytest": tail[0] if tail else "", "files": len(files)}
-    print(f"{refused} of {len(reasons)} compiles refused; pytest: "
-          f"{res['pytest']}")
+    print(f"{refused} of {len(reasons)} compiles refused; bank templates "
+          f"{res['bank_refused']} of {res['bank_templates']} refused; "
+          f"pytest: {res['pytest']}")
     print("PROBE " + json.dumps(res, sort_keys=True))
     if args.json:
         with open(args.json, "w") as f:
