@@ -85,7 +85,8 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      of 32, int32 extremes, counts to 1,000,000, rows longer than one
      shared-memory tile), the widened banks (absent units on the thread
      instance, alert and matchy bands, T = 64 and 4, in place and not;
-     count banks on the group instance), and
+     count banks on the thread instance, and one at K = 24 on the group
+     instance), and
      each kernel timed (the ring on the alert and matchy blocks and at
      T = 4); then the host's enqueue of one process_block split by part;
   9. the fleet latency cell (bench.py's bench_lat: T = 4 blocks);
@@ -103,8 +104,9 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      the plain bank bit for bit, every ring row a reference match; then
      config 4 as a 100-pattern bank and the README's Quick start as one
      (`price > e1.price * ratio`, ratios 1.00 to 1.10: a condition
-     program reading a pattern constant), each on the group instance,
-     every block against the plain bank bit for bit;
+     program reading a pattern constant), each on the thread instance,
+     every block against the plain bank bit for bit, then the step alone
+     on each instance (the group instance: the parent design's figure);
  12. the grouped-aggregation kernels (csrc/grouped_agg.cu: K7a gagg_step,
      K7b gagg_time_step) against their plain twins, bit for bit on every
      output plane and carry leaf (NaN payloads aside), over chained
@@ -1919,8 +1921,8 @@ def absent_bank_app(thr, floor=BANK_FLOOR, within_ms=BANK_WITHIN_MS,
 
 
 def count_bank_app(thr, within_ms=BANK_WITHIN_MS) -> str:
-    """A kleene count bank (the group instance's class): bench.py's
-    pattern with e2 a count of 2..3 events reading e1's capture, and e3
+    """A kleene count bank (the thread instance's count template):
+    bench.py's pattern with e2 a count of 2..3 events reading e1's capture, and e3
     its [last] bank."""
     return f"""
     define stream S (partition int, price float, kind int);
@@ -2300,8 +2302,10 @@ def check_widened_banks(dev, seed):
     widened class: the absent bank (absent_bank_app) on the thread
     instance, alert and matchy bands, T = 64 and T = 4, in place and not;
     count banks (count_bank_app, and config 4's leading count) on the
-    group instance.  Each instance's launch counter must rise.  → (cases,
-    the largest absolute difference measured)."""
+    thread instance, and count_bank_app at K = 24 on the group instance.
+    Each instance's launch counter must rise where its banks run and
+    stay flat elsewhere.  → (cases, the largest absolute difference
+    measured)."""
     import torch
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
     worst, cases = 0.0, 0
@@ -2345,8 +2349,12 @@ def check_widened_banks(dev, seed):
             "e2=S[kind == 1 and price > e1[last].price] within 10 sec "
             "select e1[0].price as p0, e1[last].price as pl, e2.price as p2 "
             "insert into Out;" for t in np.linspace(5.0, 60.0, 8)]}
+    count_apps["count mid-chain K=24"] = count_apps["count mid-chain"]
     for name, apps in count_apps.items():
-        cb = CompiledPatternBank(apps, n_partitions=1024, n_slots=BANK_K,
+        if name == "count mid-chain K=24":
+            mid2 = bank_launches()
+        K = 24 if name.endswith("K=24") else BANK_K
+        cb = CompiledPatternBank(apps, n_partitions=1024, n_slots=K,
                                  pattern_chunk=4, ring=BANK_RING, device=dev)
         matches = 0
         for raw in bank_blocks(np.random.default_rng(seed + 40), 3, P=1024,
@@ -2361,16 +2369,21 @@ def check_widened_banks(dev, seed):
             matches += int(want[0].sum())
         if not matches:
             raise AssertionError(f"{name} bank matched nothing")
-        log(f"  bank == plain  {name} (group instance): N=8 P=1024 T=64 x 3 "
-            f"blocks, {matches} matches")
+        inst = "group" if K > 16 else "thread"
+        log(f"  bank == plain  {name} ({inst} instance): N=8 P=1024 T=64 x "
+            f"3 blocks, {matches} matches")
         cases += 1
     end = bank_launches()
-    if mid[1] == before[1] or mid[2] != before[2] or end[2] == mid[2] or \
-            end[1] != mid[1]:
+    if mid[1] == before[1] or mid[2] != before[2] or \
+            mid2[1] == mid[1] or mid2[2] != mid[2] or \
+            end[2] == mid2[2] or end[1] != mid2[1]:
         raise AssertionError(f"widened bank checks: thread instance "
-                             f"{mid[1] - before[1]} launches for absent, "
-                             f"group {end[2] - mid[2]} for counts (each > 0, "
-                             f"the other 0)")
+                             f"{mid[1] - before[1]} launches for absent and "
+                             f"{mid2[1] - mid[1]} for counts, group "
+                             f"{mid[2] - before[2]} and {mid2[2] - mid[2]} "
+                             f"(each 0), group {end[2] - mid2[2]} for the "
+                             f"K = 24 count (> 0, thread "
+                             f"{end[1] - mid2[1]})")
     return cases, worst
 
 
@@ -3485,19 +3498,28 @@ def run_absent_fleet_cell(dev, seed, n_blocks):
 
 
 #: phase 11's count bank: config 4's pattern as a bank of this many
-#: patterns over the fleet's lanes, on the group instance
+#: patterns over the fleet's lanes, for this many blocks
 COUNT_BANK_N = 100
 COUNT_BANK_BLOCKS = 3
 
 
-def _group_bank_cell(name, apps, n_blocks, block_seed, dev, drops=False):
-    """A bank of `apps` the bank runs on its group instance, over the
-    fleet's 10,000 lanes (20 patterns a chunk, ring 32): every block in
-    place against the plain bank bit for bit, the group instance's
-    launch counter rising every block, no thread-instance launch, a
-    match, and no dropped partial unless `drops`.  → {ms a block, its
-    step and ring; max_abs_err, launches, matches, dropped}."""
+def _bank_cell(name, apps, n_blocks, block_seed, dev, drops=False):
+    """A bank of `apps` (kleene counts or a condition program) over the
+    fleet's 10,000 lanes (20 patterns a chunk, ring 32), on the bank
+    step's thread instance: every block in place against the plain bank
+    bit for bit (drops included), the thread instance's launch counter
+    rising every block and the group instance's flat, a match, and no
+    dropped partial unless `drops`.  Then the step alone
+    (``nfa_bank_lanes``): not in place on the cell's carry and the next
+    block of its stream, and in place over fresh blocks that continue it
+    (TIMED_LAUNCHES, one a launch), each beside its bound (bank_step_
+    bound; bank_inplace_bound of the first fresh block's launch); the
+    same two on the group instance (the parent design's figure: the
+    instance forced as tools/bank_probe.py forces it); the plain version
+    on one block.  → {ms a block (step and ring), the step's times and
+    bounds, max_abs_err, launches, matches, dropped}."""
     import torch
+    from siddhi_tpu_torch.ops import nfa as ops
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
     bank = CompiledPatternBank(apps, n_partitions=BANK_P, n_slots=BANK_K,
                                pattern_chunk=20, ring=BANK_RING, device=dev)
@@ -3516,37 +3538,93 @@ def _group_bank_cell(name, apps, n_blocks, block_seed, dev, drops=False):
         torch.cuda.synchronize()
         times.append(s0.elapsed_time(s1))
         worst = max(worst, _bank_outputs_equal(
-            f"{name} (group instance)", got, want, _carry(bank), new_p))
+            f"{name} (thread instance)", got, want, _carry(bank), new_p))
         matches += int(want[0].sum())
         del pre, new_p, want
     launches = bank_launches()
-    if launches[2] < len(blocks) or launches[1]:
+    if launches[1] < len(blocks) or launches[2]:
         raise AssertionError(f"{name} launches (step, thread instance, "
                              f"group instance, ring) {launches}: expected "
-                             f"the group instance every block")
+                             f"the thread instance every block")
     dropped = bank.total_dropped()
     if not matches or (dropped and not drops):
         raise AssertionError(f"{name}: {matches} matches, dropped {dropped}")
     res = {"ms_per_block": float(np.median(times)), "max_abs_err": worst,
            "launches": launches, "matches": matches, "dropped": dropped}
-    log(f"  {name} ({len(apps)} patterns x {BANK_P} lanes, group "
+    log(f"  {name} ({len(apps)} patterns x {BANK_P} lanes, thread "
         f"instance): {len(blocks)} blocks in place == the plain bank bit "
         f"for bit, {matches} matches, dropped {dropped}; "
         f"{res['ms_per_block']:.3f} ms a block (step and ring, median)")
+    # the step alone, each instance: not in place on the cell's carry and
+    # the next block, in place over fresh blocks from a copy of the carry
+    spec, kp, prm = bank.nfa.spec, bank.nfa.kprog, bank._stack_params
+    carry = bank._stack_carry
+    fresh = [bank.nfa.to_device(b) for b in bank_blocks(
+        np.random.default_rng(block_seed + 1), TIMED_LAUNCHES + 1,
+        gap=1_000, first=n_blocks)]
+    launches0 = bank_launches()
+    geometry = ops.bank_geometry
+
+    def step_times():
+        out = {"ms": median_ms(lambda: ops.nfa_bank_lanes(
+            spec, carry, fresh[0], prm, kp), dev,
+            sleep_cycles=5 * SLEEP_CYCLES)}
+        work = {k: v.clone() for k, v in carry.items()}
+        it = iter(fresh[1:])
+        out["inplace_ms"] = median_ms(lambda: ops.nfa_bank_lanes(
+            spec, work, next(it), prm, kp, inplace=True), dev,
+            n=TIMED_LAUNCHES, sleep_cycles=5 * SLEEP_CYCLES)
+        return out
+    try:
+        thread = step_times()
+        ops.bank_geometry = lambda *a, **k: ops.BankGeometry("group", 0, 0)
+        group = step_times()
+    finally:
+        ops.bank_geometry = geometry
+    work = {k: v.clone() for k, v in carry.items()}
+    pre = {k: v.clone() for k, v in carry.items()}
+    ops.nfa_bank_lanes(spec, work, fresh[1], prm, kp, inplace=True)
+    res["step_inplace_bound_ms"], _by = bank_inplace_bound(bank, pre, work,
+                                                           fresh[1])
+    del work, pre
+    res["step_plain_ms"] = median_ms(lambda: ops.bank_lanes_plain(
+        spec, carry, fresh[0], prm), dev, n=1)
+    used = bank_launches()
+    set_bank_launches(launches0)
+    if used[1] == launches0[1] or used[2] == launches0[2]:
+        raise AssertionError(f"{name}: the timed steps did not run both "
+                             f"instances")
+    res["step_bound_ms"], res["step_bound_by"] = bank_step_bound(
+        bank, BANK_P, BANK_T)
+    res.update(step_ms=thread["ms"], step_inplace_ms=thread["inplace_ms"],
+               group_step_ms=group["ms"],
+               group_step_inplace_ms=group["inplace_ms"])
+    log(f"  {name}: nfa_bank_step at N={len(apps)} P={BANK_P} T={BANK_T} "
+        f"K={BANK_K}: thread instance {res['step_ms']:.4f} ms (group "
+        f"instance {res['group_step_ms']:.4f} ms, plain "
+        f"{res['step_plain_ms']:.4f} ms, bound {res['step_bound_ms']:.6f} "
+        f"ms by {res['step_bound_by']}); in place over fresh blocks "
+        f"{res['step_inplace_ms']:.4f} ms (group instance "
+        f"{res['group_step_inplace_ms']:.4f} ms, in-place bound "
+        f"{res['step_inplace_bound_ms']:.6f} ms)")
     return res
 
 
-def run_count_bank(dev, seed):
-    """Config 4's kleene count as a bank (COUNT_BANK_N patterns `every
-    e1=S[kind == 0 and price > thr]<3:10> -> e2=S[kind == 1 and price >
-    e1[last].price] within 10 sec`), on the group instance
-    (_group_bank_cell)."""
-    apps = [_S3 + f"from every e1=S[kind == 0 and price > {t}]<3:10> -> "
+def count_bank_apps(n=COUNT_BANK_N):
+    """Config 4's kleene count as a bank: n patterns `every e1=S[kind ==
+    0 and price > thr]<3:10> -> e2=S[kind == 1 and price > e1[last].price]
+    within 10 sec`, thresholds 0 to 99."""
+    return [_S3 + f"from every e1=S[kind == 0 and price > {t}]<3:10> -> "
             "e2=S[kind == 1 and price > e1[last].price] within 10 sec "
             "select e1[0].price as p0, e1[last].price as pl, e2.price as "
-            "p2 insert into Out;" for t in np.linspace(0.0, 99.0, COUNT_BANK_N)]
-    return _group_bank_cell("count bank (config 4)", apps, COUNT_BANK_BLOCKS,
-                            seed + 50, dev)
+            "p2 insert into Out;" for t in np.linspace(0.0, 99.0, n)]
+
+
+def run_count_bank(dev, seed):
+    """Config 4's count bank (count_bank_apps, COUNT_BANK_N patterns) on
+    the thread instance (_bank_cell)."""
+    return _bank_cell("count bank (config 4)", count_bank_apps(),
+                      COUNT_BANK_BLOCKS, seed + 50, dev)
 
 
 #: phase 11's ratio bank: the README's Quick start (`price > e1.price *
@@ -3564,16 +3642,21 @@ def ratio_bank_app(thr, ratio) -> str:
             "select e1.price as p1, e2.price as p2 insert into Out;")
 
 
+def ratio_bank_apps(n=RATIO_BANK_N):
+    """The Quick start as a bank of n patterns, thresholds 5 to 95,
+    ratios 1.00 to 1.10."""
+    return [ratio_bank_app(round(float(t), 3), round(float(r), 4))
+            for t, r in zip(np.linspace(5.0, 95.0, n),
+                            np.linspace(1.0, 1.1, n))]
+
+
 def run_ratio_bank(dev, seed):
-    """The Quick start as a bank (RATIO_BANK_N patterns, thresholds 5 to
-    95, ratios 1.00 to 1.10), which the bank runs on its group instance
-    (a condition program; _group_bank_cell; its K = 8 ring may drop)."""
-    apps = [ratio_bank_app(round(float(t), 3), round(float(r), 4))
-            for t, r in zip(np.linspace(5.0, 95.0, RATIO_BANK_N),
-                            np.linspace(1.0, 1.1, RATIO_BANK_N))]
-    return _group_bank_cell("ratio bank (the Quick start, a condition "
-                            "program)", apps, RATIO_BANK_BLOCKS, seed + 60,
-                            dev, drops=True)
+    """The Quick start's ratio bank (ratio_bank_apps) on the thread
+    instance of the build variant with condition programs (_bank_cell;
+    its K = 8 ring may drop)."""
+    return _bank_cell("ratio bank (the Quick start, a condition "
+                      "program)", ratio_bank_apps(), RATIO_BANK_BLOCKS,
+                      seed + 60, dev, drops=True)
 
 
 # ------------------------------------------------------------------ phase 12
@@ -7576,15 +7659,30 @@ def main(argv=None) -> int:
         "shape": {"P": PATTERN_LANES, "matches": nt["count"],
                   "cap": nt["cap"]}}, {
         # the bank step with its gate word, not in place: the thread
-        # instance (nfa_bank_thread_kernel) on the fleet path; the group
-        # instance (nfa_bank_step_kernel, K > 16) is held bit for bit in
-        # phase 8's checks
+        # instance (nfa_bank_thread_kernel) on every main path (the fleet,
+        # the absent fleet, the count and ratio banks); the group instance
+        # (nfa_bank_step_kernel: K > 16, more than 8 constant compares, a
+        # column past shared memory) is held bit for bit in phase 8's
+        # checks and timed on the count and ratio banks' blocks
         "name": "nfa_bank_step", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:1167",
         "checked": True, "launches": fc["launches"][0],
         "launches_by_instance": {"thread": fc["launches"][1],
                                  "group": fc["launches"][2]},
+        "instances": {
+            "thread": {"source": "siddhi_tpu_torch/csrc/nfa_step.cu",
+                       "kernel": "nfa_bank_thread_kernel",
+                       "launches": fc["launches"][1] + ac["launches"][1] +
+                       ac["count_bank"]["launches"][1] +
+                       ac["ratio_bank"]["launches"][1]},
+            "group": {"source": "siddhi_tpu_torch/csrc/nfa_step.cu",
+                      "kernel": "nfa_bank_step_kernel",
+                      "launches": fc["launches"][2] + ac["launches"][2] +
+                      ac["count_bank"]["launches"][2] +
+                      ac["ratio_bank"]["launches"][2],
+                      "count_bank_ms": ac["count_bank"]["group_step_ms"],
+                      "ratio_bank_ms": ac["ratio_bank"]["group_step_ms"]}},
         "launches_by_path": {"fleet_cell": fc["launches"][0],
                              "absent_fleet_cell": ac["launches"][0],
                              "count_bank": ac["count_bank"]["launches"][0],

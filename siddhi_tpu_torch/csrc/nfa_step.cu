@@ -125,7 +125,7 @@
 // then bank_ring_plain.  A condition is its gate bit (the capture-free,
 // constant-free part, shared by every pattern) AND its `event lane <op>
 // pattern constant` compares AND its capture compares AND its program
-// (the group instance alone: the thread instance refuses one).  Per (pattern,
+// (either instance, from the -DNFA_PROG=1 build).  Per (pattern,
 // lane) the step writes the match count, and at the lane's last event
 // with a match that event's ts and its lowest matched slot ([C*N, P]
 // int32 each): no rows, no scratch.  The carry has a leading pattern axis
@@ -140,9 +140,10 @@
 // change written, the per-lane outputs written.
 //
 // Two instances, chosen per launch by ops/nfa.bank_geometry:
-//  - nfa_bank_thread (no count unit, K <= 16, at most 8 constant compares,
-//    shared memory within the limit): one thread per (pattern, lane).  It
-//    replaces the group instance below on the fleet path, which lost its
+//  - nfa_bank_thread (K <= 16, at most 8 constant compares, shared memory
+//    within the limit: every unit kind and condition program of the
+//    bank's class): one thread per (pattern, lane).  It replaces the
+//    group instance below on every main path, which lost its
 //    time to instruction throughput, not bytes (47.26 ms a launch, 2.6%
 //    of the bound): (1) 8 threads did one (pattern, lane)'s event work,
 //    each decoding every event, running the constant compares through a
@@ -198,6 +199,26 @@
 //        for every thread made the step 11.69 ms a launch in place at
 //        the fleet shape, against 1.25 when only a waiting slot reads it
 //        (chip_smoke.py phase 11 on an NVIDIA H100 80GB HBM3, 700 W).
+//    Kleene counts (the count instance, template flag CNT; with absent
+//    units too when the spec has them): a thread keeps every word of a
+//    slot in its column (state, start, enter, seq, cnt_cur, cnt_prev,
+//    deadline, captures with their e[k] and e[last-j] banks) and rolls
+//    its slot loops, so nfa_step.cuh's write_count, land and live_append
+//    run once in the code through BankCaps' accessors; the plain step's
+//    two passes become one loop over the slots in use (a bitmask in a
+//    register: within, the conditions against the captures as they stand
+//    before the event, the transition, the live appends) then arming
+//    behind the occupancy gate (units 0..occ_hi) into the lowest slot
+//    empty before the event or freed by it without a match.
+//    The conditions a thread can pass are unit 0's, those of the units
+//    its slots wait at and those of the counts a waiting slot's forwarded
+//    count appends to: a slot at a count can wait at two units.  The
+//    padding rows the plain step adds to a T that is no multiple of its
+//    B expire, at the last event's ts, a slot that left a leading count
+//    (state 0, which `within` spares) at the last event: one more
+//    `within` pass there (pad_within).  A condition program runs per
+//    slot on live events only, after the gate bit and the compare
+//    tables, against the thread's pattern constants in shared memory.
 //    Carry traffic: a thread's K = 8 slot words are 32 contiguous bytes
 //    per leaf and its captures 64 B, loaded and stored with 16-byte
 //    accesses (a warp reads 1 KB contiguous per leaf).  In place (the
@@ -207,7 +228,8 @@
 //    in the alert band most of the 2.0 GB is neither read nor written.
 //    In place needs no barrier: every thread reads its own carry words,
 //    and only those, before it writes them.
-//  - nfa_bank_step (kleene counts, larger K, more compares): the step body
+//  - nfa_bank_step (K > 16, more than 8 constant compares, a column past
+//    shared memory): the step body
 //    above (a template flag, not a copy) over a grid of (lane tile, pattern),
 //    pattern fastest; each pattern's constants come from a [C*N,
 //    n_params] float32 table staged in shared memory; the lane's scalars
@@ -559,6 +581,8 @@ __global__ void __launch_bounds__(kRingThreads, 5)
   }
 }
 
+#endif  // !NFA_PROG
+
 // ------------------------------------- the bank step, a thread per lane
 
 constexpr int kBankMaxPcmp = 8;         // constant compares a pattern
@@ -593,6 +617,10 @@ struct BankArgs {
                                     // == 0), slot leaves, captures
   int inplace;            // every carry leaf out is its leaf in
   int groups;             // pattern groups a CTA walks over its tile
+  int counts;             // the spec has count units: cnt_cur, cnt_prev
+  int pad_within;         // one more `within` pass at the last event's ts
+  const int *cc_in, *cp_in;
+  int *cc, *cp;
 };
 
 // The thread instance's shared memory, in words from its base: the
@@ -600,9 +628,12 @@ struct BankArgs {
 // compare each pattern's interval and the CTA's union (float4); the tile's
 // candidate masks, one per condition; one tile of (3 + A) staged arrays,
 // two when T is tiled;
-// each thread's column of capture, enter and seq words, and of deadlines
-// when the spec has absent units.  Every region starts on 16 bytes.  ops/nfa.bank_geometry sizes this layout to pick the
-// instance and passes the size in; the launch checks it against `end`.
+// each thread's column of capture, enter and seq words, of deadlines
+// when the spec has absent units, and of cnt_cur, cnt_prev, state and
+// start words when it has count units (the count instance keeps a slot's
+// every word in its column).  Every region starts on 16 bytes.
+// ops/nfa.bank_geometry sizes this layout to pick the instance and
+// passes the size in; the launch checks it against `end`.
 struct BankLayout {
   int prm, pc, mask, tiles, col, end;
 };
@@ -615,7 +646,7 @@ __host__ __device__ inline BankLayout bank_layout(const BankArgs& a) {
   b.mask = b.pc + 4 * kBankMaxPcmp * (NG + 1);
   b.tiles = b.mask + ((a.n_cond * kBankLanes * kMaskWords + 3) & ~3);
   b.col = b.tiles + (a.T > a.TT ? 2 : 1) * (3 + a.A) * a.arr;
-  b.end = b.col + kThreads * a.K * (a.RC + 2 + a.absent);
+  b.end = b.col + kThreads * a.K * (a.RC + 2 + a.absent + 4 * a.counts);
   return b;
 }
 
@@ -748,25 +779,78 @@ __device__ __forceinline__ void bank_stage(int* buf, int t0,
   }
 }
 
-// this thread's capture words in its shared-memory column
+// an int32 word of a thread's shared-memory column, which holds float
+// bits (one type for every access to the column)
+struct ColInt {
+  float& f;
+  __device__ __forceinline__ operator int() const { return __float_as_int(f); }
+  __device__ __forceinline__ const ColInt& operator=(int v) const {
+    f = __int_as_float(v);
+    return *this;
+  }
+};
+
+// this thread's slots in its shared-memory column: capture words (every
+// instance), and the count instance's enter, seq, deadline and count
+// words through the interface nfa_step.cuh's write_count, land and
+// live_append take (Slots' accessors; xdl, xcc, xcp: the words' rows
+// after the captures' K * RC)
 struct BankCaps {
   float* cap;
-  int RC;
+  int RC, K, xdl, xcc, xcp;
   __device__ __forceinline__ float& c(int s, int i) {
     return cap[(s * RC + i) * kThreads];
   }
   __device__ __forceinline__ int cs() const { return kThreads; }
+  __device__ __forceinline__ ColInt w(int row, int s) {
+    return ColInt{cap[(K * RC + row + s) * kThreads]};
+  }
+  __device__ __forceinline__ ColInt enter(int s) { return w(0, s); }
+  __device__ __forceinline__ ColInt seq(int s) { return w(K, s); }
+  __device__ __forceinline__ ColInt dl(int s) { return w(xdl, s); }
+  __device__ __forceinline__ ColInt cc(int s) { return w(xcc, s); }
+  __device__ __forceinline__ ColInt cp(int s) { return w(xcp, s); }
+};
+
+// A thread's slot states and starts: registers (the slot loops unrolled)
+// or, in the count instance, two rows of its shared-memory column (the
+// loops rolled).
+template <int KM, bool COL>
+struct BankHot {
+  int st_[KM], start_[KM];
+  __device__ __forceinline__ int& st(int s) { return st_[s]; }
+  __device__ __forceinline__ int& start(int s) { return start_[s]; }
+};
+
+template <int KM>
+struct BankHot<KM, true> {
+  float* col;             // the state row, then the start row
+  int K;
+  __device__ __forceinline__ ColInt st(int s) {
+    return ColInt{col[s * kThreads]};
+  }
+  __device__ __forceinline__ ColInt start(int s) {
+    return ColInt{col[(K + s) * kThreads]};
+  }
 };
 
 // One thread per (pattern, lane), its K <= KM slots' state and start in
 // registers, their enter, seq and capture words (ABS: and deadlines) in its
 // shared-memory column; kBankLanes maps the threads.  ABS: the spec has
-// absent units (kills, deadlines, the deadline pass).
-template <int KM, bool ABS>
+// absent units (kills, deadlines, the deadline pass).  CNT: the spec has
+// kleene count units, and absent units when a.absent: every word of a
+// slot in its column (state, start, cnt_cur and cnt_prev too), the slot
+// loops rolled (their body runs nfa_step.cuh's write_count, land and
+// live_append through BankCaps; unrolled KM times it would not fit the
+// instruction cache), arming gated by the occupancy of units 0..occ_hi.
+// In the -DNFA_PROG=1 build a condition's program runs against the slot's
+// captures and the thread's pattern constants.
+template <int KM, bool ABS, bool CNT>
 __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
     nfa_bank_thread_kernel(BankArgs a) {
   constexpr int LT = kBankLanes;                  // lanes of the tile
   constexpr int NPC = kThreads / LT;              // patterns of a group
+  constexpr int UR = CNT ? 1 : KM;                // slot loops unrolled
   extern __shared__ int smem[];
   const int tid = threadIdx.x, wl = tid & 31, w = tid >> 5;
   const int l = LT == 32 ? wl : w;
@@ -777,6 +861,9 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
   const int p = p0 + l;
   const int NA = 3 + a.A;
   const int RC = a.RC, K = a.K;
+  // deadlines: the absent instance's, or the count instance's when the
+  // spec has absent units too
+  const bool XA = ABS || (CNT && a.absent);
   const BankLayout lay = bank_layout(a);
   int* sprog = smem;
   // the CTA's patterns' constants, [NG, n_params]
@@ -789,10 +876,19 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
   BankCaps sl;
   sl.cap = col;
   sl.RC = RC;
+  sl.K = K;
+  sl.xdl = 2 * K;
+  sl.xcc = (2 + a.absent) * K;
+  sl.xcp = sl.xcc + K;
   float* scol = col + K * RC * kThreads;          // enter, seq, deadline
 #define ENTER(s) scol[(s) * kThreads]
 #define SEQ(s) scol[(K + (s)) * kThreads]
 #define DL(s) scol[(2 * K + (s)) * kThreads]
+  BankHot<KM, CNT> h;
+  if constexpr (CNT) {
+    h.col = scol + (sl.xcp + K) * kThreads;
+    h.K = K;
+  }
 
   // the program and the constants, then the first tile, in flight with
   // the carry's loads: one wait on the device's latency
@@ -809,14 +905,13 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
   cp_async_commit();
 
   // a group's carry: the slot states and the lane's scalars; the rest
-  // (start, enter, seq, captures, deadlines) not in place, or in place
-  // for a lane that holds a partial: a slot armed here is written before
-  // it is read, so an empty lane needs none of its cold words.  cold:
-  // every slot's cold words are in; else only those of the slots in dmask
-  // (armed or advanced here) and the deadlines in dlmask (set here);
-  // dirty: the lane changed
+  // (start, enter, seq, captures, deadlines, count words) not in place,
+  // or in place for a lane that holds a partial: a slot armed here is
+  // written before it is read, so an empty lane needs none of its cold
+  // words.  cold: every slot's cold words are in; else only those of the
+  // slots in dmask (armed or advanced here) and the deadlines in dlmask
+  // (set here); dirty: the lane changed
   const bool inplace = a.inplace;
-  int st[KM], start[KM];
   int pat = 0, arm_seq = 0, drop = 0, armed = 0;
   long long lane = 0, lk = 0;
   bool on = false, cold = false, dirty = false;
@@ -828,24 +923,45 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
     lk = lane * K;
     cold = dirty = false;
     dmask = dlmask = 0;
+    if constexpr (CNT) {
+#pragma unroll 1
+      for (int s = 0; s < K; ++s) h.st(s) = -1;
+      if (!on) return;
+      int v[KM];
+      load_words<KM>(v, a.st_in + lk, K, a.vec_slots);
 #pragma unroll
-    for (int s = 0; s < KM; ++s) {
-      st[s] = -1;
-      start[s] = 0;
+      for (int s = 0; s < KM; ++s) {
+        if (s >= K) break;
+        h.st(s) = v[s];
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < KM; ++s) {
+        h.st(s) = -1;
+        h.start(s) = 0;
+      }
+      if (!on) return;
+      load_words<KM>(h.st_, a.st_in + lk, K, a.vec_slots);
     }
-    if (!on) return;
-    load_words<KM>(st, a.st_in + lk, K, a.vec_slots);
     arm_seq = a.armseq_in[lane];
     drop = a.dropped_in[lane];
     if (a.armed_in) armed = a.armed_in[lane];
     cold = !inplace;
-#pragma unroll
-    for (int s = 0; s < KM; ++s) cold |= st[s] >= 0;
+#pragma unroll (UR)
+    for (int s = 0; s < KM; ++s) {
+      if (CNT && s >= K) break;
+      cold |= h.st(s) >= 0;
+    }
     if (cold) {
-      load_words<KM>(start, a.start_in + lk, K, a.vec_slots);
+      if constexpr (CNT) load_col(h.col + K * kThreads, a.start_in + lk, K);
+      else load_words<KM>(h.start_, a.start_in + lk, K, a.vec_slots);
       load_col(&ENTER(0), a.enter_in + lk, K);
       load_col(&SEQ(0), a.seq_in + lk, K);
-      if (ABS) load_col(&DL(0), a.dl_in + lk, K);
+      if (XA) load_col(&DL(0), a.dl_in + lk, K);
+      if constexpr (CNT) {
+        load_col(scol + sl.xcc * kThreads, a.cc_in + lk, K);
+        load_col(scol + sl.xcp * kThreads, a.cp_in + lk, K);
+      }
       load_col(col, a.caps_in + lk * RC, K * RC);
     }
   };
@@ -855,10 +971,15 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
   __syncthreads();                      // the program is in shared memory
 
   Prog g = parse(sprog);
-  // the caller picks the instance: condition programs run on the group
-  // instance (ops/nfa.bank_geometry)
-  if (g.n_pcmp > kBankMaxPcmp || g.np) __trap();
-  g.np = 0;
+  // the caller picks the instance: more constant compares run on the
+  // group instance (ops/nfa.bank_geometry), condition programs in the
+  // -DNFA_PROG=1 build (the default build's code has none)
+  if (g.n_pcmp > kBankMaxPcmp) __trap();
+  if constexpr (!kProg) {
+    if (g.np) __trap();
+    g.np = 0;
+  }
+  const Arm arm = arm_of(g);
   const int npc = g.n_pcmp;
   // each pattern's constant compares as intervals (a pattern past CN:
   // the empty one), with the attribute lane's offset in a staged tile and
@@ -913,25 +1034,32 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
     return gw;
   };
   auto is_absent = [&](int j) { return unit(g, j)[uKind] == kAbsent; };
-  // bit s: slot s holds a partial (live), waits at an absent unit (wait)
-  unsigned live = 0, wait = 0;
+  // bit s: slot s holds a partial (live), waits at an absent unit
+  // (wait); the count instance: is not empty (used, state 0 included)
+  unsigned live = 0, wait = 0, used = 0;
   auto masks = [&]() {
     live = wait = 0;
-#pragma unroll
+    if constexpr (CNT) used = 0;
+#pragma unroll (UR)
     for (int s = 0; s < KM; ++s) {
-      if (st[s] >= 1) live |= 1u << s;
-      if (ABS && st[s] >= 1 && is_absent(st[s])) wait |= 1u << s;
+      if (CNT && s >= K) break;
+      const int x = h.st(s);
+      if (x >= 1) live |= 1u << s;
+      if (XA && x >= 1 && is_absent(x)) wait |= 1u << s;
+      if (CNT && x >= 0) used |= 1u << s;
     }
   };
   int cnt = 0, lmt = 0, lmk = 0;
   // the deadline pass at a valid event at tsv: each slot waiting at an
   // absent unit whose deadline is at or before tsv lands at its
-  // deadline, cascading through absent units; a trailing one completes
+  // deadline (nfa_step.cuh's land: count words reset), cascading through
+  // absent units; a trailing one completes
   auto deadlines = [&](int tsv, int& ev_k) {
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < KM; ++s) {
+      if (CNT && s >= K) break;
       if (!((wait >> s) & 1u)) continue;
-      int sts = st[s];
+      int sts = h.st(s);
       while (sts >= 1 && is_absent(sts) &&
              __float_as_int(DL(s)) <= tsv) {
         const int base = __float_as_int(DL(s));
@@ -943,6 +1071,10 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
           ++cnt;
           if (ev_k < 0 || s < ev_k) ev_k = s;
         } else {
+          if constexpr (CNT) {
+            sl.cc(s) = 0;
+            sl.cp(s) = unit(g, sts)[uLive0] ? 0 : -1;
+          }
           sts = t;
           ENTER(s) = __int_as_float(base);
           if (is_absent(t)) {
@@ -951,20 +1083,36 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
           }
         }
       }
-      st[s] = sts;
+      h.st(s) = sts;
     }
   };
 
-  // the conditions a thread can pass now: with absent units, those of
-  // unit 0 and of the units its slots wait at (an absent unit's kill
-  // condition passes most events, and only a slot waiting there reads
-  // it); else every condition, as simple units' conditions rarely pass
+  // the conditions a thread can pass now: with absent or count units,
+  // those of unit 0 and of the units its slots wait at, and of the count
+  // units a waiting slot's forwarded count appends to (an absent unit's
+  // kill condition passes most events, and only a slot waiting there
+  // reads it; a count's closing unit likewise); else every condition, as
+  // simple units' conditions rarely pass
   auto needs = [&]() {
-    if (!ABS) return cmask;
+    if (!ABS && !CNT) return cmask;
     unsigned r = 1u << u0[uCond];
+    if constexpr (CNT) {
+      for (unsigned b = used; b; b &= b - 1) {
+        const int x = h.st(__ffs(b) - 1);
+        if (x < 0) continue;
+        const int* u = unit(g, x);
+        r |= 1u << u[uCond];
+        if (u[uApp0] >= 0) r |= 1u << unit(g, u[uApp0])[uCond];
+        if (u[uApp1] >= 0) r |= 1u << unit(g, u[uApp1])[uCond];
+      }
+      return r;
+    }
 #pragma unroll
-    for (int s = 0; s < KM; ++s)
-      if (st[s] >= 0) r |= 1u << unit(g, st[s])[uCond];
+    for (int s = 0; s < KM; ++s) {
+      const int x = h.st(s);
+      if (x < 0) continue;
+      r |= 1u << unit(g, x)[uCond];
+    }
     return r;
   };
   // word wd's events from event `from` on that pass one of the conditions
@@ -997,6 +1145,7 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
     masks();
     cnt = lmt = lmk = 0;
     const int n = r * NPC + pi;           // this pattern in the CTA
+    if constexpr (kProg) g.prm = sprm + n * a.n_params;
     for (int it = 0; it < n_tiles; ++it) {
       const int* cur = tiles + (it & 1) * NA * a.arr;
       const int tn = min(a.TT, a.T - it * a.TT);
@@ -1053,18 +1202,19 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
           for (; !grew && ((g.has_within && live) || wait) && j < jn; ++j) {
             const int tsv = row[j];
             if (g.has_within) {
-#pragma unroll
+#pragma unroll (UR)
               for (int s = 0; s < KM; ++s) {
+                if (CNT && s >= K) break;
                 if (((live >> s) & 1u) &&
-                    sub32(tsv, start[s]) > g.within) {
-                  st[s] = -1;
+                    sub32(tsv, h.start(s)) > g.within) {
+                  h.st(s) = -1;
                   live &= ~(1u << s);
                   wait &= ~(1u << s);
                   dirty = true;
                 }
               }
             }
-            if (ABS && wait && (row[2 * a.arr + j] & kValidBit)) {
+            if (XA && wait && (row[2 * a.arr + j] & kValidBit)) {
               int ev_k = -1;
               deadlines(tsv, ev_k);
               if (ev_k >= 0) {
@@ -1092,80 +1242,190 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
               reinterpret_cast<const float*>(row + 3 * a.arr + jn);
           int ffree = -1;                 // first free slot
           int ev_k = -1;                  // lowest slot matched now
-#pragma unroll
-          for (int s = 0; s < KM; ++s) {
-            if (s >= K) break;
-            int sts = st[s];
-            bool m = false;
-            if (g.has_within && sts >= 1 && sub32(tsv, start[s]) > g.within)
-              sts = -1;
-            if (sts >= 0 && sts < g.S) {
-              const int* u = unit(g, sts);
-              if (sv == u[uStream] && cond_ok(g, u[uCond], gw, sl, s, at,
-                                              a.arr)) {
-                if (ABS && u[uKind] == kAbsent) {
-                  sts = -1;               // the arrival kills the partial
-                } else {
-                  if (u[uRow] >= 0) write_row(g, u[uRow], sl, s, at, a.arr);
-                  const int t = u[uLand];
-                  if (t >= g.S) {
-                    m = true;
-                    sts = -1;
-                  } else {
-                    sts = t;
-                    ENTER(s) = __int_as_float(tsv);
-                    if (ABS && is_absent(t)) {
-                      DL(s) = __int_as_float(add32(tsv, unit(g, t)[uWait]));
-                      dlmask |= 1u << s;
+          if constexpr (CNT) {
+            // step_body's two passes in one, slot by slot: within, the
+            // slot's conditions against its captures as they stand
+            // before the event (its unit's, and those of the count
+            // units its forwarded count appends to), its one transition
+            // (a simple unit advances or completes, a count unit
+            // appends and advances at min, an absent unit's arrival
+            // kills), the live appends; then arming, unless a slot
+            // sits at units 0..occ_hi.  Only the slots in use are
+            // walked: the first free slot is the lowest one empty before
+            // the event or freed by it without a match
+            bool occ = false;
+            unsigned freed = 0;
+#pragma unroll 1
+            for (unsigned b = used; b; b &= b - 1) {
+              const int s = __ffs(b) - 1;
+              int sts = h.st(s);
+              bool m = false;
+              if (g.has_within && sts >= 1 &&
+                  sub32(tsv, h.start(s)) > g.within)
+                sts = -1;
+              occ |= sts >= 0 && sts <= g.occ_hi;
+              if (sts >= 0) {
+                const int* u = unit(g, sts);
+                const int a0 = u[uApp0], a1 = u[uApp1];
+                const bool ok = sv == u[uStream] &&
+                                cond_ok(g, u[uCond], gw, sl, s, at, a.arr);
+                const bool ok0 =
+                    a0 >= 0 && sv == unit(g, a0)[uStream] &&
+                    cond_ok(g, unit(g, a0)[uCond], gw, sl, s, at, a.arr);
+                const bool ok1 =
+                    a1 >= 0 && sv == unit(g, a1)[uStream] &&
+                    cond_ok(g, unit(g, a1)[uCond], gw, sl, s, at, a.arr);
+                bool adv = false;
+                if (ok) {
+                  const int from = sts;
+                  if (u[uKind] == kSimple) {
+                    if (u[uRow] >= 0) write_row(g, u[uRow], sl, s, at, a.arr);
+                    m = land(g, sl, s, sts, from, tsv, false, 0, false);
+                    adv = true;
+                  } else if (u[uKind] == kCount) {
+                    const int c2 = sl.cc(s) + 1;
+                    if (u[uRow] >= 0)
+                      write_count(g, u[uRow], sl, s, at, a.arr, c2 == 1, c2);
+                    sl.cc(s) = c2;
+                    if (c2 == u[uMin]) {
+                      m = land(g, sl, s, sts, from, tsv, true, c2,
+                               c2 == u[uMax]);
+                      adv = true;
                     }
+                  } else {
+                    sts = -1;             // an absent unit's arrival kills
                   }
-                  dmask |= 1u << s;
+                  if (XA && adv && !m && is_absent(sts)) dlmask |= 1u << s;
                 }
-              }
-            }
-            st[s] = sts;
-            if (ffree < 0 && sts < 0 && !m) ffree = s;
-            if (m) {
-              ++cnt;
-              if (ev_k < 0) ev_k = s;
-            }
-          }
-          // arming at unit 0: the first free slot, free meaning empty and
-          // not completed by this event
-          const bool want = sv == u0[uStream] && ((gw >> u0[uCond]) & 1u) &&
-                            (!g.arm_once || armed == 0);
-          if (want) {
-            if (ffree >= 0) {
-              if (g.arm_once) armed += 1;
-              for (int i = 0; i < RC; ++i) sl.c(ffree, i) = 0.0f;
-              if (u0[uRow] >= 0) write_row(g, u0[uRow], sl, ffree, at, a.arr);
-#pragma unroll
-              for (int s = 0; s < KM; ++s) {
-                if (s != ffree) continue;
-                start[s] = tsv;
-                if (g.S > 1) st[s] = 1;
-              }
-              if (g.S > 1) {
-                ENTER(ffree) = __int_as_float(tsv);
-                SEQ(ffree) = __int_as_float(arm_seq);
-                if (ABS && is_absent(1)) {
-                  DL(ffree) = __int_as_float(add32(tsv, unit(g, 1)[uWait]));
-                  dlmask |= 1u << ffree;
+                if (!adv) {
+                  live_append(g, sl, s, a0, ok0, at, a.arr);
+                  live_append(g, sl, s, a1, ok1, at, a.arr);
                 }
+                if (ok || ok0 || ok1) dmask |= 1u << s;
               }
-              dmask |= 1u << ffree;
-              arm_seq += 1;
-              if (g.S == 1) {             // completes as it arms; the slot
-                                          // stays empty
+              h.st(s) = sts;
+              if (sts < 0 && !m) freed |= 1u << s;
+              if (m) {
                 ++cnt;
-                if (ev_k < 0 || ffree < ev_k) ev_k = ffree;
+                if (ev_k < 0) ev_k = s;
               }
-            } else {
-              drop += 1;
+            }
+            const unsigned fr = (~used | freed) & ((2u << (K - 1)) - 1u);
+            ffree = fr ? __ffs(fr) - 1 : -1;
+            const bool want = sv == u0[uStream] &&
+                              ((gw >> u0[uCond]) & 1u) && !occ &&
+                              (!g.arm_once || armed == 0);
+            if (want) {
+              if (ffree >= 0) {
+                const int f = ffree;
+                if (g.arm_once) armed += 1;
+                for (int i = 0; i < RC; ++i) sl.c(f, i) = 0.0f;
+                if (u0[uRow] >= 0) {
+                  if (u0[uKind] == kCount)
+                    write_count(g, u0[uRow], sl, f, at, a.arr, true, 1);
+                  else
+                    write_row(g, u0[uRow], sl, f, at, a.arr);
+                }
+                h.start(f) = tsv;
+                if (arm.match) {          // completes as it arms; the slot
+                  ++cnt;                  // stays empty
+                  if (ev_k < 0 || f < ev_k) ev_k = f;
+                } else {
+                  h.st(f) = arm.state;
+                  sl.enter(f) = tsv;
+                  sl.seq(f) = arm_seq;
+                  sl.cc(f) = arm.cnt_cur;
+                  sl.cp(f) = arm.cnt_prev;
+                  if (XA && arm.deadline) {
+                    sl.dl(f) = add32(tsv, unit(g, arm.state)[uWait]);
+                    dlmask |= 1u << f;
+                  }
+                }
+                dmask |= 1u << f;
+                arm_seq += 1;
+              } else {
+                drop += 1;
+              }
+            }
+          } else {
+#pragma unroll
+            for (int s = 0; s < KM; ++s) {
+              if (s >= K) break;
+              int sts = h.st(s);
+              bool m = false;
+              if (g.has_within && sts >= 1 &&
+                  sub32(tsv, h.start(s)) > g.within)
+                sts = -1;
+              if (sts >= 0 && sts < g.S) {
+                const int* u = unit(g, sts);
+                if (sv == u[uStream] &&
+                    cond_ok(g, u[uCond], gw, sl, s, at, a.arr)) {
+                  if (ABS && u[uKind] == kAbsent) {
+                    sts = -1;             // the arrival kills the partial
+                  } else {
+                    if (u[uRow] >= 0) write_row(g, u[uRow], sl, s, at, a.arr);
+                    const int t = u[uLand];
+                    if (t >= g.S) {
+                      m = true;
+                      sts = -1;
+                    } else {
+                      sts = t;
+                      ENTER(s) = __int_as_float(tsv);
+                      if (ABS && is_absent(t)) {
+                        DL(s) = __int_as_float(add32(tsv, unit(g, t)[uWait]));
+                        dlmask |= 1u << s;
+                      }
+                    }
+                    dmask |= 1u << s;
+                  }
+                }
+              }
+              h.st(s) = sts;
+              if (ffree < 0 && sts < 0 && !m) ffree = s;
+              if (m) {
+                ++cnt;
+                if (ev_k < 0) ev_k = s;
+              }
+            }
+            // arming at unit 0: the first free slot, free meaning empty
+            // and not completed by this event
+            const bool want = sv == u0[uStream] &&
+                              ((gw >> u0[uCond]) & 1u) &&
+                              (!g.arm_once || armed == 0);
+            if (want) {
+              if (ffree >= 0) {
+                if (g.arm_once) armed += 1;
+                for (int i = 0; i < RC; ++i) sl.c(ffree, i) = 0.0f;
+                if (u0[uRow] >= 0)
+                  write_row(g, u0[uRow], sl, ffree, at, a.arr);
+#pragma unroll
+                for (int s = 0; s < KM; ++s) {
+                  if (s != ffree) continue;
+                  h.start(s) = tsv;
+                  if (g.S > 1) h.st(s) = 1;
+                }
+                if (g.S > 1) {
+                  ENTER(ffree) = __int_as_float(tsv);
+                  SEQ(ffree) = __int_as_float(arm_seq);
+                  if (ABS && is_absent(1)) {
+                    DL(ffree) = __int_as_float(add32(tsv, unit(g, 1)[uWait]));
+                    dlmask |= 1u << ffree;
+                  }
+                }
+                dmask |= 1u << ffree;
+                arm_seq += 1;
+                if (g.S == 1) {           // completes as it arms; the slot
+                                          // stays empty
+                  ++cnt;
+                  if (ev_k < 0 || ffree < ev_k) ev_k = ffree;
+                }
+              } else {
+                drop += 1;
+              }
             }
           }
           masks();
-          if (ABS && wait) {
+          if (XA && wait) {
             deadlines(tsv, ev_k);
             masks();
           }
@@ -1173,7 +1433,7 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
             lmt = tsv;
             lmk = ev_k;
           }
-          if constexpr (ABS) {
+          if constexpr (ABS || CNT) {
             const unsigned nn = needs();
             if (nn & ~need) {
               need |= nn;
@@ -1184,32 +1444,62 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
       }
       if (n_tiles > 1) __syncthreads();   // the tile is free to refill
     }
+    if constexpr (CNT) {
+      // the plain step's padding rows (invalid, at the last event's ts)
+      // run only the `within` expiry: once more at that ts.  A slot that
+      // left unit 0's count (state 0, which `within` spares) at the last
+      // event may expire there; in the other instances no slot can
+      if (a.pad_within && on && g.has_within && a.T > 0) {
+        const int tl = a.ts[static_cast<long long>(p) * a.T + a.T - 1];
+#pragma unroll 1
+        for (int s = 0; s < K; ++s) {
+          if (h.st(s) >= 1 && sub32(tl, h.start(s)) > g.within) {
+            h.st(s) = -1;
+            dirty = true;
+          }
+        }
+      }
+    }
 
     if (!on) continue;
     // in place needs no barrier: these words were read by this thread alone;
     // in place, words that did not change are not written
     if (!inplace || dirty) {
-      store_words<KM>(st, a.st + lk, K, a.vec_slots);
+      if constexpr (CNT) store_col(h.col, a.st + lk, K, a.vec_slots);
+      else store_words<KM>(h.st_, a.st + lk, K, a.vec_slots);
       a.armseq[lane] = arm_seq;
       a.dropped[lane] = drop;
       if (g.arm_once) a.armed[lane] = armed;
     }
     if (cold) {
-      store_words<KM>(start, a.start + lk, K, a.vec_slots);
+      if constexpr (CNT)
+        store_col(h.col + K * kThreads, a.start + lk, K, a.vec_slots);
+      else
+        store_words<KM>(h.start_, a.start + lk, K, a.vec_slots);
       store_col(&ENTER(0), a.enter + lk, K, a.vec_slots);
       store_col(&SEQ(0), a.seq + lk, K, a.vec_slots);
-      if (ABS) store_col(&DL(0), a.dl + lk, K, a.vec_slots);
+      if (XA) store_col(&DL(0), a.dl + lk, K, a.vec_slots);
+      if constexpr (CNT) {
+        store_col(scol + sl.xcc * kThreads, a.cc + lk, K, a.vec_slots);
+        store_col(scol + sl.xcp * kThreads, a.cp + lk, K, a.vec_slots);
+      }
       store_col(col, a.caps + lk * RC, K * RC, a.vec_caps);
     } else {
-#pragma unroll
+#pragma unroll (UR)
       for (int s = 0; s < KM; ++s) {
-        if (ABS && ((dlmask >> s) & 1u))
+        if (CNT && s >= K) break;
+        if (XA && ((dlmask >> s) & 1u))
           a.dl[lk + s] = __float_as_int(DL(s));
         if (!((dmask >> s) & 1u)) continue;
-        a.start[lk + s] = start[s];
-        if (g.S > 1) {                    // a one-unit arm sets neither
+        a.start[lk + s] = h.start(s);
+        // a one-unit arm sets neither (a slot is never occupied then)
+        if (CNT ? !arm.match : g.S > 1) {
           a.enter[lk + s] = __float_as_int(ENTER(s));
           a.seq[lk + s] = __float_as_int(SEQ(s));
+          if constexpr (CNT) {
+            a.cc[lk + s] = sl.cc(s);
+            a.cp[lk + s] = sl.cp(s);
+          }
         }
         for (int i = 0; i < RC; ++i)
           a.caps[(lk + s) * RC + i] = sl.c(s, i);
@@ -1223,8 +1513,6 @@ __global__ void __launch_bounds__(kThreads, KM <= 8 ? 3 : 2)
 #undef SEQ
 #undef DL
 }
-
-#endif  // !NFA_PROG
 
 // ------------------------------------------------------------ launches
 
@@ -1268,15 +1556,14 @@ int run_step(StepArgs& a, cudaStream_t s) {
                             : run_step_as<BANK, false>(a, s);
 }
 
-#if !NFA_PROG
-template <int KM, bool ABS>
+template <int KM, bool ABS, bool CNT>
 int launch_bank_thread(const BankArgs& a, size_t smem, cudaStream_t s) {
   constexpr int NPC = kThreads / kBankLanes;
   const long long gx = (a.P + kBankLanes - 1) / kBankLanes;
   const long long gy = (a.CN + NPC * a.groups - 1) / (NPC * a.groups);
   if (gx > INT_MAX || gy > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  void (*const kern)(BankArgs) = nfa_bank_thread_kernel<KM, ABS>;
+  void (*const kern)(BankArgs) = nfa_bank_thread_kernel<KM, ABS, CNT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1291,8 +1578,6 @@ int launch_bank_thread(const BankArgs& a, size_t smem, cudaStream_t s) {
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
-
-#endif  // !NFA_PROG
 }  // namespace
 
 
@@ -1365,17 +1650,19 @@ extern "C" int nfa_bank_step(const float* attrs, const int* ts,
   return run_step<true>(a, s);
 }
 
-#if !NFA_PROG
 // Launch the bank step's thread instance (one thread per (pattern, lane),
-// K <= 16, at most 8 constant compares, no count unit) over CN patterns
-// on `stream`: the arguments of nfa_bank_step, with TT (events a staged
-// tile: a power of two >= 4) for G, smem (the CTA's shared memory in
-// bytes, at least bank_layout's) and groups (the pattern groups a CTA
-// walks over its staged tile; above 1 only when one tile holds T), all
-// three from ops/nfa.bank_geometry, and n_cond (the program's conditions:
-// one candidate mask each in shared memory).  A deadline leaf (dl_in)
-// selects the instance with absent units.  Returns cudaGetLastError() after the
-// launch.
+// K <= 16, at most 8 constant compares; condition programs from the
+// -DNFA_PROG=1 build) over CN patterns on `stream`: the arguments of
+// nfa_bank_step, with TT (events a staged tile: a power of two >= 4) for
+// G, smem (the CTA's shared memory in bytes, at least bank_layout's) and
+// groups (the pattern groups a CTA walks over its staged tile; above 1
+// only when one tile holds T), all three from ops/nfa.bank_geometry, and
+// n_cond (the program's conditions: one candidate mask each in shared
+// memory), and pad_within (ops/nfa.kernel_flags' FLAG_PAD_WITHIN: one
+// more `within` pass at the last event's ts, as the plain step's padding
+// rows run it; the count instance alone reads it).  Count leaves (cc_in, cp_in) select the count instance, which
+// also takes a deadline leaf; a deadline leaf alone the instance with
+// absent units.  Returns cudaGetLastError() after the launch.
 extern "C" int nfa_bank_thread(const float* attrs, const int* ts,
                                const int* strm, const int* gates,
                                const int* prog, int prog_len,
@@ -1383,7 +1670,7 @@ extern "C" int nfa_bank_thread(const float* attrs, const int* ts,
                                CARRY_PARAMS, int* count, int* lmt, int* lmk,
                                int CN, int P, int T, int K, int TT, int A,
                                int RC, int smem, int groups, int n_cond,
-                               void* stream) {
+                               int pad_within, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 0 || CN <= 0) return 0;
   const CarryPtrs in = CARRY_IN;
@@ -1391,8 +1678,11 @@ extern "C" int nfa_bank_thread(const float* attrs, const int* ts,
   if (K <= 0 || K > 16 || T < 0 || TT < 4 || TT > 32 * kMaskWords ||
       (TT & (TT - 1)) || A < 0 || groups < 1 || (groups > 1 && T > TT) ||
       RC <= 0 || prog_len < kHeader || n_params < 0 || n_cond < 1 ||
-      n_cond > 31 || missing_leaves(in, out) || cc_in || cp_in ||
-      ((dl_in != nullptr) != (dl != nullptr)))
+      n_cond > 31 || missing_leaves(in, out) ||
+      ((dl_in != nullptr) != (dl != nullptr)) ||
+      ((cc_in != nullptr) != (cc != nullptr)) ||
+      ((cc_in != nullptr) != (cp_in != nullptr)) ||
+      ((cp_in != nullptr) != (cp != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   BankArgs a{attrs, ts, strm, gates, prog, params, st_in, start_in,
              enter_in, seq_in, armseq_in, caps_in, dropped_in, armed_in,
@@ -1408,6 +1698,12 @@ extern "C" int nfa_bank_thread(const float* attrs, const int* ts,
   a.A = A;
   a.RC = RC;
   a.absent = dl_in != nullptr;
+  a.counts = cc_in != nullptr;
+  a.pad_within = pad_within != 0;
+  a.cc_in = cc_in;
+  a.cp_in = cp_in;
+  a.cc = cc;
+  a.cp = cp;
   a.n_cond = n_cond;
   a.groups = groups;
   // a stride of 4 (mod 8) words: a warp's 16-byte loads of 32 lane rows
@@ -1419,24 +1715,33 @@ extern "C" int nfa_bank_thread(const float* attrs, const int* ts,
   a.vec_slots = (K & 3) == 0 && aligned16(st_in) && aligned16(start_in) &&
                 aligned16(enter_in) && aligned16(seq_in) && aligned16(st) &&
                 aligned16(start) && aligned16(enter) && aligned16(seq) &&
-                (!a.absent || (aligned16(dl_in) && aligned16(dl)));
+                (!a.absent || (aligned16(dl_in) && aligned16(dl))) &&
+                (!a.counts || (aligned16(cc_in) && aligned16(cc) &&
+                              aligned16(cp_in) && aligned16(cp)));
   a.vec_caps = ((K * RC) & 3) == 0 && aligned16(caps_in) && aligned16(caps);
   a.inplace = st == st_in && start == start_in && enter == enter_in &&
               seq == seq_in && armseq_out == armseq_in && caps == caps_in &&
               dropped_out == dropped_in && armed_out == armed_in &&
-              dl == dl_in;
+              dl == dl_in && cc == cc_in && cp == cp_in;
   if (static_cast<size_t>(smem) > kSmemLimit ||
       static_cast<long long>(bank_layout(a).end) * 4 > smem)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (a.absent) {
-    if (K <= 4) return launch_bank_thread<4, true>(a, smem, s);
-    if (K <= 8) return launch_bank_thread<8, true>(a, smem, s);
-    return launch_bank_thread<16, true>(a, smem, s);
+  if (a.counts) {
+    if (K <= 4) return launch_bank_thread<4, false, true>(a, smem, s);
+    if (K <= 8) return launch_bank_thread<8, false, true>(a, smem, s);
+    return launch_bank_thread<16, false, true>(a, smem, s);
   }
-  if (K <= 4) return launch_bank_thread<4, false>(a, smem, s);
-  if (K <= 8) return launch_bank_thread<8, false>(a, smem, s);
-  return launch_bank_thread<16, false>(a, smem, s);
+  if (a.absent) {
+    if (K <= 4) return launch_bank_thread<4, true, false>(a, smem, s);
+    if (K <= 8) return launch_bank_thread<8, true, false>(a, smem, s);
+    return launch_bank_thread<16, true, false>(a, smem, s);
+  }
+  if (K <= 4) return launch_bank_thread<4, false, false>(a, smem, s);
+  if (K <= 8) return launch_bank_thread<8, false, false>(a, smem, s);
+  return launch_bank_thread<16, false, false>(a, smem, s);
 }
+
+#if !NFA_PROG
 
 // The compaction of one step's scratch into the slab [cap + 2, W] (rows,
 // tail, status); dl_min (the step's per-CTA earliest absent deadlines, or

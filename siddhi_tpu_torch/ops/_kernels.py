@@ -107,9 +107,10 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         # CN, P, T, K, G, A, RC, stream
         "nfa_bank_step": (_I, [_VP] * 5 + [_I] + [_VP] + [_I] +
                           [_VP] * 25 + [_I] * 7 + [_VP]),
-        # the same, with TT for G, and smem, groups and n_cond after RC
+        # the same, with TT for G, and smem, groups, n_cond and
+        # pad_within after RC
         "nfa_bank_thread": (_I, [_VP] * 5 + [_I] + [_VP] + [_I] +
-                            [_VP] * 25 + [_I] * 10 + [_VP]),
+                            [_VP] * 25 + [_I] * 11 + [_VP]),
         # count, lmt, lmk, caps, slot_start, total, ring_cnt, ring_pid,
         # ring_caps, ring_ts, ring_ok, CN, P, K, RC, ring, tile, smem,
         # stream
@@ -141,7 +142,8 @@ VARIANTS: Dict[str, Tuple[str, List[str]]] = {
     "nfa_gang_prog": ("nfa_gang", ["-DNFA_PROG=1"]),
 }
 SIGNATURES["nfa_prog"] = {k: SIGNATURES["nfa_step"][k]
-                          for k in ("nfa_step", "nfa_bank_step")}
+                          for k in ("nfa_step", "nfa_bank_step",
+                                    "nfa_bank_thread")}
 SIGNATURES["nfa_wide_prog"] = dict(SIGNATURES["nfa_wide"])
 SIGNATURES["nfa_gang_prog"] = dict(SIGNATURES["nfa_gang"])
 

@@ -2091,28 +2091,26 @@ class BankGeometry(NamedTuple):
 
 def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
                   n_params: int, prog_len: int, count: bool = False,
-                  absent: bool = False, n_cond: int = 1,
-                  program: bool = False) -> BankGeometry:
+                  absent: bool = False, n_cond: int = 1) -> BankGeometry:
     """The instance csrc/nfa_step.cu's bank step runs for K slots, T
     events a lane, A attribute lanes, R·C capture words a slot, n_pcmp
     constant compares over n_params constants a pattern and a program
     of prog_len words, for a spec of n_cond conditions with kleene count
     units (``count``) and absent units (``absent``): the thread instance
-    when the spec has no count unit, and K and the compares fit its
-    registers and its shared memory (the program; the CTA's patterns'
-    constants; each compare's interval per pattern of the CTA and their
-    union; 128 candidate bits a lane and condition; one tile of TT
-    events of ts, stream, gate word
-    and attribute lanes for the CTA's lanes — two when T is tiled; each
-    thread's column of capture, enter and seq words, and of deadlines
-    with absent units) fits the CTA's; else the group instance, which
-    takes every unit kind of the class and every condition program
-    (``program``: a condition has one).  TT: a power of two from 4 to
-    128, the smallest that holds T; where that tile exceeds
-    BANK_BLOCK_BYTES, cut to BANK_TILE_BYTES.  The layout is csrc's
-    ``bank_layout``; the launch refuses a size below it."""
-    if count or program or K > BANK_THREAD_MAX_K or \
-            n_pcmp > BANK_THREAD_MAX_PCMP:
+    when K and the compares fit its registers and its shared memory (the
+    program; the CTA's patterns' constants; each compare's interval per
+    pattern of the CTA and their union; 128 candidate bits a lane and
+    condition; one tile of TT events of ts, stream, gate word and
+    attribute lanes for the CTA's lanes — two when T is tiled; each
+    thread's column of capture, enter and seq words, of deadlines with
+    absent units, and of cnt_cur, cnt_prev, state and start words with
+    count units) fits the CTA's; else the group instance.  Both take
+    every unit kind of the bank's class and condition programs (from the
+    build variant with them).  TT: a power of two from 4 to 128, the
+    smallest that holds T; where that tile exceeds BANK_BLOCK_BYTES, cut
+    to BANK_TILE_BYTES.  The layout is csrc's ``bank_layout``; the launch
+    refuses a size below it."""
+    if K > BANK_THREAD_MAX_K or n_pcmp > BANK_THREAD_MAX_PCMP:
         return BankGeometry("group", 0, 0)
     lanes = BANK_LANES
 
@@ -2132,7 +2130,8 @@ def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
         ((patterns * n_params + 3) & ~3) * 4 + \
         BANK_THREAD_MAX_PCMP * (patterns + 1) * 16 + \
         ((n_cond * lanes * 4 + 3) & ~3) * 4 + \
-        tile_bytes(tt) + KERNEL_THREADS * K * (RC + 2 + int(absent)) * 4
+        tile_bytes(tt) + \
+        KERNEL_THREADS * K * (RC + 2 + int(absent) + 4 * int(count)) * 4
     if smem > SMEM_LIMIT:
         return BankGeometry("group", 0, 0)
     return BankGeometry("thread", tt, smem, groups)
@@ -2167,52 +2166,49 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
                       block: Dict[str, torch.Tensor],
                       params: Dict[str, torch.Tensor],
                       kprog: NfaKernelProgram,
-                      cta_patterns: int = 8 * BANK_GROUPS):
+                      cta_patterns: int = 8 * BANK_GROUPS,
+                      batch_b: Optional[int] = None):
     """The CPU model of csrc/nfa_step.cu's bank thread instance, with
     :func:`bank_lanes_plain`'s contract: each (pattern, lane) row is one
-    thread, ``cta_patterns`` consecutive patterns share a CTA.  Per row
-    an event is a candidate of the CTA when it is ``__valid`` and keeps
-    a condition bit after the CTA's union of each constant compare's
-    :func:`pcmp_bounds` intervals (`!=` left out); a candidate is live
-    for the row when a condition bit survives its pattern's own
-    compares; every other event is dead.  (The kernel also treats as
-    dead an event that passes only conditions of units none of the
-    row's slots waits at, unit 0's aside: the same function, since
-    such an event moves no slot.)  Events run in order: a dead
-    one expires the row's live slots (state >= 1) whose `within` it
-    fails and, when it is ``__valid``, runs the deadline pass; a live one
-    takes the plain step's order: each slot in slot order (within, its
-    one transition: an absent unit's condition kills the partial, a
-    landing on an absent unit sets its deadline), the first free and the
-    lowest matched slot taken in that order, then arming, then the
-    deadline pass: each slot waiting at an absent unit whose deadline is
-    at or before the event's ts lands (with the deadline as its ts; a
-    trailing absent completes), cascading through absent units in
-    ascending order.  Functional: the input carry is not modified."""
+    thread, ``cta_patterns`` consecutive patterns share a CTA.
+
+    Per row an event is a candidate of the CTA when it is ``__valid``
+    and keeps a bit of the conditions the row needs after the CTA's
+    union of each constant compare's :func:`pcmp_bounds` intervals (`!=`
+    left out); a candidate is live for the row when such a bit survives
+    its pattern's own compares; every other event is dead.  The row
+    needs every condition when the spec has neither absent nor count
+    units; else unit 0's (arming), those of the units its slots wait at,
+    and those of the count units whose forwarded count a waiting slot
+    appends to (the kernel's ``needs``, from the row's states before the
+    event).  A live event takes the plain step's order
+    (``_one_event_step``: `within`, each slot's one transition against
+    its captures — a program included — the live appends, arming behind
+    the occupancy gate, the deadline pass).  The kernel runs none of a
+    dead event's conditions: it expires the row's live slots (state >= 1)
+    whose `within` the event fails and, when the event is ``__valid``,
+    runs the deadline pass — the plain step with every condition of the
+    row failing, which is how the model steps it (its gate word zero).
+    After the block, when the plain step pads it to a multiple of B
+    (``batch_b``, default the spec's) and the spec has a `within`, one
+    more expiry at the last event's ts (the count instance's pass: a slot
+    that left a leading count at the last event may expire there).
+    Functional: the input carry is not modified."""
     lead = _bank_lead(carry)
     CN = int(np.prod(lead)) if lead else 1
     P, T = (int(x) for x in block["__ts"].shape)
-    K = spec.n_slots
-    R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
     rows = CN * P
-    S = len(spec.units)
-    within = spec.within_ms
     dev = block["__ts"].device
-    flat = {k: v.reshape((rows,) + tuple(v.shape[len(lead) + 1:])).clone()
-            for k, v in carry.items()}
-    st, start = flat["slot_state"], flat["slot_start"]
-    enter, seq = flat["slot_enter"], flat["slot_seq"]
-    caps = flat["captures"].reshape(rows, K, R * C)
-    arm_seq, drop = flat["arm_seq"], flat["dropped"]
-    armed = flat.get("armed_total")
-    dl = flat.get("deadline")
-    absent = [u.kind == "absent" for u in spec.units] + [False]
+    c = {k: v.reshape((rows,) + tuple(v.shape[len(lead) + 1:]))
+         for k, v in carry.items()}
 
     def lanes(v):                      # [P, T] → one row per thread
-        return v.repeat(CN, 1)
-    ts, sv = lanes(block["__ts"]), lanes(block["__stream"])
-    gates = kernel_gate_word(spec, kprog, block)
-    gw_all = lanes(torch.where(block["__valid"], gates | _VALID_BIT, gates))
+        return v.repeat((CN,) + (1,) * (v.dim() - 1))
+    events = {k: lanes(v) for k, v in block.items()}
+    for name in kprog.param_names:
+        events[name] = params[name].reshape(CN).to(torch.float32) \
+            .repeat_interleave(P)[:, None].expand(rows, T)
+    gates = lanes(kernel_gate_word(spec, kprog, block))
     attrs = [lanes(block[a].to(torch.float32)) for a in kprog.kern_attrs]
     bounds, union = [], []
     pad = -CN % cta_patterns
@@ -2237,151 +2233,51 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
                           uhi.repeat_interleave(cta_patterns)[:CN]
                           .repeat_interleave(P)))
     cmask = (1 << len(kprog.cmp)) - 1
+    # the conditions a slot at each state needs (state S: an empty slot)
+    units = spec.units
+    wait = [0] * (len(units) + 1)
+    for j, u in enumerate(units):
+        t, _l0, completed = _land_static(spec, j)
+        wait[j] |= 1 << u.cond_a
+        if u.kind == "count" and not completed:
+            wait[t] |= 1 << u.cond_a
+    narrow = _has(spec, "absent") or _has(spec, "count")
+    wait_t = torch.tensor(wait, dtype=torch.int32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     cnt, lmt, lmk = (torch.zeros((rows,), **i32) for _ in range(3))
-    slot = torch.arange(K, device=dev)
-
-    def expire(mask, tsv):             # live slots of masked rows
-        return torch.where(mask[:, None] & (st >= 1) &
-                           (tsv[:, None] - start > within), -1, st)
-
-    def event_row(r, ev):              # [rows, C] the event writes to row r
-        out = []
-        for c in range(C):
-            src = kprog.row_src[r * C + c]
-            out.append(ev[src] if src >= 0 else torch.full(
-                (rows,), 1.0 if src == -2 else 0.0, dtype=torch.float32))
-        return torch.stack(out, dim=1)
-
-    def cond_ok(i, gw, ev, s):
-        ok = ((gw >> i) & 1) != 0
-        for attr, r, lane, op in kprog.cmp[i]:
-            ok = ok & _CMP_FNS[op](ev[attr], caps[:, s, r * C + lane])
-        return ok
-
-    def deadline_pass(valid, tsv, evk):
-        """Due absent deadlines land, ascending units; → (matches, evk)."""
-        n = torch.zeros((rows,), **i32)
-        for s in range(K):
-            for j in range(S):
-                if not absent[j]:
-                    continue
-                fire = valid & (st[:, s] == j) & (dl[:, s] <= tsv)
-                if j + 1 >= S:
-                    n = n + _i32(fire)
-                    evk = torch.where(fire & ((evk < 0) | (evk > s)), s, evk)
-                    st[:, s] = torch.where(fire, -1, st[:, s])
-                    continue
-                st[:, s] = torch.where(fire, j + 1, st[:, s])
-                enter[:, s] = torch.where(fire, dl[:, s], enter[:, s])
-                if absent[j + 1]:
-                    dl[:, s] = torch.where(
-                        fire, dl[:, s] + spec.units[j + 1].waiting_ms,
-                        dl[:, s])
-        return n, evk
-
-    def live_event(j, gw, tsv, full):
-        """A live event's slot loop and arming; → the lowest matched
-        slot (-1: none)."""
-        nonlocal st, start, enter, seq, caps, arm_seq, drop, armed, cnt
-        svv = sv[:, j]
-        ev = [a[:, j] for a in attrs]
-        ffree = torch.full((rows,), -1, **i32)
-        evk = torch.full((rows,), -1, **i32)
-        for s in range(K):
-            sts = st[:, s]
-            if within is not None:
-                sts = torch.where((sts >= 1) & (tsv - start[:, s] > within),
-                                  -1, sts)
-            nst, m = sts, torch.zeros((rows,), dtype=torch.bool,
-                                      device=dev)
-            for ui, u in enumerate(spec.units):
-                hit_u = full & (sts == ui) & (svv == u.stream_a) & \
-                    cond_ok(u.cond_a, gw, ev, s)
-                if u.kind == "absent":      # the arrival kills the partial
-                    nst = torch.where(hit_u, -1, nst)
-                    continue
-                if u.row_a >= 0:
-                    cols = slice(u.row_a * C, (u.row_a + 1) * C)
-                    caps[:, s, cols] = torch.where(
-                        hit_u[:, None], event_row(u.row_a, ev),
-                        caps[:, s, cols])
-                if ui + 1 >= S:
-                    m = m | hit_u
-                    nst = torch.where(hit_u, -1, nst)
-                    continue
-                nst = torch.where(hit_u, ui + 1, nst)
-                enter[:, s] = torch.where(hit_u, tsv, enter[:, s])
-                if absent[ui + 1]:
-                    dl[:, s] = torch.where(
-                        hit_u, tsv + spec.units[ui + 1].waiting_ms, dl[:, s])
-            st[:, s] = torch.where(full, nst, st[:, s])
-            ffree = torch.where((ffree < 0) & full & (nst < 0) & ~m, s,
-                                ffree)
-            evk = torch.where((evk < 0) & m, s, evk)
-            cnt = cnt + _i32(m)
-        u0 = spec.units[0]
-        want = full & (svv == u0.stream_a) & (((gw >> u0.cond_a) & 1) != 0)
-        if spec.arm_once:
-            want = want & (armed == 0)
-        arm = want & (ffree >= 0)
-        drop = drop + _i32(want & (ffree < 0))
-        if spec.arm_once:
-            armed = armed + _i32(arm)
-        sel = arm[:, None] & (slot[None, :] == ffree[:, None])
-        caps = torch.where(sel[:, :, None], 0.0, caps)
-        if u0.row_a >= 0:
-            cols = slice(u0.row_a * C, (u0.row_a + 1) * C)
-            caps[:, :, cols] = torch.where(
-                sel[:, :, None], event_row(u0.row_a, ev)[:, None, :],
-                caps[:, :, cols])
-        start = torch.where(sel, tsv[:, None], start)
-        if S > 1:
-            st = torch.where(sel, 1, st)
-            enter = torch.where(sel, tsv[:, None], enter)
-            seq = torch.where(sel, arm_seq[:, None], seq)
-            if absent[1]:
-                dl[:] = torch.where(
-                    sel, tsv[:, None] + spec.units[1].waiting_ms, dl)
-        arm_seq = arm_seq + _i32(arm)
-        if S == 1:                 # completes as it arms
-            cnt = cnt + _i32(arm)
-            evk = torch.where(arm & ((evk < 0) | (ffree < evk)), ffree,
-                              evk)
-        return evk
-
     for j in range(T):
-        gw, tsv = gw_all[:, j], ts[:, j]
-        cand = (gw & _VALID_BIT) != 0
+        ev = {k: v[:, j] for k, v in events.items()}
+        need = torch.full((rows,), cmask, **i32)
+        if narrow:
+            st = c["slot_state"]
+            need = torch.full((rows,), 1 << units[0].cond_a, **i32)
+            per = wait_t[torch.where(st >= 0, st, len(units)).long()]
+            for s in range(spec.n_slots):
+                need = need | per[:, s]
+        gw = gates[:, j]
+        ugw, ogw = gw, gw
         for bit, attr, lo, hi in union:
             x = attrs[attr][:, j]
-            gw = torch.where((x >= lo) & (x <= hi), gw, gw & ~bit)
-        cand = cand & ((gw & cmask) != 0)
-        gw = gw_all[:, j]
+            ugw = torch.where((x >= lo) & (x <= hi), ugw, ugw & ~bit)
         for bit, attr, lo, hi, inv in bounds:
             x = attrs[attr][:, j]
             ok = ((x >= lo) & (x <= hi)) != inv
-            gw = torch.where(ok, gw, gw & ~bit)
-        full = cand & ((gw & cmask) != 0)
-        if within is not None:         # a dead row's expiry
-            st = expire(~full, tsv)
-        evk = torch.full((rows,), -1, **i32)
-        if bool(full.any()):
-            evk = live_event(j, gw, tsv, full)
-        if dl is not None:
-            n, evk = deadline_pass((gw_all[:, j] & _VALID_BIT) != 0, tsv,
-                                   evk)
-            cnt = cnt + n
-        lmt = torch.where(evk >= 0, tsv, lmt)
-        lmk = torch.where(evk >= 0, evk, lmk)
-    new = {"slot_state": st, "slot_start": start, "slot_enter": enter,
-           "slot_seq": seq, "arm_seq": arm_seq,
-           "captures": caps.reshape(rows, K, R, C), "dropped": drop}
-    if armed is not None:
-        new["armed_total"] = armed
-    if dl is not None:
-        new["deadline"] = dl
-    new = {k: new.get(k, flat[k]).reshape(carry[k].shape) for k in carry}
+            ogw = torch.where(ok, ogw, ogw & ~bit)
+        full = ev["__valid"] & ((ugw & need) != 0) & ((ogw & need) != 0)
+        ev[KGATE] = torch.where(full, gw, 0)
+        c, (mm, *_rest) = _one_event_step(spec, c, ev, kprog)
+        hit = mm.any(dim=1)
+        cnt = cnt + _count(mm)
+        lmt = torch.where(hit, ev["__ts"], lmt)
+        lmk = torch.where(hit, _i32(_first_true(mm)), lmk)
+    B = spec_batch_b(spec, batch_b)
+    if B > 1 and T % B and spec.within_ms is not None:
+        c = dict(c)
+        tl = events["__ts"][:, T - 1:T]
+        c["slot_state"] = torch.where(
+            (c["slot_state"] >= 1) &
+            (tl - c["slot_start"] > spec.within_ms), -1, c["slot_state"])
+    new = {k: c[k].reshape(carry[k].shape) for k in carry}
     return (new,) + tuple(x.reshape(CN, P) for x in (cnt, lmt, lmk))
 
 
@@ -2578,12 +2474,15 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     contract, on the tensors' own device.  CPU tensors run the plain
     version.  CUDA tensors launch csrc/nfa_step.cu's bank step on the
     current stream for a spec inside its class, in the instance
-    :func:`bank_geometry` picks: the thread instance (no count unit and
-    no condition program, K <= 16; counted in
+    :func:`bank_geometry` picks: the thread instance (K <= 16, at most 8
+    constant compares, its shared memory within the CTA's; counted in
     ``nfa_bank_step.thread_launches``) or the group instance
     (``nfa_bank_step.group_launches``); ``nfa_bank_step.launches``
-    counts both.  With ``inplace`` the new carry IS the input carry,
-    updated in place.  Anything else raises: no fallback."""
+    counts both.  A spec with a condition program launches either from
+    the build variant whose instances run programs (``nfa_prog``), any
+    other from ``nfa_step``.  With ``inplace`` the new carry IS the
+    input carry, updated in place.  Anything else raises: no
+    fallback."""
     dev = block["__ts"].device
     if dev.type == "cpu":
         return bank_lanes_plain(spec, carry, block, params, batch_b)
@@ -2629,10 +2528,7 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     count, lmt, lmk = (torch.empty((CN, P), **i32) for _ in range(3))
     geo = bank_geometry(K, T, A, R * C, sum(len(q) for q in kprog.pcmp),
                         NP, prog.numel(), count=_has(spec, "count"),
-                        absent=_has(spec, "absent"), n_cond=len(kprog.cmp),
-                        program=kernel_has_prog(kprog))
-    # a condition program: the group instance of the build variant with
-    # them (bank_geometry never picks the thread instance for one)
+                        absent=_has(spec, "absent"), n_cond=len(kprog.cmp))
     lib = load_kernel("nfa_prog" if kernel_has_prog(kprog) else "nfa_step")
     args = (
         attrs.data_ptr(), block["__ts"].data_ptr(),
@@ -2642,8 +2538,10 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         CN, P, T, K)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if geo.instance == "thread":
+        pad = kernel_flags(spec, kprog, T, batch_b) & FLAG_PAD_WITHIN
         rc = lib.nfa_bank_thread(*args, geo.TT, A, R * C, geo.smem,
-                                 geo.groups, len(kprog.cmp), stream)
+                                 geo.groups, len(kprog.cmp), int(pad != 0),
+                                 stream)
     else:
         rc = lib.nfa_bank_step(*args, G, A, R * C, stream)
     if rc != 0:

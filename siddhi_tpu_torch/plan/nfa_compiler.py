@@ -2473,7 +2473,12 @@ class CompiledPatternBank:
     On CUDA a block is two kernels of csrc/nfa_step.cu per dispatch (the
     bank step, then the match ring; ops/nfa.nfa_bank_step), for the specs
     of the NFA kernel's class with each pattern constant in an ``<attr>
-    <cmp> <constant>`` conjunct; anything else raises
+    <cmp> <constant>`` conjunct (ops/nfa.bank_class_reason).  The bank
+    step runs its thread instance (one thread per (pattern, lane)) for
+    every such spec with K <= 16 and at most 8 constant compares whose
+    layout fits shared memory, its simple, kleene count and absent units
+    and its condition programs alike (ops/nfa.bank_geometry), else its
+    group instance (a group of threads per lane); anything else raises
     ``SiddhiAppCreationError`` when the bank is built, before any device
     memory is touched (the bank has no host engine to fall back to).  On
     the CPU the plain bank step runs every spec the JAX package's bank

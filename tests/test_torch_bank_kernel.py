@@ -18,18 +18,26 @@ arithmetic:
   ring = P; it equals the plain ring and the JAX package's lax.top_k ring
   bit for bit; its shared-memory sizing stays under 227 KB;
 - the CPU model of the bank step's thread instance (ops/nfa.
-  bank_thread_model: one thread per (pattern, lane), events four at a
-  time, dead events doing only `within` on the live slots, the first
-  free and the lowest matched slot in slot order, the constant compares
-  as intervals) equals the plain bank step bit for bit, carry and
-  per-lane outputs, on every spec at K = 1, 5, 8 and 16, and on blocks
-  whose timestamps go backwards in a lane, whose padded events would
-  expire or match, whose offsets wrap int32 across `within`, whose
-  events are all dead while partials live, and whose T is ragged; the
-  JAX bank agrees with it on those blocks;
+  bank_thread_model: one thread per (pattern, lane), an event live for
+  it when it passes, after the CTA's union and its own constant
+  intervals, a condition its slots or unit 0 need — those of the units
+  its slots wait at and of the counts they append to, with absent or
+  count units — a live event the plain step's order, a dead one only
+  `within` on the live slots and the deadline pass) equals the plain
+  bank step bit for bit, carry and per-lane outputs, on every spec at K
+  = 1, 5, 8 and 16 — kleene counts (config 4's leading count, a
+  mid-chain count, a count whose [last] bank the next unit reads, a
+  count after an absent unit) and condition programs (the Quick start's
+  ratio, a count's own [last] guard) among them — and on blocks whose
+  timestamps go backwards in a lane, whose padded events would expire
+  or match, whose offsets wrap int32 across `within`, whose events are
+  all dead while partials live, and whose T is ragged; the JAX bank
+  agrees with it on those blocks and on the count and ratio banks;
 - the intervals equal the six compares on IEEE special values;
 - the instance choice and shared-memory sizing stay under the CTA's
-  227 KB wherever they pick the thread instance;
+  227 KB wherever they pick the thread instance, which takes the count
+  and program banks; K = 17, nine constant compares and a column past
+  shared memory go to the group instance;
 - a bank outside the kernel's class is refused on CUDA before any device
   memory is touched, naming the feature;
 - ``import siddhi_tpu_torch`` and the bank leave jax out.
@@ -51,7 +59,7 @@ from siddhi_tpu.plan.nfa_compiler import \
 from siddhi_tpu_torch.ops.nfa import (BANK_GROUPS, CMP_OPS,  # noqa: E402
                                       PROG_HEADER, SMEM_LIMIT, UNIT_WORDS,
                                       WIDE_HEADER, WIDE_UNIT_WORDS,
-                                      bank_geometry,
+                                      bank_class_reason, bank_geometry,
                                       bank_lanes_plain, bank_ring_model,
                                       bank_ring_plain, bank_thread_model,
                                       kernel_prog, nfa_bank_step,
@@ -302,6 +310,170 @@ def test_thread_model_equals_jax_bank(case):
             y = carry[k][ci].numpy()
             assert x.dtype == y.dtype and np.array_equal(
                 x.view(np.int32), y.view(np.int32)), (ci, k)
+
+
+#: the count and program banks the thread instance takes: {name: (app
+#: template over {a}, {b}, values)}
+COUNT_SPECS = {
+    # chip_smoke.count_bank_app: a mid-chain count reading e1's capture,
+    # its [last] bank read by the next unit
+    "count bank": (STREAM + "from every e1=S[kind == 0 and price > {a}] -> "
+                   "e2=S[kind == 1 and price > e1.price]<2:3> -> e3=S[kind "
+                   "== 0 and price < e2[last].price] within {b} "
+                   "milliseconds select e1.price as p1, e2[last].price as "
+                   "p2 insert into Out;",
+                   [(t, 9000) for t in np.linspace(5, 95, 6)]),
+    # BASELINE config 4 as a bank: a leading count (state 0 accumulates,
+    # the occupancy gate holds arming), its [last] read by e2
+    "config 4": (STREAM + "from every e1=S[kind == 0 and price > {a}]<3:10> "
+                 "-> e2=S[kind == 1 and price > e1[last].price] within {b} "
+                 "sec select e1[0].price as p0, e1[last].price as pl, "
+                 "e2.price as p2 insert into Out;",
+                 [(t, 10) for t in np.linspace(0, 60, 6)]),
+    # a mid-chain count reading no capture, its closing unit a constant
+    "mid-chain count": (STREAM + "from every e1=S[kind == 0 and price > "
+                        "{a}] -> e2=S[kind == 1]<2:4> -> e3=S[kind == 0 and "
+                        "price > {b}] within 9 sec select e1.price as p1, "
+                        "e3.price as p3 insert into Out;",
+                        [(t, 100 - t) for t in np.linspace(10, 80, 4)]),
+    # a leading count of min 1 (armed forwarded: live appends while e2
+    # waits), e2 reading its [last] bank
+    "count last read": (STREAM + "from every e1=S[kind == 0 and price > "
+                        "{a}]<1:3> -> e2=S[kind == 1 and price > "
+                        "e1[last].price and price > {b}] within 9 sec "
+                        "select e1[last].price as pl, e2.price as p2 insert "
+                        "into Out;",
+                        [(t, 30.0) for t in np.linspace(5, 95, 4)]),
+    # an absent unit, then a count whose [last] bank the next unit reads:
+    # the count instance with deadlines
+    "count absent": (STREAM + "from every e1=S[kind == 0 and price > {a}] -> "
+                     "not S[kind == 1 and price > {b}] for 1 sec -> "
+                     "e2=S[kind == 1 and price > e1.price]<1:3> -> "
+                     "e3=S[kind == 0 and price < e2[last].price] within 9 "
+                     "sec select e1.price as p1, e2[last].price as p2 "
+                     "insert into Out;",
+                     [(t, 90.0) for t in np.linspace(5, 95, 4)]),
+    # the README's Quick start (`price > e1.price * ratio`): a program
+    # reading a capture and a pattern constant
+    "ratio": (STREAM + "from every e1=S[kind == 0 and price > {a}] -> "
+              "e2=S[kind == 1 and price > e1.price * {b}] within 10 sec "
+              "select e1.price as p1, e2.price as p2 insert into Out;",
+              [(round(float(t), 3), round(float(r), 4)) for t, r in
+               zip(np.linspace(5, 95, 6), np.linspace(1.0, 1.1, 6))]),
+    # a count whose own condition is a program over its [last] bank with
+    # the nullable guard
+    "own last": (STREAM + "from every e1=S[kind == 0 and price > {a}] -> "
+                 "e2=S[kind == 1 and (e2[last].price is null or price > "
+                 "e2[last].price)]<1:3> -> e3=S[kind == 0 and price > {b}] "
+                 "within 5 sec select e1.price as p1, e2[last].price as l2 "
+                 "insert into Out;",
+                 [(t, 50.0) for t in np.linspace(5, 95, 4)]),
+}
+
+
+def _cbank(name, K, **kw):
+    text, vals = COUNT_SPECS[name]
+    apps = [text.format(a=a, b=b) for a, b in vals]
+    return CompiledPatternBank(apps, n_partitions=P, n_slots=K,
+                               pattern_chunk=len(apps) // 2, device="cpu",
+                               **kw)
+
+
+def test_count_and_program_banks_route_to_thread_instance():
+    """Every COUNT_SPECS bank is inside the bank's class and routes to the
+    thread instance at K = 1, 5, 8 and 16 (the count instance's column
+    sized with four more words a slot), but "count absent" at K = 16,
+    whose column (6 capture words, enter, seq, deadline and four count
+    instance words a slot) is past shared memory; K = 17 and nine
+    constant compares go to the group instance too."""
+    for name in COUNT_SPECS:
+        for K in (1, 5, 8, 16):
+            bank = _cbank(name, K)
+            spec, kp = bank.nfa.spec, bank.nfa.kprog
+            assert bank_class_reason(spec, kp) is None, name
+            kinds = {u.kind for u in spec.units}
+            assert "count" in kinds or any(kp.prog), name
+            g = bank_geometry(K, T, len(kp.kern_attrs),
+                              spec.n_rows * spec.n_caps,
+                              sum(len(q) for q in kp.pcmp),
+                              len(kp.param_names),
+                              len(kernel_prog(spec, kp)),
+                              count="count" in kinds,
+                              absent="absent" in kinds, n_cond=len(kp.cmp))
+            if name == "count absent" and K == 16:
+                assert g.instance == "group" and g.TT == 0
+                continue
+            assert g.instance == "thread", (name, K)
+            assert 0 < g.smem <= SMEM_LIMIT
+    plain = bank_geometry(8, 64, 2, 4, 4, 4, 200)
+    count = bank_geometry(8, 64, 2, 4, 4, 4, 200, count=True)
+    assert plain.instance == count.instance == "thread"
+    assert count.smem - plain.smem == 256 * 8 * 4 * 4
+    for K, n_pcmp, RC in ((17, 4, 4), (8, 9, 4), (16, 4, 40)):
+        g = bank_geometry(K, 64, 2, RC, n_pcmp, n_pcmp, 200, count=True)
+        assert g.instance == "group" and g.TT == 0, (K, n_pcmp, RC)
+
+
+@pytest.mark.parametrize("K", [1, 5, 8, 16])
+@pytest.mark.parametrize("name", sorted(COUNT_SPECS))
+def test_thread_model_counts_and_programs_equal_plain(name, K):
+    """The thread instance's loop with count units and condition programs
+    equals the plain bank step over three chained random blocks, every
+    carry leaf (cnt_cur and cnt_prev too) and per-lane output, with CTAs
+    of 32 patterns at K = 8 and of 4 else."""
+    rng = np.random.default_rng(11 + K)
+    bank = _cbank(name, K)
+    _c, counts = _model_vs_plain(
+        bank, [_block(rng, BASE + b * T * GAP) for b in range(3)],
+        32 if K == 8 else 4)
+    assert sum(int(c.sum()) for c in counts) > 0
+
+
+@pytest.mark.parametrize("case", ["backwards", "padded", "wrap", "all_dead",
+                                  "ragged"])
+@pytest.mark.parametrize("name", ["config 4", "count bank", "ratio"])
+def test_thread_model_counts_special_blocks(name, case):
+    """The count and program banks on the blocks the dead-event walk must
+    get right (ragged: T of 7 and 5 pad to B = 8 in the plain step, whose
+    padding rows expire a slot that left config 4's leading count at the
+    last event)."""
+    rng = np.random.default_rng(SPECIAL.index(case))
+    _c, counts = _model_vs_plain(_cbank(name, 8), _special_blocks(case, rng))
+    if case == "all_dead":
+        assert int(counts[1].sum()) == 0
+
+
+#: (spec, K) held against the JAX bank: every K of the model tests once
+JAX_COUNT_CASES = [("count bank", 8), ("config 4", 5),
+                   ("mid-chain count", 16), ("count last read", 1),
+                   ("ratio", 8)]
+
+
+@pytest.mark.parametrize("name,K", JAX_COUNT_CASES)
+def test_thread_model_counts_equal_jax_bank(name, K):
+    """The JAX bank (build_bank_step as the JAX package runs it on the
+    CPU) over the same blocks: per-pattern counts after every block and
+    the final carry equal the thread model's (which equals the plain
+    bank step's); the ratio bank at K = 8 drops partials."""
+    text, vals = COUNT_SPECS[name]
+    apps = [text.format(a=a, b=b) for a, b in vals]
+    jb = JaxBank(apps, n_partitions=P, n_slots=K,
+                 pattern_chunk=len(apps) // 2)
+    blocks = [_block(np.random.default_rng(29), BASE + b * T * GAP)
+              for b in range(3)]
+    carry, counts = _model_vs_plain(_cbank(name, K), blocks)
+    for b, raw in enumerate(blocks):
+        jc = np.asarray(jb.process_block(raw))
+        assert jc.tolist() == counts[b].sum(dim=1).tolist(), b
+    for ci, jcar in enumerate(jb.carries):
+        for k in jcar:
+            x = np.asarray(jcar[k])
+            y = carry[k][ci].numpy()
+            assert x.dtype == y.dtype and np.array_equal(
+                x.view(np.int32), y.view(np.int32)), (ci, k)
+    assert sum(int(c.sum()) for c in counts) > 0
+    if name == "ratio":
+        assert int(carry["dropped"].sum()) > 0
 
 
 SPECIALS = np.array([0.0, -0.0, 1.0, -1.0, 99.9, 1e-45, -1e-45, 1e-38,
@@ -634,7 +806,7 @@ def test_bank_step_cpu_is_plain():
 
 OUT_OF_CLASS = {
     # a kleene count whose own condition reads its [last] bank through a
-    # transcendental; counts otherwise run on the group instance
+    # transcendental; counts otherwise run on the thread instance
     "count unit": (STREAM + "from every e1=S[kind == 0 and price > {t} and "
                    "math:log(price) < e1[last].price]<2:3> -> e2=S[kind == "
                    "1 and price > e1[last].price] select e2.price as p2 "

@@ -2,7 +2,8 @@
 held on the CPU against the JAX package.
 
 csrc/nfa_step.cuh's ``eval_prog`` (K2's simple and widened instances,
-the gang K12 and the bank's group instance K3) cannot run here.  What it
+the gang K12 and the bank's K3, its thread and group instances) cannot
+run here.  What it
 computes is held by its CPU model, ``ops/nfa._model_program`` inside the
 kernel model (``nfa_block_step_plain(..., kprog=)``), bit for bit:
 
@@ -48,6 +49,7 @@ from siddhi_tpu.plan.nfa_compiler import \
 from siddhi_tpu_torch import SiddhiManager, StreamCallback  # noqa: E402
 from siddhi_tpu_torch.ops.nfa import (bank_class_reason,  # noqa: E402
                                       bank_geometry, bank_lanes_plain,
+                                      bank_thread_model,
                                       kernel_class_reason, kernel_prog,
                                       kernel_wide, nfa_block_step_plain)
 from siddhi_tpu_torch.ops.pack import pack_blocks  # noqa: E402
@@ -310,8 +312,11 @@ def test_apps_equal_jax_rows(app):
 
 def test_ratio_bank_equals_jax_bank():
     """The Quick start as an 8-pattern bank (ratios 1.00..1.07,
-    thresholds 5..12): the group instance's CPU model equals the plain
-    bank step and the JAX bank, per pattern and block and carry leaf."""
+    thresholds 5..12) routes to the thread instance (to the group
+    instance at K = 17); the kernels' CPU model (each condition from the
+    kernel's inputs, its program included) and the thread instance's
+    model equal the plain bank step and the JAX bank, per pattern and
+    block and carry leaf."""
     P, T = 16, 24
     apps = [FORMS["ratio"][0].replace("50.0", f"{5.0 + i}")
             .replace("1.05", f"{1.0 + 0.01 * i:.2f}") for i in range(8)]
@@ -320,9 +325,11 @@ def test_ratio_bank_equals_jax_bank():
     jb = JaxBank(apps, n_partitions=P, n_slots=4, pattern_chunk=4)
     spec, kp = bank.nfa.spec, bank.nfa.kprog
     assert bank_class_reason(spec, kp) is None
+    assert any(kp.prog)
     assert bank_geometry(4, T, len(kp.kern_attrs), 2, 1, 2,
-                         len(kernel_prog(spec, kp)),
-                         program=any(kp.prog)).instance == "group"
+                         len(kernel_prog(spec, kp))).instance == "thread"
+    assert bank_geometry(17, T, len(kp.kern_attrs), 2, 1, 2,
+                         len(kernel_prog(spec, kp))).instance == "group"
     rng = np.random.default_rng(3)
     c_plain = c_model = bank._stack_carry
     total = 0
@@ -339,10 +346,13 @@ def test_ratio_bank_equals_jax_bank():
         want = bank_lanes_plain(spec, c_plain, block, bank._stack_params)
         got = bank_lanes_plain(spec, c_model, block, bank._stack_params,
                                kprog=kp)
+        thr = bank_thread_model(spec, c_model, block, bank._stack_params,
+                                kp, 4)
         for k in want[0]:
             assert torch.equal(got[0][k], want[0][k]), (b, k)
-        for x, y in zip(got[1:], want[1:]):
-            assert torch.equal(x, y), b
+            assert torch.equal(thr[0][k], want[0][k]), (b, k)
+        for x, y, z in zip(got[1:], want[1:], thr[1:]):
+            assert torch.equal(x, y) and torch.equal(z, y), b
         jc = np.asarray(jb.process_block(raw))
         assert jc.tolist() == got[1].sum(dim=1).tolist(), b
         c_plain, c_model = want[0], got[0]

@@ -20,8 +20,9 @@ held by their CPU models, bit for bit:
 - the program table's new fields (each unit's kind, count bounds, wait,
   landing and appending counts; each count row's layout) are what the C
   ``parse`` reads;
-- ``bank_geometry`` routes a count bank to the group instance and an
-  absent bank to the thread instance, with its deadline column;
+- ``bank_geometry`` routes a count bank and an absent bank to the
+  thread instance, with their count and deadline columns, and a count
+  bank of K = 17 to the group instance;
 - ``chip_smoke.py``'s independent references of phases 10 (BASELINE
   config 4) and 11 (config 3) equal the JAX host engine on small streams.
 """
@@ -357,32 +358,38 @@ def test_widened_shapes_are_in_class_and_the_rest_is_not():
 
 
 def test_bank_geometry_routes_by_class():
-    """A count bank goes to the group instance (a dispatch rule of the
-    spec's class); an absent bank to the thread instance, whose shared
-    memory holds a deadline column beside the capture, enter and seq
-    columns, and a candidate mask for each condition."""
+    """A count bank and an absent bank go to the thread instance, whose
+    shared memory holds a deadline column, with absent units, and four
+    more words a slot (cnt_cur, cnt_prev, state and start), with count
+    units, beside the capture, enter and seq columns, and a candidate
+    mask for each condition; a count bank past K = 16 goes to the group
+    instance (a dispatch rule of the spec's shape)."""
     base = bank_geometry(8, 64, 2, 2, 5, 5, 120)
     absent = bank_geometry(8, 64, 2, 2, 5, 5, 120, absent=True)
     count = bank_geometry(8, 64, 2, 2, 5, 5, 120, count=True)
-    assert base.instance == absent.instance == "thread"
+    assert base.instance == absent.instance == count.instance == "thread"
     assert absent.smem - base.smem == 256 * 8 * 4
+    assert count.smem - base.smem == 256 * 8 * 4 * 4
     # one candidate mask a condition: 128 bits for each of 32 lanes
     three = bank_geometry(8, 64, 2, 2, 5, 5, 120, n_cond=3)
     assert three.smem - base.smem == 2 * 32 * 4 * 4
-    assert (absent.TT, absent.groups) == (base.TT, base.groups)
-    assert count.instance == "group" and count.TT == 0
-    # through the bank: config 3 on the thread instance, a count on the
-    # group instance
+    assert (absent.TT, absent.groups) == (base.TT, base.groups) == \
+        (count.TT, count.groups)
+    wide = bank_geometry(17, 64, 2, 2, 5, 5, 120, count=True)
+    assert wide.instance == "group" and wide.TT == 0
+    # through the bank: config 3 and a count on the thread instance, the
+    # count at K = 17 on the group instance
     ab = CompiledPatternBank(_absent_bank_apps([10.0, 20.0]), n_partitions=4,
                              n_slots=8, device="cpu")
     cb = CompiledPatternBank(
         [chip_smoke.count_bank_app(t) for t in (10.0, 20.0)], n_partitions=4,
         n_slots=8, device="cpu")
-    for bank, want in ((ab, "thread"), (cb, "group")):
+    for bank, K, want in ((ab, 8, "thread"), (cb, 8, "thread"),
+                          (cb, 17, "group")):
         spec, kp = bank.nfa.spec, bank.nfa.kprog
         assert kp.reason is None, kp.reason
         kinds = {u.kind for u in spec.units}
-        g = bank_geometry(8, 64, len(kp.kern_attrs), spec.n_rows * spec.n_caps,
+        g = bank_geometry(K, 64, len(kp.kern_attrs), spec.n_rows * spec.n_caps,
                           sum(len(q) for q in kp.pcmp), len(kp.param_names),
                           len(kernel_prog(spec, kp)),
                           count="count" in kinds, absent="absent" in kinds,

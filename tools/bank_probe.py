@@ -2,7 +2,7 @@
 """Probe the pattern bank's step kernel on one GPU: hold it against the
 plain bank step on small shapes, then split its time at the fleet shape.
 
-    python3 tools/bank_probe.py [--seed S]
+    python3 tools/bank_probe.py [--seed S] [--cells]
 
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc.
 
@@ -33,6 +33,15 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc.
    find the ring-th count from per-warp histograms of 16 and 128 bins
    before bisection (RING_HISTOGRAM), held bit for bit against the
    default.
+
+4. The count and program banks (``chip_smoke.py`` phase 11's count bank,
+   config 4 as 100 patterns, and ratio bank, the Quick start as 100
+   patterns; 10,000 lanes, T = 64, K = 8) on both thread mappings: the
+   default and a build with ``kBankLanes = 8`` of each library they run
+   from (``nfa_step``; ``nfa_prog`` for the ratio bank's program), the
+   step not in place and in place over fresh blocks (median ms, L2
+   flushed), the outputs of the two mappings equal bit for bit.
+   ``--cells`` runs this part alone.
 
 Prints one line ``BANKPROBE {json}`` with the card's name and power limit.
 """
@@ -161,10 +170,10 @@ def ring_histogram(bins):
             for old, new in RING_HISTOGRAM], 8 * bins * 4
 
 
-def build_variant(kernels, tag, edits) -> ctypes.CDLL:
+def build_variant(kernels, tag, edits, lib="nfa_step") -> ctypes.CDLL:
     """csrc/nfa_step.cu with each text `old` of the (old, new) edits made
-    `new`, built into the checkout's build directory and bound like the
-    real one."""
+    `new`, built with library `lib`'s flags (ops/_kernels.VARIANTS) into
+    the checkout's build directory and bound like that library."""
     src = open(os.path.join(kernels.CSRC, "nfa_step.cu")).read()
     for old, new in edits:
         if src.count(old) != 1:
@@ -176,14 +185,15 @@ def build_variant(kernels, tag, edits) -> ctypes.CDLL:
     so = os.path.join(kernels.BUILD, f"nfa_step_{tag}.so")
     with open(cu, "w") as f:
         f.write(src)
-    subprocess.run([kernels.nvcc_path()] + kernels.NVCC_FLAGS +
-                   ["-o", so, cu], check=True)
-    lib = ctypes.CDLL(so)
-    for fn, (restype, argtypes) in kernels.SIGNATURES["nfa_step"].items():
-        f = getattr(lib, fn)
+    flags = kernels.VARIANTS.get(lib, (lib, []))[1]
+    subprocess.run([kernels.nvcc_path()] + kernels.NVCC_FLAGS + flags +
+                   ["-I", kernels.CSRC, "-o", so, cu], check=True)
+    out = ctypes.CDLL(so)
+    for fn, (restype, argtypes) in kernels.SIGNATURES[lib].items():
+        f = getattr(out, fn)
         f.argtypes = argtypes
         f.restype = restype
-    return lib
+    return out
 
 
 def check(cs, bank, blocks) -> int:
@@ -377,9 +387,73 @@ def time_ring(cs, ops, dev, out, out4, variants) -> dict:
     return res
 
 
+def time_cells(cs, ops, dev, seed, variants) -> dict:
+    """Part 4: the count and ratio banks' step on both thread mappings."""
+    import numpy as np
+    import torch
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    n = cs.TIMED_LAUNCHES
+    load = ops.load_kernel
+    out = {}
+    for name, apps, warm in (("count_bank", cs.count_bank_apps(),
+                              cs.COUNT_BANK_BLOCKS),
+                             ("ratio_bank", cs.ratio_bank_apps(),
+                              cs.RATIO_BANK_BLOCKS)):
+        bank = CompiledPatternBank(apps, n_partitions=cs.BANK_P,
+                                   n_slots=cs.BANK_K, pattern_chunk=20,
+                                   ring=cs.BANK_RING, device=dev)
+        blocks = [bank.nfa.to_device(b) for b in cs.bank_blocks(
+            np.random.default_rng(seed + len(name)), warm + 2 + n,
+            gap=1_000)]
+        for b in blocks[:warm]:
+            bank.process_block(b)
+        spec, kp = bank.nfa.spec, bank.nfa.kprog
+        carry, prm = bank._stack_carry, bank._stack_params
+
+        def step(c=carry, b=blocks[warm], **kw):
+            return ops.nfa_bank_lanes(spec, c, b, prm, kp, **kw)
+
+        def times():
+            work = {k: v.clone() for k, v in carry.items()}
+            it = iter(blocks[warm + 1:])
+            return {"ms": cs.median_ms(step, dev,
+                                       sleep_cycles=5 * cs.SLEEP_CYCLES),
+                    "inplace_ms": cs.median_ms(
+                        lambda: step(c=work, b=next(it), inplace=True), dev,
+                        n=n, sleep_cycles=5 * cs.SLEEP_CYCLES)}
+        t0 = ops.nfa_bank_step.thread_launches
+        res = {"default": times()}
+        want = step()
+        try:
+            ops.load_kernel = lambda lib: variants[f"patterns_{lib}"]
+            ops.BANK_LANES = 8
+            got = step()
+            torch.cuda.synchronize()
+            for k in want[0]:
+                if not cs._same_bits(want[0][k], got[0][k]):
+                    raise AssertionError(f"{name}: thread mappings differ: "
+                                         f"carry.{k}")
+            if not all(cs._same_bits(x, y)
+                       for x, y in zip(want[1:], got[1:])):
+                raise AssertionError(f"{name}: thread mappings differ: "
+                                     f"outputs")
+            res["warp_patterns"] = times()
+        finally:
+            ops.load_kernel = load
+            ops.BANK_LANES = 32
+        res["thread_launches"] = ops.nfa_bank_step.thread_launches - t0
+        res["matches"] = int(want[1].sum())
+        out[name] = res
+        del bank, carry, blocks, want, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cells", action="store_true",
+                    help="only part 4: the count and ratio banks")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     import numpy as np
@@ -393,6 +467,16 @@ def main(argv=None) -> int:
     from siddhi_tpu_torch.ops import nfa as ops
     dev = "cuda"
     _kernels.build_all()
+    mapping = [(BANK_LANES, BANK_LANES.replace("32", "8"))]
+    cells = {f"patterns_{lib}": build_variant(_kernels, f"patterns_{lib}",
+                                              mapping, lib)
+             for lib in ("nfa_step", "nfa_prog")}
+    if args.cells:
+        out = {"device": torch.cuda.get_device_name(0),
+               "nvidia_smi": cs.nvidia_smi_line(),
+               "cells": time_cells(cs, ops, dev, args.seed, cells)}
+        print("BANKPROBE " + json.dumps(out), flush=True)
+        return 0
     variants = {
         "nowalk": build_variant(_kernels, "nowalk", [(EVENT_WALK, EVENT_WALK.
                                 replace("on &&", "false && on &&"))]),
@@ -409,6 +493,7 @@ def main(argv=None) -> int:
                              np.linspace(99.8, 99.997, cs.N_BANK), variants)
     out["matchy"] = time_band(cs, ops, dev, args.seed + 8, 0.0,
                               np.linspace(5.0, 95.0, cs.N_BANK), variants)
+    out["cells"] = time_cells(cs, ops, dev, args.seed, cells)
     print("BANKPROBE " + json.dumps(out), flush=True)
     return 0
 

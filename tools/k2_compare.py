@@ -5,7 +5,7 @@ fresh process per checkout, on one GPU.
 
     python3 tools/k2_compare.py DIR [DIR ...] [--pattern-chunks N]
                                 [--fleet-blocks B] [--no-pattern]
-                                [--seed S]
+                                [--bank-cells] [--seed S]
 
 Each DIR is the root of a checkout (its ``chip_smoke.py`` and
 ``siddhi_tpu_torch/``); list the trees in turns (parent, change, change,
@@ -36,6 +36,19 @@ checks included): events/s and ms per block; then the latency cell
 (``chip_smoke.run_latency_cell``, T = 4): p50, p99, compute-only.
 Each tree prints one line ``K2COMPARE {json}``.  Needs CUDA and nvcc;
 builds each tree's kernels in that tree.
+
+With ``--bank-cells`` a tree runs this instead: every NFA library
+(``nfa_step``, ``nfa_wide``, ``nfa_gang`` and their condition-program
+builds) built with ``-Xptxas -v``, each kernel instance's register count
+(the first time the tree's libraries are built: a tree listed twice
+reuses them); then the bank step (``ops.nfa.nfa_bank_lanes``) on four
+banks at the fleet's lanes (10,000, T = 64, K = 8): phase 8's fleet
+(1000 patterns, alert band), phase 11's absent fleet (config 3, 1000
+patterns), its count bank (config 4, 100 patterns) and its ratio bank
+(the Quick start, 100 patterns).  Per bank, after warm blocks through
+``process_block``: the step not in place on the next block and in place
+over TIMED_LAUNCHES fresh blocks from a copy of the carry (median ms, L2
+flushed), and the instance each ran on.
 """
 from __future__ import annotations
 
@@ -72,6 +85,114 @@ def time_bank_step(cs, ops, floor, thrs, seed, dev) -> dict:
     torch.cuda.empty_cache()
     return {"ms": ms, "ring_ms": ring_ms,
             "band": [float(thrs[0]), float(thrs[-1])], "floor": floor}
+
+
+#: --bank-cells' banks: (patterns, pattern chunk, warm blocks, block gap
+#: in ms); the app texts are written here so that a tree's chip_smoke.py
+#: need not have them
+BANK_CELLS = {"fleet": (1000, 200, 2, 10_000),
+              "absent_fleet": (1000, 200, 2, 10_000),
+              "count_bank": (100, 20, 3, 1_000),
+              "ratio_bank": (100, 20, 8, 1_000)}
+
+
+def bank_cell_apps(cs, name):
+    """The bank cell's apps (chip_smoke.py phases 8 and 11)."""
+    import numpy as np
+    if name == "fleet":
+        return [cs.bank_app(t) for t in np.linspace(99.8, 99.997, 1000)]
+    if name == "absent_fleet":
+        return [cs.absent_bank_app(t)
+                for t in np.linspace(99.8, 99.997, 1000)]
+    if name == "count_bank":
+        return [cs._S3 + f"from every e1=S[kind == 0 and price > {t}]"
+                "<3:10> -> e2=S[kind == 1 and price > e1[last].price] "
+                "within 10 sec select e1[0].price as p0, e1[last].price as "
+                "pl, e2.price as p2 insert into Out;"
+                for t in np.linspace(0.0, 99.0, 100)]
+    return [cs._S3 + f"from every e1=S[kind == 0 and price > "
+            f"{round(float(t), 3)}] -> e2=S[kind == 1 and price > e1.price "
+            f"* {round(float(r), 4)}] within 10 sec select e1.price as p1, "
+            "e2.price as p2 insert into Out;"
+            for t, r in zip(np.linspace(5.0, 95.0, 100),
+                            np.linspace(1.0, 1.1, 100))]
+
+
+def ptxas_registers(logs) -> dict:
+    """{library: {kernel instance: registers}} from ``-Xptxas -v``
+    output (mangled names, e.g. ``nfa_bank_thread_kernel<8,0,1>`` for
+    ``_Z...nfa_bank_thread_kernelILi8ELb0ELb1EE...``)."""
+    import re
+    out = {}
+    for lib, log in logs.items():
+        regs, name = {}, None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                mangled = m.group(1)
+                k = re.search(r"(nfa_[a-z_]+_kernel)(I.*?EE)?", mangled)
+                base = k.group(1) if k else mangled
+                args = re.findall(r"L[ib](-?\d+)E", k.group(2) or "") \
+                    if k else []
+                name = f"{base}<{','.join(args)}>" if args else base
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                regs[name] = int(m.group(1))
+                name = None
+        out[lib] = regs
+    return out
+
+
+def run_bank_cells(tree: str, seed: int) -> dict:
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from siddhi_tpu_torch.ops import _kernels
+    from siddhi_tpu_torch.ops import nfa as ops
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+
+    dev = "cuda"
+    libs = [n for n in ("nfa_step", "nfa_prog", "nfa_wide", "nfa_wide_prog",
+                        "nfa_gang", "nfa_gang_prog")
+            if n in _kernels.SIGNATURES]
+    logs = _kernels.build_all(libs, verbose=True)
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": cs.nvidia_smi_line(),
+           "registers": ptxas_registers(logs)}
+    n = cs.TIMED_LAUNCHES
+    for name, (n_pat, chunk, warm, gap) in BANK_CELLS.items():
+        bank = CompiledPatternBank(bank_cell_apps(cs, name),
+                                   n_partitions=cs.BANK_P,
+                                   n_slots=cs.BANK_K, pattern_chunk=chunk,
+                                   ring=cs.BANK_RING, device=dev)
+        rng = np.random.default_rng(seed + len(name))
+        blocks = [bank.nfa.to_device(b) for b in cs.bank_blocks(
+            rng, warm + 2 + n, gap=gap)]
+        for b in blocks[:warm]:
+            bank.process_block(b)
+        spec, kp = bank.nfa.spec, bank.nfa.kprog
+        carry, prm = bank._stack_carry, bank._stack_params
+        t0, g0 = (ops.nfa_bank_step.thread_launches,
+                  ops.nfa_bank_step.group_launches)
+        res = {"patterns": n_pat, "ms": cs.median_ms(
+            lambda: ops.nfa_bank_lanes(spec, carry, blocks[warm], prm, kp),
+            dev, sleep_cycles=5 * cs.SLEEP_CYCLES)}
+        work = {k: v.clone() for k, v in carry.items()}
+        it = iter(blocks[warm + 1:])
+        res["inplace_ms"] = cs.median_ms(lambda: ops.nfa_bank_lanes(
+            spec, work, next(it), prm, kp, inplace=True), dev, n=n,
+            sleep_cycles=5 * cs.SLEEP_CYCLES)
+        res["instance"] = {
+            "thread": ops.nfa_bank_step.thread_launches - t0,
+            "group": ops.nfa_bank_step.group_launches - g0}
+        out[name] = res
+        del bank, carry, work, blocks
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_tree(tree: str, n_chunks: int, seed: int, fleet_blocks: int,
@@ -159,12 +280,15 @@ def main(argv=None) -> int:
     ap.add_argument("--pattern-chunks", type=int, default=16)
     ap.add_argument("--fleet-blocks", type=int, default=32)
     ap.add_argument("--no-pattern", action="store_true")
+    ap.add_argument("--bank-cells", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        res = run_tree(os.path.abspath(args.trees[0]), args.pattern_chunks,
-                       args.seed, args.fleet_blocks, not args.no_pattern)
+        tree = os.path.abspath(args.trees[0])
+        res = run_bank_cells(tree, args.seed) if args.bank_cells else \
+            run_tree(tree, args.pattern_chunks, args.seed,
+                     args.fleet_blocks, not args.no_pattern)
         print("K2COMPARE " + json.dumps(res), flush=True)
         return 0
     rc = 0
@@ -175,7 +299,8 @@ def main(argv=None) -> int:
              "--pattern-chunks", str(args.pattern_chunks),
              "--fleet-blocks", str(args.fleet_blocks),
              "--seed", str(args.seed)] +
-            (["--no-pattern"] if args.no_pattern else []), cwd=tree)
+            (["--no-pattern"] if args.no_pattern else []) +
+            (["--bank-cells"] if args.bank_cells else []), cwd=tree)
         rc = rc or r.returncode
     return rc
 
