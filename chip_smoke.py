@@ -86,7 +86,13 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      shared-memory tile), the widened banks (absent units on the thread
      instance, alert and matchy bands, T = 64 and 4, in place and not;
      count banks on the thread instance, and one at K = 24 on the group
-     instance), and
+     instance; a K = 24 leading count on the group instance over a
+     ragged block, T = 61 at B = 4, whose padding rows' `within` pass
+     expires partials; every WIDE_BANK_APPS kind — logical, SEQUENCE,
+     the `every` forms, leading min-0 and absence, telemetry, a capture
+     compare or program in the first condition — on the bank step's
+     widened instance, N = 40, P = 2,048, T = 64 and 4, in place and
+     not), and
      each kernel timed (the ring on the alert and matchy blocks and at
      T = 4); then the host's enqueue of one process_block split by part;
   9. the fleet latency cell (bench.py's bench_lat: T = 4 blocks);
@@ -107,6 +113,12 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      program reading a pattern constant), each on the thread instance,
      every block against the plain bank bit for bit, then the step alone
      on each instance (the group instance: the parent design's figure);
+     then three full-width banks on the bank step's widened instance
+     (100 patterns x 10,000 lanes, T = 64, kinds 0..2: SEQUENCE, `e1 ->
+     e2 or e3`, phase 8's bank with telemetry), 8 blocks each, the first
+     2 against the plain bank bit for bit, the step timed beside its
+     bound (the telemetry bank beside phase 8's bank on the thread
+     instance);
  12. the grouped-aggregation kernels (csrc/grouped_agg.cu: K7a gagg_step,
      K7b gagg_time_step) against their plain twins, bit for bit on every
      output plane and carry leaf (NaN payloads aside), over chained
@@ -1936,11 +1948,11 @@ def count_bank_app(thr, within_ms=BANK_WITHIN_MS) -> str:
 
 
 def bank_blocks(rng, n_blocks, P=BANK_P, T=BANK_T, gap=BANK_GAP_MS,
-                first=0):
+                first=0, kinds=2):
     """bench.py gen_flat + gen_block: per block b (counted from `first`),
     event (i, j) of lane i at BASE + (b * T + j) * gap + i * (gap // P),
-    price U[0, 100), kind U{0, 1}, packed into [P, T] lanes by the port's
-    pack_blocks."""
+    price U[0, 100), kind U{0, .., kinds - 1}, packed into [P, T] lanes
+    by the port's pack_blocks."""
     from siddhi_tpu_torch.ops.pack import pack_blocks
     out = []
     for b in range(first, first + n_blocks):
@@ -1950,7 +1962,7 @@ def bank_blocks(rng, n_blocks, P=BANK_P, T=BANK_T, gap=BANK_GAP_MS,
         ts = BANK_BASE_TS + (b * T + j) * gap + i * (gap // P)
         cols = {"partition": i.astype(np.float32),
                 "price": rng.uniform(0.0, 100.0, n).astype(np.float32),
-                "kind": rng.integers(0, 2, n).astype(np.float32)}
+                "kind": rng.integers(0, kinds, n).astype(np.float32)}
         out.append(pack_blocks(i, cols, ts, np.zeros(n, np.int32), P,
                                base_ts=BANK_BASE_TS))
     return out
@@ -2124,16 +2136,19 @@ def _carry(bank):
 
 def bank_launches():
     """(bank step launches, of them the thread instance's and the group
-    instance's, ring launches) since the counters' last reset."""
+    instance's, ring launches, and of the step's the widened instance's)
+    since the counters' last reset."""
     from siddhi_tpu_torch.ops.nfa import nfa_bank_ring, nfa_bank_step
     return (nfa_bank_step.launches, nfa_bank_step.thread_launches,
-            nfa_bank_step.group_launches, nfa_bank_ring.launches)
+            nfa_bank_step.group_launches, nfa_bank_ring.launches,
+            nfa_bank_step.wide_launches)
 
 
-def set_bank_launches(v=(0, 0, 0, 0)):
+def set_bank_launches(v=(0, 0, 0, 0, 0)):
     from siddhi_tpu_torch.ops.nfa import nfa_bank_ring, nfa_bank_step
     (nfa_bank_step.launches, nfa_bank_step.thread_launches,
-     nfa_bank_step.group_launches, nfa_bank_ring.launches) = v
+     nfa_bank_step.group_launches, nfa_bank_ring.launches,
+     nfa_bank_step.wide_launches) = v
 
 
 def check_bank(dev, seed, main_bank, main_block):
@@ -2145,10 +2160,11 @@ def check_bank(dev, seed, main_bank, main_block):
     stacked vs sequential over the matchy blocks; a replayable bank from
     K = 1 that grows and replays (the thread instance up to K = 16, the
     group instance above); K = 160 (the wide-ring instance), in place and
-    not; a one-unit chain; a chain without `every`.  → (cases, the fleet
-    block's outputs, the largest absolute difference measured between the
-    kernels and the plain step over every output and carry leaf compared,
-    the stacked matchy bank and its last block, for timing)."""
+    not; a one-unit chain; a chain without `every`; then the widened
+    banks (check_widened_banks).  → (cases, the fleet block's outputs,
+    the largest absolute difference measured between the kernels and the
+    plain step over every output and carry leaf compared, the stacked
+    matchy bank and its last block, for timing)."""
     import torch
     from siddhi_tpu_torch.plan.nfa_compiler import (CompiledPatternBank,
                                                     _widen_slots)
@@ -2297,15 +2313,88 @@ def check_bank(dev, seed, main_bank, main_block):
     return cases + n, main_out, max(worst, w), stk, mblk
 
 
+#: the widened bank kinds over {t} (a pattern constant), fed kinds 0..2:
+#: {name: (app, telemetry)}.  ops/nfa.kernel_wide's programs run the bank
+#: step's widened instance; in a bank every numeric constant is a pattern
+#: constant, so `<capture> <cmp> <constant>` becomes a condition program
+#: comparing the capture with the pattern's constant (the thread instance,
+#: as before)
+WIDE_BANK_APPS = {
+    "logical and": (
+        "from every e1=S[kind == 0 and price > {t}] -> e2=S[kind == 1 and "
+        "price > e1.price] and e3=S[kind == 2] within 20 sec select "
+        "e1.price as p1, e2.price as p2, e3.price as p3 insert into Out;",
+        False),
+    "logical or": (
+        "from every e1=S[kind == 0 and price > {t}] -> e2=S[kind == 1 and "
+        "price > e1.price] or e3=S[kind == 2 and price < e1.price] within "
+        "10 sec select e1.price as p1, e2.price as p2, e3.price as p3 "
+        "insert into Out;", False),
+    "sequence": (
+        "from every e1=S[kind == 0 and price > {t}], e2=S[kind == 1 and "
+        "price > e1.price] within 10 sec select e1.price as p1, e2.price "
+        "as p2 insert into Out;", False),
+    "every group": (
+        "from every (e1=S[kind == 0 and price > {t}] -> e2=S[kind == 1]) "
+        "-> e3=S[kind == 2 and price > e1.price] within 10 sec select "
+        "e1.price as p1, e3.price as p3 insert into Out;", False),
+    "mid every": (
+        "from e1=S[kind == 0 and price > {t}] -> every e2=S[kind == 1 and "
+        "price > e1.price] -> e3=S[kind == 2] within 10 sec select "
+        "e1.price as p1, e3.price as p3 insert into Out;", False),
+    "tail every": (
+        "from e1=S[kind == 0 and price > {t}] -> every e2=S[kind == 1 and "
+        "price > e1.price] within 20 sec select e1.price as p1, e2.price "
+        "as p2 insert into Out;", False),
+    "leading min-0": (
+        "from e1=S[kind == 0 and price > {t}]<0:3> -> e2=S[kind == 1] "
+        "within 10 sec select e1[last].price as l1, e2.price as p2 insert "
+        "into Out;", False),
+    "leading absent": (
+        "from every not S[kind == 1 and price > {t}] for 3 sec -> "
+        "e2=S[kind == 0] within 10 sec select e2.price as p2 insert into "
+        "Out;", False),
+    "telemetry": (
+        "from every e1=S[kind == 0 and price > {t}] -> e2=S[kind == 1 and "
+        "price > e1.price] within 10 sec select e1.price as p1, e2.price "
+        "as p2 insert into Out;", True),
+    "capture constant": (
+        "from every e1=S[kind == 0 and price > {t}] -> e2=S[kind == 1 and "
+        "e1.price < 90.0 and price > e1.price] within 10 sec select "
+        "e1.price as p1, e2.price as p2 insert into Out;", False),
+    "first capture": (
+        "from every e1=S[kind == 0 and price > {t} and price > "
+        "e1[last].price]<1:3> -> e2=S[kind == 1] within 10 sec select "
+        "e1[last].price as l1, e2.price as p2 insert into Out;", False),
+    "first program": (
+        "from every e1=S[kind == 0 and price * 2.0 > {t}] -> e2=S[kind == 1 "
+        "and price > e1.price] within 10 sec select e1.price as p1, "
+        "e2.price as p2 insert into Out;", False),
+}
+
+
+def wide_bank(name, thrs, **kw):
+    """A CompiledPatternBank of WIDE_BANK_APPS[name] over thresholds
+    `thrs` (its telemetry flag included); kw: the bank's other
+    arguments."""
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    text, tel = WIDE_BANK_APPS[name]
+    return CompiledPatternBank(
+        [_S3 + text.format(t=round(float(t), 3)) for t in thrs],
+        telemetry=tel, **kw)
+
+
 def check_widened_banks(dev, seed):
     """The bank kernels against the plain bank step bit for bit on the
     widened class: the absent bank (absent_bank_app) on the thread
     instance, alert and matchy bands, T = 64 and T = 4, in place and not;
     count banks (count_bank_app, and config 4's leading count) on the
-    thread instance, and count_bank_app at K = 24 on the group instance.
-    Each instance's launch counter must rise where its banks run and
-    stay flat elsewhere.  → (cases, the largest absolute difference
-    measured)."""
+    thread instance, and count_bank_app at K = 24 on the group instance;
+    a K = 24 leading count on the group instance over a ragged block
+    (_check_ragged_group_bank); every WIDE_BANK_APPS kind
+    (_check_wide_kinds).  Each instance's launch counter must rise where
+    its banks run and stay flat elsewhere.  → (cases, the largest
+    absolute difference measured)."""
     import torch
     from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
     worst, cases = 0.0, 0
@@ -2384,6 +2473,126 @@ def check_widened_banks(dev, seed):
                              f"(each 0), group {end[2] - mid2[2]} for the "
                              f"K = 24 count (> 0, thread "
                              f"{end[1] - mid2[1]})")
+    if any(x != y for x, y in zip(before[4:] + mid[4:] + mid2[4:],
+                                  mid[4:] + mid2[4:] + end[4:])):
+        raise AssertionError("widened bank checks: the widened instance "
+                             "ran for a thread or group instance bank")
+    n, w = _check_ragged_group_bank(dev, seed)
+    cases, worst = cases + n, max(worst, w)
+    n, w = _check_wide_kinds(dev, seed)
+    return cases + n, max(worst, w)
+
+
+#: the group instance's ragged case: a leading count whose one chain a
+#: lane (an `every` leading count arms once) leaves the count near the
+#: 61st event, so on the ragged block the plain step's padding rows expire
+#: the chains that left it at the last event with a start past `within`
+RAGGED_COUNT_APP = (
+    "from every e1=S[kind == 0 and price > {t}]<30:40> -> e2=S[kind == 1 "
+    "and price > e1[last].price] within 60 sec select e1[0].price as p0, "
+    "e1[last].price as pl, e2.price as p2 insert into Out;")
+
+
+def _check_ragged_group_bank(dev, seed):
+    """The group instance's padding rows' `within` pass: the K = 24
+    leading count bank (RAGGED_COUNT_APP, N = 8, P = 1,024) over a ragged
+    block (T = 61 at B = 4), then two of T = 64, each bit for bit against
+    the plain bank step, in place; the plain step's padding rows must
+    expire partials on the ragged block (the plain step at B = 1 on the
+    same block keeps them), and only the group instance runs.  →
+    (cases, the largest absolute difference)."""
+    import torch
+    from siddhi_tpu_torch.ops.nfa import bank_lanes_plain
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    P = 1024
+    apps = [_S3 + RAGGED_COUNT_APP.format(t=round(float(t), 3))
+            for t in np.linspace(0.0, 10.0, 8)]
+    rb = CompiledPatternBank(apps, n_partitions=P, n_slots=24,
+                             pattern_chunk=4, ring=BANK_RING, device=dev)
+    raws = bank_blocks(np.random.default_rng(seed + 41), 3, P=P, gap=P)
+    raws[0] = {k: v[:, :61] for k, v in raws[0].items()}
+    l0 = bank_launches()
+    worst, matches, expired = 0.0, 0, 0
+    for i, raw in enumerate(raws):
+        blk = rb.nfa.to_device(raw)
+        pre = _snapshot(rb)
+        got = rb.process_block(blk)
+        new_p, want = _bank_plain(rb, pre, blk)
+        if i == 0:
+            unpadded = bank_lanes_plain(rb.nfa.spec, pre, blk,
+                                        rb._stack_params, 1)[0]
+            expired = int((unpadded["slot_state"] !=
+                           new_p["slot_state"]).sum())
+            del unpadded
+        torch.cuda.synchronize()
+        worst = max(worst, _bank_outputs_equal(
+            f"ragged count K=24 block {i}", got, want, _carry(rb), new_p))
+        matches += int(want[0].sum())
+        del pre, new_p, want
+    l1 = bank_launches()
+    if not expired or not matches or l1[2] - l0[2] != len(raws) or \
+            l1[1] != l0[1] or l1[4] != l0[4]:
+        raise AssertionError(f"ragged K=24 count bank: {expired} partials "
+                             f"expired by the padding rows, {matches} "
+                             f"matches, launches {l0} -> {l1}: expected "
+                             f"both above 0 and the group instance alone")
+    log(f"  bank == plain  leading count K=24 (group instance), ragged "
+        f"block T=61 at B=4 then 2 x T=64, in place: N=8 P={P}, {matches} "
+        f"matches, {expired} partials expired by the padding rows' "
+        f"`within` pass")
+    return 1, worst
+
+
+def _check_wide_kinds(dev, seed):
+    """Every WIDE_BANK_APPS kind against the plain bank step bit for bit
+    (every carry leaf, counts and the ring): N = 40, P = 2,048, three
+    chunks of the feed's kinds 0..2 at T = 64 (2 blocks) and T = 4 (4
+    blocks), in place and not.  The widened instance's counter rises by
+    a launch a block for each widened kind and the thread and group
+    instances' stay flat; the capture-to-constant bank runs the thread
+    instance.  → (cases, the largest absolute difference)."""
+    import torch
+    worst, cases = 0.0, 0
+    n_patterns, P = 40, 2048
+    thrs = np.linspace(5.0, 95.0, n_patterns)
+    for name in WIDE_BANK_APPS:
+        widened = name != "capture constant"
+        for replayable in (False, True):
+            for T_, n_blocks in ((BANK_T, 2), (4, 4)):
+                wb = wide_bank(name, thrs, n_partitions=P, n_slots=BANK_K,
+                               pattern_chunk=20, ring=BANK_RING,
+                               replayable=replayable, device=dev)
+                rng = np.random.default_rng(seed + 60 + T_)
+                matches = 0
+                l0 = bank_launches()
+                for raw in bank_blocks(rng, n_blocks, P=P, T=T_, gap=P,
+                                       kinds=3):
+                    blk = wb.nfa.to_device(raw)
+                    pre = _snapshot(wb)
+                    got = wb.process_block(blk)
+                    new_p, want = _bank_plain(wb, pre, blk)
+                    torch.cuda.synchronize()
+                    worst = max(worst, _bank_outputs_equal(
+                        f"{name} T={T_}", got, want, _carry(wb), new_p))
+                    matches += int(want[0].sum())
+                    del pre, new_p, want
+                l1 = bank_launches()
+                rose = (l1[4] - l0[4], l1[1] - l0[1], l1[2] - l0[2])
+                if rose != ((n_blocks, 0, 0) if widened else
+                            (0, n_blocks, 0)):
+                    raise AssertionError(
+                        f"{name}: launches (widened, thread, group) "
+                        f"{rose} over {n_blocks} blocks")
+                mode = "not in place" if replayable else "in place"
+                log(f"  bank == plain  {name} "
+                    f"({'widened' if widened else 'thread'} instance), "
+                    f"T={T_}, {mode}: N={n_patterns} P={P} x {n_blocks} "
+                    f"blocks, {matches} matches, dropped "
+                    f"{wb.total_dropped()}")
+                if not matches and name != "first capture":
+                    raise AssertionError(f"{name} bank matched nothing")
+                cases += 1
+                del wb
     return cases, worst
 
 
@@ -2391,14 +2600,17 @@ def bank_step_bound(bank, P, T):
     """(bound ms, bound_by) of one bank step launch: the block's inputs
     read once (attribute lanes, ts, stream, valid, a gate byte per
     condition), the pattern constants read once, the carry read once and
-    written once, count / lmt / lmk written once; against its compares
-    (within, state, stream, gate, each table compare per event and slot)
-    over the float32 peak."""
+    written once (every leaf: the widened ones too), count / lmt / lmk
+    written once; against its compares (within, state, stream, gate,
+    each table compare per event and slot) over the float32 peak."""
     spec, kp = bank.nfa.spec, bank.nfa.kprog
     R, C = max(spec.n_rows, 1), max(spec.n_caps, 1)
     K, CN = spec.n_slots, bank.n_patterns
     carry = CN * (P * K * 4 * (slot_words(spec) + R * C) +
-                  P * 4 * (2 + int(spec.arm_once)))
+                  P * 4 * (2 + int(spec.arm_once) +
+                           int(spec.eps_start and spec.is_sequence) +
+                           (3 * len(spec.units) + 1 if spec.telemetry
+                            else 0)))
     nbytes = _bank_input_bytes(bank, P, T) + 2 * carry + 3 * CN * P * 4
     cmps = max(len(c) + len(q) for c, q in zip(kp.cmp, kp.pcmp))
     ops = CN * P * T * K * (4 + cmps)
@@ -2904,11 +3116,12 @@ def run_fleet_cell(dev, seed, n_blocks):
     else:
         log("  torch.profiler recorded no device time: idle share not "
             "measured")
-    if launches[1] < n_blocks or launches[3] < n_blocks:
+    if launches[1] < n_blocks or launches[3] < n_blocks or launches[4]:
         raise AssertionError(f"bank launches (step, thread instance, group "
-                             f"instance, ring) {launches}: expected >= "
-                             f"{n_blocks} of the thread instance and the "
-                             f"ring")
+                             f"instance, ring, widened instance) "
+                             f"{launches}: expected >= {n_blocks} of the "
+                             f"thread instance and the ring, none of the "
+                             f"widened instance")
     # the kernels against the plain bank step, on the next block first
     n_cases, next_out, bank_err, matchy_bank, matchy_block = check_bank(
         dev, seed, bank, staged[n_blocks + 1])
@@ -3050,11 +3263,12 @@ def run_latency_cell(dev, seed, n_blocks=LAT_BLOCKS):
         got[first:first + LAT_DEPTH] = torch.stack(outs).cpu().numpy()
     launches = bank_launches()
     n_run = n_blocks + n_train
-    if launches[1] < n_run or launches[3] < n_run:
+    if launches[1] < n_run or launches[3] < n_run or launches[4]:
         raise AssertionError(f"latency cell: bank launches (step, thread "
-                             f"instance, group instance, ring) {launches}, "
-                             f"expected >= {n_run} of the thread instance "
-                             f"and the ring")
+                             f"instance, group instance, ring, widened "
+                             f"instance) {launches}, expected >= {n_run} of "
+                             f"the thread instance and the ring, none of "
+                             f"the widened instance")
     bad = np.nonzero((got != want).any(axis=1))[0]
     if len(bad):
         b = int(bad[0])
@@ -3423,11 +3637,13 @@ def run_absent_fleet_cell(dev, seed, n_blocks):
     else:
         log("  torch.profiler recorded no device time: idle share not "
             "measured")
-    if launches[1] < n_blocks or launches[2] or launches[3] < n_blocks:
+    if launches[1] < n_blocks or launches[2] or launches[3] < n_blocks or \
+            launches[4]:
         raise AssertionError(f"absent bank launches (step, thread instance, "
-                             f"group instance, ring) {launches}: expected "
-                             f">= {n_blocks} of the thread instance and the "
-                             f"ring, none of the group instance")
+                             f"group instance, ring, widened instance) "
+                             f"{launches}: expected >= {n_blocks} of the "
+                             f"thread instance and the ring, none of the "
+                             f"group or widened instance")
     # one block in place against the plain bank
     pre = _snapshot(bank)
     got = bank.process_block(staged[n_blocks + 1])
@@ -3491,10 +3707,147 @@ def run_absent_fleet_cell(dev, seed, n_blocks):
     del fresh, staged, bank
     res["count_bank"] = run_count_bank(dev, seed)
     res["ratio_bank"] = run_ratio_bank(dev, seed)
+    res["wide_banks"] = run_wide_banks(dev, seed)
     res["max_abs_err"] = max(res["max_abs_err"],
                              res["count_bank"]["max_abs_err"],
-                             res["ratio_bank"]["max_abs_err"])
+                             res["ratio_bank"]["max_abs_err"],
+                             *(v["max_abs_err"]
+                               for v in res["wide_banks"].values()))
     return res
+
+
+#: phase 11's full-width widened banks: patterns, blocks driven, of them
+#: the first held against the plain bank step
+WIDE_FLEET_N = 100
+WIDE_FLEET_BLOCKS = 8
+WIDE_FLEET_CHECKED = 2
+
+
+def wide_fleet_banks():
+    """{name: (WIDE_BANK_APPS kind or None for phase 8's app, thresholds)}:
+    the SEQUENCE bank and the logical bank over the matchy band, phase 8's
+    alert bank (bench.py's app, the alert band) with telemetry."""
+    matchy = np.linspace(5.0, 95.0, WIDE_FLEET_N)
+    return {"sequence": ("sequence", matchy),
+            "logical": ("logical or", matchy),
+            "telemetry alert": (None,
+                                np.linspace(99.8, 99.997, WIDE_FLEET_N))}
+
+
+def run_wide_banks(dev, seed):
+    """The bank step's widened instance at full width: each of
+    wide_fleet_banks' banks, WIDE_FLEET_N patterns x 10,000 lanes, T =
+    64, K = 8, ring 32, chunks of 20 stacked, over WIDE_FLEET_BLOCKS
+    blocks of the feed's kinds 0..2 (phase 8's lanes and gaps), in place
+    through process_block: the launch counters set to 0 just before and
+    read just after (the widened instance and the ring every block, no
+    other instance), the first WIDE_FLEET_CHECKED blocks bit for bit
+    against the plain bank step (every carry leaf, counts and the ring).
+    Then the step alone (nfa_bank_lanes, not in place, L2 flushed) on the
+    next block of the stream beside its bound (bank_step_bound) and the
+    plain version's time; for the telemetry alert bank also phase 8's
+    bank without telemetry (the thread instance) over the same blocks and
+    its step on the same next block, and the ratio of the two.  → {name:
+    {ms, plain_ms, bound_ms, bound_by, launches, max_abs_err, matches,
+    ...}}."""
+    import gc
+
+    import torch
+    from siddhi_tpu_torch.ops import nfa as ops
+    from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternBank
+    out = {}
+    for name, (kind, thrs) in wide_fleet_banks().items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        kw = dict(n_partitions=BANK_P, n_slots=BANK_K, pattern_chunk=20,
+                  ring=BANK_RING, device=dev)
+        if kind is None:
+            apps = [bank_app(t) for t in thrs]
+            bank = CompiledPatternBank(apps, telemetry=True, **kw)
+        else:
+            bank = wide_bank(kind, thrs, **kw)
+        spec, kp = bank.nfa.spec, bank.nfa.kprog
+        if not ops.kernel_wide(spec, kp):
+            raise AssertionError(f"{name} bank is no widened program")
+        raws = bank_blocks(np.random.default_rng(seed + 70),
+                           WIDE_FLEET_BLOCKS + 1, kinds=3)
+        staged = [bank.nfa.to_device(b) for b in raws]
+        worst, matches = 0.0, 0
+        set_bank_launches()                   # counts start here
+        t0 = time.perf_counter()
+        for i, blk in enumerate(staged[:WIDE_FLEET_BLOCKS]):
+            pre = _snapshot(bank) if i < WIDE_FLEET_CHECKED else None
+            got = bank.process_block(blk)
+            if pre is not None:
+                new_p, want = _bank_plain(bank, pre, blk)
+                torch.cuda.synchronize()
+                worst = max(worst, _bank_outputs_equal(
+                    f"{name} bank block {i}", got, want, _carry(bank),
+                    new_p))
+                del pre, new_p, want
+            matches += int(got[0].sum())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = bank_launches()
+        nb = WIDE_FLEET_BLOCKS
+        if launches[4] != nb or launches[3] != nb or launches[1] or \
+                launches[2]:
+            raise AssertionError(f"{name} bank launches (step, thread, "
+                                 f"group, ring, widened) {launches}: "
+                                 f"expected the widened instance and the "
+                                 f"ring every block, nothing else")
+        if not matches:
+            raise AssertionError(f"{name} bank matched nothing")
+        if spec.telemetry and not int(_carry(bank)["telem"].sum()):
+            raise AssertionError(f"{name} bank: telemetry counted nothing")
+        carry, prm = bank._stack_carry, bank._stack_params
+        nxt = staged[WIDE_FLEET_BLOCKS]
+        launches0 = bank_launches()
+        res = {"launches": launches[4], "ring_launches": launches[3],
+               "max_abs_err": worst, "matches": matches,
+               "dropped": bank.total_dropped(),
+               "ms_per_block": wall / nb * 1e3,
+               "ms": median_ms(lambda: ops.nfa_bank_lanes(
+                   spec, carry, nxt, prm, kp), dev,
+                   sleep_cycles=5 * SLEEP_CYCLES),
+               "plain_ms": median_ms(lambda: ops.bank_lanes_plain(
+                   spec, carry, nxt, prm), dev, n=1),
+               "library_ms": None}
+        res["bound_ms"], res["bound_by"] = bank_step_bound(bank, BANK_P,
+                                                           BANK_T)
+        if kind is None:
+            # phase 8's bank (the thread instance) over the same blocks
+            del bank, carry
+            gc.collect()
+            torch.cuda.empty_cache()
+            tb = CompiledPatternBank(apps, **kw)
+            for blk in staged[:WIDE_FLEET_BLOCKS]:
+                tb.process_block(blk)
+            tspec, tkp = tb.nfa.spec, tb.nfa.kprog
+            tcarry, tprm = tb._stack_carry, tb._stack_params
+            res["thread_ms"] = median_ms(lambda: ops.nfa_bank_lanes(
+                tspec, tcarry, nxt, tprm, tkp), dev,
+                sleep_cycles=5 * SLEEP_CYCLES)
+            res["thread_bound_ms"], _by = bank_step_bound(tb, BANK_P,
+                                                          BANK_T)
+            res["ratio_to_thread"] = res["ms"] / res["thread_ms"]
+            del tb, tcarry
+        set_bank_launches(launches0)
+        out[name] = res
+        log(f"  {name} bank (widened instance): {WIDE_FLEET_N} patterns x "
+            f"{BANK_P} lanes, T={BANK_T} K={BANK_K}, {nb} blocks in place "
+            f"({res['ms_per_block']:.3f} ms a block with the ring and the "
+            f"first {WIDE_FLEET_CHECKED} blocks' plain checks), "
+            f"{matches} matches, dropped {res['dropped']}, the first "
+            f"{WIDE_FLEET_CHECKED} == the plain bank bit for bit; step "
+            f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f} ms, bound "
+            f"{res['bound_ms']:.6f} ms by {res['bound_by']}, "
+            f"{res['bound_ms'] / res['ms'] * 100:.2f}% of the bound)"
+            + (f"; phase 8's bank without telemetry (thread instance) "
+               f"{res['thread_ms']:.4f} ms on the same block, ratio "
+               f"{res['ratio_to_thread']:.2f}" if kind is None else ""))
+        del staged
+    return out
 
 
 #: phase 11's count bank: config 4's pattern as a bank of this many
@@ -3542,10 +3895,11 @@ def _bank_cell(name, apps, n_blocks, block_seed, dev, drops=False):
         matches += int(want[0].sum())
         del pre, new_p, want
     launches = bank_launches()
-    if launches[1] < len(blocks) or launches[2]:
+    if launches[1] < len(blocks) or launches[2] or launches[4]:
         raise AssertionError(f"{name} launches (step, thread instance, "
-                             f"group instance, ring) {launches}: expected "
-                             f"the thread instance every block")
+                             f"group instance, ring, widened instance) "
+                             f"{launches}: expected the thread instance "
+                             f"every block")
     dropped = bank.total_dropped()
     if not matches or (dropped and not drops):
         raise AssertionError(f"{name}: {matches} matches, dropped {dropped}")
@@ -7663,13 +8017,15 @@ def main(argv=None) -> int:
         # the absent fleet, the count and ratio banks); the group instance
         # (nfa_bank_step_kernel: K > 16, more than 8 constant compares, a
         # column past shared memory) is held bit for bit in phase 8's
-        # checks and timed on the count and ratio banks' blocks
+        # checks and timed on the count and ratio banks' blocks; the
+        # widened instance is the next entry
         "name": "nfa_bank_step", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:1167",
         "checked": True, "launches": fc["launches"][0],
         "launches_by_instance": {"thread": fc["launches"][1],
-                                 "group": fc["launches"][2]},
+                                 "group": fc["launches"][2],
+                                 "wide": fc["launches"][4]},
         "instances": {
             "thread": {"source": "siddhi_tpu_torch/csrc/nfa_step.cu",
                        "kernel": "nfa_bank_thread_kernel",
@@ -7707,12 +8063,33 @@ def main(argv=None) -> int:
             "compute_only_mad_ms", "launches")},
         "shape": {"patterns": N_BANK, "P": BANK_P, "T": BANK_T,
                   "K": BANK_K, "chunks": N_BANK // BANK_CHUNK}}, {
+        # the bank step's widened instance (csrc/nfa_wide.cu's
+        # nfa_bank_step_kernel: a group of threads per (pattern, lane) on
+        # the widened unit loop), counted in nfa_bank_step.wide_launches;
+        # its path: phase 11's full-width widened banks (the fleet cells
+        # launch the thread instance alone); ms is the SEQUENCE bank's
+        "name": "nfa_bank_step_wide", "route": "cuda",
+        "source": "siddhi_tpu_torch/csrc/nfa_wide.cu",
+        "replaces": "siddhi_tpu/ops/nfa.py:1167",
+        "checked": True,
+        "launches": sum(v["launches"] for v in ac["wide_banks"].values()),
+        "launches_by_path": {f"{k} bank": v["launches"]
+                             for k, v in ac["wide_banks"].items()},
+        "max_abs_err": max(v["max_abs_err"]
+                           for v in ac["wide_banks"].values()),
+        **{k: ac["wide_banks"]["sequence"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "banks": ac["wide_banks"],
+        "shape": {"patterns": WIDE_FLEET_N, "P": BANK_P, "T": BANK_T,
+                  "K": BANK_K, "chunks": WIDE_FLEET_N // 20}}, {
         "name": "nfa_bank_ring", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/nfa_step.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:1250",
         "checked": True, "launches": fc["launches"][3],
         "launches_by_path": {"fleet_cell": fc["launches"][3],
-                             "absent_fleet_cell": ac["launches"][3]},
+                             "absent_fleet_cell": ac["launches"][3]} | {
+            f"{k} bank": v["ring_launches"]
+            for k, v in ac["wide_banks"].items()},
         "max_abs_err": max(fc["max_abs_err"], ac["max_abs_err"], ring_err),
         "ring_only_cases": ring_cases,
         "ms": fc["ring_ms"], "plain_ms": fc["ring_plain_ms"],

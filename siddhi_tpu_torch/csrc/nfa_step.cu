@@ -42,9 +42,9 @@
 // build variant with -DNFA_PROG=1 (ops/_kernels.VARIANTS: nfa_prog, and
 // nfa_wide_prog, nfa_gang_prog); the default build's instances compile
 // the program's code away, so a spec without one keeps their registers.
-// The pattern bank's class is narrower (ops/nfa.bank_class_reason):
-// none of the widened kinds, and no capture compare or program in the
-// first condition.  A count's capture row
+// The pattern bank takes the same class (ops/nfa.bank_class_reason):
+// a widened program runs the bank's widened instance, csrc/nfa_wide.cu's
+// nfa_bank_step_wide.  A count's capture row
 // holds its first bank, its last bank, its e[k] banks, its e[last-j] banks
 // and its __n lane; the program gives each count row's layout.
 //
@@ -139,7 +139,9 @@
 // read (0.32 GB), the starts of lanes that hold a partial, the slots that
 // change written, the per-lane outputs written.
 //
-// Two instances, chosen per launch by ops/nfa.bank_geometry:
+// Three instances, chosen per launch by ops/nfa.bank_geometry (the
+// widened one, for the programs of ops/nfa.kernel_wide, is
+// csrc/nfa_wide.cu's):
 //  - nfa_bank_thread (K <= 16, at most 8 constant compares, shared memory
 //    within the limit: every unit kind and condition program of the
 //    bank's class): one thread per (pattern, lane).  It replaces the
@@ -234,7 +236,15 @@
 //    pattern fastest; each pattern's constants come from a [C*N,
 //    n_params] float32 table staged in shared memory; the lane's scalars
 //    are read by every thread of its group, so they are written after a
-//    barrier.
+//    barrier.  With count or absent units it runs the padding rows'
+//    `within` pass (pad_within) as the plain step does.
+//  - nfa_bank_step_wide (csrc/nfa_wide.cu: logical units, SEQUENCE, the
+//    `every` forms, leading min-0 counts and absent units, telemetry, a
+//    capture compare or program in the first condition): the same
+//    grid and body with the widened unit loop (Wide::event) in place of
+//    the two passes; a matched slot adds to its lane's count and the
+//    event's lowest matched slot k (a ballot) and its ts become the
+//    lane's last match; the telemetry rows are the CTA's pattern's.
 //  - nfa_bank_ring: one CTA per pattern.  The exact top-ring of the P
 //    lane counts by (count descending, lane ascending), lax.top_k's order,
 //    and the pattern's total.  Bound by the bytes of the count rows (one
@@ -1608,45 +1618,30 @@ extern "C" int nfa_step(const float* attrs, const int* ts, const int* strm,
   return run_step<false>(a, static_cast<cudaStream_t>(stream));
 }
 
-// Launch the bank step over CN patterns on `stream`: carry leaves
-// [CN, P, K(, RC)] and [CN, P] (in and out may be the same tensors),
-// params [CN, n_params] float32, outputs count, lmt, lmk [CN, P] int32.
-// Returns cudaGetLastError() after the launch.
+// Launch the bank step's group instance over CN patterns on `stream`:
+// carry leaves [CN, P, K(, RC)] and [CN, P] (in and out may be the same
+// tensors), params [CN, n_params] float32, outputs count, lmt, lmk [CN, P]
+// int32, and pad_within (ops/nfa.kernel_flags' FLAG_PAD_WITHIN: one more
+// `within` pass at the last event's ts, as the plain step's padding rows
+// run it).  A widened program launches through csrc/nfa_wide.cu's
+// nfa_bank_step_wide.  Returns cudaGetLastError() after the launch.
 extern "C" int nfa_bank_step(const float* attrs, const int* ts,
                              const int* strm, const int* gates,
                              const int* prog, int prog_len,
                              const float* params, int n_params, CARRY_PARAMS,
                              int* count, int* lmt, int* lmk, int CN, int P,
                              int T, int K, int G, int A, int RC,
-                             void* stream) {
+                             int pad_within, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P <= 0 || CN <= 0) return 0;
-  const CarryPtrs in = CARRY_IN;
-  const CarryOut out = CARRY_OUT;
-  if (bad_geometry(K, T, G, A, RC, prog_len) || n_params < 0 ||
-      missing_leaves(in, out))
-    return static_cast<int>(cudaErrorInvalidValue);
   StepArgs a{};
-  a.attrs = attrs;
-  a.ts = ts;
-  a.strm = strm;
-  a.gates = gates;
-  a.prog = prog;
-  set_carry(a, in, out);
-  a.params = params;
-  a.count = count;
-  a.lmt = lmt;
-  a.lmk = lmk;
-  a.prog_len = prog_len;
-  a.P = P;
-  a.T = T;
-  a.K = K;
-  a.G = G;
-  a.seg = 0;
-  a.A = A;
-  a.RC = RC;
-  a.CN = CN;
-  a.n_params = n_params;
+  const int* const win[3] = {nullptr, nullptr, nullptr};
+  int* const wout[3] = {nullptr, nullptr, nullptr};
+  if (!make_bank_args(a, attrs, ts, strm, gates, prog, prog_len, params,
+                      n_params, CARRY_IN, CARRY_OUT, count, lmt, lmk, win,
+                      wout, CN, P, T, K, G, A, RC,
+                      pad_within ? kFlagPadWithin : 0, 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   return run_step<true>(a, s);
 }
 
@@ -1660,7 +1655,12 @@ extern "C" int nfa_bank_step(const float* attrs, const int* ts,
 // n_cond (the program's conditions: one candidate mask each in shared
 // memory), and pad_within (ops/nfa.kernel_flags' FLAG_PAD_WITHIN: one
 // more `within` pass at the last event's ts, as the plain step's padding
-// rows run it; the count instance alone reads it).  Count leaves (cc_in, cp_in) select the count instance, which
+// rows run it; of the thread instances the count instance alone reads
+// it, as a `within` pass there can expire only a slot that left a
+// leading count at the last event; the group instance (nfa_bank_step)
+// and the widened one (csrc/nfa_wide.cu's nfa_bank_step_wide) run it for
+// every spec with count or absent units).  Count leaves (cc_in, cp_in)
+// select the count instance, which
 // also takes a deadline leaf; a deadline leaf alone the instance with
 // absent units.  Returns cudaGetLastError() after the launch.
 extern "C" int nfa_bank_thread(const float* attrs, const int* ts,

@@ -579,7 +579,11 @@ __device__ __forceinline__ bool cond_zero(const Prog& g, int i, unsigned gw,
 // A slot that completes writes its scratch row at once (the captures as
 // they stand then: a trailing `every` clears rows right after); its rank
 // in the lane is written when the event ends, so rows keep (t, k) order.
-template <int SPT>
+// BANK (the pattern bank's instance, one CTA a pattern): a completing
+// slot writes no row; when the event ends the lane adds its matched slots
+// to its count, and an event with a match sets the lane's last match (the
+// event's ts and its lowest matched slot, `jnp.argmax(mm)`).
+template <int SPT, bool BANK = false>
 struct Wide {
   static constexpr int NS = SPT > 0 ? SPT : kWideMaxSpt;
   const Prog& g;
@@ -600,6 +604,7 @@ struct Wide {
   int mpos[NS];               // its scratch row (-1: none yet)
   int st_pre[NS];             // its state when the unit loop starts
   int spr[kMaxMid][NS];       // its clone rank in mid-chain group q
+  int lmt, lmk;               // bank: the lane's last match (ts, slot)
 
   __device__ __forceinline__ int nsl() const { return SPT > 0 ? SPT : ns; }
   __device__ __forceinline__ bool on(int s) const {
@@ -684,18 +689,21 @@ struct Wide {
   // captures, lane); the rank follows when the event ends
   __device__ __forceinline__ void emit(int s, int ts, int enter, int seq) {
     mb |= 1u << s;
-    if (mpos[s] < 0) mpos[s] = atomicAdd(s_fill, 1);
-    const int pos = mpos[s];
-    if (pos >= a.seg) return;
-    const int W = 4 + a.RC;
-    int* r = a.rows + (static_cast<long long>(cta) * a.seg + pos) * (W + 2);
-    r[0] = static_cast<int>((static_cast<long long>(p) * a.T + t) * a.K +
-                            gl + s * G);
-    r[1] = ts;
-    r[2] = enter;
-    r[3] = seq;
-    for (int i = 0; i < a.RC; ++i) r[4 + i] = __float_as_int(sl.c(s, i));
-    r[W + 1] = l;
+    if constexpr (!BANK) {
+      if (mpos[s] < 0) mpos[s] = atomicAdd(s_fill, 1);
+      const int pos = mpos[s];
+      if (pos >= a.seg) return;
+      const int W = 4 + a.RC;
+      int* r =
+          a.rows + (static_cast<long long>(cta) * a.seg + pos) * (W + 2);
+      r[0] = static_cast<int>((static_cast<long long>(p) * a.T + t) * a.K +
+                              gl + s * G);
+      r[1] = ts;
+      r[2] = enter;
+      r[3] = seq;
+      for (int i = 0; i < a.RC; ++i) r[4 + i] = __float_as_int(sl.c(s, i));
+      r[W + 1] = l;
+    }
   }
 
   // zero the logical units' capture rows of units j0..j1 in slot s (a
@@ -818,8 +826,8 @@ struct Wide {
   __device__ __forceinline__ void event();
 };
 
-template <int SPT>
-__device__ __forceinline__ void Wide<SPT>::event() {
+template <int SPT, bool BANK>
+__device__ __forceinline__ void Wide<SPT, BANK>::event() {
   const int S = g.S;
   const int* u0 = unit(g, 0);
   const int t0 = u0[uLand];
@@ -1230,8 +1238,17 @@ __device__ __forceinline__ void Wide<SPT>::event() {
   // the absent deadline pass, after the event
   if (g.has_absent) deadline_pass();
 
-  // each matched slot's rank in its lane: the lane's count, then k order
-  {
+  if constexpr (BANK) {
+    // the lane's matches, and its last match: this event's ts and lowest
+    // matched slot (both ballots taken by the whole warp)
+    const int f = first(mb);
+    cnt += count(mb);
+    if (f >= 0) {
+      lmt = tsv;
+      lmk = f;
+    }
+  } else {
+    // each matched slot's rank in its lane: the lane's count, then k order
     int n = 0;
     const unsigned lt = (1u << gl) - 1u;
 #pragma unroll
@@ -1268,7 +1285,7 @@ __device__ __forceinline__ void Wide<SPT>::event() {
 // WIDE: the widened instance, every spec of the class (Wide::event in
 // place of the two passes; its leaves lmask, seq_froze and telem, the
 // telemetry rows of the CTA's lanes in shared memory after the slots'
-// captures).
+// captures; under BANK the pattern's rows).
 template <int SPT, bool BANK, bool EXT, bool WIDE = false>
 __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
   extern __shared__ int smem[];
@@ -1397,16 +1414,17 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
       for (int i = tid; i < a.L * a.tel_w; i += kThreads) {
         const int w = i % a.tel_w, pl = p0 + i / a.tel_w;
         rows[i] = pl < a.P && (a.T == 0 || w >= g.S)
-                      ? a.tel_in[static_cast<long long>(pl) * a.tel_w + w]
+                      ? a.tel_in[(static_cast<long long>(pat) * a.P + pl) *
+                                     a.tel_w + w]
                       : 0;
       }
       __syncthreads();
       stel = lane_ok ? rows + l * a.tel_w : nullptr;
     }
   }
-  Wide<SPT> w{g, a, sl, stel, &s_fill, G, gl, gbase, l, p, ns, cta,
-              lane_ok, gmask, arm_seq, drop, armed,
-              WIDE && lane_ok && a.sf_in ? a.sf_in[lane] : 0, 0};
+  Wide<SPT, BANK> w{g, a, sl, stel, &s_fill, G, gl, gbase, l, p, ns, cta,
+                    lane_ok, gmask, arm_seq, drop, armed,
+                    WIDE && lane_ok && a.sf_in ? a.sf_in[lane] : 0, 0};
 
   const int n_tiles = (a.T + a.TT - 1) / a.TT;
   for (int it = 0; it < n_tiles; ++it) {
@@ -1608,9 +1626,10 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
     }
     __syncthreads();                    // the tile is free to refill
   }
-  if constexpr (!BANK && EXT) {
+  if constexpr (EXT) {
     // the plain step's padding rows (invalid, at the last event's ts) run
-    // only the `within` expiry: once more at that ts
+    // only the `within` expiry: once more at that ts (the bank's group
+    // and widened instances too; its thread instance runs its own pass)
     if (a.pad_within && g.has_within && lane_ok && a.T > 0) {
       const int tl = a.ts[static_cast<long long>(p) * a.T + a.T - 1];
       int n = 0;
@@ -1633,6 +1652,10 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
     drop = w.drop;
     armed = w.armed;
     cnt = w.cnt;
+    if constexpr (BANK) {
+      lmt = w.lmt;
+      lmk = w.lmk;
+    }
     if (stel && a.T > 0) {              // the occupancy gauge
 #pragma unroll
       for (int s = 0; s < ns; ++s) {
@@ -1701,7 +1724,8 @@ __device__ __forceinline__ void step_body(const StepArgs& a, int cta) {
       for (int i = tid; i < a.L * a.tel_w; i += kThreads) {
         const int pl = p0 + i / a.tel_w;
         if (pl < a.P)
-          a.tel[static_cast<long long>(pl) * a.tel_w + i % a.tel_w] = rows[i];
+          a.tel[(static_cast<long long>(pat) * a.P + pl) * a.tel_w +
+                i % a.tel_w] = rows[i];
       }
     }
   }
@@ -2000,6 +2024,48 @@ inline bool make_step_args(StepArgs& a, const float* attrs, const int* ts,
   a.RC = RC;
   a.CN = 1;
   a.n_params = 0;
+  return true;
+}
+
+// One bank step's arguments from a C entry's (ops/nfa.py nfa_bank_lanes
+// passes the carry in KERNEL_CARRY's and WIDE_CARRY's order, [CN, P, ...]
+// leaves; in and out may be the same tensors); false for a geometry, a
+// carry or a widened leaf set the kernels do not take.
+inline bool make_bank_args(StepArgs& a, const float* attrs, const int* ts,
+                           const int* strm, const int* gates,
+                           const int* prog, int prog_len,
+                           const float* params, int n_params,
+                           const CarryPtrs& in, const CarryOut& out,
+                           int* count, int* lmt, int* lmk,
+                           const int* const* win, int* const* wout, int CN,
+                           int P, int T, int K, int G, int A, int RC,
+                           int flags, int tel_w) {
+  if (bad_geometry(K, T, G, A, RC, prog_len) || n_params < 0 ||
+      missing_leaves(in, out) ||
+      bad_wide(win[0], win[1], win[2], wout[0], wout[1], wout[2], flags,
+               tel_w))
+    return false;
+  a.attrs = attrs;
+  a.ts = ts;
+  a.strm = strm;
+  a.gates = gates;
+  a.prog = prog;
+  set_carry(a, in, out);
+  set_wide(a, win, wout, flags, tel_w);
+  a.params = params;
+  a.count = count;
+  a.lmt = lmt;
+  a.lmk = lmk;
+  a.prog_len = prog_len;
+  a.P = P;
+  a.T = T;
+  a.K = K;
+  a.G = G;
+  a.seg = 0;
+  a.A = A;
+  a.RC = RC;
+  a.CN = CN;
+  a.n_params = n_params;
   return true;
 }
 

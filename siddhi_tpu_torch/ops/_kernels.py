@@ -104,11 +104,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         "nfa_compact": (_I, [_VP] * 6 + [_I] * 6 + [_VP]),
         # attrs, ts, stream, gates, prog, prog_len, params, n_params,
         # carry in (eleven), carry out (eleven), count, lmt, lmk,
-        # CN, P, T, K, G, A, RC, stream
+        # CN, P, T, K, G, A, RC, pad_within, stream
         "nfa_bank_step": (_I, [_VP] * 5 + [_I] + [_VP] + [_I] +
-                          [_VP] * 25 + [_I] * 7 + [_VP]),
-        # the same, with TT for G, and smem, groups, n_cond and
-        # pad_within after RC
+                          [_VP] * 25 + [_I] * 8 + [_VP]),
+        # the same, with TT for G, and smem, groups and n_cond before
+        # pad_within
         "nfa_bank_thread": (_I, [_VP] * 5 + [_I] + [_VP] + [_I] +
                             [_VP] * 25 + [_I] * 11 + [_VP]),
         # count, lmt, lmk, caps, slot_start, total, ring_cnt, ring_pid,
@@ -120,6 +120,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
         # nfa_step's arguments, for a program with FLAG_WIDE
         "nfa_step_wide": (_I, [_VP] * 5 + [_I] + [_VP] * 32 + [_I] * 9 +
                           [_VP]),
+        # nfa_bank_step's arguments up to RC, then the widened carry in
+        # (ops/nfa.WIDE_CARRY: lmask, seq_froze, telem) and out, flags
+        # (ops/nfa.kernel_flags), tel_w, stream
+        "nfa_bank_step_wide": (_I, [_VP] * 5 + [_I] + [_VP] + [_I] +
+                               [_VP] * 25 + [_I] * 7 + [_VP] * 6 +
+                               [_I] * 2 + [_VP]),
     },
     "nfa_gang": {
         # tenants n -> bytes of the gang's device table

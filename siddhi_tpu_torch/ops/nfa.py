@@ -46,9 +46,11 @@ re-runs a chunk from the pre-chunk carry.
 or [C, N, P, ...]), one [P, T] block shared by every pattern, and each
 pattern's constants as float32 parameter lanes.  On the CPU it runs
 :func:`nfa_bank_step_plain` (the pattern axes flattened into the lane axis
-of the plain step); on CUDA two kernels of ``csrc/nfa_step.cu``: the bank
-step (per-lane match count and last match) and the match ring (each
-pattern's top-``ring`` lanes and their payloads).
+of the plain step); on CUDA two kernels: the bank step (per-lane match
+count and last match; ``csrc/nfa_step.cu``, and ``csrc/nfa_wide.cu`` for
+the widened programs) and the match ring of ``csrc/nfa_step.cu`` (each
+pattern's top-``ring`` lanes and their payloads), for every spec of the
+step's class.
 """
 from __future__ import annotations
 
@@ -383,23 +385,9 @@ def kernel_wide(spec: NfaSpec, kprog: NfaKernelProgram) -> bool:
 def bank_class_reason(spec: NfaSpec,
                       kprog: NfaKernelProgram) -> Optional[str]:
     """The first feature outside the pattern bank's kernels (K3), or
-    None: they take the step's simple, count and absent units of PATTERN
-    with a leading `every`, no telemetry, and conditions of gate bits,
-    event-to-capture and event-to-constant compares and programs (the
-    group instance), but for the first condition: gate bits and
-    event-to-constant compares."""
-    if kprog.reason is not None:
-        return kprog.reason
-    wide = _structural_wide(spec)
-    if wide is not None:
-        return wide
-    if any(kprog.ccmp):
-        return "a `<capture> <cmp> <constant>` compare in a condition"
-    if kprog.cmp[spec.units[0].cond_a]:
-        return "a capture compare in the first condition"
-    if _first_reads(kprog, spec):
-        return "a condition program in the first condition"
-    return None
+    None: they take the step's whole class (K2's), the programs of
+    :func:`kernel_wide` on the bank's widened instance."""
+    return kprog.reason or kernel_class_reason(spec)
 
 
 #: the program's operations as torch ops (csrc/nfa_step.cuh eval_prog)
@@ -2004,6 +1992,7 @@ def _bank_slice_plain(spec: NfaSpec, carry, block, prm, n: int, B: int,
         events[KGATE] = tile(kernel_gate_word(spec, kprog, block))
     elif B > 1:
         events.update(_hoist_cond_gates(spec, events))
+    if B > 1:
         events, _T, _ticks = _pad_block_t(events, B)
     dev = block["__ts"].device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -2038,8 +2027,12 @@ def bank_lanes_plain(spec: NfaSpec, carry: Dict[str, torch.Tensor],
 
     B > 1 hoists capture-free conditions (the pattern constants ride the
     events as lane columns); ``kprog`` computes every condition from the
-    kernel's inputs instead (the CPU model of csrc/nfa_step.cu's bank
-    step).  Functional: the input carry is not modified."""
+    kernel's inputs instead (the CPU model of the bank step's group and
+    widened instances).  B > 1 pads a block whose T is no multiple of B
+    with invalid rows at the last event's ts, as the plain step does:
+    they run only `within` expiry, the kernels' one more `within` pass
+    there (FLAG_PAD_WITHIN).  Functional: the input carry is not
+    modified."""
     B = spec_batch_b(spec, batch_b)
     lead = _bank_lead(carry)
     CN = int(np.prod(lead)) if lead else 1
@@ -2082,7 +2075,10 @@ class BankGeometry(NamedTuple):
     per (pattern, lane), ``nfa_bank_thread_kernel``) with its tile of TT
     events, the pattern groups a CTA walks over it and its shared memory
     in bytes, or ``"group"`` (a group of G threads per lane,
-    ``nfa_bank_step_kernel``; the rest 0)."""
+    ``nfa_bank_step_kernel`` of csrc/nfa_step.cu) or ``"wide"`` (the same
+    mapping on the widened unit loop, csrc/nfa_wide.cu's
+    ``nfa_bank_step_kernel``), the rest 0 (the C entry plans its shared
+    memory)."""
     instance: str
     TT: int
     smem: int
@@ -2091,7 +2087,8 @@ class BankGeometry(NamedTuple):
 
 def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
                   n_params: int, prog_len: int, count: bool = False,
-                  absent: bool = False, n_cond: int = 1) -> BankGeometry:
+                  absent: bool = False, n_cond: int = 1,
+                  wide: bool = False) -> BankGeometry:
     """The instance csrc/nfa_step.cu's bank step runs for K slots, T
     events a lane, A attribute lanes, R·C capture words a slot, n_pcmp
     constant compares over n_params constants a pattern and a program
@@ -2105,11 +2102,15 @@ def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
     thread's column of capture, enter and seq words, of deadlines with
     absent units, and of cnt_cur, cnt_prev, state and start words with
     count units) fits the CTA's; else the group instance.  Both take
-    every unit kind of the bank's class and condition programs (from the
-    build variant with them).  TT: a power of two from 4 to 128, the
+    the simple, count and absent units of PATTERN with a leading `every`
+    and condition programs (from the build variant with them); a widened
+    program (``wide``: :func:`kernel_wide`) runs the widened instance
+    whatever its size.  TT: a power of two from 4 to 128, the
     smallest that holds T; where that tile exceeds BANK_BLOCK_BYTES, cut
     to BANK_TILE_BYTES.  The layout is csrc's ``bank_layout``; the launch
     refuses a size below it."""
+    if wide:
+        return BankGeometry("wide", 0, 0)
     if K > BANK_THREAD_MAX_K or n_pcmp > BANK_THREAD_MAX_PCMP:
         return BankGeometry("group", 0, 0)
     lanes = BANK_LANES
@@ -2472,17 +2473,25 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
                    batch_b: Optional[int] = None, inplace: bool = False):
     """The bank step kernel's function, :func:`bank_lanes_plain`'s
     contract, on the tensors' own device.  CPU tensors run the plain
-    version.  CUDA tensors launch csrc/nfa_step.cu's bank step on the
-    current stream for a spec inside its class, in the instance
-    :func:`bank_geometry` picks: the thread instance (K <= 16, at most 8
-    constant compares, its shared memory within the CTA's; counted in
-    ``nfa_bank_step.thread_launches``) or the group instance
-    (``nfa_bank_step.group_launches``); ``nfa_bank_step.launches``
-    counts both.  A spec with a condition program launches either from
-    the build variant whose instances run programs (``nfa_prog``), any
-    other from ``nfa_step``.  With ``inplace`` the new carry IS the
-    input carry, updated in place.  Anything else raises: no
-    fallback."""
+    version.  CUDA tensors launch the bank step on the current stream for
+    a spec inside its class, in the instance :func:`bank_geometry` picks:
+    for a widened program (:func:`kernel_wide`) csrc/nfa_wide.cu's
+    widened instance (``nfa_bank_step.wide_launches``; its leaves lmask,
+    seq_froze and telem, and the flags of :func:`kernel_flags`), else
+    csrc/nfa_step.cu's thread instance (K <= 16, at most 8 constant
+    compares, its shared memory within the CTA's;
+    ``nfa_bank_step.thread_launches``) or group instance
+    (``nfa_bank_step.group_launches``); ``nfa_bank_step.launches`` counts
+    all three.  When the plain step would pad the block to a multiple of
+    B (FLAG_PAD_WITHIN), the widened instance and the group instance with
+    count or absent units run one more
+    `within` pass at the last event's ts, and so does the thread
+    instance with count units (the only thread instance where that pass
+    can expire a slot).  A spec with a condition program launches from
+    the build variant whose instances run programs (``nfa_prog``,
+    ``nfa_wide_prog``), any other from ``nfa_step`` or ``nfa_wide``.
+    With ``inplace`` the new carry IS the input carry, updated in place.
+    Anything else, and a failed build or launch, raises: no fallback."""
     dev = block["__ts"].device
     if dev.type == "cpu":
         return bank_lanes_plain(spec, carry, block, params, batch_b)
@@ -2523,13 +2532,16 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     gates = torch.where(block["__valid"], gates | _VALID_BIT, gates)
     prog = _prog_tensor(spec, kprog, dev)
     new = dict(carry) if inplace else {
-        k: torch.empty_like(carry[k]) for k in KERNEL_CARRY if k in carry}
+        k: torch.empty_like(carry[k]) for k in KERNEL_CARRY + WIDE_CARRY
+        if k in carry}
     i32 = dict(dtype=torch.int32, device=dev)
     count, lmt, lmk = (torch.empty((CN, P), **i32) for _ in range(3))
+    flags = kernel_flags(spec, kprog, T, batch_b)
     geo = bank_geometry(K, T, A, R * C, sum(len(q) for q in kprog.pcmp),
                         NP, prog.numel(), count=_has(spec, "count"),
-                        absent=_has(spec, "absent"), n_cond=len(kprog.cmp))
-    lib = load_kernel("nfa_prog" if kernel_has_prog(kprog) else "nfa_step")
+                        absent=_has(spec, "absent"), n_cond=len(kprog.cmp),
+                        wide=bool(flags & FLAG_WIDE))
+    has_prog = kernel_has_prog(kprog)
     args = (
         attrs.data_ptr(), block["__ts"].data_ptr(),
         block["__stream"].data_ptr(), gates.data_ptr(), prog.data_ptr(),
@@ -2537,18 +2549,28 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         *_carry_ptrs(new), count.data_ptr(), lmt.data_ptr(), lmk.data_ptr(),
         CN, P, T, K)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if geo.instance == "thread":
-        pad = kernel_flags(spec, kprog, T, batch_b) & FLAG_PAD_WITHIN
-        rc = lib.nfa_bank_thread(*args, geo.TT, A, R * C, geo.smem,
-                                 geo.groups, len(kprog.cmp), int(pad != 0),
-                                 stream)
+    pad = int((flags & FLAG_PAD_WITHIN) != 0)
+    if geo.instance == "wide":
+        lib = load_kernel("nfa_wide_prog" if has_prog else "nfa_wide")
+        rc = lib.nfa_bank_step_wide(
+            *args, G, A, R * C, *_carry_ptrs(carry, WIDE_CARRY),
+            *_carry_ptrs(new, WIDE_CARRY), flags,
+            3 * len(spec.units) + 1 if spec.telemetry else 0, stream)
     else:
-        rc = lib.nfa_bank_step(*args, G, A, R * C, stream)
+        lib = load_kernel("nfa_prog" if has_prog else "nfa_step")
+        if geo.instance == "thread":
+            rc = lib.nfa_bank_thread(*args, geo.TT, A, R * C, geo.smem,
+                                     geo.groups, len(kprog.cmp), pad,
+                                     stream)
+        else:
+            rc = lib.nfa_bank_step(*args, G, A, R * C, pad, stream)
     if rc != 0:
         raise RuntimeError(f"nfa_bank_step: launch failed with CUDA error "
                            f"{rc} ({geo.instance} instance)")
     nfa_bank_step.launches += 1
-    if geo.instance == "thread":
+    if geo.instance == "wide":
+        nfa_bank_step.wide_launches += 1
+    elif geo.instance == "thread":
         nfa_bank_step.thread_launches += 1
     else:
         nfa_bank_step.group_launches += 1
@@ -2633,9 +2655,11 @@ def nfa_bank_step(spec: NfaSpec, carry: Dict[str, torch.Tensor],
 
 
 #: launches of the bank step since the last reset (plain runs excluded),
-#: both instances; of them, the thread instance's (nfa_bank_thread_kernel)
-#: and the group instance's (nfa_bank_step_kernel); the ring kernel
-#: counts in ``nfa_bank_ring.launches``
+#: every instance; of them, the thread instance's (nfa_bank_thread_kernel),
+#: the group instance's (csrc/nfa_step.cu's nfa_bank_step_kernel) and the
+#: widened instance's (csrc/nfa_wide.cu's nfa_bank_step_kernel); the ring
+#: kernel counts in ``nfa_bank_ring.launches``
 nfa_bank_step.launches = 0
 nfa_bank_step.thread_launches = 0
 nfa_bank_step.group_launches = 0
+nfa_bank_step.wide_launches = 0

@@ -17,8 +17,9 @@ On a CUDA device the block step is the hand-written kernel
 (ops/nfa.kernel_class_reason): a spec outside it is rejected when the
 engine is built, with ``SiddhiAppCreationError("device pattern path:
 <what> not yet ported to the CUDA NFA kernel")``, so ``'auto'`` runs the
-query on the host and ``'device'`` raises.  On the CPU the plain PyTorch
-step runs every spec the JAX package compiles.
+query on the host and ``'device'`` raises.  ``CompiledPatternBank``'s
+kernels take the same class.  On the CPU the plain PyTorch step runs
+every spec the JAX package compiles.
 
 Supported algebra (the planner falls back to the host oracle
 core/pattern.py with a recorded reason for anything else):
@@ -1073,7 +1074,8 @@ class CompiledPatternNFA:
             cond_free=tuple(cond_free), batch_b=self.batch_b,
             telemetry=bool(telemetry))
         self.kprog = self._kernel_program(kern_conds)
-        # a bank's template is held to the bank kernels' narrower class
+        # a bank's template is held to the bank kernels' class, which is
+        # the step's (ops/nfa.bank_class_reason)
         reason = bank_class_reason(self.spec, self.kprog) if parameterize \
             else self.kprog.reason
         if self.device.type == "cuda" and reason is not None:
@@ -2470,15 +2472,21 @@ class CompiledPatternBank:
     together: carry [N, P, ...], one shared event block per step, match
     counts per pattern (BASELINE config: 1k NFAs × 10k partitions).
 
-    On CUDA a block is two kernels of csrc/nfa_step.cu per dispatch (the
-    bank step, then the match ring; ops/nfa.nfa_bank_step), for the specs
-    of the NFA kernel's class with each pattern constant in an ``<attr>
-    <cmp> <constant>`` conjunct (ops/nfa.bank_class_reason).  The bank
-    step runs its thread instance (one thread per (pattern, lane)) for
-    every such spec with K <= 16 and at most 8 constant compares whose
-    layout fits shared memory, its simple, kleene count and absent units
-    and its condition programs alike (ops/nfa.bank_geometry), else its
-    group instance (a group of threads per lane); anything else raises
+    On CUDA a block is two kernels per dispatch (the bank step, then the
+    match ring of csrc/nfa_step.cu; ops/nfa.nfa_bank_step), for every
+    spec of the single-pattern step's class (ops/nfa.bank_class_reason).
+    The bank step runs its widened instance (csrc/nfa_wide.cu, a group of
+    threads per (pattern, lane) on the widened unit loop) for the
+    programs of ops/nfa.kernel_wide: logical units, SEQUENCE, the `every`
+    forms beyond a leading one, leading min-0 counts and absent units,
+    telemetry, a capture compare or program in the first condition.  Any
+    other spec runs its thread instance (one thread per (pattern, lane))
+    with K <= 16 and at most 8 constant compares whose layout fits
+    shared memory, its simple, kleene count and absent units and its
+    condition programs alike (ops/nfa.bank_geometry), else its group
+    instance (a group of threads per lane).  A spec outside the class
+    (transcendentals, INT/LONG arithmetic, the program limits, more than
+    31 conditions or 4 mid-chain `every` groups) raises
     ``SiddhiAppCreationError`` when the bank is built, before any device
     memory is touched (the bank has no host engine to fall back to).  On
     the CPU the plain bank step runs every spec the JAX package's bank

@@ -38,8 +38,9 @@ arithmetic:
   227 KB wherever they pick the thread instance, which takes the count
   and program banks; K = 17, nine constant compares and a column past
   shared memory go to the group instance;
-- a bank outside the kernel's class is refused on CUDA before any device
-  memory is touched, naming the feature;
+- a bank outside the kernel's class (the single-pattern step's: a
+  transcendental here) is refused on CUDA before any device memory is
+  touched, naming the feature;
 - ``import siddhi_tpu_torch`` and the bank leave jax out.
 """
 import os
@@ -804,6 +805,9 @@ def test_bank_step_cpu_is_plain():
     assert int(res[0].sum()) > 0
 
 
+#: banks outside the bank kernels' class, which is the single-pattern
+#: step's (a transcendental; every structural kind of the step runs the
+#: bank's widened instance, tests/test_torch_bank_widened.py)
 OUT_OF_CLASS = {
     # a kleene count whose own condition reads its [last] bank through a
     # transcendental; counts otherwise run on the thread instance
@@ -820,9 +824,11 @@ OUT_OF_CLASS = {
 
 @pytest.mark.parametrize("name", sorted(OUT_OF_CLASS))
 def test_out_of_class_bank_refused_on_cuda(name, monkeypatch):
-    """torch.cuda reported available: the refusal comes before any device
-    memory is touched (this torch has no CUDA, so an allocation would
-    fail otherwise); the CPU bank runs the same apps."""
+    """A bank outside the step's class (a transcendental: what K2 refuses,
+    the only refusals the bank has) on CUDA: torch.cuda reported
+    available, the refusal comes before any device memory is touched
+    (this torch has no CUDA, so an allocation would fail otherwise); the
+    CPU bank runs the same apps."""
     text, word = OUT_OF_CLASS[name]
     apps = [text.format(t=t) for t in (10.0, 60.0)]
     cpu = CompiledPatternBank(apps, n_partitions=4, n_slots=2,

@@ -211,13 +211,14 @@ def test_class_step_equals_jax_and_kernel_model(name, B):
 @pytest.mark.parametrize("name", sorted(CLASS))
 def test_class_kinds_are_in_the_kernels_class(name):
     """Each kind is inside the step's class and runs its widened
-    instance; the pattern bank's kernels refuse each structural kind."""
+    instance; the pattern bank's kernels take each kind too (their
+    widened instance)."""
     _ref, nfa = _pair(name)
     assert kernel_class_reason(nfa.spec) is None
     assert nfa.kprog.reason is None, nfa.kprog.reason
     assert kernel_wide(nfa.spec, nfa.kprog)
     assert kernel_flags(nfa.spec, nfa.kprog, 7, 1) & 1
-    assert bank_class_reason(nfa.spec, nfa.kprog) is not None
+    assert bank_class_reason(nfa.spec, nfa.kprog) is None
 
 
 def test_widened_program_words_are_what_parse_reads():

@@ -395,14 +395,15 @@ def test_forms_left_out_keep_their_reason(name):
 
 
 def test_bank_first_condition_program_keeps_its_reason():
-    """The bank's instances arm on unit 0's gate bits and constant
-    compares: a program there (pattern constants in arithmetic) stays
-    outside the bank, inside the step."""
+    """A program in unit 0's condition (pattern constants in arithmetic)
+    is inside the step's class and the bank's: the bank runs it on its
+    widened instance, which reads unit 0's condition against slot 0 as
+    the step's does."""
     apps = [STREAM + f"from every e1=S[kind == 0 and price * 2.0 > {t}] -> "
             "e2=S[kind == 1 and price > e1.price] select e1.price as p1 "
             "insert into Out;" for t in (10.0, 60.0)]
     bank = CompiledPatternBank(apps, n_partitions=4, device="cpu")
     kp = bank.nfa.kprog
     assert kp.reason is None, kp.reason
-    assert "program in the first condition" in \
-        bank_class_reason(bank.nfa.spec, kp)
+    assert bank_class_reason(bank.nfa.spec, kp) is None
+    assert kernel_wide(bank.nfa.spec, kp)

@@ -25,7 +25,8 @@ import torch
 from siddhi_tpu.ops.nfa import build_block_step
 from siddhi_tpu.ops.nfa import make_timer_block as jax_timer_block
 from siddhi_tpu.plan.nfa_compiler import CompiledPatternNFA as JaxNFA
-from siddhi_tpu_torch.ops.nfa import (bank_class_reason, make_timer_block,
+from siddhi_tpu_torch.ops.nfa import (_structural_wide, bank_class_reason,
+                                      kernel_wide, make_timer_block,
                                       nfa_block_step_plain, nfa_step_egress)
 from siddhi_tpu_torch.ops.pack import pack_blocks
 from siddhi_tpu_torch.plan.nfa_compiler import CompiledPatternNFA
@@ -349,8 +350,9 @@ def test_plain_step_keeps_input_carry():
     assert not torch.equal(new["arm_seq"], before["arm_seq"])
 
 
-#: OUT_OF_CLASS shapes the step's widened instance takes: only the
-#: pattern bank's kernels (K3) refuse them
+#: OUT_OF_CLASS shapes the step's widened instance takes (the pattern
+#: bank's kernels, K3, refused them before their widened instance): both
+#: take them now; the rest stay outside both
 BANK_ONLY = {"kleene0", "absent", "sequence", "sequence_absent", "logical",
              "every_group", "mid_every", "tail_every"}
 
@@ -360,20 +362,20 @@ def test_class_predicate_rejects(name, monkeypatch):
     text, word = OUT_OF_CLASS[name]
     nfa = CompiledPatternNFA(text, n_partitions=2, device="cpu")
     if name in BANK_ONLY:
+        # inside the step's class and the bank's: the widened instances
         assert nfa.kprog.reason is None, nfa.kprog.reason
-        reason = bank_class_reason(nfa.spec, nfa.kprog)
-        assert reason is not None and word in reason, reason
-    else:
-        assert nfa.kprog.reason is not None and word in nfa.kprog.reason, \
-            nfa.kprog.reason
-    # on a CUDA device the same spec is refused while the engine (the
-    # bank's template, for the bank-only shapes) is built, before any
-    # device memory is touched
+        assert bank_class_reason(nfa.spec, nfa.kprog) is None
+        assert kernel_wide(nfa.spec, nfa.kprog)
+        assert word in _structural_wide(nfa.spec)
+        return
+    assert nfa.kprog.reason is not None and word in nfa.kprog.reason, \
+        nfa.kprog.reason
+    # on a CUDA device the same spec is refused while the engine is built,
+    # before any device memory is touched
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(SiddhiAppCreationError,
                        match="not yet ported to the CUDA NFA kernel"):
-        CompiledPatternNFA(text, n_partitions=2, device="cuda",
-                           parameterize=name in BANK_ONLY)
+        CompiledPatternNFA(text, n_partitions=2, device="cuda")
 
 
 def test_cuda_wrapper_refuses_out_of_class_spec():

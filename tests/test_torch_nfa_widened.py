@@ -46,7 +46,8 @@ from siddhi_tpu.plan.nfa_compiler import \
 from siddhi_tpu.plan.nfa_compiler import \
     CompiledPatternNFA as JaxNFA  # noqa: E402
 from siddhi_tpu_torch.ops.nfa import (COUNT_INF, UNIT_KINDS,  # noqa: E402
-                                      _land_static, bank_class_reason,
+                                      _land_static, _structural_wide,
+                                      bank_class_reason, kernel_wide,
                                       bank_geometry,
                                       bank_lanes_plain, bank_thread_model,
                                       kernel_class_reason, kernel_prog,
@@ -310,11 +311,11 @@ def _spec_kprog(name):
 def test_widened_shapes_are_in_class_and_the_rest_is_not():
     """Every widened shape (and chip_smoke.py's phase-5 cases) is inside
     the kernel's class; a leading min-0 count, a leading absent and
-    SEQUENCE with an absent unit are inside the step's class (the
-    widened instance) but outside the pattern bank's; a kleene count
-    reading its own [last] bank is inside both (its chain-length guard a
-    condition program); one reading it through a transcendental is
-    outside both."""
+    SEQUENCE with an absent unit are inside the step's class and the
+    pattern bank's (the widened instances); a kleene count reading its
+    own [last] bank is inside both (its chain-length guard a condition
+    program); one reading it through a transcendental is outside
+    both."""
     for text in list(WIDENED.values()):
         nfa = CompiledPatternNFA(STREAM + text, n_partitions=2, device="cpu")
         assert kernel_class_reason(nfa.spec) is None
@@ -322,7 +323,7 @@ def test_widened_shapes_are_in_class_and_the_rest_is_not():
     for name, text in chip_smoke.WIDE_CASES.items():
         nfa = CompiledPatternNFA(text, n_partitions=2, device="cpu")
         assert nfa.kprog.reason is None, (name, nfa.kprog.reason)
-    bank_only = {
+    both_wide = {
         "leading min-0 count": ("from e1=S[kind == 0]<0:3> -> e2=S[kind == "
                                 "1] select e2.price as p insert into Out;",
                                 "min-0"),
@@ -333,11 +334,12 @@ def test_widened_shapes_are_in_class_and_the_rest_is_not():
                             "for 1 sec select e1.price as p insert into "
                             "Out;", "SEQUENCE"),
     }
-    for name, (text, word) in bank_only.items():
+    for name, (text, word) in both_wide.items():
         nfa = CompiledPatternNFA(STREAM + text, n_partitions=2, device="cpu")
         assert nfa.kprog.reason is None, (name, nfa.kprog.reason)
-        reason = bank_class_reason(nfa.spec, nfa.kprog)
-        assert reason is not None and word in reason, (name, reason)
+        assert bank_class_reason(nfa.spec, nfa.kprog) is None, name
+        assert kernel_wide(nfa.spec, nfa.kprog), name
+        assert word in _structural_wide(nfa.spec), name
     own_last = CompiledPatternNFA(
         STREAM + "from every e1=S[kind == 0] -> e2=S[kind == 1 and price > "
         "e2[last].price]<1:3> -> e3=S[kind == 2] select e1.price as p "

@@ -40,8 +40,8 @@ builds each tree's kernels in that tree.
 With ``--bank-cells`` a tree runs this instead: every NFA library
 (``nfa_step``, ``nfa_wide``, ``nfa_gang`` and their condition-program
 builds) built with ``-Xptxas -v``, each kernel instance's register count
-(the first time the tree's libraries are built: a tree listed twice
-reuses them); then the bank step (``ops.nfa.nfa_bank_lanes``) on four
+and spill bytes (the first time the tree's libraries are built: a tree
+listed twice reuses them); then the bank step (``ops.nfa.nfa_bank_lanes``) on four
 banks at the fleet's lanes (10,000, T = 64, K = 8): phase 8's fleet
 (1000 patterns, alert band), phase 11's absent fleet (config 3, 1000
 patterns), its count bank (config 4, 100 patterns) and its ratio bank
@@ -118,30 +118,48 @@ def bank_cell_apps(cs, name):
                             np.linspace(1.0, 1.1, 100))]
 
 
-def ptxas_registers(logs) -> dict:
-    """{library: {kernel instance: registers}} from ``-Xptxas -v``
-    output (mangled names, e.g. ``nfa_bank_thread_kernel<8,0,1>`` for
-    ``_Z...nfa_bank_thread_kernelILi8ELb0ELb1EE...``)."""
+def _instance_name(mangled: str) -> str:
+    """A kernel's mangled name as ``base<args>`` (template arguments)."""
     import re
-    out = {}
+    k = re.search(r"(nfa_[a-z_]+_kernel)(I.*?EE)?", mangled)
+    if not k:
+        return mangled
+    args = re.findall(r"L[ib](-?\d+)E", k.group(2) or "")
+    return f"{k.group(1)}<{','.join(args)}>" if args else k.group(1)
+
+
+def ptxas_info(logs):
+    """({library: {kernel instance: registers}}, {library: {kernel
+    instance: [spill store bytes, spill load bytes]}}) from ``-Xptxas
+    -v`` output (mangled names, e.g. ``nfa_bank_thread_kernel<8,0,1>``
+    for ``_Z...nfa_bank_thread_kernelILi8ELb0ELb1EE...``; the spills from
+    the line after the kernel's "Function properties for" line)."""
+    import re
+    out, out_spill = {}, {}
     for lib, log in logs.items():
-        regs, name = {}, None
+        regs, spill, name, prop = {}, {}, None, None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
-                mangled = m.group(1)
-                k = re.search(r"(nfa_[a-z_]+_kernel)(I.*?EE)?", mangled)
-                base = k.group(1) if k else mangled
-                args = re.findall(r"L[ib](-?\d+)E", k.group(2) or "") \
-                    if k else []
-                name = f"{base}<{','.join(args)}>" if args else base
+                name = _instance_name(m.group(1))
+                continue
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                prop = _instance_name(m.group(1))
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and prop:
+                spill[prop] = [int(m.group(1)), int(m.group(2))]
+                prop = None
                 continue
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 regs[name] = int(m.group(1))
                 name = None
         out[lib] = regs
-    return out
+        out_spill[lib] = {k: v for k, v in spill.items() if k in regs}
+    return out, out_spill
 
 
 def run_bank_cells(tree: str, seed: int) -> dict:
@@ -159,9 +177,10 @@ def run_bank_cells(tree: str, seed: int) -> dict:
                         "nfa_gang", "nfa_gang_prog")
             if n in _kernels.SIGNATURES]
     logs = _kernels.build_all(libs, verbose=True)
+    registers, spills = ptxas_info(logs)
     out = {"tree": tree, "device": torch.cuda.get_device_name(0),
-           "nvidia_smi": cs.nvidia_smi_line(),
-           "registers": ptxas_registers(logs)}
+           "nvidia_smi": cs.nvidia_smi_line(), "registers": registers,
+           "spills": spills}
     n = cs.TIMED_LAUNCHES
     for name, (n_pat, chunk, warm, gap) in BANK_CELLS.items():
         bank = CompiledPatternBank(bank_cell_apps(cs, name),
@@ -175,8 +194,9 @@ def run_bank_cells(tree: str, seed: int) -> dict:
             bank.process_block(b)
         spec, kp = bank.nfa.spec, bank.nfa.kprog
         carry, prm = bank._stack_carry, bank._stack_params
-        t0, g0 = (ops.nfa_bank_step.thread_launches,
-                  ops.nfa_bank_step.group_launches)
+        t0, g0, w0 = (ops.nfa_bank_step.thread_launches,
+                      ops.nfa_bank_step.group_launches,
+                      getattr(ops.nfa_bank_step, "wide_launches", 0))
         res = {"patterns": n_pat, "ms": cs.median_ms(
             lambda: ops.nfa_bank_lanes(spec, carry, blocks[warm], prm, kp),
             dev, sleep_cycles=5 * cs.SLEEP_CYCLES)}
@@ -187,7 +207,8 @@ def run_bank_cells(tree: str, seed: int) -> dict:
             sleep_cycles=5 * cs.SLEEP_CYCLES)
         res["instance"] = {
             "thread": ops.nfa_bank_step.thread_launches - t0,
-            "group": ops.nfa_bank_step.group_launches - g0}
+            "group": ops.nfa_bank_step.group_launches - g0,
+            "wide": getattr(ops.nfa_bank_step, "wide_launches", 0) - w0}
         out[name] = res
         del bank, carry, work, blocks
         gc.collect()

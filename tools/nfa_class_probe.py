@@ -12,7 +12,7 @@ subprocess under that checkout's conformance plugin
 port, the compilers on the CPU), with ``CompiledPatternNFA.
 _kernel_program`` wrapped to log each compile's ``kprog.reason`` and,
 for a parameterized compile (a pattern bank's template), its
-``ops/nfa.bank_class_reason`` (the bank kernels' narrower class).  A
+``ops/nfa.bank_class_reason`` (the bank kernels' class, the step's).  A
 compile counts once, under its first reason; ``None`` is a compile the
 kernel takes.  Prints one line per reason, then the bank templates'
 reasons, and a ``PROBE {json}`` line.  Runs on the CPU (~3 min); suite
