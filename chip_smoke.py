@@ -91,8 +91,9 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      expires partials; every WIDE_BANK_APPS kind — logical, SEQUENCE,
      the `every` forms, leading min-0 and absence, telemetry, a capture
      compare or program in the first condition — on the bank step's
-     widened instance, N = 40, P = 2,048, T = 64 and 4, in place and
-     not), and
+     widened thread instance at K = 8, and `or` at K = 24 on its
+     widened group instance, N = 40, P = 2,048, T = 64 and 4, in place
+     and not), and
      each kernel timed (the ring on the alert and matchy blocks and at
      T = 4); then the host's enqueue of one process_block split by part;
   9. the fleet latency cell (bench.py's bench_lat: T = 4 blocks);
@@ -113,11 +114,12 @@ raises, so the script exits non-zero and prints no ``ok`` line:
      program reading a pattern constant), each on the thread instance,
      every block against the plain bank bit for bit, then the step alone
      on each instance (the group instance: the parent design's figure);
-     then three full-width banks on the bank step's widened instance
-     (100 patterns x 10,000 lanes, T = 64, kinds 0..2: SEQUENCE, `e1 ->
-     e2 or e3`, phase 8's bank with telemetry), 8 blocks each, the first
-     2 against the plain bank bit for bit, the step timed beside its
-     bound (the telemetry bank beside phase 8's bank on the thread
+     then three full-width banks on the bank step's widened thread
+     instance (100 patterns x 10,000 lanes, T = 64, kinds 0..2: SEQUENCE,
+     `e1 -> e2 or e3`, phase 8's bank with telemetry), 8 blocks each, the
+     first 2 against the plain bank bit for bit, the step timed beside
+     its bound and the widened group instance on the same block (the
+     telemetry bank also beside phase 8's bank on the thread
      instance);
  12. the grouped-aggregation kernels (csrc/grouped_agg.cu: K7a gagg_step,
      K7b gagg_time_step) against their plain twins, bit for bit on every
@@ -2136,19 +2138,40 @@ def _carry(bank):
 
 def bank_launches():
     """(bank step launches, of them the thread instance's and the group
-    instance's, ring launches, and of the step's the widened instance's)
-    since the counters' last reset."""
+    instance's, ring launches, and of the step's the widened group
+    instance's and the widened thread instance's) since the counters'
+    last reset."""
     from siddhi_tpu_torch.ops.nfa import nfa_bank_ring, nfa_bank_step
     return (nfa_bank_step.launches, nfa_bank_step.thread_launches,
             nfa_bank_step.group_launches, nfa_bank_ring.launches,
-            nfa_bank_step.wide_launches)
+            nfa_bank_step.wide_launches, nfa_bank_step.wide_thread_launches)
 
 
-def set_bank_launches(v=(0, 0, 0, 0, 0)):
+def set_bank_launches(v=(0, 0, 0, 0, 0, 0)):
     from siddhi_tpu_torch.ops.nfa import nfa_bank_ring, nfa_bank_step
     (nfa_bank_step.launches, nfa_bank_step.thread_launches,
      nfa_bank_step.group_launches, nfa_bank_ring.launches,
-     nfa_bank_step.wide_launches) = v
+     nfa_bank_step.wide_launches, nfa_bank_step.wide_thread_launches) = v
+
+
+@contextlib.contextmanager
+def forced_wide_group():
+    """ops/nfa's bank instance choice forced to the widened group
+    instance (csrc/nfa_wide.cu) for a widened program that the widened
+    thread instance would take: the parent's instance, timed on the same
+    block."""
+    from siddhi_tpu_torch.ops import nfa as nfa_ops
+    real = nfa_ops.bank_geometry
+
+    def group(*a, **k):
+        g = real(*a, **k)
+        return nfa_ops.BankGeometry("wide", 0, 0) \
+            if g.instance == "wide_thread" else g
+    nfa_ops.bank_geometry = group
+    try:
+        yield
+    finally:
+        nfa_ops.bank_geometry = real
 
 
 def check_bank(dev, seed, main_bank, main_block):
@@ -2531,7 +2554,7 @@ def _check_ragged_group_bank(dev, seed):
         del pre, new_p, want
     l1 = bank_launches()
     if not expired or not matches or l1[2] - l0[2] != len(raws) or \
-            l1[1] != l0[1] or l1[4] != l0[4]:
+            l1[1] != l0[1] or l1[4:] != l0[4:]:
         raise AssertionError(f"ragged K=24 count bank: {expired} partials "
                              f"expired by the padding rows, {matches} "
                              f"matches, launches {l0} -> {l1}: expected "
@@ -2543,23 +2566,33 @@ def _check_ragged_group_bank(dev, seed):
     return 1, worst
 
 
+#: the widened case that stays on the widened group instance: a ring of
+#: 24 slots (the thread instances take 16)
+WIDE_GROUP_CASES = {"logical or K=24": ("logical or", 24)}
+
+
 def _check_wide_kinds(dev, seed):
     """Every WIDE_BANK_APPS kind against the plain bank step bit for bit
     (every carry leaf, counts and the ring): N = 40, P = 2,048, three
     chunks of the feed's kinds 0..2 at T = 64 (2 blocks) and T = 4 (4
-    blocks), in place and not.  The widened instance's counter rises by
-    a launch a block for each widened kind and the thread and group
-    instances' stay flat; the capture-to-constant bank runs the thread
-    instance.  → (cases, the largest absolute difference)."""
+    blocks), in place and not, at K = 8; and WIDE_GROUP_CASES at K = 24.
+    Each widened kind at K = 8 raises the widened thread instance's
+    counter by a launch a block, at K = 24 the widened group instance's,
+    and the other instances' stay flat; the capture-to-constant bank runs
+    the thread instance.  → (cases, the largest absolute difference)."""
     import torch
     worst, cases = 0.0, 0
     n_patterns, P = 40, 2048
     thrs = np.linspace(5.0, 95.0, n_patterns)
-    for name in WIDE_BANK_APPS:
-        widened = name != "capture constant"
+    kinds = {name: (name, BANK_K) for name in WIDE_BANK_APPS}
+    kinds.update(WIDE_GROUP_CASES)
+    for name, (kind, K) in kinds.items():
+        widened = kind != "capture constant"
+        inst = "thread" if not widened else \
+            "widened thread" if K <= 16 else "widened group"
         for replayable in (False, True):
             for T_, n_blocks in ((BANK_T, 2), (4, 4)):
-                wb = wide_bank(name, thrs, n_partitions=P, n_slots=BANK_K,
+                wb = wide_bank(kind, thrs, n_partitions=P, n_slots=K,
                                pattern_chunk=20, ring=BANK_RING,
                                replayable=replayable, device=dev)
                 rng = np.random.default_rng(seed + 60 + T_)
@@ -2577,19 +2610,21 @@ def _check_wide_kinds(dev, seed):
                     matches += int(want[0].sum())
                     del pre, new_p, want
                 l1 = bank_launches()
-                rose = (l1[4] - l0[4], l1[1] - l0[1], l1[2] - l0[2])
-                if rose != ((n_blocks, 0, 0) if widened else
-                            (0, n_blocks, 0)):
+                rose = tuple(l1[i] - l0[i] for i in (5, 4, 1, 2))
+                expect = {"widened thread": (n_blocks, 0, 0, 0),
+                          "widened group": (0, n_blocks, 0, 0),
+                          "thread": (0, 0, n_blocks, 0)}[inst]
+                if rose != expect:
                     raise AssertionError(
-                        f"{name}: launches (widened, thread, group) "
-                        f"{rose} over {n_blocks} blocks")
+                        f"{name}: launches (widened thread, widened group, "
+                        f"thread, group) {rose} over {n_blocks} blocks, "
+                        f"expected {expect}")
                 mode = "not in place" if replayable else "in place"
-                log(f"  bank == plain  {name} "
-                    f"({'widened' if widened else 'thread'} instance), "
-                    f"T={T_}, {mode}: N={n_patterns} P={P} x {n_blocks} "
-                    f"blocks, {matches} matches, dropped "
+                log(f"  bank == plain  {name} ({inst} instance), "
+                    f"T={T_}, {mode}: N={n_patterns} P={P} K={K} x "
+                    f"{n_blocks} blocks, {matches} matches, dropped "
                     f"{wb.total_dropped()}")
-                if not matches and name != "first capture":
+                if not matches and kind != "first capture":
                     raise AssertionError(f"{name} bank matched nothing")
                 cases += 1
                 del wb
@@ -3116,7 +3151,8 @@ def run_fleet_cell(dev, seed, n_blocks):
     else:
         log("  torch.profiler recorded no device time: idle share not "
             "measured")
-    if launches[1] < n_blocks or launches[3] < n_blocks or launches[4]:
+    if launches[1] < n_blocks or launches[3] < n_blocks or \
+            launches[4] or launches[5]:
         raise AssertionError(f"bank launches (step, thread instance, group "
                              f"instance, ring, widened instance) "
                              f"{launches}: expected >= {n_blocks} of the "
@@ -3263,7 +3299,8 @@ def run_latency_cell(dev, seed, n_blocks=LAT_BLOCKS):
         got[first:first + LAT_DEPTH] = torch.stack(outs).cpu().numpy()
     launches = bank_launches()
     n_run = n_blocks + n_train
-    if launches[1] < n_run or launches[3] < n_run or launches[4]:
+    if launches[1] < n_run or launches[3] < n_run or launches[4] or \
+            launches[5]:
         raise AssertionError(f"latency cell: bank launches (step, thread "
                              f"instance, group instance, ring, widened "
                              f"instance) {launches}, expected >= {n_run} of "
@@ -3638,7 +3675,7 @@ def run_absent_fleet_cell(dev, seed, n_blocks):
         log("  torch.profiler recorded no device time: idle share not "
             "measured")
     if launches[1] < n_blocks or launches[2] or launches[3] < n_blocks or \
-            launches[4]:
+            launches[4] or launches[5]:
         raise AssertionError(f"absent bank launches (step, thread instance, "
                              f"group instance, ring, widened instance) "
                              f"{launches}: expected >= {n_blocks} of the "
@@ -3735,21 +3772,23 @@ def wide_fleet_banks():
 
 
 def run_wide_banks(dev, seed):
-    """The bank step's widened instance at full width: each of
+    """The bank step's widened thread instance at full width: each of
     wide_fleet_banks' banks, WIDE_FLEET_N patterns x 10,000 lanes, T =
     64, K = 8, ring 32, chunks of 20 stacked, over WIDE_FLEET_BLOCKS
     blocks of the feed's kinds 0..2 (phase 8's lanes and gaps), in place
     through process_block: the launch counters set to 0 just before and
-    read just after (the widened instance and the ring every block, no
-    other instance), the first WIDE_FLEET_CHECKED blocks bit for bit
-    against the plain bank step (every carry leaf, counts and the ring).
-    Then the step alone (nfa_bank_lanes, not in place, L2 flushed) on the
-    next block of the stream beside its bound (bank_step_bound) and the
-    plain version's time; for the telemetry alert bank also phase 8's
+    read just after (the widened thread instance and the ring every
+    block, no other instance), the first WIDE_FLEET_CHECKED blocks bit
+    for bit against the plain bank step (every carry leaf, counts and
+    the ring).  Then the step alone (nfa_bank_lanes, not in place, L2
+    flushed) on the next block of the stream beside its bound
+    (bank_step_bound), the plain version's time and the widened group
+    instance's (the parent's instance, forced) on the same block; for
+    the telemetry alert bank also phase 8's
     bank without telemetry (the thread instance) over the same blocks and
     its step on the same next block, and the ratio of the two.  → {name:
-    {ms, plain_ms, bound_ms, bound_by, launches, max_abs_err, matches,
-    ...}}."""
+    {ms, plain_ms, bound_ms, bound_by, launches, group_ms, max_abs_err,
+    matches, ...}}."""
     import gc
 
     import torch
@@ -3790,12 +3829,13 @@ def run_wide_banks(dev, seed):
         wall = time.perf_counter() - t0
         launches = bank_launches()
         nb = WIDE_FLEET_BLOCKS
-        if launches[4] != nb or launches[3] != nb or launches[1] or \
-                launches[2]:
+        if launches[5] != nb or launches[3] != nb or launches[1] or \
+                launches[2] or launches[4]:
             raise AssertionError(f"{name} bank launches (step, thread, "
-                                 f"group, ring, widened) {launches}: "
-                                 f"expected the widened instance and the "
-                                 f"ring every block, nothing else")
+                                 f"group, ring, widened group, widened "
+                                 f"thread) {launches}: expected the "
+                                 f"widened thread instance and the ring "
+                                 f"every block, nothing else")
         if not matches:
             raise AssertionError(f"{name} bank matched nothing")
         if spec.telemetry and not int(_carry(bank)["telem"].sum()):
@@ -3803,7 +3843,7 @@ def run_wide_banks(dev, seed):
         carry, prm = bank._stack_carry, bank._stack_params
         nxt = staged[WIDE_FLEET_BLOCKS]
         launches0 = bank_launches()
-        res = {"launches": launches[4], "ring_launches": launches[3],
+        res = {"launches": launches[5], "ring_launches": launches[3],
                "max_abs_err": worst, "matches": matches,
                "dropped": bank.total_dropped(),
                "ms_per_block": wall / nb * 1e3,
@@ -3813,6 +3853,11 @@ def run_wide_banks(dev, seed):
                "plain_ms": median_ms(lambda: ops.bank_lanes_plain(
                    spec, carry, nxt, prm), dev, n=1),
                "library_ms": None}
+        with forced_wide_group():
+            res["group_ms"] = median_ms(lambda: ops.nfa_bank_lanes(
+                spec, carry, nxt, prm, kp), dev,
+                sleep_cycles=5 * SLEEP_CYCLES)
+        res["speedup_over_group"] = res["group_ms"] / res["ms"]
         res["bound_ms"], res["bound_by"] = bank_step_bound(bank, BANK_P,
                                                            BANK_T)
         if kind is None:
@@ -3834,7 +3879,8 @@ def run_wide_banks(dev, seed):
             del tb, tcarry
         set_bank_launches(launches0)
         out[name] = res
-        log(f"  {name} bank (widened instance): {WIDE_FLEET_N} patterns x "
+        log(f"  {name} bank (widened thread instance): {WIDE_FLEET_N} "
+            f"patterns x "
             f"{BANK_P} lanes, T={BANK_T} K={BANK_K}, {nb} blocks in place "
             f"({res['ms_per_block']:.3f} ms a block with the ring and the "
             f"first {WIDE_FLEET_CHECKED} blocks' plain checks), "
@@ -3842,7 +3888,10 @@ def run_wide_banks(dev, seed):
             f"{WIDE_FLEET_CHECKED} == the plain bank bit for bit; step "
             f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f} ms, bound "
             f"{res['bound_ms']:.6f} ms by {res['bound_by']}, "
-            f"{res['bound_ms'] / res['ms'] * 100:.2f}% of the bound)"
+            f"{res['bound_ms'] / res['ms'] * 100:.2f}% of the bound; the "
+            f"widened group instance "
+            f"{res['group_ms']:.4f} ms on the same block, "
+            f"{res['speedup_over_group']:.2f}x)"
             + (f"; phase 8's bank without telemetry (thread instance) "
                f"{res['thread_ms']:.4f} ms on the same block, ratio "
                f"{res['ratio_to_thread']:.2f}" if kind is None else ""))
@@ -3895,7 +3944,8 @@ def _bank_cell(name, apps, n_blocks, block_seed, dev, drops=False):
         matches += int(want[0].sum())
         del pre, new_p, want
     launches = bank_launches()
-    if launches[1] < len(blocks) or launches[2] or launches[4]:
+    if launches[1] < len(blocks) or launches[2] or launches[4] or \
+            launches[5]:
         raise AssertionError(f"{name} launches (step, thread instance, "
                              f"group instance, ring, widened instance) "
                              f"{launches}: expected the thread instance "
@@ -8063,18 +8113,38 @@ def main(argv=None) -> int:
             "compute_only_mad_ms", "launches")},
         "shape": {"patterns": N_BANK, "P": BANK_P, "T": BANK_T,
                   "K": BANK_K, "chunks": N_BANK // BANK_CHUNK}}, {
-        # the bank step's widened instance (csrc/nfa_wide.cu's
-        # nfa_bank_step_kernel: a group of threads per (pattern, lane) on
-        # the widened unit loop), counted in nfa_bank_step.wide_launches;
-        # its path: phase 11's full-width widened banks (the fleet cells
-        # launch the thread instance alone); ms is the SEQUENCE bank's
+        # the bank step for widened programs: the widened thread instance
+        # (csrc/nfa_bank_wide.cu's nfa_bank_wide_kernel, one thread per
+        # (pattern, lane) on Wide::event's thread policy), counted in
+        # nfa_bank_step.wide_thread_launches, on phase 11's full-width
+        # widened banks (the fleet cells launch the thread instance
+        # alone); the widened group instance (csrc/nfa_wide.cu's
+        # nfa_bank_step_kernel: K > 16, more than 8 constant compares, a
+        # column past shared memory; nfa_bank_step.wide_launches) is held
+        # bit for bit in phase 8's checks and timed on phase 11's blocks;
+        # ms is the SEQUENCE bank's
         "name": "nfa_bank_step_wide", "route": "cuda",
-        "source": "siddhi_tpu_torch/csrc/nfa_wide.cu",
+        "source": "siddhi_tpu_torch/csrc/nfa_bank_wide.cu",
         "replaces": "siddhi_tpu/ops/nfa.py:1167",
         "checked": True,
         "launches": sum(v["launches"] for v in ac["wide_banks"].values()),
         "launches_by_path": {f"{k} bank": v["launches"]
                              for k, v in ac["wide_banks"].items()},
+        "launches_by_instance": {
+            "wide_thread": sum(v["launches"]
+                               for v in ac["wide_banks"].values()),
+            "wide_group": 0},
+        "instances": {
+            "wide_thread": {
+                "source": "siddhi_tpu_torch/csrc/nfa_bank_wide.cu",
+                "kernel": "nfa_bank_wide_kernel",
+                "ms_by_bank": {k: v["ms"]
+                               for k, v in ac["wide_banks"].items()}},
+            "wide_group": {
+                "source": "siddhi_tpu_torch/csrc/nfa_wide.cu",
+                "kernel": "nfa_bank_step_kernel", "launches": 0,
+                "ms_by_bank": {k: v["group_ms"]
+                               for k, v in ac["wide_banks"].items()}}},
         "max_abs_err": max(v["max_abs_err"]
                            for v in ac["wide_banks"].values()),
         **{k: ac["wide_banks"]["sequence"][k] for k in (

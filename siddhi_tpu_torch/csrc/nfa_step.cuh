@@ -7,6 +7,7 @@
 #pragma once
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -341,6 +342,14 @@ __device__ __forceinline__ void load_tile(int* buf, int t0, const StepArgs& a,
   }
 }
 
+// A per-slot array of the widened instance's event in registers (the
+// slot loops unrolled) or local memory (the wide ring)
+template <int N>
+struct RegArr {
+  int v[N];
+  __device__ __forceinline__ int& operator[](int s) { return v[s]; }
+};
+
 // Slot storage.  SPT > 0: this thread's SPT slots in registers (state,
 // start, enter, seq, and the count and deadline words), their capture
 // rows in its own column of shared memory (stride kThreads, so a warp's
@@ -368,6 +377,8 @@ struct Slots {
   }
   // words between two capture lanes of a slot
   __device__ __forceinline__ int cs() const { return kThreads; }
+  // a per-slot array of the widened instance's event (Wide::arr)
+  using Arr = RegArr<SPT>;
 };
 
 // The wide-ring instance: the slots live in the new carry, slot s of this
@@ -392,6 +403,63 @@ struct Slots<0> {
     return cap[(static_cast<long long>(s) * G + d) * RC + i];
   }
   __device__ __forceinline__ int cs() const { return 1; }
+  using Arr = RegArr<kWideMaxSpt>;
+};
+
+// an int32 word of a thread's shared-memory column, which holds float
+// bits (one type for every access to the column)
+struct ColInt {
+  float& f;
+  __device__ __forceinline__ operator int() const { return __float_as_int(f); }
+  __device__ __forceinline__ const ColInt& operator=(int v) const {
+    f = __int_as_float(v);
+    return *this;
+  }
+  __device__ __forceinline__ const ColInt& operator=(const ColInt& o) const {
+    f = o.f;
+    return *this;
+  }
+};
+
+// A per-slot array of a thread's column: row x of its words, slot s at
+// x + s (csrc/nfa_bank_wide.cu's rows of K words)
+struct ColArr {
+  float* p;
+  __device__ __forceinline__ ColInt operator[](int s) const {
+    return ColInt{p[s * kThreads]};
+  }
+};
+
+// The bank's widened thread instance (csrc/nfa_bank_wide.cu): one
+// thread's K slots, every word of a slot in the thread's shared-memory
+// column (stride kThreads, so a warp's accesses never share a bank): the
+// captures, slot s's at rows s * RC.., then rows of K words at the given
+// offsets (in words from the column's base), and the event's per-slot
+// arrays (Wide::arr) from row xa on.
+struct ColSlots {
+  float* cap;
+  int RC, K;
+  int xst, xstart, xenter, xseq, xcc, xcp, xdl, xlm, xa;
+  __device__ __forceinline__ ColInt w(int x, int s) {
+    return ColInt{cap[(x + s) * kThreads]};
+  }
+  __device__ __forceinline__ ColInt st(int s) { return w(xst, s); }
+  __device__ __forceinline__ ColInt start(int s) { return w(xstart, s); }
+  __device__ __forceinline__ ColInt enter(int s) { return w(xenter, s); }
+  __device__ __forceinline__ ColInt seq(int s) { return w(xseq, s); }
+  __device__ __forceinline__ ColInt cc(int s) { return w(xcc, s); }
+  __device__ __forceinline__ ColInt cp(int s) { return w(xcp, s); }
+  __device__ __forceinline__ ColInt dl(int s) { return w(xdl, s); }
+  __device__ __forceinline__ ColInt lm(int s) { return w(xlm, s); }
+  __device__ __forceinline__ float& c(int s, int i) {
+    return cap[(s * RC + i) * kThreads];
+  }
+  // one thread holds the lane: slot s2 of "thread" d is its own slot s2
+  __device__ __forceinline__ float& cx(int, int s2, int i) {
+    return c(s2, i);
+  }
+  __device__ __forceinline__ int cs() const { return kThreads; }
+  using Arr = ColArr;
 };
 
 // condition i of the event at `at` against slot s's captures
@@ -569,26 +637,48 @@ __device__ __forceinline__ bool cond_zero(const Prog& g, int i, unsigned gw,
 }
 
 // The widened instance's lane: one event of ops/nfa.py _one_event_step,
-// section by section, on the G threads of a lane (slot k of the lane at
-// thread k % G, its s = k / G).  Every section that reads the lane as a
-// whole (the first free slot, a slot count, the pending-list rank of the
-// slots landing together, the clone allocation) is a ballot over the
-// group's bits, a prefix popcount or a shuffle sweep over the group's
-// threads; all of them run on every thread of the warp together (warp
-// uniform control flow), so lanes that share a warp step in lockstep.
+// section by section, under one of two lane policies (TH).
+//
+// The group policy (the step's widened instance and the bank's group
+// mapping): the G threads of a lane (slot k of the lane at thread k % G,
+// its s = k / G).  Every section that reads the lane as a whole (the
+// first free slot, a slot count, the pending-list rank of the slots
+// landing together, the clone allocation) is a ballot over the group's
+// bits, a prefix popcount or a shuffle sweep over the group's threads;
+// all of them run on every thread of the warp together (warp uniform
+// control flow), so lanes that share a warp step in lockstep.
+//
+// The thread policy (TH, the bank's thread instance, csrc/nfa_bank_wide.cu):
+// one thread holds the lane's K slots in its shared-memory column
+// (ColSlots), G = 1: a ballot is the slot's own bit, a first free or
+// lowest matched slot a find-first-set, a count a popcount, a pending
+// rank a K x K compare over the thread's column, a shuffle the value
+// itself, a warp barrier nothing; the slot loops are rolled (the body
+// unrolled K times would not fit the instruction cache) and the event's
+// per-slot arrays are rows of the column.  The sections are the same
+// code.
+//
 // A slot that completes writes its scratch row at once (the captures as
 // they stand then: a trailing `every` clears rows right after); its rank
 // in the lane is written when the event ends, so rows keep (t, k) order.
-// BANK (the pattern bank's instance, one CTA a pattern): a completing
-// slot writes no row; when the event ends the lane adds its matched slots
-// to its count, and an event with a match sets the lane's last match (the
-// event's ts and its lowest matched slot, `jnp.argmax(mm)`).
-template <int SPT, bool BANK = false>
+// BANK (the pattern bank's instances): a completing slot writes no row;
+// when the event ends the lane adds its matched slots to its count, and
+// an event with a match sets the lane's last match (the event's ts and
+// its lowest matched slot, `jnp.argmax(mm)`).
+template <int SPT, bool BANK = false, bool TH = false>
 struct Wide {
-  static constexpr int NS = SPT > 0 ? SPT : kWideMaxSpt;
+  static_assert(!TH || BANK, "the thread policy is the bank's");
+  using SL = std::conditional_t<TH, ColSlots, Slots<SPT>>;
+  using Arr = typename SL::Arr;
+  static constexpr int NS = TH ? 1 : (SPT > 0 ? SPT : kWideMaxSpt);
+  // slot loops: unrolled over a register instance's slots, else rolled
+  static constexpr int UR = !TH && SPT > 0 ? SPT : 1;
+  // the event's per-slot arrays (the thread policy's column rows, from
+  // ColSlots::xa on, in this order)
+  enum { aPre, aRk, aFrom, aFstart, aSpr };
   const Prog& g;
   const StepArgs& a;
-  Slots<SPT>& sl;
+  SL& sl;
   int* stel;                  // this lane's telemetry row (shared memory)
   int* s_fill;
   int G, gl, gbase, l, p, ns, cta;
@@ -602,27 +692,64 @@ struct Wide {
   bool v;
   unsigned mb;                // bit s: slot s matched by this event
   int mpos[NS];               // its scratch row (-1: none yet)
-  int st_pre[NS];             // its state when the unit loop starts
-  int spr[kMaxMid][NS];       // its clone rank in mid-chain group q
+  Arr st_pre;                 // its state when the unit loop starts
+  Arr spr[kMaxMid];           // its clone rank in mid-chain group q
   int lmt, lmk;               // bank: the lane's last match (ts, slot)
+  // the thread policy: the slots whose every carry word (wfull), or whose
+  // captures and start (wcs), this block wrote; an in-place launch
+  // writes back those of a lane it read no carry words of
+  unsigned wfull, wcs;
 
-  __device__ __forceinline__ int nsl() const { return SPT > 0 ? SPT : ns; }
+  __device__ __forceinline__ int nsl() const {
+    return SPT > 0 && !TH ? SPT : ns;
+  }
   __device__ __forceinline__ bool on(int s) const {
     return lane_ok && gl + s * G < a.K;
   }
+  __device__ __forceinline__ Arr arr(int x) {
+    if constexpr (TH) {
+      return ColArr{sl.cap + (sl.xa + x * sl.K) * kThreads};
+    } else {
+      Arr r;
+      return r;
+    }
+  }
+  // the thread policy's column rows of st_pre and the clone ranks
+  __device__ __forceinline__ void bind() {
+    if constexpr (TH) {
+      st_pre = arr(aPre);
+#pragma unroll
+      for (int q = 0; q < kMaxMid; ++q) spr[q] = arr(aSpr + q);
+    }
+  }
   __device__ __forceinline__ unsigned ballot(bool x) const {
-    return (__ballot_sync(kFull, x) & gmask) >> gbase;
+    if constexpr (TH) return x ? 1u : 0u;
+    else return (__ballot_sync(kFull, x) & gmask) >> gbase;
+  }
+  __device__ __forceinline__ bool any(bool x) const {
+    if constexpr (TH) return x;
+    else return __any_sync(kFull, x);
+  }
+  template <class V>
+  __device__ __forceinline__ V shfl(V x, int src) const {
+    if constexpr (TH) return x;
+    else return __shfl_sync(kFull, x, src);
+  }
+  __device__ __forceinline__ void sync() const {
+    if constexpr (!TH) __syncwarp();
   }
   __device__ __forceinline__ bool lane_any(unsigned bits) const {
+    if constexpr (TH) return bits != 0;
     bool any = false;
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) any |= ballot((bits >> s) & 1u) != 0;
     return any;
   }
   // the lane's first slot (k order) whose bit is set, -1: none
   __device__ __forceinline__ int first(unsigned bits) const {
+    if constexpr (TH) return bits ? __ffs(bits) - 1 : -1;
     int r = -1;
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
       const unsigned b = ballot((bits >> s) & 1u);
       if (r < 0 && b) r = s * G + __ffs(b) - 1;
@@ -630,17 +757,18 @@ struct Wide {
     return r;
   }
   __device__ __forceinline__ int count(unsigned bits) const {
+    if constexpr (TH) return __popc(bits);
     int n = 0;
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) n += __popc(ballot((bits >> s) & 1u));
     return n;
   }
   // each set slot's exclusive rank among the lane's set slots (k order);
   // returns their count
-  __device__ __forceinline__ int prefix(unsigned bits, int* rk) const {
+  __device__ __forceinline__ int prefix(unsigned bits, Arr& rk) const {
     int n = 0;
     const unsigned lt = (1u << gl) - 1u;
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
       const unsigned b = ballot((bits >> s) & 1u);
       rk[s] = n + __popc(b & lt);
@@ -650,25 +778,25 @@ struct Wide {
   }
   // each slot of `bits`' rank among the lane's slots of `bits` in
   // pending-list order (enter, seq): the oracle's append order
-  __device__ __forceinline__ void pending(unsigned bits, int* rk) {
-#pragma unroll
+  __device__ __forceinline__ void pending(unsigned bits, Arr& rk) {
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) rk[s] = 0;
-#pragma unroll
+#pragma unroll (UR)
     for (int s2 = 0; s2 < nsl(); ++s2) {
       const unsigned b = ballot((bits >> s2) & 1u);
-      if (!__any_sync(kFull, b != 0)) continue;
+      if (!any(b != 0)) continue;
       const bool mine = (bits >> s2) & 1u;
       const int e = mine ? sl.enter(s2) : 0;
       const int q = mine ? sl.seq(s2) : 0;
       for (int src = 0; src < G; ++src) {
-        const int e2 = __shfl_sync(kFull, e, gbase + src);
-        const int q2 = __shfl_sync(kFull, q, gbase + src);
+        const int e2 = shfl(e, gbase + src);
+        const int q2 = shfl(q, gbase + src);
         if (!((b >> src) & 1u)) continue;
-#pragma unroll
+#pragma unroll (UR)
         for (int s = 0; s < nsl(); ++s)
           if (((bits >> s) & 1u) &&
               (e2 < sl.enter(s) || (e2 == sl.enter(s) && q2 < sl.seq(s))))
-            ++rk[s];
+            rk[s] = rk[s] + 1;
       }
     }
   }
@@ -676,13 +804,21 @@ struct Wide {
   template <class F>
   __device__ __forceinline__ unsigned bits(F f) {
     unsigned r = 0;
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s)
       if (on(s) && f(s)) r |= 1u << s;
     return r;
   }
   __device__ __forceinline__ void set_lm(int s, int x) {
     if (g.has_logical) sl.lm(s) = x;
+  }
+  // the thread policy: slot s's carry words written (full: every one;
+  // else its captures and start)
+  __device__ __forceinline__ void wrote(int s, bool full) {
+    if constexpr (TH) {
+      if (full) wfull |= 1u << s;
+      else wcs |= 1u << s;
+    }
   }
 
   // slot s completes at `ts`: its scratch row (index, ts, enter, seq,
@@ -721,41 +857,41 @@ struct Wide {
   }
 
   // the slots of `bits` advance out of unit j at the event's ts, or
-  // (dl) at their deadline (ops/nfa.py _StepState.land); fcp: each
-  // slot's forwarded count word (a count unit's exit), else null
+  // (dl) at their deadline (ops/nfa.py _StepState.land); fwd: a count
+  // unit's exit, each slot forwarding its count (dead at max)
   __device__ __forceinline__ void land(int j, unsigned bits, bool dl,
-                                       const int* fcp) {
+                                       bool fwd) {
     const int* u = unit(g, j);
     const int tgt = u[uLand];
 #pragma unroll
     for (int q = 0; q < kMaxMid; ++q) {
       if (q >= g.n_mid || g.mid[2 * q + 1] != j) continue;
-      if (!__any_sync(kFull, bits != 0)) continue;
+      if (!any(bits != 0)) continue;
       unsigned old = 0;
-#pragma unroll
+#pragma unroll (UR)
       for (int s = 0; s < nsl(); ++s)
         if (spr[q][s] >= 0) old |= 1u << s;
       const int n_old = count(old);
-      int rk[NS];
+      Arr rk = arr(aRk);
       pending(bits, rk);
-#pragma unroll
+#pragma unroll (UR)
       for (int s = 0; s < nsl(); ++s)
         if ((bits >> s) & 1u) spr[q][s] = rk[s] + n_old;
     }
     if (tgt >= g.S) {
-#pragma unroll
+#pragma unroll (UR)
       for (int s = 0; s < nsl(); ++s)
         if ((bits >> s) & 1u)
           emit(s, dl ? sl.dl(s) : tsv, sl.enter(s), sl.seq(s));
       if (g.tail_every >= 0) {
         // trailing `every`: the match is emitted AND the partial re-arms
         // at the group's start with its earlier captures
-        int rk[NS];
-#pragma unroll
+        Arr rk = arr(aRk);
+#pragma unroll (UR)
         for (int s = 0; s < nsl(); ++s) rk[s] = 0;
-        if (__any_sync(kFull, bits != 0)) pending(bits, rk);
+        if (any(bits != 0)) pending(bits, rk);
         const int n = count(bits);
-#pragma unroll
+#pragma unroll (UR)
         for (int s = 0; s < nsl(); ++s) {
           if (!((bits >> s) & 1u)) continue;
           const int base = dl ? sl.dl(s) : tsv;
@@ -767,14 +903,14 @@ struct Wide {
         }
         arm_seq = add32(arm_seq, n);
       } else {
-#pragma unroll
+#pragma unroll (UR)
         for (int s = 0; s < nsl(); ++s)
           if ((bits >> s) & 1u) sl.st(s) = -1;
       }
       return;
     }
     const bool to_absent = g.has_absent && unit(g, tgt)[uKind] == kAbsent;
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
       if (!((bits >> s) & 1u)) continue;
       const int base = dl ? sl.dl(s) : tsv;
@@ -782,7 +918,8 @@ struct Wide {
       sl.enter(s) = base;
       set_lm(s, 0);
       if (g.has_count) {
-        sl.cp(s) = fcp ? fcp[s] : (u[uLive0] ? 0 : -1);
+        const int c = sl.cc(s);
+        sl.cp(s) = fwd ? (c == u[uMax] ? -1 : c) : (u[uLive0] ? 0 : -1);
         sl.cc(s) = 0;
       }
       if (to_absent) sl.dl(s) = add32(base, unit(g, tgt)[uWait]);
@@ -797,13 +934,13 @@ struct Wide {
       const unsigned b = bits([&](int s) {
         return v && sl.st(s) == j && sl.dl(s) <= tsv;
       });
-      land(j, b, true, nullptr);
+      land(j, b, true, false);
     }
   }
 
   // a fresh partial into free slot f (the lane's, k order) at `state`
   __device__ __forceinline__ void seat(int f, int state, int cc, int cp) {
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
       if (!on(s) || gl + s * G != f) continue;
       for (int i = 0; i < a.RC; ++i) sl.c(s, i) = 0.0f;
@@ -816,45 +953,58 @@ struct Wide {
         sl.cc(s) = cc;
         sl.cp(s) = cp;
       }
+      wrote(s, true);
     }
   }
 
+  // telemetry word w of the lane += n (the thread policy's row is a
+  // column of its own, stride kThreads)
   __device__ __forceinline__ void tel_add(int w, int n) {
-    if (stel && n) atomicAdd(stel + w, n);
+    if constexpr (TH) {
+      if (stel && n) stel[w * kThreads] += n;
+    } else {
+      if (stel && n) atomicAdd(stel + w, n);
+    }
   }
 
-  __device__ __forceinline__ void event();
-};
-
-template <int SPT, bool BANK>
-__device__ __forceinline__ void Wide<SPT, BANK>::event() {
-  const int S = g.S;
-  const int* u0 = unit(g, 0);
-  const int t0 = u0[uLand];
-  const bool real = v && sv != -2;
-  mb = 0;
-#pragma unroll
-  for (int s = 0; s < nsl(); ++s) {
-    mpos[s] = -1;
-#pragma unroll
-    for (int q = 0; q < kMaxMid; ++q) spr[q][s] = -1;
-  }
-
-  // within expiry (a leading min-0 count's virgin chain is exempt)
-  {
+  // `within` expiry at ts of the slots of m (a leading min-0 count's
+  // virgin chain is exempt); → the slots expired
+  __device__ __forceinline__ int expire(int ts, unsigned m) {
     int n = 0;
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
-      if (!on(s)) continue;
+      if (!on(s) || !((m >> s) & 1u)) continue;
       const int st = sl.st(s);
-      if (g.has_within && st >= 1 && sub32(tsv, sl.start(s)) > g.within &&
+      if (g.has_within && st >= 1 && sub32(ts, sl.start(s)) > g.within &&
           !(g.eps && st == 1 && sl.cp(s) == 0)) {
         sl.st(s) = -1;
         ++n;
       }
     }
-    tel_add(3 * S, n);
+    tel_add(3 * g.S, n);
+    return n;
   }
+
+  __device__ __forceinline__ void event();
+};
+
+template <int SPT, bool BANK, bool TH>
+__device__ __forceinline__ void Wide<SPT, BANK, TH>::event() {
+  const int S = g.S;
+  const int* u0 = unit(g, 0);
+  const int t0 = u0[uLand];
+  const bool real = v && sv != -2;
+  mb = 0;
+#pragma unroll (UR)
+  for (int s = 0; s < nsl(); ++s) {
+    if constexpr (!BANK) mpos[s] = -1;
+#pragma unroll
+    for (int q = 0; q < kMaxMid; ++q)
+      if (!TH || q < g.n_mid) spr[q][s] = -1;
+  }
+
+  // within expiry (a leading min-0 count's virgin chain is exempt)
+  expire(tsv, ~0u);
 
   // a leading absent unit: exactly one partial waits at unit 0
   if (g.lead_absent) {
@@ -865,7 +1015,7 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
     }));
     if (want && f >= 0) {
       seat(f, 0, 0, -1);
-#pragma unroll
+#pragma unroll (UR)
       for (int s = 0; s < nsl(); ++s)
         if (on(s) && gl + s * G == f) sl.dl(s) = add32(tsv, u0[uWait]);
       arm_seq = add32(arm_seq, 1);
@@ -877,7 +1027,7 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
     // SEQUENCE: a due `not ... for t` confirms before the event, then any
     // real event (TIMER rows excepted) kills a partial waiting at one
     deadline_pass();
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s)
       if (on(s) && real && sl.st(s) >= 0 && sl.st(s) < S &&
           unit(g, sl.st(s))[uKind] == kAbsent)
@@ -901,7 +1051,7 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
     if (want && f < 0) ++drop;
   }
 
-#pragma unroll
+#pragma unroll (UR)
   for (int s = 0; s < nsl(); ++s) st_pre[s] = on(s) ? sl.st(s) : -1;
 
   // the occupancy gate on arming, from the states as the unit loop finds
@@ -924,8 +1074,8 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
   bool c0a = on(0) && cond_w(g, u0[uCond], gw, sl, 0, at, LT);
   bool c0b = u0[uKind] == kLogical && on(0) &&
              cond_w(g, u0b[bCond], gw, sl, 0, at, LT);
-  c0a = __shfl_sync(kFull, c0a, gbase);
-  c0b = __shfl_sync(kFull, c0b, gbase);
+  c0a = shfl(c0a, gbase);
+  c0b = shfl(c0b, gbase);
 
   // the unit loop: each slot's one transition, in unit order (a landing
   // ranks its slots against the others landing from the same unit)
@@ -936,10 +1086,8 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
     const int* ub = unit_b(g, j);
     const int kind = u[uKind];
     unsigned pd = 0;
-    int fcp[NS];
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
-      fcp[s] = -1;
       if (!on(s) || !v || st_pre[s] != j) continue;
       // every condition this slot reads, before any write of the event
       const bool okA = sv == u[uStream] &&
@@ -958,8 +1106,7 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
       if (stel) {
         const bool ea = sv == u[uStream];
         const bool eb = ub[bCond] >= 0 && sv == ub[bStream];
-        if (ea || eb)
-          atomicAdd(stel + ((okA || okB) ? S : 2 * S) + j, 1);
+        if (ea || eb) tel_add(((okA || okB) ? S : 2 * S) + j, 1);
       }
       const unsigned bit = 1u << s;
       if (kind == kSimple) {
@@ -999,7 +1146,6 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
           if (c2 == u[uMin]) {
             pd |= bit;
             adv |= bit;
-            fcp[s] = c2 == u[uMax] ? -1 : c2;
           }
           if (g.is_seq && j == 1 && u0[uKind] == kSimple && c2 >= u[uMin] &&
               c2 != u[uMax])
@@ -1016,14 +1162,14 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
         }
       }
     }
-    if (kind != kAbsent) land(j, pd, false, kind == kCount ? fcp : nullptr);
+    if (kind != kAbsent) land(j, pd, false, kind == kCount);
   }
   seed_req = lane_any(seed_req ? 1u : 0u);
 
   // the live append of a forwarded count, while the slot waits where the
   // count's exit landed it
   if (g.has_count) {
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
       if (!on(s) || !v || ((adv >> s) & 1u) || st_pre[s] < 0 ||
           st_pre[s] >= S)
@@ -1057,7 +1203,7 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
   // simple, count or logical unit neither on nor into the chain kills it
   // (a logical unit already half done waits)
   if (g.is_seq) {
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
       const int sp = st_pre[s];
       if (!on(s) || !real || sp < 0 || sp >= S || sl.st(s) < 0) continue;
@@ -1108,7 +1254,7 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
     if (g.is_seq && real && armed == 0) armed = 2;
   }
   if (do_arm && f >= 0) {
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
       if (!on(s) || gl + s * G != f) continue;
       for (int i = 0; i < a.RC; ++i) sl.c(s, i) = 0.0f;
@@ -1124,8 +1270,10 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
       sl.start(s) = tsv;
       if (match) {                      // completes as it arms: stays free
         emit(s, tsv, tsv, arm_seq);
+        wrote(s, false);
         continue;
       }
+      wrote(s, true);
       sl.st(s) = state;
       sl.enter(s) = tsv;
       sl.seq(s) = arm_seq;
@@ -1152,7 +1300,7 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
     }));
     if (want && fs >= 0) {
       const bool mx1 = u0[uMax] == 1;
-#pragma unroll
+#pragma unroll (UR)
       for (int s = 0; s < nsl(); ++s) {
         if (!on(s) || gl + s * G != fs) continue;
         for (int i = 0; i < a.RC; ++i) sl.c(s, i) = 0.0f;
@@ -1163,6 +1311,7 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
         sl.start(s) = tsv;
         sl.enter(s) = tsv;
         sl.seq(s) = arm_seq;
+        wrote(s, true);
       }
       arm_seq = add32(arm_seq, 1);
       if (mx1) sf = 1;
@@ -1177,19 +1326,19 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
   for (int q = 0; q < kMaxMid; ++q) {
     if (q >= g.n_mid) continue;
     unsigned src = 0;
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s)
       if (spr[q][s] >= 0) src |= 1u << s;
     const int n_sp = count(src);
-    if (!__any_sync(kFull, n_sp > 0)) continue;
+    if (!any(n_sp > 0)) continue;
     const int g0 = g.mid[2 * q], g1 = g.mid[2 * q + 1];
-    int fr[NS], from[NS], fstart[NS];
+    Arr fr = arr(aRk), from = arr(aFrom), fstart = arr(aFstart);
     const unsigned freeb = bits([&](int s) {
       return sl.st(s) < 0 && !((mb >> s) & 1u);
     });
     const int n_free = prefix(freeb, fr);
     unsigned fill = 0;
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
       from[s] = -1;
       fstart[s] = 0;
@@ -1197,15 +1346,15 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
     }
     // the source of each filled slot: the slot whose rank is its rank
     // among the free slots
-#pragma unroll
+#pragma unroll (UR)
     for (int s2 = 0; s2 < nsl(); ++s2) {
       const int r = on(s2) ? spr[q][s2] : -1;
       const int st0 = on(s2) ? sl.start(s2) : 0;
       for (int x = 0; x < G; ++x) {
-        const int r2 = __shfl_sync(kFull, r, gbase + x);
-        const int s02 = __shfl_sync(kFull, st0, gbase + x);
+        const int r2 = shfl(r, gbase + x);
+        const int s02 = shfl(st0, gbase + x);
         if (r2 < 0) continue;
-#pragma unroll
+#pragma unroll (UR)
         for (int s = 0; s < nsl(); ++s)
           if (((fill >> s) & 1u) && fr[s] == r2) {
             from[s] = s2 * G + x;
@@ -1213,8 +1362,8 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
           }
       }
     }
-    __syncwarp();                       // the sources' captures are written
-#pragma unroll
+    sync();                             // the sources' captures are written
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
       if (!((fill >> s) & 1u)) continue;
       const int d = (from[s] & (G - 1)) - gl, s2 = from[s] / G;
@@ -1229,8 +1378,9 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
         sl.cc(s) = 0;
         sl.cp(s) = -1;
       }
+      wrote(s, true);
     }
-    __syncwarp();
+    sync();
     arm_seq = add32(arm_seq, n_sp);
     if (n_sp > n_free) drop += n_sp - n_free;
   }
@@ -1251,7 +1401,7 @@ __device__ __forceinline__ void Wide<SPT, BANK>::event() {
     // each matched slot's rank in its lane: the lane's count, then k order
     int n = 0;
     const unsigned lt = (1u << gl) - 1u;
-#pragma unroll
+#pragma unroll (UR)
     for (int s = 0; s < nsl(); ++s) {
       const unsigned b = ballot((mb >> s) & 1u);
       if (((mb >> s) & 1u) && mpos[s] < a.seg) {

@@ -127,6 +127,16 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
                                [_VP] * 25 + [_I] * 7 + [_VP] * 6 +
                                [_I] * 2 + [_VP]),
     },
+    "nfa_bank_wide": {
+        # nfa_bank_thread's arguments (TT, smem, groups, n_cond,
+        # pad_within), then the widened carry in (ops/nfa.WIDE_CARRY:
+        # lmask, seq_froze, telem) and out, tel_w, the event's per-slot
+        # arrays (ops/nfa.bank_wide_arrays), the units, whether unit 0's
+        # condition reads slot 0's captures, stream
+        "nfa_bank_thread_wide": (_I, [_VP] * 5 + [_I] + [_VP] + [_I] +
+                                 [_VP] * 25 + [_I] * 11 + [_VP] * 6 +
+                                 [_I] * 4 + [_VP]),
+    },
     "nfa_gang": {
         # tenants n -> bytes of the gang's device table
         "nfa_gang_table_bytes": (_LL, [_I]),
@@ -145,12 +155,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple[type, list]]] = {
 VARIANTS: Dict[str, Tuple[str, List[str]]] = {
     "nfa_prog": ("nfa_step", ["-DNFA_PROG=1"]),
     "nfa_wide_prog": ("nfa_wide", ["-DNFA_PROG=1"]),
+    "nfa_bank_wide_prog": ("nfa_bank_wide", ["-DNFA_PROG=1"]),
     "nfa_gang_prog": ("nfa_gang", ["-DNFA_PROG=1"]),
 }
 SIGNATURES["nfa_prog"] = {k: SIGNATURES["nfa_step"][k]
                           for k in ("nfa_step", "nfa_bank_step",
                                     "nfa_bank_thread")}
 SIGNATURES["nfa_wide_prog"] = dict(SIGNATURES["nfa_wide"])
+SIGNATURES["nfa_bank_wide_prog"] = dict(SIGNATURES["nfa_bank_wide"])
 SIGNATURES["nfa_gang_prog"] = dict(SIGNATURES["nfa_gang"])
 
 _LOCK = threading.Lock()

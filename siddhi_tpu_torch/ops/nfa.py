@@ -1449,6 +1449,17 @@ def _occ_hi(spec: NfaSpec) -> int:
     return -1
 
 
+def _count_apps(spec: NfaSpec) -> Dict[int, List[int]]:
+    """{unit j: the count units, ascending, whose forwarded count keeps
+    appending while a slot waits at j}."""
+    apps: Dict[int, List[int]] = {}
+    for j, u in enumerate(spec.units):
+        t, _live0, completed = _land_static(spec, j)
+        if u.kind == "count" and not completed:
+            apps.setdefault(t, []).append(j)
+    return apps
+
+
 def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
     """The kernel's static program table (int32), in the layout
     csrc/nfa_step.cu reads:
@@ -1505,11 +1516,7 @@ def kernel_prog(spec: NfaSpec, kprog: NfaKernelProgram) -> List[int]:
             int(spec.eps_start), int(spec.lead_absent), int(spec.dead_start),
             int(spec.telemetry), int(_has(spec, "logical")), len(mids),
             ccmp_start[-1]]
-    apps: Dict[int, List[int]] = {}
-    for j, u in enumerate(spec.units):
-        t, _live0, completed = _land_static(spec, j)
-        if u.kind == "count" and not completed:
-            apps.setdefault(t, []).append(j)
+    apps = _count_apps(spec)
     for j, u in enumerate(spec.units):
         t, live0, _c = _land_static(spec, j)
         app = apps.get(j, []) + [-1, -1]
@@ -2072,23 +2079,88 @@ SMEM_LIMIT = 227 * 1024
 
 class BankGeometry(NamedTuple):
     """The bank step's instance for a launch: ``"thread"`` (one thread
-    per (pattern, lane), ``nfa_bank_thread_kernel``) with its tile of TT
-    events, the pattern groups a CTA walks over it and its shared memory
-    in bytes, or ``"group"`` (a group of G threads per lane,
-    ``nfa_bank_step_kernel`` of csrc/nfa_step.cu) or ``"wide"`` (the same
-    mapping on the widened unit loop, csrc/nfa_wide.cu's
-    ``nfa_bank_step_kernel``), the rest 0 (the C entry plans its shared
-    memory)."""
+    per (pattern, lane), ``nfa_bank_thread_kernel``) or ``"wide_thread"``
+    (the same mapping on the widened unit loop, csrc/nfa_bank_wide.cu's
+    ``nfa_bank_wide_kernel``) with its tile of TT events, the pattern
+    groups a CTA walks over it and its shared memory in bytes, or
+    ``"group"`` (a group of G threads per lane, ``nfa_bank_step_kernel``
+    of csrc/nfa_step.cu) or ``"wide"`` (the same mapping on the widened
+    unit loop, csrc/nfa_wide.cu's ``nfa_bank_step_kernel``), the rest 0
+    (the C entry plans its shared memory)."""
     instance: str
     TT: int
     smem: int
     groups: int = 0
 
 
+def bank_wide_arrays(spec: NfaSpec) -> int:
+    """The widened thread instance's per-slot arrays of an event
+    (nfa_step.cuh ``Wide::arr``): the states the unit loop starts from;
+    the pending ranks with a trailing or mid-chain `every`; the clones'
+    sources and starts and a rank per mid-chain group with mid-chain
+    `every`."""
+    n_mid = len(spec.mid_every)
+    rk = int(n_mid > 0 or spec.tail_every_start >= 0)
+    return 1 + rk + (2 + n_mid if n_mid else 0)
+
+
+def bank_wide_words(spec: NfaSpec, K: int, RC: int) -> int:
+    """Words of a thread's shared-memory column in the widened thread
+    instance (csrc/nfa_bank_wide.cu ``wide_rows``): the captures; rows of
+    K words for enter, seq, state, start, the deadline (absent units),
+    cnt_cur and cnt_prev (count units), lmask (logical units) and the
+    event's arrays (:func:`bank_wide_arrays`); the telemetry row."""
+    rows = 4 + int(_has(spec, "absent")) + 2 * int(_has(spec, "count")) + \
+        int(_has(spec, "logical")) + bank_wide_arrays(spec)
+    tel_w = 3 * len(spec.units) + 1 if spec.telemetry else 0
+    return K * RC + K * rows + tel_w
+
+
+def wide_need_table(spec: NfaSpec) -> List[int]:
+    """csrc/nfa_bank_wide.cu's ``need_of`` per unit j: the conditions a
+    slot waiting at j can read in an event — its unit's (both sides of a
+    logical one), those of the count units whose forwarded count appends
+    while it waits there, and for an absent unit those of the unit a due
+    deadline lands it at (SEQUENCE confirms it before the event steps),
+    transitively."""
+    units = spec.units
+    S = len(units)
+    apps = _count_apps(spec)
+    out = []
+    for j0 in range(S):
+        r, j, hop = 0, j0, 0
+        while 0 <= j < S and hop <= S:
+            u = units[j]
+            if u.cond_a >= 0:
+                r |= 1 << u.cond_a
+            if u.kind == "logical" and u.cond_b >= 0:
+                r |= 1 << u.cond_b
+            for a in apps.get(j, ()):
+                r |= 1 << units[a].cond_a
+            if u.kind != "absent":
+                break
+            j = _land_static(spec, j)[0]
+            hop += 1
+        out.append(r)
+    return out
+
+
+def bank_first_reads(spec: NfaSpec, kprog: NfaKernelProgram) -> bool:
+    """True when unit 0's conditions read slot 0's captures (a capture
+    compare, a capture-to-constant compare or a program): arming reads
+    them whatever slot 0 holds."""
+    u0 = spec.units[0]
+    conds = [c for c in (u0.cond_a, u0.cond_b if u0.kind == "logical"
+                         else -1) if c >= 0]
+    return any(kprog.cmp[c] or (kprog.ccmp and kprog.ccmp[c]) or
+               (kprog.prog and kprog.prog[c]) for c in conds)
+
+
 def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
                   n_params: int, prog_len: int, count: bool = False,
                   absent: bool = False, n_cond: int = 1,
-                  wide: bool = False) -> BankGeometry:
+                  wide: bool = False, wide_words: int = 0,
+                  n_units: int = 0) -> BankGeometry:
     """The instance csrc/nfa_step.cu's bank step runs for K slots, T
     events a lane, A attribute lanes, R·C capture words a slot, n_pcmp
     constant compares over n_params constants a pattern and a program
@@ -2103,16 +2175,21 @@ def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
     absent units, and of cnt_cur, cnt_prev, state and start words with
     count units) fits the CTA's; else the group instance.  Both take
     the simple, count and absent units of PATTERN with a leading `every`
-    and condition programs (from the build variant with them); a widened
-    program (``wide``: :func:`kernel_wide`) runs the widened instance
-    whatever its size.  TT: a power of two from 4 to 128, the
-    smallest that holds T; where that tile exceeds BANK_BLOCK_BYTES, cut
-    to BANK_TILE_BYTES.  The layout is csrc's ``bank_layout``; the launch
-    refuses a size below it."""
-    if wide:
-        return BankGeometry("wide", 0, 0)
+    and condition programs (from the build variant with them).  A
+    widened program (``wide``: :func:`kernel_wide`) runs the widened
+    thread instance within the same limits, its column ``wide_words``
+    words a thread (:func:`bank_wide_words`) beside a need table of
+    ``n_units`` words, else the widened group instance.  TT: a power of
+    two from 4 to 128, the smallest that holds T; where that tile
+    exceeds BANK_BLOCK_BYTES, cut to BANK_TILE_BYTES.  The layout is
+    csrc's ``bank_layout`` (and ``wide_layout``); the launch refuses a
+    size below it."""
+    other = "wide" if wide else "group"
     if K > BANK_THREAD_MAX_K or n_pcmp > BANK_THREAD_MAX_PCMP:
-        return BankGeometry("group", 0, 0)
+        return BankGeometry(other, 0, 0)
+    if wide and (wide_words <= 0 or n_units <= 0):
+        raise ValueError("bank_geometry: a widened program needs its "
+                         "column's words and its units")
     lanes = BANK_LANES
 
     def tile_bytes(tt):
@@ -2127,15 +2204,18 @@ def bank_geometry(K: int, T: int, A: int, RC: int, n_pcmp: int,
         while tt > 4 and tile_bytes(tt) > BANK_TILE_BYTES:
             tt //= 2
     patterns = KERNEL_THREADS // lanes * groups
+    column = KERNEL_THREADS * wide_words * 4 + ((n_units + 3) & ~3) * 4 \
+        if wide else \
+        KERNEL_THREADS * K * (RC + 2 + int(absent) + 4 * int(count)) * 4
     smem = ((prog_len + 3) & ~3) * 4 + \
         ((patterns * n_params + 3) & ~3) * 4 + \
         BANK_THREAD_MAX_PCMP * (patterns + 1) * 16 + \
         ((n_cond * lanes * 4 + 3) & ~3) * 4 + \
-        tile_bytes(tt) + \
-        KERNEL_THREADS * K * (RC + 2 + int(absent) + 4 * int(count)) * 4
+        tile_bytes(tt) + column
     if smem > SMEM_LIMIT:
-        return BankGeometry("group", 0, 0)
-    return BankGeometry("thread", tt, smem, groups)
+        return BankGeometry(other, 0, 0)
+    return BankGeometry("wide_thread" if wide else "thread", tt, smem,
+                        groups)
 
 
 def pcmp_bounds(op: int, c: torch.Tensor):
@@ -2169,9 +2249,10 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
                       kprog: NfaKernelProgram,
                       cta_patterns: int = 8 * BANK_GROUPS,
                       batch_b: Optional[int] = None):
-    """The CPU model of csrc/nfa_step.cu's bank thread instance, with
-    :func:`bank_lanes_plain`'s contract: each (pattern, lane) row is one
-    thread, ``cta_patterns`` consecutive patterns share a CTA.
+    """The CPU model of csrc/nfa_step.cu's bank thread instance and of
+    csrc/nfa_bank_wide.cu's widened one, with :func:`bank_lanes_plain`'s
+    contract: each (pattern, lane) row is one thread, ``cta_patterns``
+    consecutive patterns share a CTA.
 
     Per row an event is a candidate of the CTA when it is ``__valid``
     and keeps a bit of the conditions the row needs after the CTA's
@@ -2194,7 +2275,15 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     (``batch_b``, default the spec's) and the spec has a `within`, one
     more expiry at the last event's ts (the count instance's pass: a slot
     that left a leading count at the last event may expire there).
-    Functional: the input carry is not modified."""
+
+    A widened program (:func:`kernel_wide`) needs unit 0's conditions, a
+    leading min-0 count's unit 1's, and per slot those of
+    :func:`wide_need_table` at its state; a dead event is the plain step
+    with the row's gate word zero, as above (the kernel cuts it to
+    `within` expiry and telemetry fails only where that is the same), and
+    the padding rows are one invalid event at the last event's ts (its
+    `within` pass, telemetry and occupancy gauge).  Functional: the input
+    carry is not modified."""
     lead = _bank_lead(carry)
     CN = int(np.prod(lead)) if lead else 1
     P, T = (int(x) for x in block["__ts"].shape)
@@ -2234,15 +2323,23 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
                           uhi.repeat_interleave(cta_patterns)[:CN]
                           .repeat_interleave(P)))
     cmask = (1 << len(kprog.cmp)) - 1
-    # the conditions a slot at each state needs (state S: an empty slot)
+    # the conditions a slot at each state needs (state S: an empty slot),
+    # and those every row needs
     units = spec.units
-    wait = [0] * (len(units) + 1)
-    for j, u in enumerate(units):
-        t, _l0, completed = _land_static(spec, j)
-        wait[j] |= 1 << u.cond_a
-        if u.kind == "count" and not completed:
-            wait[t] |= 1 << u.cond_a
-    narrow = _has(spec, "absent") or _has(spec, "count")
+    wide = kernel_wide(spec, kprog)
+    if wide:
+        wait = wide_need_table(spec) + [0]
+        need0 = wait[0] | (wait[1] if spec.eps_start and len(units) > 1
+                           else 0)
+    else:
+        wait = [0] * (len(units) + 1)
+        for j, u in enumerate(units):
+            t, _l0, completed = _land_static(spec, j)
+            wait[j] |= 1 << u.cond_a
+            if u.kind == "count" and not completed:
+                wait[t] |= 1 << u.cond_a
+        need0 = 1 << units[0].cond_a
+    narrow = wide or _has(spec, "absent") or _has(spec, "count")
     wait_t = torch.tensor(wait, dtype=torch.int32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     cnt, lmt, lmk = (torch.zeros((rows,), **i32) for _ in range(3))
@@ -2251,7 +2348,7 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         need = torch.full((rows,), cmask, **i32)
         if narrow:
             st = c["slot_state"]
-            need = torch.full((rows,), 1 << units[0].cond_a, **i32)
+            need = torch.full((rows,), need0, **i32)
             per = wait_t[torch.where(st >= 0, st, len(units)).long()]
             for s in range(spec.n_slots):
                 need = need | per[:, s]
@@ -2272,7 +2369,12 @@ def bank_thread_model(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         lmt = torch.where(hit, ev["__ts"], lmt)
         lmk = torch.where(hit, _i32(_first_true(mm)), lmk)
     B = spec_batch_b(spec, batch_b)
-    if B > 1 and T % B and spec.within_ms is not None:
+    if B > 1 and T % B and spec.within_ms is not None and wide:
+        pad = {k: torch.zeros_like(v[:, T - 1]) for k, v in events.items()}
+        pad["__ts"] = events["__ts"][:, T - 1]
+        pad[KGATE] = torch.zeros((rows,), **i32)
+        c, _y = _one_event_step(spec, c, pad, kprog)
+    elif B > 1 and T % B and spec.within_ms is not None:
         c = dict(c)
         tl = events["__ts"][:, T - 1:T]
         c["slot_state"] = torch.where(
@@ -2475,21 +2577,23 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     contract, on the tensors' own device.  CPU tensors run the plain
     version.  CUDA tensors launch the bank step on the current stream for
     a spec inside its class, in the instance :func:`bank_geometry` picks:
-    for a widened program (:func:`kernel_wide`) csrc/nfa_wide.cu's
-    widened instance (``nfa_bank_step.wide_launches``; its leaves lmask,
-    seq_froze and telem, and the flags of :func:`kernel_flags`), else
-    csrc/nfa_step.cu's thread instance (K <= 16, at most 8 constant
-    compares, its shared memory within the CTA's;
-    ``nfa_bank_step.thread_launches``) or group instance
-    (``nfa_bank_step.group_launches``); ``nfa_bank_step.launches`` counts
-    all three.  When the plain step would pad the block to a multiple of
-    B (FLAG_PAD_WITHIN), the widened instance and the group instance with
-    count or absent units run one more
-    `within` pass at the last event's ts, and so does the thread
-    instance with count units (the only thread instance where that pass
-    can expire a slot).  A spec with a condition program launches from
-    the build variant whose instances run programs (``nfa_prog``,
-    ``nfa_wide_prog``), any other from ``nfa_step`` or ``nfa_wide``.
+    for a widened program (:func:`kernel_wide`, its leaves lmask,
+    seq_froze and telem) csrc/nfa_bank_wide.cu's widened thread instance
+    (K <= 16, at most 8 constant compares, its shared memory within the
+    CTA's; ``nfa_bank_step.wide_thread_launches``) or csrc/nfa_wide.cu's
+    widened group instance (``nfa_bank_step.wide_launches``, with the
+    flags of :func:`kernel_flags`); else csrc/nfa_step.cu's thread
+    instance (the same limits; ``nfa_bank_step.thread_launches``) or
+    group instance (``nfa_bank_step.group_launches``);
+    ``nfa_bank_step.launches`` counts all four.  When the plain step
+    would pad the block to a multiple of B (FLAG_PAD_WITHIN), both
+    widened instances and the group instance with count or absent units
+    run one more `within` pass at the last event's ts, and so does the
+    thread instance with count units (the only thread instance where
+    that pass can expire a slot).  A spec with a condition program
+    launches from the build variant whose instances run programs
+    (``nfa_prog``, ``nfa_bank_wide_prog``, ``nfa_wide_prog``), any other
+    from ``nfa_step``, ``nfa_bank_wide`` or ``nfa_wide``.
     With ``inplace`` the new carry IS the input carry, updated in place.
     Anything else, and a failed build or launch, raises: no fallback."""
     dev = block["__ts"].device
@@ -2537,10 +2641,13 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
     i32 = dict(dtype=torch.int32, device=dev)
     count, lmt, lmk = (torch.empty((CN, P), **i32) for _ in range(3))
     flags = kernel_flags(spec, kprog, T, batch_b)
+    wide = bool(flags & FLAG_WIDE)
     geo = bank_geometry(K, T, A, R * C, sum(len(q) for q in kprog.pcmp),
                         NP, prog.numel(), count=_has(spec, "count"),
                         absent=_has(spec, "absent"), n_cond=len(kprog.cmp),
-                        wide=bool(flags & FLAG_WIDE))
+                        wide=wide,
+                        wide_words=bank_wide_words(spec, K, R * C) if wide
+                        else 0, n_units=len(spec.units))
     has_prog = kernel_has_prog(kprog)
     args = (
         attrs.data_ptr(), block["__ts"].data_ptr(),
@@ -2550,12 +2657,20 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         CN, P, T, K)
     stream = torch.cuda.current_stream(dev).cuda_stream
     pad = int((flags & FLAG_PAD_WITHIN) != 0)
-    if geo.instance == "wide":
+    tel_w = 3 * len(spec.units) + 1 if spec.telemetry else 0
+    if geo.instance == "wide_thread":
+        lib = load_kernel("nfa_bank_wide_prog" if has_prog
+                          else "nfa_bank_wide")
+        rc = lib.nfa_bank_thread_wide(
+            *args, geo.TT, A, R * C, geo.smem, geo.groups, len(kprog.cmp),
+            pad, *_carry_ptrs(carry, WIDE_CARRY),
+            *_carry_ptrs(new, WIDE_CARRY), tel_w, bank_wide_arrays(spec),
+            len(spec.units), int(bank_first_reads(spec, kprog)), stream)
+    elif geo.instance == "wide":
         lib = load_kernel("nfa_wide_prog" if has_prog else "nfa_wide")
         rc = lib.nfa_bank_step_wide(
             *args, G, A, R * C, *_carry_ptrs(carry, WIDE_CARRY),
-            *_carry_ptrs(new, WIDE_CARRY), flags,
-            3 * len(spec.units) + 1 if spec.telemetry else 0, stream)
+            *_carry_ptrs(new, WIDE_CARRY), flags, tel_w, stream)
     else:
         lib = load_kernel("nfa_prog" if has_prog else "nfa_step")
         if geo.instance == "thread":
@@ -2568,7 +2683,9 @@ def nfa_bank_lanes(spec: NfaSpec, carry: Dict[str, torch.Tensor],
         raise RuntimeError(f"nfa_bank_step: launch failed with CUDA error "
                            f"{rc} ({geo.instance} instance)")
     nfa_bank_step.launches += 1
-    if geo.instance == "wide":
+    if geo.instance == "wide_thread":
+        nfa_bank_step.wide_thread_launches += 1
+    elif geo.instance == "wide":
         nfa_bank_step.wide_launches += 1
     elif geo.instance == "thread":
         nfa_bank_step.thread_launches += 1
@@ -2656,10 +2773,13 @@ def nfa_bank_step(spec: NfaSpec, carry: Dict[str, torch.Tensor],
 
 #: launches of the bank step since the last reset (plain runs excluded),
 #: every instance; of them, the thread instance's (nfa_bank_thread_kernel),
-#: the group instance's (csrc/nfa_step.cu's nfa_bank_step_kernel) and the
-#: widened instance's (csrc/nfa_wide.cu's nfa_bank_step_kernel); the ring
-#: kernel counts in ``nfa_bank_ring.launches``
+#: the group instance's (csrc/nfa_step.cu's nfa_bank_step_kernel), the
+#: widened group instance's (csrc/nfa_wide.cu's nfa_bank_step_kernel) and
+#: the widened thread instance's (csrc/nfa_bank_wide.cu's
+#: nfa_bank_wide_kernel); the ring kernel counts in
+#: ``nfa_bank_ring.launches``
 nfa_bank_step.launches = 0
 nfa_bank_step.thread_launches = 0
 nfa_bank_step.group_launches = 0
 nfa_bank_step.wide_launches = 0
+nfa_bank_step.wide_thread_launches = 0

@@ -171,10 +171,14 @@ def ring_histogram(bins):
 
 
 def build_variant(kernels, tag, edits, lib="nfa_step") -> ctypes.CDLL:
-    """csrc/nfa_step.cu with each text `old` of the (old, new) edits made
-    `new`, built with library `lib`'s flags (ops/_kernels.VARIANTS) into
-    the checkout's build directory and bound like that library."""
+    """csrc/nfa_step.cu, with the thread instances' header
+    (csrc/nfa_bank.cuh) written into it, with each text `old` of the
+    (old, new) edits made `new`, built with library `lib`'s flags
+    (ops/_kernels.VARIANTS) into the checkout's build directory and bound
+    like that library."""
     src = open(os.path.join(kernels.CSRC, "nfa_step.cu")).read()
+    src = src.replace('#include "nfa_bank.cuh"\n', open(
+        os.path.join(kernels.CSRC, "nfa_bank.cuh")).read())
     for old, new in edits:
         if src.count(old) != 1:
             raise RuntimeError(f"nfa_step.cu: {old!r} is not where this "

@@ -38,14 +38,17 @@ Each tree prints one line ``K2COMPARE {json}``.  Needs CUDA and nvcc;
 builds each tree's kernels in that tree.
 
 With ``--bank-cells`` a tree runs this instead: every NFA library
-(``nfa_step``, ``nfa_wide``, ``nfa_gang`` and their condition-program
-builds) built with ``-Xptxas -v``, each kernel instance's register count
-and spill bytes (the first time the tree's libraries are built: a tree
-listed twice reuses them); then the bank step (``ops.nfa.nfa_bank_lanes``) on four
-banks at the fleet's lanes (10,000, T = 64, K = 8): phase 8's fleet
-(1000 patterns, alert band), phase 11's absent fleet (config 3, 1000
-patterns), its count bank (config 4, 100 patterns) and its ratio bank
-(the Quick start, 100 patterns).  Per bank, after warm blocks through
+(``nfa_step``, ``nfa_wide``, ``nfa_bank_wide``, ``nfa_gang`` and their
+condition-program builds, those the tree has) built with ``-Xptxas -v``,
+each kernel instance's register count and spill bytes (the first time
+the tree's libraries are built: a tree listed twice reuses them); then
+the bank step (``ops.nfa.nfa_bank_lanes``) on seven banks at the fleet's
+lanes (10,000, T = 64, K = 8): phase 8's fleet (1000 patterns, alert
+band), phase 11's absent fleet (config 3, 1000 patterns), its count bank
+(config 4, 100 patterns), its ratio bank (the Quick start, 100
+patterns) and its three widened banks (100 patterns over the feed's
+kinds 0..2: SEQUENCE and logical `or` in the matchy band, phase 8's
+alert bank with telemetry).  Per bank, after warm blocks through
 ``process_block``: the step not in place on the next block and in place
 over TIMED_LAUNCHES fresh blocks from a copy of the carry (median ms, L2
 flushed), and the instance each ran on.
@@ -93,7 +96,22 @@ def time_bank_step(cs, ops, floor, thrs, seed, dev) -> dict:
 BANK_CELLS = {"fleet": (1000, 200, 2, 10_000),
               "absent_fleet": (1000, 200, 2, 10_000),
               "count_bank": (100, 20, 3, 1_000),
-              "ratio_bank": (100, 20, 8, 1_000)}
+              "ratio_bank": (100, 20, 8, 1_000),
+              "wide_sequence": (100, 20, 2, 10_000),
+              "wide_logical": (100, 20, 2, 10_000),
+              "wide_telemetry_alert": (100, 20, 2, 10_000)}
+#: the widened banks' queries (chip_smoke.py WIDE_BANK_APPS' SEQUENCE
+#: and `or` kinds), over the matchy band
+WIDE_CELL_QUERIES = {
+    "wide_sequence": (
+        "from every e1=S[kind == 0 and price > {t}], e2=S[kind == 1 and "
+        "price > e1.price] within 10 sec select e1.price as p1, e2.price "
+        "as p2 insert into Out;"),
+    "wide_logical": (
+        "from every e1=S[kind == 0 and price > {t}] -> e2=S[kind == 1 and "
+        "price > e1.price] or e3=S[kind == 2 and price < e1.price] within "
+        "10 sec select e1.price as p1, e2.price as p2, e3.price as p3 "
+        "insert into Out;")}
 
 
 def bank_cell_apps(cs, name):
@@ -104,6 +122,11 @@ def bank_cell_apps(cs, name):
     if name == "absent_fleet":
         return [cs.absent_bank_app(t)
                 for t in np.linspace(99.8, 99.997, 1000)]
+    if name in WIDE_CELL_QUERIES:
+        return [cs._S3 + WIDE_CELL_QUERIES[name].format(t=round(float(t), 3))
+                for t in np.linspace(5.0, 95.0, 100)]
+    if name == "wide_telemetry_alert":
+        return [cs.bank_app(t) for t in np.linspace(99.8, 99.997, 100)]
     if name == "count_bank":
         return [cs._S3 + f"from every e1=S[kind == 0 and price > {t}]"
                 "<3:10> -> e2=S[kind == 1 and price > e1[last].price] "
@@ -174,7 +197,8 @@ def run_bank_cells(tree: str, seed: int) -> dict:
 
     dev = "cuda"
     libs = [n for n in ("nfa_step", "nfa_prog", "nfa_wide", "nfa_wide_prog",
-                        "nfa_gang", "nfa_gang_prog")
+                        "nfa_bank_wide", "nfa_bank_wide_prog", "nfa_gang",
+                        "nfa_gang_prog")
             if n in _kernels.SIGNATURES]
     logs = _kernels.build_all(libs, verbose=True)
     registers, spills = ptxas_info(logs)
@@ -183,20 +207,24 @@ def run_bank_cells(tree: str, seed: int) -> dict:
            "spills": spills}
     n = cs.TIMED_LAUNCHES
     for name, (n_pat, chunk, warm, gap) in BANK_CELLS.items():
+        wide = name.startswith("wide_")
         bank = CompiledPatternBank(bank_cell_apps(cs, name),
                                    n_partitions=cs.BANK_P,
                                    n_slots=cs.BANK_K, pattern_chunk=chunk,
-                                   ring=cs.BANK_RING, device=dev)
+                                   ring=cs.BANK_RING, device=dev,
+                                   telemetry=name == "wide_telemetry_alert")
         rng = np.random.default_rng(seed + len(name))
         blocks = [bank.nfa.to_device(b) for b in cs.bank_blocks(
-            rng, warm + 2 + n, gap=gap)]
+            rng, warm + 2 + n, gap=gap, **({"kinds": 3} if wide else {}))]
         for b in blocks[:warm]:
             bank.process_block(b)
         spec, kp = bank.nfa.spec, bank.nfa.kprog
         carry, prm = bank._stack_carry, bank._stack_params
-        t0, g0, w0 = (ops.nfa_bank_step.thread_launches,
-                      ops.nfa_bank_step.group_launches,
-                      getattr(ops.nfa_bank_step, "wide_launches", 0))
+        t0, g0, w0, x0 = (
+            ops.nfa_bank_step.thread_launches,
+            ops.nfa_bank_step.group_launches,
+            getattr(ops.nfa_bank_step, "wide_launches", 0),
+            getattr(ops.nfa_bank_step, "wide_thread_launches", 0))
         res = {"patterns": n_pat, "ms": cs.median_ms(
             lambda: ops.nfa_bank_lanes(spec, carry, blocks[warm], prm, kp),
             dev, sleep_cycles=5 * cs.SLEEP_CYCLES)}
@@ -208,7 +236,9 @@ def run_bank_cells(tree: str, seed: int) -> dict:
         res["instance"] = {
             "thread": ops.nfa_bank_step.thread_launches - t0,
             "group": ops.nfa_bank_step.group_launches - g0,
-            "wide": getattr(ops.nfa_bank_step, "wide_launches", 0) - w0}
+            "wide": getattr(ops.nfa_bank_step, "wide_launches", 0) - w0,
+            "wide_thread": getattr(ops.nfa_bank_step, "wide_thread_launches",
+                                   0) - x0}
         out[name] = res
         del bank, carry, work, blocks
         gc.collect()
